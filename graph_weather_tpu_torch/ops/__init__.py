@@ -1,0 +1,1 @@
+"""Aggregation primitives and the hand-written CUDA kernels with their plain twins."""
