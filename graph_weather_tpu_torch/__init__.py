@@ -3,13 +3,22 @@
 Keeps the JAX package's module paths and class names. Plain tensor code is
 PyTorch; every Pallas kernel of the JAX package on a ported path is a
 hand-written CUDA kernel (csrc/) with a plain PyTorch twin that runs on CPU
-tensors. Imports torch, never jax.
+tensors. Imports torch, never jax. Entry points run on the card (device
+"cuda") unless the caller passes device="cpu".
 """
 
 from graph_weather_tpu_torch.convert import from_jax_params
 from graph_weather_tpu_torch.models.forecast import GraphWeatherForecaster
+from graph_weather_tpu_torch.models.gencast import Denoiser, Sampler, make_ar_rollout_fn
 from graph_weather_tpu_torch.models.losses import NormalizedMSELoss
 
 __version__ = "0.1.0"
 
-__all__ = ["GraphWeatherForecaster", "NormalizedMSELoss", "from_jax_params"]
+__all__ = [
+    "Denoiser",
+    "GraphWeatherForecaster",
+    "NormalizedMSELoss",
+    "Sampler",
+    "from_jax_params",
+    "make_ar_rollout_fn",
+]

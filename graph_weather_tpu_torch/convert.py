@@ -7,6 +7,11 @@ dots, and rename LayerNorm's `scale` to torch's `weight`.
 
     sd = from_jax_params(jax.device_get(params))   # flax tree of arrays
     model.module.load_state_dict(sd)        # a GraphWeatherForecaster
+    denoiser.module.load_state_dict(from_jax_params(convert_denoiser(ref_sd)))
+
+The GenCast modules are named the same way (GenCastEncoder_0,
+CondTransformerBlock_i/GraphTransformerConv_0/TorchLinear_k,
+ConditionalLayerNorm_0, ...); bias-free flax linears have no bias entry.
 
 The input holds NumPy arrays (or anything np.asarray takes); no JAX needed.
 """

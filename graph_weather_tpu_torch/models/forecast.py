@@ -139,7 +139,7 @@ class GraphWeatherForecaster:
         constraint_type: str = "none",
         use_thermalizer: bool = False,
         latent_graph_order: str = "native",
-        device="cpu",
+        device="cuda",
     ):
         validate_lat_lons(lat_lons)
         if latent_graph_order not in ("native", "reference"):

@@ -15,7 +15,7 @@ class NormalizedMSELoss:
     latitude), then mean.
     """
 
-    def __init__(self, feature_variance, lat_lons, normalize: bool = False, device="cpu"):
+    def __init__(self, feature_variance, lat_lons, normalize: bool = False, device="cuda"):
         fv = np.asarray(feature_variance, dtype=np.float32)
         if not np.all(np.isfinite(fv)):
             raise ValueError("feature_variance contains non-finite values")

@@ -21,6 +21,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from graph_weather_tpu_torch.meshes.clustering import (
+    build_cluster_layout,
+    is_symmetric_edges,
+)
 from graph_weather_tpu_torch.meshes.graphs import GraphBundle
 from graph_weather_tpu_torch.nn.mlp import OPTIONS_TODO, TorchLinear, make_norm
 from graph_weather_tpu_torch.ops.edge_mlp import fused_edge_mlp
@@ -40,8 +44,14 @@ _CSR_MAX_DEGREE = 16
 class DeviceGraph:
     """A static graph resident on a device.
 
-    The JAX package's banded and clustered attention layouts are not carried
-    yet: they serve the GenCast slice.
+    The cluster_* fields (from_bundle(..., clustered=True)) carry the
+    gathered-neighbour layout of the clustered attention kernel K3a
+    (meshes/clustering.py, ops/clustered_flash.py): per block of
+    `cluster_block` receivers, the union of their senders (`cluster_ids`,
+    [nb, U_pad] int32, padding slots point at row 0) and the adjacency of
+    the block's rows against that union (`cluster_masks`, [nb, block,
+    U_pad] int8). The JAX package's banded layout is not carried: the
+    banded attention options are not ported yet.
     """
 
     senders: torch.Tensor  # [E] int32
@@ -51,9 +61,19 @@ class DeviceGraph:
     csr_mask: Optional[torch.Tensor]  # [N_dst, K] bool or None
     n_senders: int
     n_receivers: int
+    cluster_ids: Optional[torch.Tensor] = None  # [nb, U_pad] int32 or None
+    cluster_masks: Optional[torch.Tensor] = None  # [nb, block, U_pad] int8 or None
+    cluster_block: int = 0
+    cluster_symmetric: bool = False
 
     @classmethod
-    def from_bundle(cls, bundle: GraphBundle, device="cpu") -> "DeviceGraph":
+    def from_bundle(
+        cls,
+        bundle: GraphBundle,
+        device="cpu",
+        clustered: bool = False,
+        cluster_block: int = 256,
+    ) -> "DeviceGraph":
         # The CUDA kernels gather with these indices unchecked: check once here.
         for ids, bound, name in (
             (bundle.senders, bundle.n_senders, "senders"),
@@ -68,6 +88,21 @@ class DeviceGraph:
             ids, mask = build_padded_csr(bundle.receivers, bundle.n_receivers)
             csr_ids = torch.as_tensor(ids, device=device)
             csr_mask = torch.as_tensor(mask, device=device)
+        cluster_ids = cluster_masks = None
+        cluster_symmetric = False
+        if clustered:
+            # Padding slots point at row 0, so the kernel needs a row 0.
+            if bundle.n_senders < 1:
+                raise ValueError("a clustered graph needs at least one sender")
+            layout = build_cluster_layout(
+                bundle.senders, bundle.receivers,
+                bundle.n_receivers, bundle.n_senders, block=cluster_block,
+            )
+            cluster_ids = torch.as_tensor(layout.gather_ids, device=device)
+            cluster_masks = torch.as_tensor(layout.masks.astype(np.int8), device=device)
+            cluster_symmetric = bundle.n_senders == bundle.n_receivers and (
+                is_symmetric_edges(bundle.senders, bundle.receivers)
+            )
         senders, receivers, edge_attr = bundle.device_arrays(device)
         return cls(
             senders=senders,
@@ -77,6 +112,10 @@ class DeviceGraph:
             csr_mask=csr_mask,
             n_senders=bundle.n_senders,
             n_receivers=bundle.n_receivers,
+            cluster_ids=cluster_ids,
+            cluster_masks=cluster_masks,
+            cluster_block=cluster_block if clustered else 0,
+            cluster_symmetric=cluster_symmetric,
         )
 
     def aggregate(self, edge_feats: torch.Tensor) -> torch.Tensor:

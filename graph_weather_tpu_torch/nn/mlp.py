@@ -20,22 +20,25 @@ OPTIONS_TODO = "ROADMAP.md, 'Forecaster options not yet ported'"
 
 
 class TorchLinear(nn.Module):
-    """y = x @ kernel + bias, with kernel [in, out] and torch-Linear init."""
+    """y = x @ kernel (+ bias), with kernel [in, out] and torch-Linear init."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int, use_bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(in_features, features))
-        self.bias = nn.Parameter(torch.empty(features))
+        self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
         bound = 1.0 / self.kernel.shape[0] ** 0.5
         for p in (self.kernel, self.bias):
+            if p is None:
+                continue
             draw = torch.rand(p.shape, generator=generator, dtype=torch.float32)
             p.copy_((draw * 2.0 - 1.0) * bound)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel + self.bias
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
 
 
 def make_norm(norm_type: Optional[str], dim: int) -> Optional[nn.Module]:

@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` exposes a plain C interface, so it compiles in seconds
 without PyTorch's headers. The shared library goes to `_build/` inside the
 package (listed in .gitignore), under a name that carries a hash of the
 source and the flags: an edited source is rebuilt, an unchanged one is
-loaded as it is. Nothing here runs at import time.
+loaded as it is. `load_libraries` starts one nvcc per source, all at once.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -49,28 +50,52 @@ def build_log_path(name: str) -> Path:
     return BUILD_DIR / f"{name}.log"
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build `csrc/<name>.cu` if its hash changed, then load it (cached)."""
-    lib = _LIBRARIES.get(name)
-    if lib is not None:
-        return lib
+def _so_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    so_path = BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
-    if not so_path.exists():
+    return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
+
+
+def load_libraries(names) -> dict[str, ctypes.CDLL]:
+    """Build every `csrc/<name>.cu` whose hash changed, one nvcc process per
+    source, all started together; then load them all (cached)."""
+    builds = {}
+    for name in names:
+        if name in _LIBRARIES or name in builds:
+            continue
+        so_path = _so_path(name)
+        if so_path.exists():
+            continue
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so_path.with_name(f"{so_path.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
+        src = CSRC_DIR / f"{name}.cu"
+        proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True,
+            stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT,
             text=True,
         )
-        build_log_path(name).write_text(proc.stdout + proc.stderr)
+        builds[name] = (proc, tmp, so_path, src)
+    failed = []
+    for name, (proc, tmp, so_path, src) in builds.items():
+        log, _ = proc.communicate()
+        build_log_path(name).write_text(log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src}:\n{proc.stderr}")
+            failed.append(f"nvcc failed to build {src}:\n{log}")
+            continue
         for stale in BUILD_DIR.glob(f"{name}_*.so"):
             stale.unlink()
         os.replace(tmp, so_path)
-    lib = ctypes.CDLL(str(so_path))
-    _LIBRARIES[name] = lib
-    return lib
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in names:
+        if name not in _LIBRARIES:
+            _LIBRARIES[name] = ctypes.CDLL(str(_so_path(name)))
+    return {name: _LIBRARIES[name] for name in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build `csrc/<name>.cu` if its hash changed, then load it (cached:
+    after the first call this is a dict lookup, on every kernel launch)."""
+    lib = _LIBRARIES.get(name)
+    return lib if lib is not None else load_libraries([name])[name]

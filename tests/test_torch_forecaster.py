@@ -61,7 +61,7 @@ def jax_params():
 def models(request, jax_params):
     lat_lons = _grid(request.param)
     ref = jax_forecast.GraphWeatherForecaster(lat_lons, **CONFIG)
-    port = GraphWeatherForecaster(lat_lons, **CONFIG)
+    port = GraphWeatherForecaster(lat_lons, **CONFIG, device="cpu")
     port.module.load_state_dict(from_jax_params(jax_params))
     rng = np.random.default_rng(int(request.param))
     return ref, port, jax_params["params"], rng
@@ -81,7 +81,7 @@ def _rand(rng, *shape):
 
 def test_converted_state_dict_matches_module(jax_params):
     """from_jax_params gives exactly the port module's names and shapes."""
-    port = GraphWeatherForecaster(_grid(30.0), **CONFIG)
+    port = GraphWeatherForecaster(_grid(30.0), **CONFIG, device="cpu")
     expected = {k: tuple(v.shape) for k, v in port.module.state_dict().items()}
     converted = {k: tuple(v.shape) for k, v in from_jax_params(jax_params).items()}
     assert converted == expected
@@ -205,7 +205,9 @@ def test_normalized_mse_loss_matches_jax(normalize):
     variance = rng.uniform(0.5, 2.0, size=4).astype(np.float32)
     pred, target = _rand(rng, 2, len(lat_lons), 4), _rand(rng, 2, len(lat_lons), 4)
     want = JaxLoss(variance, lat_lons, normalize=normalize)(pred, target)
-    got = NormalizedMSELoss(variance, lat_lons, normalize=normalize)(_t(pred), _t(target))
+    got = NormalizedMSELoss(variance, lat_lons, normalize=normalize, device="cpu")(
+        _t(pred), _t(target)
+    )
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
 
 
@@ -225,7 +227,7 @@ def test_forecaster_matches_torch_reference_golden():
         lat_lons, feature_dim=int(feature_dim), aux_dim=int(aux_dim),
         node_dim=int(node_dim), edge_dim=int(edge_dim), num_blocks=int(num_blocks),
         hidden_dim_processor_node=int(hid_node), hidden_dim_processor_edge=int(hid_edge),
-        hidden_dim_decoder=int(hid_dec), latent_graph_order="reference",
+        hidden_dim_decoder=int(hid_dec), latent_graph_order="reference", device="cpu",
     )
     sd = {k: data[k] for k in data.files if not k.startswith("__")}
     model.module.load_state_dict(from_jax_params(convert_forecaster(sd, num_blocks=int(num_blocks))))
@@ -240,7 +242,7 @@ def test_forecaster_matches_torch_reference_golden():
 def test_init_is_seeded_torch_linear():
     """init(generator): same seed, same weights; torch-Linear bounds;
     unit LayerNorm, zero mesh seeds."""
-    model = GraphWeatherForecaster(_grid(30.0), **CONFIG)
+    model = GraphWeatherForecaster(_grid(30.0), **CONFIG, device="cpu")
     def init(seed):
         sd = model.init(torch.Generator().manual_seed(seed))
         return {k: v.clone() for k, v in sd.items()}
@@ -273,7 +275,7 @@ def test_init_is_seeded_torch_linear():
 )
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        GraphWeatherForecaster(_grid(30.0), **{**CONFIG, **option})
+        GraphWeatherForecaster(_grid(30.0), **{**CONFIG, **option}, device="cpu")
 
 
 def _run(args, cwd):

@@ -7,10 +7,12 @@ so it runs on a GPU host without the JAX package's test setup:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
-from graph_weather_tpu_torch.ops import edge_mlp
+from graph_weather_tpu_torch.meshes.clustering import build_cluster_layout
+from graph_weather_tpu_torch.ops import clustered_flash, edge_mlp
 
 # O(1) LayerNorm'd outputs; sums over up to 768 products in another order.
 ATOL = 1e-4
@@ -83,3 +85,58 @@ def test_fused_edge_mlp_empty_graph_launches_nothing(gen):
     with torch.no_grad():
         out = edge_mlp.fused_edge_mlp(*args)
     assert out.shape == (1, 0, 8) and edge_mlp.LAUNCHES == before
+
+
+def _cluster_case(gen, b, n, heads, c, block, empty_every=7, seed=0):
+    """A random graph whose every 7th receiver has no edge, laid out in
+    `block`-row blocks; q/k/v [b, n, heads, c] on the card."""
+    rng = np.random.default_rng(seed)
+    receivers = np.repeat(np.arange(n), 6)
+    senders = (receivers + rng.integers(-40, 41, receivers.size)) % n
+    keep = receivers % empty_every != 0
+    layout = build_cluster_layout(senders[keep], receivers[keep], n, n, block=block)
+    ids = torch.as_tensor(layout.gather_ids, device="cuda")
+    masks = torch.as_tensor(layout.masks.astype(np.int8), device="cuda")
+    q, k, v = (torch.randn(b, n, heads, c, generator=gen, device="cuda") for _ in range(3))
+    empty = ~layout.masks.reshape(-1, layout.u_pad).any(-1)[:n]
+    return q, k, v, ids, masks, block, torch.as_tensor(empty, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("c", [16, 128, 512])
+def test_clustered_flash_matches_plain(gen, c, batch):
+    """A ragged layout (700 rows in 256-row blocks, so padded rows exist),
+    empty receiver rows, B in {1, 2}: kernel against its plain version,
+    and exact zeros on the empty rows."""
+    q, k, v, ids, masks, block, empty = _cluster_case(gen, batch, 700, 4, c, 256)
+    with torch.no_grad():
+        before = clustered_flash.LAUNCHES
+        out = clustered_flash.clustered_flash_attention(q, k, v, ids, masks, block)
+        torch.cuda.synchronize()
+        assert clustered_flash.LAUNCHES == before + 1
+        ref = clustered_flash.clustered_flash_attention_reference(q, k, v, ids, masks, block)
+    assert out.shape == ref.shape == q.shape
+    assert (out - ref).abs().max().item() <= ATOL
+    assert bool(empty.any()) and bool((out[:, empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_clustered_flash_unbatched_and_odd_width(gen):
+    """[N, h, c] inputs, c = 6 (not a multiple of 4: the scalar copies), and
+    96-row blocks (not a multiple of the query tile)."""
+    q, k, v, ids, masks, block, empty = _cluster_case(gen, 1, 300, 2, 6, 96, seed=1)
+    with torch.no_grad():
+        out = clustered_flash.clustered_flash_attention(q[0], k[0], v[0], ids, masks, block)
+        ref = clustered_flash.clustered_flash_attention_reference(q[0], k[0], v[0], ids, masks, block)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= ATOL
+    assert bool((out[empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_clustered_flash_refuses_grad(gen):
+    q, k, v, ids, masks, block, _ = _cluster_case(gen, 1, 64, 1, 8, 64)
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        clustered_flash.clustered_flash_attention(q, k, v, ids, masks, block)
