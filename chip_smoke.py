@@ -2,13 +2,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's two serving paths at full width, with random weights
-from a seed: the 1° GraphWeatherForecaster (64,800 grid points, 78 + 24
+Drives the port's paths at full width, with random weights from a seed:
+the 1° GraphWeatherForecaster's serving path (64,800 grid points, 78 + 24
 features, width 256, 9 processor blocks, the 5,882-cell hex mesh), and the
-GenCast denoiser, 20-step sampler and AR rollout (128 x 64 grid, splits-5
-icosphere, 4 hops, hidden (512, 512), 16 blocks, 4 heads, 89 -> 83
-features, clustered attention). Phases, one line each, in order; any
-failure raises and ends the run with a non-zero exit:
+GenCast denoiser (128 x 64 grid, splits-5 icosphere, 4 hops, hidden
+(512, 512), 16 blocks, 4 heads, 89 -> 83 features, clustered attention):
+serving, the 20-step sampler and AR rollout, and training. Phases, one line
+each, in order; any failure raises and ends the run with a non-zero exit:
 
   1. card: nvidia-smi's name and power limit, torch and CUDA versions
   2. build: every CUDA kernel from csrc/, one nvcc each, all at once, timed
@@ -32,6 +32,21 @@ failure raises and ends the run with a non-zero exit:
      difference from the card <= 1e-3
  11. sample: 2 samples of the 20-step sampler, 592 K3a launches each
  12. a 2-step AR sample rollout: finite, ms per AR step
+ 13. build: clustered_flash_bwd.cu's time, registers and spills
+ 14. K3c (symmetric) and K3b (general) backward on the real splits-5 layout
+     at c = 128 and 512, B = 1: each against the plain backward and against
+     each other, max abs error <= 1e-4; exact-zero gradients on empty and
+     padded rows; CUDA-event medians of both, the plain version and SDPA's
+     backward on the gathered unions (timed only); per train step: sums and
+     the bound
+ 15. train: 3 steps of make_train_step (WeightedMSELoss, clip + AdamW at
+     lr 1e-4, noise levels from sample_noise_level), each with exactly 16
+     K3a, 16 K3c dq and 16 K3c dk/dv launches and no K3b launch; finite
+     loss, parameters changed; ms per step, peak GiB; a profile of one more
+     step; then two steps with remat=True (32 K3a launches each), peak GiB
+ 16. the same weights and one batch, forward and backward on the CPU (plain
+     versions): loss within 1e-5 relative, every parameter's gradient within
+     1e-3 max|g| of that tensor (floored at 1e-6 of the largest gradient)
 
 then one JSON line on the kernels, the card's name and power limit, and
 last {"ok": true, "device": ...}.
@@ -55,6 +70,9 @@ ROOT = Path(__file__).resolve().parent
 FEATURE_DIM, AUX_DIM = 78, 24
 K1_TOL = 1e-4  # LayerNorm'd O(1) outputs; only the summation order differs
 K3A_TOL = 1e-4  # softmax-weighted sums over <= 768 keys in another order
+K3_BWD_TOL = 1e-4  # gradient sums over <= 768 keys or 256 receivers in another order
+LOSS_RTOL = 1e-5  # the training loss, card against CPU
+GRAD_RTOL = 1e-3  # each parameter's gradient, card against CPU, of that tensor's max|g|
 CPU_TOL = 1e-3  # 11 message-passing rounds, or 16 attention blocks, of f32 in another order
 TIMING_RUNS = 10
 # NVIDIA's H100 SXM data sheet (dense, at the 700 W limit): FP32 on the CUDA
@@ -157,12 +175,12 @@ def k3a_case(clustered_flash, khop, gen, c, heads=4):
     args = (q, k, v, ids, masks, block)
     out = clustered_flash.clustered_flash_attention(*args)
     torch.cuda.synchronize()
-    ref = clustered_flash.clustered_flash_attention_reference(*args)
+    ref = clustered_flash.clustered_flash_forward_reference(*args)
     err = (out - ref).abs().max().item()
     empty = ~masks.reshape(n_pad, -1).bool().any(-1)  # no neighbour, or padding
     zeros = bool((out[:, empty] == 0).all())
     ms = cuda_ms(lambda: clustered_flash.clustered_flash_attention(*args))
-    plain_ms = cuda_ms(lambda: clustered_flash.clustered_flash_attention_reference(*args))
+    plain_ms = cuda_ms(lambda: clustered_flash.clustered_flash_forward_reference(*args))
     # The library yardstick: one SDPA call on the gathered unions, with the
     # adjacency as a boolean mask (gathers outside the timing). Rows without
     # a neighbour give NaN there, so it is timed, never compared.
@@ -189,6 +207,86 @@ def k3a_case(clustered_flash, khop, gen, c, heads=4):
     return err, ms, plain_ms, sdpa_ms, flops, nbytes
 
 
+def k3_bwd_case(clustered_flash, khop, scatter, gen, c, heads=4):
+    """K3c and K3b against the plain backward at the processor's shapes on
+    the real cluster layout, after K3a with lse; `scatter` is K3b's inverse
+    index of the layout. Returns a dict of errors, times (ms), flops, bytes
+    and K3b's launches in the checked call (before the timings)."""
+    ids, masks, block = khop.cluster_ids, khop.cluster_masks, khop.cluster_block
+    nb, u_pad = ids.shape
+    n_pad = nb * block
+    q, k, v, dout = (torch.randn(1, n_pad, heads, c, generator=gen, device="cuda") for _ in range(4))
+    out, lse = clustered_flash._forward_cuda(q, k, v, ids, masks, block, with_lse=True)
+    args = (q, k, v, ids, masks, out, lse, dout, block)
+
+    def k3c():
+        return clustered_flash._backward_cuda(*args, True, None)
+
+    def k3b():
+        return clustered_flash._backward_cuda(*args, False, scatter)
+
+    before = clustered_flash.GENERAL_BWD_LAUNCHES
+    sym, general = k3c(), k3b()
+    k3b_launches = clustered_flash.GENERAL_BWD_LAUNCHES - before
+    if k3b_launches != 1:
+        raise AssertionError(f"the general backward made {k3b_launches} K3b launches, expected 1")
+    torch.cuda.synchronize()
+    want = clustered_flash.clustered_flash_backward_reference(*args, symmetric=False)
+
+    def err(a, b):
+        return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+    errs = {"k3c": err(sym, want), "k3b": err(general, want), "k3b_vs_k3c": err(general, sym)}
+    empty = ~masks.reshape(n_pad, -1).bool().any(-1)  # no neighbour, or padding
+    zeros = all(bool((t[:, empty] == 0).all()) for t in (*sym, *general))
+    with_lse_ms = cuda_ms(lambda: clustered_flash._forward_cuda(q, k, v, ids, masks, block, True))
+    ms = {"k3c": cuda_ms(k3c), "k3b": cuda_ms(k3b)}
+    plain = {
+        "k3c": cuda_ms(lambda: clustered_flash.clustered_flash_backward_reference(*args, symmetric=True)),
+        "k3b": cuda_ms(lambda: clustered_flash.clustered_flash_backward_reference(*args, symmetric=False)),
+    }
+    # The library yardstick: SDPA's backward on the gathered unions with the
+    # adjacency as a boolean mask (gathers and forward outside the timing);
+    # rows without a neighbour give NaN there, so it is timed, never compared.
+    q_b = q.reshape(nb, block, heads, c).transpose(1, 2).detach().requires_grad_(True)
+    k_b, v_b = (t[0, ids.long()].transpose(1, 2).detach().requires_grad_(True) for t in (k, v))
+    do_b = dout.reshape(nb, block, heads, c).transpose(1, 2)
+    o_b = torch.nn.functional.scaled_dot_product_attention(q_b, k_b, v_b, attn_mask=masks.bool()[:, None])
+    sdpa_ms = cuda_ms(lambda: torch.autograd.grad(o_b, (q_b, k_b, v_b), do_b, retain_graph=True))
+    print(
+        f"[k3_bwd] c={c}: max_abs_err K3c {errs['k3c']:.3e} K3b {errs['k3b']:.3e} "
+        f"K3b-K3c {errs['k3b_vs_k3c']:.3e} | empty_rows {int(empty.sum())} zero_grads={zeros} "
+        f"| K3c_ms={ms['k3c']:.4f} K3b_ms={ms['k3b']:.4f} plain_ms K3c {plain['k3c']:.4f} "
+        f"K3b {plain['k3b']:.4f} sdpa_bwd_ms={sdpa_ms:.4f} | K3a with lse ms={with_lse_ms:.4f}",
+        flush=True,
+    )
+    for name, e in errs.items():
+        if not (e <= K3_BWD_TOL):
+            raise AssertionError(f"{name} c={c}: max abs error {e} > {K3_BWD_TOL}")
+    if not zeros:
+        raise AssertionError(f"K3b/K3c c={c}: rows without a neighbour have non-zero gradients")
+    # The work these inputs need: s, dp, dq, dk and dv over the real edges.
+    flops = 10 * khop.senders.shape[0] * heads * c
+    nbytes = sum(t.numel() * t.element_size() for t in (*args[:-1], *sym))
+    return dict(errs=errs, ms=ms, plain=plain, sdpa_ms=sdpa_ms, flops=flops, nbytes=nbytes,
+                k3b_launches=k3b_launches)
+
+
+def grads_close(card: dict, cpu: dict) -> tuple[float, str]:
+    """Worst (error / limit) over the parameters, and its name: each
+    gradient within GRAD_RTOL of its tensor's max|g| on the CPU, floored at
+    1e-6 of the largest gradient (the k projection's bias has an exactly-zero
+    gradient: a shift of every key's logit cancels in the softmax)."""
+    floor = 1e-6 * max(g.abs().max().item() for g in cpu.values())
+    worst, name = 0.0, ""
+    for key, g in cpu.items():
+        limit = max(GRAD_RTOL * g.abs().max().item(), floor)
+        ratio = (card[key] - g).abs().max().item() / limit
+        if ratio > worst:
+            worst, name = ratio, key
+    return worst, name
+
+
 def timed(fn):
     """(fn(), host ms) around work that ends in a synchronize."""
     torch.cuda.synchronize()
@@ -198,9 +296,9 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def profile_request(fn) -> None:
-    """One more request under torch.profiler: device time by kernel, and the
-    device's busy share of the request's wall time."""
+def profile_request(fn, what: str = "request") -> None:
+    """One more request (or train step) under torch.profiler: device time by
+    kernel, and the device's busy share of its wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -208,7 +306,9 @@ def profile_request(fn) -> None:
         _, wall_ms = timed(fn)
     by_name: dict[str, list] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # Device kernels and copies; not the user-annotation ranges (as
+        # Optimizer.step) that the profiler also files under the device.
+        if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
             entry = by_name.setdefault(e.name, [0.0, 0])
             entry[0] += e.time_range.elapsed_us() / 1e3
             entry[1] += 1
@@ -216,8 +316,8 @@ def profile_request(fn) -> None:
         print("[profile] no device events recorded: device time not measured", flush=True)
         return
     busy_ms = sum(ms for ms, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    print(f"[profile] request wall_ms {wall_ms:.3f} | device busy_ms {busy_ms:.3f} "
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    print(f"[profile] {what} wall_ms {wall_ms:.3f} | device busy_ms {busy_ms:.3f} "
           f"({100 * busy_ms / wall_ms:.1f}%) | {sum(n for _, n in by_name.values())} kernels | "
           + " | ".join(f"{name[:60]} {ms:.3f} ms x{n}" for name, (ms, n) in top), flush=True)
 
@@ -236,6 +336,7 @@ def main() -> int:
         build_latent_graph,
         build_mesh_to_grid_graph,
     )
+    from graph_weather_tpu_torch.meshes.clustering import build_cluster_scatter_index
     from graph_weather_tpu_torch.meshes.hexmesh import get_hexmesh
     from graph_weather_tpu_torch.models.gencast.graphs import build_graphcast_graphs
     from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
@@ -256,7 +357,7 @@ def main() -> int:
 
     # 2. build (all kernels at once; phase 7 reports the second)
     t0 = time.perf_counter()
-    _build.load_libraries(["edge_mlp", "clustered_flash"])
+    _build.load_libraries(["edge_mlp", "clustered_flash", "clustered_flash_bwd"])
     build_s = time.perf_counter() - t0
 
     def ptxas(name):
@@ -387,7 +488,6 @@ def main() -> int:
           f"plain_ms={k3a_plain_ms:.4f} sdpa_ms={k3a_sdpa_ms:.4f} bound_ms={k3a_bound_ms:.4f} "
           f"({k3a_bound_by}, edges only) | dense (row, slot) work {dense_flops / 1e9:.1f} GFLOP "
           f"= {dense_flops / FP32_PEAK * 1e3:.3f} ms at the FP32 peak", flush=True)
-    del khop
 
     # 9. denoise: the full-width Denoiser answers 3 requests
     torch.cuda.reset_peak_memory_stats()
@@ -455,6 +555,121 @@ def main() -> int:
         raise AssertionError(f"bad AR rollout: shape {tuple(traj.shape)}")
     print(f"[ar_rollout] 2 steps finite | ms per AR step {ms / 2:.3f}", flush=True)
 
+    # 13. build of the backward kernels (started with the others in phase 2)
+    print(f"[build] clustered_flash_bwd.cu {build_s:.2f} s (parallel with the others) | "
+          + " | ".join(ptxas("clustered_flash_bwd")), flush=True)
+
+    # 14. K3c and K3b on the real splits-5 layout, at both head widths
+    # The k-hop graph is symmetric, so its DeviceGraph carries no inverse
+    # index; K3b's comes from the layout here, outside the timings.
+    scatter = torch.as_tensor(build_cluster_scatter_index(
+        khop.cluster_ids.cpu().numpy(), khop.cluster_masks.cpu().numpy(), khop.n_senders
+    ), device="cuda")
+    bwd = {c: k3_bwd_case(clustered_flash, khop, scatter, gen, c) for c in (128, 512)}
+    k3b_phase14 = sum(v["k3b_launches"] for v in bwd.values())
+    k3c_ms = per_eval_sum({c: v["ms"]["k3c"] for c, v in bwd.items()})
+    k3b_ms = per_eval_sum({c: v["ms"]["k3b"] for c, v in bwd.items()})
+    k3c_plain_ms = per_eval_sum({c: v["plain"]["k3c"] for c, v in bwd.items()})
+    k3b_plain_ms = per_eval_sum({c: v["plain"]["k3b"] for c, v in bwd.items()})
+    bwd_sdpa_ms = per_eval_sum({c: v["sdpa_ms"] for c, v in bwd.items()})
+    bwd_bound_ms = per_eval_sum({c: bound(v["flops"], v["nbytes"])[0] for c, v in bwd.items()})
+    bwd_bound_by = bound(bwd[128]["flops"], bwd[128]["nbytes"])[1]
+    dense_bwd = per_eval_sum({c: 7 * 2 * nb * 256 * u_pad * c * 4 for c in per_eval})
+    print(f"[k3_bwd] per train step (15 x c=128 + c=512): K3c_ms={k3c_ms:.4f} K3b_ms={k3b_ms:.4f} "
+          f"plain_ms K3c {k3c_plain_ms:.4f} K3b {k3b_plain_ms:.4f} sdpa_bwd_ms={bwd_sdpa_ms:.4f} "
+          f"bound_ms={bwd_bound_ms:.4f} ({bwd_bound_by}, edges only) | dense (row, slot) work of "
+          f"K3c's 7 products {dense_bwd / 1e9:.1f} GFLOP = {dense_bwd / FP32_PEAK * 1e3:.3f} ms at "
+          f"the FP32 peak", flush=True)
+
+    # 15. train: 3 steps of the full-width denoiser (the weights of phase 9)
+    train_gen = torch.Generator().manual_seed(3)
+    corrupted_t, prev_t, target_t = (
+        torch.randn(1, n_lon, n_lat, f, generator=train_gen).to("cuda") for f in (f_out, 2 * f_in, f_out)
+    )
+    noise_t = port.sample_noise_level(torch.Generator(device="cuda").manual_seed(4), (1, 1))
+    train_loss = port.WeightedMSELoss(grid_lat=GENCAST["grid_lat"], device="cuda")
+
+    def objective(pred, target):
+        return train_loss(pred, noise_t, target)
+
+    def counts():
+        return (clustered_flash.LAUNCHES, clustered_flash.SYMMETRIC_DQ_LAUNCHES,
+                clustered_flash.SYMMETRIC_DKV_LAUNCHES, clustered_flash.GENERAL_BWD_LAUNCHES)
+
+    def train_steps(model, n_steps, per_step):
+        """n_steps of make_train_step on `model`; each must make `per_step`
+        (K3a, K3c dq, K3c dk/dv, K3b) launches. Returns (ms, losses)."""
+        step = port.make_train_step(
+            model.module.parameters(), model.forward_fn(), objective, port.make_optimizer(1e-4)
+        )
+        step_ms, losses = [], []
+        for _ in range(n_steps):
+            before = counts()
+            loss, ms = timed(lambda: step(corrupted_t, prev_t, noise_t, target_t))
+            made = tuple(a - b for a, b in zip(counts(), before))
+            if made != per_step:
+                raise AssertionError(f"a train step made {made} (K3a, K3c dq, K3c dk/dv, K3b) "
+                                     f"launches, expected {per_step}")
+            if not torch.isfinite(loss):
+                raise AssertionError(f"train loss {loss.item()}")
+            step_ms.append(ms)
+            losses.append(loss.item())
+        return step, step_ms, losses
+
+    blocks = GENCAST["num_blocks"]
+    before = [t.detach().clone() for t in den.module.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    clustered_flash.LAUNCHES = clustered_flash.SYMMETRIC_DQ_LAUNCHES = 0
+    clustered_flash.SYMMETRIC_DKV_LAUNCHES = clustered_flash.GENERAL_BWD_LAUNCHES = 0
+    step, train_ms, train_losses = train_steps(den, 3, (blocks, blocks, blocks, 0))
+    train_launches = counts()
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    unchanged = [i for i, (a, b) in enumerate(zip(before, den.module.parameters())) if torch.equal(a, b)]
+    if unchanged:
+        raise AssertionError(f"{len(unchanged)} parameter tensors did not change in 3 train steps")
+    print(f"[train] 3 steps | step_ms {[round(t, 3) for t in train_ms]} | steady median "
+          f"{statistics.median(train_ms[1:]):.3f} | loss {[round(v, 6) for v in train_losses]} "
+          f"| sigma {noise_t.item():.4f} | launches per step K3a {blocks} K3c dq {blocks} "
+          f"K3c dk/dv {blocks} K3b 0 | all {len(before)} parameter tensors changed | "
+          f"peak GiB {train_peak:.2f}", flush=True)
+    profile_request(lambda: step(corrupted_t, prev_t, noise_t, target_t), "train step")
+    del step
+    remat = port.Denoiser(**GENCAST, remat=True, device="cuda")
+    remat.module.load_state_dict(den.module.state_dict())
+    torch.cuda.reset_peak_memory_stats()
+    _, remat_ms, remat_loss = train_steps(remat, 2, (2 * blocks, blocks, blocks, 0))
+    print(f"[train] remat=True: 2 steps | step_ms {[round(t, 3) for t in remat_ms]} | loss "
+          f"{[round(v, 6) for v in remat_loss]} | K3a launches {2 * blocks} per step | peak GiB "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} (with the first model's weights and "
+          f"optimizer state resident)", flush=True)
+    del remat
+
+    # 16. the same weights and batch: gradients on the card and on the CPU
+    den.module.zero_grad(set_to_none=True)
+    card_value = objective(den.forward_fn()(corrupted_t, prev_t, noise_t), target_t)
+    card_value.backward()
+    card_grads = {k: t.grad.cpu() for k, t in den.module.named_parameters()}
+    cpu_den = port.Denoiser(**GENCAST, device="cpu")
+    cpu_den.module.load_state_dict({k: v.cpu() for k, v in den.module.state_dict().items()})
+    cpu_loss = port.WeightedMSELoss(grid_lat=GENCAST["grid_lat"], device="cpu")
+    t0 = time.perf_counter()
+    cpu_value = cpu_loss(cpu_den.forward_fn()(corrupted_t.cpu(), prev_t.cpu(), noise_t.cpu()),
+                         noise_t.cpu(), target_t.cpu())
+    cpu_value.backward()
+    cpu_s = time.perf_counter() - t0
+    cpu_grads = {k: t.grad for k, t in cpu_den.module.named_parameters()}
+    loss_rel = abs(card_value.item() - cpu_value.item()) / abs(cpu_value.item())
+    worst, worst_name = grads_close(card_grads, cpu_grads)
+    print(f"[cpu] train loss card {card_value.item():.6f} cpu {cpu_value.item():.6f} rel "
+          f"{loss_rel:.3e} (limit {LOSS_RTOL}) | gradients: worst error / limit {worst:.3e} "
+          f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s",
+          flush=True)
+    if not (loss_rel <= LOSS_RTOL):
+        raise AssertionError(f"train loss card vs CPU: {loss_rel} > {LOSS_RTOL}")
+    if not (worst <= 1.0):
+        raise AssertionError(f"gradient of {worst_name} card vs CPU: {worst} x its limit")
+    del cpu_den
+
     kernels = [
         {
             "name": "fused_edge_mlp",
@@ -482,6 +697,35 @@ def main() -> int:
             "bound_by": k3a_bound_by,
             "library_ms": k3a_sdpa_ms,
             "sdpa_ms": k3a_sdpa_ms,
+            "train_launches": train_launches[0],  # 3 train steps, with lse
+        },
+        {
+            "name": "clustered_flash_backward_general",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/clustered_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/clustered_flash.py:560",
+            "launches": train_launches[3],  # the k-hop graph is symmetric: K3c, not K3b
+            "launches_phase14": k3b_phase14,  # counted over the checked call at each width
+            "max_abs_err": max(max(v["errs"]["k3b"], v["errs"]["k3b_vs_k3c"]) for v in bwd.values()),
+            "ms": k3b_ms,
+            "plain_ms": k3b_plain_ms,
+            "bound_ms": bwd_bound_ms,
+            "bound_by": bwd_bound_by,
+            "library_ms": bwd_sdpa_ms,
+        },
+        {
+            "name": "clustered_flash_backward_symmetric",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/clustered_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/clustered_flash.py:749",
+            "launches": train_launches[1],  # dq kernel; as many of the dk/dv kernel
+            "launches_dkv": train_launches[2],
+            "max_abs_err": max(v["errs"]["k3c"] for v in bwd.values()),
+            "ms": k3c_ms,
+            "plain_ms": k3c_plain_ms,
+            "bound_ms": bwd_bound_ms,
+            "bound_by": bwd_bound_by,
+            "library_ms": bwd_sdpa_ms,
         },
     ]
     print(json.dumps({"kernels": kernels}))

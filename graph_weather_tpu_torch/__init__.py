@@ -9,8 +9,15 @@ tensors. Imports torch, never jax. Entry points run on the card (device
 
 from graph_weather_tpu_torch.convert import from_jax_params
 from graph_weather_tpu_torch.models.forecast import GraphWeatherForecaster
-from graph_weather_tpu_torch.models.gencast import Denoiser, Sampler, make_ar_rollout_fn
+from graph_weather_tpu_torch.models.gencast import (
+    Denoiser,
+    Sampler,
+    WeightedMSELoss,
+    make_ar_rollout_fn,
+    sample_noise_level,
+)
 from graph_weather_tpu_torch.models.losses import NormalizedMSELoss
+from graph_weather_tpu_torch.train import cosine_warmup_schedule, make_optimizer, make_train_step
 
 __version__ = "0.1.0"
 
@@ -19,6 +26,11 @@ __all__ = [
     "GraphWeatherForecaster",
     "NormalizedMSELoss",
     "Sampler",
+    "WeightedMSELoss",
+    "cosine_warmup_schedule",
     "from_jax_params",
     "make_ar_rollout_fn",
+    "make_optimizer",
+    "make_train_step",
+    "sample_noise_level",
 ]

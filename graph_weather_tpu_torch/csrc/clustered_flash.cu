@@ -15,6 +15,9 @@
 // -1e28 and the output divided by max(l, 1e-30), as in the TPU kernel: a
 // row with no neighbour (and a padded row past the last receiver) comes out
 // exactly 0. q is [B, N_q, h, c]; k and v are [B, N_kv, h, c]; out is like q.
+// When the caller asks for it (training), the kernel also writes the
+// log-sum-exp m + log(max(l, 1e-30)) of every row of every block, f32
+// [B, nb * block, h], which the backward (clustered_flash_bwd.cu) reads.
 //
 // What bounds it on an H100. Only 7.6% of the (row, slot) pairs of
 // GenCast's splits-5 layout are edges, so the work these inputs need moves
@@ -41,8 +44,7 @@
 //   * the tile sizes follow c: 64 x 64 at c = 128 (155 KB), 32 x 32 at
 //     c = 512 (222 KB), one 256-thread CTA per SM.
 //
-// Not yet here: tensor cores (3xTF32 would keep f32 accuracy), TMA, bf16,
-// the log-sum-exp output and the backward (K3b/K3c).
+// Not yet here: tensor cores (3xTF32 would keep f32 accuracy), TMA, bf16.
 
 #include <cuda_runtime.h>
 
@@ -59,6 +61,7 @@ struct Params {
   const int* ids;
   const signed char* masks;
   float* out;
+  float* lse;  // [B, nb * block, h], or null: not written
   int n_q;
   int n_kv;
   int heads;
@@ -334,6 +337,11 @@ __global__ void __launch_bounds__(THREADS)
 
   asm volatile("cp.async.wait_all;\n" ::);  // Q, when every tile was skipped
   if (tid % LPR == 0) s_l[sr] = l_i;
+  if (p.lse != nullptr && tid % LPR == 0 && s_lr < p.block) {
+    const long long n_pad = (long long)(gridDim.x / q_tiles) * p.block;
+    p.lse[((blockIdx.z * n_pad) + b * p.block + s_lr) * p.heads + g] =
+        m_i + logf(fmaxf(l_i, 1e-30f));
+  }
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < MR2; ++i) {
@@ -380,14 +388,14 @@ using Wide = Cfg<512, 32, 32, 4, 4, 4, 16>;
 
 // Plain C entry point (bound with ctypes). Launches on `stream`, does not
 // synchronise, allocates nothing; returns a cudaError_t (0 on success), or
-// cudaErrorInvalidValue for c > 512. gather_ids are trusted: they are
-// checked on the host when the graph's layout is built.
+// cudaErrorInvalidValue for c > 512. `lse` may be null (serving). gather_ids
+// are trusted: they are checked on the host when the graph's layout is built.
 extern "C" int gwt_clustered_flash_forward(
     const float* q, const float* k, const float* v, const int* gather_ids,
-    const signed char* masks, float* out, int batch, int n_q, int n_kv,
-    int heads, int c, int n_blocks, int block, int u_pad, int vec4,
+    const signed char* masks, float* out, float* lse, int batch, int n_q,
+    int n_kv, int heads, int c, int n_blocks, int block, int u_pad, int vec4,
     float scale, void* stream) {
-  const Params p{q, k, v, gather_ids, masks, out, n_q, n_kv, heads, c,
+  const Params p{q, k, v, gather_ids, masks, out, lse, n_q, n_kv, heads, c,
                  block, u_pad, vec4, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (c <= 32) return launch<Narrow>(p, n_blocks, batch, s);

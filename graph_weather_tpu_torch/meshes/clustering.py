@@ -159,3 +159,27 @@ def build_cluster_layout(
         slots = np.searchsorted(u, sb[lo:hi])
         masks[b, rb[lo:hi], slots] = True
     return ClusterLayout(gather_ids=gather_ids, masks=masks, block=block)
+
+
+def build_cluster_scatter_index(
+    gather_ids: np.ndarray, masks: np.ndarray, n_senders: int
+) -> np.ndarray:
+    """Inverse of a layout's gather_ids, for the general backward's
+    deterministic gather-sum of block-local dk/dv back to global rows.
+
+    Returns int64 [n_senders, K]: row n lists the flat positions
+    b * U_pad + u of every union slot that holds sender n, in block order,
+    padded with nb * U_pad (a zero row the caller appends). Padding slots
+    (all-zero mask column) are left out: they carry exact zeros.
+    """
+    nb, u_pad = gather_ids.shape
+    member = np.asarray(masks).astype(bool).any(axis=1).reshape(-1)
+    pos = np.flatnonzero(member)
+    ids = np.asarray(gather_ids).reshape(-1)[pos].astype(np.int64)
+    order = np.argsort(ids, kind="stable")
+    ids, pos = ids[order], pos[order]
+    counts = np.bincount(ids, minlength=n_senders)
+    starts = np.cumsum(counts) - counts
+    index = np.full((n_senders, max(int(counts.max(initial=0)), 1)), nb * u_pad, np.int64)
+    index[ids, np.arange(ids.size) - starts[ids]] = pos
+    return index

@@ -55,7 +55,7 @@ class GraphBundle:
             edge_attr=self.edge_attr[order],
         )
 
-    def device_arrays(self, device="cpu"):
+    def device_arrays(self, device="cuda"):
         """Return (senders, receivers, edge_attr) as tensors on `device`:
         int32 indices and float32 edge features."""
         import torch

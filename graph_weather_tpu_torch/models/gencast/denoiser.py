@@ -17,8 +17,10 @@ does).
 
 With attention_impl="clustered_flash" every processor block runs the CUDA
 kernel K3a on the card (ops/clustered_flash.py); "segment" is the
-segment-softmax path with edge features. This is the serving path: `apply`
-runs under torch.no_grad() in f32.
+segment-softmax path with edge features. `apply` serves, under
+torch.no_grad(), in f32. `forward_fn()` is the training forward: the same
+function with autograd, whose attention backward runs K3c (or K3b) on the
+card; `remat=True` recomputes each transformer block in the backward.
 """
 
 from __future__ import annotations
@@ -77,6 +79,7 @@ class DenoiserModule(nn.Module):
         num_heads: int = 4,
         use_edge_features: bool = True,
         scale_factor: float = 1.0,
+        remat: bool = False,
     ):
         super().__init__()
         grid_dim = output_features_dim + 2 * input_features_dim + grid_node_dim
@@ -90,6 +93,7 @@ class DenoiserModule(nn.Module):
             num_heads=num_heads,
             edge_dim=khop_edge_dim,
             use_edge_features=use_edge_features,
+            remat=remat,
         )
         self.GenCastDecoder_0 = GenCastDecoder(m2g_edge_dim, output_features_dim, hidden_dims)
 
@@ -165,8 +169,6 @@ class Denoiser:
                 "(matching the reference's sparse attention mode, which also "
                 "drops edge features)"
             )
-        if remat:
-            raise _not_ported("remat (a training option)")
         if compute_dtype not in (None, torch.float32):
             raise _not_ported(f"compute_dtype={compute_dtype}")
         if node_layout not in ("consistent", "reference"):
@@ -210,6 +212,7 @@ class Denoiser:
             num_heads=num_heads,
             use_edge_features=use_edges_features,
             scale_factor=scale_factor,
+            remat=remat,
         ).to(self.device)
 
     @classmethod
@@ -264,12 +267,23 @@ class Denoiser:
         if not bool((noise_levels > 0).all()):
             raise ValueError("All the noise levels must be strictly positive.")
 
+    def forward_fn(self, compute_dtype=None):
+        """The training forward: a differentiable callable
+        (corrupted_targets, prev_inputs, noise_levels) -> denoised, with the
+        layouts of `apply`, on self.device. Only f32 is ported."""
+        if compute_dtype not in (None, torch.float32):
+            raise _not_ported(f"compute_dtype={compute_dtype}")
+        return self._forward
+
     @torch.no_grad()
     def apply(self, corrupted_targets, prev_inputs, noise_levels, conditioning=None):
         """[B, lon, lat, F_out], [B, lon, lat, 2 F_in], [B, 1] -> denoised
         [B, lon, lat, F_out], on self.device (inputs are moved there)."""
         if conditioning is not None:
             raise _not_ported("conditioning (GenDA)", "ROADMAP.md §1 item 4, 'FGN and GenDA'")
+        return self._forward(corrupted_targets, prev_inputs, noise_levels)
+
+    def _forward(self, corrupted_targets, prev_inputs, noise_levels):
         corrupted_targets, prev_inputs, noise_levels = (
             torch.as_tensor(t, dtype=torch.float32, device=self.device)
             for t in (corrupted_targets, prev_inputs, noise_levels)

@@ -10,6 +10,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from graph_weather_tpu_torch.models.gencast.modules import (
@@ -66,7 +67,9 @@ class GenCastProcessor(nn.Module):
 
     All blocks concatenate heads except the last, which averages them and
     drops the activation. Rows are padded once to the clustered layout
-    (a no-op for the segment layout) and sliced once at the end.
+    (a no-op for the segment layout) and sliced once at the end. With
+    `remat`, each block's activations are recomputed in the backward
+    (torch.utils.checkpoint, the JAX package's nn.remat per block).
     """
 
     NOISE_EMB_DIM = 16
@@ -79,11 +82,13 @@ class GenCastProcessor(nn.Module):
         num_heads: int = 4,
         edge_dim: int = 0,
         use_edge_features: bool = True,
+        remat: bool = False,
     ):
         super().__init__()
         if latent_dim % num_heads != 0:
             raise ValueError("latent_dim must be divisible by num_heads")
         self.num_blocks = num_blocks
+        self.remat = remat
         self.FourierEmbedding_0 = FourierEmbedding(self.NOISE_EMB_DIM)
         use_edges = use_edge_features and edge_dim > 0
         self.GenCastMLP_0: Optional[GenCastMLP] = (
@@ -120,7 +125,12 @@ class GenCastProcessor(nn.Module):
         latent_mesh = cluster_pad_rows(latent_mesh, khop)
         for i in range(self.num_blocks):
             block = getattr(self, f"CondTransformerBlock_{i}")
-            latent_mesh = block(latent_mesh, khop, edge_attr, cond)
+            if self.remat and torch.is_grad_enabled():
+                latent_mesh = torch.utils.checkpoint.checkpoint(
+                    block, latent_mesh, khop, edge_attr, cond, use_reentrant=False
+                )
+            else:
+                latent_mesh = block(latent_mesh, khop, edge_attr, cond)
         return cluster_unpad_rows(latent_mesh, n_real)
 
 

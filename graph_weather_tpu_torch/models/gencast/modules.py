@@ -8,7 +8,8 @@
     as Linears of the conditioning vector.
   * GraphTransformerConv: UniMP-style multi-head graph attention with beta
     gating; segment-softmax branch (with edge features) and the clustered
-    branch, which runs the kernel K3a (ops/clustered_flash.py).
+    branch, which runs the kernel K3a forward and K3c (symmetric graphs) or
+    K3b backward (ops/clustered_flash.py).
   * CondTransformerBlock: the conv, the conditional norm and the activation.
 
 PyTorch needs every input width at construction, where flax infers them, so
@@ -166,8 +167,9 @@ class GraphTransformerConv(nn.Module):
     out = b * W_skip x_i + (1 - b) * out, b = sigmoid(W_beta [skip, out, skip - out]).
 
     A graph with a cluster layout and no edge features takes the clustered
-    branch (K3a); otherwise the segment-softmax branch. The linears are
-    numbered as flax creates them: q, k, v, [edge], skip, beta.
+    branch (K3a; its backward K3c when the graph is symmetric, as the k-hop
+    mesh graph is, else K3b); otherwise the segment-softmax branch. The
+    linears are numbered as flax creates them: q, k, v, [edge], skip, beta.
     """
 
     def __init__(
@@ -216,6 +218,7 @@ class GraphTransformerConv(nn.Module):
             out = clustered_flash_attention(
                 heads(q), heads(k), heads(v),
                 graph.cluster_ids, graph.cluster_masks, graph.cluster_block,
+                symmetric=graph.cluster_symmetric, scatter_index=graph.cluster_scatter,
             )
             return self._combine(x, out.reshape(out.shape[:-2] + (h * c,)))
 

@@ -23,6 +23,7 @@ from torch import nn
 
 from graph_weather_tpu_torch.meshes.clustering import (
     build_cluster_layout,
+    build_cluster_scatter_index,
     is_symmetric_edges,
 )
 from graph_weather_tpu_torch.meshes.graphs import GraphBundle
@@ -50,8 +51,13 @@ class DeviceGraph:
     `cluster_block` receivers, the union of their senders (`cluster_ids`,
     [nb, U_pad] int32, padding slots point at row 0) and the adjacency of
     the block's rows against that union (`cluster_masks`, [nb, block,
-    U_pad] int8). The JAX package's banded layout is not carried: the
-    banded attention options are not ported yet.
+    U_pad] int8), whether the edge set is symmetric (`cluster_symmetric`:
+    the attention backward then takes K3c) and, for an edge set that is
+    not symmetric, the inverse of cluster_ids for K3b's gather-sum
+    (`cluster_scatter`, meshes.clustering.build_cluster_scatter_index;
+    None for a symmetric one). The JAX package's
+    banded layout is not carried: the banded attention options are not
+    ported yet.
     """
 
     senders: torch.Tensor  # [E] int32
@@ -65,12 +71,13 @@ class DeviceGraph:
     cluster_masks: Optional[torch.Tensor] = None  # [nb, block, U_pad] int8 or None
     cluster_block: int = 0
     cluster_symmetric: bool = False
+    cluster_scatter: Optional[torch.Tensor] = None  # [N_senders, K] int64 or None
 
     @classmethod
     def from_bundle(
         cls,
         bundle: GraphBundle,
-        device="cpu",
+        device="cuda",
         clustered: bool = False,
         cluster_block: int = 256,
     ) -> "DeviceGraph":
@@ -88,7 +95,7 @@ class DeviceGraph:
             ids, mask = build_padded_csr(bundle.receivers, bundle.n_receivers)
             csr_ids = torch.as_tensor(ids, device=device)
             csr_mask = torch.as_tensor(mask, device=device)
-        cluster_ids = cluster_masks = None
+        cluster_ids = cluster_masks = cluster_scatter = None
         cluster_symmetric = False
         if clustered:
             # Padding slots point at row 0, so the kernel needs a row 0.
@@ -103,6 +110,11 @@ class DeviceGraph:
             cluster_symmetric = bundle.n_senders == bundle.n_receivers and (
                 is_symmetric_edges(bundle.senders, bundle.receivers)
             )
+            if not cluster_symmetric:  # only K3b's gather-sum reads it
+                cluster_scatter = torch.as_tensor(
+                    build_cluster_scatter_index(layout.gather_ids, layout.masks, bundle.n_senders),
+                    device=device,
+                )
         senders, receivers, edge_attr = bundle.device_arrays(device)
         return cls(
             senders=senders,
@@ -116,6 +128,7 @@ class DeviceGraph:
             cluster_masks=cluster_masks,
             cluster_block=cluster_block if clustered else 0,
             cluster_symmetric=cluster_symmetric,
+            cluster_scatter=cluster_scatter,
         )
 
     def aggregate(self, edge_feats: torch.Tensor) -> torch.Tensor:

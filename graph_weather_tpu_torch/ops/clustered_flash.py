@@ -1,5 +1,6 @@
-"""Clustered (gathered-neighbour) graph attention: the port of the Pallas
-kernel K3a.
+"""Clustered (gathered-neighbour) graph attention and its gradient: the port
+of the Pallas kernels K3a (forward), K3b (general backward) and K3c
+(symmetric backward).
 
 Receivers come in blocks of `block` rows (RCB-ordered, so a block is a
 compact patch of the sphere). Block b attends to the union of its rows'
@@ -15,55 +16,78 @@ come out exactly 0; the output divides by max(l, 1e-30). q is [N, h, c] or
 [B, N, h, c]; k and v are [N_kv, h, c] or [B, N_kv, h, c]; N <= nb * block.
 
 It replaces graph_weather_tpu/ops/pallas/clustered_flash.py
-(`clustered_flash_attention`, kernel `_clustered_impl` with its one-pass
-and online pallas_calls). The TPU code gathered the K/V union rows in XLA
-because Mosaic could not gather inside a kernel; csrc/clustered_flash.cu
-gathers them itself, streams the union in key tiles through shared memory,
-skips key tiles without an edge and keeps the softmax online in f32. The
-dense (row, slot) work of the remaining tiles bounds it on the FP32 CUDA
-cores; only 7.6% of the pairs are edges at GenCast's splits-5 layout. The
-batch is a grid axis of the kernel.
+(`clustered_flash_attention`: `_clustered_impl`, `_clustered_bwd_impl` and
+`_bwd_symmetric`). The TPU code gathered the K/V union rows in XLA because
+Mosaic could not gather inside a kernel; csrc/clustered_flash.cu (forward)
+and csrc/clustered_flash_bwd.cu (backward) gather them themselves, skip
+tiles without an edge and keep everything in f32 on the CUDA cores.
 
-`clustered_flash_attention` runs the plain PyTorch twin
-`clustered_flash_attention_reference` for CPU tensors and launches the CUDA
-kernel for CUDA tensors; it never falls back from one to the other.
-`LAUNCHES` counts kernel launches. There is no backward yet.
+Training: when autograd needs gradients, the forward also keeps the
+log-sum-exp lse [B, nb * block, h], and the backward recomputes
+p = exp(s + bias - lse). `symmetric=True` (the caller asserts that the edge
+set is symmetric and that q and k/v index one node set, as for the k-hop
+mesh graph) takes K3c: a dq kernel over receiver blocks and a dk/dv kernel
+over key blocks that writes global rows, no scatter. Otherwise K3b: dq plus
+block-local dk/dv, then a deterministic gather-sum over the inverse of
+gather_ids, `scatter_index` (`meshes.clustering.build_cluster_scatter_index`;
+the port's DeviceGraph builds it with a layout that is not symmetric). K3b
+on the card requires it: the backward never rebuilds it on the host.
+
+Every kernel has a plain PyTorch twin here (`clustered_flash_forward_reference`,
+`clustered_flash_backward_reference`) that runs for CPU tensors; CUDA tensors
+launch the kernels, never the twins. Launch counts: `LAUNCHES` (K3a),
+`GENERAL_BWD_LAUNCHES` (K3b: its dq and block-local dk/dv kernels),
+`SYMMETRIC_DQ_LAUNCHES` and `SYMMETRIC_DKV_LAUNCHES` (K3c's two kernels).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
 
-LAUNCHES = 0
-MAX_CHANNELS = 512  # widest head the kernel's tiles hold
+LAUNCHES = 0  # K3a
+GENERAL_BWD_LAUNCHES = 0  # K3b
+SYMMETRIC_DQ_LAUNCHES = 0  # K3c, dq kernel
+SYMMETRIC_DKV_LAUNCHES = 0  # K3c, dk/dv kernel
+MAX_CHANNELS = 512  # widest head the kernels' tiles hold
 _NEG = -1e30  # additive mask bias off an edge
 _SAFE = -1e28  # running-max start: exp(_NEG - _SAFE) == 0, no inf - inf
-_TRAINING_TODO = "ROADMAP.md, 'K3b/K3c: the clustered attention backward'"
 
 _c_ptr, _c_int = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [
-    _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # q k v ids masks out
+_FWD_ARGTYPES = [
+    _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # q k v ids masks out lse
     _c_int, _c_int, _c_int, _c_int, _c_int,  # batch, n_q, n_kv, heads, c
     _c_int, _c_int, _c_int, _c_int,  # n_blocks, block, u_pad, vec4
     ctypes.c_float,  # scale
     _c_ptr,  # cudaStream_t
 ]
+_BWD_ARGTYPES = [
+    _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # q k v dout lse delta
+    _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # ids masks dq dk dv
+    _c_int, _c_int, _c_int, _c_int, _c_int,  # batch, n_q, n_kv, heads, c
+    _c_int, _c_int, _c_int, _c_int,  # n_blocks, block, u_pad, vec4
+    ctypes.c_float, _c_int,  # scale, mode
+    _c_ptr,  # cudaStream_t
+]
+_GENERAL, _SYMMETRIC_DQ, _SYMMETRIC_DKV = 0, 1, 2  # backward modes of the C entry
 
 
-def clustered_flash_attention_reference(
+def clustered_flash_forward_reference(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
     gather_ids: torch.Tensor,
     masks: torch.Tensor,
     block: int,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """Plain PyTorch version: gather each block's union rows, then a dense
     masked softmax per block with the kernel's _NEG/_SAFE arithmetic (that
-    of the TPU kernel's one-pass form)."""
+    of the TPU kernel's one-pass form). Returns out, or (out, lse) with lse
+    [B, nb * block, h] ([nb * block, h] for unbatched inputs)."""
     squeeze = q.dim() == 3
     if squeeze:
         q, k, v = q[None], k[None], v[None]
@@ -77,13 +101,94 @@ def clustered_flash_attention_reference(
     s = torch.where(masks[None, :, None] != 0, s, _NEG)
     m = torch.clamp(s.amax(-1, keepdim=True), min=_SAFE)
     p = torch.exp(s - m)
-    l = p.sum(-1).permute(0, 1, 3, 2)[..., None]  # [B, nb, block, h, 1]
-    o = torch.einsum("bnhqu,bnuhc->bnqhc", p, v_loc) / torch.clamp(l, min=1e-30)
+    l = p.sum(-1, keepdim=True)  # [B, nb, h, block, 1]
+    o = torch.einsum("bnhqu,bnuhc->bnqhc", p, v_loc)
+    o = o / torch.clamp(l, min=1e-30).permute(0, 1, 3, 2, 4)
     out = o.reshape(bsz, n_pad, h, c)[:, :n]
-    return out[0] if squeeze else out
+    out = out[0] if squeeze else out
+    if not with_lse:
+        return out
+    lse = (m + torch.log(torch.clamp(l, min=1e-30)))[..., 0]  # [B, nb, h, block]
+    lse = lse.permute(0, 1, 3, 2).reshape(bsz, n_pad, h)
+    return out, (lse[0] if squeeze else lse)
 
 
-def _check(q, k, v, gather_ids, masks, block):
+def clustered_flash_backward_reference(
+    q, k, v, gather_ids, masks, out, lse, dout, block: int, symmetric: bool = False
+):
+    """Plain PyTorch version of the backward, written out as the kernels
+    compute it: gather, recompute p from lse, ds, the products, then the
+    scatter of block-local dk/dv (general) or the transposed pass over key
+    blocks (symmetric). Returns (dq, dk, dv) in q's and k's shapes."""
+    squeeze = q.dim() == 3
+    if squeeze:
+        q, k, v, out, dout, lse = (t[None] for t in (q, k, v, out, dout, lse))
+    bsz, n, h, c = q.shape
+    n_kv = k.shape[1]
+    if symmetric and n != n_kv:
+        raise _node_set_error(n, n_kv)
+    nb, u_pad = gather_ids.shape
+    n_pad = nb * block
+    scale = 1.0 / c**0.5
+    ids = gather_ids.long()
+    edge = masks[None, :, None] != 0  # [1, nb, 1, block, U_pad]
+
+    def blocks(t):  # [B, rows, ...] -> [B, nb, block, ...], zero rows past the end
+        pad = [0, 0] * (t.dim() - 2) + [0, n_pad - t.shape[1]]
+        return F.pad(t, pad).reshape((bsz, nb, block) + t.shape[2:])
+
+    delta = (dout * out).sum(-1)  # [B, n, h]
+    delta_pad = F.pad(delta, (0, 0, 0, n_pad - n))  # [B, n_pad, h]
+    lse_b = lse.reshape(bsz, nb, block, h).permute(0, 1, 3, 2)[..., None]
+    delta_b = blocks(delta).permute(0, 1, 3, 2)[..., None]  # [B, nb, h, block, 1]
+    q_b, do_b = blocks(q), blocks(dout)
+    # Receiver blocks against their gathered key unions.
+    k_loc, v_loc = k[:, ids], v[:, ids]  # [B, nb, U_pad, h, c]
+    s = torch.einsum("bnqhc,bnuhc->bnhqu", q_b, k_loc) * scale
+    p = torch.exp(torch.where(edge, s, _NEG) - lse_b)
+    dp = torch.einsum("bnqhc,bnuhc->bnhqu", do_b, v_loc)
+    ds = p * (dp - delta_b)
+    dq = torch.einsum("bnhqu,bnuhc->bnqhc", ds, k_loc) * scale
+    dq = dq.reshape(bsz, n_pad, h, c)[:, :n]
+    if not symmetric:
+        # Block-local dk/dv, then the scatter back to global rows.
+        dv_loc = torch.einsum("bnhqu,bnqhc->bnuhc", p, do_b)
+        dk_loc = torch.einsum("bnhqu,bnqhc->bnuhc", ds, q_b) * scale
+        flat = ids.reshape(-1)
+        dk = k.new_zeros(k.shape).index_add_(1, flat, dk_loc.reshape(bsz, nb * u_pad, h, c))
+        dv = v.new_zeros(v.shape).index_add_(1, flat, dv_loc.reshape(bsz, nb * u_pad, h, c))
+    else:
+        # Key blocks against their gathered receiver unions: masks[b] read as
+        # [keys, receivers] is the adjacency of a symmetric edge set.
+        k_b, v_b = blocks(k), blocks(v)
+        q_loc, do_loc = q[:, ids], dout[:, ids]  # [B, nb, U_pad, h, c]
+        lse_loc = lse[:, ids].permute(0, 1, 3, 2)[:, :, :, None, :]  # [B, nb, h, 1, U]
+        delta_loc = delta_pad[:, ids].permute(0, 1, 3, 2)[:, :, :, None, :]
+        st = torch.einsum("bnkhc,bnuhc->bnhku", k_b, q_loc) * scale
+        pt = torch.exp(torch.where(edge, st, _NEG) - lse_loc)
+        dv = torch.einsum("bnhku,bnuhc->bnkhc", pt, do_loc)
+        dst = pt * (torch.einsum("bnkhc,bnuhc->bnhku", v_b, do_loc) - delta_loc)
+        dk = torch.einsum("bnhku,bnuhc->bnkhc", dst, q_loc) * scale
+        dk, dv = (t.reshape(bsz, n_pad, h, c)[:, :n_kv] for t in (dk, dv))
+    if squeeze:
+        return dq[0], dk[0], dv[0]
+    return dq, dk, dv
+
+
+_NO_SCATTER_INDEX = (
+    "clustered_flash_attention: the general backward (symmetric=False) on the "
+    "card needs scatter_index (meshes.clustering.build_cluster_scatter_index)"
+)
+
+
+def _node_set_error(n_q: int, n_kv: int) -> ValueError:
+    return ValueError(
+        "symmetric=True requires q and k/v to index the same node set "
+        f"(got {n_q} queries vs {n_kv} keys)"
+    )
+
+
+def _check(q, k, v, gather_ids, masks, block, symmetric):
     if q.dim() not in (3, 4) or k.dim() != q.dim() or v.shape != k.shape:
         raise ValueError(
             "clustered_flash_attention: q [N, h, c] or [B, N, h, c]; k and v "
@@ -100,12 +205,143 @@ def _check(q, k, v, gather_ids, masks, block):
         )
     if q.shape[-3] > gather_ids.shape[0] * block:
         raise ValueError("clustered_flash_attention: more query rows than nb * block")
+    if symmetric and q.shape[-3] != k.shape[-3]:
+        raise _node_set_error(q.shape[-3], k.shape[-3])
     if gather_ids.dtype != torch.int32 or masks.dtype != torch.int8:
         raise TypeError("clustered_flash_attention: gather_ids int32, masks int8")
     if any(t.dtype != torch.float32 for t in (q, k, v)):
         raise TypeError("clustered_flash_attention: q, k, v must be float32")
     if any(t.device != q.device for t in (k, v, gather_ids, masks)):
         raise ValueError("clustered_flash_attention: all tensors must be on one device")
+
+
+def _sizes(q, k, gather_ids):
+    batch = q.shape[0] if q.dim() == 4 else 1
+    nb, u_pad = gather_ids.shape
+    return batch, q.shape[-3], k.shape[-3], q.shape[-2], q.shape[-1], nb, u_pad
+
+
+def _vec4(c: int, tensors) -> int:
+    return int(c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _forward_cuda(q, k, v, gather_ids, masks, block, with_lse):
+    """K3a on the card: out, and lse [B, nb * block, h] when asked."""
+    if not all(t.is_contiguous() for t in (q, k, v, gather_ids, masks)):
+        raise ValueError("clustered_flash_attention: tensors must be contiguous")
+    batch, n_q, n_kv, heads, c, nb, u_pad = _sizes(q, k, gather_ids)
+    if c > MAX_CHANNELS:
+        raise ValueError(f"clustered_flash_attention: head width {c} > {MAX_CHANNELS}")
+    out = torch.empty_like(q)
+    lse = None
+    if with_lse:
+        lse = torch.empty(q.shape[:-3] + (nb * block, heads), device=q.device)
+    if out.numel() == 0 or u_pad == 0:
+        return out.zero_(), (None if lse is None else lse.fill_(_SAFE + math.log(1e-30)))
+    with torch.cuda.device(q.device):
+        err = _kernel("clustered_flash", "gwt_clustered_flash_forward", _FWD_ARGTYPES)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), gather_ids.data_ptr(),
+            masks.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+            batch, n_q, n_kv, heads, c, nb, block, u_pad,
+            _vec4(c, (q, k, v, out)), 1.0 / c**0.5, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"clustered_flash_attention: CUDA kernel launch failed (cudaError {err})"
+        )
+    global LAUNCHES
+    LAUNCHES += 1
+    return out, lse
+
+
+def _launch_backward(mode, q, k, v, dout, lse, delta, gather_ids, masks, dq, dk, dv, block):
+    batch, n_q, n_kv, heads, c, nb, u_pad = _sizes(q, k, gather_ids)
+    tensors = [t for t in (q, k, v, dout, dq, dk, dv) if t is not None]
+    with torch.cuda.device(q.device):
+        err = _kernel(
+            "clustered_flash_bwd", "gwt_clustered_flash_backward", _BWD_ARGTYPES
+        )(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), gather_ids.data_ptr(), masks.data_ptr(),
+            *(0 if t is None else t.data_ptr() for t in (dq, dk, dv)),
+            batch, n_q, n_kv, heads, c, nb, block, u_pad, _vec4(c, tensors),
+            1.0 / c**0.5, mode, torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"clustered_flash_attention backward: CUDA kernel launch failed (cudaError {err})"
+        )
+
+
+def _backward_cuda(q, k, v, gather_ids, masks, out, lse, dout, block, symmetric, scatter_index):
+    """K3c (symmetric) or K3b on the card. Returns (dq, dk, dv)."""
+    global GENERAL_BWD_LAUNCHES, SYMMETRIC_DQ_LAUNCHES, SYMMETRIC_DKV_LAUNCHES
+    if not symmetric and scatter_index is None:
+        raise ValueError(_NO_SCATTER_INDEX)
+    if not all(t.is_contiguous() for t in (q, k, v, gather_ids, masks, lse, dout)):
+        raise ValueError("clustered_flash_attention backward: tensors must be contiguous")
+    batch, n_q, n_kv, heads, c, nb, u_pad = _sizes(q, k, gather_ids)
+    dq = torch.empty_like(q)
+    if dq.numel() == 0 or u_pad == 0:
+        return dq.zero_(), torch.zeros_like(k), torch.zeros_like(v)
+    # delta = rowsum(dO . out), zero on the rows past n_q: [B, nb * block, h]
+    delta = (dout * out).sum(-1)
+    delta = F.pad(delta, (0, 0, 0, nb * block - n_q)).contiguous()
+    args = (q, k, v, dout, lse, delta, gather_ids, masks)
+    if symmetric:
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        _launch_backward(_SYMMETRIC_DQ, *args, dq, None, None, block)
+        SYMMETRIC_DQ_LAUNCHES += 1
+        _launch_backward(_SYMMETRIC_DKV, *args, None, dk, dv, block)
+        SYMMETRIC_DKV_LAUNCHES += 1
+        return dq, dk, dv
+    local = q.shape[:-3] + (nb, u_pad) + q.shape[-2:]  # [B, nb, U_pad, h, c]
+    dk_loc, dv_loc = torch.empty(local, device=q.device), torch.empty(local, device=q.device)
+    _launch_backward(_GENERAL, *args, dq, dk_loc, dv_loc, block)
+    GENERAL_BWD_LAUNCHES += 1
+    return dq, gather_sum(dk_loc, scatter_index, n_kv), gather_sum(dv_loc, scatter_index, n_kv)
+
+
+def gather_sum(local: torch.Tensor, scatter_index: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Block-local rows [..., nb, U_pad, h, c] -> global rows [..., n_rows, h, c]:
+    row n sums local[scatter_index[n, j]] over j, in a fixed order (the
+    index's padding entries point past the last slot, at a zero row). Rows
+    past the index's (never gathered, as the padded rows of a processor)
+    are zero."""
+    lead = local.shape[:-4]
+    flat = local.reshape(lead + (-1,) + local.shape[-2:])
+    flat = torch.cat([flat, flat.new_zeros(lead + (1,) + flat.shape[-2:])], dim=-3)
+    out = flat.index_select(-3, scatter_index[:, 0])
+    for j in range(1, scatter_index.shape[1]):
+        out += flat.index_select(-3, scatter_index[:, j])
+    return F.pad(out, (0, 0, 0, 0, 0, n_rows - out.shape[-3]))
+
+
+class _ClusteredFlashAttention(torch.autograd.Function):
+    """K3a with lse forward; K3c or K3b backward (their twins on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, gather_ids, masks, block, symmetric, scatter_index):
+        if q.device.type == "cpu":
+            out, lse = clustered_flash_forward_reference(
+                q, k, v, gather_ids, masks, block, with_lse=True
+            )
+        else:
+            out, lse = _forward_cuda(q, k, v, gather_ids, masks, block, with_lse=True)
+        ctx.save_for_backward(q, k, v, gather_ids, masks, out, lse)
+        ctx.block, ctx.symmetric, ctx.scatter_index = block, symmetric, scatter_index
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, gather_ids, masks, out, lse = ctx.saved_tensors
+        args = (q, k, v, gather_ids, masks, out, lse, dout.contiguous(), ctx.block, ctx.symmetric)
+        if q.device.type == "cpu":
+            dq, dk, dv = clustered_flash_backward_reference(*args)
+        else:
+            dq, dk, dv = _backward_cuda(*args, ctx.scatter_index)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def clustered_flash_attention(
@@ -115,53 +351,34 @@ def clustered_flash_attention(
     gather_ids: torch.Tensor,
     masks: torch.Tensor,
     block: int,
+    symmetric: bool = False,
+    scatter_index: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Graph attention over per-block gathered neighbour unions (see the
-    module docstring). Returns q's shape."""
-    _check(q, k, v, gather_ids, masks, block)
-    if q.device.type == "cpu":
-        return clustered_flash_attention_reference(q, k, v, gather_ids, masks, block)
-    if q.device.type != "cuda":
+    module docstring). Returns q's shape. Differentiable in q, k and v;
+    `symmetric` picks the backward (K3c when True, else K3b), and
+    `scatter_index` is K3b's inverse of gather_ids, required when K3b runs
+    on the card."""
+    _check(q, k, v, gather_ids, masks, block, symmetric)
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"clustered_flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "clustered_flash_attention has no backward on CUDA yet; run under "
-            f"torch.no_grad(). See {_TRAINING_TODO}."
+        if q.device.type == "cuda" and not symmetric and scatter_index is None:
+            raise ValueError(_NO_SCATTER_INDEX)
+        return _ClusteredFlashAttention.apply(
+            q, k, v, gather_ids, masks, block, symmetric, scatter_index
         )
-    tensors = (q, k, v, gather_ids, masks)
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("clustered_flash_attention: tensors must be contiguous")
-    c = q.shape[-1]
-    if c > MAX_CHANNELS:
-        raise ValueError(f"clustered_flash_attention: head width {c} > {MAX_CHANNELS}")
-    batch = q.shape[0] if q.dim() == 4 else 1
-    n_q, n_kv, heads = q.shape[-3], k.shape[-3], q.shape[-2]
-    nb, u_pad = gather_ids.shape
-    out = torch.empty_like(q)
-    if out.numel() == 0 or u_pad == 0:
-        return out.zero_()
-    vec4 = c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel_fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), gather_ids.data_ptr(),
-            masks.data_ptr(), out.data_ptr(), batch, n_q, n_kv, heads, c,
-            nb, block, u_pad, int(vec4), 1.0 / c**0.5, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"clustered_flash_attention: CUDA kernel launch failed (cudaError {err})"
-        )
-    global LAUNCHES
-    LAUNCHES += 1
-    return out
+    if q.device.type == "cpu":
+        return clustered_flash_forward_reference(q, k, v, gather_ids, masks, block)
+    return _forward_cuda(q, k, v, gather_ids, masks, block, with_lse=False)[0]
 
 
-def _kernel_fn():
+def _kernel(library: str, name: str, argtypes):
+    """The C entry `name` of csrc/<library>.cu, built at first use."""
     from graph_weather_tpu_torch.ops._build import load_library
 
-    fn = load_library("clustered_flash").gwt_clustered_flash_forward
+    fn = getattr(load_library(library), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn

@@ -20,7 +20,7 @@ from graph_weather_tpu_torch.meshes.clustering import build_cluster_layout
 from graph_weather_tpu_torch.ops import clustered_flash
 from graph_weather_tpu_torch.ops.clustered_flash import (
     clustered_flash_attention,
-    clustered_flash_attention_reference,
+    clustered_flash_forward_reference,
 )
 from graph_weather_tpu_torch.ops.segment_softmax import segment_softmax
 
@@ -73,10 +73,10 @@ def test_plain_clustered_unbatched_and_padded_rows():
     ids, masks = torch.from_numpy(layout.gather_ids), torch.from_numpy(layout.masks.astype(np.int8))
     n_pad = layout.n_blocks * block
     q, k, v = (torch.from_numpy(rng.standard_normal((n_pad, h, c)).astype(np.float32)) for _ in range(3))
-    out = clustered_flash_attention_reference(q, k, v, ids, masks, block)
+    out = clustered_flash_forward_reference(q, k, v, ids, masks, block)
     assert out.shape == (n_pad, h, c)
     assert torch.all(out[n:] == 0) and torch.all(out[[3, 17]] == 0)
-    short = clustered_flash_attention_reference(q[:n], k, v, ids, masks, block)
+    short = clustered_flash_forward_reference(q[:n], k, v, ids, masks, block)
     assert torch.equal(short, out[:n])
     want = np.asarray(jax_clustered(*(jnp.asarray(t.numpy()) for t in (q, k, v, ids, masks)), block, interpret=True))
     np.testing.assert_allclose(out.numpy(), want, atol=ATOL)
@@ -91,7 +91,7 @@ def test_cpu_wrapper_takes_plain_and_counts_nothing():
     before = clustered_flash.LAUNCHES
     out = clustered_flash_attention(*args, ids, masks, 32)
     assert clustered_flash.LAUNCHES == before
-    assert torch.equal(out, clustered_flash_attention_reference(*args, ids, masks, 32))
+    assert torch.equal(out, clustered_flash_forward_reference(*args, ids, masks, 32))
     with pytest.raises(TypeError, match="int8"):
         clustered_flash_attention(*args, ids, masks.bool(), 32)
     with pytest.raises(ValueError, match="nb \\* block"):

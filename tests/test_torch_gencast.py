@@ -326,10 +326,9 @@ def test_devices_must_agree(clustered_models):
     [
         (dict(attention_impl="banded"), "K4a/K4b"),
         (dict(attention_impl="banded_flash"), "K4a/K4b"),
-        (dict(remat=True), "GenCast options"),
         (dict(compute_dtype=torch.bfloat16), "GenCast options"),
     ],
-    ids=["banded", "banded_flash", "remat", "bf16"],
+    ids=["banded", "banded_flash", "bf16"],
 )
 def test_unported_options_raise(option, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -349,7 +348,14 @@ def test_entry_points_default_to_the_card():
     """Without device="cpu" the entry points ask for CUDA (absent here)."""
     import inspect
 
-    for fn in (Denoiser.__init__, Sampler.__init__, make_ar_rollout_fn):
+    from graph_weather_tpu_torch import WeightedMSELoss
+    from graph_weather_tpu_torch.meshes.graphs import GraphBundle
+    from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
+
+    for fn in (
+        Denoiser.__init__, Sampler.__init__, make_ar_rollout_fn, WeightedMSELoss.__init__,
+        DeviceGraph.from_bundle, GraphBundle.device_arrays,
+    ):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):

@@ -10,6 +10,8 @@ bit for bit. Sizes are those of the small GenCast tests: a 32 x 16 grid,
 splits 2, 2 hops.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from graph_weather_tpu.meshes import clustering as jax_clustering
 from graph_weather_tpu.meshes import connectivity as jax_connectivity
 from graph_weather_tpu.meshes import icosphere as jax_icosphere
 from graph_weather_tpu.meshes import spatial as jax_spatial
+from graph_weather_tpu.meshes.graphs import GraphBundle as JaxGraphBundle
 from graph_weather_tpu.models.gencast.graphs import build_graphcast_graphs as jax_build
 from graph_weather_tpu.nn.graph_blocks import DeviceGraph as JaxDeviceGraph
 from graph_weather_tpu_torch.meshes import clustering, connectivity, icosphere, spatial
@@ -139,16 +142,26 @@ def test_graphcast_graphs_are_identical(spatial_sort, orientation, edge_feats):
 
 def test_device_graph_cluster_fields():
     """from_bundle(clustered=True) carries the JAX package's layout: int32
-    ids, int8 masks, the block and the symmetric flag."""
+    ids, int8 masks, the block and the symmetric flag; the inverse index
+    only for a graph that is not symmetric."""
     graphs = build_graphcast_graphs(
         GRID_LON, GRID_LAT, splits=2, num_hops=2, add_edge_features_to_khop=False, spatial_sort="rcb"
     )
     port = DeviceGraph.from_bundle(graphs.khop, "cpu", clustered=True, cluster_block=64)
-    ref = JaxDeviceGraph.from_bundle(graphs.khop, clustered=True, cluster_block=64)
+    # The JAX package's own bundle type: the port's arrays now default to the card.
+    ref = JaxDeviceGraph.from_bundle(
+        JaxGraphBundle(**dataclasses.asdict(graphs.khop)), clustered=True, cluster_block=64
+    )
     assert port.cluster_ids.dtype == torch.int32 and port.cluster_masks.dtype == torch.int8
     _same(port.cluster_ids.numpy(), np.asarray(ref.cluster_ids))
     _same(port.cluster_masks.numpy(), np.asarray(ref.cluster_masks))
     assert port.cluster_block == ref.cluster_block == 64
     assert port.cluster_symmetric == ref.cluster_symmetric is True
-    plain = DeviceGraph.from_bundle(graphs.khop)
+    assert port.cluster_scatter is None  # K3c needs no inverse index
+    # A bipartite graph is not symmetric: K3b's inverse index comes with it.
+    g2m = DeviceGraph.from_bundle(graphs.g2m, "cpu", clustered=True, cluster_block=64)
+    assert g2m.cluster_symmetric is False
+    assert g2m.cluster_scatter.dtype == torch.int64
+    assert g2m.cluster_scatter.shape[0] == graphs.g2m.n_senders
+    plain = DeviceGraph.from_bundle(graphs.khop, "cpu")
     assert plain.cluster_ids is None and plain.cluster_block == 0

@@ -11,7 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from graph_weather_tpu_torch.meshes.clustering import build_cluster_layout
+from graph_weather_tpu_torch.meshes.clustering import (
+    build_cluster_layout,
+    build_cluster_scatter_index,
+    is_symmetric_edges,
+)
 from graph_weather_tpu_torch.ops import clustered_flash, edge_mlp
 
 # O(1) LayerNorm'd outputs; sums over up to 768 products in another order.
@@ -115,7 +119,7 @@ def test_clustered_flash_matches_plain(gen, c, batch):
         out = clustered_flash.clustered_flash_attention(q, k, v, ids, masks, block)
         torch.cuda.synchronize()
         assert clustered_flash.LAUNCHES == before + 1
-        ref = clustered_flash.clustered_flash_attention_reference(q, k, v, ids, masks, block)
+        ref = clustered_flash.clustered_flash_forward_reference(q, k, v, ids, masks, block)
     assert out.shape == ref.shape == q.shape
     assert (out - ref).abs().max().item() <= ATOL
     assert bool(empty.any()) and bool((out[:, empty] == 0).all())
@@ -128,15 +132,133 @@ def test_clustered_flash_unbatched_and_odd_width(gen):
     q, k, v, ids, masks, block, empty = _cluster_case(gen, 1, 300, 2, 6, 96, seed=1)
     with torch.no_grad():
         out = clustered_flash.clustered_flash_attention(q[0], k[0], v[0], ids, masks, block)
-        ref = clustered_flash.clustered_flash_attention_reference(q[0], k[0], v[0], ids, masks, block)
+        ref = clustered_flash.clustered_flash_forward_reference(q[0], k[0], v[0], ids, masks, block)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= ATOL
     assert bool((out[empty] == 0).all())
 
 
+def _symmetric_case(gen, b, n, heads, c, block, seed=0):
+    """A symmetric random graph (every edge in both directions) on an odd
+    number of nodes; node 5 has no edge at all, so its gradients are 0."""
+    rng = np.random.default_rng(seed)
+    receivers = np.repeat(np.arange(n), 4)
+    senders = (receivers + rng.integers(-40, 41, receivers.size)) % n
+    keep = (senders != 5) & (receivers != 5)
+    pairs = np.unique(
+        np.stack([np.r_[senders[keep], receivers[keep]], np.r_[receivers[keep], senders[keep]]], 1),
+        axis=0,
+    )
+    assert is_symmetric_edges(pairs[:, 0], pairs[:, 1])
+    layout = build_cluster_layout(pairs[:, 0], pairs[:, 1], n, n, block=block)
+    ids = torch.as_tensor(layout.gather_ids, device="cuda")
+    masks = torch.as_tensor(layout.masks.astype(np.int8), device="cuda")
+    q, k, v, dout = (torch.randn(b, n, heads, c, generator=gen, device="cuda") for _ in range(4))
+    return q, k, v, dout, ids, masks, block
+
+
+def _plain_backward(q, k, v, ids, masks, block, dout, symmetric):
+    out, lse = clustered_flash.clustered_flash_forward_reference(q, k, v, ids, masks, block, with_lse=True)
+    return clustered_flash.clustered_flash_backward_reference(
+        q, k, v, ids, masks, out, lse, dout, block, symmetric
+    )
+
+
+def _kernel_backward(q, k, v, ids, masks, block, dout, symmetric):
+    """K3a with lse, then K3c (symmetric) or K3b, through the autograd Function.
+    K3b gets its inverse index as DeviceGraph builds it."""
+    scatter = None
+    if not symmetric:
+        index = build_cluster_scatter_index(ids.cpu().numpy(), masks.cpu().numpy(), k.shape[-3])
+        scatter = torch.as_tensor(index, device="cuda")
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = clustered_flash.clustered_flash_attention(
+        q, k, v, ids, masks, block, symmetric=symmetric, scatter_index=scatter
+    )
+    return torch.autograd.grad(out, (q, k, v), dout)
+
+
+def _max_err(got, want):
+    return max((a - b).abs().max().item() for a, b in zip(got, want))
+
+
 @pytest.mark.cuda
-def test_clustered_flash_refuses_grad(gen):
-    q, k, v, ids, masks, block, _ = _cluster_case(gen, 1, 64, 1, 8, 64)
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        clustered_flash.clustered_flash_attention(q, k, v, ids, masks, block)
+@pytest.mark.parametrize("c", [16, 128, 512])
+def test_clustered_flash_lse_matches_plain(gen, c):
+    """K3a's log-sum-exp output against the plain version's, empty rows included."""
+    q, k, v, ids, masks, block, _ = _cluster_case(gen, 2, 700, 4, c, 256)
+    out, lse = clustered_flash._forward_cuda(q, k, v, ids, masks, block, with_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = clustered_flash.clustered_flash_forward_reference(q, k, v, ids, masks, block, with_lse=True)
+    assert lse.shape == ref_lse.shape == (2, ids.shape[0] * block, 4)
+    assert (out - ref).abs().max().item() <= ATOL
+    # Rows without a neighbour: -1e28 + log(1e-30), the same f32 in both.
+    assert bool((ref_lse < -1e27).any())
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("c", [32, 128, 512])
+def test_backward_kernels_match_plain(gen, c, batch):
+    """K3c and K3b each against the plain backward, and against each other,
+    on a symmetric layout with odd n (padded rows in the last block), B in
+    {1, 2}; exact zeros for the node without an edge."""
+    q, k, v, dout, ids, masks, block = _symmetric_case(gen, batch, 701, 4, c, 256)
+    want = _plain_backward(q, k, v, ids, masks, block, dout, symmetric=False)
+    counts = (clustered_flash.SYMMETRIC_DQ_LAUNCHES, clustered_flash.SYMMETRIC_DKV_LAUNCHES,
+              clustered_flash.GENERAL_BWD_LAUNCHES)
+    sym = _kernel_backward(q, k, v, ids, masks, block, dout, symmetric=True)
+    gen_ = _kernel_backward(q, k, v, ids, masks, block, dout, symmetric=False)
+    torch.cuda.synchronize()
+    assert (clustered_flash.SYMMETRIC_DQ_LAUNCHES, clustered_flash.SYMMETRIC_DKV_LAUNCHES,
+            clustered_flash.GENERAL_BWD_LAUNCHES) == tuple(n + 1 for n in counts)
+    assert _max_err(sym, want) <= ATOL
+    assert _max_err(gen_, want) <= ATOL
+    assert _max_err(sym, gen_) <= ATOL
+    for grads in (sym, gen_):
+        assert all(bool((t[:, 5] == 0).all()) for t in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 512])
+def test_general_backward_on_directed_graph(gen, c):
+    """K3b on a graph that is not symmetric, with empty receiver rows and a
+    ragged last block: against the plain backward; empty rows' dq exactly 0."""
+    q, k, v, ids, masks, block, empty = _cluster_case(gen, 2, 700, 4, c, 256)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    got = _kernel_backward(q, k, v, ids, masks, block, dout, symmetric=False)
+    want = _plain_backward(q, k, v, ids, masks, block, dout, symmetric=False)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= ATOL
+    assert bool((got[0][:, empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_backward_unbatched_odd_width(gen, symmetric):
+    """[N, h, c] inputs, c = 6 (the scalar copies), 96-row blocks (not a
+    multiple of the tiles)."""
+    q, k, v, dout, ids, masks, block = _symmetric_case(gen, 1, 301, 2, 6, 96, seed=1)
+    args = (q[0], k[0], v[0], ids, masks, block, dout[0])
+    assert _max_err(_kernel_backward(*args, symmetric), _plain_backward(*args, symmetric)) <= ATOL
+
+
+@pytest.mark.cuda
+def test_clustered_flash_gradients_flow(gen):
+    """Gradients flow through the autograd Function on the card: K3a with
+    lse then K3c, agreeing with autograd of the plain forward (float64 on
+    the CPU as the yardstick, gradcheck-style)."""
+    q, k, v, dout, ids, masks, block = _symmetric_case(gen, 2, 301, 2, 32, 128, seed=2)
+    before = clustered_flash.LAUNCHES
+    got = _kernel_backward(q, k, v, ids, masks, block, dout, symmetric=True)
+    assert clustered_flash.LAUNCHES == before + 1
+    q64, k64, v64 = (t.detach().cpu().double().requires_grad_(True) for t in (q, k, v))
+    out = clustered_flash.clustered_flash_forward_reference(q64, k64, v64, ids.cpu(), masks.cpu(), block)
+    want = torch.autograd.grad(out, (q64, k64, v64), dout.cpu().double())
+    assert max((a.cpu().double() - b).abs().max().item() for a, b in zip(got, want)) <= ATOL
+    with pytest.raises(ValueError, match="same node set"):
+        clustered_flash.clustered_flash_attention(q, k[:, :300], v[:, :300], ids, masks, block, symmetric=True)
+    # K3b on the card never rebuilds its inverse index on the host.
+    with pytest.raises(ValueError, match="scatter_index"):
+        clustered_flash.clustered_flash_attention(q.requires_grad_(True), k, v, ids, masks, block)

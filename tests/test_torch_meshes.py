@@ -97,8 +97,8 @@ def test_device_graph_arrays():
     table is chosen for bounded in-degree only, as in the JAX package."""
     ll = _grid(30.0)
     mesh = port_get_hexmesh(2)
-    m2g = DeviceGraph.from_bundle(port_graphs.build_mesh_to_grid_graph(ll, mesh))
-    g2m = DeviceGraph.from_bundle(port_graphs.build_grid_to_mesh_graph(ll, mesh))
+    m2g = DeviceGraph.from_bundle(port_graphs.build_mesh_to_grid_graph(ll, mesh), "cpu")
+    g2m = DeviceGraph.from_bundle(port_graphs.build_grid_to_mesh_graph(ll, mesh), "cpu")
     assert m2g.senders.dtype == torch.int32 and m2g.receivers.dtype == torch.int32
     assert m2g.edge_attr.dtype == torch.float32
     assert m2g.csr_edge_ids is not None and m2g.csr_edge_ids.shape[1] <= 7
@@ -114,4 +114,4 @@ def test_device_graph_arrays():
         n_receivers=2,
     )
     with pytest.raises(ValueError, match="senders out of range"):
-        DeviceGraph.from_bundle(bad)
+        DeviceGraph.from_bundle(bad, "cpu")
