@@ -7,8 +7,12 @@ the 1° GraphWeatherForecaster's serving path (64,800 grid points, 78 + 24
 features, width 256, 9 processor blocks, the 5,882-cell hex mesh), and the
 GenCast denoiser (128 x 64 grid, splits-5 icosphere, 4 hops, hidden
 (512, 512), 16 blocks, 4 heads, 89 -> 83 features, clustered attention):
-serving, the 20-step sampler and AR rollout, and training. Phases, one line
-each, in order; any failure raises and ends the run with a non-zero exit:
+serving, the 20-step sampler and AR rollout, and training; and WeatherMesh
+at bench.py's full size (1 deg, 8 surface + 13 x 4 pressure channels, latent
+128 on [14, 45, 90], conv blocks 2 x 2 of hidden 64, 2 + 4 + 2 neighborhood
+attention layers, kernel (3, 5, 5), 4 heads): serving, the 8-step rollout
+and training. Phases, one line each, in order; any failure raises and ends
+the run with a non-zero exit:
 
   1. card: nvidia-smi's name and power limit, torch and CUDA versions
   2. build: every CUDA kernel from csrc/, one nvcc each, all at once, timed
@@ -47,6 +51,29 @@ each, in order; any failure raises and ends the run with a non-zero exit:
  16. the same weights and one batch, forward and backward on the CPU (plain
      versions): loss within 1e-5 relative, every parameter's gradient within
      1e-3 max|g| of that tensor (floored at 1e-6 of the largest gradient)
+ 17. build: natten_flash.cu's and natten_flash_bwd.cu's registers and spills
+ 18. K5a (3D neighborhood attention) against its plain version on the
+     [1, 14, 45, 90] latent with rpb ~N(0, 0.5^2): (a) kernel (3, 5, 5),
+     4 x 32; (b) the same with a circular W axis; (c) kernel (5, 7, 7),
+     8 x 32. Max abs error <= 1e-4 on out and lse; CUDA-event medians of the
+     kernel, the plain version and SDPA on the kernel's tiles with the window
+     and rpb as an additive mask (timed only); per forward (8 x case a) and
+     the bound
+ 19. wm_serve: the WeatherMesh answers 3 requests (B = 1), each with exactly
+     8 K5a launches; ms per request, peak GiB, a profile of one more
+ 20. the same weights and the last request on the CPU: max abs difference
+     <= 1e-3
+ 21. an 8-step rollout: finite, exactly 36 K5a launches, ms per step
+ 22. K5b against the plain backward in cases (a)-(c): dq, dk, dv within
+     1e-4, drpb within 1e-4 of its max; medians of the kernels, the plain
+     backward and SDPA's backward; per train step and the bound
+ 23. wm_train: 3 steps of make_train_step (bench.py's objective: MSE on
+     surface + MSE on pressure; clip + AdamW at lr 1e-4), each with exactly 8
+     K5a, 8 dq and 8 dk/dv launches; finite loss, every parameter changed;
+     ms per step, peak GiB, a profile of one more step
+ 24. the same weights and one batch at 1.5 deg (120 x 240), forward and
+     backward on the card and on the CPU: loss within 1e-5 relative, every
+     gradient within 1e-3 of its max|g|
 
 then one JSON line on the kernels, the card's name and power limit, and
 last {"ok": true, "device": ...}.
@@ -57,6 +84,7 @@ beside this file. f32 throughout; TF32 is off.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -88,6 +116,18 @@ GENCAST = dict(
     attention_impl="clustered_flash",
 )
 EVALS_PER_SAMPLE = 2 * (20 - 2) + 1
+# WeatherMesh: bench.py's _make_weathermesh(quick=False), 1 deg, 13 levels.
+WEATHERMESH = dict(
+    timesteps=[6], surface_channels=8, pressure_channels=4, pressure_levels=13,
+    latent_dim=128, encoder_num_conv_blocks=2, encoder_num_transformer_layers=2,
+    encoder_hidden_dim=64, decoder_num_conv_blocks=2, decoder_num_transformer_layers=2,
+    decoder_hidden_dim=64, processor_num_layers=4, kernel=(3, 5, 5), num_heads=4,
+)
+WM_GRID = (180, 360)
+WM_CHECK_GRID = (120, 240)  # phase 24's card-against-CPU gradients, at 1.5 deg
+WM_LATENT = (14, 45, 90)  # 13 levels + the surface slice, on 180/4 x 360/4
+K5_PER_FORWARD = 8  # 2 encoder + 4 processor + 2 decoder attention layers
+K5_TOL = 1e-4  # softmax-weighted sums over <= 245 keys in another order
 
 
 def grid(spacing: float) -> list[tuple[float, float]]:
@@ -272,6 +312,137 @@ def k3_bwd_case(clustered_flash, khop, scatter, gen, c, heads=4):
                 k3b_launches=k3b_launches)
 
 
+def natten_inputs(gen, kernel, heads, ch=32, dims=WM_LATENT):
+    """q, k, v [1, D, H, W, heads, ch] as views of one fused qkv tensor (the
+    model's layout), rpb ~N(0, 0.5^2)."""
+    shape = (1, *dims)
+    qkv = torch.randn(*shape, 3 * heads * ch, generator=gen, device="cuda")
+    q, k, v = (t.reshape(*shape, heads, ch) for t in qkv.chunk(3, dim=-1))
+    rpb = 0.5 * torch.randn(heads, *(2 * kk - 1 for kk in kernel), generator=gen, device="cuda")
+    return q, k, v, rpb
+
+
+def natten_sdpa_inputs(natten_flash, q, k, v, kernel, rpb, circular, grads=None):
+    """The library yardstick's inputs: K5a's tiles, each query tile with its
+    gathered K/V halo [n_tiles, heads, rows, ch] and the window mask and rpb
+    folded into one additive float mask [n_tiles, heads, TQ, U] (-inf off
+    the window). Padded query rows copy the volume's last row. `grads` (dO)
+    is tiled like q. Built on the card, outside any timing."""
+    _, d, h, w, heads, ch = q.shape
+    tile = natten_flash._pick_tile("fwd", (d, h, w), kernel, circular, ch, True)
+    dev = q.device
+    axes = []
+    for size, kk, t, u, circ in zip((d, h, w), kernel, (tile.td, tile.th, tile.tw),
+                                    (tile.ud, tile.uh, tile.uw), (False, False, circular)):
+        starts = list(range(0, size, t))
+        spans = [natten_flash._window_span(i0, min(i0 + t, size), size, kk, circ) for i0 in starts]
+        qpos = (torch.tensor(starts, device=dev)[:, None] + torch.arange(t, device=dev)).clamp(max=size - 1)
+        lo = torch.tensor([sp[0] for sp in spans], device=dev)[:, None]
+        krow = torch.arange(u, device=dev)
+        kpos = lo + krow  # [n, u], unwrapped
+        kin = krow[None, :] < torch.tensor([sp[1] for sp in spans], device=dev)[:, None]
+        qq, kp = qpos[:, :, None], kpos[:, None, :]
+        if circ:
+            z = torch.remainder(kp - qq + kk // 2, size)
+            member, rel = z < kk, z - kk // 2 + kk - 1
+        else:
+            start = (qq - kk // 2).clamp(0, size - kk)
+            member, rel = (kp >= start) & (kp < start + kk), kp - qq + kk - 1
+        axes.append((qpos, torch.remainder(kpos, size), member & kin[:, None, :],
+                     rel.clamp(0, 2 * kk - 2)))
+    (qd, kd_, md, rd), (qh, kh_, mh, rh), (qw, kw_, mw, rw) = axes
+    nd, nh, nw = qd.shape[0], qh.shape[0], qw.shape[0]
+
+    def outer(a, b, c):  # [n, x] per axis -> [n_tiles, x_d * x_h * x_w]
+        t = a[:, None, None, :, None, None] + b[None, :, None, None, :, None] + c[None, None, :, None, None, :]
+        return t.reshape(nd * nh * nw, -1)
+
+    q_ids = outer(qd * h * w, qh * w, qw)  # flat positions
+    k_ids = outer(kd_ * h * w, kh_ * w, kw_)
+    m = (md[:, None, None, :, None, None, :, None, None] & mh[None, :, None, None, :, None, None, :, None]
+         & mw[None, None, :, None, None, :, None, None, :])
+    n_rel_h, n_rel_w = 2 * kernel[1] - 1, 2 * kernel[2] - 1
+    r = ((rd[:, None, None, :, None, None, :, None, None] * n_rel_h
+          + rh[None, :, None, None, :, None, None, :, None]) * n_rel_w
+         + rw[None, None, :, None, None, :, None, None, :])
+    tq, u = q_ids.shape[1], k_ids.shape[1]
+    m, r = m.reshape(-1, tq, u), r.reshape(-1, tq, u)
+    bias = rpb.reshape(heads, -1)[:, r].permute(1, 0, 2, 3)  # [n_tiles, heads, TQ, U]
+    bias = bias.masked_fill(~m[:, None], float("-inf")).contiguous()
+
+    def tiles(t, ids):
+        return t.reshape(-1, heads, ch)[ids].permute(0, 2, 1, 3).contiguous()
+
+    out = [tiles(q, q_ids), tiles(k, k_ids), tiles(v, k_ids), bias]
+    if grads is not None:
+        out.append(tiles(grads, q_ids))
+    return out
+
+
+def k5a_case(natten_flash, reference, name, gen, kernel, heads, circular):
+    """K5a against its plain version on WeatherMesh's 1-degree latent. Returns
+    a dict of errors, times (ms), flops and bytes."""
+    q, k, v, rpb = natten_inputs(gen, kernel, heads)
+    args = (q, k, v, kernel, rpb, circular)
+    out, lse = natten_flash._forward_cuda(*args, with_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = reference(q, k, v, kernel, rpb, circular, with_lse=True)
+    err = max((out - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+    ms = cuda_ms(lambda: natten_flash._forward_cuda(*args, with_lse=False))
+    lse_ms = cuda_ms(lambda: natten_flash._forward_cuda(*args, with_lse=True))
+    plain_ms = cuda_ms(lambda: reference(*args), runs=3, batch=2)
+    qt, kt, vt, bias = natten_sdpa_inputs(natten_flash, *args)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=bias))
+    tile = natten_flash._pick_tile("fwd", WM_LATENT, kernel, circular, q.shape[-1], True)
+    print(f"[k5a] {name}: kernel {kernel} heads {heads} x 32 circular_w={circular} | tile "
+          f"{(tile.td, tile.th, tile.tw)} halo {(tile.ud, tile.uh, tile.uw)} smem {tile.smem} B | "
+          f"max_abs_err out/lse {err:.3e} | kernel_ms={ms:.4f} (with lse {lse_ms:.4f}) "
+          f"plain_ms={plain_ms:.4f} sdpa_ms={sdpa_ms:.4f} (SDPA on {tuple(bias.shape)} masked tiles)",
+          flush=True)
+    if not (err <= K5_TOL):
+        raise AssertionError(f"K5a {name}: max abs error {err} > {K5_TOL}")
+    n_pairs = q[..., 0, 0].numel() * heads * math.prod(kernel)
+    nbytes = 4 * (4 * q[..., 0].numel() * q.shape[-1] + rpb.numel())  # q, k, v, out, rpb
+    del qt, kt, vt, bias
+    return dict(err=err, ms=ms, lse_ms=lse_ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                flops=4 * n_pairs * q.shape[-1], nbytes=nbytes)
+
+
+def k5b_case(natten_flash, name, gen, kernel, heads, circular):
+    """K5b (dq and dk/dv kernels, drpb from their partials) against the plain
+    backward, on K5a's out and lse. Returns a dict of errors, times (ms),
+    flops and bytes."""
+    q, k, v, rpb = natten_inputs(gen, kernel, heads)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    out, lse = natten_flash._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)
+    args = (q, k, v, rpb, out, lse, dout, kernel, circular)
+    got = natten_flash._backward_cuda(*args)
+    torch.cuda.synchronize()
+    want = natten_flash.natten_flash_backward_reference(*args)
+    errs = {f"d{n}": (a - b).abs().max().item() for n, a, b in zip("qkv", got[:3], want[:3])}
+    errs["drpb_rel"] = (got[3] - want[3]).abs().max().item() / want[3].abs().max().item()
+    ms = cuda_ms(lambda: natten_flash._backward_cuda(*args))
+    plain_ms = cuda_ms(lambda: natten_flash.natten_flash_backward_reference(*args), runs=3, batch=1)
+    qt, kt, vt, bias, dot = natten_sdpa_inputs(natten_flash, q, k, v, kernel, rpb, circular, dout)
+    qt, kt, vt = (t.requires_grad_(True) for t in (qt, kt, vt))
+    o = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias)
+    sdpa_ms = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True))
+    print(f"[k5b] {name}: kernel {kernel} heads {heads} x 32 circular_w={circular} | max_abs_err "
+          + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" | kernels_ms={ms:.4f} (dq + dk/dv + delta + drpb sum) plain_ms={plain_ms:.4f} "
+          f"sdpa_bwd_ms={sdpa_ms:.4f}", flush=True)
+    for n, e in errs.items():
+        if not (e <= K5_TOL):
+            raise AssertionError(f"K5b {name}: {n} error {e} > {K5_TOL}")
+    n_pairs = q[..., 0, 0].numel() * heads * math.prod(kernel)
+    n = q[..., 0].numel() * q.shape[-1]
+    nbytes = 4 * (8 * n + 2 * lse.numel() + 2 * rpb.numel())  # q k v out dO dq dk dv, lse, rpb drpb
+    del qt, kt, vt, bias, dot, o
+    return dict(errs=errs, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                flops=10 * n_pairs * q.shape[-1], nbytes=nbytes)
+
+
 def grads_close(card: dict, cpu: dict) -> tuple[float, str]:
     """Worst (error / limit) over the parameters, and its name: each
     gradient within GRAD_RTOL of its tensor's max|g| on the CPU, floored at
@@ -340,7 +511,10 @@ def main() -> int:
     from graph_weather_tpu_torch.meshes.hexmesh import get_hexmesh
     from graph_weather_tpu_torch.models.gencast.graphs import build_graphcast_graphs
     from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
-    from graph_weather_tpu_torch.ops import _build, clustered_flash, edge_mlp
+    from graph_weather_tpu_torch.ops import _build, clustered_flash, edge_mlp, natten_flash
+    from graph_weather_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_3d_reference,
+    )
     from graph_weather_tpu_torch.train.rollout import make_rollout_fn
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -357,7 +531,9 @@ def main() -> int:
 
     # 2. build (all kernels at once; phase 7 reports the second)
     t0 = time.perf_counter()
-    _build.load_libraries(["edge_mlp", "clustered_flash", "clustered_flash_bwd"])
+    _build.load_libraries(
+        ["edge_mlp", "clustered_flash", "clustered_flash_bwd", "natten_flash", "natten_flash_bwd"]
+    )
     build_s = time.perf_counter() - t0
 
     def ptxas(name):
@@ -668,7 +844,172 @@ def main() -> int:
         raise AssertionError(f"train loss card vs CPU: {loss_rel} > {LOSS_RTOL}")
     if not (worst <= 1.0):
         raise AssertionError(f"gradient of {worst_name} card vs CPU: {worst} x its limit")
-    del cpu_den
+    del cpu_den, den, sampler, ar, khop, graphs, scatter
+    torch.cuda.empty_cache()
+
+    # 17. build of the NATTEN kernels (started with the others in phase 2)
+    print(f"[build] natten_flash.cu + natten_flash_bwd.cu {build_s:.2f} s (parallel with the "
+          "others) | " + " | ".join(ptxas("natten_flash") + ptxas("natten_flash_bwd")), flush=True)
+
+    # 18. K5a on WeatherMesh's 1-degree latent: (a) the model's layers, (b) a
+    # circular W axis, (c) the JAX module's default kernel and heads
+    cases = {
+        "a": ((3, 5, 5), 4, False), "b": ((3, 5, 5), 4, True), "c": ((5, 7, 7), 8, False),
+    }
+    k5a = {n: k5a_case(natten_flash, neighborhood_attention_3d_reference, n, gen, *c)
+           for n, c in cases.items()}
+    k5a_bound, k5a_bound_by = bound(k5a["a"]["flops"], k5a["a"]["nbytes"])
+    print(f"[k5a] per forward ({K5_PER_FORWARD} x case a): kernel_ms="
+          f"{K5_PER_FORWARD * k5a['a']['ms']:.4f} plain_ms={K5_PER_FORWARD * k5a['a']['plain_ms']:.4f} "
+          f"sdpa_ms={K5_PER_FORWARD * k5a['a']['sdpa_ms']:.4f} bound_ms="
+          f"{K5_PER_FORWARD * k5a_bound:.4f} ({k5a_bound_by}: {k5a['a']['flops'] / 1e9:.2f} GFLOP, "
+          f"{k5a['a']['nbytes'] / 1e6:.1f} MB per launch)", flush=True)
+
+    # 19. wm_serve: the full-size WeatherMesh answers 3 requests
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wm = port.WeatherMesh(**WEATHERMESH, device="cuda")
+    wm.init(torch.Generator().manual_seed(0))
+    # The attention projections' biases at 0: with TorchLinear's uniform
+    # biases, eight layers of window averaging leave some decoder channels
+    # nearly constant over the grid, and their GroupNorm amplifies f32
+    # rounding by orders of magnitude: card and CPU then differ by ~6e-2 at
+    # 1 deg, by ~5e-4 with these biases at 0 (NVIDIA H100 80GB HBM3 host).
+    with torch.no_grad():
+        for name, t in wm.module.named_parameters():
+            if name.endswith(("qkv.bias", "proj.bias")):
+                t.zero_()
+    setup_s = time.perf_counter() - t0
+    h, w = WM_GRID
+    levels = WEATHERMESH["pressure_levels"]
+    wm_gen = torch.Generator().manual_seed(1)
+    surfaces = torch.randn(3, 1, h, w, 8, generator=wm_gen).to("cuda")
+    pressures = torch.randn(3, 1, levels, h, w, 4, generator=wm_gen).to("cuda")
+    natten_flash.LAUNCHES = natten_flash.BWD_DQ_LAUNCHES = natten_flash.BWD_DKV_LAUNCHES = 0
+    wm_ms = []
+    for surface, pressure in zip(surfaces, pressures):
+        before = natten_flash.LAUNCHES
+        pred, ms = timed(lambda: wm(surface, pressure))
+        wm_ms.append(ms)
+        if natten_flash.LAUNCHES - before != K5_PER_FORWARD:
+            raise AssertionError(f"{natten_flash.LAUNCHES - before} K5a launches, expected 8")
+        if (pred.surface.shape != (1, h, w, 8) or pred.pressure.shape != (1, levels, h, w, 4)
+                or not (torch.isfinite(pred.surface).all() and torch.isfinite(pred.pressure).all())):
+            raise AssertionError(f"bad WeatherMesh output: {tuple(pred.surface.shape)}, "
+                                 f"{tuple(pred.pressure.shape)}")
+    wm_launches = natten_flash.LAUNCHES
+    if natten_flash.BWD_DQ_LAUNCHES or natten_flash.BWD_DKV_LAUNCHES:
+        raise AssertionError("serving launched K5b")
+    print(f"[wm_serve] setup {setup_s:.2f} s | request_ms {[round(t, 3) for t in wm_ms]} | K5a "
+          f"launches {wm_launches} | peak GiB {torch.cuda.max_memory_allocated() / 2**30:.2f}",
+          flush=True)
+    profile_request(lambda: wm(surface, pressure), "WeatherMesh request")
+
+    # 20. the same weights and the last request on the CPU
+    cpu_wm = port.WeatherMesh(**WEATHERMESH, device="cpu")
+    cpu_wm.module.load_state_dict({k: v.cpu() for k, v in wm.module.state_dict().items()})
+    t0 = time.perf_counter()
+    cpu_pred = cpu_wm(surface.cpu(), pressure.cpu())
+    cpu_s = time.perf_counter() - t0
+    cpu_err = max((pred.surface.cpu() - cpu_pred.surface).abs().max().item(),
+                  (pred.pressure.cpu() - cpu_pred.pressure).abs().max().item())
+    print(f"[cpu] WeatherMesh max_abs_diff {cpu_err:.3e} (limit {CPU_TOL}) | cpu forward "
+          f"{cpu_s:.2f} s", flush=True)
+    if not (cpu_err <= CPU_TOL):
+        raise AssertionError(f"WeatherMesh card vs CPU: {cpu_err} > {CPU_TOL}")
+    del cpu_pred
+
+    # 21. an 8-step rollout (bench.py's weathermesh_rollout_ms_per_step)
+    before = natten_flash.LAUNCHES
+    roll, ms = timed(lambda: wm(surface, pressure, forecast_steps=8))
+    roll_launches = natten_flash.LAUNCHES - before
+    if roll_launches != 4 + 8 * WEATHERMESH["processor_num_layers"]:
+        raise AssertionError(f"the rollout made {roll_launches} K5a launches, expected 36")
+    if not (torch.isfinite(roll.surface).all() and torch.isfinite(roll.pressure).all()):
+        raise AssertionError("the 8-step rollout is not finite")
+    print(f"[wm_rollout] 8 steps finite | total_ms {ms:.3f} | ms per step {ms / 8:.3f} | K5a "
+          f"launches {roll_launches}", flush=True)
+    del roll
+
+    # 22. K5b against the plain backward in the cases of phase 18
+    k5b = {n: k5b_case(natten_flash, n, gen, *c) for n, c in cases.items()}
+    k5b_bound, k5b_bound_by = bound(k5b["a"]["flops"], k5b["a"]["nbytes"])
+    print(f"[k5b] per train step ({K5_PER_FORWARD} x case a): kernels_ms="
+          f"{K5_PER_FORWARD * k5b['a']['ms']:.4f} plain_ms={K5_PER_FORWARD * k5b['a']['plain_ms']:.4f} "
+          f"sdpa_bwd_ms={K5_PER_FORWARD * k5b['a']['sdpa_ms']:.4f} bound_ms="
+          f"{K5_PER_FORWARD * k5b_bound:.4f} ({k5b_bound_by}: {k5b['a']['flops'] / 1e9:.2f} GFLOP, "
+          f"{k5b['a']['nbytes'] / 1e6:.1f} MB per layer) | K5a with lse "
+          f"{K5_PER_FORWARD * k5a['a']['lse_ms']:.4f}", flush=True)
+
+    # 23. wm_train: 3 steps of make_train_step with bench.py's objective
+    targets = tuple(torch.randn(t.shape, generator=wm_gen).to("cuda") for t in (surface, pressure))
+
+    def wm_objective(pred, tgt):
+        return ((pred.surface - tgt[0]) ** 2).mean() + ((pred.pressure - tgt[1]) ** 2).mean()
+
+    def k5_counts():
+        return (natten_flash.LAUNCHES, natten_flash.BWD_DQ_LAUNCHES, natten_flash.BWD_DKV_LAUNCHES)
+
+    before_params = [t.detach().clone() for t in wm.module.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    natten_flash.LAUNCHES = natten_flash.BWD_DQ_LAUNCHES = natten_flash.BWD_DKV_LAUNCHES = 0
+    wm_step = port.make_train_step(
+        wm.module.parameters(), wm.forward_fn(), wm_objective, port.make_optimizer(1e-4)
+    )
+    wm_train_ms, wm_losses = [], []
+    for _ in range(3):
+        before = k5_counts()
+        loss, ms = timed(lambda: wm_step(surface, pressure, targets))
+        made = tuple(a - b for a, b in zip(k5_counts(), before))
+        if made != (K5_PER_FORWARD,) * 3:
+            raise AssertionError(f"a train step made {made} (K5a, dq, dk/dv) launches, expected 8 each")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"WeatherMesh train loss {loss.item()}")
+        wm_train_ms.append(ms)
+        wm_losses.append(loss.item())
+    wm_train_launches = k5_counts()
+    wm_train_peak = torch.cuda.max_memory_allocated() / 2**30
+    names = [n for n, _ in wm.module.named_parameters()]
+    unchanged = [n for n, a, b in zip(names, before_params, wm.module.parameters()) if torch.equal(a, b)]
+    if unchanged:
+        raise AssertionError(f"parameters unchanged after 3 train steps: {unchanged}")
+    print(f"[wm_train] 3 steps | step_ms {[round(t, 3) for t in wm_train_ms]} | steady median "
+          f"{statistics.median(wm_train_ms[1:]):.3f} | loss {[round(v, 6) for v in wm_losses]} | "
+          f"launches per step K5a 8 dq 8 dk/dv 8 | all {len(names)} parameter tensors changed "
+          f"(rpb included) | peak GiB {wm_train_peak:.2f}", flush=True)
+    profile_request(lambda: wm_step(surface, pressure, targets), "WeatherMesh train step")
+    del wm_step, before_params
+
+    # 24. the same weights and one batch at 1.5 deg (the weights do not depend
+    # on the grid; the CPU's forward alone takes ~2 min at 1 deg, phase 20):
+    # gradients on the card and on the CPU
+    check_h, check_w = WM_CHECK_GRID
+    check = [torch.randn(1, check_h, check_w, 8, generator=wm_gen),
+             torch.randn(1, levels, check_h, check_w, 4, generator=wm_gen)]
+    check_targets = tuple(torch.randn(t.shape, generator=wm_gen) for t in check)
+    wm.module.zero_grad(set_to_none=True)
+    card_value = wm_objective(wm.forward_fn()(*(t.cuda() for t in check)),
+                              tuple(t.cuda() for t in check_targets))
+    card_value.backward()
+    card_grads = {k: t.grad.cpu() for k, t in wm.module.named_parameters()}
+    cpu_wm.module.load_state_dict({k: v.cpu() for k, v in wm.module.state_dict().items()})
+    t0 = time.perf_counter()
+    cpu_value = wm_objective(cpu_wm.forward_fn()(*check), check_targets)
+    cpu_value.backward()
+    cpu_s = time.perf_counter() - t0
+    cpu_grads = {k: t.grad for k, t in cpu_wm.module.named_parameters()}
+    loss_rel = abs(card_value.item() - cpu_value.item()) / abs(cpu_value.item())
+    worst, worst_name = grads_close(card_grads, cpu_grads)
+    print(f"[cpu] WeatherMesh at {check_h} x {check_w} (1.5 deg): train loss card {card_value.item():.6f} "
+          f"cpu {cpu_value.item():.6f} "
+          f"rel {loss_rel:.3e} (limit {LOSS_RTOL}) | gradients: worst error / limit {worst:.3e} "
+          f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s",
+          flush=True)
+    if not (loss_rel <= LOSS_RTOL):
+        raise AssertionError(f"WeatherMesh train loss card vs CPU: {loss_rel} > {LOSS_RTOL}")
+    if not (worst <= 1.0):
+        raise AssertionError(f"WeatherMesh gradient of {worst_name} card vs CPU: {worst} x its limit")
+    del cpu_wm, wm
 
     kernels = [
         {
@@ -726,6 +1067,34 @@ def main() -> int:
             "bound_ms": bwd_bound_ms,
             "bound_by": bwd_bound_by,
             "library_ms": bwd_sdpa_ms,
+        },
+        {
+            "name": "natten_flash_forward",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/natten_flash.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/natten_flash.py:435",
+            "launches": wm_launches,  # 3 requests
+            "max_abs_err": max(v["err"] for v in k5a.values()),
+            "ms": K5_PER_FORWARD * k5a["a"]["ms"],  # per forward: 8 layers of case a
+            "plain_ms": K5_PER_FORWARD * k5a["a"]["plain_ms"],
+            "bound_ms": K5_PER_FORWARD * k5a_bound,
+            "bound_by": k5a_bound_by,
+            "library_ms": K5_PER_FORWARD * k5a["a"]["sdpa_ms"],
+            "train_launches": wm_train_launches[0],  # 3 train steps, with lse
+        },
+        {
+            "name": "natten_flash_backward",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/natten_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/natten_flash.py:655",
+            "launches": wm_train_launches[1],  # dq kernel over 3 train steps
+            "launches_dkv": wm_train_launches[2],
+            "max_abs_err": max(max(v["errs"].values()) for v in k5b.values()),
+            "ms": K5_PER_FORWARD * k5b["a"]["ms"],  # per train step: 8 layers of case a
+            "plain_ms": K5_PER_FORWARD * k5b["a"]["plain_ms"],
+            "bound_ms": K5_PER_FORWARD * k5b_bound,
+            "bound_by": k5b_bound_by,
+            "library_ms": K5_PER_FORWARD * k5b["a"]["sdpa_ms"],
         },
     ]
     print(json.dumps({"kernels": kernels}))

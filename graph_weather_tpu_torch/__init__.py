@@ -7,7 +7,7 @@ tensors. Imports torch, never jax. Entry points run on the card (device
 "cuda") unless the caller passes device="cpu".
 """
 
-from graph_weather_tpu_torch.convert import from_jax_params
+from graph_weather_tpu_torch.convert import from_jax_params, weathermesh_from_jax
 from graph_weather_tpu_torch.models.forecast import GraphWeatherForecaster
 from graph_weather_tpu_torch.models.gencast import (
     Denoiser,
@@ -17,6 +17,7 @@ from graph_weather_tpu_torch.models.gencast import (
     sample_noise_level,
 )
 from graph_weather_tpu_torch.models.losses import NormalizedMSELoss
+from graph_weather_tpu_torch.models.weathermesh import WeatherMesh, WeatherMeshConfig
 from graph_weather_tpu_torch.train import cosine_warmup_schedule, make_optimizer, make_train_step
 
 __version__ = "0.1.0"
@@ -26,6 +27,8 @@ __all__ = [
     "GraphWeatherForecaster",
     "NormalizedMSELoss",
     "Sampler",
+    "WeatherMesh",
+    "WeatherMeshConfig",
     "WeightedMSELoss",
     "cosine_warmup_schedule",
     "from_jax_params",
@@ -33,4 +36,5 @@ __all__ = [
     "make_optimizer",
     "make_train_step",
     "sample_noise_level",
+    "weathermesh_from_jax",
 ]

@@ -1,0 +1,354 @@
+"""3D neighborhood attention on the card and its gradient: the port of the
+Pallas kernels K5a (forward, `_flash_fwd_impl`) and K5b (backward,
+`_flash_bwd_impl`) of graph_weather_tpu/ops/pallas/natten_flash.py.
+
+The semantics are those of ops/neighborhood_attention.py: q, k, v
+[B, D, H, W, heads, ch] f32, clamped windows (a circular W axis on request),
+q scaled by ch^-0.5, rpb [heads, 2kd-1, 2kh-1, 2kw-1] added by relative
+offset. The TPU kernel cut the volume into blocks attended densely against
+a gathered halo, with per-class masks and a head-block-diagonal key matrix
+so that Mosaic's 128-lane matrix unit could do the work; the CUDA kernels
+compute only the kd * kh * kw pairs of each query:
+
+  * K5a (csrc/natten_flash.cu): one CTA per tile of td x th x tw queries of
+    one (batch, head) stages the union of its queries' windows (the halo,
+    at most tile + k - 1 positions per axis) of K and V in shared memory
+    with cp.async; four lanes per query split ch, and each query runs an
+    online softmax in f32 over its window. Writes out and, for training,
+    lse [B, D, H, W, heads].
+  * K5b (csrc/natten_flash_bwd.cu), two kernels and no atomics:
+    (i) dq over query tiles (the same halo), recomputing p = exp(s - lse)
+    and ds = p (dO.v - delta), delta = rowsum(dO * out); it also writes, per
+    CTA, the sums of ds over each relative offset, [n_cta, heads, n_rel],
+    which one torch sum turns into drpb; (ii) dk/dv over key tiles: each key
+    walks the queries whose window holds it (per axis a contiguous range,
+    of at most k + k//2 positions on an axis of 2k or more) and writes dk
+    and dv itself. This replaces
+    the TPU kernel's block-local dk/dv, XLA overlap-add and segment-sum.
+
+The host picks each kernel's tile (`_pick_tile`): among tiles of at most
+128 queries (64 at ch <= 64 in a 256-thread CTA, 32 at ch <= 128) whose
+shared memory fits Hopper's 227 KB, the one that stages the fewest halo
+rows over the whole volume. The kernels take ch <= 128 (MAX_CHANNELS)
+and raise ValueError past it, or when no tile's halo fits in shared memory
+(ch <= 64 fits every kernel up to (5, 7, 7)).
+
+The plain versions are `neighborhood_attention_3d_reference` (the forward,
+in ops/neighborhood_attention.py) and `natten_flash_backward_reference`
+(the backward, written out as K5b computes it). `neighborhood_attention_3d`
+dispatches: CPU tensors take the plain versions, CUDA tensors launch the
+kernels or raise. Launch counts: `LAUNCHES` (K5a), `BWD_DQ_LAUNCHES` and
+`BWD_DKV_LAUNCHES` (K5b's two kernels).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from dataclasses import dataclass
+
+import torch
+
+from graph_weather_tpu_torch.ops.neighborhood_attention import (
+    _gather,
+    _slot_bias,
+    _slot_tables,
+    _slots,
+    neighborhood_attention_3d_reference,
+)
+
+LAUNCHES = 0  # K5a
+BWD_DQ_LAUNCHES = 0  # K5b, dq and drpb partials
+BWD_DKV_LAUNCHES = 0  # K5b, dk and dv
+MAX_CHANNELS = 128  # widest head a lane group holds (4 lanes x 32 channels)
+SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
+_TILES = [(td, th, tw) for td in (1, 2, 4) for th in (1, 2, 4, 8) for tw in (4, 8, 16)]
+
+_c_ptr, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_GEOMETRY = [
+    _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,  # batch, D, H, W, heads, ch
+    _c_ll, _c_ll, _c_ll,  # position strides of q, k, v (in floats)
+    _c_int, _c_int, _c_int, _c_int,  # kd, kh, kw, circular_w
+    _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,  # tile td th tw, halo ud uh uw
+    _c_int, ctypes.c_float,  # vec4, scale
+    _c_ptr,  # cudaStream_t
+]
+_FWD_ARGTYPES = [_c_ptr] * 6 + _GEOMETRY  # q k v rpb out lse
+_BWD_ARGTYPES = [_c_int] + [_c_ptr] * 11 + _GEOMETRY  # mode, q k v rpb dout lse delta dq dk dv partial
+_DQ, _DKV = 0, 1  # backward modes of the C entry
+
+
+# ---------------------------------------------------------------------------
+# Plain backward
+# ---------------------------------------------------------------------------
+
+
+def _scatter_add(dst, tables, slot, src):
+    """dst += the adjoint of _gather(., tables, slot) applied to src."""
+    for axis in (3, 2, 1):
+        idx = tables[axis - 1][0][:, slot[axis - 1]]
+        src = torch.zeros_like(src).index_add_(axis, idx, src)
+    dst += src
+
+
+def natten_flash_backward_reference(
+    q, k, v, rpb, out, lse, dout, kernel, circular_w=False
+):
+    """Plain PyTorch version of K5b, written out as the kernels compute it:
+    per window slot, p = exp(s - lse), ds = p (dO.v - delta); dq and drpb
+    on the query side, dk and dv scattered back to the keys. Returns
+    (dq, dk, dv, drpb), drpb None without rpb."""
+    tables = _slot_tables(q.shape, kernel, circular_w, q.device)
+    heads, ch = q.shape[-2:]
+    scale = ch**-0.5
+    qs = q * scale
+    delta = (dout * out).sum(-1)  # [B, D, H, W, heads]
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    drpb = None
+    if rpb is not None:
+        _, nh, nw = rpb.shape[1:]
+        drpb = torch.zeros(heads, rpb[0].numel(), device=q.device)
+        (_, rd), (_, rh), (_, rw) = tables
+    for slot in _slots(kernel):
+        ks, vs = _gather(k, tables, slot), _gather(v, tables, slot)
+        s = (qs * ks).sum(-1)
+        if rpb is not None:
+            s = s + _slot_bias(rpb, tables, slot)
+        p = torch.exp(s - lse)
+        ds = p * ((dout * vs).sum(-1) - delta)
+        dq += ds[..., None] * ks
+        _scatter_add(dk, tables, slot, ds[..., None] * qs)
+        _scatter_add(dv, tables, slot, p[..., None] * dout)
+        if rpb is not None:
+            x, y, z = slot
+            rel = (rd[:, x, None, None] * nh + rh[None, :, y, None]) * nw + rw[None, None, :, z]
+            drpb.index_add_(1, rel.reshape(-1), ds.sum(0).reshape(-1, heads).T)
+    dq *= scale
+    if drpb is not None:
+        drpb = drpb.reshape(rpb.shape)
+    return dq, dk, dv, drpb
+
+
+# ---------------------------------------------------------------------------
+# Tiles
+# ---------------------------------------------------------------------------
+
+
+def _window_span(i0, i1, size, k, circular):
+    """Queries [i0, i1) of one axis -> (first key, number of keys) of the
+    union of their windows. On a circular axis the first key may be
+    negative (taken modulo size)."""
+    if circular:
+        return i0 - k // 2, min(i1 - i0 + k - 1, size)
+    lo = min(max(i0 - k // 2, 0), size - k)
+    hi = min(max(i1 - 1 - k // 2, 0), size - k) + k
+    return lo, hi - lo
+
+
+def _inverse_span(j0, j1, size, k, circular):
+    """Keys [j0, j1) of one axis -> (first query, number of queries) whose
+    window holds one of them: key j is in the windows of queries
+    (0 if j < k else j - (k - 1 - k//2)) .. (size - 1 if j >= size - k else
+    j + k//2)."""
+    c = k // 2
+    if circular:
+        return j0 - (k - 1 - c), min(j1 - j0 + k - 1, size)
+    lo = 0 if j0 < k else j0 - (k - 1 - c)
+    hi = size - 1 if j1 - 1 >= size - k else j1 - 1 + c
+    return lo, hi - lo + 1
+
+
+def _max_span(size, k, tile, circular, inverse):
+    span = _inverse_span if inverse else _window_span
+    return max(span(i0, min(i0 + tile, size), size, k, circular)[1] for i0 in range(0, size, tile))
+
+
+def _padded_width(ch: int) -> int:
+    """Channels a query's four lanes hold: 16, 32, 64 or 128."""
+    return max(16, 1 << (ch - 1).bit_length())
+
+
+def _max_queries(cp: int) -> int:
+    """Queries per CTA (four threads each) that the kernel for width cp takes."""
+    return {16: 128, 32: 128, 64: 64, 128: 32}[cp]
+
+
+@dataclass(frozen=True)
+class Tile:
+    td: int
+    th: int
+    tw: int
+    ud: int  # the most positions any tile stages, per axis
+    uh: int
+    uw: int
+    smem: int  # bytes of shared memory per CTA
+    n_tiles: int
+
+
+@functools.lru_cache(maxsize=64)
+def _pick_tile(kind, dims, kernel, circular_w, ch, has_bias) -> Tile:
+    """The tile of `kind` ("fwd", "dq" or "dkv"; see the module docstring).
+    The dk/dv kernel stages only rpb: its queries are read through L1."""
+    if ch > MAX_CHANNELS:
+        raise ValueError(f"natten_flash: head width {ch} > {MAX_CHANNELS}")
+    cp = _padded_width(ch)
+    n_rel = math.prod(2 * kk - 1 for kk in kernel)
+    circular = (False, False, circular_w)
+    best, best_score = None, None
+    for tile in _TILES:
+        tq = math.prod(tile)
+        if tq > _max_queries(cp):
+            continue
+        spans = [
+            _max_span(size, kk, t, circ, kind == "dkv")
+            for size, kk, t, circ in zip(dims, kernel, tile, circular)
+        ]
+        rows = math.prod(spans)
+        smem = 4 * n_rel
+        if kind != "dkv":
+            smem += 2 * 4 * rows * (cp + 4)  # K and V, rows padded by 4 floats
+        if kind == "dq" and has_bias:
+            smem += 4 * tq * math.prod(kernel)  # ds of every (query, slot)
+        if smem > SMEM_LIMIT:
+            continue
+        n_tiles = math.prod(-(-size // t) for size, t in zip(dims, tile))
+        score = (n_tiles * (rows + tq), n_tiles)  # staged rows and query threads
+        if best_score is None or score < best_score:
+            best, best_score = Tile(*tile, *spans, smem, n_tiles), score
+    if best is None:
+        raise ValueError(
+            f"natten_flash: no tile of volume {dims} x ch {ch} at kernel {kernel} fits "
+            f"{SMEM_LIMIT} bytes of shared memory"
+        )
+    return best
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _position_stride(t: torch.Tensor, name: str) -> int:
+    """Floats between consecutive positions of t [B, D, H, W, heads, ch],
+    whose [heads, ch] rows must be dense (views of a fused qkv qualify)."""
+    heads, ch = t.shape[-2:]
+    ps = t.stride(3)
+    want = (t.shape[1] * t.shape[2] * t.shape[3] * ps, t.shape[2] * t.shape[3] * ps,
+            t.shape[3] * ps, ps, ch, 1)
+    if any(s != w and n > 1 for s, w, n in zip(t.stride(), want, t.shape)) or ps < heads * ch:
+        raise ValueError(f"natten_flash: {name} must have dense [heads, ch] rows at one stride")
+    return ps
+
+
+def _geometry(q, k, v, kernel, circular_w, tile, tensors):
+    b, d, h, w, heads, ch = q.shape
+    strides = [_position_stride(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+    vec4 = int(ch % 4 == 0 and all(s % 4 == 0 for s in strides)
+               and all(t.data_ptr() % 16 == 0 for t in tensors))
+    return (b, d, h, w, heads, ch, *strides, *kernel, int(circular_w),
+            tile.td, tile.th, tile.tw, tile.ud, tile.uh, tile.uw, vec4, ch**-0.5,
+            torch.cuda.current_stream().cuda_stream)
+
+
+def _check_err(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"natten_flash {what}: CUDA kernel launch failed (cudaError {err})")
+
+
+def _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse):
+    """K5a: out [B, D, H, W, heads, ch], and lse [B, D, H, W, heads] when asked."""
+    global LAUNCHES
+    rpb = None if rpb is None else rpb.contiguous()
+    tile = _pick_tile("fwd", tuple(q.shape[1:4]), kernel, circular_w, q.shape[-1], rpb is not None)
+    out = torch.empty(q.shape, device=q.device)
+    lse = torch.empty(q.shape[:-1], device=q.device) if with_lse else None
+    with torch.cuda.device(q.device):
+        err = _kernel("natten_flash", "gwt_natten_flash_forward", _FWD_ARGTYPES)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), out.data_ptr(), _ptr(lse),
+            *_geometry(q, k, v, kernel, circular_w, tile, (q, k, v, out)),
+        )
+    _check_err(err, "forward")
+    LAUNCHES += 1
+    return out, lse
+
+
+def _backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular_w):
+    """K5b: (dq, dk, dv, drpb), drpb None without rpb."""
+    global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    dims, ch = tuple(q.shape[1:4]), q.shape[-1]
+    rpb = None if rpb is None else rpb.contiguous()
+    dout = dout.contiguous()
+    delta = (dout * out).sum(-1).contiguous()  # [B, D, H, W, heads]
+    dq, dk, dv = (torch.empty(q.shape, device=q.device) for _ in range(3))
+    heads = q.shape[-2]
+    has_bias = rpb is not None
+    tensors = (q, k, v, dout, dq, dk, dv)
+    fn = _kernel("natten_flash_bwd", "gwt_natten_flash_backward", _BWD_ARGTYPES)
+
+    tile = _pick_tile("dq", dims, kernel, circular_w, ch, has_bias)
+    partial = None
+    if has_bias:
+        partial = torch.empty(q.shape[0] * tile.n_tiles, heads, rpb[0].numel(), device=q.device)
+    with torch.cuda.device(q.device):
+        err = fn(
+            _DQ, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), 0, 0, _ptr(partial),
+            *_geometry(q, k, v, kernel, circular_w, tile, tensors),
+        )
+    _check_err(err, "backward (dq)")
+    BWD_DQ_LAUNCHES += 1
+
+    tile = _pick_tile("dkv", dims, kernel, circular_w, ch, has_bias)
+    with torch.cuda.device(q.device):
+        err = fn(
+            _DKV, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), 0, dk.data_ptr(), dv.data_ptr(), 0,
+            *_geometry(q, k, v, kernel, circular_w, tile, tensors),
+        )
+    _check_err(err, "backward (dk/dv)")
+    BWD_DKV_LAUNCHES += 1
+    drpb = partial.sum(0).reshape(rpb.shape) if has_bias else None
+    return dq, dk, dv, drpb
+
+
+class _NattenFlash(torch.autograd.Function):
+    """K5a with lse forward, K5b backward (their plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rpb, kernel, circular_w):
+        if q.device.type == "cpu":
+            out, lse = neighborhood_attention_3d_reference(
+                q, k, v, kernel, rpb, circular_w, with_lse=True
+            )
+        else:
+            out, lse = _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=True)
+        ctx.save_for_backward(q, k, v, rpb, out, lse)
+        ctx.kernel, ctx.circular_w = kernel, circular_w
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, rpb, out, lse = ctx.saved_tensors
+        args = (q, k, v, rpb, out, lse, dout, ctx.kernel, ctx.circular_w)
+        if q.device.type == "cpu":
+            dq, dk, dv, drpb = natten_flash_backward_reference(*args)
+        else:
+            dq, dk, dv, drpb = _backward_cuda(*args)
+        return dq, dk, dv, drpb, None, None
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _kernel(library: str, name: str, argtypes):
+    """The C entry `name` of csrc/<library>.cu, built at first use."""
+    from graph_weather_tpu_torch.ops._build import load_library
+
+    fn = getattr(load_library(library), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

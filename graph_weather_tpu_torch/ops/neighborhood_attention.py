@@ -1,0 +1,158 @@
+"""3D neighborhood attention (NATTEN), port of
+graph_weather_tpu/ops/neighborhood_attention.py.
+
+Layout [B, D, H, W, heads, ch]. Every query attends to exactly
+kd * kh * kw keys: on each axis its window starts at
+clip(i - k//2, 0, size - k) (near an edge the window slides inward), or,
+on a circular W axis, at i - k//2 modulo W. q is scaled by ch^-0.5, and a
+learned relative-position bias rpb [heads, 2kd-1, 2kh-1, 2kw-1], indexed by
+key - query + k - 1 on each axis (a circular axis: by the window slot,
+slot - k//2 + k - 1), is added to every logit.
+
+`neighborhood_attention_3d` takes the plain PyTorch version
+(`neighborhood_attention_3d_reference`) for CPU tensors and the hand-written
+CUDA kernels (ops/natten_flash.py: K5a forward, K5b backward) for CUDA
+tensors; on the card it raises rather than fall back.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_NEG = -1e30  # running-max start of the online softmax
+
+
+def _window_indices(size: int, kernel: int, circular: bool) -> tuple[np.ndarray, np.ndarray]:
+    """([size, kernel] gather indices, [size, kernel] relative-offset ids).
+
+    Clamped: window start = clip(i - kernel//2, 0, size - kernel).
+    Circular: window wraps (indices mod size); requires kernel <= size.
+    Relative ids are (index - i) + kernel - 1 in [0, 2 kernel - 2].
+    """
+    if kernel > size:
+        raise ValueError(f"kernel ({kernel}) must be <= axis size ({size})")
+    i = np.arange(size)[:, None]
+    k = np.arange(kernel)[None, :]
+    if circular:
+        idx = (i - kernel // 2 + k) % size
+        rel = k - kernel // 2 + kernel - 1  # constant per slot
+        rel = np.broadcast_to(rel, (size, kernel)).copy()
+    else:
+        start = np.clip(i - kernel // 2, 0, size - kernel)
+        idx = start + k
+        rel = idx - i + kernel - 1
+    return idx.astype(np.int32), rel.astype(np.int32)
+
+
+def _slot_tables(shape, kernel, circular_w, device):
+    """Per axis, [size, k] gather indices and relative ids as long tensors."""
+    _, d, h, w = shape[:4]
+    tables = []
+    for size, kk, circ in zip((d, h, w), kernel, (False, False, circular_w)):
+        idx, rel = _window_indices(size, kk, circ)
+        tables.append(
+            (torch.as_tensor(idx, dtype=torch.long, device=device),
+             torch.as_tensor(rel, dtype=torch.long, device=device))
+        )
+    return tables
+
+
+def _slots(kernel):
+    kd, kh, kw = kernel
+    return [(x, y, z) for x in range(kd) for y in range(kh) for z in range(kw)]
+
+
+def _gather(t, tables, slot):
+    """t [B, D, H, W, ...] at every query's key of window slot (x, y, z)."""
+    for axis, ((idx, _), s) in enumerate(zip(tables, slot), start=1):
+        t = t.index_select(axis, idx[:, s])
+    return t
+
+
+def _slot_bias(rpb, tables, slot):
+    """rpb at every query's slot (x, y, z): [D, H, W, heads]."""
+    (_, rd), (_, rh), (_, rw) = tables
+    x, y, z = slot
+    bias = rpb[:, rd[:, x]][:, :, rh[:, y]][:, :, :, rw[:, z]]  # [heads, D, H, W]
+    return bias.permute(1, 2, 3, 0)
+
+
+def neighborhood_attention_3d_reference(
+    q: torch.Tensor,  # [B, D, H, W, heads, ch]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kernel: tuple[int, int, int],
+    rpb: torch.Tensor | None = None,  # [heads, 2kd-1, 2kh-1, 2kw-1]
+    circular_w: bool = False,
+    with_lse: bool = False,
+):
+    """Plain PyTorch version (the JAX package's slot scan): a loop over the
+    window slots, per-axis gathers, an online softmax in f32. Differentiable
+    by autograd. Returns out, or (out, lse) with the log-sum-exp of each
+    (node, head) [B, D, H, W, heads] of the biased, scaled logits."""
+    tables = _slot_tables(q.shape, kernel, circular_w, q.device)
+    scale = q.shape[-1] ** -0.5
+    qs = (q * scale).float()
+    m = torch.full(q.shape[:-1], _NEG, device=q.device)
+    l = torch.zeros(q.shape[:-1], device=q.device)
+    acc = torch.zeros(q.shape, device=q.device)
+    for slot in _slots(kernel):
+        logits = (qs * _gather(k, tables, slot).float()).sum(-1)
+        if rpb is not None:
+            logits = logits + _slot_bias(rpb, tables, slot).float()
+        m_new = torch.maximum(m, logits)
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new)
+        l = l * alpha + p
+        acc = acc * alpha[..., None] + p[..., None] * _gather(v, tables, slot).float()
+        m = m_new
+    out = (acc / l[..., None]).to(q.dtype)
+    if not with_lse:
+        return out
+    return out, m + torch.log(l)
+
+
+def _check(q, k, v, kernel, rpb, circular_w):
+    if q.dim() != 6 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("neighborhood_attention_3d: q, k, v [B, D, H, W, heads, ch], one shape")
+    if len(kernel) != 3:
+        raise ValueError(f"neighborhood_attention_3d: kernel {kernel} must have 3 sizes")
+    for size, kk, circ in zip(q.shape[1:4], kernel, (False, False, circular_w)):
+        _window_indices(size, kk, circ)  # raises when the kernel exceeds the axis
+    heads = q.shape[-2]
+    if rpb is not None and tuple(rpb.shape) != (heads, *(2 * kk - 1 for kk in kernel)):
+        raise ValueError(f"neighborhood_attention_3d: rpb {tuple(rpb.shape)} must be "
+                         f"[heads, 2kd-1, 2kh-1, 2kw-1] for heads {heads}, kernel {kernel}")
+    tensors = (q, k, v) if rpb is None else (q, k, v, rpb)
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError("neighborhood_attention_3d: q, k, v and rpb must be float32")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("neighborhood_attention_3d: all tensors must be on one device")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"neighborhood_attention_3d: no kernel for device {q.device}")
+
+
+def neighborhood_attention_3d(
+    q: torch.Tensor,  # [B, D, H, W, heads, ch]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kernel: tuple[int, int, int],
+    rpb: torch.Tensor | None = None,  # [heads, 2kd-1, 2kh-1, 2kw-1]
+    circular_w: bool = False,
+) -> torch.Tensor:
+    """Returns [B, D, H, W, heads, ch]; differentiable in q, k, v and rpb.
+    CPU tensors take the plain version (its explicit backward under
+    autograd); CUDA tensors take K5a and K5b, or raise ValueError for a
+    shape the kernels do not take."""
+    from graph_weather_tpu_torch.ops.natten_flash import _forward_cuda, _NattenFlash
+
+    kernel = tuple(int(kk) for kk in kernel)
+    circular_w = bool(circular_w)
+    _check(q, k, v, kernel, rpb, circular_w)
+    tensors = (q, k, v) if rpb is None else (q, k, v, rpb)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w)
+    if q.device.type == "cpu":
+        return neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular_w)
+    return _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=False)[0]

@@ -16,7 +16,11 @@ from graph_weather_tpu_torch.meshes.clustering import (
     build_cluster_scatter_index,
     is_symmetric_edges,
 )
-from graph_weather_tpu_torch.ops import clustered_flash, edge_mlp
+from graph_weather_tpu_torch.ops import clustered_flash, edge_mlp, natten_flash
+from graph_weather_tpu_torch.ops.neighborhood_attention import (
+    neighborhood_attention_3d,
+    neighborhood_attention_3d_reference,
+)
 
 # O(1) LayerNorm'd outputs; sums over up to 768 products in another order.
 ATOL = 1e-4
@@ -262,3 +266,103 @@ def test_clustered_flash_gradients_flow(gen):
     # K3b on the card never rebuilds its inverse index on the host.
     with pytest.raises(ValueError, match="scatter_index"):
         clustered_flash.clustered_flash_attention(q.requires_grad_(True), k, v, ids, masks, block)
+
+
+# -- K5a / K5b: 3D neighborhood attention -------------------------------------
+
+NATTEN_CASES = [
+    # (B, D, H, W), heads, ch, kernel, rpb, circular_w
+    ((2, 4, 7, 9), 2, 4, (3, 3, 3), True, False),
+    ((2, 4, 7, 9), 2, 6, (3, 5, 5), True, True),  # ch % 4 != 0: the scalar copies
+    ((1, 3, 6, 8), 4, 32, (3, 3, 5), False, True),
+    ((1, 5, 9, 10), 2, 64, (5, 7, 7), True, False),
+    ((1, 3, 5, 12), 1, 100, (3, 3, 5), True, True),
+    ((1, 14, 45, 90), 4, 32, (3, 5, 5), True, False),  # WeatherMesh's 1-degree latent
+]
+NATTEN_IDS = ["tiny", "odd_ch_circular", "hc128_no_rpb", "k577_ch64", "ch100", "wm_1deg"]
+
+
+def _natten_inputs(gen, shape, heads, ch, kernel, with_rpb, fused=False):
+    """q, k, v (views of one fused [.., 3 * heads * ch] tensor when `fused`,
+    as the model's qkv projection gives them), rpb ~N(0, 0.5^2) or None."""
+    if fused:
+        qkv = torch.randn(*shape, 3 * heads * ch, generator=gen, device="cuda")
+        q, k, v = (t.reshape(*shape, heads, ch) for t in qkv.chunk(3, dim=-1))
+    else:
+        q, k, v = (torch.randn(*shape, heads, ch, generator=gen, device="cuda") for _ in range(3))
+    rpb = None
+    if with_rpb:
+        rpb = 0.5 * torch.randn(heads, *(2 * kk - 1 for kk in kernel), generator=gen, device="cuda")
+    return q, k, v, rpb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NATTEN_CASES, ids=NATTEN_IDS)
+def test_natten_forward_matches_plain(gen, case):
+    """K5a's out and lse against the plain version."""
+    shape, heads, ch, kernel, with_rpb, circular = case
+    q, k, v, rpb = _natten_inputs(gen, shape, heads, ch, kernel, with_rpb, fused=ch == 32)
+    before = natten_flash.LAUNCHES
+    out, lse = natten_flash._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)
+    torch.cuda.synchronize()
+    assert natten_flash.LAUNCHES == before + 1
+    ref, ref_lse = neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular, with_lse=True)
+    assert out.shape == q.shape and lse.shape == q.shape[:-1]
+    assert (out - ref).abs().max().item() <= ATOL
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    with torch.no_grad():
+        served = neighborhood_attention_3d(q, k, v, kernel, rpb, circular)
+    assert torch.equal(served, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NATTEN_CASES, ids=NATTEN_IDS)
+def test_natten_backward_matches_plain(gen, case):
+    """K5b (through the autograd Function: K5a with lse, then the dq and
+    dk/dv kernels) against the plain backward: dq, dk, dv within 1e-4, drpb
+    within 1e-4 of its max."""
+    shape, heads, ch, kernel, with_rpb, circular = case
+    q, k, v, rpb = _natten_inputs(gen, shape, heads, ch, kernel, with_rpb, fused=ch == 32)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v) + ((rpb,) if with_rpb else ())]
+    counts = (natten_flash.BWD_DQ_LAUNCHES, natten_flash.BWD_DKV_LAUNCHES)
+    out = neighborhood_attention_3d(
+        *leaves[:3], kernel, leaves[3] if with_rpb else None, circular
+    )
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (natten_flash.BWD_DQ_LAUNCHES, natten_flash.BWD_DKV_LAUNCHES) == (counts[0] + 1, counts[1] + 1)
+    ref_out, lse = neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular, with_lse=True)
+    want = natten_flash.natten_flash_backward_reference(q, k, v, rpb, ref_out, lse, dout, kernel, circular)
+    for name, a, b in zip("q k v".split(), got[:3], want[:3]):
+        assert (a - b).abs().max().item() <= ATOL, f"d{name}"
+    if with_rpb:
+        assert (got[3] - want[3]).abs().max().item() <= ATOL * want[3].abs().max().item()
+
+
+@pytest.mark.cuda
+def test_natten_plain_backward_is_autograd_of_the_twin(gen):
+    """The plain backward against autograd through the plain forward, in
+    float64 on the CPU (the yardstick of K5b's oracle)."""
+    q, k, v, rpb = _natten_inputs(gen, (1, 4, 6, 8), 2, 8, (3, 3, 5), True)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    out, lse = neighborhood_attention_3d_reference(q, k, v, (3, 3, 5), rpb, True, with_lse=True)
+    got = natten_flash.natten_flash_backward_reference(q, k, v, rpb, out, lse, dout, (3, 3, 5), True)
+    leaves = [t.detach().cpu().double().requires_grad_(True) for t in (q, k, v, rpb)]
+    out64 = neighborhood_attention_3d_reference(*leaves[:3], (3, 3, 5), leaves[3], True)
+    want = torch.autograd.grad(out64, leaves, dout.cpu().double())
+    assert max((a.cpu().double() - b).abs().max().item() for a, b in zip(got, want)) <= ATOL
+
+
+@pytest.mark.cuda
+def test_natten_refuses_what_it_cannot_take(gen):
+    q, k, v, rpb = _natten_inputs(gen, (1, 5, 9, 10), 1, 129, (3, 3, 3), True)
+    with pytest.raises(ValueError, match="head width"):
+        neighborhood_attention_3d(q, k, v, (3, 3, 3), rpb)
+    q, k, v, rpb = _natten_inputs(gen, (1, 14, 45, 90), 1, 128, (5, 7, 7), True)
+    with pytest.raises(ValueError, match="shared memory"):
+        neighborhood_attention_3d(q, k, v, (5, 7, 7), rpb)
+    q, k, v, rpb = _natten_inputs(gen, (1, 5, 9, 10), 2, 8, (3, 3, 3), True)
+    strided = q.transpose(-1, -2).contiguous().transpose(-1, -2)  # [heads, ch] not dense
+    with pytest.raises(ValueError, match="dense"):
+        neighborhood_attention_3d(strided, k, v, (3, 3, 3), rpb)
