@@ -11,8 +11,11 @@ serving, the 20-step sampler and AR rollout, and training; and WeatherMesh
 at bench.py's full size (1 deg, 8 surface + 13 x 4 pressure channels, latent
 128 on [14, 45, 90], conv blocks 2 x 2 of hidden 64, 2 + 4 + 2 neighborhood
 attention layers, kernel (3, 5, 5), 4 heads): serving, the 8-step rollout
-and training. Phases, one line each, in order; any failure raises and ends
-the run with a non-zero exit:
+and training; and the same GenCast denoiser with banded attention
+(attention_impl="banded_flash": lat-lon sorted k-hop graph, 21 receiver
+blocks of 512 rows against windows of 2,560 keys): serving and training.
+Phases, one line each, in order; any failure raises and ends the run with a
+non-zero exit:
 
   1. card: nvidia-smi's name and power limit, torch and CUDA versions
   2. build: every CUDA kernel from csrc/, one nvcc each, all at once, timed
@@ -73,7 +76,32 @@ the run with a non-zero exit:
      ms per step, peak GiB, a profile of one more step
  24. the same weights and one batch at 1.5 deg (120 x 240), forward and
      backward on the card and on the CPU: loss within 1e-5 relative, every
-     gradient within 1e-3 of its max|g|
+     gradient within 1e-3 of its max|g| (the CPU's convs in PyTorch's own
+     kernels, not oneDNN's, here and in phase 20)
+ 25. build: banded_flash.cu's and banded_flash_bwd.cu's registers and spills
+ 26. K4a (banded flash attention) against its plain version on the real
+     splits-5 band layout (nb 21, w 1024), B = 1, c = 128 and c = 512 x 4
+     heads, with and without lse: max abs error <= 1e-4 on out and lse;
+     padded rows exactly 0; CUDA-event medians of the kernel, the plain
+     version and SDPA on the stacked windows with the band mask (timed
+     only); per evaluation (15 x c = 128 + c = 512) and the bound
+ 27. K4b against the plain backward in the same cases: dq, dk, dv within
+     1e-4, exact zeros on padded rows; medians of both kernels, the plain
+     backward and SDPA's backward; per train step and the bound
+ 28. band_serve: the banded_flash Denoiser with phase 9's weights answers
+     phase 9's 3 requests, each with exactly 16 K4a launches and no K3a
+     launch; ms per request, peak GiB, a profile of one more; max abs
+     difference from phase 9's clustered output <= 1e-3; one request
+     through attention_impl="banded" (plain PyTorch), timed only
+ 29. the same weights and the last request on the CPU (the twins): max abs
+     difference <= 1e-3
+ 30. band_train: 3 steps of make_train_step as in phase 15, each with
+     exactly 16 K4a, 16 dq and 16 dk/dv launches and no K3 launch; finite
+     loss, every parameter changed; ms per step, peak GiB, a profile of one
+     more step; then 2 steps with remat=True (32 K4a launches each), peak GiB
+ 31. the same weights and one batch, forward and backward on the card and on
+     the CPU: loss within 1e-5 relative, every gradient within 1e-3 of its
+     tensor's max|g|
 
 then one JSON line on the kernels, the card's name and power limit, and
 last {"ok": true, "device": ...}.
@@ -83,6 +111,8 @@ beside this file. f32 throughout; TF32 is off.
 
 from __future__ import annotations
 
+import contextlib
+import faulthandler
 import json
 import math
 import statistics
@@ -128,6 +158,8 @@ WM_CHECK_GRID = (120, 240)  # phase 24's card-against-CPU gradients, at 1.5 deg
 WM_LATENT = (14, 45, 90)  # 13 levels + the surface slice, on 180/4 x 360/4
 K5_PER_FORWARD = 8  # 2 encoder + 4 processor + 2 decoder attention layers
 K5_TOL = 1e-4  # softmax-weighted sums over <= 245 keys in another order
+K4_TOL = 1e-4  # softmax-weighted sums over <= 2,560 window slots in another order
+GENCAST_BANDED = {**GENCAST, "attention_impl": "banded_flash"}
 
 
 def grid(spacing: float) -> list[tuple[float, float]]:
@@ -443,6 +475,142 @@ def k5b_case(natten_flash, name, gen, kernel, heads, circular):
                 flops=10 * n_pairs * q.shape[-1], nbytes=nbytes)
 
 
+def band_sdpa_inputs(band_windows, q, k, v, masks, block, w, dout=None):
+    """The library yardstick's inputs: each receiver block's queries
+    [nb, h, block, c] against its stacked window of keys and values
+    [nb, h, block + 2w, c], the band mask [nb, 1, block, block + 2w] as a
+    boolean mask; `dout` (dO) is blocked like q. Built on the card, outside
+    any timing."""
+    nb = masks.shape[0]
+    heads, c = q.shape[-2:]
+
+    def blocks(t):
+        t = torch.nn.functional.pad(t[0], (0, 0, 0, 0, 0, nb * block - t.shape[1]))
+        return t.reshape(nb, block, heads, c).transpose(1, 2).contiguous()
+
+    def windows(t):
+        return band_windows(t[0], nb, block, w).transpose(1, 2).contiguous()
+
+    out = [blocks(q), windows(k), windows(v), masks.bool()[:, None]]
+    if dout is not None:
+        out.append(blocks(dout))
+    return out
+
+
+def band_inputs(gen, khop, c, heads, count):
+    """`count` tensors [1, nb * block, heads, c] ~N(0, 1) over the padded
+    rows of the band layout, and contiguous copies of their first N rows
+    (the processor's shapes)."""
+    n_pad = khop.band_masks.shape[0] * khop.band_block
+    padded = [torch.randn(1, n_pad, heads, c, generator=gen, device="cuda") for _ in range(count)]
+    return padded, [t[:, :khop.n_receivers].contiguous() for t in padded]
+
+
+def k4a_case(banded_flash, band_windows, khop, gen, c, heads=4):
+    """K4a against its plain version on the real band layout at the
+    processor's shapes ([1, N, heads, c]), with and without lse, and once
+    over the padded rows (nb * block), whose rows past N must come out
+    exactly 0. Returns a dict of errors, times (ms), flops and bytes."""
+    masks, block, w, n = khop.band_masks, khop.band_block, khop.band_w, khop.n_receivers
+    (qp, kp, vp), (q, k, v) = band_inputs(gen, khop, c, heads, 3)
+    args = (q, k, v, masks, block, w)
+    out = banded_flash._forward_cuda(*args, with_lse=False)[0]
+    out_lse, lse = banded_flash._forward_cuda(*args, with_lse=True)
+    padded, padded_lse = banded_flash._forward_cuda(qp, kp, vp, masks, block, w, with_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = banded_flash.banded_flash_forward_reference(*args, with_lse=True)
+    err = max((a - b).abs().max().item() for a, b in (
+        (out, ref), (out_lse, ref), (lse, ref_lse), (padded[:, :n], ref), (padded_lse[:, :n], ref_lse[:, :n])))
+    zeros = bool((padded[:, n:] == 0).all()) and bool((padded_lse[:, n:] < -1e27).all())
+    ms = cuda_ms(lambda: banded_flash._forward_cuda(*args, with_lse=False))
+    lse_ms = cuda_ms(lambda: banded_flash._forward_cuda(*args, with_lse=True))
+    plain_ms = cuda_ms(lambda: banded_flash.banded_flash_forward_reference(*args), runs=3, batch=2)
+    q_b, k_w, v_w, attend = band_sdpa_inputs(band_windows, q, k, v, masks, block, w)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_ms = cuda_ms(lambda: sdpa(q_b, k_w, v_w, attn_mask=attend))
+    print(f"[k4a] c={c}: nb={masks.shape[0]} block={block} w={w} heads={heads} | max_abs_err "
+          f"out/lse {err:.3e} padded_rows_zero={zeros} | kernel_ms={ms:.4f} (with lse {lse_ms:.4f}) "
+          f"plain_ms={plain_ms:.4f} sdpa_ms={sdpa_ms:.4f} (SDPA on {tuple(attend.shape)} masked "
+          f"windows)", flush=True)
+    if not (err <= K4_TOL):
+        raise AssertionError(f"K4a c={c}: max abs error {err} > {K4_TOL}")
+    if not zeros:
+        raise AssertionError(f"K4a c={c}: padded rows are not exactly 0")
+    del q_b, k_w, v_w, attend
+    # The work these inputs need: q.k and p.v over the real edges; q, k, v,
+    # out and the mask moved once.
+    return dict(err=err, ms=ms, lse_ms=lse_ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                flops=4 * khop.senders.shape[0] * heads * c,
+                nbytes=4 * 4 * q.numel() + masks.numel())
+
+
+def k4b_case(banded_flash, band_windows, khop, gen, c, heads=4):
+    """K4b against the plain backward on K4a's out and lse at the processor's
+    shapes, and once over the padded rows, whose gradients past N must be
+    exactly 0. Times both kernels alone, the whole backward (delta and both
+    kernels), the plain backward and SDPA's backward. Returns a dict of
+    errors, times (ms), flops and bytes."""
+    masks, block, w, n = khop.band_masks, khop.band_block, khop.band_w, khop.n_receivers
+    (qp, kp, vp, dop), (q, k, v, dout) = band_inputs(gen, khop, c, heads, 4)
+    out, lse = banded_flash._forward_cuda(q, k, v, masks, block, w, with_lse=True)
+    args = (q, k, v, masks, out, lse, dout, block, w)
+    got = banded_flash._backward_cuda(*args)
+    out_p, lse_p = banded_flash._forward_cuda(qp, kp, vp, masks, block, w, with_lse=True)
+    padded = banded_flash._backward_cuda(qp, kp, vp, masks, out_p, lse_p, dop, block, w)
+    torch.cuda.synchronize()
+    want = banded_flash.banded_flash_backward_reference(*args)
+    errs = {f"d{nm}": (a - b).abs().max().item() for nm, a, b in zip("qkv", got, want)}
+    errs["padded"] = max((a[:, :n] - b).abs().max().item() for a, b in zip(padded, want))
+    zeros = all(bool((t[:, n:] == 0).all()) for t in padded)
+    n_pad = masks.shape[0] * block
+    delta = torch.nn.functional.pad((dout * out).sum(-1), (0, 0, 0, n_pad - n)).contiguous()
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+
+    def kernel(mode):
+        return lambda: banded_flash.launch_backward(mode, q, k, v, masks, lse, dout, delta, grads, block, w)
+
+    ms = {"dq": cuda_ms(kernel(banded_flash.DQ)), "dkv": cuda_ms(kernel(banded_flash.DKV)),
+          "all": cuda_ms(lambda: banded_flash._backward_cuda(*args))}
+    plain_ms = cuda_ms(lambda: banded_flash.banded_flash_backward_reference(*args), runs=3, batch=1)
+    q_b, k_w, v_w, attend, do_b = band_sdpa_inputs(band_windows, q, k, v, masks, block, w, dout)
+    q_b, k_w, v_w = (t.requires_grad_(True) for t in (q_b, k_w, v_w))
+    o_b = torch.nn.functional.scaled_dot_product_attention(q_b, k_w, v_w, attn_mask=attend)
+    sdpa_ms = cuda_ms(lambda: torch.autograd.grad(o_b, (q_b, k_w, v_w), do_b, retain_graph=True))
+    print(f"[k4b] c={c}: max_abs_err " + " ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
+          + f" | padded_rows_zero_grads={zeros} | dq_ms={ms['dq']:.4f} dkv_ms={ms['dkv']:.4f} "
+          f"backward_ms={ms['all']:.4f} (delta + both) plain_ms={plain_ms:.4f} "
+          f"sdpa_bwd_ms={sdpa_ms:.4f}", flush=True)
+    for nm, e in errs.items():
+        if not (e <= K4_TOL):
+            raise AssertionError(f"K4b c={c}: {nm} error {e} > {K4_TOL}")
+    if not zeros:
+        raise AssertionError(f"K4b c={c}: padded rows have non-zero gradients")
+    del q_b, k_w, v_w, attend, do_b, o_b
+    # The work these inputs need over the real edges: s, dp and dq (dq
+    # kernel); s, dp, dk and dv (dk/dv kernel); each moves its rows, lse,
+    # delta and the mask once.
+    edges, rows = khop.senders.shape[0], 4 * q.numel()
+    stats = 4 * 2 * lse.numel() + masks.numel()
+    return dict(errs=errs, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                flops={"dq": 6 * edges * heads * c, "dkv": 8 * edges * heads * c},
+                nbytes={"dq": 5 * rows + stats, "dkv": 6 * rows + stats})
+
+
+@contextlib.contextmanager
+def native_cpu_convs():
+    """CPU convs in PyTorch's own kernels, not oneDNN's, for WeatherMesh's
+    CPU reference (phases 20 and 24): on the H100 hosts (torch 2.11+cu128)
+    oneDNN's conv backward corrupted host memory now and then (a conv
+    weight's gradient off by its own size, glibc heap aborts in the
+    backward). PyTorch's own kernels take about as long."""
+    before = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = before
+
+
 def grads_close(card: dict, cpu: dict) -> tuple[float, str]:
     """Worst (error / limit) over the parameters, and its name: each
     gradient within GRAD_RTOL of its tensor's max|g| on the CPU, floored at
@@ -494,6 +662,8 @@ def profile_request(fn, what: str = "request") -> None:
 
 
 def main() -> int:
+    # A fatal signal (a crash in native code) prints the Python stack first.
+    faulthandler.enable()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -511,7 +681,14 @@ def main() -> int:
     from graph_weather_tpu_torch.meshes.hexmesh import get_hexmesh
     from graph_weather_tpu_torch.models.gencast.graphs import build_graphcast_graphs
     from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
-    from graph_weather_tpu_torch.ops import _build, clustered_flash, edge_mlp, natten_flash
+    from graph_weather_tpu_torch.ops import (
+        _build,
+        banded_flash,
+        clustered_flash,
+        edge_mlp,
+        natten_flash,
+    )
+    from graph_weather_tpu_torch.ops.banded_attention import band_windows
     from graph_weather_tpu_torch.ops.neighborhood_attention import (
         neighborhood_attention_3d_reference,
     )
@@ -531,9 +708,7 @@ def main() -> int:
 
     # 2. build (all kernels at once; phase 7 reports the second)
     t0 = time.perf_counter()
-    _build.load_libraries(
-        ["edge_mlp", "clustered_flash", "clustered_flash_bwd", "natten_flash", "natten_flash_bwd"]
-    )
+    _build.load_libraries(_build.all_sources())
     build_s = time.perf_counter() - t0
 
     def ptxas(name):
@@ -693,6 +868,11 @@ def main() -> int:
           f"| K3a launches {denoise_launches} | peak GiB "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", flush=True)
     profile_request(lambda: den(x, cond, sigma))
+    # Phase 28 serves the same requests with these weights through the
+    # banded attention (phase 15 trains den further). Kept on the host, so
+    # that the peak memory of the phases between is the model's own.
+    weights9 = {k: v.detach().cpu() for k, v in den.module.state_dict().items()}
+    clustered_out = out.detach().cpu()
 
     # 10. the same weights and the last request on the CPU
     cpu_den = port.Denoiser(**GENCAST, device="cpu")
@@ -772,9 +952,9 @@ def main() -> int:
         return (clustered_flash.LAUNCHES, clustered_flash.SYMMETRIC_DQ_LAUNCHES,
                 clustered_flash.SYMMETRIC_DKV_LAUNCHES, clustered_flash.GENERAL_BWD_LAUNCHES)
 
-    def train_steps(model, n_steps, per_step):
+    def train_steps(model, n_steps, per_step, counts=counts, names="K3a, K3c dq, K3c dk/dv, K3b"):
         """n_steps of make_train_step on `model`; each must make `per_step`
-        (K3a, K3c dq, K3c dk/dv, K3b) launches. Returns (ms, losses)."""
+        launches of the kernels that `counts` reads. Returns (step, ms, losses)."""
         step = port.make_train_step(
             model.module.parameters(), model.forward_fn(), objective, port.make_optimizer(1e-4)
         )
@@ -784,8 +964,8 @@ def main() -> int:
             loss, ms = timed(lambda: step(corrupted_t, prev_t, noise_t, target_t))
             made = tuple(a - b for a, b in zip(counts(), before))
             if made != per_step:
-                raise AssertionError(f"a train step made {made} (K3a, K3c dq, K3c dk/dv, K3b) "
-                                     f"launches, expected {per_step}")
+                raise AssertionError(f"a train step made {made} ({names}) launches, "
+                                     f"expected {per_step}")
             if not torch.isfinite(loss):
                 raise AssertionError(f"train loss {loss.item()}")
             step_ms.append(ms)
@@ -844,6 +1024,7 @@ def main() -> int:
         raise AssertionError(f"train loss card vs CPU: {loss_rel} > {LOSS_RTOL}")
     if not (worst <= 1.0):
         raise AssertionError(f"gradient of {worst_name} card vs CPU: {worst} x its limit")
+    graphs_khop_edges = graphs.khop.n_edges
     del cpu_den, den, sampler, ar, khop, graphs, scatter
     torch.cuda.empty_cache()
 
@@ -909,7 +1090,8 @@ def main() -> int:
     cpu_wm = port.WeatherMesh(**WEATHERMESH, device="cpu")
     cpu_wm.module.load_state_dict({k: v.cpu() for k, v in wm.module.state_dict().items()})
     t0 = time.perf_counter()
-    cpu_pred = cpu_wm(surface.cpu(), pressure.cpu())
+    with native_cpu_convs():
+        cpu_pred = cpu_wm(surface.cpu(), pressure.cpu())
     cpu_s = time.perf_counter() - t0
     cpu_err = max((pred.surface.cpu() - cpu_pred.surface).abs().max().item(),
                   (pred.pressure.cpu() - cpu_pred.pressure).abs().max().item())
@@ -994,8 +1176,9 @@ def main() -> int:
     card_grads = {k: t.grad.cpu() for k, t in wm.module.named_parameters()}
     cpu_wm.module.load_state_dict({k: v.cpu() for k, v in wm.module.state_dict().items()})
     t0 = time.perf_counter()
-    cpu_value = wm_objective(cpu_wm.forward_fn()(*check), check_targets)
-    cpu_value.backward()
+    with native_cpu_convs():
+        cpu_value = wm_objective(cpu_wm.forward_fn()(*check), check_targets)
+        cpu_value.backward()
     cpu_s = time.perf_counter() - t0
     cpu_grads = {k: t.grad for k, t in cpu_wm.module.named_parameters()}
     loss_rel = abs(card_value.item() - cpu_value.item()) / abs(cpu_value.item())
@@ -1010,6 +1193,177 @@ def main() -> int:
     if not (worst <= 1.0):
         raise AssertionError(f"WeatherMesh gradient of {worst_name} card vs CPU: {worst} x its limit")
     del cpu_wm, wm
+    torch.cuda.empty_cache()
+
+    # 25. build of the banded kernels (started with the others in phase 2)
+    print(f"[build] banded_flash.cu + banded_flash_bwd.cu {build_s:.2f} s (parallel with the "
+          "others) | " + " | ".join(ptxas("banded_flash") + ptxas("banded_flash_bwd")), flush=True)
+
+    # 26. K4a on the real splits-5 band layout (the lat-lon sorted k-hop
+    # graph), at the processor's two head widths
+    t0 = time.perf_counter()
+    band_graphs = build_graphcast_graphs(
+        GENCAST["grid_lon"], GENCAST["grid_lat"], splits=5, num_hops=4,
+        add_edge_features_to_khop=False, spatial_sort=True,
+    )
+    band = DeviceGraph.from_bundle(band_graphs.khop, "cuda", banded=True, band_flash=True)
+    graph_s = time.perf_counter() - t0
+    band_nb, band_block, band_w = band.band_masks.shape[0], band.band_block, band.band_w
+    width = band_block + 2 * band_w
+
+    def band_empty_tiles(tq, tk):  # share of (receiver tile, key tile) pairs without an edge
+        m = band.band_masks.bool().reshape(band_nb, band_block // tq, tq, width // tk, tk)
+        return 1.0 - m.any(4).any(2).float().mean().item()
+
+    print(f"[k4a] graphs + band layout {graph_s:.2f} s | k-hop edges {band_graphs.khop.n_edges} | "
+          f"nb {band_nb} | block {band_block} | w {band_w} | mask "
+          f"{tuple(band.band_masks.shape)} {band.band_masks.numel() / 1e6:.1f} MB, density "
+          f"{band.band_masks.float().mean().item():.4f} | empty key tiles 64x64 "
+          f"{band_empty_tiles(64, 64):.4f} 32x32 {band_empty_tiles(32, 32):.4f}", flush=True)
+    if band_graphs.khop.n_edges != graphs_khop_edges:
+        raise AssertionError("the banded and clustered k-hop graphs differ in their edge count")
+    k4a = {c: k4a_case(banded_flash, band_windows, band, gen, c) for c in (128, 512)}
+    k4a_ms = per_eval_sum({c: v["ms"] for c, v in k4a.items()})
+    k4a_plain_ms = per_eval_sum({c: v["plain_ms"] for c, v in k4a.items()})
+    k4a_sdpa_ms = per_eval_sum({c: v["sdpa_ms"] for c, v in k4a.items()})
+    k4a_bound_ms = per_eval_sum({c: bound(v["flops"], v["nbytes"])[0] for c, v in k4a.items()})
+    k4a_bound_by = bound(k4a[128]["flops"], k4a[128]["nbytes"])[1]
+    print(f"[k4a] per denoiser eval (15 x c=128 + c=512): kernel_ms={k4a_ms:.4f} "
+          f"plain_ms={k4a_plain_ms:.4f} sdpa_ms={k4a_sdpa_ms:.4f} bound_ms={k4a_bound_ms:.4f} "
+          f"({k4a_bound_by}, edges only) | with lse "
+          f"{per_eval_sum({c: v['lse_ms'] for c, v in k4a.items()}):.4f} | K3a (phase 8) "
+          f"{k3a_ms:.4f}", flush=True)
+
+    # 27. K4b in the same cases
+    k4b = {c: k4b_case(banded_flash, band_windows, band, gen, c) for c in (128, 512)}
+    k4b_ms = {kind: per_eval_sum({c: v["ms"][kind] for c, v in k4b.items()}) for kind in ("dq", "dkv", "all")}
+    k4b_plain_ms = per_eval_sum({c: v["plain_ms"] for c, v in k4b.items()})
+    k4b_sdpa_ms = per_eval_sum({c: v["sdpa_ms"] for c, v in k4b.items()})
+    k4b_bound = {
+        kind: (per_eval_sum({c: bound(v["flops"][kind], v["nbytes"][kind])[0] for c, v in k4b.items()}),
+               bound(k4b[128]["flops"][kind], k4b[128]["nbytes"][kind])[1])
+        for kind in ("dq", "dkv")
+    }
+    print(f"[k4b] per train step (15 x c=128 + c=512): dq_ms={k4b_ms['dq']:.4f} "
+          f"dkv_ms={k4b_ms['dkv']:.4f} backward_ms={k4b_ms['all']:.4f} plain_ms={k4b_plain_ms:.4f} "
+          f"sdpa_bwd_ms={k4b_sdpa_ms:.4f} bound_ms dq {k4b_bound['dq'][0]:.4f} ({k4b_bound['dq'][1]}) "
+          f"dk/dv {k4b_bound['dkv'][0]:.4f} ({k4b_bound['dkv'][1]}) | K3c (phase 14) {k3c_ms:.4f}",
+          flush=True)
+    del band, band_graphs
+    torch.cuda.empty_cache()
+
+    # 28. band_serve: phase 9's weights and requests through the banded Denoiser
+    def band_counts():
+        return (banded_flash.LAUNCHES, banded_flash.BWD_DQ_LAUNCHES, banded_flash.BWD_DKV_LAUNCHES,
+                clustered_flash.LAUNCHES + clustered_flash.SYMMETRIC_DQ_LAUNCHES
+                + clustered_flash.SYMMETRIC_DKV_LAUNCHES + clustered_flash.GENERAL_BWD_LAUNCHES)
+
+    def zero_band_counts():
+        banded_flash.LAUNCHES = banded_flash.BWD_DQ_LAUNCHES = banded_flash.BWD_DKV_LAUNCHES = 0
+        clustered_flash.LAUNCHES = clustered_flash.SYMMETRIC_DQ_LAUNCHES = 0
+        clustered_flash.SYMMETRIC_DKV_LAUNCHES = clustered_flash.GENERAL_BWD_LAUNCHES = 0
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    bden = port.Denoiser(**GENCAST_BANDED, device="cuda")
+    bden.module.load_state_dict(weights9)
+    setup_s = time.perf_counter() - t0
+    zero_band_counts()
+    band_ms = []
+    for x, cond in zip(corrupted, prev):
+        before = band_counts()
+        bout, ms = timed(lambda: bden(x, cond, sigma))
+        band_ms.append(ms)
+        made = tuple(a - b for a, b in zip(band_counts(), before))
+        if made != (GENCAST["num_blocks"], 0, 0, 0):
+            raise AssertionError(f"a banded request made {made} (K4a, K4b dq, K4b dk/dv, K3) "
+                                 "launches, expected (16, 0, 0, 0)")
+        if bout.shape != (1, n_lon, n_lat, f_out) or not torch.isfinite(bout).all():
+            raise AssertionError(f"bad banded denoiser output: shape {tuple(bout.shape)}")
+    band_launches = banded_flash.LAUNCHES
+    band_peak = torch.cuda.max_memory_allocated() / 2**30
+    vs_clustered = (bout.cpu() - clustered_out).abs().max().item()
+    print(f"[band_serve] setup {setup_s:.2f} s (w {bden.khop.band_w}) | request_ms "
+          f"{[round(t, 3) for t in band_ms]} | K4a launches {band_launches} | peak GiB "
+          f"{band_peak:.2f} | max_abs_diff from the clustered Denoiser (phase 9) {vs_clustered:.3e} "
+          f"(limit {CPU_TOL})", flush=True)
+    if not (vs_clustered <= CPU_TOL):
+        raise AssertionError(f"banded vs clustered denoiser: {vs_clustered} > {CPU_TOL}")
+    profile_request(lambda: bden(x, cond, sigma), "banded request")
+    plain_den = port.Denoiser(**{**GENCAST, "attention_impl": "banded"}, device="cuda")
+    plain_den.module.load_state_dict(weights9)
+    plain_den(x, cond, sigma)  # warm-up
+    before = band_counts()
+    _, plain_request_ms = timed(lambda: plain_den(x, cond, sigma))
+    if band_counts() != before:
+        raise AssertionError("attention_impl='banded' launched a kernel")
+    print(f"[band_serve] attention_impl='banded' (plain PyTorch): request_ms "
+          f"{plain_request_ms:.3f} (timed only)", flush=True)
+    del plain_den
+    torch.cuda.empty_cache()
+
+    # 29. the same weights and the last request on the CPU
+    cpu_bden = port.Denoiser(**GENCAST_BANDED, device="cpu")
+    cpu_bden.module.load_state_dict(weights9)
+    t0 = time.perf_counter()
+    cpu_bout = cpu_bden(x.cpu(), cond.cpu(), sigma.cpu())
+    cpu_s = time.perf_counter() - t0
+    cpu_err = (bout.cpu() - cpu_bout).abs().max().item()
+    print(f"[cpu] banded denoiser max_abs_diff {cpu_err:.3e} (limit {CPU_TOL}) | cpu forward "
+          f"{cpu_s:.2f} s", flush=True)
+    if not (cpu_err <= CPU_TOL):
+        raise AssertionError(f"banded denoiser card vs CPU: {cpu_err} > {CPU_TOL}")
+
+    # 30. band_train: 3 steps on the banded Denoiser, then 2 with remat
+    names = "K4a, K4b dq, K4b dk/dv, K3"
+    before_params = [t.detach().clone() for t in bden.module.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    zero_band_counts()
+    step, band_train_ms, band_losses = train_steps(bden, 3, (blocks, blocks, blocks, 0), band_counts, names)
+    band_train_launches = band_counts()
+    band_train_peak = torch.cuda.max_memory_allocated() / 2**30
+    unchanged = [i for i, (a, b) in enumerate(zip(before_params, bden.module.parameters())) if torch.equal(a, b)]
+    if unchanged:
+        raise AssertionError(f"{len(unchanged)} parameter tensors did not change in 3 banded train steps")
+    print(f"[band_train] 3 steps | step_ms {[round(t, 3) for t in band_train_ms]} | steady median "
+          f"{statistics.median(band_train_ms[1:]):.3f} | loss {[round(v, 6) for v in band_losses]} | "
+          f"launches per step K4a {blocks} dq {blocks} dk/dv {blocks} K3 0 | all "
+          f"{len(before_params)} parameter tensors changed | peak GiB {band_train_peak:.2f}", flush=True)
+    profile_request(lambda: step(corrupted_t, prev_t, noise_t, target_t), "banded train step")
+    del step, before_params
+    remat = port.Denoiser(**GENCAST_BANDED, remat=True, device="cuda")
+    remat.module.load_state_dict(bden.module.state_dict())
+    torch.cuda.reset_peak_memory_stats()
+    _, remat_ms, remat_loss = train_steps(remat, 2, (2 * blocks, blocks, blocks, 0), band_counts, names)
+    print(f"[band_train] remat=True: 2 steps | step_ms {[round(t, 3) for t in remat_ms]} | loss "
+          f"{[round(v, 6) for v in remat_loss]} | K4a launches {2 * blocks} per step | peak GiB "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} (with the first model's weights and "
+          f"optimizer state resident)", flush=True)
+    del remat
+
+    # 31. the same weights and batch: gradients on the card and on the CPU
+    bden.module.zero_grad(set_to_none=True)
+    card_value = objective(bden.forward_fn()(corrupted_t, prev_t, noise_t), target_t)
+    card_value.backward()
+    card_grads = {k: t.grad.cpu() for k, t in bden.module.named_parameters()}
+    cpu_bden.module.load_state_dict({k: v.cpu() for k, v in bden.module.state_dict().items()})
+    t0 = time.perf_counter()
+    cpu_value = cpu_loss(cpu_bden.forward_fn()(corrupted_t.cpu(), prev_t.cpu(), noise_t.cpu()),
+                         noise_t.cpu(), target_t.cpu())
+    cpu_value.backward()
+    cpu_s = time.perf_counter() - t0
+    cpu_grads = {k: t.grad for k, t in cpu_bden.module.named_parameters()}
+    loss_rel = abs(card_value.item() - cpu_value.item()) / abs(cpu_value.item())
+    worst, worst_name = grads_close(card_grads, cpu_grads)
+    print(f"[cpu] banded train loss card {card_value.item():.6f} cpu {cpu_value.item():.6f} rel "
+          f"{loss_rel:.3e} (limit {LOSS_RTOL}) | gradients: worst error / limit {worst:.3e} "
+          f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s "
+          f"(full depth)", flush=True)
+    if not (loss_rel <= LOSS_RTOL):
+        raise AssertionError(f"banded train loss card vs CPU: {loss_rel} > {LOSS_RTOL}")
+    if not (worst <= 1.0):
+        raise AssertionError(f"banded gradient of {worst_name} card vs CPU: {worst} x its limit")
+    del cpu_bden, bden
 
     kernels = [
         {
@@ -1095,6 +1449,47 @@ def main() -> int:
             "bound_ms": K5_PER_FORWARD * k5b_bound,
             "bound_by": k5b_bound_by,
             "library_ms": K5_PER_FORWARD * k5b["a"]["sdpa_ms"],
+        },
+        {
+            "name": "banded_flash_attention",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/banded_flash.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/banded_flash.py:213",
+            "launches": band_launches,  # 3 requests
+            "max_abs_err": max(v["err"] for v in k4a.values()),
+            "ms": k4a_ms,  # per evaluation: 15 x c = 128 + c = 512
+            "plain_ms": k4a_plain_ms,
+            "bound_ms": k4a_bound_ms,
+            "bound_by": k4a_bound_by,
+            "library_ms": k4a_sdpa_ms,
+            "train_launches": band_train_launches[0],  # 3 train steps, with lse
+        },
+        {
+            "name": "banded_flash_backward_dq",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/banded_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/banded_flash.py:429",
+            "launches": band_train_launches[1],  # 3 train steps
+            "max_abs_err": max(v["errs"]["dq"] for v in k4b.values()),
+            "ms": k4b_ms["dq"],  # per train step
+            "plain_ms": k4b_plain_ms,  # the whole plain backward (dq, dk, dv)
+            "bound_ms": k4b_bound["dq"][0],
+            "bound_by": k4b_bound["dq"][1],
+            "library_ms": k4b_sdpa_ms,  # SDPA's whole backward
+        },
+        {
+            "name": "banded_flash_backward_dkv",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/banded_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/banded_flash.py:487",
+            "launches": band_train_launches[2],  # 3 train steps
+            "max_abs_err": max(max(v["errs"]["dk"], v["errs"]["dv"], v["errs"]["padded"])
+                               for v in k4b.values()),
+            "ms": k4b_ms["dkv"],  # per train step
+            "plain_ms": k4b_plain_ms,  # the whole plain backward (dq, dk, dv)
+            "bound_ms": k4b_bound["dkv"][0],
+            "bound_by": k4b_bound["dkv"][1],
+            "library_ms": k4b_sdpa_ms,  # SDPA's whole backward
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -16,11 +16,14 @@ does).
     denoised = den(corrupted, prev_inputs, noise_levels)   # on den.device
 
 With attention_impl="clustered_flash" every processor block runs the CUDA
-kernel K3a on the card (ops/clustered_flash.py); "segment" is the
-segment-softmax path with edge features. `apply` serves, under
-torch.no_grad(), in f32. `forward_fn()` is the training forward: the same
-function with autograd, whose attention backward runs K3c (or K3b) on the
-card; `remat=True` recomputes each transformer block in the backward.
+kernel K3a on the card (ops/clustered_flash.py); with "banded_flash" the
+k-hop graph is lat-lon sorted and every block runs the banded kernel K4a
+(ops/banded_flash.py); "banded" is the same band layout through plain
+PyTorch (ops/banded_attention.py); "segment" is the segment-softmax path
+with edge features. `apply` serves, under torch.no_grad(), in f32.
+`forward_fn()` is the training forward: the same function with autograd,
+whose attention backward runs K3c (or K3b), or K4b, on the card;
+`remat=True` recomputes each transformer block in the backward.
 """
 
 from __future__ import annotations
@@ -156,12 +159,7 @@ class Denoiser:
         compute_dtype: Optional[torch.dtype] = None,
         device="cuda",
     ):
-        if attention_impl in ("banded", "banded_flash"):
-            raise _not_ported(
-                f"attention_impl={attention_impl!r}",
-                "ROADMAP.md, 'K4a/K4b: the banded attention'",
-            )
-        if attention_impl not in ("segment", "clustered_flash"):
+        if attention_impl not in ("segment", "banded", "banded_flash", "clustered_flash"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
         if attention_impl != "segment" and use_edges_features:
             raise ValueError(
@@ -186,14 +184,19 @@ class Denoiser:
             splits=splits,
             num_hops=num_hops,
             add_edge_features_to_khop=use_edges_features,
-            # Clustered attention wants compact geodesic receiver blocks.
+            # Clustered attention wants compact geodesic receiver blocks;
+            # the banded paths want small index spans (lat-lon sort).
             spatial_sort="rcb" if attention_impl == "clustered_flash" else True,
             mesh_orientation=mesh_orientation,
         )
         self.graphs = graphs
         self.g2m = DeviceGraph.from_bundle(graphs.g2m, self.device)
         self.khop = DeviceGraph.from_bundle(
-            graphs.khop, self.device, clustered=attention_impl == "clustered_flash"
+            graphs.khop,
+            self.device,
+            clustered=attention_impl == "clustered_flash",
+            banded=attention_impl.startswith("banded"),
+            band_flash=attention_impl == "banded_flash",
         )
         self.m2g = DeviceGraph.from_bundle(graphs.m2g, self.device)
         self.grid_node_feats = torch.as_tensor(graphs.grid_node_feats, device=self.device)

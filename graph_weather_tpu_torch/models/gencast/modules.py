@@ -7,9 +7,11 @@
   * ConditionalLayerNorm: LayerNorm without affine, scale and bias computed
     as Linears of the conditioning vector.
   * GraphTransformerConv: UniMP-style multi-head graph attention with beta
-    gating; segment-softmax branch (with edge features) and the clustered
+    gating; segment-softmax branch (with edge features), the clustered
     branch, which runs the kernel K3a forward and K3c (symmetric graphs) or
-    K3b backward (ops/clustered_flash.py).
+    K3b backward (ops/clustered_flash.py), and the banded branch: the
+    kernels K4a/K4b (ops/banded_flash.py) or the plain banded attention
+    (ops/banded_attention.py).
   * CondTransformerBlock: the conv, the conditional norm and the activation.
 
 PyTorch needs every input width at construction, where flax infers them, so
@@ -29,6 +31,8 @@ from torch import nn
 
 from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph, _GatherSumLinear
 from graph_weather_tpu_torch.nn.mlp import TorchLinear
+from graph_weather_tpu_torch.ops.banded_attention import banded_graph_attention
+from graph_weather_tpu_torch.ops.banded_flash import banded_flash_attention
 from graph_weather_tpu_torch.ops.clustered_flash import clustered_flash_attention
 from graph_weather_tpu_torch.ops.segment_softmax import segment_softmax
 
@@ -166,10 +170,12 @@ class GraphTransformerConv(nn.Module):
     out_i = sum_j alpha_ij v_j, then the beta gate (GenCast always gates):
     out = b * W_skip x_i + (1 - b) * out, b = sigmoid(W_beta [skip, out, skip - out]).
 
-    A graph with a cluster layout and no edge features takes the clustered
+    Without edge features, a graph with a cluster layout takes the clustered
     branch (K3a; its backward K3c when the graph is symmetric, as the k-hop
-    mesh graph is, else K3b); otherwise the segment-softmax branch. The
-    linears are numbered as flax creates them: q, k, v, [edge], skip, beta.
+    mesh graph is, else K3b), and one with a band layout the banded branch
+    (K4a/K4b when `band_flash`, else the plain banded attention); otherwise
+    the segment-softmax branch. The linears are numbered as flax creates
+    them: q, k, v, [edge], skip, beta.
     """
 
     def __init__(
@@ -211,15 +217,16 @@ class GraphTransformerConv(nn.Module):
         v = self.TorchLinear_2(x)
         use_edges = self.use_edge_features and edge_attr is not None
 
-        if graph.cluster_ids is not None and not use_edges:
-            def heads(t):
-                return t.reshape(t.shape[:-1] + (h, c)).contiguous()
-
-            out = clustered_flash_attention(
-                heads(q), heads(k), heads(v),
-                graph.cluster_ids, graph.cluster_masks, graph.cluster_block,
-                symmetric=graph.cluster_symmetric, scatter_index=graph.cluster_scatter,
-            )
+        if not use_edges and (graph.cluster_ids is not None or graph.band_masks is not None):
+            q4, k4, v4 = (t.reshape(t.shape[:-1] + (h, c)).contiguous() for t in (q, k, v))
+            if graph.cluster_ids is not None:
+                out = clustered_flash_attention(
+                    q4, k4, v4, graph.cluster_ids, graph.cluster_masks, graph.cluster_block,
+                    symmetric=graph.cluster_symmetric, scatter_index=graph.cluster_scatter,
+                )
+            else:
+                attend = banded_flash_attention if graph.band_flash else banded_graph_attention
+                out = attend(q4, k4, v4, graph.band_masks, graph.band_block, graph.band_w)
             return self._combine(x, out.reshape(out.shape[:-2] + (h * c,)))
 
         q_e = q.index_select(-2, graph.receivers)

@@ -28,6 +28,7 @@ from graph_weather_tpu_torch.meshes.clustering import (
 )
 from graph_weather_tpu_torch.meshes.graphs import GraphBundle
 from graph_weather_tpu_torch.nn.mlp import OPTIONS_TODO, TorchLinear, make_norm
+from graph_weather_tpu_torch.ops.banded_attention import build_band_masks
 from graph_weather_tpu_torch.ops.edge_mlp import fused_edge_mlp
 from graph_weather_tpu_torch.ops.scatter import (
     build_padded_csr,
@@ -55,9 +56,14 @@ class DeviceGraph:
     the attention backward then takes K3c) and, for an edge set that is
     not symmetric, the inverse of cluster_ids for K3b's gather-sum
     (`cluster_scatter`, meshes.clustering.build_cluster_scatter_index;
-    None for a symmetric one). The JAX package's
-    banded layout is not carried: the banded attention options are not
-    ported yet.
+    None for a symmetric one).
+
+    The band_* fields (from_bundle(..., banded=True)) carry the banded
+    layout of a spatially sorted graph (ops/banded_attention.py,
+    ops/banded_flash.py): receiver blocks of `band_block` rows against
+    windows of band_block + 2 band_w key rows, through `band_masks`
+    ([nb, block, block + 2w] int8), and whether the attention runs the
+    flash kernels K4a/K4b (`band_flash`) or the plain banded attention.
     """
 
     senders: torch.Tensor  # [E] int32
@@ -72,6 +78,10 @@ class DeviceGraph:
     cluster_block: int = 0
     cluster_symmetric: bool = False
     cluster_scatter: Optional[torch.Tensor] = None  # [N_senders, K] int64 or None
+    band_masks: Optional[torch.Tensor] = None  # [nb, block, block + 2w] int8 or None
+    band_block: int = 0
+    band_w: int = 0
+    band_flash: bool = False
 
     @classmethod
     def from_bundle(
@@ -80,6 +90,9 @@ class DeviceGraph:
         device="cuda",
         clustered: bool = False,
         cluster_block: int = 256,
+        banded: bool = False,
+        band_block: int = 512,
+        band_flash: bool = False,
     ) -> "DeviceGraph":
         # The CUDA kernels gather with these indices unchecked: check once here.
         for ids, bound, name in (
@@ -115,6 +128,20 @@ class DeviceGraph:
                     build_cluster_scatter_index(layout.gather_ids, layout.masks, bundle.n_senders),
                     device=device,
                 )
+        band_masks, band_w = None, 0
+        if banded:
+            span = int(np.abs(
+                bundle.senders.astype(np.int64) - bundle.receivers.astype(np.int64)
+            ).max())
+            # The JAX package's rounding, so that both lay out the same band:
+            # its flash kernels' 512-key tiles divide the window and its
+            # flash backward needs w in whole tiles; else a lane multiple.
+            round_to = 512 if band_flash else 256
+            band_w = -(-span // round_to) * round_to
+            masks = build_band_masks(
+                bundle.senders, bundle.receivers, bundle.n_receivers, block=band_block, w=band_w
+            )
+            band_masks = torch.as_tensor(masks.astype(np.int8), device=device)
         senders, receivers, edge_attr = bundle.device_arrays(device)
         return cls(
             senders=senders,
@@ -129,6 +156,10 @@ class DeviceGraph:
             cluster_block=cluster_block if clustered else 0,
             cluster_symmetric=cluster_symmetric,
             cluster_scatter=cluster_scatter,
+            band_masks=band_masks,
+            band_block=band_block if banded else 0,
+            band_w=band_w,
+            band_flash=banded and band_flash,
         )
 
     def aggregate(self, edge_feats: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` exposes a plain C interface, so it compiles in seconds
 without PyTorch's headers. The shared library goes to `_build/` inside the
 package (listed in .gitignore), under a name that carries a hash of the
 source and the flags: an edited source is rebuilt, an unchanged one is
-loaded as it is. `load_libraries` starts one nvcc per source, all at once.
-Nothing here runs at import time.
+loaded as it is. `load_libraries` starts one nvcc per source, all at once
+(`load_libraries(all_sources())` builds every kernel of the port). Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -56,6 +57,11 @@ def _so_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
+def all_sources() -> list[str]:
+    """The name of every csrc/<name>.cu of the port."""
+    return sorted(src.stem for src in CSRC_DIR.glob("*.cu"))
+
+
 def load_libraries(names) -> dict[str, ctypes.CDLL]:
     """Build every `csrc/<name>.cu` whose hash changed, one nvcc process per
     source, all started together; then load them all (cached)."""
@@ -99,3 +105,13 @@ def load_library(name: str) -> ctypes.CDLL:
     after the first call this is a dict lookup, on every kernel launch)."""
     lib = _LIBRARIES.get(name)
     return lib if lib is not None else load_libraries([name])[name]
+
+
+def c_function(library: str, name: str, argtypes):
+    """The C entry `name` of csrc/<library>.cu, built at first use, with its
+    argument types set (each returns a cudaError_t as an int)."""
+    fn = getattr(load_library(library), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

@@ -48,6 +48,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from graph_weather_tpu_torch.ops._build import c_function
+
 LAUNCHES = 0  # K3a
 GENERAL_BWD_LAUNCHES = 0  # K3b
 SYMMETRIC_DQ_LAUNCHES = 0  # K3c, dq kernel
@@ -239,7 +241,7 @@ def _forward_cuda(q, k, v, gather_ids, masks, block, with_lse):
     if out.numel() == 0 or u_pad == 0:
         return out.zero_(), (None if lse is None else lse.fill_(_SAFE + math.log(1e-30)))
     with torch.cuda.device(q.device):
-        err = _kernel("clustered_flash", "gwt_clustered_flash_forward", _FWD_ARGTYPES)(
+        err = c_function("clustered_flash", "gwt_clustered_flash_forward", _FWD_ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gather_ids.data_ptr(),
             masks.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
             batch, n_q, n_kv, heads, c, nb, block, u_pad,
@@ -258,7 +260,7 @@ def _launch_backward(mode, q, k, v, dout, lse, delta, gather_ids, masks, dq, dk,
     batch, n_q, n_kv, heads, c, nb, u_pad = _sizes(q, k, gather_ids)
     tensors = [t for t in (q, k, v, dout, dq, dk, dv) if t is not None]
     with torch.cuda.device(q.device):
-        err = _kernel(
+        err = c_function(
             "clustered_flash_bwd", "gwt_clustered_flash_backward", _BWD_ARGTYPES
         )(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
@@ -371,14 +373,3 @@ def clustered_flash_attention(
     if q.device.type == "cpu":
         return clustered_flash_forward_reference(q, k, v, gather_ids, masks, block)
     return _forward_cuda(q, k, v, gather_ids, masks, block, with_lse=False)[0]
-
-
-def _kernel(library: str, name: str, argtypes):
-    """The C entry `name` of csrc/<library>.cu, built at first use."""
-    from graph_weather_tpu_torch.ops._build import load_library
-
-    fn = getattr(load_library(library), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn

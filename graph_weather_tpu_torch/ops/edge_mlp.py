@@ -29,6 +29,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from graph_weather_tpu_torch.ops._build import c_function
+
 LAUNCHES = 0
 MAX_WIDTH = 256  # widest H and Fe the kernel's tiles hold
 _TRAINING_TODO = "ROADMAP.md, 'K1 backward and training'"
@@ -206,10 +208,4 @@ def fused_edge_mlp(
 
 
 def _kernel_fn():
-    from graph_weather_tpu_torch.ops._build import load_library
-
-    fn = load_library("edge_mlp").gwt_edge_mlp_forward
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-    return fn
+    return c_function("edge_mlp", "gwt_edge_mlp_forward", _ARGTYPES)

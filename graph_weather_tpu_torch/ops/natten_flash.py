@@ -50,6 +50,7 @@ from dataclasses import dataclass
 
 import torch
 
+from graph_weather_tpu_torch.ops._build import c_function
 from graph_weather_tpu_torch.ops.neighborhood_attention import (
     _gather,
     _slot_bias,
@@ -264,7 +265,7 @@ def _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse):
     out = torch.empty(q.shape, device=q.device)
     lse = torch.empty(q.shape[:-1], device=q.device) if with_lse else None
     with torch.cuda.device(q.device):
-        err = _kernel("natten_flash", "gwt_natten_flash_forward", _FWD_ARGTYPES)(
+        err = c_function("natten_flash", "gwt_natten_flash_forward", _FWD_ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), out.data_ptr(), _ptr(lse),
             *_geometry(q, k, v, kernel, circular_w, tile, (q, k, v, out)),
         )
@@ -284,7 +285,7 @@ def _backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular_w):
     heads = q.shape[-2]
     has_bias = rpb is not None
     tensors = (q, k, v, dout, dq, dk, dv)
-    fn = _kernel("natten_flash_bwd", "gwt_natten_flash_backward", _BWD_ARGTYPES)
+    fn = c_function("natten_flash_bwd", "gwt_natten_flash_backward", _BWD_ARGTYPES)
 
     tile = _pick_tile("dq", dims, kernel, circular_w, ch, has_bias)
     partial = None
@@ -341,14 +342,3 @@ class _NattenFlash(torch.autograd.Function):
 
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
-
-
-def _kernel(library: str, name: str, argtypes):
-    """The C entry `name` of csrc/<library>.cu, built at first use."""
-    from graph_weather_tpu_torch.ops._build import load_library
-
-    fn = getattr(load_library(library), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn

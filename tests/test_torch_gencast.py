@@ -324,15 +324,27 @@ def test_devices_must_agree(clustered_models):
 @pytest.mark.parametrize(
     "option,match",
     [
-        (dict(attention_impl="banded"), "K4a/K4b"),
-        (dict(attention_impl="banded_flash"), "K4a/K4b"),
+        (dict(attention_impl="banded"), None),
+        (dict(attention_impl="banded_flash"), None),
         (dict(compute_dtype=torch.bfloat16), "GenCast options"),
     ],
     ids=["banded", "banded_flash", "bf16"],
 )
 def test_unported_options_raise(option, match):
-    with pytest.raises(NotImplementedError, match=match):
-        Denoiser(**{**CLUSTERED, **option}, device="cpu")
+    """bf16 is not ported and raises; the banded options are ported and
+    build (through DenoiserConfig) the k-hop graph's band layout and no
+    cluster layout."""
+    kw = {**CLUSTERED, **option}
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            Denoiser(**kw, device="cpu")
+        return
+    khop = DenoiserConfig(**kw, device="cpu").build().khop
+    flash = option["attention_impl"] == "banded_flash"
+    assert khop.cluster_ids is None and khop.band_masks is not None
+    assert khop.band_flash == flash and khop.band_block == 512
+    assert khop.band_w > 0 and khop.band_w % (512 if flash else 256) == 0
+    assert khop.band_masks.shape == (1, 512, 512 + 2 * khop.band_w)  # 162 mesh nodes
 
 
 def test_unported_entry_points_raise(clustered_models):

@@ -16,7 +16,8 @@ from graph_weather_tpu_torch.meshes.clustering import (
     build_cluster_scatter_index,
     is_symmetric_edges,
 )
-from graph_weather_tpu_torch.ops import clustered_flash, edge_mlp, natten_flash
+from graph_weather_tpu_torch.ops import banded_flash, clustered_flash, edge_mlp, natten_flash
+from graph_weather_tpu_torch.ops.banded_attention import build_band_masks
 from graph_weather_tpu_torch.ops.neighborhood_attention import (
     neighborhood_attention_3d,
     neighborhood_attention_3d_reference,
@@ -366,3 +367,104 @@ def test_natten_refuses_what_it_cannot_take(gen):
     strided = q.transpose(-1, -2).contiguous().transpose(-1, -2)  # [heads, ch] not dense
     with pytest.raises(ValueError, match="dense"):
         neighborhood_attention_3d(strided, k, v, (3, 3, 3), rpb)
+
+
+# -- K4a / K4b: banded attention ----------------------------------------------
+
+
+def _band_case(gen, b, n, heads, c, w, seed=0):
+    """A graph whose receivers have up to 6 neighbours within +-w (so edges
+    reach the window's ends), every 7th receiver without an edge, in
+    512-row blocks (n = 1300: padded rows in the last block); q, k, v, dO
+    [b, n, heads, c] on the card."""
+    rng = np.random.default_rng(seed)
+    receivers = np.repeat(np.arange(n), 6)
+    senders = np.clip(receivers + rng.integers(-w, w + 1, receivers.size), 0, n - 1)
+    pairs = np.unique(np.stack([receivers, senders], 1), axis=0)
+    pairs = pairs[pairs[:, 0] % 7 != 0]
+    masks = build_band_masks(pairs[:, 1], pairs[:, 0], n, 512, w)
+    empty = ~masks.reshape(-1, masks.shape[-1]).any(-1)[:n]
+    q, k, v, dout = (torch.randn(b, n, heads, c, generator=gen, device="cuda") for _ in range(4))
+    masks = torch.as_tensor(masks.astype(np.int8), device="cuda")
+    return q, k, v, dout, masks, torch.as_tensor(empty, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [256, 512])
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("c", [16, 128, 512])
+def test_banded_flash_matches_plain(gen, c, batch, w):
+    """K4a's out and lse against the plain version, B in {1, 2} sharing one
+    mask, w = 256 and 512; exact zeros on rows without a neighbour."""
+    q, k, v, _, masks, empty = _band_case(gen, batch, 1300, 4, c, w)
+    before = banded_flash.LAUNCHES
+    with torch.no_grad():
+        out = banded_flash.banded_flash_attention(q, k, v, masks, 512, w)
+    out_lse, lse = banded_flash._forward_cuda(q, k, v, masks, 512, w, with_lse=True)
+    torch.cuda.synchronize()
+    assert banded_flash.LAUNCHES == before + 2
+    ref, ref_lse = banded_flash.banded_flash_forward_reference(q, k, v, masks, 512, w, with_lse=True)
+    assert out.shape == ref.shape == q.shape and lse.shape == (batch, 3 * 512, 4)
+    assert (out - ref).abs().max().item() <= ATOL
+    assert torch.equal(out, out_lse)
+    assert bool((ref_lse < -1e27).any())  # empty and padded rows: -1e28 + log(1e-30)
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    assert bool(empty.any()) and bool((out[:, empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [256, 512])
+@pytest.mark.parametrize("c", [16, 128, 512])
+def test_banded_flash_backward_matches_plain(gen, c, w):
+    """K4b (through the autograd Function: K4a with lse, then the dq and
+    dk/dv kernels) against the plain backward at B = 2; exact-zero dq on
+    rows without a neighbour."""
+    q, k, v, dout, masks, empty = _band_case(gen, 2, 1300, 4, c, w, seed=1)
+    counts = (banded_flash.BWD_DQ_LAUNCHES, banded_flash.BWD_DKV_LAUNCHES)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(banded_flash.banded_flash_attention(*leaves, masks, 512, w), leaves, dout)
+    torch.cuda.synchronize()
+    assert (banded_flash.BWD_DQ_LAUNCHES, banded_flash.BWD_DKV_LAUNCHES) == (counts[0] + 1, counts[1] + 1)
+    out, lse = banded_flash.banded_flash_forward_reference(q, k, v, masks, 512, w, with_lse=True)
+    want = banded_flash.banded_flash_backward_reference(q, k, v, masks, out, lse, dout, 512, w)
+    for name, a, b in zip("qkv", got, want):
+        assert (a - b).abs().max().item() <= ATOL, f"d{name}"
+    assert bool((got[0][:, empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_banded_flash_unbatched_odd_width(gen):
+    """[N, h, c] inputs with c = 6 (not a multiple of 4: the scalar copies),
+    forward and backward, against the plain versions."""
+    q, k, v, dout, masks, empty = _band_case(gen, 1, 700, 2, 6, 256, seed=2)
+    q, k, v, dout = q[0], k[0], v[0], dout[0]
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = banded_flash.banded_flash_attention(*leaves, masks, 512, 256)
+    got = torch.autograd.grad(out, leaves, dout)
+    ref, lse = banded_flash.banded_flash_forward_reference(q, k, v, masks, 512, 256, with_lse=True)
+    want = banded_flash.banded_flash_backward_reference(q, k, v, masks, ref, lse, dout, 512, 256)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= ATOL
+    assert _max_err(got, want) <= ATOL
+    assert bool((out[empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_banded_flash_gradients_flow(gen):
+    """Gradients through the autograd Function on the card against autograd
+    of the plain forward in float64 on the CPU; the kernels refuse what they
+    cannot take."""
+    q, k, v, dout, masks, _ = _band_case(gen, 2, 1300, 2, 32, 512, seed=3)
+    before = banded_flash.LAUNCHES
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(banded_flash.banded_flash_attention(*leaves, masks, 512, 512), leaves, dout)
+    assert banded_flash.LAUNCHES == before + 1
+    q64, k64, v64 = (t.detach().cpu().double().requires_grad_(True) for t in (q, k, v))
+    out = banded_flash.banded_flash_forward_reference(q64, k64, v64, masks.cpu(), 512, 512)
+    want = torch.autograd.grad(out, (q64, k64, v64), dout.cpu().double())
+    assert max((a.cpu().double() - b).abs().max().item() for a, b in zip(got, want)) <= ATOL
+    wide = torch.zeros(1, 1300, 1, 513, device="cuda")
+    with pytest.raises(ValueError, match="head width"):
+        banded_flash.banded_flash_attention(wide, wide, wide, masks, 512, 512)
+    with pytest.raises(TypeError, match="int8"):
+        banded_flash.banded_flash_attention(q, k, v, masks.bool(), 512, 512)
