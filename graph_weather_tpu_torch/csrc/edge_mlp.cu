@@ -40,19 +40,26 @@
 //   * warp w owns rows 8w..8w+7 of the tile in all three products, so the
 //     LayerNorm row statistics are warp shuffles over registers.
 //
+// Partial-product mode (K2). It replaces the Pallas TPU kernel
+// graph_weather_tpu/ops/pallas/fused_mlp.py: _kernel (launched by
+// _fused_padded), which takes the first layer's node terms as partial
+// products already gathered per edge. Here the caller makes p_src = x_src Ws
+// and p_dst = x_dst Wd once per node (N << E, plain GEMMs), and the kernel
+// gathers their rows itself: the tile's accumulator starts from
+// p_src[s] + p_dst[r] (each thread adds its 8 x 8 entries from global
+// memory), and only We's slices run through the slice loop before W1, W2,
+// the LayerNorm and the residual, as above. That is 3 products per edge
+// where raw mode does 5 (4 without x_dst): 2 * (Fe * H + H * H + H * Fe)
+// flops per edge. Its backward is K2b (fused_mlp_bwd.cu).
+//
 // Widths up to 256 are accepted; narrower layers run on zero-padded tiles.
-// Not yet here: wgmma/TMA, bf16, the backward, and gathering per-node
-// partial products x Ws instead of raw rows.
+// Not yet here: wgmma/TMA and bf16. The helpers are in edge_tile.cuh.
 
-#include <cuda_runtime.h>
+#include "edge_tile.cuh"
 
 namespace {
 
-constexpr int TE = 64;        // edges per block
-constexpr int KC = 32;        // rows of a weight slice (reduction chunk)
-constexpr int NMAX = 256;     // widest layer output (H and Fe)
-constexpr int THREADS = 256;  // 8 warps
-constexpr int ROWS = TE / (THREADS / 32);  // 8 tile rows per warp
+using namespace edge_tile;
 
 struct Params {
   const int* senders;
@@ -77,121 +84,8 @@ struct Params {
   int f_dst;
   int f_e;
   int hidden;
+  int partial;  // K2: x_src/x_dst hold [N, hidden] partial products, w0 is We
 };
-
-// 107 KB: two blocks fit in an SM's 227 KB.
-constexpr size_t kSmemBytes =
-    sizeof(float) * (TE * NMAX + KC * NMAX + TE * KC) + sizeof(int) * 2 * TE;
-
-// Asynchronous 4-byte copy global -> shared; writes 0 when !ok (src unread).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-// Waits for this thread's copies, then for every thread's.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-}
-
-// Bs[kk][n] = W[k0 + kk][n] for k0 + kk < k_end and n < n_cols, else 0.
-__device__ __forceinline__ void load_weight_slice(float* Bs, const float* W,
-                                                  int k0, int k_end,
-                                                  int n_cols) {
-  const int n = threadIdx.x;  // THREADS == NMAX: one column per thread
-#pragma unroll 8
-  for (int kk = 0; kk < KC; ++kk) {
-    const int k = k0 + kk;
-    const bool ok = k < k_end && n < n_cols;
-    cp_async4(Bs + kk * NMAX + n, ok ? W + (long long)k * n_cols + n : W, ok);
-  }
-}
-
-// acc[r][j] += sum_k A[row_r][k] * B[k][col_j] over one KC slice, where
-// row_r = 8 * warp + r and col_j = 4 * lane + j (j < 4), 128 + 4 * lane + j - 4.
-__device__ __forceinline__ void mma_slice(float (&acc)[ROWS][8],
-                                          const float* A, int lda,
-                                          const float* Bs) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k4 = 0; k4 < KC; k4 += 4) {
-    float4 a[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r)
-      a[r] = *reinterpret_cast<const float4*>(A + (warp * ROWS + r) * lda + k4);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float* brow = Bs + (k4 + kk) * NMAX;
-      const float4 p = *reinterpret_cast<const float4*>(brow + lane * 4);
-      const float4 q = *reinterpret_cast<const float4*>(brow + 128 + lane * 4);
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        const float v = kk == 0 ? a[r].x : kk == 1 ? a[r].y : kk == 2 ? a[r].z : a[r].w;
-        acc[r][0] = fmaf(v, p.x, acc[r][0]);
-        acc[r][1] = fmaf(v, p.y, acc[r][1]);
-        acc[r][2] = fmaf(v, p.z, acc[r][2]);
-        acc[r][3] = fmaf(v, p.w, acc[r][3]);
-        acc[r][4] = fmaf(v, q.x, acc[r][4]);
-        acc[r][5] = fmaf(v, q.y, acc[r][5]);
-        acc[r][6] = fmaf(v, q.z, acc[r][6]);
-        acc[r][7] = fmaf(v, q.w, acc[r][7]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ int tile_col(int j) {
-  return (j < 4 ? 0 : 128 - 4) + (threadIdx.x & 31) * 4 + j;
-}
-
-// Hs[row][col] = relu(acc + bias) for this thread's tile (zero past n_cols).
-__device__ __forceinline__ void store_relu(float* Hs, float (&acc)[ROWS][8],
-                                           const float* bias, int n_cols) {
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = tile_col(j);
-    const float bj = c < n_cols ? bias[c] : 0.f;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      Hs[(warp * ROWS + r) * NMAX + c] = fmaxf(acc[r][j] + bj, 0.f);
-      acc[r][j] = 0.f;
-    }
-  }
-}
-
-// acc += Hs @ W over k in [0, k_end), W is [k_end, n_cols].
-__device__ __forceinline__ void dense_from_smem(float (&acc)[ROWS][8],
-                                                const float* Hs, float* Bs,
-                                                const float* W, int k_end,
-                                                int n_cols) {
-  for (int k0 = 0; k0 < k_end; k0 += KC) {
-    load_weight_slice(Bs, W, k0, k_end, n_cols);
-    cp_async_wait_all();
-    mma_slice(acc, Hs + k0, NMAX, Bs);
-    __syncthreads();
-  }
-}
-
-// As[row][kk] = src[node(row)][k0 + kk], node(row) = ids[row], or the edge id
-// itself when ids == nullptr; 0 past the row width or the last edge.
-__device__ __forceinline__ void gather_slice(float* As, const float* src,
-                                             const int* ids, int width, int k0,
-                                             int e0, int n_edges) {
-  for (int i = threadIdx.x; i < TE * KC; i += THREADS) {
-    const int row = i / KC;
-    const int k = k0 + i % KC;
-    const int edge = e0 + row;
-    const bool ok = edge < n_edges && k < width;
-    const long long node = ids ? ids[row] : edge;
-    cp_async4(As + i, ok ? src + node * width + k : src, ok);
-  }
-}
 
 __global__ void __launch_bounds__(THREADS, 2)
     edge_mlp_kernel(const Params p) {
@@ -212,22 +106,23 @@ __global__ void __launch_bounds__(THREADS, 2)
   __syncthreads();
 
   const float* e_b = p.e + b * p.e_bstride;
-  float acc[ROWS][8];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
-
-  // h0: the three row blocks of W0 against their gathered operands, as one
-  // loop over slices, so the unrolled product is inlined once here (three
-  // inlined copies, one loop per block, measured 3.5% slower on an H100).
   const float* xs_b = p.x_src + b * p.xs_bstride;
   const float* xd_b = p.x_dst ? p.x_dst + b * p.xd_bstride : nullptr;
+  float acc[ROWS][8];
+  if (p.partial)
+    init_from_partials(acc, xs_b, xd_b, sidx, ridx, p.hidden);
+  else
+    zero(acc);
+
+  // h0: the row blocks of W0 against their gathered operands (only We's in
+  // partial mode), as one loop over slices, so the unrolled product is
+  // inlined once here (three inlined copies, one loop per block, measured
+  // 3.5% slower on an H100).
   const float* e_tile = e_b + (long long)e0 * p.f_e;
   const float* w_dst = p.w0 + (long long)p.f_src * p.hidden;
-  const float* w_e = w_dst + (long long)p.f_dst * p.hidden;
-  const int n_src = (p.f_src + KC - 1) / KC;
-  const int n_dst = xd_b ? (p.f_dst + KC - 1) / KC : 0;
+  const float* w_e = p.partial ? p.w0 : w_dst + (long long)p.f_dst * p.hidden;
+  const int n_src = p.partial ? 0 : (p.f_src + KC - 1) / KC;
+  const int n_dst = xd_b && !p.partial ? (p.f_dst + KC - 1) / KC : 0;
   const int n_all = n_src + n_dst + (p.f_e + KC - 1) / KC;
   for (int i = 0; i < n_all; ++i) {
     if (i < n_src) {
@@ -299,10 +194,24 @@ __global__ void __launch_bounds__(THREADS, 2)
   }
 }
 
+int launch(const Params& p, int batch, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      edge_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((p.n_edges + TE - 1) / TE, batch);
+  edge_mlp_kernel<<<grid, THREADS, kSmemBytes,
+                    static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Launches on `stream`, does not
-// synchronise, allocates nothing; returns cudaGetLastError() after launch.
+// Plain C entry points (bound with ctypes). Each launches on `stream`, does
+// not synchronise, allocates nothing; returns cudaGetLastError() after launch.
+
+// Raw mode (K1): x_src [N_src, f_src] and x_dst [N_dst, f_dst] node rows,
+// w0 = [Ws; Wd; We].
 extern "C" int gwt_edge_mlp_forward(
     const int* senders, const int* receivers, const float* x_src,
     long long xs_bstride, int f_src, const float* x_dst, long long xd_bstride,
@@ -310,15 +219,23 @@ extern "C" int gwt_edge_mlp_forward(
     const float* b0, const float* w1, const float* b1, const float* w2,
     const float* b2, const float* gamma, const float* beta, float* out,
     int n_edges, int batch, int hidden, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      edge_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  Params p{senders, receivers, x_src, x_dst, e, w0, b0, w1, b1, w2, b2,
-           gamma, beta, out, xs_bstride, xd_bstride, e_bstride, n_edges,
-           f_src, f_dst, f_e, hidden};
-  dim3 grid((n_edges + TE - 1) / TE, batch);
-  edge_mlp_kernel<<<grid, THREADS, kSmemBytes,
-                    static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  const Params p{senders, receivers, x_src, x_dst, e, w0, b0, w1, b1, w2, b2,
+                 gamma, beta, out, xs_bstride, xd_bstride, e_bstride, n_edges,
+                 f_src, f_dst, f_e, hidden, 0};
+  return launch(p, batch, stream);
+}
+
+// Partial-product mode (K2): p_src [N_src, hidden] and p_dst [N_dst, hidden]
+// (nullptr: no destination term) are x_src Ws and x_dst Wd; we is [f_e, hidden].
+extern "C" int gwt_edge_update_forward(
+    const int* senders, const int* receivers, const float* p_src,
+    long long ps_bstride, const float* p_dst, long long pd_bstride,
+    const float* e, long long e_bstride, int f_e, const float* we,
+    const float* b0, const float* w1, const float* b1, const float* w2,
+    const float* b2, const float* gamma, const float* beta, float* out,
+    int n_edges, int batch, int hidden, void* stream) {
+  const Params p{senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2,
+                 gamma, beta, out, ps_bstride, pd_bstride, e_bstride, n_edges,
+                 hidden, hidden, f_e, hidden, 1};
+  return launch(p, batch, stream);
 }

@@ -9,8 +9,12 @@ via hex-mesh encode -> message passing -> decode with an input residual.
     model.init(torch.Generator().manual_seed(0))
     prediction = model(features)          # features on model.device
 
-This is the serving path: `apply` runs under torch.no_grad(). Training,
-the bf16 policy and the cached static edge features are not ported yet.
+Serving: `apply` (and `model(...)`) runs under torch.no_grad(). Training:
+`forward_fn()` is the differentiable features -> prediction, for
+`train.make_train_step(model.module.parameters(), model.forward_fn(), loss,
+make_optimizer(lr))`; `use_checkpointing=True` recomputes each processor
+block in the backward. The bf16 policy and the cached static edge features
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from graph_weather_tpu_torch.models.layers import Decoder, Encoder, Processor
 from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
 from graph_weather_tpu_torch.nn.mlp import OPTIONS_TODO, init_parameters
 from graph_weather_tpu_torch.utils import validate_lat_lons
+
+BF16_TODO = "ROADMAP.md, 'bf16 and TF32 compute policies'"
 
 
 class ForecasterModule(nn.Module):
@@ -158,9 +164,13 @@ class GraphWeatherForecaster:
         latent = build_latent_graph(mesh)
         if latent_graph_order == "reference":
             latent = reversal_conjugated_latent(latent)
-        self.g2m = DeviceGraph.from_bundle(build_grid_to_mesh_graph(ll, mesh), self.device)
-        self.latent = DeviceGraph.from_bundle(latent, self.device)
-        self.m2g = DeviceGraph.from_bundle(build_mesh_to_grid_graph(ll, mesh), self.device)
+        self.g2m = DeviceGraph.from_bundle(
+            build_grid_to_mesh_graph(ll, mesh), self.device, edge_sums=True
+        )
+        self.latent = DeviceGraph.from_bundle(latent, self.device, edge_sums=True)
+        self.m2g = DeviceGraph.from_bundle(
+            build_mesh_to_grid_graph(ll, mesh), self.device, edge_sums=True
+        )
 
         self.module = ForecasterModule(
             input_dim=feature_dim + aux_dim,
@@ -193,6 +203,22 @@ class GraphWeatherForecaster:
         with torch.no_grad():
             self.module.Encoder_0.mesh_nodes.zero_()
         return self.module.state_dict()
+
+    def forward_fn(self, compute_dtype=None):
+        """The differentiable forward, features [B, N, feature+aux] ->
+        prediction [B, N, output], over this handle's graphs and weights (the
+        counterpart of the JAX package's forward_fn(params, features): here
+        the parameters are `self.module.parameters()`)."""
+        if compute_dtype not in (None, torch.float32):
+            raise NotImplementedError(
+                f"compute_dtype={compute_dtype}: the port runs float32 only. See {BF16_TODO}."
+            )
+        module, g2m, latent, m2g = self.module, self.g2m, self.latent, self.m2g
+
+        def fn(features: torch.Tensor) -> torch.Tensor:
+            return module(features, g2m, latent, m2g)
+
+        return fn
 
     @torch.no_grad()
     def apply(self, features: torch.Tensor) -> torch.Tensor:

@@ -23,16 +23,24 @@ processors.{p}.layers.{i}, decoder.split, ...), so its state_dict loads
 with `load_state_dict` as it is; the `bn*` names stay when the norm is a
 GroupNorm. On the card every attention layer runs the CUDA kernel K5a
 (and K5b in the backward); see ops/neighborhood_attention.py.
+
+On CPU tensors every conv runs in PyTorch's own CPU kernels, forward and
+backward, never oneDNN's: on the H100 hosts (torch 2.11+cu128) oneDNN's CPU
+conv backward gave a weight gradient off by its own size now and then, and
+glibc heap aborts. The flag that picks the kernels is global and read when
+each kernel runs, so `_CpuConv` turns oneDNN off around the backward too.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import asdict, dataclass
 from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 from graph_weather_tpu_torch.ops.neighborhood_attention import neighborhood_attention_3d
 
@@ -62,8 +70,70 @@ def _norm(channels: int, kind: str = "group") -> nn.Module:
     return nn.GroupNorm(min(32, channels), channels, eps=1e-5)
 
 
+@contextlib.contextmanager
+def _without_onednn():
+    before = torch.backends.mkldnn.enabled
+    torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = before
+
+
+class _CpuConv(torch.autograd.Function):
+    """A zero-padded convolution of CPU tensors with oneDNN off in its forward
+    and in its backward (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation, groups):
+        zeros = [0] * len(stride)
+        with _without_onednn():
+            out = torch.ops.aten.convolution(
+                x, weight, bias, stride, padding, dilation, False, zeros, groups
+            )
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding, dilation, groups, bias is not None)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        stride, padding, dilation, groups, has_bias = ctx.conf
+        wanted = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], has_bias and ctx.needs_input_grad[2]]
+        with _without_onednn():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                grad, x, weight, [weight.shape[0]] if has_bias else None, stride, padding,
+                dilation, False, [0] * len(stride), groups, wanted,
+            )
+        return dx, dw, db, None, None, None, None
+
+
+class _NativeCpuConv:
+    """Mixin for nn.Conv2d/nn.Conv3d: CPU tensors take _CpuConv; CUDA
+    tensors cuDNN, as the plain module."""
+
+    def _conv_forward(self, input, weight, bias):
+        if input.device.type != "cpu":
+            return super()._conv_forward(input, weight, bias)
+        if self.padding_mode != "zeros" or isinstance(self.padding, str):
+            raise NotImplementedError("the CPU conv takes integer zero padding only")
+        return _CpuConv.apply(
+            input, weight, bias, list(self.stride), list(self.padding), list(self.dilation),
+            self.groups,
+        )
+
+
+class _Conv2d(_NativeCpuConv, nn.Conv2d):
+    pass
+
+
+class _Conv3d(_NativeCpuConv, nn.Conv3d):
+    pass
+
+
 def _conv(ndim: int, *args, **kwargs) -> nn.Module:
-    return (nn.Conv3d if ndim == 3 else nn.Conv2d)(*args, **kwargs)
+    return (_Conv3d if ndim == 3 else _Conv2d)(*args, **kwargs)
 
 
 class NeighborhoodAttention3D(nn.Module):
@@ -212,7 +282,7 @@ class WeatherMeshEncoder(nn.Module):
             ConvDownBlock(c_in, c_out, is_3d=True, stride=(1, 2, 2), norm=norm)
             for c_in, c_out in zip([input_channels_3d] + widths, widths)
         )
-        self.to_latent = nn.Conv3d(widths[-1] if widths else input_channels_3d, latent_dim, 1)
+        self.to_latent = _conv(3, widths[-1] if widths else input_channels_3d, latent_dim, 1)
         self.transformer_layers = nn.ModuleList(
             NeighborhoodAttention3D(latent_dim, num_heads, tuple(kernel_size))
             for _ in range(num_transformer_layers)
@@ -253,7 +323,7 @@ class WeatherMeshDecoder(nn.Module):
             NeighborhoodAttention3D(latent_dim, num_heads, tuple(kernel_size))
             for _ in range(num_transformer_layers)
         )
-        self.split = nn.Conv3d(latent_dim, hidden_dim * 2**n_conv_blocks, 1)
+        self.split = _conv(3, latent_dim, hidden_dim * 2**n_conv_blocks, 1)
         # path index j runs the JAX package's loop i = n - 1 .. 0
         order = list(reversed(range(n_conv_blocks)))
         self.pressure_path = nn.ModuleList(

@@ -4,7 +4,7 @@ Blocks operate on [B, N, F] node / [E, F] or [B, E, F] edge features over a
 static `DeviceGraph` shared across the batch. Semantics match the JAX
 package (and the reference's graph_net_block.py):
 
-  EdgeBlock:  e' = MLP([x_src, x_dst, e]) + e     (the fused K1 kernel)
+  EdgeBlock:  e' = MLP([x_src, x_dst, e]) + e     (the fused K2 kernel)
   NodeBlock:  x' = MLP([x, sum_{e into x} e']) + x
 
 Bipartite graphs update destination nodes only. Submodules carry the flax
@@ -19,6 +19,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from graph_weather_tpu_torch.meshes.clustering import (
@@ -29,8 +30,9 @@ from graph_weather_tpu_torch.meshes.clustering import (
 from graph_weather_tpu_torch.meshes.graphs import GraphBundle
 from graph_weather_tpu_torch.nn.mlp import OPTIONS_TODO, TorchLinear, make_norm
 from graph_weather_tpu_torch.ops.banded_attention import build_band_masks
-from graph_weather_tpu_torch.ops.edge_mlp import fused_edge_mlp
+from graph_weather_tpu_torch.ops.fused_mlp import fused_edge_update
 from graph_weather_tpu_torch.ops.scatter import (
+    build_chunked_csr,
     build_padded_csr,
     padded_csr_agg,
     segment_sum_agg,
@@ -38,8 +40,18 @@ from graph_weather_tpu_torch.ops.scatter import (
 
 # Degree threshold below which the padded-CSR (scatter-free) aggregation is
 # used. Latent mesh (<=7) and mesh->grid (<=7) qualify; grid->mesh graphs on
-# lat/lon grids have very skewed polar in-degrees and use segment_sum.
+# lat/lon grids have very skewed polar in-degrees and use segment_sum. The
+# edge update's backward (edge_sums=True) sums through chunks of this width
+# at any degree (mesh->grid senders send up to 1,260 edges on a 1° grid).
 _CSR_MAX_DEGREE = 16
+
+
+def _sum_levels(ids: np.ndarray, n_nodes: int, device) -> tuple:
+    """The levels of build_chunked_csr on `device`."""
+    return tuple(
+        (torch.as_tensor(edge_ids, device=device), torch.as_tensor(mask, device=device))
+        for edge_ids, mask in build_chunked_csr(ids, n_nodes, _CSR_MAX_DEGREE)
+    )
 
 
 @dataclass(frozen=True)
@@ -64,6 +76,12 @@ class DeviceGraph:
     windows of band_block + 2 band_w key rows, through `band_masks`
     ([nb, block, block + 2w] int8), and whether the attention runs the
     flash kernels K4a/K4b (`band_flash`) or the plain banded attention.
+
+    receiver_sum and sender_sum (from_bundle(..., edge_sums=True), for the
+    backward of EdgeBlock's fused edge update) are the levels of padded CSR
+    tables that sum edge rows to the receivers and to the senders: one table
+    where no node has more than 16 edges (the receivers' is then the csr_*
+    table itself), else two (ops.scatter.build_chunked_csr).
     """
 
     senders: torch.Tensor  # [E] int32
@@ -73,6 +91,8 @@ class DeviceGraph:
     csr_mask: Optional[torch.Tensor]  # [N_dst, K] bool or None
     n_senders: int
     n_receivers: int
+    receiver_sum: Optional[tuple] = None  # ((edge_ids, mask), ...) levels or None
+    sender_sum: Optional[tuple] = None
     cluster_ids: Optional[torch.Tensor] = None  # [nb, U_pad] int32 or None
     cluster_masks: Optional[torch.Tensor] = None  # [nb, block, U_pad] int8 or None
     cluster_block: int = 0
@@ -93,6 +113,7 @@ class DeviceGraph:
         banded: bool = False,
         band_block: int = 512,
         band_flash: bool = False,
+        edge_sums: bool = False,
     ) -> "DeviceGraph":
         # The CUDA kernels gather with these indices unchecked: check once here.
         for ids, bound, name in (
@@ -108,6 +129,13 @@ class DeviceGraph:
             ids, mask = build_padded_csr(bundle.receivers, bundle.n_receivers)
             csr_ids = torch.as_tensor(ids, device=device)
             csr_mask = torch.as_tensor(mask, device=device)
+        receiver_sum = sender_sum = None
+        if edge_sums:
+            receiver_sum = (
+                ((csr_ids, csr_mask),) if use_csr
+                else _sum_levels(bundle.receivers, bundle.n_receivers, device)
+            )
+            sender_sum = _sum_levels(bundle.senders, bundle.n_senders, device)
         cluster_ids = cluster_masks = cluster_scatter = None
         cluster_symmetric = False
         if clustered:
@@ -151,6 +179,8 @@ class DeviceGraph:
             csr_mask=csr_mask,
             n_senders=bundle.n_senders,
             n_receivers=bundle.n_receivers,
+            receiver_sum=receiver_sum,
+            sender_sum=sender_sum,
             cluster_ids=cluster_ids,
             cluster_masks=cluster_masks,
             cluster_block=cluster_block if clustered else 0,
@@ -232,11 +262,13 @@ class _FactorizedPartsMLP(nn.Module):
 
 
 class EdgeBlock(nn.Module):
-    """e' = MLP([x_src[s], x_dst[r], e]) + e, as one K1 launch.
-
-    K1 (ops/edge_mlp.py) fuses the gathers, the three products, the
-    LayerNorm and the residual; it covers the two-hidden-layer edge MLP that
-    every GraphWeatherForecaster uses.
+    """e' = MLP([x_src[s], x_dst[r], e]) + e, factorized as the JAX
+    package's EdgeBlock: the first layer's node terms x_src @ Ws and
+    x_dst @ Wd are taken once per node (torch.matmul, from row slices of
+    MLP_0.TorchLinear_0.kernel), and one K2 launch (ops/fused_mlp.py)
+    gathers them per edge and fuses e @ We, the other two products, the
+    LayerNorm and the residual. Differentiable (K2b); it covers the
+    two-hidden-layer edge MLP that every GraphWeatherForecaster uses.
     """
 
     def __init__(
@@ -269,13 +301,21 @@ class EdgeBlock(nn.Module):
     ) -> torch.Tensor:
         mlp = self.MLP_0
         norm = mlp.LayerNorm_0
-        return fused_edge_mlp(
+        kernel = mlp.TorchLinear_0.kernel
+        f_src, f_dst, _ = mlp.TorchLinear_0.widths
+        p_src = x_src @ kernel[:f_src]
+        p_dst = None
+        if not self.dst_is_zero:
+            if x_dst.dim() == 3 and x_dst.stride(0) == 0:
+                x_dst = x_dst[0]  # an expand()ed batch: one product, broadcast
+            p_dst = x_dst @ kernel[f_src : f_src + f_dst]
+        return fused_edge_update(
             graph.senders,
             graph.receivers,
-            x_src,
-            None if self.dst_is_zero else x_dst,
+            p_src,
+            p_dst,
             edge_feats,
-            mlp.TorchLinear_0.kernel,
+            kernel[f_src + f_dst :],
             mlp.TorchLinear_0.bias,
             mlp.TorchLinear_1.kernel,
             mlp.TorchLinear_1.bias,
@@ -283,6 +323,8 @@ class EdgeBlock(nn.Module):
             mlp.TorchLinear_2.bias,
             None if norm is None else norm.weight,
             None if norm is None else norm.bias,
+            sender_sum=graph.sender_sum,
+            receiver_sum=graph.receiver_sum,
         )
 
 
@@ -360,7 +402,12 @@ class GraphProcessorBlock(nn.Module):
 
 
 class GraphProcessor(nn.Module):
-    """Stack of message-passing rounds on a homogeneous graph."""
+    """Stack of message-passing rounds on a homogeneous graph.
+
+    `remat` checkpoints each block under autograd (torch.utils.checkpoint):
+    the block's activations are recomputed in the backward instead of kept,
+    as the JAX package's per-block nn.remat.
+    """
 
     def __init__(
         self,
@@ -375,10 +422,7 @@ class GraphProcessor(nn.Module):
         remat: bool = False,
     ):
         super().__init__()
-        if remat:
-            raise NotImplementedError(
-                f"remat (use_checkpointing) is a training option. See {OPTIONS_TODO}."
-            )
+        self.remat = remat
         self.num_blocks = num_blocks
         for i in range(num_blocks):
             self.add_module(
@@ -394,5 +438,10 @@ class GraphProcessor(nn.Module):
     ) -> tuple[torch.Tensor, torch.Tensor]:
         for i in range(self.num_blocks):
             block = getattr(self, f"GraphProcessorBlock_{i}")
-            x, edge_feats = block(x, x, edge_feats, graph)
+            if self.remat and torch.is_grad_enabled():
+                x, edge_feats = torch.utils.checkpoint.checkpoint(
+                    block, x, x, edge_feats, graph, use_reentrant=False
+                )
+            else:
+                x, edge_feats = block(x, x, edge_feats, graph)
         return x, edge_feats

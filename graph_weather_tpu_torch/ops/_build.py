@@ -3,10 +3,10 @@
 Each `csrc/<name>.cu` exposes a plain C interface, so it compiles in seconds
 without PyTorch's headers. The shared library goes to `_build/` inside the
 package (listed in .gitignore), under a name that carries a hash of the
-source and the flags: an edited source is rebuilt, an unchanged one is
-loaded as it is. `load_libraries` starts one nvcc per source, all at once
-(`load_libraries(all_sources())` builds every kernel of the port). Nothing
-here runs at import time.
+source, the shared headers (`csrc/*.cuh`) and the flags: an edited source
+or header is rebuilt, an unchanged one is loaded as it is. `load_libraries`
+starts one nvcc per source, all at once (`load_libraries(all_sources())`
+builds every kernel of the port). Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -52,8 +52,10 @@ def build_log_path(name: str) -> Path:
 
 
 def _so_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # what a source may include
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 

@@ -18,7 +18,10 @@ skips the Wd term for destination nodes known to be zero.
 
 `fused_edge_mlp` runs the plain PyTorch twin `fused_edge_mlp_reference` for
 CPU tensors and launches the CUDA kernel for CUDA tensors; it never falls
-back from one to the other. `LAUNCHES` counts kernel launches.
+back from one to the other. `LAUNCHES` counts kernel launches. The model's
+edge blocks run the kernel's partial-product mode instead, with its
+backward (ops/fused_mlp.py); this raw mode serves callers that hold only
+node rows, under torch.no_grad() on the card.
 """
 
 from __future__ import annotations
@@ -33,7 +36,6 @@ from graph_weather_tpu_torch.ops._build import c_function
 
 LAUNCHES = 0
 MAX_WIDTH = 256  # widest H and Fe the kernel's tiles hold
-_TRAINING_TODO = "ROADMAP.md, 'K1 backward and training'"
 
 _c_ptr, _c_i64, _c_int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = [
@@ -183,8 +185,9 @@ def fused_edge_mlp(
         t is not None and t.requires_grad for t in args
     ):
         raise NotImplementedError(
-            "fused_edge_mlp has no backward on CUDA yet; run under "
-            f"torch.no_grad(). See {_TRAINING_TODO}."
+            "fused_edge_mlp (raw node rows) has no backward on CUDA; run it under "
+            "torch.no_grad(), or train through ops/fused_mlp.fused_edge_update "
+            "(per-node partial products, K2 with its backward K2b), as nn.EdgeBlock does."
         )
     out = torch.empty((batch, n_edges, f_e), dtype=torch.float32, device=x_src.device)
     if out.numel() == 0:  # nothing to launch

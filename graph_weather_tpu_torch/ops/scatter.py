@@ -9,6 +9,11 @@ Both strategies are XLA in the JAX package, so they are plain PyTorch here:
   * `padded_csr_agg`: for bounded-degree graphs (latent mesh and
     mesh->grid: <= 7) a dense [N, K] gather and masked sum, scatter-free
     and deterministic.
+  * `chunked_csr_agg`: the same sum in levels of padded CSR tables
+    (`build_chunked_csr`): each node's edges in chunks of at most 16, then
+    each node's chunks. Scatter-free and deterministic at any degree; the
+    fused edge update's backward sums to high-degree nodes this way
+    (grid->mesh receivers, mesh->grid senders).
 """
 
 from __future__ import annotations
@@ -47,16 +52,51 @@ def padded_csr_agg(
 
 
 def build_padded_csr(receivers: np.ndarray, n_receivers: int) -> tuple[np.ndarray, np.ndarray]:
-    """Host-side: padded CSR (edge_ids [N, K], mask [N, K]) from sorted receivers.
+    """Host-side: padded CSR (edge_ids [N, K], mask [N, K]) from node ids,
+    one per edge (sorted receivers, or any order: each node's edges keep
+    their order).
 
-    K = max in-degree. Padded ids are 0 (always masked).
+    K = max degree. Padded ids are 0 (always masked).
     """
     receivers = np.asarray(receivers)
     counts = np.bincount(receivers, minlength=n_receivers)
     k = int(counts.max()) if counts.size else 0
     edge_ids = np.zeros((n_receivers, k), dtype=np.int32)
-    # receivers is sorted, so filling valid row-major slots in order assigns
-    # each node its contiguous run of edge ids.
+    # Filling valid row-major slots with the edges in stable node order gives
+    # each node its run of edge ids (for sorted ids, arange(E)).
     within = np.arange(k)[None, :] < counts[:, None]
-    edge_ids[within] = np.arange(receivers.shape[0], dtype=np.int32)
+    edge_ids[within] = np.argsort(receivers, kind="stable").astype(np.int32)
     return edge_ids, within
+
+
+def build_chunked_csr(ids: np.ndarray, n_nodes: int, chunk: int = 16) -> list:
+    """Host-side: the levels [(edge_ids, mask), ...] of a sum of edges to
+    `n_nodes` nodes by `ids` (any order) through padded CSR tables at most
+    `chunk` wide, but for the last. One level (build_padded_csr) when no
+    node has more than `chunk` edges; else two: each node's edges in chunks
+    of `chunk` ([n_chunks, chunk]), then each node's chunks ([N, max chunks])."""
+    ids = np.asarray(ids)
+    counts = np.bincount(ids, minlength=n_nodes)
+    if counts.size == 0 or counts.max() <= chunk:
+        return [build_padded_csr(ids, n_nodes)]
+    order = np.argsort(ids, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    per_node = -(-counts // chunk)  # chunks of each node
+    first_chunk = np.concatenate([[0], np.cumsum(per_node)[:-1]])
+    node = ids[order]
+    pos = np.arange(ids.shape[0]) - starts[node]  # position in the node's run
+    rows = first_chunk[node] + pos // chunk
+    edge_ids = np.zeros((int(per_node.sum()), chunk), dtype=np.int32)
+    mask = np.zeros(edge_ids.shape, dtype=bool)
+    edge_ids[rows, pos % chunk] = order
+    mask[rows, pos % chunk] = True
+    chunk_node = np.repeat(np.arange(n_nodes), per_node)
+    return [(edge_ids, mask), build_padded_csr(chunk_node, n_nodes)]
+
+
+def chunked_csr_agg(edge_feats: torch.Tensor, levels) -> torch.Tensor:
+    """Sum [..., E, F] edge features to [..., N, F] through the levels of
+    `build_chunked_csr` (as tensors), in a fixed order."""
+    for edge_ids, mask in levels:
+        edge_feats = padded_csr_agg(edge_feats, edge_ids, mask)
+    return edge_feats

@@ -268,10 +268,10 @@ def test_init_is_seeded_torch_linear():
         dict(constraint_type="additive"),
         dict(use_thermalizer=True),
         dict(norm_type="RMSNorm"),
-        dict(use_checkpointing=True),
+        dict(hidden_layers_processor_edge=1),
         dict(hidden_layers_processor_edge=3),
     ],
-    ids=["constraint", "thermalizer", "rmsnorm", "remat", "edge_layers"],
+    ids=["constraint", "thermalizer", "rmsnorm", "edge_layers_1", "edge_layers"],
 )
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

@@ -16,8 +16,15 @@ from graph_weather_tpu_torch.meshes.clustering import (
     build_cluster_scatter_index,
     is_symmetric_edges,
 )
-from graph_weather_tpu_torch.ops import banded_flash, clustered_flash, edge_mlp, natten_flash
+from graph_weather_tpu_torch.ops import (
+    banded_flash,
+    clustered_flash,
+    edge_mlp,
+    fused_mlp,
+    natten_flash,
+)
 from graph_weather_tpu_torch.ops.banded_attention import build_band_masks
+from graph_weather_tpu_torch.ops.scatter import build_chunked_csr
 from graph_weather_tpu_torch.ops.neighborhood_attention import (
     neighborhood_attention_3d,
     neighborhood_attention_3d_reference,
@@ -54,19 +61,19 @@ def _args(gen, b, n_src, n_dst, n_edges, f, f_e, hidden, dst, e_batched, norm=Tr
     )
 
 
+EDGE_SHAPES = [
+    # b, n_src, n_dst, n_edges, F, Fe, H, x_dst, batched e, LayerNorm
+    (1, 300, 100, 1000, 256, 256, 256, "yes", False, True),
+    (2, 300, 100, 1000, 16, 24, 48, "expand", True, True),
+    (3, 50, 700, 2050, 256, 256, 256, "none", False, True),
+    (1, 9, 9, 5, 7, 5, 3, "yes", True, True),
+    (2, 64, 64, 129, 100, 60, 200, "yes", True, False),
+]
+EDGE_IDS = ["full_width", "narrow_batched", "zero_dst_ragged", "tiny_odd", "no_norm"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "shape",
-    [
-        # b, n_src, n_dst, n_edges, F, Fe, H, x_dst, batched e, LayerNorm
-        (1, 300, 100, 1000, 256, 256, 256, "yes", False, True),
-        (2, 300, 100, 1000, 16, 24, 48, "expand", True, True),
-        (3, 50, 700, 2050, 256, 256, 256, "none", False, True),
-        (1, 9, 9, 5, 7, 5, 3, "yes", True, True),
-        (2, 64, 64, 129, 100, 60, 200, "yes", True, False),
-    ],
-    ids=["full_width", "narrow_batched", "zero_dst_ragged", "tiny_odd", "no_norm"],
-)
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=EDGE_IDS)
 def test_fused_edge_mlp_matches_plain(gen, shape):
     args = _args(gen, *shape)
     with torch.no_grad():
@@ -83,7 +90,7 @@ def test_fused_edge_mlp_matches_plain(gen, shape):
 def test_fused_edge_mlp_refuses_grad(gen):
     args = list(_args(gen, 1, 8, 8, 16, 8, 8, 8, "yes", False))
     args[5].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
+    with pytest.raises(NotImplementedError, match="fused_edge_update"):
         edge_mlp.fused_edge_mlp(*args)
 
 
@@ -94,6 +101,135 @@ def test_fused_edge_mlp_empty_graph_launches_nothing(gen):
     with torch.no_grad():
         out = edge_mlp.fused_edge_mlp(*args)
     assert out.shape == (1, 0, 8) and edge_mlp.LAUNCHES == before
+
+
+def _k2_args(gen, b, n_src, n_dst, n_edges, f, f_e, hidden, dst, e_batched, norm=True):
+    """K2's operands at a K1 test shape: partials [b, N, H] (an expand()ed
+    [N, H] for "expand"), and the K1 weights' We slice. F only sizes W0."""
+    s, r, _, _, e, w0, *rest = _args(gen, b, n_src, n_dst, n_edges, f, f_e, hidden, dst,
+                                     e_batched, norm)
+    p_src = torch.randn(b, n_src, hidden, generator=gen, device="cuda")
+    p_dst = {"yes": torch.randn(b, n_dst, hidden, generator=gen, device="cuda"), "none": None,
+             "expand": torch.randn(1, n_dst, hidden, generator=gen, device="cuda").expand(b, n_dst, hidden)}
+    return (s, r, p_src, p_dst[dst], e, w0[-f_e:].contiguous(), *rest)
+
+
+def _tables(args):
+    """Padded CSR levels of both sides, as DeviceGraph builds them."""
+    s, r, p_src = args[0].cpu().numpy(), args[1].cpu().numpy(), args[2]
+    n_dst = args[3].shape[-2] if args[3] is not None else int(r.max()) + 1
+    return dict(
+        sender_sum=[tuple(torch.as_tensor(a, device="cuda") for a in t)
+                    for t in build_chunked_csr(s, p_src.shape[-2])],
+        receiver_sum=[tuple(torch.as_tensor(a, device="cuda") for a in t)
+                      for t in build_chunked_csr(r, n_dst)],
+    )
+
+
+def _max_rel(got, want):
+    """Largest error of each gradient over that tensor's max|g|."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.shape == w.shape
+            worst = max(worst, (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30))
+    return worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=EDGE_IDS)
+def test_fused_edge_update_matches_plain(gen, shape):
+    """K2 (K1's partial-product mode) against its plain version."""
+    args = _k2_args(gen, *shape)
+    with torch.no_grad():
+        before = fused_mlp.LAUNCHES
+        out = fused_mlp.fused_edge_update(*args, **_tables(args))
+        torch.cuda.synchronize()
+        assert fused_mlp.LAUNCHES == before + 1
+        ref = fused_mlp.fused_edge_update_reference(*args)
+    assert out.shape == ref.shape
+    assert (out - ref).abs().max().item() <= ATOL
+
+
+def _kernel_activations(args, dout):
+    """K2b's recomputed (h0, h1); the kernel is deterministic, so every
+    launch on these inputs draws the same ReLU masks."""
+    (h0, h1, *_), _ = fused_mlp.launch_backward(*args[:12], dout)
+    want = fused_mlp.fused_edge_update_activations(*args[:9])
+    for got, ref in zip((h0, h1), want):
+        assert (got - ref.expand(got.shape)).abs().max().item() <= ATOL
+    return h0, h1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=EDGE_IDS)
+def test_fused_edge_update_backward_matches_plain(gen, shape):
+    """K2b and the sums after it against the plain backward on the card, at
+    the kernel's ReLU masks (its h0 and h1 within 1e-4 of the plain ones):
+    every gradient within 1e-4 of its tensor's max|g|; one K2b launch."""
+    args = _k2_args(gen, *shape)
+    dout = torch.randn(shape[0], shape[3], shape[5], generator=gen, device="cuda")
+    tables = _tables(args)
+    activations = _kernel_activations(args, dout)
+    before = fused_mlp.BACKWARD_LAUNCHES
+    got = fused_mlp._backward_cuda(*args, dout, tables["sender_sum"], tables["receiver_sum"])
+    torch.cuda.synchronize()
+    assert fused_mlp.BACKWARD_LAUNCHES == before + 1
+    want = fused_mlp.fused_edge_update_backward_reference(
+        *args, dout, **tables, activations=activations
+    )
+    assert _max_rel(got, want) <= 1e-4
+
+
+def _masked_forward(s, r, p_src, p_dst, e, we, b0, w1, b1, w2, b2, gamma, beta, masks):
+    """The plain forward with each ReLU replaced by the given 0/1 mask."""
+    h = p_src.index_select(-2, s)
+    if p_dst is not None:
+        h = h + p_dst.index_select(-2, r)
+    h = (h + e @ we + b0) * masks[0]
+    h = (h @ w1 + b1) * masks[1]
+    h = h @ w2 + b2
+    if gamma is not None:
+        h = torch.nn.functional.layer_norm(h, (h.shape[-1],), gamma, beta, eps=1e-5)
+    return h + e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=EDGE_IDS)
+def test_fused_edge_update_gradients_match_float64(gen, shape):
+    """Gradients through the Function on the card (K2, K2b) against float64
+    autograd of the plain forward on the CPU, at the kernel's ReLU masks."""
+    args = _k2_args(gen, *shape)
+    leaves = [a.detach().clone().requires_grad_(True) if a is not None and a.is_floating_point()
+              else a for a in args]
+    if shape[7] == "expand":  # keep the broadcast view: its gradient sums over the batch
+        leaves[3] = args[3][0].detach().clone().requires_grad_(True)
+        p_dst = leaves[3].expand(args[3].shape)
+    else:
+        p_dst = leaves[3]
+    out = fused_mlp.fused_edge_update(*leaves[:3], p_dst, *leaves[4:], **_tables(args))
+    dout = torch.randn(out.shape, generator=gen, device="cuda")
+    grads = torch.autograd.grad(out, [t for t in leaves[2:] if t is not None], dout)
+    cpu = [a.detach().double().cpu().requires_grad_(True) if a is not None and a.is_floating_point()
+           else (a.cpu() if a is not None else None) for a in leaves]
+    cpu_dst = cpu[3].expand(args[3].shape) if shape[7] == "expand" else cpu[3]
+    masks = [(h > 0).double().cpu() for h in _kernel_activations(args, dout)]
+    ref = _masked_forward(*cpu[:3], cpu_dst, *cpu[4:], masks)
+    want = torch.autograd.grad(ref, [t for t in cpu[2:] if t is not None], dout.double().cpu())
+    assert _max_rel([g.double().cpu() for g in grads], want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fused_edge_update_empty_graph_launches_nothing(gen):
+    args = [a.requires_grad_(True) if a is not None and a.is_floating_point() else a
+            for a in _k2_args(gen, 1, 8, 8, 0, 8, 8, 8, "yes", False)]
+    before = fused_mlp.LAUNCHES, fused_mlp.BACKWARD_LAUNCHES
+    out = fused_mlp.fused_edge_update(*args, **_tables(args))
+    assert out.shape == (1, 0, 8)
+    out.sum().backward()
+    assert args[2].grad.abs().max().item() == 0 and args[5].grad.abs().max().item() == 0
+    assert (fused_mlp.LAUNCHES, fused_mlp.BACKWARD_LAUNCHES) == before
 
 
 def _cluster_case(gen, b, n, heads, c, block, empty_every=7, seed=0):

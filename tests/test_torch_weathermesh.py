@@ -21,6 +21,7 @@ float64 than the JAX model in f32 is). The tests therefore zero those
 biases; their gradients are still compared.
 """
 
+import contextlib
 import inspect
 
 import jax
@@ -48,6 +49,7 @@ from graph_weather_tpu_torch.models.weathermesh import (
     WeatherMeshEncoderConfig,
     WeatherMeshProcessorConfig,
 )
+from graph_weather_tpu_torch.models.weathermesh import model as wm_model
 from graph_weather_tpu_torch.ops import natten_flash
 
 torch.set_num_threads(1)
@@ -332,3 +334,32 @@ def test_init_draws_the_jax_initializers_from_a_seed():
     w = sa["encoder.pressure_path.0.conv1.weight"]
     limit = 2 * w[0].numel() ** -0.5 / 0.87962566103423978
     assert w.abs().max().item() <= limit and w.std().item() > 0.5 * w[0].numel() ** -0.5
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_cpu_convs_run_without_onednn(monkeypatch, ndim):
+    """On CPU tensors the model's convs run with oneDNN off in the forward and
+    in the backward (whose kernel reads the global flag when it runs), and
+    give nn.Conv's outputs and gradients."""
+    seen, before, without = [], torch.backends.mkldnn.enabled, wm_model._without_onednn
+
+    @contextlib.contextmanager
+    def spy():
+        with without():
+            seen.append(torch.backends.mkldnn.enabled)
+            yield
+
+    monkeypatch.setattr(wm_model, "_without_onednn", spy)
+    conv = wm_model._conv(ndim, 3, 5, 3, stride=2, padding=1)
+    plain = (torch.nn.Conv3d if ndim == 3 else torch.nn.Conv2d)(3, 5, 3, stride=2, padding=1)
+    plain.load_state_dict(conv.state_dict())
+    x = torch.randn(2, 3, *(6,) * ndim, generator=torch.Generator().manual_seed(0))
+    x_conv, x_plain = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    out = conv(x_conv)
+    torch.testing.assert_close(out, plain(x_plain), atol=1e-6, rtol=0)
+    grad = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    out.backward(grad)
+    plain(x_plain).backward(grad)
+    assert seen == [False, False] and torch.backends.mkldnn.enabled == before
+    for a, b in ((x_conv, x_plain), (conv.weight, plain.weight), (conv.bias, plain.bias)):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-5, rtol=0)
