@@ -14,7 +14,10 @@ at bench.py's full size (1 deg, 8 surface + 13 x 4 pressure channels, latent
 attention layers, kernel (3, 5, 5), 4 heads): serving, the 8-step rollout
 and training; and the same GenCast denoiser with banded attention
 (attention_impl="banded_flash": lat-lon sorted k-hop graph, 21 receiver
-blocks of 512 rows against windows of 2,560 keys): serving and training.
+blocks of 512 rows against windows of 2,560 keys): serving and training;
+and the 768-d WeatherMesh (the same conv stack with the JAX package's
+default attention: latent 768, 8 heads of 96, kernel (5, 7, 7), 3 + 10 + 3
+layers), whose heads K5a cannot tile, served through the slot-serial K6.
 Phases, one line each, in order; any failure raises and ends the run with a
 non-zero exit:
 
@@ -125,6 +128,26 @@ non-zero exit:
      each gradient within 1e-3 of its tensor's max|g| or, where f32 rounding
      alone puts it outside, no further from float64 in norm than twice the
      CPU's float32 gradient (F32_NOISE_FACTOR)
+ 36. build: natten3d.cu's (K6's) registers and spills
+ 37. K6 (the slot-serial 3D neighborhood attention forward) against its
+     plain version (neighborhood_attention_3d_reference) with rpb
+     ~N(0, 0.5^2): (a) the wide layer, [1, 14, 45, 90] x 8 x 96 at
+     (5, 7, 7); (b) (a) with a circular W axis; (c) phase 18's case a,
+     4 x 32 at (3, 5, 5), through impl="pallas", also against K5a; (d) 2 x
+     256 at (3, 5, 5). Max abs error <= 1e-4; CUDA-event medians of the
+     kernel, the plain version and SDPA over each query's gathered window
+     with rpb as an additive bias, in chunks of queries (timed only); per
+     request (16 x case a) and the bound
+ 38. wm_wide_serve: the 768-d WeatherMesh answers 3 requests (B = 1), each
+     with exactly 16 K6 and no K5a launches; ms per request, peak GiB, a
+     profile of one more
+ 39. a 2-step rollout: finite, exactly 26 K6 launches, ms per step
+ 40. the same weights and one request at 3 deg (60 x 120, latent
+     [14, 15, 30]) on the card (16 K6 launches) and on the CPU: max abs
+     difference <= 1e-3; the CPU forward timed
+ 41. a gradient through a K6 shape on the card (the wide model's
+     forward_fn, and the attention alone) raises NotImplementedError
+     before any K6 launch
 
 then one JSON line on the kernels, the card's name and power limit, and
 last {"ok": true, "device": ...}.
@@ -191,6 +214,16 @@ WM_LATENT = (14, 45, 90)  # 13 levels + the surface slice, on 180/4 x 360/4
 K5_PER_FORWARD = 8  # 2 encoder + 4 processor + 2 decoder attention layers
 K5_TOL = 1e-4  # softmax-weighted sums over <= 245 keys in another order
 K4_TOL = 1e-4  # softmax-weighted sums over <= 2,560 window slots in another order
+# The 768-d WeatherMesh: WEATHERMESH's conv stack with the JAX package's
+# default attention (models/weathermesh/model.py): 8 heads of 96 at kernel
+# (5, 7, 7), 3 + 10 + 3 layers. K5a cannot tile these heads; K6 takes them.
+WM_WIDE = {
+    **WEATHERMESH, "latent_dim": 768, "num_heads": 8, "kernel": (5, 7, 7),
+    "encoder_num_transformer_layers": 3, "processor_num_layers": 10,
+    "decoder_num_transformer_layers": 3,
+}
+WM_WIDE_CHECK_GRID = (60, 120)  # phase 40's card-against-CPU forward, at 3 deg
+K6_PER_FORWARD = 16  # 3 encoder + 10 processor + 3 decoder attention layers
 GENCAST_BANDED = {**GENCAST, "attention_impl": "banded_flash"}
 
 
@@ -598,6 +631,86 @@ def k5b_case(natten_flash, name, gen, kernel, heads, circular):
                 flops=10 * n_pairs * q.shape[-1], nbytes=nbytes)
 
 
+def window_sdpa_ms(window_indices, ref, q, k, v, kernel, rpb, circular, chunk_bytes=2 * 2**30):
+    """The library yardstick of K6: SDPA over each query's gathered window
+    (kd * kh * kw keys, [n, heads, slots, ch]) with rpb as an additive bias
+    [n, heads, 1, slots], in chunks of queries whose gathered K and V take
+    `chunk_bytes`. Returns (the chunks' median ms summed, the max abs error
+    of the first chunk's output against `ref`, the plain version's output).
+    Each chunk is gathered on the card outside the timing; timed only, never
+    used by the port."""
+    _, d, h, w, heads, ch = q.shape
+    dev = q.device
+    tables = [
+        tuple(torch.as_tensor(t, dtype=torch.long, device=dev) for t in window_indices(size, kk, circ))
+        for size, kk, circ in zip((d, h, w), kernel, (False, False, circular))
+    ]
+    (id_, rd), (ih, rh), (iw, rw) = tables
+    nrh, nrw = 2 * kernel[1] - 1, 2 * kernel[2] - 1
+
+    def per_query(a, b, c):  # [size, k] per axis -> [D * H * W, kd * kh * kw]
+        t = (a[:, None, None, :, None, None] + b[None, :, None, None, :, None]
+             + c[None, None, :, None, None, :])
+        return t.reshape(d * h * w, -1)
+
+    key_ids = per_query(id_ * h * w, ih * w, iw)
+    rel_ids = per_query(rd * nrh * nrw, rh * nrw, rw)
+    qf, kf, vf = (t.reshape(d * h * w, heads, ch) for t in (q, k, v))
+    bias_table = rpb.reshape(heads, -1)
+    slots = key_ids.shape[1]
+    chunk = max(1, chunk_bytes // (2 * 4 * slots * heads * ch))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    total_ms, err = 0.0, None
+    for s in range(0, d * h * w, chunk):
+        ids = key_ids[s:s + chunk]
+        qt = qf[s:s + chunk, :, None, :]
+        kt, vt = (t[ids].transpose(1, 2).contiguous() for t in (kf, vf))
+        bias = bias_table[:, rel_ids[s:s + chunk]].transpose(0, 1)[:, :, None, :].contiguous()
+        if err is None:
+            got = sdpa(qt, kt, vt, attn_mask=bias)[:, :, 0]
+            err = (got - ref.reshape(d * h * w, heads, ch)[s:s + chunk]).abs().max().item()
+            del got
+        total_ms += cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=bias), runs=3, batch=2)
+        del qt, kt, vt, bias
+    return total_ms, err
+
+
+def k6_case(natten3d, natten_flash, neighborhood_attention_3d, reference, window_indices, name,
+            gen, kernel, heads, ch, circular, via_pallas=False):
+    """K6 against its plain version on the 1-degree latent: directly, or (via
+    `via_pallas`) through the dispatcher's impl="pallas" and also against
+    K5a. Returns a dict of errors, times (ms), flops and bytes."""
+    q, k, v, rpb = natten_inputs(gen, kernel, heads, ch)
+    args = (q, k, v, kernel, rpb, circular)
+    if via_pallas:
+        out = neighborhood_attention_3d(*args, impl="pallas")
+    else:
+        out = natten3d.neighborhood_attention_3d_slot(*args)
+    torch.cuda.synchronize()
+    ref = reference(*args)
+    err = (out - ref).abs().max().item()
+    k5a_err = None
+    if via_pallas:
+        k5a_err = (out - natten_flash._forward_cuda(*args, with_lse=False)[0]).abs().max().item()
+    library_ms, library_err = window_sdpa_ms(window_indices, ref, *args)
+    del ref
+    ms = cuda_ms(lambda: natten3d._forward_cuda(*args))
+    plain_ms = cuda_ms(lambda: reference(*args), runs=3, batch=2)
+    print(f"[k6] {name}: kernel {kernel} heads {heads} x {ch} circular_w={circular}"
+          f"{' via impl=pallas' if via_pallas else ''} | max_abs_err {err:.3e}"
+          + (f" (against K5a {k5a_err:.3e})" if via_pallas else "")
+          + f" | kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (SDPA "
+          f"on each query's {math.prod(kernel)}-key window, rpb as bias; its error against the "
+          f"plain version {library_err:.3e})", flush=True)
+    for what, e in (("plain version", err), ("K5a", k5a_err)):
+        if e is not None and not (e <= K5_TOL):
+            raise AssertionError(f"K6 {name}: max abs error against the {what} {e} > {K5_TOL}")
+    n_pairs = q[..., 0, 0].numel() * heads * math.prod(kernel)
+    nbytes = 4 * (4 * q[..., 0].numel() * ch + rpb.numel())  # q, k, v, out, rpb
+    return dict(err=max(err, k5a_err or 0.0), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                flops=4 * n_pairs * ch, nbytes=nbytes, pairs=n_pairs)
+
+
 def band_sdpa_inputs(band_windows, q, k, v, masks, block, w, dout=None):
     """The library yardstick's inputs: each receiver block's queries
     [nb, h, block, c] against its stacked window of keys and values
@@ -826,10 +939,13 @@ def main() -> int:
         clustered_flash,
         edge_mlp,
         fused_mlp,
+        natten3d,
         natten_flash,
     )
     from graph_weather_tpu_torch.ops.banded_attention import band_windows
     from graph_weather_tpu_torch.ops.neighborhood_attention import (
+        _window_indices,
+        neighborhood_attention_3d,
         neighborhood_attention_3d_reference,
     )
     from graph_weather_tpu_torch.train.rollout import make_rollout_fn
@@ -1230,6 +1346,7 @@ def main() -> int:
     surfaces = torch.randn(3, 1, h, w, 8, generator=wm_gen).to("cuda")
     pressures = torch.randn(3, 1, levels, h, w, 4, generator=wm_gen).to("cuda")
     natten_flash.LAUNCHES = natten_flash.BWD_DQ_LAUNCHES = natten_flash.BWD_DKV_LAUNCHES = 0
+    natten3d.LAUNCHES = 0
     wm_ms = []
     for surface, pressure in zip(surfaces, pressures):
         before = natten_flash.LAUNCHES
@@ -1244,8 +1361,10 @@ def main() -> int:
     wm_launches = natten_flash.LAUNCHES
     if natten_flash.BWD_DQ_LAUNCHES or natten_flash.BWD_DKV_LAUNCHES:
         raise AssertionError("serving launched K5b")
+    if natten3d.LAUNCHES:
+        raise AssertionError(f"the 128-d WeatherMesh launched K6 {natten3d.LAUNCHES} times")
     print(f"[wm_serve] setup {setup_s:.2f} s | request_ms {[round(t, 3) for t in wm_ms]} | K5a "
-          f"launches {wm_launches} | peak GiB {torch.cuda.max_memory_allocated() / 2**30:.2f}",
+          f"launches {wm_launches}, K6 0 | peak GiB {torch.cuda.max_memory_allocated() / 2**30:.2f}",
           flush=True)
     profile_request(lambda: wm(surface, pressure), "WeatherMesh request")
 
@@ -1623,6 +1742,7 @@ def main() -> int:
     bit_equal = card_value == repeat_value and all(
         torch.equal(card_grads[k], repeat_grads[k]) for k in card_grads
     )
+    repeat_worst, repeat_worst_name = grads_close(repeat_grads, card_grads)
     del repeat_grads
     cpu_fc = port.GraphWeatherForecaster(lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cpu")
     cpu_fc.module.load_state_dict({k: v.cpu() for k, v in fc.module.state_dict().items()})
@@ -1636,7 +1756,8 @@ def main() -> int:
     print(f"[cpu] forecaster train loss card {card_value:.6f} cpu {cpu_value:.6f} rel "
           f"{loss_rel:.3e} (limit {LOSS_RTOL}) | gradients: worst error / limit {worst:.3e} "
           f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s "
-          f"(1 deg) | card repeat bit-equal {bit_equal}", flush=True)
+          f"(1 deg) | card repeat bit-equal {bit_equal}, against the first: worst error / limit "
+          f"{repeat_worst:.3e} ({repeat_worst_name})", flush=True)
     if not (loss_rel <= LOSS_RTOL):
         raise AssertionError(f"forecaster train loss card vs CPU: {loss_rel} > {LOSS_RTOL}")
     if not (worst <= 1.0):
@@ -1676,6 +1797,127 @@ def main() -> int:
             f"{worst * F32_NOISE_FACTOR:.3f} times the CPU float32's, over {F32_NOISE_FACTOR}"
         )
     del cpu_fc, fc, fc_initial
+    torch.cuda.empty_cache()
+
+    # 36. build of K6 (started with the others in phase 2)
+    print(f"[build] natten3d.cu {build_s:.2f} s (parallel with the others) | "
+          + " | ".join(ptxas("natten3d")), flush=True)
+
+    # 37. K6 on the 1-degree latent: (a) the 768-d model's layers, (b) a
+    # circular W axis, (c) the 128-d model's layers through impl="pallas",
+    # also against K5a, (d) heads of 256
+    t0 = time.perf_counter()
+    k6_cases = {
+        "a": dict(kernel=(5, 7, 7), heads=8, ch=96, circular=False),
+        "b": dict(kernel=(5, 7, 7), heads=8, ch=96, circular=True),
+        "c": dict(kernel=(3, 5, 5), heads=4, ch=32, circular=False, via_pallas=True),
+        "d": dict(kernel=(3, 5, 5), heads=2, ch=256, circular=False),
+    }
+    k6 = {n: k6_case(natten3d, natten_flash, neighborhood_attention_3d,
+                     neighborhood_attention_3d_reference, _window_indices, n, gen, **c)
+          for n, c in k6_cases.items()}
+    k6_bound, k6_bound_by = bound(k6["a"]["flops"], k6["a"]["nbytes"])
+    print(f"[k6] per request ({K6_PER_FORWARD} x case a): kernel_ms="
+          f"{K6_PER_FORWARD * k6['a']['ms']:.4f} plain_ms={K6_PER_FORWARD * k6['a']['plain_ms']:.4f} "
+          f"library_ms={K6_PER_FORWARD * k6['a']['library_ms']:.4f} bound_ms="
+          f"{K6_PER_FORWARD * k6_bound:.4f} ({k6_bound_by}: {k6['a']['pairs'] / 1e6:.1f} M pairs, "
+          f"{k6['a']['flops'] / 1e9:.2f} GFLOP, {k6['a']['nbytes'] / 1e6:.1f} MB per layer; "
+          f"{k6_bound:.4f} ms per layer) | phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 38. wm_wide_serve: the 768-d WeatherMesh answers 3 requests
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    wide = port.WeatherMesh(**WM_WIDE, device="cuda")
+    wide.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():  # as in phase 19
+        for name, t in wide.module.named_parameters():
+            if name.endswith(("qkv.bias", "proj.bias")):
+                t.zero_()
+    setup_s = time.perf_counter() - t0
+    wm_gen = torch.Generator().manual_seed(1)
+    surfaces = torch.randn(3, 1, h, w, 8, generator=wm_gen).to("cuda")
+    pressures = torch.randn(3, 1, levels, h, w, 4, generator=wm_gen).to("cuda")
+    natten3d.LAUNCHES = natten_flash.LAUNCHES = 0
+    wide_ms = []
+    for surface, pressure in zip(surfaces, pressures):
+        before = (natten3d.LAUNCHES, natten_flash.LAUNCHES)
+        pred, ms = timed(lambda: wide(surface, pressure))
+        wide_ms.append(ms)
+        made = (natten3d.LAUNCHES - before[0], natten_flash.LAUNCHES - before[1])
+        if made != (K6_PER_FORWARD, 0):
+            raise AssertionError(f"a wide request made {made} (K6, K5a) launches, expected (16, 0)")
+        if (pred.surface.shape != (1, h, w, 8) or pred.pressure.shape != (1, levels, h, w, 4)
+                or not (torch.isfinite(pred.surface).all() and torch.isfinite(pred.pressure).all())):
+            raise AssertionError(f"bad wide WeatherMesh output: {tuple(pred.surface.shape)}, "
+                                 f"{tuple(pred.pressure.shape)}")
+    wide_launches = natten3d.LAUNCHES
+    print(f"[wm_wide_serve] setup {setup_s:.2f} s | request_ms {[round(t, 3) for t in wide_ms]} | "
+          f"K6 launches {wide_launches}, K5a {natten_flash.LAUNCHES} | peak GiB "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} | phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    profile_request(lambda: wide(surface, pressure), "wide WeatherMesh request")
+
+    # 39. a 2-step rollout
+    t0 = time.perf_counter()
+    before = natten3d.LAUNCHES
+    roll, ms = timed(lambda: wide(surface, pressure, forecast_steps=2))
+    roll_launches = natten3d.LAUNCHES - before
+    want = WM_WIDE["encoder_num_transformer_layers"] + 2 * WM_WIDE["processor_num_layers"] + (
+        WM_WIDE["decoder_num_transformer_layers"])
+    if roll_launches != want:
+        raise AssertionError(f"the wide rollout made {roll_launches} K6 launches, expected {want}")
+    if not (torch.isfinite(roll.surface).all() and torch.isfinite(roll.pressure).all()):
+        raise AssertionError("the wide 2-step rollout is not finite")
+    print(f"[wm_wide_rollout] 2 steps finite | total_ms {ms:.3f} | ms per step {ms / 2:.3f} | K6 "
+          f"launches {roll_launches} | phase {time.perf_counter() - t0:.1f} s", flush=True)
+    del roll, pred
+
+    # 40. the same weights and one request at 3 deg on the card and on the CPU
+    t0 = time.perf_counter()
+    check_h, check_w = WM_WIDE_CHECK_GRID
+    check = [torch.randn(1, check_h, check_w, 8, generator=wm_gen),
+             torch.randn(1, levels, check_h, check_w, 4, generator=wm_gen)]
+    before = natten3d.LAUNCHES
+    card_pred = wide(*(t.cuda() for t in check))
+    torch.cuda.synchronize()
+    if natten3d.LAUNCHES - before != K6_PER_FORWARD:
+        raise AssertionError(f"the 3-deg request made {natten3d.LAUNCHES - before} K6 launches")
+    cpu_wide = port.WeatherMesh(**WM_WIDE, device="cpu")
+    cpu_wide.module.load_state_dict({k: v.cpu() for k, v in wide.module.state_dict().items()})
+    t1 = time.perf_counter()
+    cpu_pred = cpu_wide(*check)
+    cpu_s = time.perf_counter() - t1
+    cpu_err = max((card_pred.surface.cpu() - cpu_pred.surface).abs().max().item(),
+                  (card_pred.pressure.cpu() - cpu_pred.pressure).abs().max().item())
+    print(f"[cpu] wide WeatherMesh at {check_h} x {check_w} (3 deg, latent [14, {check_h // 4}, "
+          f"{check_w // 4}]): max_abs_diff {cpu_err:.3e} (limit {CPU_TOL}) | card K6 launches "
+          f"{K6_PER_FORWARD} | cpu forward {cpu_s:.2f} s | phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not (cpu_err <= CPU_TOL):
+        raise AssertionError(f"wide WeatherMesh card vs CPU: {cpu_err} > {CPU_TOL}")
+    del cpu_wide, cpu_pred, card_pred
+
+    # 41. a gradient through a K6 shape on the card raises before any launch
+    t0 = time.perf_counter()
+    before = natten3d.LAUNCHES
+    refusals = []
+    q, k, v, rpb = (t.requires_grad_(True) for t in natten_inputs(gen, (5, 7, 7), 8, 96))
+    for what, fn in (
+        ("the wide model's forward_fn", lambda: wide.forward_fn()(*(t.cuda() for t in check))),
+        ("neighborhood_attention_3d", lambda: neighborhood_attention_3d(q, k, v, (5, 7, 7), rpb)),
+    ):
+        try:
+            fn()
+        except NotImplementedError as e:
+            refusals.append(f"{what}: {e}")
+        else:
+            raise AssertionError(f"a gradient through K6 via {what} did not raise")
+    if natten3d.LAUNCHES != before:
+        raise AssertionError("a refused gradient launched K6")
+    print(f"[wm_wide_grad] NotImplementedError, no K6 launch | {refusals[0]} | phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del wide, q, k, v, rpb, surfaces, pressures
+    torch.cuda.empty_cache()
 
     kernels = [
         {
@@ -1792,6 +2034,19 @@ def main() -> int:
             "bound_ms": K5_PER_FORWARD * k5b_bound,
             "bound_by": k5b_bound_by,
             "library_ms": K5_PER_FORWARD * k5b["a"]["sdpa_ms"],
+        },
+        {
+            "name": "natten3d_slot_forward",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/natten3d.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/natten3d.py:294",
+            "launches": wide_launches,  # 3 wide requests
+            "max_abs_err": max(v["err"] for v in k6.values()),
+            "ms": K6_PER_FORWARD * k6["a"]["ms"],  # per request: 16 layers of case a
+            "plain_ms": K6_PER_FORWARD * k6["a"]["plain_ms"],
+            "bound_ms": K6_PER_FORWARD * k6_bound,
+            "bound_by": k6_bound_by,
+            "library_ms": K6_PER_FORWARD * k6["a"]["library_ms"],
         },
         {
             "name": "banded_flash_attention",

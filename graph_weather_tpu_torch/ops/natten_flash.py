@@ -29,9 +29,12 @@ compute only the kd * kh * kw pairs of each query:
 The host picks each kernel's tile (`_pick_tile`): among tiles of at most
 128 queries (64 at ch <= 64 in a 256-thread CTA, 32 at ch <= 128) whose
 shared memory fits Hopper's 227 KB, the one that stages the fewest halo
-rows over the whole volume. The kernels take ch <= 128 (MAX_CHANNELS)
-and raise ValueError past it, or when no tile's halo fits in shared memory
-(ch <= 64 fits every kernel up to (5, 7, 7)).
+rows over the whole volume. The kernels take ch <= 128 (MAX_CHANNELS), and
+a tile's halo must fit in shared memory (ch <= 64 fits every kernel up to
+(5, 7, 7); ch of 96 or 128 does not fit (5, 7, 7)). `takes` says, before
+any launch, whether the kernels take a shape; impl="auto" of
+`neighborhood_attention_3d` sends the shapes they refuse to the slot-serial
+K6 (ops/natten3d.py), impl="flash" raises ValueError for them.
 
 The plain versions are `neighborhood_attention_3d_reference` (the forward,
 in ops/neighborhood_attention.py) and `natten_flash_backward_reference`
@@ -223,6 +226,16 @@ def _pick_tile(kind, dims, kernel, circular_w, ch, has_bias) -> Tile:
             f"{SMEM_LIMIT} bytes of shared memory"
         )
     return best
+
+
+def takes(shape, kernel, circular_w: bool, has_bias: bool, backward: bool = False) -> bool:
+    """True when K5a (and, with `backward`, both kernels of K5b) take q of
+    `shape` [B, D, H, W, heads, ch] at `kernel`; otherwise `_pick_tile`'s
+    ValueError, which names the limit. A pure host function."""
+    for kind in ("fwd", "dq", "dkv") if backward else ("fwd",):
+        _pick_tile(kind, tuple(shape[1:4]), tuple(kernel), bool(circular_w), shape[-1],
+                   bool(has_bias))
+    return True
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,20 @@ learned relative-position bias rpb [heads, 2kd-1, 2kh-1, 2kw-1], indexed by
 key - query + k - 1 on each axis (a circular axis: by the window slot,
 slot - k//2 + k - 1), is added to every logit.
 
-`neighborhood_attention_3d` takes the plain PyTorch version
-(`neighborhood_attention_3d_reference`) for CPU tensors and the hand-written
-CUDA kernels (ops/natten_flash.py: K5a forward, K5b backward) for CUDA
-tensors; on the card it raises rather than fall back.
+`neighborhood_attention_3d(..., impl=)` is the JAX package's dispatcher.
+CPU tensors take the plain PyTorch version
+(`neighborhood_attention_3d_reference`) under every impl, and its explicit
+backward (ops/natten_flash.py) under autograd. For CUDA tensors `route`
+picks the kernel from the shape alone, before any launch:
+
+  * "auto": the halo-tiled K5a (ops/natten_flash.py; K5a and K5b under a
+    gradient) when its tiles fit, else the slot-serial K6 (ops/natten3d.py);
+  * "flash": K5a/K5b, or ValueError; "pallas": K6, or ValueError;
+  * "xla": the plain version, because the caller named it (autograd
+    differentiates it); no other impl reaches it on the card.
+
+K6 has no backward kernel yet: a gradient through it on the card raises
+NotImplementedError. A failed build or launch always propagates.
 """
 
 from __future__ import annotations
@@ -133,6 +143,35 @@ def _check(q, k, v, kernel, rpb, circular_w):
         raise ValueError(f"neighborhood_attention_3d: no kernel for device {q.device}")
 
 
+IMPLS = ("auto", "flash", "pallas", "xla")
+
+
+def route(shape, kernel, circular_w: bool, has_bias: bool, needs_grad: bool,
+          impl: str = "auto") -> str:
+    """What `neighborhood_attention_3d(..., impl=impl)` runs for CUDA tensors
+    of `shape` [B, D, H, W, heads, ch]: "flash" (K5a, with K5b under a
+    gradient), "slot" (K6) or "plain" (impl="xla"). A pure host function:
+    ValueError for an unknown impl or a shape the named kernel does not take,
+    NotImplementedError for a gradient through K6."""
+    from graph_weather_tpu_torch.ops import natten3d, natten_flash
+
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    if impl == "xla":
+        return "plain"
+    if impl in ("auto", "flash"):
+        try:
+            natten_flash.takes(shape, kernel, circular_w, has_bias, backward=needs_grad)
+            return "flash"
+        except ValueError:
+            if impl == "flash":
+                raise
+    natten3d.takes(shape, kernel, circular_w, has_bias)
+    if needs_grad:
+        raise NotImplementedError(natten3d.GRADIENT_TODO)
+    return "slot"
+
+
 def neighborhood_attention_3d(
     q: torch.Tensor,  # [B, D, H, W, heads, ch]
     k: torch.Tensor,
@@ -140,19 +179,32 @@ def neighborhood_attention_3d(
     kernel: tuple[int, int, int],
     rpb: torch.Tensor | None = None,  # [heads, 2kd-1, 2kh-1, 2kw-1]
     circular_w: bool = False,
+    impl: str = "auto",
 ) -> torch.Tensor:
-    """Returns [B, D, H, W, heads, ch]; differentiable in q, k, v and rpb.
-    CPU tensors take the plain version (its explicit backward under
-    autograd); CUDA tensors take K5a and K5b, or raise ValueError for a
-    shape the kernels do not take."""
+    """Returns [B, D, H, W, heads, ch]; differentiable in q, k, v and rpb
+    except through K6 on the card. impl: "auto", "flash", "pallas" or "xla"
+    (see the module docstring; ValueError for any other). CPU tensors take
+    the plain version (its explicit backward under autograd) under every
+    impl; CUDA tensors run what `route` picks, or raise."""
+    from graph_weather_tpu_torch.ops import natten3d
     from graph_weather_tpu_torch.ops.natten_flash import _forward_cuda, _NattenFlash
 
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     kernel = tuple(int(kk) for kk in kernel)
     circular_w = bool(circular_w)
     _check(q, k, v, kernel, rpb, circular_w)
     tensors = (q, k, v) if rpb is None else (q, k, v, rpb)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w)
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
     if q.device.type == "cpu":
+        if needs_grad:
+            return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w)
         return neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular_w)
+    path = route(tuple(q.shape), kernel, circular_w, rpb is not None, needs_grad, impl)
+    if path == "plain":
+        return neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular_w)
+    if path == "slot":
+        return natten3d._forward_cuda(q, k, v, kernel, rpb, circular_w)
+    if needs_grad:
+        return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w)
     return _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=False)[0]

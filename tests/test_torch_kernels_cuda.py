@@ -21,6 +21,7 @@ from graph_weather_tpu_torch.ops import (
     clustered_flash,
     edge_mlp,
     fused_mlp,
+    natten3d,
     natten_flash,
 )
 from graph_weather_tpu_torch.ops.banded_attention import build_band_masks
@@ -28,6 +29,7 @@ from graph_weather_tpu_torch.ops.scatter import build_chunked_csr
 from graph_weather_tpu_torch.ops.neighborhood_attention import (
     neighborhood_attention_3d,
     neighborhood_attention_3d_reference,
+    route,
 )
 
 # O(1) LayerNorm'd outputs; sums over up to 768 products in another order.
@@ -493,16 +495,78 @@ def test_natten_plain_backward_is_autograd_of_the_twin(gen):
 
 @pytest.mark.cuda
 def test_natten_refuses_what_it_cannot_take(gen):
+    """impl="flash" (K5a alone) raises for the shapes K5a cannot tile, where
+    "auto" would take K6; no kernel takes [heads, ch] rows that are not
+    dense."""
     q, k, v, rpb = _natten_inputs(gen, (1, 5, 9, 10), 1, 129, (3, 3, 3), True)
     with pytest.raises(ValueError, match="head width"):
-        neighborhood_attention_3d(q, k, v, (3, 3, 3), rpb)
+        neighborhood_attention_3d(q, k, v, (3, 3, 3), rpb, impl="flash")
     q, k, v, rpb = _natten_inputs(gen, (1, 14, 45, 90), 1, 128, (5, 7, 7), True)
     with pytest.raises(ValueError, match="shared memory"):
-        neighborhood_attention_3d(q, k, v, (5, 7, 7), rpb)
+        neighborhood_attention_3d(q, k, v, (5, 7, 7), rpb, impl="flash")
     q, k, v, rpb = _natten_inputs(gen, (1, 5, 9, 10), 2, 8, (3, 3, 3), True)
     strided = q.transpose(-1, -2).contiguous().transpose(-1, -2)  # [heads, ch] not dense
-    with pytest.raises(ValueError, match="dense"):
-        neighborhood_attention_3d(strided, k, v, (3, 3, 3), rpb)
+    for impl in ("flash", "pallas"):
+        with pytest.raises(ValueError, match="dense"):
+            neighborhood_attention_3d(strided, k, v, (3, 3, 3), rpb, impl=impl)
+
+
+# -- K6: the slot-serial 3D neighborhood attention forward ---------------------
+
+K6_CASES = [
+    # (B, D, H, W), heads, ch, kernel, rpb, circular_w
+    ((1, 14, 45, 90), 8, 96, (5, 7, 7), True, False),  # the 768-d WeatherMesh's layers
+    ((1, 14, 45, 90), 8, 96, (5, 7, 7), True, True),
+    ((1, 14, 45, 90), 4, 32, (3, 5, 5), True, False),  # the 128-d WeatherMesh's layers
+    ((1, 14, 45, 90), 2, 256, (3, 5, 5), True, False),
+    ((2, 4, 7, 9), 3, 5, (3, 3, 3), True, True),  # ch % 4 != 0: the scalar loads
+    ((2, 5, 6, 7), 2, 200, (5, 5, 7), False, True),
+    ((1, 3, 5, 12), 1, 1, (3, 5, 12), True, False),  # the window covers H and W
+]
+K6_IDS = ["wide", "wide_circular", "wm_1deg", "ch256", "odd_ch_batch2", "ch200_no_rpb", "ch1"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K6_CASES, ids=K6_IDS)
+def test_natten3d_matches_plain(gen, case):
+    """K6 against the plain version within 1e-4, one launch per call; the
+    dispatcher's "pallas" and (where K5a cannot tile) "auto" take it."""
+    shape, heads, ch, kernel, with_rpb, circular = case
+    q, k, v, rpb = _natten_inputs(gen, shape, heads, ch, kernel, with_rpb, fused=ch % 4 == 0)
+    before = natten3d.LAUNCHES
+    out = natten3d.neighborhood_attention_3d_slot(q, k, v, kernel, rpb, circular)
+    torch.cuda.synchronize()
+    assert natten3d.LAUNCHES == before + 1
+    ref = neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular)
+    assert out.shape == q.shape
+    assert (out - ref).abs().max().item() <= ATOL
+    with torch.no_grad():
+        assert torch.equal(neighborhood_attention_3d(q, k, v, kernel, rpb, circular, impl="pallas"), out)
+        counts = (natten3d.LAUNCHES, natten_flash.LAUNCHES)
+        neighborhood_attention_3d(q, k, v, kernel, rpb, circular)
+        k5a = route(tuple(q.shape), kernel, circular, with_rpb, False) == "flash"
+        assert k5a == (ch <= 64 or (ch <= 128 and kernel != (5, 7, 7)))
+        assert (natten3d.LAUNCHES, natten_flash.LAUNCHES) == (counts[0] + (not k5a), counts[1] + k5a)
+
+
+@pytest.mark.cuda
+def test_natten3d_refuses_a_gradient(gen):
+    """A gradient through a K6 shape raises NotImplementedError before any
+    launch, under "auto" and "pallas"; "xla" differentiates the plain
+    version."""
+    q, k, v, rpb = _natten_inputs(gen, (1, 5, 7, 8), 2, 96, (5, 7, 7), True)
+    leaves = [t.requires_grad_(True) for t in (q, k, v, rpb)]
+    before = (natten3d.LAUNCHES, natten_flash.LAUNCHES)
+    for impl in ("auto", "pallas"):
+        with pytest.raises(NotImplementedError, match="K6b"):
+            neighborhood_attention_3d(*leaves[:3], (5, 7, 7), leaves[3], impl=impl)
+    with pytest.raises(NotImplementedError, match="K6b"):
+        natten3d.neighborhood_attention_3d_slot(*leaves[:3], (5, 7, 7), leaves[3])
+    assert (natten3d.LAUNCHES, natten_flash.LAUNCHES) == before
+    out = neighborhood_attention_3d(*leaves[:3], (5, 7, 7), leaves[3], impl="xla")
+    out.square().sum().backward()
+    assert all(torch.isfinite(t.grad).all() for t in leaves)
+    assert (natten3d.LAUNCHES, natten_flash.LAUNCHES) == before
 
 
 # -- K4a / K4b: banded attention ----------------------------------------------

@@ -63,6 +63,16 @@ SMALL = dict(
     decoder_hidden_dim=4, processor_num_layers=1, kernel=(3, 3, 3), num_heads=2,
 )
 GRID = (16, 24)
+# Heads of 96 at the JAX module's default kernel (5, 7, 7), which the card's
+# K5a cannot tile and K6 takes: one processor, 4 levels (latent depth 5), a
+# 28 x 28 grid (latent 7 x 7), latent 192 in 2 heads.
+WIDE = dict(
+    timesteps=[0], surface_channels=3, pressure_channels=2, pressure_levels=4,
+    latent_dim=192, encoder_num_conv_blocks=2, encoder_num_transformer_layers=1,
+    encoder_hidden_dim=4, decoder_num_conv_blocks=2, decoder_num_transformer_layers=1,
+    decoder_hidden_dim=4, processor_num_layers=1, kernel=(5, 7, 7), num_heads=2,
+)
+WIDE_GRID = (28, 28)
 
 
 def _golden_model(data):
@@ -101,11 +111,11 @@ def test_weathermesh_matches_torch_reference_golden():
     assert rmse_p.max() < 1e-5, rmse_p
 
 
-def _batch(rng, batch=1):
-    h, w = GRID
-    surface = rng.standard_normal((batch, h, w, SMALL["surface_channels"])).astype(np.float32)
+def _batch(rng, batch=1, cfg=SMALL, grid=GRID):
+    h, w = grid
+    surface = rng.standard_normal((batch, h, w, cfg["surface_channels"])).astype(np.float32)
     pressure = rng.standard_normal(
-        (batch, SMALL["pressure_levels"], h, w, SMALL["pressure_channels"])
+        (batch, cfg["pressure_levels"], h, w, cfg["pressure_channels"])
     ).astype(np.float32)
     return surface, pressure
 
@@ -118,16 +128,15 @@ def _jax_shapes(model, surface, pressure):
     )
 
 
-@pytest.fixture(scope="module")
-def small():
-    """The JAX model at SMALL with GroupNorm, variables for it drawn in numpy
+def _models(cfg, grid):
+    """The JAX model at `cfg` with GroupNorm, variables for it drawn in numpy
     (kernels uniform in +-1/sqrt(fan_in), norm scales 1, rpb ~N(0, 0.3^2)
     so that the bias is exercised, linear and conv biases 0: see the module
-    docstring), a batch and targets, and the port model with the same
-    weights."""
-    ref = JaxWeatherMesh(**SMALL)
+    docstring), a batch and targets on `grid`, and the port model with the
+    same weights."""
+    ref = JaxWeatherMesh(**cfg)
     rng = np.random.default_rng(0)
-    surface, pressure = _batch(rng)
+    surface, pressure = _batch(rng, cfg=cfg, grid=grid)
 
     def draw(path, leaf):
         name = path[-1].key
@@ -139,10 +148,20 @@ def small():
         return (np.ones if name == "scale" else np.zeros)(leaf.shape, np.float32)
 
     variables = jax.tree_util.tree_map_with_path(draw, _jax_shapes(ref, surface, pressure))
-    port = WeatherMesh(**SMALL, device="cpu")
-    port.module.load_state_dict(weathermesh_from_jax(variables, num_processors=2))
-    targets = _batch(rng)
+    port = WeatherMesh(**cfg, device="cpu")
+    port.module.load_state_dict(weathermesh_from_jax(variables, len(cfg["timesteps"])))
+    targets = _batch(rng, cfg=cfg, grid=grid)
     return ref, variables, port, (surface, pressure), targets
+
+
+@pytest.fixture(scope="module")
+def small():
+    return _models(SMALL, GRID)
+
+
+@pytest.fixture(scope="module")
+def wide():
+    return _models(WIDE, WIDE_GRID)
 
 
 def test_converter_produces_every_key(small):
@@ -163,16 +182,23 @@ def test_converter_produces_every_key(small):
         weathermesh_from_jax(variables, num_processors=3)
 
 
-@pytest.mark.parametrize("steps", [1, 2])
-def test_outputs_match_jax_model(small, steps):
+@pytest.mark.parametrize("config,steps", [
+    pytest.param("small", 1, id="1"),
+    pytest.param("small", 2, id="2"),
+    pytest.param("wide", 1, id="wide-1"),
+    pytest.param("wide", 2, id="wide-2"),
+])
+def test_outputs_match_jax_model(request, config, steps):
     """The port's forward against the JAX WeatherMesh (GroupNorm) on the
-    same weights, at forecast_steps 1 and 2 (the processor chain twice)."""
-    ref, variables, port, (surface, pressure), _ = small
+    same weights, at forecast_steps 1 and 2 (the processor chain twice): at
+    SMALL, and at WIDE (heads of 96 at kernel (5, 7, 7), the shapes K6 takes
+    on the card), weights carried by convert.weathermesh_from_jax."""
+    ref, variables, port, (surface, pressure), _ = request.getfixturevalue(config)
     want = jax.jit(ref.apply, static_argnums=3)(
         variables, jnp.asarray(surface), jnp.asarray(pressure), steps
     )
     got = port(surface, pressure, forecast_steps=steps)
-    assert got.surface.shape == (1, *GRID, 3) and got.pressure.shape == (1, 3, *GRID, 2)
+    assert got.surface.shape == surface.shape and got.pressure.shape == pressure.shape
     np.testing.assert_allclose(got.surface.numpy(), np.asarray(want.surface), atol=1e-4)
     np.testing.assert_allclose(got.pressure.numpy(), np.asarray(want.pressure), atol=1e-4)
 
