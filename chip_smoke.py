@@ -34,8 +34,10 @@ non-zero exit:
      max abs difference from the card <= 1e-3
   6. a 4-step autoregressive rollout on the card: finite, 44 K2 launches,
      ms per step
-  7. build: clustered_flash.cu's time, registers and spills
-  8. K3a (clustered flash attention) against its plain version on the real
+  7. build: clustered_flash.cu's time, registers and spills, and the
+     count of TF32 tensor-core instructions (HMMA ... TF32) in its SASS,
+     which must not be 0 (cuobjdump)
+  8. K3a (clustered flash attention, split-TF32 mma.sync) against its plain version on the real
      splits-5 layout at c = 128 and c = 512, B = 1: max abs error <= 1e-4,
      empty and padded rows exactly 0; CUDA-event medians of the kernel, the
      plain version and torch's scaled_dot_product_attention on the
@@ -46,7 +48,8 @@ non-zero exit:
      difference from the card <= 1e-3
  11. sample: 2 samples of the 20-step sampler, 592 K3a launches each
  12. a 2-step AR sample rollout: finite, ms per AR step
- 13. build: clustered_flash_bwd.cu's time, registers and spills
+ 13. build: clustered_flash_bwd.cu's time, registers and spills, and its
+     SASS's TF32 tensor-core instructions, as in phase 7
  14. K3c (symmetric) and K3b (general) backward on the real splits-5 layout
      at c = 128 and 512, B = 1: each against the plain backward and against
      each other, max abs error <= 1e-4; exact-zero gradients on empty and
@@ -121,8 +124,9 @@ non-zero exit:
      launch; finite loss, every parameter changed; ms per step, peak GiB, a
      profile of one more step; then 2 steps with use_checkpointing=True (20
      K2 launches each: 9 recomputed), peak GiB
- 35. the same weights and one batch, forward and backward on the card (twice:
-     whether the bits repeat) and on the CPU: loss within 1e-5 relative,
+ 35. the same weights and one batch, forward and backward on the card twice,
+     whose loss and gradients must repeat bit for bit (every sum on the
+     forecaster's path runs in a fixed order), and on the CPU: loss within 1e-5 relative,
      every gradient within 1e-3 of its tensor's max|g|; then at the initial
      weights, with the CPU's float64 gradients beside: the loss within 1e-5,
      each gradient within 1e-3 of its tensor's max|g| or, where f32 rounding
@@ -161,6 +165,8 @@ import dataclasses
 import faulthandler
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -878,6 +884,28 @@ def forecaster_to_float64(model) -> None:
         setattr(model, graph, dataclasses.replace(g, edge_attr=g.edge_attr.double()))
 
 
+def tf32_mma_report(build, name: str) -> str:
+    """The count of TF32 tensor-core instructions (HMMA ... TF32) in the SASS
+    of the library built from csrc/<name>.cu, by cuobjdump (the CUDA
+    toolkit's, or the copy Triton carries); raises when it is 0."""
+    tools = [Path(build._nvcc()).with_name("cuobjdump"), shutil.which("cuobjdump")]
+    try:
+        import triton
+
+        tools.append(Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    tool = next((t for t in tools if t is not None and Path(t).is_file()), None)
+    if tool is None:
+        return "TF32 HMMA in SASS not read (no cuobjdump)"
+    sass = subprocess.run([str(tool), "-sass", str(build._so_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    count = len(re.findall(r"HMMA\.\S*TF32", sass))
+    if count == 0:
+        raise AssertionError(f"{name}.cu: no TF32 tensor-core instruction in its SASS")
+    return f"TF32 HMMA in SASS {count}"
+
+
 def timed(fn):
     """(fn(), host ms) around work that ends in a synchronize."""
     torch.cuda.synchronize()
@@ -1080,7 +1108,8 @@ def main() -> int:
 
     # 7. build of the GenCast kernel (started with the others in phase 2)
     print(f"[build] clustered_flash.cu {build_s:.2f} s (parallel with edge_mlp.cu) | "
-          + " | ".join(ptxas("clustered_flash")), flush=True)
+          + " | ".join(ptxas("clustered_flash") + [tf32_mma_report(_build, "clustered_flash")]),
+          flush=True)
 
     # 8. K3a on the real splits-5 layout, at the processor's two head widths
     t0 = time.perf_counter()
@@ -1101,7 +1130,8 @@ def main() -> int:
           f"{graphs.khop.n_edges} | g2m {graphs.g2m.n_edges} | m2g {graphs.m2g.n_edges} | "
           f"nb {nb} | U_pad {u_pad} | mask density "
           f"{khop.cluster_masks.float().mean().item():.4f} | empty key tiles "
-          f"64x64 {empty_tiles(64, 64):.4f} 32x32 {empty_tiles(32, 32):.4f}", flush=True)
+          f"64x64 {empty_tiles(64, 64):.4f} 32x32 {empty_tiles(32, 32):.4f} 16x16 "
+          f"{empty_tiles(16, 16):.4f} (K3's warp tiles)", flush=True)
     k3a = {c: k3a_case(clustered_flash, khop, gen, c) for c in (128, 512)}
     per_eval = {128: GENCAST["num_blocks"] - 1, 512: 1}  # launches per denoiser evaluation
 
@@ -1192,7 +1222,8 @@ def main() -> int:
 
     # 13. build of the backward kernels (started with the others in phase 2)
     print(f"[build] clustered_flash_bwd.cu {build_s:.2f} s (parallel with the others) | "
-          + " | ".join(ptxas("clustered_flash_bwd")), flush=True)
+          + " | ".join(ptxas("clustered_flash_bwd") + [tf32_mma_report(_build, "clustered_flash_bwd")]),
+          flush=True)
 
     # 14. K3c and K3b on the real splits-5 layout, at both head widths
     # The k-hop graph is symmetric, so its DeviceGraph carries no inverse
@@ -1735,13 +1766,12 @@ def main() -> int:
         return value.item(), {k: t.grad.cpu() for k, t in model.module.named_parameters()}
 
     card_value, card_grads = fc_grads(fc, fc_loss, fc_x, fc_y)
-    # Whether a second forward and backward gives the same bits: the edge
-    # updates add in a fixed order, the g2m aggregation with index_add_'s
-    # atomics.
+    # A second forward and backward must give the same bits: the edge
+    # updates, their backward and the aggregations all add in a fixed order
+    # (the aggregations through the graphs' padded-CSR levels).
     repeat_value, repeat_grads = fc_grads(fc, fc_loss, fc_x, fc_y)
-    bit_equal = card_value == repeat_value and all(
-        torch.equal(card_grads[k], repeat_grads[k]) for k in card_grads
-    )
+    differ = [k for k in card_grads if not torch.equal(card_grads[k], repeat_grads[k])]
+    bit_equal = card_value == repeat_value and not differ
     repeat_worst, repeat_worst_name = grads_close(repeat_grads, card_grads)
     del repeat_grads
     cpu_fc = port.GraphWeatherForecaster(lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cpu")
@@ -1758,6 +1788,11 @@ def main() -> int:
           f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s "
           f"(1 deg) | card repeat bit-equal {bit_equal}, against the first: worst error / limit "
           f"{repeat_worst:.3e} ({repeat_worst_name})", flush=True)
+    if not bit_equal:
+        raise AssertionError(
+            f"the card's repeated forecaster loss ({card_value!r}, {repeat_value!r}) or gradients "
+            f"differ: {len(differ)} of {len(card_grads)} tensors, {differ[:8]}"
+        )
     if not (loss_rel <= LOSS_RTOL):
         raise AssertionError(f"forecaster train loss card vs CPU: {loss_rel} > {LOSS_RTOL}")
     if not (worst <= 1.0):

@@ -1,5 +1,5 @@
 // Clustered (gathered-neighbour) flash attention backward for Hopper
-// (sm_90a), FP32 on the CUDA cores.
+// (sm_90a), on the tensor cores with split-TF32 products.
 //
 // Replaces the Pallas TPU kernels K3b and K3c, graph_weather_tpu/ops/pallas/
 // clustered_flash.py: _clustered_bwd_impl (the general backward:
@@ -16,49 +16,56 @@
 //     dk_u     = scale sum_r ds[r, u] q_r,   dv_u = sum_r p[r, u] dO_r
 //
 // Masked pairs give p = 0 exactly, so rows without a neighbour, padded rows
-// and padding slots (row 0, all-zero mask column) get exact-zero gradients.
+// and padding slots (row 0, all-zero mask column) get exact-zero gradients;
+// a skipped warp tile adds nothing.
 //
-// Three roles share one tile loop. A CTA owns TA rows and streams TB rows at
-// a time, recomputing for each (own, streamed) pair x = a1 . b1 and
+// Three roles share one tile loop. A CTA owns TA = 16 RG rows and streams TB
+// rows at a time, and for each (own, streamed) pair computes x = a1 . b1 and
 // y = a2 . b2, then p and ds, then acc1 += ds b1 (and acc2 += p b2):
 //
-//   DQ            own: TA receiver rows of block b (q, dO, lse, delta);
+//   DQ            own: receiver rows of block b (q, dO, lse, delta);
 //                 streamed: its union's key slots (k, v gathered by id).
 //                 acc1 = dq. Used by both backwards.
-//   DKV_GATHERED  own: TA union slots of block b (k, v gathered by id);
+//   DKV_GATHERED  own: union slots of block b (k, v gathered by id);
 //                 streamed: the block's receiver rows (q, dO, lse, delta).
 //                 acc1 = dk, acc2 = dv, written block-local
 //                 [B, nb, U_pad, h, c]; the caller sums them to global rows.
-//   DKV_OWN       own: TA rows of key block b (k, v); streamed: its union
+//   DKV_OWN       own: rows of key block b (k, v); streamed: its union
 //                 (q, dO, lse, delta gathered by id). For a symmetric edge
 //                 set the receivers that attend block b's keys are exactly
 //                 block b's union, and masks[b] read as [keys, receivers] is
 //                 the adjacency: dk, dv land straight on their global rows.
 //
 // The general backward (K3b) launches DQ and DKV_GATHERED; the symmetric one
-// (K3c) launches DQ and DKV_OWN, one launch each.
+// (K3c) launches DQ and DKV_OWN, one launch each: fusing them would need sums
+// across CTAs, which would not be deterministic.
 //
 // What bounds it on an H100. Per (row, slot) pair the DQ role does 3 and the
-// dk/dv roles 4 products of length c, so 7 * 2c flops per pair of a
-// non-empty tile: at GenCast's splits-5 layout ~41 GFLOP per c = 128 layer
-// (72% of its 58 GFLOP of (row, slot) pairs lie in tiles with an edge),
-// against 1.3 GFLOP on the real edges. The FP32 FMA pipes bound it, as they
-// bound the forward. The design: each CTA gathers its
-// rows itself with cp.async (the TPU code gathered the unions in XLA), skips
-// streamed tiles without an edge, register-tiles x and y (MR x MK per thread
-// over a slice of c, summed through shared memory) and the accumulations
-// (MR2 x MD per thread), and keeps everything in f32. Tiles follow c:
-// 64 x 64 at c <= 128 (205 KB), 16 own x 32 streamed rows at c = 512
-// (222 KB), one 256-thread CTA per SM.
+// dk/dv roles 4 products of length c: 7 * 2c flops per pair that the design
+// computes, against 1.3 GFLOP per c = 128 layer on the real edges. Every
+// product runs on the tensor cores as three TF32 mma.sync
+// (clustered_tile.cuh); as in the forward, the fragment loads and splits,
+// the elementwise work between the products and the waits at each tile's
+// __syncthreads hold the mma pipes well below their peak. The design is the
+// forward's: a warp owns 16 own rows (CS warps share a row group where c is
+// wide, their partial x and y summed through shared memory in one order),
+// skips the 16-row streamed warp tiles that hold none of its edges (from
+// one scan of the mask bytes) and runs the others without a branch, the CTA
+// copies only the streamed tiles with an edge, gathering the rows itself
+// with cp.async into two stages, the next tile's issued before the current
+// tile's products, and channels past c are zeros up to the tile's CP.
+// Tiles follow c: CP = 32: 8 row groups of one warp, 32 streamed rows;
+// CP = 128: 4 row groups of 2 warps, 32 rows; CP = 256: 2 groups of 4 warps,
+// 16 rows; CP = 512: one group of 8 warps, 16 rows. 256 threads.
 //
-// Not yet here: tensor cores (3xTF32), bf16, a fused DQ + DKV pass.
+// Not yet here: one pass for dq and dk/dv (it would need sums across CTAs,
+// or recomputing p twice as now), bf16.
 
-#include <cuda_runtime.h>
+#include "clustered_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr float NEG = -1e30f;  // additive bias off an edge
+using namespace ctile;
 
 enum Role { DQ = 0, DKV_GATHERED = 1, DKV_OWN = 2 };
 
@@ -85,132 +92,58 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-// Waits for this thread's copies, then for every thread's.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-}
-
-// dst[r][0:CP) = row_ptr(r)[0:c), zero past c or where row_ptr(r) is null.
-template <int CP, int NROWS, class RowPtr>
-__device__ __forceinline__ void copy_rows(float* dst, int ld, const Params& p,
-                                          RowPtr row_ptr) {
-  if (p.vec4) {
-    constexpr int V = CP / 4;
-    for (int i = threadIdx.x; i < NROWS * V; i += THREADS) {
-      const int r = i / V;
-      const int d = (i % V) * 4;
-      const float* src = row_ptr(r);
-      const bool ok = src != nullptr && d < p.c;
-      cp_async16(dst + r * ld + d, ok ? src + d : p.q, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < NROWS * CP; i += THREADS) {
-      const int r = i / CP;
-      const int d = i % CP;
-      const float* src = row_ptr(r);
-      const bool ok = src != nullptr && d < p.c;
-      cp_async4(dst + r * ld + d, ok ? src + d : p.q, ok);
-    }
-  }
-}
-
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float get(const float4 a, int i) {
-  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
-}
-
-// MR2 consecutive floats of a transposed tile row (MR2 is 2 or 4).
-template <int MR2>
-__device__ __forceinline__ void load_col(const float* src, float* out) {
-  if constexpr (MR2 == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(src);
-    out[0] = x.x;
-    out[1] = x.y;
-    out[2] = x.z;
-    out[3] = x.w;
-  } else {
-    const float2 x = *reinterpret_cast<const float2*>(src);
-    out[0] = x.x;
-    out[1] = x.y;
-  }
-}
-
-// Tile shapes. CP: padded head width; TA x TB: own rows x streamed rows per
-// tile; MR x MK: x and y entries per thread; MR2 x MD: accumulator entries
-// per thread.
-template <int CP_, int TA_, int TB_, int MR_, int MK_, int MR2_, int MD_>
+// CP: widest c of the tiles (a multiple of 8); RG row groups of CS warps;
+// TB streamed rows per copied tile.
+template <int CP_, int RG_, int CS_, int TB_>
 struct Cfg {
-  static constexpr int CP = CP_, TA = TA_, TB = TB_;
-  static constexpr int MR = MR_, MK = MK_, MR2 = MR2_, MD = MD_;
-  static constexpr int GR = TA / MR;          // row groups in x, y
-  static constexpr int GK = TB / MK;          // streamed groups in x, y
-  static constexpr int SLICE = GR * GK;       // threads per slice of c
-  static constexpr int SK = THREADS / SLICE;  // slices of c, summed in smem
-  static constexpr int DS = CP / SK;          // channels per slice
-  static constexpr int GD = CP / MD;          // channel groups of the accumulators
-  static constexpr int E = TA * TB / THREADS;  // (own, streamed) pairs per thread
-  static constexpr int LPR = TB / E;          // lanes per own row
-  static constexpr int LDA = CP + 4;          // rows of a1, a2, b1, b2, padded
-  static constexpr int LDS = TB + 4;          // rows of the x, y partials
-  static constexpr int LDP = TA + 4;          // rows of the transposed p, ds
-  static constexpr size_t fixed_bytes =
-      sizeof(float) * (2 * TA * LDA + 2 * TB * LDA + 2 * SK * TA * LDS +
-                       2 * TB * LDP + 2 * TB);
-  static_assert(SLICE * SK == THREADS && DS % 4 == 0, "x, y thread layout");
-  static_assert((TA / MR2) * GD == THREADS && MD % 4 == 0, "accumulator layout");
-  static_assert(MR2 == 2 || MR2 == 4, "accumulators read MR2 rows at once");
-  static_assert(E * THREADS == TA * TB && LPR <= 32 && 32 % LPR == 0 && E <= 32,
-                "pair layout");
+  static constexpr int CP = CP_, RG = RG_, CS = CS_, TB = TB_;
+  static constexpr int THREADS = 32 * RG * CS;
+  static constexpr int TA = 16 * RG;   // own rows per CTA
+  static constexpr int CSW = CP / CS;  // channels per warp of a row group
+  static constexpr int NS = TB / SUB;  // 16-row warp tiles per streamed tile
+  static constexpr int NN = CSW / 8;   // 8-channel tiles of a warp's outputs
+  static constexpr int LD = CP + 4;    // rows in shared memory
+  static constexpr int STAGE = 2 * TB * LD;  // floats per stage
+  static constexpr size_t float_bytes =
+      sizeof(float) * (2 * TA * LD + STAGES * STAGE + STAGES * 2 * TB +
+                       (CS > 1 ? 2 * RG * CS * NS * 2 * 32 * 4 : 0));
+  static_assert(THREADS == 256 && CSW % 8 == 0 && TB % SUB == 0 && NS <= 32, "tile layout");
 };
 
 template <class C, int ROLE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(C::THREADS, 1)
     clustered_flash_bwd_kernel(const Params p) {
-  constexpr int CP = C::CP, TA = C::TA, TB = C::TB, MR = C::MR, MK = C::MK;
-  constexpr int MR2 = C::MR2, MD = C::MD, GR = C::GR, GK = C::GK;
-  constexpr int SLICE = C::SLICE, SK = C::SK, DS = C::DS, GD = C::GD;
-  constexpr int E = C::E, LPR = C::LPR;
-  constexpr int LDA = C::LDA, LDS = C::LDS, LDP = C::LDP;
-  constexpr bool DKV = ROLE != DQ;             // dk/dv roles: two accumulators
+  constexpr int RG = C::RG, CS = C::CS, TB = C::TB, TA = C::TA, CSW = C::CSW;
+  constexpr int CP = C::CP, NS = C::NS, NN = C::NN, LD = C::LD, THREADS = C::THREADS;
+  constexpr int STAGE = C::STAGE;
+  constexpr bool DKV = ROLE != DQ;                  // two accumulators
   constexpr bool OWN_SLOTS = ROLE == DKV_GATHERED;  // own rows are union slots
-  constexpr int NA2 = DKV ? MR2 : 1, ND2 = DKV ? MD : 1;
+  constexpr int NN2 = DKV ? NN : 1;
 
   extern __shared__ float4 smem4[];
-  float* A1 = reinterpret_cast<float*>(smem4);  // [TA][LDA] own q or k
-  float* A2 = A1 + TA * LDA;                    // [TA][LDA] own dO or v
-  float* B1 = A2 + TA * LDA;                    // [TB][LDA] streamed k or q
-  float* B2 = B1 + TB * LDA;                    // [TB][LDA] streamed v or dO
-  float* Xs = B2 + TB * LDA;                    // [SK][TA][LDS] partial x
-  float* Ys = Xs + SK * TA * LDS;               // [SK][TA][LDS] partial y
-  float* Pt = Ys + SK * TA * LDS;               // [TB][LDP] p, transposed
-  float* Dt = Pt + TB * LDP;                    // [TB][LDP] ds, transposed
-  float* s_lse = Dt + TB * LDP;                 // [TB] streamed rows' lse
-  float* s_delta = s_lse + TB;                  // [TB] streamed rows' delta
-  int* s_ids = reinterpret_cast<int*>(s_delta + TB);  // [u_pad]
-
-  const int tid = threadIdx.x;
+  float* A1 = reinterpret_cast<float*>(smem4);  // [TA][LD] own q or k
+  float* A2 = A1 + TA * LD;                     // [TA][LD] own dO or v
+  float* Bst = A2 + TA * LD;  // [STAGES][b1, b2][TB][LD]
+  float* s_lse = Bst + STAGES * STAGE;          // [STAGES][TB] streamed lse
+  float* s_delta = s_lse + STAGES * TB;         // [STAGES][TB] streamed delta
+  float4* xpart = reinterpret_cast<float4*>(s_delta + STAGES * TB);  // CS > 1
+  float4* ypart = xpart + RG * CS * NS * 2 * 32;
+  int* s_ids = reinterpret_cast<int*>(reinterpret_cast<float*>(smem4) +
+                                      C::float_bytes / sizeof(float));  // [u_pad]
   const int n_own = OWN_SLOTS ? p.u_pad : p.block;
   const int n_str = OWN_SLOTS ? p.block : p.u_pad;
+  const int n_tiles = (n_str + TB - 1) / TB;
+  int* s_tiles = s_ids + p.u_pad;    // [n_tiles]
+  int* s_count = s_tiles + n_tiles;  // [1]
+  const int n_sub = (n_str + SUB - 1) / SUB;
+  uint16_t* bits = reinterpret_cast<uint16_t*>(s_count + 1);  // [RG][n_sub][16]
+  unsigned char* flags = reinterpret_cast<unsigned char*>(bits + RG * n_sub * 16);  // [RG][n_sub]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rg = warp / CS;
+  const int cs = warp - rg * CS;
   const int a_tiles = (n_own + TA - 1) / TA;
   const int b = blockIdx.x / a_tiles;
   const int a0 = (blockIdx.x % a_tiles) * TA;
@@ -219,16 +152,22 @@ __global__ void __launch_bounds__(THREADS)
   const long long q_base = (long long)bz * p.n_q;
   const long long kv_base = (long long)bz * p.n_kv;
   const long long l_base = (long long)bz * p.n_blocks * p.block;
+  const signed char* mblock = p.masks + (long long)b * p.block * p.u_pad;
+  // The mask byte of (own o, streamed s) is mblock[o * own_stride + s * str_stride].
+  const long long own_stride = OWN_SLOTS ? 1 : p.u_pad;
+  const long long str_stride = OWN_SLOTS ? p.u_pad : 1;
 
-  for (int u = tid; u < p.u_pad; u += THREADS)
-    s_ids[u] = p.ids[(long long)b * p.u_pad + u];
+  for (int u = tid; u < p.u_pad; u += THREADS) s_ids[u] = p.ids[(long long)b * p.u_pad + u];
+  scan_edges<RG, THREADS>(flags, bits, mblock, own_stride, str_stride, a0, n_own, n_str);
   __syncthreads();
+  list_tiles<RG, TB>(s_tiles, s_count, flags, n_str);
+  __syncthreads();
+  const int n_list = *s_count;
 
   // Row lr of block b of a [B, N, h, c] tensor, or slot u of its union.
   auto block_row = [&](const float* t, long long base, int n_rows, int lr) -> const float* {
     const int row = b * p.block + lr;
-    return lr < p.block && row < n_rows ? t + ((base + row) * p.heads + g) * p.c
-                                        : nullptr;
+    return lr < p.block && row < n_rows ? t + ((base + row) * p.heads + g) * p.c : nullptr;
   };
   auto slot_row = [&](const float* t, long long base, int u) -> const float* {
     return u < p.u_pad ? t + ((base + s_ids[u]) * p.heads + g) * p.c : nullptr;
@@ -244,65 +183,21 @@ __global__ void __launch_bounds__(THREADS)
   auto own_ptr = [&](const float* t, int r) -> const float* {
     return OWN_SLOTS ? slot_row(t, own_base, a0 + r) : block_row(t, own_base, own_n, a0 + r);
   };
-  auto str_ptr = [&](const float* t, int s0, int r) -> const float* {
-    return OWN_SLOTS ? block_row(t, str_base, str_n, s0 + r) : slot_row(t, str_base, s0 + r);
-  };
-  copy_rows<CP, TA>(A1, LDA, p, [&](int r) { return own_ptr(own1, r); });
-  copy_rows<CP, TA>(A2, LDA, p, [&](int r) { return own_ptr(own2, r); });
+  copy_rows<THREADS, CP>(A1, LD, TA, p.c, p.vec4, p.q, [&](int r) { return own_ptr(own1, r); });
+  copy_rows<THREADS, CP>(A2, LD, TA, p.c, p.vec4, p.q, [&](int r) { return own_ptr(own2, r); });
 
-  // x, y layout: slice `sl` of c, row group rg (rows rg + GR*i), streamed
-  // group kg (rows kg + GK*j); kg is fastest, so b1/b2 reads are conflict-free.
-  const int sl = tid / SLICE;
-  const int rg = (tid % SLICE) / GK;
-  const int kg = tid % GK;
-  // Pair layout: own row sr, streamed rows sk0 .. sk0 + E - 1.
-  const int sr = tid / LPR;
-  const int sk0 = (tid % LPR) * E;
-  const int own_l = a0 + sr;
-  // Accumulator layout: own rows rg2 * MR2 .. + MR2 - 1, channels
-  // 4 dg + 4 GD jj + x.
-  const int rg2 = tid / GD;
-  const int dg = tid % GD;
-
-  // The DQ role's own row: its lse and delta.
-  float row_lse = 0.f, row_delta = 0.f;
-  if (!DKV && own_l < p.block) {
-    const long long i = (l_base + b * p.block + own_l) * p.heads + g;
-    row_lse = p.lse[i];
-    row_delta = p.delta[i];
-  }
-
-  float acc1[MR2][MD], acc2[NA2][ND2];
-#pragma unroll
-  for (int i = 0; i < MR2; ++i)
-#pragma unroll
-    for (int j = 0; j < MD; ++j) acc1[i][j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < NA2; ++i)
-#pragma unroll
-    for (int j = 0; j < ND2; ++j) acc2[i][j] = 0.f;
-
-  for (int s0 = 0; s0 < n_str; s0 += TB) {
-    // This thread's mask bytes; a streamed tile without an edge is skipped.
-    unsigned edges = 0;
-    if (own_l < n_own) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int s = s0 + sk0 + e;
-        if (s >= n_str) break;
-        const long long m = OWN_SLOTS
-                                ? ((long long)b * p.block + s) * p.u_pad + own_l
-                                : ((long long)b * p.block + own_l) * p.u_pad + s;
-        if (p.masks[m] != 0) edges |= 1u << e;
-      }
-    }
-    if (!__syncthreads_or(edges != 0)) continue;
-
-    copy_rows<CP, TB>(B1, LDA, p, [&](int r) { return str_ptr(str1, s0, r); });
-    copy_rows<CP, TB>(B2, LDA, p, [&](int r) { return str_ptr(str2, s0, r); });
+  auto copy_tile = [&](int stage, int tile) {
+    float* B1 = Bst + stage * STAGE;
+    const int s0 = tile * TB;
+    auto str_ptr = [&](const float* t, int r) -> const float* {
+      return OWN_SLOTS ? block_row(t, str_base, str_n, s0 + r) : slot_row(t, str_base, s0 + r);
+    };
+    copy_rows<THREADS, CP>(B1, LD, TB, p.c, p.vec4, p.q, [&](int r) { return str_ptr(str1, r); });
+    copy_rows<THREADS, CP>(B1 + TB * LD, LD, TB, p.c, p.vec4, p.q,
+                           [&](int r) { return str_ptr(str2, r); });
     if (DKV && tid < TB) {
       // Streamed rows' lse and delta; 0 for rows that are not there (their
-      // dO and delta are 0, so they add exact zeros).
+      // dO and delta are 0 and their mask bytes too: they add exact zeros).
       const int s = s0 + tid;
       int row = -1;
       if (OWN_SLOTS) {
@@ -311,103 +206,100 @@ __global__ void __launch_bounds__(THREADS)
         row = s_ids[s];
       }
       const long long i = (l_base + row) * p.heads + g;
-      s_lse[tid] = row >= 0 ? p.lse[i] : 0.f;
-      s_delta[tid] = row >= 0 ? p.delta[i] : 0.f;
+      s_lse[stage * TB + tid] = row >= 0 ? p.lse[i] : 0.f;
+      s_delta[stage * TB + tid] = row >= 0 ? p.delta[i] : 0.f;
     }
-    cp_async_wait_all();
+  };
+  // The first STAGES - 1 tiles' copies (with the own rows in the first
+  // group); one group is committed per tile slot, empty or not, so that
+  // waiting for all but the newest STAGES - 1 groups waits for the tile
+  // about to be used.
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_list) copy_tile(t, s_tiles[t]);
+    cp_async_commit();
+  }
 
-    // Partial x = a1 . b1 and y = a2 . b2 over this thread's slice of c.
-    {
-      float ax[MR][MK], ay[MR][MK];
+  // This thread's own rows (g, g + 8 of its row group), local to the CTA's
+  // block (DQ, DKV_OWN) or union (DKV_GATHERED).
+  const int o0 = a0 + 16 * rg + (lane >> 2);
+  const int t4 = lane & 3;
+  // The DQ role's own rows: their lse and delta.
+  float row_lse[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
+  if (!DKV) {
 #pragma unroll
-      for (int i = 0; i < MR; ++i)
-#pragma unroll
-        for (int j = 0; j < MK; ++j) ax[i][j] = ay[i][j] = 0.f;
-      const float* a1 = A1 + rg * LDA + sl * DS;
-      const float* a2 = A2 + rg * LDA + sl * DS;
-      const float* b1 = B1 + kg * LDA + sl * DS;
-      const float* b2 = B2 + kg * LDA + sl * DS;
-#pragma unroll 2
-      for (int d = 0; d < DS; d += 4) {
-        float4 v1[MK], v2[MK];
-#pragma unroll
-        for (int j = 0; j < MK; ++j) {
-          v1[j] = *reinterpret_cast<const float4*>(b1 + GK * j * LDA + d);
-          v2[j] = *reinterpret_cast<const float4*>(b2 + GK * j * LDA + d);
-        }
-#pragma unroll
-        for (int i = 0; i < MR; ++i) {
-          const float4 u1 = *reinterpret_cast<const float4*>(a1 + GR * i * LDA + d);
-          const float4 u2 = *reinterpret_cast<const float4*>(a2 + GR * i * LDA + d);
-#pragma unroll
-          for (int j = 0; j < MK; ++j) {
-            ax[i][j] = dot4(u1, v1[j], ax[i][j]);
-            ay[i][j] = dot4(u2, v2[j], ay[i][j]);
-          }
-        }
-      }
-      float* xs = Xs + sl * TA * LDS + rg * LDS + kg;
-      float* ys = Ys + sl * TA * LDS + rg * LDS + kg;
-#pragma unroll
-      for (int i = 0; i < MR; ++i)
-#pragma unroll
-        for (int j = 0; j < MK; ++j) {
-          xs[GR * i * LDS + GK * j] = ax[i][j];
-          ys[GR * i * LDS + GK * j] = ay[i][j];
-        }
-    }
-    __syncthreads();
-
-    // p and ds of this thread's pairs, transposed into Pt and Dt.
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      float x = 0.f, y = 0.f;
-#pragma unroll
-      for (int t = 0; t < SK; ++t) {
-        x += Xs[t * TA * LDS + sr * LDS + sk0 + e];
-        y += Ys[t * TA * LDS + sr * LDS + sk0 + e];
-      }
-      const float lse = DKV ? s_lse[sk0 + e] : row_lse;
-      const float delta = DKV ? s_delta[sk0 + e] : row_delta;
-      const float pr = expf(x * p.scale + ((edges >> e) & 1u ? 0.f : NEG) - lse);
-      Pt[(sk0 + e) * LDP + sr] = pr;
-      Dt[(sk0 + e) * LDP + sr] = pr * (y - delta);
-    }
-    __syncthreads();
-
-    // acc1 += ds b1 (and acc2 += p b2) for this thread's rows and channels.
-#pragma unroll 4
-    for (int kk = 0; kk < TB; ++kk) {
-      float ds[MR2], pr[MR2];
-      load_col<MR2>(Dt + kk * LDP + rg2 * MR2, ds);
-      if (DKV) load_col<MR2>(Pt + kk * LDP + rg2 * MR2, pr);
-      const float* b1 = B1 + kk * LDA + 4 * dg;
-      const float* b2 = B2 + kk * LDA + 4 * dg;
-#pragma unroll
-      for (int jj = 0; jj < MD / 4; ++jj) {
-        const float4 u1 = *reinterpret_cast<const float4*>(b1 + 4 * GD * jj);
-#pragma unroll
-        for (int i = 0; i < MR2; ++i)
-#pragma unroll
-          for (int x = 0; x < 4; ++x)
-            acc1[i][4 * jj + x] = fmaf(ds[i], get(u1, x), acc1[i][4 * jj + x]);
-        if constexpr (DKV) {
-          const float4 u2 = *reinterpret_cast<const float4*>(b2 + 4 * GD * jj);
-#pragma unroll
-          for (int i = 0; i < MR2; ++i)
-#pragma unroll
-            for (int x = 0; x < 4; ++x)
-              acc2[i][4 * jj + x] = fmaf(pr[i], get(u2, x), acc2[i][4 * jj + x]);
-        }
+    for (int h = 0; h < 2; ++h) {
+      if (o0 + 8 * h < p.block) {
+        const long long i = (l_base + b * p.block + o0 + 8 * h) * p.heads + g;
+        row_lse[h] = p.lse[i];
+        row_delta[h] = p.delta[i];
       }
     }
   }
-  asm volatile("cp.async.wait_all;\n" ::);  // own rows, when every tile was skipped
+  const int c_begin = cs * CSW;
+  const float* a1_rows = A1 + 16 * rg * LD;
+  const float* a2_rows = A2 + 16 * rg * LD;
+
+  float acc1[NN][4], acc2[NN2][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n) acc1[n][0] = acc1[n][1] = acc1[n][2] = acc1[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NN2; ++n) acc2[n][0] = acc2[n][1] = acc2[n][2] = acc2[n][3] = 0.f;
+
+  for (int i = 0; i < n_list; ++i) {
+    const int tile = s_tiles[i];
+    const int stage = i % STAGES;
+    if (i + STAGES - 1 < n_list) copy_tile((i + STAGES - 1) % STAGES, s_tiles[i + STAGES - 1]);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    float* B1 = Bst + stage * STAGE;
+    const float* B2 = B1 + TB * LD;
+    const unsigned act = active_bits<NS>(flags, rg, tile, n_str);
+    const uint16_t* tile_bits = bits + (rg * n_sub + tile * NS) * 16;
+
+    // x and y of this warp's active 16-row warp tiles (partial over c_begin's
+    // slice where CS > 1, then summed across the row group).
+    float x[NS][2][4], y[NS][2][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (!((act >> j) & 1u)) continue;
+      row_products16<CSW / 8>(x[j], a1_rows, B1 + SUB * j * LD, LD, c_begin, lane);
+      row_products16<CSW / 8>(y[j], a2_rows, B2 + SUB * j * LD, LD, c_begin, lane);
+    }
+    if constexpr (CS > 1) {
+      sum_partials<NS, CS>(x, xpart, rg, cs, act, lane);
+      sum_partials<NS, CS>(y, ypart, rg, cs, act, lane);
+    }
+
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (!((act >> j) & 1u)) continue;
+      // p into y, ds into x, for this thread's pairs.
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int sl = SUB * j + 8 * h + 2 * t4 + (e & 1);  // streamed row within the tile
+          const float lse = DKV ? s_lse[stage * TB + sl] : row_lse[e >> 1];
+          const float delta = DKV ? s_delta[stage * TB + sl] : row_delta[e >> 1];
+          const bool edge = edge_bit(tile_bits + 16 * j, h, e, lane);
+          const float pr = exp_diff(x[j][h][e] * p.scale + (edge ? 0.f : NEG), lse);
+          x[j][h][e] = pr * (y[j][h][e] - delta);
+          y[j][h][e] = pr;
+        }
+      col_products16<NN>(acc1, x[j], B1 + SUB * j * LD, LD, c_begin, lane);
+      if constexpr (DKV)
+        col_products16<NN>(acc2, y[j], B2 + SUB * j * LD, LD, c_begin, lane);
+    }
+    __syncthreads();  // the stage is free for the copy two tiles on
+  }
+  cp_async_wait<0>();  // the own rows, when the list was empty
 
   // Outputs: dq and dk scaled, dv as summed.
 #pragma unroll
-  for (int i = 0; i < MR2; ++i) {
-    const int r = a0 + rg2 * MR2 + i;  // own row within the block, or slot
+  for (int h = 0; h < 2; ++h) {
+    const int r = o0 + 8 * h;  // own row within the block, or slot
     float* dst1;
     float* dst2 = nullptr;
     if (ROLE == DQ) {
@@ -426,25 +318,23 @@ __global__ void __launch_bounds__(THREADS)
       dst2 = p.dv + (slot * p.heads + g) * p.c;
     }
 #pragma unroll
-    for (int jj = 0; jj < MD / 4; ++jj) {
-      const int d = 4 * dg + 4 * GD * jj;
-      float o1[4], o2[4];
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        o1[x] = acc1[i][4 * jj + x] * p.scale;
-        o2[x] = 0.f;
-        if constexpr (DKV) o2[x] = acc2[i][4 * jj + x];
-      }
-      if (p.vec4 && d < p.c) {
-        *reinterpret_cast<float4*>(dst1 + d) = make_float4(o1[0], o1[1], o1[2], o1[3]);
-        if (DKV)
-          *reinterpret_cast<float4*>(dst2 + d) = make_float4(o2[0], o2[1], o2[2], o2[3]);
+    for (int n = 0; n < NN; ++n) {
+      const int d = c_begin + 8 * n + 2 * t4;
+      if (d >= p.c) break;
+      const float x0 = acc1[n][2 * h] * p.scale, x1 = acc1[n][2 * h + 1] * p.scale;
+      if (p.vec4) {
+        *reinterpret_cast<float2*>(dst1 + d) = make_float2(x0, x1);
       } else {
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          if (d + x >= p.c) break;
-          dst1[d + x] = o1[x];
-          if (DKV) dst2[d + x] = o2[x];
+        dst1[d] = x0;
+        if (d + 1 < p.c) dst1[d + 1] = x1;
+      }
+      if constexpr (DKV) {
+        const float y0 = acc2[n][2 * h], y1 = acc2[n][2 * h + 1];
+        if (p.vec4) {
+          *reinterpret_cast<float2*>(dst2 + d) = make_float2(y0, y1);
+        } else {
+          dst2[d] = y0;
+          if (d + 1 < p.c) dst2[d + 1] = y1;
         }
       }
     }
@@ -453,14 +343,18 @@ __global__ void __launch_bounds__(THREADS)
 
 template <class C, int ROLE>
 int launch(const Params& p, int batch, cudaStream_t stream) {
-  const size_t smem = C::fixed_bytes + sizeof(int) * (size_t)p.u_pad;
+  const int n_own = ROLE == DKV_GATHERED ? p.u_pad : p.block;
+  const int n_str = ROLE == DKV_GATHERED ? p.block : p.u_pad;
+  const int n_tiles = (n_str + C::TB - 1) / C::TB;
+  const size_t n_sub = (n_str + SUB - 1) / SUB;  // bits and flags per row group
+  const size_t smem = C::float_bytes + sizeof(int) * ((size_t)p.u_pad + n_tiles + 1) +
+                      C::RG * n_sub * (16 * sizeof(uint16_t) + 1);
   cudaError_t err = cudaFuncSetAttribute(clustered_flash_bwd_kernel<C, ROLE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_own = ROLE == DKV_GATHERED ? p.u_pad : p.block;
   const dim3 grid(p.n_blocks * ((n_own + C::TA - 1) / C::TA), p.heads, batch);
-  clustered_flash_bwd_kernel<C, ROLE><<<grid, THREADS, smem, stream>>>(p);
+  clustered_flash_bwd_kernel<C, ROLE><<<grid, C::THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -476,10 +370,11 @@ int run(const Params& p, int mode, int batch, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-//                        CP   TA  TB  MR  MK  MR2  MD
-using Narrow = Cfg<32, 64, 64, 4, 4, 2, 4>;
-using Mid = Cfg<128, 64, 64, 4, 4, 4, 8>;
-using Wide = Cfg<512, 16, 32, 2, 4, 4, 8>;
+//                 CP  RG  CS  TB
+using W32 = Cfg<32, 8, 1, 32>;
+using W128 = Cfg<128, 4, 2, 32>;
+using W256 = Cfg<256, 2, 4, 16>;
+using W512 = Cfg<512, 1, 8, 16>;
 
 }  // namespace
 
@@ -497,8 +392,9 @@ extern "C" int gwt_clustered_flash_backward(
   const Params p{q,  k,  v,  dout, lse,   delta,    gather_ids, masks, dq, dk,
                  dv, n_q, n_kv, heads, c, n_blocks, block, u_pad, vec4, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c <= 32) return run<Narrow>(p, mode, batch, s);
-  if (c <= 128) return run<Mid>(p, mode, batch, s);
-  if (c <= 512) return run<Wide>(p, mode, batch, s);
+  if (c <= 32) return run<W32>(p, mode, batch, s);
+  if (c <= 128) return run<W128>(p, mode, batch, s);
+  if (c <= 256) return run<W256>(p, mode, batch, s);
+  if (c <= 512) return run<W512>(p, mode, batch, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -34,24 +34,31 @@ from graph_weather_tpu_torch.ops.fused_mlp import fused_edge_update
 from graph_weather_tpu_torch.ops.scatter import (
     build_chunked_csr,
     build_padded_csr,
+    chunked_csr_agg,
     padded_csr_agg,
     segment_sum_agg,
+    table_owner,
 )
 
 # Degree threshold below which the padded-CSR (scatter-free) aggregation is
 # used. Latent mesh (<=7) and mesh->grid (<=7) qualify; grid->mesh graphs on
-# lat/lon grids have very skewed polar in-degrees and use segment_sum. The
-# edge update's backward (edge_sums=True) sums through chunks of this width
-# at any degree (mesh->grid senders send up to 1,260 edges on a 1° grid).
+# lat/lon grids have very skewed polar in-degrees and use segment_sum, unless
+# the graph carries the edge_sums=True tables: then the aggregation, and the
+# edge update's backward, sum through chunks of this width at any degree
+# (grid->mesh receivers take up to 720 edges on a 1° grid, mesh->grid
+# senders send up to 1,260).
 _CSR_MAX_DEGREE = 16
 
 
 def _sum_levels(ids: np.ndarray, n_nodes: int, device) -> tuple:
-    """The levels of build_chunked_csr on `device`."""
-    return tuple(
-        (torch.as_tensor(edge_ids, device=device), torch.as_tensor(mask, device=device))
-        for edge_ids, mask in build_chunked_csr(ids, n_nodes, _CSR_MAX_DEGREE)
-    )
+    """The levels of build_chunked_csr on `device`, each (edge_ids, mask,
+    owner): owner the table row of each summed row (ops.scatter.table_owner)."""
+    levels, n_items = [], ids.shape[0]
+    for edge_ids, mask in build_chunked_csr(ids, n_nodes, _CSR_MAX_DEGREE):
+        owner = table_owner(edge_ids, mask, n_items)
+        levels.append(tuple(torch.as_tensor(a, device=device) for a in (edge_ids, mask, owner)))
+        n_items = edge_ids.shape[0]  # the next level sums this level's rows
+    return tuple(levels)
 
 
 @dataclass(frozen=True)
@@ -77,11 +84,13 @@ class DeviceGraph:
     ([nb, block, block + 2w] int8), and whether the attention runs the
     flash kernels K4a/K4b (`band_flash`) or the plain banded attention.
 
-    receiver_sum and sender_sum (from_bundle(..., edge_sums=True), for the
-    backward of EdgeBlock's fused edge update) are the levels of padded CSR
-    tables that sum edge rows to the receivers and to the senders: one table
-    where no node has more than 16 edges (the receivers' is then the csr_*
-    table itself), else two (ops.scatter.build_chunked_csr).
+    receiver_sum and sender_sum (from_bundle(..., edge_sums=True): the
+    forecaster's graphs) are the levels of padded CSR tables that sum edge
+    rows to the receivers and to the senders: one table where no node has
+    more than 16 edges (the csr_* table, with its owners), else two
+    (ops.scatter.build_chunked_csr), each (edge_ids, mask, owner). The
+    backward of EdgeBlock's fused edge update reads both; `aggregate` sums
+    through receiver_sum, whose gradient is then a gather by the owners.
     """
 
     senders: torch.Tensor  # [E] int32
@@ -131,10 +140,11 @@ class DeviceGraph:
             csr_mask = torch.as_tensor(mask, device=device)
         receiver_sum = sender_sum = None
         if edge_sums:
-            receiver_sum = (
-                ((csr_ids, csr_mask),) if use_csr
-                else _sum_levels(bundle.receivers, bundle.n_receivers, device)
-            )
+            if use_csr:  # the receivers' one table is the csr_* table itself
+                owner = torch.as_tensor(table_owner(ids, mask, bundle.n_edges), device=device)
+                receiver_sum = ((csr_ids, csr_mask, owner),)
+            else:
+                receiver_sum = _sum_levels(bundle.receivers, bundle.n_receivers, device)
             sender_sum = _sum_levels(bundle.senders, bundle.n_senders, device)
         cluster_ids = cluster_masks = cluster_scatter = None
         cluster_symmetric = False
@@ -193,7 +203,13 @@ class DeviceGraph:
         )
 
     def aggregate(self, edge_feats: torch.Tensor) -> torch.Tensor:
-        """Sum [..., E, F] edge features into [..., N_receivers, F]."""
+        """Sum [..., E, F] edge features into [..., N_receivers, F]: through
+        the receiver_sum levels where the graph carries them (in a fixed
+        order at any degree, so the card repeats its bits), else the padded
+        CSR table, else index_add_ (atomics on the card; GenCast's graphs,
+        where two levels were slower)."""
+        if self.receiver_sum is not None:
+            return chunked_csr_agg(edge_feats, self.receiver_sum)
         if self.csr_edge_ids is not None:
             return padded_csr_agg(edge_feats, self.csr_edge_ids, self.csr_mask)
         return segment_sum_agg(edge_feats, self.receivers, self.n_receivers)

@@ -19,8 +19,10 @@ It replaces graph_weather_tpu/ops/pallas/clustered_flash.py
 (`clustered_flash_attention`: `_clustered_impl`, `_clustered_bwd_impl` and
 `_bwd_symmetric`). The TPU code gathered the K/V union rows in XLA because
 Mosaic could not gather inside a kernel; csrc/clustered_flash.cu (forward)
-and csrc/clustered_flash_bwd.cu (backward) gather them themselves, skip
-tiles without an edge and keep everything in f32 on the CUDA cores.
+and csrc/clustered_flash_bwd.cu (backward) gather them themselves, skip the
+16-key tiles in which a warp's 16 rows have no edge, and run every product
+on the tensor cores as three TF32 products (split operands, f32 sums: f32
+accuracy; csrc/clustered_tile.cuh).
 
 Training: when autograd needs gradients, the forward also keeps the
 log-sum-exp lse [B, nb * block, h], and the backward recomputes

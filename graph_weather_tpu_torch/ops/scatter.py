@@ -12,8 +12,9 @@ Both strategies are XLA in the JAX package, so they are plain PyTorch here:
   * `chunked_csr_agg`: the same sum in levels of padded CSR tables
     (`build_chunked_csr`): each node's edges in chunks of at most 16, then
     each node's chunks. Scatter-free and deterministic at any degree; the
-    fused edge update's backward sums to high-degree nodes this way
-    (grid->mesh receivers, mesh->grid senders).
+    forecaster's graphs sum to high-degree nodes this way, in the
+    aggregation (grid->mesh receivers) and in the fused edge update's
+    backward (grid->mesh receivers, mesh->grid senders).
 """
 
 from __future__ import annotations
@@ -31,8 +32,36 @@ def segment_sum_agg(
     return out.index_add_(-2, receivers, edge_feats)
 
 
+def _table_sum(edge_feats: torch.Tensor, edge_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    n, k = edge_ids.shape
+    gathered = edge_feats.index_select(-2, edge_ids.reshape(-1))
+    gathered = gathered.reshape(edge_feats.shape[:-2] + (n, k, edge_feats.shape[-1]))
+    return (gathered * mask[..., None].to(edge_feats.dtype)).sum(dim=-2)
+
+
+class _OwnedTableSum(torch.autograd.Function):
+    """A table sum whose every edge sits in exactly one valid entry: the
+    gradient of edge row e is the gradient row of the node that holds it,
+    a gather by `owner`. index_select's own gradient would add every padded
+    entry back with index_add_ (atomics on the card, and N x K rows)."""
+
+    @staticmethod
+    def forward(ctx, edge_feats, edge_ids, mask, owner):
+        ctx.save_for_backward(owner)
+        return _table_sum(edge_feats, edge_ids, mask)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        (owner,) = ctx.saved_tensors
+        return grad.index_select(-2, owner), None, None, None
+
+
 def padded_csr_agg(
-    edge_feats: torch.Tensor, edge_ids: torch.Tensor, mask: torch.Tensor
+    edge_feats: torch.Tensor,
+    edge_ids: torch.Tensor,
+    mask: torch.Tensor,
+    owner: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Sum edge features via a padded CSR table.
 
@@ -41,14 +70,29 @@ def padded_csr_agg(
         edge_ids: [N, K] int32 ids into the edge axis; padded entries may
             point anywhere (masked out).
         mask: [N, K] boolean validity.
+        owner: optional [E] int64, the table row of each edge
+            (`table_owner`), for a table that holds every edge exactly once:
+            the gradient is then a gather.
 
     Returns:
         [..., N, F] aggregated features.
     """
-    n, k = edge_ids.shape
-    gathered = edge_feats.index_select(-2, edge_ids.reshape(-1))
-    gathered = gathered.reshape(edge_feats.shape[:-2] + (n, k, edge_feats.shape[-1]))
-    return (gathered * mask[..., None].to(edge_feats.dtype)).sum(dim=-2)
+    if owner is not None and torch.is_grad_enabled() and edge_feats.requires_grad:
+        return _OwnedTableSum.apply(edge_feats, edge_ids, mask, owner)
+    return _table_sum(edge_feats, edge_ids, mask)
+
+
+def table_owner(edge_ids: np.ndarray, mask: np.ndarray, n_items: int) -> np.ndarray:
+    """Host-side: the row of a padded CSR table that holds each of the
+    n_items summed rows, int64 [n_items], for a table in which every row
+    sits in exactly one valid entry (as in build_padded_csr's and
+    build_chunked_csr's tables)."""
+    ids = np.asarray(edge_ids)[np.asarray(mask)]
+    if ids.size != n_items or np.bincount(ids, minlength=n_items).max(initial=0) > 1:
+        raise ValueError("table_owner: every summed row must sit in exactly one valid entry")
+    owner = np.zeros(n_items, dtype=np.int64)
+    owner[ids] = np.nonzero(np.asarray(mask))[0]
+    return owner
 
 
 def build_padded_csr(receivers: np.ndarray, n_receivers: int) -> tuple[np.ndarray, np.ndarray]:
@@ -96,7 +140,8 @@ def build_chunked_csr(ids: np.ndarray, n_nodes: int, chunk: int = 16) -> list:
 
 def chunked_csr_agg(edge_feats: torch.Tensor, levels) -> torch.Tensor:
     """Sum [..., E, F] edge features to [..., N, F] through the levels of
-    `build_chunked_csr` (as tensors), in a fixed order."""
-    for edge_ids, mask in levels:
-        edge_feats = padded_csr_agg(edge_feats, edge_ids, mask)
+    `build_chunked_csr` (as tensors, each (edge_ids, mask) or (edge_ids,
+    mask, owner)), in a fixed order."""
+    for level in levels:
+        edge_feats = padded_csr_agg(edge_feats, *level)
     return edge_feats

@@ -1,0 +1,141 @@
+"""Times the GenCast and forecaster paths of one checkout of the PyTorch/CUDA
+port on one NVIDIA GPU, so that two trees can be compared on one card in
+one call, in turns (parent, change, change, parent):
+
+    python3 scripts/chip_ab.py --root DIR [--label NAME]
+
+DIR is the root of a checkout whose graph_weather_tpu_torch/ is timed (the
+package builds its kernels into DIR). The measurements are chip_smoke.py's,
+from this script's own checkout: K3a at c = 128 and 512 against SDPA on the
+gathered unions (phase 8), K3c and K3b with SDPA's backward (phase 14), per
+evaluation and per train step; 3 GenCast denoiser requests (phase 9), one
+20-step sample (11), 3 train steps (15); 3 forecaster requests at 1° (4)
+and 3 train steps (34). Each kernel is held against its plain version as in
+those phases. Prints one JSON line. f32 throughout; TF32 is off.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--root", required=True, type=Path)
+    parser.add_argument("--label", default=None)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device; this script times the port on an NVIDIA GPU", file=sys.stderr)
+        return 1
+    root = args.root.resolve()
+    sys.path.insert(0, str(root))
+    import graph_weather_tpu_torch as port
+
+    if not Path(port.__file__).resolve().is_relative_to(root):
+        raise ImportError(f"graph_weather_tpu_torch imported from {port.__file__}, not {root}")
+    sys.path.insert(1, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    from graph_weather_tpu_torch.meshes.clustering import build_cluster_scatter_index
+    from graph_weather_tpu_torch.models.gencast.graphs import build_graphcast_graphs
+    from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
+    from graph_weather_tpu_torch.ops import _build, clustered_flash, fused_mlp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    _build.load_libraries(["clustered_flash", "clustered_flash_bwd", "edge_mlp", "fused_mlp_bwd"])
+    result = {"label": args.label or str(root), "card": card}
+
+    # K3a, K3c and K3b on the real splits-5 layout (phases 8 and 14).
+    gc = cs.GENCAST
+    graphs = build_graphcast_graphs(
+        gc["grid_lon"], gc["grid_lat"], splits=5, num_hops=4,
+        add_edge_features_to_khop=False, spatial_sort="rcb",
+    )
+    khop = DeviceGraph.from_bundle(graphs.khop, "cuda", clustered=True)
+    scatter = torch.as_tensor(build_cluster_scatter_index(
+        khop.cluster_ids.cpu().numpy(), khop.cluster_masks.cpu().numpy(), khop.n_senders
+    ), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    per_eval = {128: gc["num_blocks"] - 1, 512: 1}
+    k3a = {c: cs.k3a_case(clustered_flash, khop, gen, c) for c in per_eval}
+    bwd = {c: cs.k3_bwd_case(clustered_flash, khop, scatter, gen, c) for c in per_eval}
+    result.update({
+        "k3a_ms": {c: v[1] for c, v in k3a.items()},
+        "k3a_sdpa_ms": {c: v[3] for c, v in k3a.items()},
+        "k3c_ms": {c: v["ms"]["k3c"] for c, v in bwd.items()},
+        "k3b_ms": {c: v["ms"]["k3b"] for c, v in bwd.items()},
+        "k3_bwd_sdpa_ms": {c: v["sdpa_ms"] for c, v in bwd.items()},
+    })
+    for key in ("k3a_ms", "k3a_sdpa_ms", "k3c_ms", "k3b_ms", "k3_bwd_sdpa_ms"):
+        result[key]["per_eval_or_step"] = sum(result[key][c] * n for c, n in per_eval.items())
+    del khop, graphs, scatter
+
+    # GenCast: 3 requests, one 20-step sample, 3 train steps (phases 9, 11, 15).
+    den = port.Denoiser(**gc, device="cuda")
+    den.init(torch.Generator().manual_seed(0))
+    data = torch.Generator().manual_seed(1)
+    n_lon, n_lat, f_in, f_out = 128, 64, gc["input_features_dim"], gc["output_features_dim"]
+    corrupted = torch.randn(3, 1, n_lon, n_lat, f_out, generator=data).to("cuda")
+    prev = torch.randn(3, 1, n_lon, n_lat, 2 * f_in, generator=data).to("cuda")
+    sigma = torch.ones(1, 1, device="cuda")
+    result["gencast_request_ms"] = [cs.timed(lambda: den(x, c, sigma))[1] for x, c in zip(corrupted, prev)]
+    sampler = port.Sampler(num_steps=20, device="cuda")
+    noise = torch.Generator(device="cuda").manual_seed(2)
+    result["sample_ms"] = cs.timed(lambda: sampler.sample(den, prev[0], noise))[1]
+    train = torch.Generator().manual_seed(3)
+    corrupted_t, prev_t, target_t = (
+        torch.randn(1, n_lon, n_lat, f, generator=train).to("cuda") for f in (f_out, 2 * f_in, f_out)
+    )
+    noise_t = port.sample_noise_level(torch.Generator(device="cuda").manual_seed(4), (1, 1))
+    loss = port.WeightedMSELoss(grid_lat=gc["grid_lat"], device="cuda")
+    step = port.make_train_step(
+        den.module.parameters(), den.forward_fn(), lambda p, t: loss(p, noise_t, t),
+        port.make_optimizer(1e-4),
+    )
+    result["gencast_step_ms"] = [
+        cs.timed(lambda: step(corrupted_t, prev_t, noise_t, target_t))[1] for _ in range(3)
+    ]
+    del den, sampler, step
+    torch.cuda.empty_cache()
+
+    # The 1° forecaster: 3 requests and 3 train steps (phases 4 and 34).
+    lat_lons = cs.grid(1.0)
+    model = port.GraphWeatherForecaster(
+        lat_lons, feature_dim=cs.FEATURE_DIM, aux_dim=cs.AUX_DIM, device="cuda"
+    )
+    model.init(torch.Generator().manual_seed(0))
+    inputs = torch.randn(
+        3, 1, len(lat_lons), cs.FEATURE_DIM + cs.AUX_DIM, generator=torch.Generator().manual_seed(1)
+    ).to("cuda")
+    result["fc_request_ms"] = [cs.timed(lambda: model(x))[1] for x in inputs]
+    fc_gen = torch.Generator().manual_seed(5)
+    fc_x = torch.randn(1, len(lat_lons), cs.FEATURE_DIM + cs.AUX_DIM, generator=fc_gen).to("cuda")
+    fc_y = torch.randn(1, len(lat_lons), cs.FEATURE_DIM, generator=fc_gen).to("cuda")
+    fc_loss = port.NormalizedMSELoss(np.ones(cs.FEATURE_DIM), lat_lons, normalize=True, device="cuda")
+    before = fused_mlp.BACKWARD_LAUNCHES
+    fc_step = port.make_train_step(
+        model.module.parameters(), model.forward_fn(), fc_loss, port.make_optimizer(1e-3)
+    )
+    result["fc_step_ms"] = [cs.timed(lambda: fc_step(fc_x, fc_y))[1] for _ in range(3)]
+    if fused_mlp.BACKWARD_LAUNCHES - before != 33:
+        raise AssertionError("the forecaster's train steps did not run K2b 11 times each")
+    for key in ("gencast_request_ms", "gencast_step_ms", "fc_request_ms", "fc_step_ms"):
+        result[key + "_median_later"] = statistics.median(result[key][1:])
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

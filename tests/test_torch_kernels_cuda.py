@@ -407,6 +407,81 @@ def test_clustered_flash_gradients_flow(gen):
         clustered_flash.clustered_flash_attention(q.requires_grad_(True), k, v, ids, masks, block)
 
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [20, 32, 128, 192, 512])
+def test_clustered_tensor_core_tiles(gen, c):
+    """K3a with lse, K3c and K3b against their plain versions at each tile
+    width of the split-TF32 kernels: c = 20 (zero-padded to 24 in shared
+    memory), 32, 128, 192 (FGN's heads: two warps share a row group) and
+    512 (four); B = 2, a ragged last block (701 rows in 256-row blocks),
+    exact zeros for the node without an edge."""
+    q, k, v, dout, ids, masks, block = _symmetric_case(gen, 2, 701, 4, c, 256, seed=c)
+    out, lse = clustered_flash._forward_cuda(q, k, v, ids, masks, block, with_lse=True)
+    ref, ref_lse = clustered_flash.clustered_flash_forward_reference(
+        q, k, v, ids, masks, block, with_lse=True
+    )
+    want = _plain_backward(q, k, v, ids, masks, block, dout, symmetric=False)
+    sym = _kernel_backward(q, k, v, ids, masks, block, dout, symmetric=True)
+    general = _kernel_backward(q, k, v, ids, masks, block, dout, symmetric=False)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= ATOL
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    assert _max_err(sym, want) <= ATOL and _max_err(general, want) <= ATOL
+    assert bool((out[:, 5] == 0).all())
+    for grads in (sym, general):
+        assert all(bool((t[:, 5] == 0).all()) for t in grads)
+
+
+def _last_subtile_case(gen, c, symmetric):
+    """272 nodes in 128-row blocks (the last block ragged: 16 rows). Rows
+    16-31 of block 0, one warp's row group, hold a single edge: row 16 from
+    node 271, the largest id of block 0's union of 256 = U_pad, so the edge
+    sits in the last 8-key sub-tile of the last key tile. Rows 17-31 have
+    none; no other edge touches nodes 16-31."""
+    rng = np.random.default_rng(3)
+    n = 272
+    pool = np.r_[0:16, 32:271]  # every sender but 16-31 and 271
+    rows0 = np.r_[0:16, 32:128]
+    receivers = [np.repeat(rows0, 6), [16], np.repeat(np.arange(128, n), 6)]
+    senders0 = rng.choice(pool, 6 * rows0.size)
+    senders0[: pool.size] = rng.permutation(pool)  # the union holds every node of the pool
+    senders = [senders0, [271], rng.choice(pool, 6 * (n - 128))]
+    r, s = np.concatenate(receivers), np.concatenate(senders)
+    if symmetric:
+        pairs = np.unique(np.stack([np.r_[s, r], np.r_[r, s]], 1), axis=0)
+        s, r = pairs[:, 0], pairs[:, 1]
+        assert is_symmetric_edges(s, r)
+    order = np.argsort(r, kind="stable")
+    layout = build_cluster_layout(s[order], r[order], n, n, block=128)
+    assert layout.u_pad == 256 and layout.gather_ids[0, 255] == 271
+    assert layout.masks[0, 16:32].sum() == 1 and layout.masks[0, 16, 255]
+    ids = torch.as_tensor(layout.gather_ids, device="cuda")
+    masks = torch.as_tensor(layout.masks.astype(np.int8), device="cuda")
+    q, k, v, dout = (torch.randn(1, n, 2, c, generator=gen, device="cuda") for _ in range(4))
+    return q, k, v, dout, ids, masks, 128
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [20, 128, 512])
+def test_clustered_warp_with_one_edge_in_the_last_subtile(gen, c):
+    """A warp whose only edge lies in the last key sub-tile: K3a gives row 16
+    node 271's value and rows 17-31 exact zeros; K3a, K3c and K3b against
+    their plain versions."""
+    for symmetric in (False, True):
+        q, k, v, dout, ids, masks, block = _last_subtile_case(gen, c, symmetric)
+        with torch.no_grad():
+            out = clustered_flash.clustered_flash_attention(q, k, v, ids, masks, block)
+            ref = clustered_flash.clustered_flash_forward_reference(q, k, v, ids, masks, block)
+        got = _kernel_backward(q, k, v, ids, masks, block, dout, symmetric)
+        want = _plain_backward(q, k, v, ids, masks, block, dout, symmetric)
+        torch.cuda.synchronize()
+        assert (out - ref).abs().max().item() <= ATOL
+        assert (out[0, 16] - v[0, 271]).abs().max().item() <= ATOL
+        assert bool((out[:, 17:32] == 0).all())
+        assert _max_err(got, want) <= ATOL
+        assert all(bool((t[:, 17:32] == 0).all()) for t in got)
+
 # -- K5a / K5b: 3D neighborhood attention -------------------------------------
 
 NATTEN_CASES = [
