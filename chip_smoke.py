@@ -17,7 +17,7 @@ and training; and the same GenCast denoiser with banded attention
 blocks of 512 rows against windows of 2,560 keys): serving and training;
 and the 768-d WeatherMesh (the same conv stack with the JAX package's
 default attention: latent 768, 8 heads of 96, kernel (5, 7, 7), 3 + 10 + 3
-layers), whose heads K5a cannot tile, served through the slot-serial K6.
+layers), whose heads K5a cannot tile, served through K6.
 Phases, one line each, in order; any failure raises and ends the run with a
 non-zero exit:
 
@@ -88,16 +88,24 @@ non-zero exit:
      backward on the card and on the CPU: loss within 1e-5 relative, every
      gradient within 1e-3 of its max|g| (the model's CPU convs run in
      PyTorch's own kernels, not oneDNN's, here and in phase 20)
- 25. build: banded_flash.cu's and banded_flash_bwd.cu's registers and spills
+ 25. build: banded_flash.cu's and banded_flash_bwd.cu's registers and spills,
+     and the count of TF32 tensor-core instructions in banded_flash_bwd.cu's
+     SASS (K4b: split-TF32 mma.sync), which must not be 0
  26. K4a (banded flash attention) against its plain version on the real
      splits-5 band layout (nb 21, w 1024), B = 1, c = 128 and c = 512 x 4
      heads, with and without lse: max abs error <= 1e-4 on out and lse;
      padded rows exactly 0; CUDA-event medians of the kernel, the plain
      version and SDPA on the stacked windows with the band mask (timed
-     only); per evaluation (15 x c = 128 + c = 512) and the bound
- 27. K4b against the plain backward in the same cases: dq, dk, dv within
-     1e-4, exact zeros on padded rows; medians of both kernels, the plain
-     backward and SDPA's backward; per train step and the bound
+     only); per evaluation (15 x c = 128 + c = 512) and the bound; the
+     share of the band's pairs in 16 x 16 tiles that hold an edge (those
+     K4b computes)
+ 27. K4b against the plain backward in the same cases, its dk/dv kernel in
+     the symmetric role (the k-hop graph is symmetric: band_symmetric) and
+     in the general role: dq, dk, dv within 1e-4, exact zeros on padded
+     rows; medians of both kernels in each role, the plain backward and
+     SDPA's backward; per train step and the bounds (FP32, and three TF32
+     products); then the general role on a directed band of the same size
+     (10,242 nodes, w 1024), within 1e-4 with exact zeros
  28. band_serve: the banded_flash Denoiser with phase 9's weights answers
      phase 9's 3 requests, each with exactly 16 K4a launches and no K3a
      launch; ms per request, peak GiB, a profile of one more; max abs
@@ -106,7 +114,8 @@ non-zero exit:
  29. the same weights and the last request on the CPU (the twins): max abs
      difference <= 1e-3
  30. band_train: 3 steps of make_train_step as in phase 15, each with
-     exactly 16 K4a, 16 dq and 16 dk/dv launches and no K3 launch; finite
+     exactly 16 K4a, 16 dq and 16 dk/dv launches, the dk/dv kernel in its
+     symmetric role, and no K3 launch; finite
      loss, every parameter changed; ms per step, peak GiB, a profile of one
      more step; then 2 steps with remat=True (32 K4a launches each), peak GiB
  31. the same weights and one batch, forward and backward on the card and on
@@ -132,13 +141,15 @@ non-zero exit:
      each gradient within 1e-3 of its tensor's max|g| or, where f32 rounding
      alone puts it outside, no further from float64 in norm than twice the
      CPU's float32 gradient (F32_NOISE_FACTOR)
- 36. build: natten3d.cu's (K6's) registers and spills
- 37. K6 (the slot-serial 3D neighborhood attention forward) against its
+ 36. build: natten3d.cu's (K6's) registers and spills, and its SASS's TF32
+     tensor-core instructions (0: K6 runs FP32 on the CUDA cores)
+ 37. K6 (the wide-head 3D neighborhood attention forward) against its
      plain version (neighborhood_attention_3d_reference) with rpb
      ~N(0, 0.5^2): (a) the wide layer, [1, 14, 45, 90] x 8 x 96 at
      (5, 7, 7); (b) (a) with a circular W axis; (c) phase 18's case a,
      4 x 32 at (3, 5, 5), through impl="pallas", also against K5a; (d) 2 x
-     256 at (3, 5, 5). Max abs error <= 1e-4; CUDA-event medians of the
+     256 at (3, 5, 5); (e) 2 x 128 at (5, 7, 7); (f) 4 x 64 at (3, 5, 5):
+     each of the kernel's instantiations. Max abs error <= 1e-4; CUDA-event medians of the
      kernel, the plain version and SDPA over each query's gathered window
      with rpb as an additive bias, in chunks of queries (timed only); per
      request (16 x case a) and the bound
@@ -199,6 +210,10 @@ TIMING_RUNS = 10
 # bytes / HBM_RATE, for the work these inputs need.
 FP32_PEAK = 67e12
 HBM_RATE = 3.35e12
+# The same sheet's dense TF32 tensor-core rate: a kernel that splits each f32
+# product into three TF32 products (K3a-c, K4b) has, beside its FP32 bound,
+# the bound of 3 x its operations at this rate.
+TF32_PEAK = 495e12
 # GenCast: bench.py's _make_denoiser at full size.
 GENCAST = dict(
     grid_lon=np.arange(0.0, 360.0, 360.0 / 128), grid_lat=np.linspace(-90.0, 90.0, 64),
@@ -263,6 +278,12 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     that must move `nbytes` bytes."""
     by_ops, by_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def tf32x3_ms(flops: float) -> float:
+    """Least ms for `flops` f32-equivalent operations done as three TF32
+    tensor-core products each."""
+    return 3 * flops / TF32_PEAK * 1e3
 
 
 def k1_case(edge_mlp, name, bundle, with_dst, gen, width=256):
@@ -788,31 +809,37 @@ def k4a_case(banded_flash, band_windows, khop, gen, c, heads=4):
 
 def k4b_case(banded_flash, band_windows, khop, gen, c, heads=4):
     """K4b against the plain backward on K4a's out and lse at the processor's
-    shapes, and once over the padded rows, whose gradients past N must be
-    exactly 0. Times both kernels alone, the whole backward (delta and both
-    kernels), the plain backward and SDPA's backward. Returns a dict of
-    errors, times (ms), flops and bytes."""
+    shapes, its dk/dv kernel in the symmetric role (the k-hop graph is
+    symmetric) and in the general role, and once over the padded rows,
+    whose gradients past N must be exactly 0. Times both kernels in each
+    role alone, the whole backward (delta and both kernels, symmetric), the
+    plain backward and SDPA's backward. Returns a dict of errors, times
+    (ms), flops and bytes."""
     masks, block, w, n = khop.band_masks, khop.band_block, khop.band_w, khop.n_receivers
     (qp, kp, vp, dop), (q, k, v, dout) = band_inputs(gen, khop, c, heads, 4)
     out, lse = banded_flash._forward_cuda(q, k, v, masks, block, w, with_lse=True)
     args = (q, k, v, masks, out, lse, dout, block, w)
-    got = banded_flash._backward_cuda(*args)
+    got = banded_flash._backward_cuda(*args, symmetric=True)
+    general = banded_flash._backward_cuda(*args, symmetric=False)
     out_p, lse_p = banded_flash._forward_cuda(qp, kp, vp, masks, block, w, with_lse=True)
-    padded = banded_flash._backward_cuda(qp, kp, vp, masks, out_p, lse_p, dop, block, w)
+    padded = banded_flash._backward_cuda(qp, kp, vp, masks, out_p, lse_p, dop, block, w, symmetric=True)
     torch.cuda.synchronize()
     want = banded_flash.banded_flash_backward_reference(*args)
     errs = {f"d{nm}": (a - b).abs().max().item() for nm, a, b in zip("qkv", got, want)}
+    errs["general"] = max((a - b).abs().max().item() for a, b in zip(general, want))
     errs["padded"] = max((a[:, :n] - b).abs().max().item() for a, b in zip(padded, want))
     zeros = all(bool((t[:, n:] == 0).all()) for t in padded)
     n_pad = masks.shape[0] * block
     delta = torch.nn.functional.pad((dout * out).sum(-1), (0, 0, 0, n_pad - n)).contiguous()
     grads = tuple(torch.empty_like(t) for t in (q, k, v))
 
-    def kernel(mode):
-        return lambda: banded_flash.launch_backward(mode, q, k, v, masks, lse, dout, delta, grads, block, w)
+    def kernel(mode, symmetric=True):
+        return lambda: banded_flash.launch_backward(
+            mode, q, k, v, masks, lse, dout, delta, grads, block, w, symmetric)
 
     ms = {"dq": cuda_ms(kernel(banded_flash.DQ)), "dkv": cuda_ms(kernel(banded_flash.DKV)),
-          "all": cuda_ms(lambda: banded_flash._backward_cuda(*args))}
+          "dkv_general": cuda_ms(kernel(banded_flash.DKV, symmetric=False)),
+          "all": cuda_ms(lambda: banded_flash._backward_cuda(*args, symmetric=True))}
     plain_ms = cuda_ms(lambda: banded_flash.banded_flash_backward_reference(*args), runs=3, batch=1)
     q_b, k_w, v_w, attend, do_b = band_sdpa_inputs(band_windows, q, k, v, masks, block, w, dout)
     q_b, k_w, v_w = (t.requires_grad_(True) for t in (q_b, k_w, v_w))
@@ -820,8 +847,8 @@ def k4b_case(banded_flash, band_windows, khop, gen, c, heads=4):
     sdpa_ms = cuda_ms(lambda: torch.autograd.grad(o_b, (q_b, k_w, v_w), do_b, retain_graph=True))
     print(f"[k4b] c={c}: max_abs_err " + " ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
           + f" | padded_rows_zero_grads={zeros} | dq_ms={ms['dq']:.4f} dkv_ms={ms['dkv']:.4f} "
-          f"backward_ms={ms['all']:.4f} (delta + both) plain_ms={plain_ms:.4f} "
-          f"sdpa_bwd_ms={sdpa_ms:.4f}", flush=True)
+          f"(symmetric) dkv_general_ms={ms['dkv_general']:.4f} backward_ms={ms['all']:.4f} "
+          f"(delta + both) plain_ms={plain_ms:.4f} sdpa_bwd_ms={sdpa_ms:.4f}", flush=True)
     for nm, e in errs.items():
         if not (e <= K4_TOL):
             raise AssertionError(f"K4b c={c}: {nm} error {e} > {K4_TOL}")
@@ -836,6 +863,39 @@ def k4b_case(banded_flash, band_windows, khop, gen, c, heads=4):
     return dict(errs=errs, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
                 flops={"dq": 6 * edges * heads * c, "dkv": 8 * edges * heads * c},
                 nbytes={"dq": 5 * rows + stats, "dkv": 6 * rows + stats})
+
+
+def k4b_directed_case(banded_flash, build_band_masks, gen, c, n=10242, w=1024, heads=4):
+    """K4b's general role on a directed band of GenCast's size: each node
+    receives from 6 random nodes within +-w, every 7th node receives from
+    none; inputs over the padded rows. dq, dk, dv against the plain backward
+    within 1e-4, exact zeros on the padded rows and on dq of the receivers
+    without an edge. Returns the max error."""
+    rng = np.random.default_rng(c)
+    receivers = np.repeat(np.arange(n), 6)
+    senders = np.clip(receivers + rng.integers(-w, w + 1, receivers.size), 0, n - 1)
+    pairs = np.unique(np.stack([receivers, senders], 1), axis=0)
+    pairs = pairs[pairs[:, 0] % 7 != 0]
+    masks = torch.as_tensor(build_band_masks(pairs[:, 1], pairs[:, 0], n, 512, w).astype(np.int8),
+                            device="cuda")
+    n_pad = masks.shape[0] * 512
+    q, k, v, dout = (torch.randn(1, n_pad, heads, c, generator=gen, device="cuda") for _ in range(4))
+    out, lse = banded_flash._forward_cuda(q, k, v, masks, 512, w, with_lse=True)
+    args = (q, k, v, masks, out, lse, dout, 512, w)
+    got = banded_flash._backward_cuda(*args, symmetric=False)
+    torch.cuda.synchronize()
+    want = banded_flash.banded_flash_backward_reference(*args)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    no_edge = torch.arange(n_pad, device="cuda")
+    no_edge = (no_edge % 7 == 0) | (no_edge >= n)
+    zeros = all(bool((t[:, n:] == 0).all()) for t in got) and bool((got[0][:, no_edge] == 0).all())
+    print(f"[k4b] directed band c={c}: {pairs.shape[0]} edges, nb {masks.shape[0]}, w {w} | general "
+          f"role max_abs_err {err:.3e} | exact zeros {zeros}", flush=True)
+    if not (err <= K4_TOL):
+        raise AssertionError(f"K4b general role on a directed band, c={c}: error {err} > {K4_TOL}")
+    if not zeros:
+        raise AssertionError(f"K4b general role on a directed band, c={c}: rows not exactly 0")
+    return err
 
 
 def grads_close(card: dict, cpu: dict) -> tuple[float, str]:
@@ -884,10 +944,11 @@ def forecaster_to_float64(model) -> None:
         setattr(model, graph, dataclasses.replace(g, edge_attr=g.edge_attr.double()))
 
 
-def tf32_mma_report(build, name: str) -> str:
+def tf32_mma_report(build, name: str, required: bool = True) -> str:
     """The count of TF32 tensor-core instructions (HMMA ... TF32) in the SASS
     of the library built from csrc/<name>.cu, by cuobjdump (the CUDA
-    toolkit's, or the copy Triton carries); raises when it is 0."""
+    toolkit's, or the copy Triton carries); raises when it is 0 and
+    `required` (the kernel's products run on the tensor cores)."""
     tools = [Path(build._nvcc()).with_name("cuobjdump"), shutil.which("cuobjdump")]
     try:
         import triton
@@ -901,7 +962,7 @@ def tf32_mma_report(build, name: str) -> str:
     sass = subprocess.run([str(tool), "-sass", str(build._so_path(name))],
                           capture_output=True, text=True, check=True).stdout
     count = len(re.findall(r"HMMA\.\S*TF32", sass))
-    if count == 0:
+    if count == 0 and required:
         raise AssertionError(f"{name}.cu: no TF32 tensor-core instruction in its SASS")
     return f"TF32 HMMA in SASS {count}"
 
@@ -970,7 +1031,7 @@ def main() -> int:
         natten3d,
         natten_flash,
     )
-    from graph_weather_tpu_torch.ops.banded_attention import band_windows
+    from graph_weather_tpu_torch.ops.banded_attention import band_windows, build_band_masks
     from graph_weather_tpu_torch.ops.neighborhood_attention import (
         _window_indices,
         neighborhood_attention_3d,
@@ -1508,7 +1569,8 @@ def main() -> int:
 
     # 25. build of the banded kernels (started with the others in phase 2)
     print(f"[build] banded_flash.cu + banded_flash_bwd.cu {build_s:.2f} s (parallel with the "
-          "others) | " + " | ".join(ptxas("banded_flash") + ptxas("banded_flash_bwd")), flush=True)
+          "others) | " + " | ".join(ptxas("banded_flash") + ptxas("banded_flash_bwd")
+                                    + [tf32_mma_report(_build, "banded_flash_bwd")]), flush=True)
 
     # 26. K4a on the real splits-5 band layout (the lat-lon sorted k-hop
     # graph), at the processor's two head widths
@@ -1530,7 +1592,11 @@ def main() -> int:
           f"nb {band_nb} | block {band_block} | w {band_w} | mask "
           f"{tuple(band.band_masks.shape)} {band.band_masks.numel() / 1e6:.1f} MB, density "
           f"{band.band_masks.float().mean().item():.4f} | empty key tiles 64x64 "
-          f"{band_empty_tiles(64, 64):.4f} 32x32 {band_empty_tiles(32, 32):.4f}", flush=True)
+          f"{band_empty_tiles(64, 64):.4f} 32x32 {band_empty_tiles(32, 32):.4f} | pairs in 16x16 "
+          f"tiles with an edge (K4b's warp tiles) {1 - band_empty_tiles(16, 16):.4f} | "
+          f"band_symmetric {band.band_symmetric}", flush=True)
+    if not band.band_symmetric:
+        raise AssertionError("the k-hop graph's band layout is not marked symmetric")
     if band_graphs.khop.n_edges != graphs_khop_edges:
         raise AssertionError("the banded and clustered k-hop graphs differ in their edge count")
     k4a = {c: k4a_case(banded_flash, band_windows, band, gen, c) for c in (128, 512)}
@@ -1545,9 +1611,14 @@ def main() -> int:
           f"{per_eval_sum({c: v['lse_ms'] for c, v in k4a.items()}):.4f} | K3a (phase 8) "
           f"{k3a_ms:.4f}", flush=True)
 
-    # 27. K4b in the same cases
+    # 27. K4b in the same cases, both roles of its dk/dv kernel; then the
+    # general role on a directed band
+    general_before = banded_flash.BWD_DKV_LAUNCHES
     k4b = {c: k4b_case(banded_flash, band_windows, band, gen, c) for c in (128, 512)}
-    k4b_ms = {kind: per_eval_sum({c: v["ms"][kind] for c, v in k4b.items()}) for kind in ("dq", "dkv", "all")}
+    k4b_general_phase27 = banded_flash.BWD_DKV_LAUNCHES - general_before
+    k4b_directed_err = max(k4b_directed_case(banded_flash, build_band_masks, gen, c) for c in (128, 512))
+    k4b_ms = {kind: per_eval_sum({c: v["ms"][kind] for c, v in k4b.items()})
+              for kind in ("dq", "dkv", "dkv_general", "all")}
     k4b_plain_ms = per_eval_sum({c: v["plain_ms"] for c, v in k4b.items()})
     k4b_sdpa_ms = per_eval_sum({c: v["sdpa_ms"] for c, v in k4b.items()})
     k4b_bound = {
@@ -1555,22 +1626,28 @@ def main() -> int:
                bound(k4b[128]["flops"][kind], k4b[128]["nbytes"][kind])[1])
         for kind in ("dq", "dkv")
     }
+    k4b_tf32x3 = {kind: per_eval_sum({c: tf32x3_ms(v["flops"][kind]) for c, v in k4b.items()})
+                  for kind in ("dq", "dkv")}
     print(f"[k4b] per train step (15 x c=128 + c=512): dq_ms={k4b_ms['dq']:.4f} "
-          f"dkv_ms={k4b_ms['dkv']:.4f} backward_ms={k4b_ms['all']:.4f} plain_ms={k4b_plain_ms:.4f} "
+          f"dkv_ms={k4b_ms['dkv']:.4f} (symmetric; general {k4b_ms['dkv_general']:.4f}) "
+          f"backward_ms={k4b_ms['all']:.4f} plain_ms={k4b_plain_ms:.4f} "
           f"sdpa_bwd_ms={k4b_sdpa_ms:.4f} bound_ms dq {k4b_bound['dq'][0]:.4f} ({k4b_bound['dq'][1]}) "
-          f"dk/dv {k4b_bound['dkv'][0]:.4f} ({k4b_bound['dkv'][1]}) | K3c (phase 14) {k3c_ms:.4f}",
-          flush=True)
+          f"dk/dv {k4b_bound['dkv'][0]:.4f} ({k4b_bound['dkv'][1]}) | three TF32 products at "
+          f"{TF32_PEAK / 1e12:.0f} TFLOP/s: dq {k4b_tf32x3['dq']:.4f} dk/dv {k4b_tf32x3['dkv']:.4f} "
+          f"| K3c (phase 14) {k3c_ms:.4f}", flush=True)
     del band, band_graphs
     torch.cuda.empty_cache()
 
     # 28. band_serve: phase 9's weights and requests through the banded Denoiser
     def band_counts():
-        return (banded_flash.LAUNCHES, banded_flash.BWD_DQ_LAUNCHES, banded_flash.BWD_DKV_LAUNCHES,
+        return (banded_flash.LAUNCHES, banded_flash.BWD_DQ_LAUNCHES,
+                banded_flash.BWD_DKV_SYMMETRIC_LAUNCHES, banded_flash.BWD_DKV_LAUNCHES,
                 clustered_flash.LAUNCHES + clustered_flash.SYMMETRIC_DQ_LAUNCHES
                 + clustered_flash.SYMMETRIC_DKV_LAUNCHES + clustered_flash.GENERAL_BWD_LAUNCHES)
 
     def zero_band_counts():
         banded_flash.LAUNCHES = banded_flash.BWD_DQ_LAUNCHES = banded_flash.BWD_DKV_LAUNCHES = 0
+        banded_flash.BWD_DKV_SYMMETRIC_LAUNCHES = 0
         clustered_flash.LAUNCHES = clustered_flash.SYMMETRIC_DQ_LAUNCHES = 0
         clustered_flash.SYMMETRIC_DKV_LAUNCHES = clustered_flash.GENERAL_BWD_LAUNCHES = 0
 
@@ -1586,9 +1663,9 @@ def main() -> int:
         bout, ms = timed(lambda: bden(x, cond, sigma))
         band_ms.append(ms)
         made = tuple(a - b for a, b in zip(band_counts(), before))
-        if made != (GENCAST["num_blocks"], 0, 0, 0):
-            raise AssertionError(f"a banded request made {made} (K4a, K4b dq, K4b dk/dv, K3) "
-                                 "launches, expected (16, 0, 0, 0)")
+        if made != (GENCAST["num_blocks"], 0, 0, 0, 0):
+            raise AssertionError(f"a banded request made {made} (K4a, K4b dq, K4b dk/dv symmetric, "
+                                 "K4b dk/dv general, K3) launches, expected (16, 0, 0, 0, 0)")
         if bout.shape != (1, n_lon, n_lat, f_out) or not torch.isfinite(bout).all():
             raise AssertionError(f"bad banded denoiser output: shape {tuple(bout.shape)}")
     band_launches = banded_flash.LAUNCHES
@@ -1626,11 +1703,13 @@ def main() -> int:
         raise AssertionError(f"banded denoiser card vs CPU: {cpu_err} > {CPU_TOL}")
 
     # 30. band_train: 3 steps on the banded Denoiser, then 2 with remat
-    names = "K4a, K4b dq, K4b dk/dv, K3"
+    names = "K4a, K4b dq, K4b dk/dv symmetric, K4b dk/dv general, K3"
     before_params = [t.detach().clone() for t in bden.module.parameters()]
     torch.cuda.reset_peak_memory_stats()
     zero_band_counts()
-    step, band_train_ms, band_losses = train_steps(bden, 3, (blocks, blocks, blocks, 0), band_counts, names)
+    # The k-hop graph is symmetric: the dk/dv kernel takes its symmetric role.
+    step, band_train_ms, band_losses = train_steps(bden, 3, (blocks, blocks, blocks, 0, 0),
+                                                   band_counts, names)
     band_train_launches = band_counts()
     band_train_peak = torch.cuda.max_memory_allocated() / 2**30
     unchanged = [i for i, (a, b) in enumerate(zip(before_params, bden.module.parameters())) if torch.equal(a, b)]
@@ -1638,14 +1717,15 @@ def main() -> int:
         raise AssertionError(f"{len(unchanged)} parameter tensors did not change in 3 banded train steps")
     print(f"[band_train] 3 steps | step_ms {[round(t, 3) for t in band_train_ms]} | steady median "
           f"{statistics.median(band_train_ms[1:]):.3f} | loss {[round(v, 6) for v in band_losses]} | "
-          f"launches per step K4a {blocks} dq {blocks} dk/dv {blocks} K3 0 | all "
+          f"launches per step K4a {blocks} dq {blocks} dk/dv {blocks} (symmetric role) K3 0 | all "
           f"{len(before_params)} parameter tensors changed | peak GiB {band_train_peak:.2f}", flush=True)
     profile_request(lambda: step(corrupted_t, prev_t, noise_t, target_t), "banded train step")
     del step, before_params
     remat = port.Denoiser(**GENCAST_BANDED, remat=True, device="cuda")
     remat.module.load_state_dict(bden.module.state_dict())
     torch.cuda.reset_peak_memory_stats()
-    _, remat_ms, remat_loss = train_steps(remat, 2, (2 * blocks, blocks, blocks, 0), band_counts, names)
+    _, remat_ms, remat_loss = train_steps(remat, 2, (2 * blocks, blocks, blocks, 0, 0), band_counts,
+                                          names)
     print(f"[band_train] remat=True: 2 steps | step_ms {[round(t, 3) for t in remat_ms]} | loss "
           f"{[round(v, 6) for v in remat_loss]} | K4a launches {2 * blocks} per step | peak GiB "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} (with the first model's weights and "
@@ -1836,17 +1916,21 @@ def main() -> int:
 
     # 36. build of K6 (started with the others in phase 2)
     print(f"[build] natten3d.cu {build_s:.2f} s (parallel with the others) | "
-          + " | ".join(ptxas("natten3d")), flush=True)
+          + " | ".join(ptxas("natten3d") + [tf32_mma_report(_build, "natten3d", required=False)]),
+          flush=True)
 
     # 37. K6 on the 1-degree latent: (a) the 768-d model's layers, (b) a
     # circular W axis, (c) the 128-d model's layers through impl="pallas",
-    # also against K5a, (d) heads of 256
+    # also against K5a, (d) heads of 256; (e), (f) the other instantiations
+    # (16 lanes at 128 channels, 8 lanes at 64)
     t0 = time.perf_counter()
     k6_cases = {
         "a": dict(kernel=(5, 7, 7), heads=8, ch=96, circular=False),
         "b": dict(kernel=(5, 7, 7), heads=8, ch=96, circular=True),
         "c": dict(kernel=(3, 5, 5), heads=4, ch=32, circular=False, via_pallas=True),
         "d": dict(kernel=(3, 5, 5), heads=2, ch=256, circular=False),
+        "e": dict(kernel=(5, 7, 7), heads=2, ch=128, circular=False),
+        "f": dict(kernel=(3, 5, 5), heads=4, ch=64, circular=False),
     }
     k6 = {n: k6_case(natten3d, natten_flash, neighborhood_attention_3d,
                      neighborhood_attention_3d_reference, _window_indices, n, gen, **c)
@@ -2010,6 +2094,7 @@ def main() -> int:
             "plain_ms": k3a_plain_ms,
             "bound_ms": k3a_bound_ms,
             "bound_by": k3a_bound_by,
+            "bound_tf32x3_ms": per_eval_sum({c: tf32x3_ms(v[4]) for c, v in k3a.items()}),
             "library_ms": k3a_sdpa_ms,
             "sdpa_ms": k3a_sdpa_ms,
             "train_launches": train_launches[0],  # 3 train steps, with lse
@@ -2026,6 +2111,7 @@ def main() -> int:
             "plain_ms": k3b_plain_ms,
             "bound_ms": bwd_bound_ms,
             "bound_by": bwd_bound_by,
+            "bound_tf32x3_ms": per_eval_sum({c: tf32x3_ms(v["flops"]) for c, v in bwd.items()}),
             "library_ms": bwd_sdpa_ms,
         },
         {
@@ -2040,6 +2126,7 @@ def main() -> int:
             "plain_ms": k3c_plain_ms,
             "bound_ms": bwd_bound_ms,
             "bound_by": bwd_bound_by,
+            "bound_tf32x3_ms": per_eval_sum({c: tf32x3_ms(v["flops"]) for c, v in bwd.items()}),
             "library_ms": bwd_sdpa_ms,
         },
         {
@@ -2108,6 +2195,7 @@ def main() -> int:
             "plain_ms": k4b_plain_ms,  # the whole plain backward (dq, dk, dv)
             "bound_ms": k4b_bound["dq"][0],
             "bound_by": k4b_bound["dq"][1],
+            "bound_tf32x3_ms": k4b_tf32x3["dq"],
             "library_ms": k4b_sdpa_ms,  # SDPA's whole backward
         },
         {
@@ -2115,14 +2203,30 @@ def main() -> int:
             "route": "cuda",
             "source": "graph_weather_tpu_torch/csrc/banded_flash_bwd.cu",
             "replaces": "graph_weather_tpu/ops/pallas/banded_flash.py:487",
-            "launches": band_train_launches[2],  # 3 train steps
+            "launches": band_train_launches[2],  # 3 train steps, symmetric role
             "max_abs_err": max(max(v["errs"]["dk"], v["errs"]["dv"], v["errs"]["padded"])
                                for v in k4b.values()),
-            "ms": k4b_ms["dkv"],  # per train step
+            "ms": k4b_ms["dkv"],  # per train step, symmetric role
             "plain_ms": k4b_plain_ms,  # the whole plain backward (dq, dk, dv)
             "bound_ms": k4b_bound["dkv"][0],
             "bound_by": k4b_bound["dkv"][1],
+            "bound_tf32x3_ms": k4b_tf32x3["dkv"],
             "library_ms": k4b_sdpa_ms,  # SDPA's whole backward
+        },
+        {
+            "name": "banded_flash_backward_dkv_general",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/banded_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/banded_flash.py:487",
+            "launches": band_train_launches[3],  # the k-hop graph is symmetric: none
+            "launches_phase27": k4b_general_phase27,  # its checks and timings on the real layout
+            "max_abs_err": max(k4b_directed_err, max(v["errs"]["general"] for v in k4b.values())),
+            "ms": k4b_ms["dkv_general"],  # per train step, on the real layout
+            "plain_ms": k4b_plain_ms,
+            "bound_ms": k4b_bound["dkv"][0],
+            "bound_by": k4b_bound["dkv"][1],
+            "bound_tf32x3_ms": k4b_tf32x3["dkv"],
+            "library_ms": k4b_sdpa_ms,
         },
     ]
     print(json.dumps({"kernels": kernels}))

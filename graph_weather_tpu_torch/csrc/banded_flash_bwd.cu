@@ -1,5 +1,5 @@
-// Banded flash attention backward for Hopper (sm_90a), FP32 on the CUDA
-// cores.
+// Banded flash attention backward for Hopper (sm_90a), on the tensor cores
+// with split-TF32 products.
 //
 // Replaces the Pallas TPU kernel K4b, graph_weather_tpu/ops/pallas/
 // banded_flash.py: _flash_bwd_impl (the pallas_calls of _dq_kernel and
@@ -14,46 +14,63 @@
 //     dk_s     = scale sum_r ds[r, s] q_r,   dv_s = sum_r p[r, s] dO_r
 //
 // Masked pairs give p = 0 exactly, so rows without a neighbour and padded
-// rows get exact-zero gradients.
+// rows get exact-zero gradients; a skipped warp tile adds nothing.
 //
-// Two roles share one tile loop. A CTA owns TA rows and streams TB rows at
-// a time, recomputing for each (own, streamed) pair x = a1 . b1 and
-// y = a2 . b2, then p and ds, then acc1 += ds b1 (and acc2 += p b2):
+// Three roles share one tile loop. A CTA owns TA = 16 RG rows of block b
+// and streams TB rows at a time, and for each (own, streamed) pair computes
+// x = a1 . b1 and y = a2 . b2, then p and ds, then acc1 += ds b1 (and
+// acc2 += p b2):
 //
-//   DQ   own: TA receiver rows of block b (q, dO, lse, delta); streamed: the
-//        block's window, TB key slots at a time (k, v). acc1 = dq.
-//   DKV  own: TA key rows s0 .. s0 + TA - 1 (k, v); streamed: the receiver
-//        rows of every block b whose window holds one of them,
-//        b * block in (s0 - block - w, s0 + TA - 1 + w] (q, dO, lse, delta);
-//        the pair (s, r) reads the mask of r's block at slot
-//        s - b * block + w. acc1 = dk, acc2 = dv, written once to their
-//        global rows: no atomics, no scatter, deterministic.
+//   DQ       own: receiver rows of block b (q, dO, lse, delta); streamed:
+//            the block's window, key rows b * block - w + j (k, v); the
+//            pair's mask byte is masks[b, own, j]. acc1 = dq.
+//   DKV_SYM  own: key rows of block b (k, v); streamed: the same window,
+//            now as receiver rows (q, dO, lse, delta). For a symmetric edge
+//            set the receivers that attend key b * block + o are exactly
+//            the senders of receiver b * block + o, all inside its window,
+//            so masks[b, o, j] is also the bit of (key o, receiver j): the
+//            same tiles and bits as DQ. acc1 = dk, acc2 = dv.
+//   DKV_GEN  the same own rows for any edge set: streamed are the receiver
+//            rows of every block whose window holds one of block b's keys;
+//            the bit of (key s, receiver r) of block rb is masks[rb, r - rb
+//            block, s - rb block + w], read once per CTA across the mask's
+//            grain. No model path launches it (the k-hop graph is
+//            symmetric).
 //
-// The TPU code's dk/dv index maps were exact only for block == 512 and
-// w % 512 == 0 (it fell back to an XLA VJP otherwise); DKV computes each key
-// tile's receiver blocks directly, so it takes every layout. It does not
-// assume a symmetric edge set.
+// Each output row is written once by the CTA that owns it: two launches per
+// backward (dq, dk/dv), no atomics, no sums across CTAs, deterministic.
 //
-// What bounds it on an H100. Per pair of a non-empty tile DQ does 3 and DKV
-// 4 products of length c: 7 * 2c flops, on the FP32 FMA pipes, against
-// 10 * c flops per real edge and ~180 MB of rows and masks per c = 128
-// layer at splits 5. Each CTA streams its rows with cp.async, skips
-// streamed tiles without an edge, register-tiles x and y (MR x MK per
-// thread over a slice of c, summed through shared memory) and the
-// accumulations (MR2 x MD per thread), and keeps everything in f32. Tiles
-// follow c: 64 x 64 at c <= 128 (205 KB), 16 own x 32 streamed rows at
-// c = 512 (222 KB), one 256-thread CTA per SM.
+// What bounds it on an H100. Per (row, slot) pair the DQ role does 3 and the
+// dk/dv roles 4 products of length c: 14 c flops per pair that the design
+// computes, against 6 c (dq) and 8 c (dk/dv) per real edge and head, and
+// ~180 MB of rows and masks per c = 128 layer at splits 5 (bytes bound
+// it: 0.7-0.8 ms per step's worth of launches). The band is sparse: at
+// splits 5 only 38% of its pairs lie in 16 x 16 tiles that hold an edge, so
+// the design skips the others per warp. It is K3's (clustered_tile.cuh):
+// every product is three TF32 mma.sync m16n8k8 (split operands, f32 sums:
+// f32 accuracy), a warp owns 16 own rows (CS warps share a row group where c
+// is wide, their partial x and y summed through shared memory in one
+// order), the edges of every 16 x 16 warp tile come from one scan of the
+// mask into shared-memory bits (no mask byte is read inside the product
+// loop), the CTA copies only the streamed tiles in which one of its warps
+// has an edge, with cp.async into two stages, the next tile's issued before
+// the current tile's products; the window's rows are contiguous, so a tile
+// is a run of rows. Channels past c are zeros up to the tile's CP. Tiles
+// follow c: CP = 32: 8 row groups of one warp, 32 streamed rows; CP = 128:
+// 4 groups of 2 warps, 32 rows; CP = 256: 2 groups of 4 warps, 16 rows;
+// CP = 512: one group of 8 warps, 16 rows (~218 KB of shared memory at
+// splits 5). 256 threads, one CTA per SM.
 //
-// Not yet here: tensor cores (3xTF32), bf16, a fused DQ + DKV pass.
+// Not yet here: one pass for dq and dk/dv (it would need sums across CTAs),
+// bf16.
 
-#include <cuda_runtime.h>
+#include "clustered_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr float NEG = -1e30f;  // additive bias off an edge
+using namespace ctile;
 
-enum Role { DQ = 0, DKV = 1 };
+enum Role { DQ = 0, DKV_SYM = 1, DKV_GEN = 2 };
 
 struct Params {
   const float* q;      // [B, n, h, c]
@@ -77,361 +94,291 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-// Waits for this thread's copies, then for every thread's.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
-}
-
-// dst[r][0:CP) = row_ptr(r)[0:c), zero past c or where row_ptr(r) is null.
-template <int CP, int NROWS, class RowPtr>
-__device__ __forceinline__ void copy_rows(float* dst, int ld, const Params& p,
-                                          RowPtr row_ptr) {
-  if (p.vec4) {
-    constexpr int V = CP / 4;
-    for (int i = threadIdx.x; i < NROWS * V; i += THREADS) {
-      const int r = i / V;
-      const int d = (i % V) * 4;
-      const float* src = row_ptr(r);
-      const bool ok = src != nullptr && d < p.c;
-      cp_async16(dst + r * ld + d, ok ? src + d : p.q, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < NROWS * CP; i += THREADS) {
-      const int r = i / CP;
-      const int d = i % CP;
-      const float* src = row_ptr(r);
-      const bool ok = src != nullptr && d < p.c;
-      cp_async4(dst + r * ld + d, ok ? src + d : p.q, ok);
-    }
-  }
-}
-
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float get(const float4 a, int i) {
-  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
-}
-
-// MR2 consecutive floats of a transposed tile row (MR2 is 2 or 4).
-template <int MR2>
-__device__ __forceinline__ void load_col(const float* src, float* out) {
-  if constexpr (MR2 == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(src);
-    out[0] = x.x;
-    out[1] = x.y;
-    out[2] = x.z;
-    out[3] = x.w;
-  } else {
-    const float2 x = *reinterpret_cast<const float2*>(src);
-    out[0] = x.x;
-    out[1] = x.y;
-  }
-}
-
-// Tile shapes. CP: padded head width; TA x TB: own rows x streamed rows per
-// tile; MR x MK: x and y entries per thread; MR2 x MD: accumulator entries
-// per thread.
-template <int CP_, int TA_, int TB_, int MR_, int MK_, int MR2_, int MD_>
+// CP: widest c of the tiles (a multiple of 8); RG row groups of CS warps;
+// TB streamed rows per copied tile.
+template <int CP_, int RG_, int CS_, int TB_>
 struct Cfg {
-  static constexpr int CP = CP_, TA = TA_, TB = TB_;
-  static constexpr int MR = MR_, MK = MK_, MR2 = MR2_, MD = MD_;
-  static constexpr int GR = TA / MR;          // row groups in x, y
-  static constexpr int GK = TB / MK;          // streamed groups in x, y
-  static constexpr int SLICE = GR * GK;       // threads per slice of c
-  static constexpr int SK = THREADS / SLICE;  // slices of c, summed in smem
-  static constexpr int DS = CP / SK;          // channels per slice
-  static constexpr int GD = CP / MD;          // channel groups of the accumulators
-  static constexpr int E = TA * TB / THREADS;  // (own, streamed) pairs per thread
-  static constexpr int LPR = TB / E;          // lanes per own row
-  static constexpr int LDA = CP + 4;          // rows of a1, a2, b1, b2, padded
-  static constexpr int LDS = TB + 4;          // rows of the x, y partials
-  static constexpr int LDP = TA + 4;          // rows of the transposed p, ds
-  static constexpr size_t smem_bytes =
-      sizeof(float) * (2 * TA * LDA + 2 * TB * LDA + 2 * SK * TA * LDS +
-                       2 * TB * LDP + 2 * TB);
-  static_assert(SLICE * SK == THREADS && DS % 4 == 0, "x, y thread layout");
-  static_assert((TA / MR2) * GD == THREADS && MD % 4 == 0, "accumulator layout");
-  static_assert(MR2 == 2 || MR2 == 4, "accumulators read MR2 rows at once");
-  static_assert(E * THREADS == TA * TB && LPR <= 32 && 32 % LPR == 0 && E <= 32,
-                "pair layout");
+  static constexpr int CP = CP_, RG = RG_, CS = CS_, TB = TB_;
+  static constexpr int THREADS = 32 * RG * CS;
+  static constexpr int TA = 16 * RG;   // own rows per CTA
+  static constexpr int CSW = CP / CS;  // channels per warp of a row group
+  static constexpr int NS = TB / SUB;  // 16-row warp tiles per streamed tile
+  static constexpr int NN = CSW / 8;   // 8-channel tiles of a warp's outputs
+  static constexpr int LD = CP + 4;    // rows in shared memory
+  static constexpr int STAGE = 2 * TB * LD;  // floats per stage
+  static constexpr size_t float_bytes =
+      sizeof(float) * (2 * TA * LD + STAGES * STAGE + STAGES * 2 * TB +
+                       (CS > 1 ? 2 * RG * CS * NS * 2 * 32 * 4 : 0));
+  static_assert(THREADS == 256 && CSW % 8 == 0 && TB % SUB == 0 && NS <= 32, "tile layout");
 };
 
+// The general role's streamed receivers for key block b: the rows of blocks
+// rb_lo .. rb_hi, those whose window [rb block - w, rb block + block + w)
+// meets [b block, b block + block).
+__host__ __device__ inline void general_range(const Params& p, int b, int& str0, int& n_str) {
+  const int lo = b * p.block - p.block - p.w;  // first block: rb * block > lo
+  const int rb_lo = lo < 0 ? 0 : lo / p.block + 1;
+  const int hi = (b + 1) * p.block + p.w - 1;  // last block: rb * block <= hi
+  const int rb_hi = hi / p.block < p.n_blocks - 1 ? hi / p.block : p.n_blocks - 1;
+  str0 = rb_lo * p.block;
+  n_str = (rb_hi + 1) * p.block - str0;
+}
+
+// scan_edges (clustered_tile.cuh) for the general role: the bits of (own key
+// a0 + 16 rg + r of block b, streamed receiver str0 + 16 s + c). A warp
+// tile's 16 receivers share one block rb, and its keys' window slots
+// b block - rb block + w + o are 16 consecutive bytes of each receiver's
+// mask row, all inside the window or all outside (block and w are
+// multiples of 256).
+template <int RG, int THREADS>
+__device__ __forceinline__ void scan_general(unsigned char* flags, uint16_t* bits, const Params& p,
+                                             int b, int a0, int str0, int n_str) {
+  const int n_sub = (n_str + SUB - 1) / SUB;
+  for (int i = threadIdx.x; i < RG * n_sub; i += THREADS) {
+    const int rg = i / n_sub;
+    const int s = i - rg * n_sub;
+    const int r0 = str0 + SUB * s;  // first receiver of the warp tile
+    const int rb = r0 / p.block;
+    const int j0 = (b - rb) * p.block + p.w + a0 + 16 * rg;  // slot of the first key
+    uint32_t row[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) row[r] = 0;
+    if (j0 >= 0 && j0 + 16 <= p.width) {
+      const signed char* m = p.masks + (long long)r0 * p.width + j0;
+      const bool aligned = ((reinterpret_cast<uintptr_t>(m) | p.width) & 15) == 0;
+      for (int c = 0; c < SUB; ++c) {
+        uint32_t col = 0;
+        if (aligned) {
+          const uint4 x = __ldg(reinterpret_cast<const uint4*>(m + (long long)c * p.width));
+          col = nonzero_bytes(x.x) | nonzero_bytes(x.y) << 4 | nonzero_bytes(x.z) << 8 |
+                nonzero_bytes(x.w) << 12;
+        } else {
+          for (int r = 0; r < 16; ++r) col |= (m[(long long)c * p.width + r] != 0 ? 1u : 0u) << r;
+        }
+#pragma unroll
+        for (int r = 0; r < 16; ++r) row[r] |= ((col >> r) & 1u) << c;
+      }
+    }
+    uint32_t any = 0;
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      bits[i * 16 + r] = static_cast<uint16_t>(row[r]);
+      any |= row[r];
+    }
+    flags[i] = any != 0;
+  }
+}
+
+// acc += col_products16 of one warp tile, computed in a fresh accumulator
+// and added in f32: the tensor cores' accumulation truncates, and the
+// rows at a band's clamped ends (attended by hundreds of receivers) sum
+// hundreds of warp tiles, over which that bias would pass 1e-4.
+template <int NN>
+__device__ __forceinline__ void add_col_products(float (&acc)[NN][4], const float (&p)[2][4],
+                                                 const float* str, int ld, int n_begin, int lane) {
+  float part[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+  col_products16<NN>(part, p, str, ld, n_begin, lane);
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+}
+
 template <class C, int ROLE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(C::THREADS, 1)
     banded_flash_bwd_kernel(const Params p) {
-  constexpr int CP = C::CP, TA = C::TA, TB = C::TB, MR = C::MR, MK = C::MK;
-  constexpr int MR2 = C::MR2, MD = C::MD, GR = C::GR, GK = C::GK;
-  constexpr int SLICE = C::SLICE, SK = C::SK, DS = C::DS, GD = C::GD;
-  constexpr int E = C::E, LPR = C::LPR;
-  constexpr int LDA = C::LDA, LDS = C::LDS, LDP = C::LDP;
-  constexpr bool IS_DKV = ROLE == DKV;  // two accumulators
-  constexpr int NA2 = IS_DKV ? MR2 : 1, ND2 = IS_DKV ? MD : 1;
+  constexpr int RG = C::RG, CS = C::CS, TB = C::TB, TA = C::TA, CSW = C::CSW;
+  constexpr int CP = C::CP, NS = C::NS, NN = C::NN, LD = C::LD, THREADS = C::THREADS;
+  constexpr int STAGE = C::STAGE;
+  constexpr bool DKV = ROLE != DQ;  // two accumulators
+  constexpr int NN2 = DKV ? NN : 1;
+
+  const int a_tiles = p.block / TA;
+  const int b = blockIdx.x / a_tiles;
+  const int a0 = (blockIdx.x % a_tiles) * TA;  // own rows a0 .. of block b
+  const int g = blockIdx.y;
+  const int bz = blockIdx.z;
+  // Streamed index i is global row str0 + i (a zero row outside [0, n)).
+  int str0 = b * p.block - p.w, n_str = p.width;
+  if (ROLE == DKV_GEN) general_range(p, b, str0, n_str);
+  const int n_tiles = (n_str + TB - 1) / TB;
+  const int n_sub = (n_str + SUB - 1) / SUB;
 
   extern __shared__ float4 smem4[];
-  float* A1 = reinterpret_cast<float*>(smem4);  // [TA][LDA] own q or k
-  float* A2 = A1 + TA * LDA;                    // [TA][LDA] own dO or v
-  float* B1 = A2 + TA * LDA;                    // [TB][LDA] streamed k or q
-  float* B2 = B1 + TB * LDA;                    // [TB][LDA] streamed v or dO
-  float* Xs = B2 + TB * LDA;                    // [SK][TA][LDS] partial x
-  float* Ys = Xs + SK * TA * LDS;               // [SK][TA][LDS] partial y
-  float* Pt = Ys + SK * TA * LDS;               // [TB][LDP] p, transposed
-  float* Dt = Pt + TB * LDP;                    // [TB][LDP] ds, transposed
-  float* s_lse = Dt + TB * LDP;                 // [TB] streamed rows' lse
-  float* s_delta = s_lse + TB;                  // [TB] streamed rows' delta
+  float* A1 = reinterpret_cast<float*>(smem4);  // [TA][LD] own q or k
+  float* A2 = A1 + TA * LD;                     // [TA][LD] own dO or v
+  float* Bst = A2 + TA * LD;                    // [STAGES][b1, b2][TB][LD]
+  float* s_lse = Bst + STAGES * STAGE;          // [STAGES][TB] streamed lse
+  float* s_delta = s_lse + STAGES * TB;         // [STAGES][TB] streamed delta
+  float4* xpart = reinterpret_cast<float4*>(s_delta + STAGES * TB);  // CS > 1
+  float4* ypart = xpart + RG * CS * NS * 2 * 32;
+  int* s_tiles = reinterpret_cast<int*>(reinterpret_cast<float*>(smem4) +
+                                        C::float_bytes / sizeof(float));  // [n_tiles]
+  int* s_count = s_tiles + n_tiles;                                   // [1]
+  uint16_t* bits = reinterpret_cast<uint16_t*>(s_count + 1);          // [RG][n_sub][16]
+  unsigned char* flags = reinterpret_cast<unsigned char*>(bits + RG * n_sub * 16);  // [RG][n_sub]
 
   const int tid = threadIdx.x;
-  const int g = blockIdx.y;
-  const long long base = (long long)blockIdx.z * p.n;  // this batch entry's rows
-  const long long l_base = (long long)blockIdx.z * p.n_blocks * p.block;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int rg = warp / CS;
+  const int cs = warp - rg * CS;
+  const long long base = (long long)bz * p.n;  // this batch entry's rows
+  const long long l_base = (long long)bz * p.n_blocks * p.block;
 
-  // DQ: own rows a0 .. of block b, streamed window slots str0 + i (key row
-  // key0 + str0 + i). DKV: own global key rows a0 .., streamed global
-  // receiver rows str0 + i, i < n_str.
-  int b = 0, a0, str0, n_str, key0 = 0;
-  if (!IS_DKV) {
-    const int a_tiles = (p.block + TA - 1) / TA;
-    b = blockIdx.x / a_tiles;
-    a0 = (blockIdx.x % a_tiles) * TA;
-    str0 = 0;
-    n_str = p.width;
-    key0 = b * p.block - p.w;
+  if (ROLE == DKV_GEN) {
+    scan_general<RG, THREADS>(flags, bits, p, b, a0, str0, n_str);
   } else {
-    a0 = blockIdx.x * TA;
-    const int lo = a0 - p.block - p.w;  // first block: b * block > lo
-    const int b_lo = lo < 0 ? 0 : lo / p.block + 1;
-    const int b_hi = min(p.n_blocks - 1, (a0 + TA - 1 + p.w) / p.block);
-    str0 = b_lo * p.block;
-    n_str = max(0, min((b_hi + 1) * p.block, p.n) - str0);
+    scan_edges<RG, THREADS>(flags, bits, p.masks + (long long)b * p.block * p.width, p.width, 1,
+                            a0, p.block, p.width);
   }
+  __syncthreads();
+  list_tiles<RG, TB>(s_tiles, s_count, flags, n_str);
+  __syncthreads();
+  const int n_list = *s_count;
 
-  // Row `row` of a [B, n, h, c] tensor, or null outside [0, n).
+  // Global row `row` of a [B, n, h, c] tensor, or null outside [0, n).
   auto row_ptr = [&](const float* t, int row) -> const float* {
     return row >= 0 && row < p.n ? t + ((base + row) * p.heads + g) * p.c : nullptr;
   };
-  auto own_ptr = [&](const float* t, int r) -> const float* {
-    const int lr = a0 + r;
-    if (IS_DKV) return row_ptr(t, lr);
-    return lr < p.block ? row_ptr(t, b * p.block + lr) : nullptr;
-  };
-  auto str_ptr = [&](const float* t, int s0, int r) -> const float* {
-    const int i = s0 + r;
-    if (i >= n_str) return nullptr;
-    return row_ptr(t, IS_DKV ? str0 + i : key0 + i);
-  };
-  const float* own1 = IS_DKV ? p.k : p.q;
-  const float* own2 = IS_DKV ? p.v : p.dout;
-  const float* str1 = IS_DKV ? p.q : p.k;
-  const float* str2 = IS_DKV ? p.dout : p.v;
-  copy_rows<CP, TA>(A1, LDA, p, [&](int r) { return own_ptr(own1, r); });
-  copy_rows<CP, TA>(A2, LDA, p, [&](int r) { return own_ptr(own2, r); });
+  const float* own1 = DKV ? p.k : p.q;
+  const float* own2 = DKV ? p.v : p.dout;
+  const float* str1 = DKV ? p.q : p.k;
+  const float* str2 = DKV ? p.dout : p.v;
+  const int own_row0 = b * p.block + a0;
+  copy_rows<THREADS, CP>(A1, LD, TA, p.c, p.vec4, p.q,
+                         [&](int r) { return row_ptr(own1, own_row0 + r); });
+  copy_rows<THREADS, CP>(A2, LD, TA, p.c, p.vec4, p.q,
+                         [&](int r) { return row_ptr(own2, own_row0 + r); });
 
-  // x, y layout: slice `sl` of c, row group rg (rows rg + GR*i), streamed
-  // group kg (rows kg + GK*j); kg is fastest, so b1/b2 reads are conflict-free.
-  const int sl = tid / SLICE;
-  const int rg = (tid % SLICE) / GK;
-  const int kg = tid % GK;
-  // Pair layout: own row sr, streamed rows sk0 .. sk0 + E - 1.
-  const int sr = tid / LPR;
-  const int sk0 = (tid % LPR) * E;
-  const int own_l = a0 + sr;
-  // Accumulator layout: own rows rg2 * MR2 .. + MR2 - 1, channels
-  // 4 dg + 4 GD jj + x.
-  const int rg2 = tid / GD;
-  const int dg = tid % GD;
-
-  // The DQ role's own row: its lse and delta.
-  float row_lse = 0.f, row_delta = 0.f;
-  if (!IS_DKV && own_l < p.block) {
-    const long long i = (l_base + b * p.block + own_l) * p.heads + g;
-    row_lse = p.lse[i];
-    row_delta = p.delta[i];
-  }
-
-  float acc1[MR2][MD], acc2[NA2][ND2];
-#pragma unroll
-  for (int i = 0; i < MR2; ++i)
-#pragma unroll
-    for (int j = 0; j < MD; ++j) acc1[i][j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < NA2; ++i)
-#pragma unroll
-    for (int j = 0; j < ND2; ++j) acc2[i][j] = 0.f;
-
-  for (int s0 = 0; s0 < n_str; s0 += TB) {
-    // This thread's mask bytes; a streamed tile without an edge is skipped.
-    unsigned edges = 0;
-    if (IS_DKV ? own_l < p.n : own_l < p.block) {
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const int i = s0 + sk0 + e;
-        if (i >= n_str) break;
-        long long m = -1;
-        if (IS_DKV) {
-          const int r = str0 + i;  // receiver row; the key is own_l
-          const int j = own_l - (r / p.block) * p.block + p.w;
-          if (j >= 0 && j < p.width) m = (long long)r * p.width + j;
-        } else {
-          m = ((long long)b * p.block + own_l) * p.width + i;
-        }
-        if (m >= 0 && p.masks[m] != 0) edges |= 1u << e;
-      }
-    }
-    if (!__syncthreads_or(edges != 0)) continue;
-
-    copy_rows<CP, TB>(B1, LDA, p, [&](int r) { return str_ptr(str1, s0, r); });
-    copy_rows<CP, TB>(B2, LDA, p, [&](int r) { return str_ptr(str2, s0, r); });
-    if (IS_DKV && tid < TB) {
+  auto copy_tile = [&](int stage, int tile) {
+    float* B1 = Bst + stage * STAGE;
+    const int r0 = str0 + tile * TB;
+    copy_rows<THREADS, CP>(B1, LD, TB, p.c, p.vec4, p.q,
+                           [&](int r) { return row_ptr(str1, r0 + r); });
+    copy_rows<THREADS, CP>(B1 + TB * LD, LD, TB, p.c, p.vec4, p.q,
+                           [&](int r) { return row_ptr(str2, r0 + r); });
+    if (DKV && tid < TB) {
       // Streamed receivers' lse and delta; 0 for rows that are not there
-      // (their dO is 0, so they add exact zeros).
-      const int i = s0 + tid;
-      const long long li = (l_base + str0 + i) * p.heads + g;
-      s_lse[tid] = i < n_str ? p.lse[li] : 0.f;
-      s_delta[tid] = i < n_str ? p.delta[li] : 0.f;
+      // (their q and dO are zero rows: they add exact zeros).
+      const int row = r0 + tid;
+      const bool there = row >= 0 && row < p.n;
+      const long long i = (l_base + row) * p.heads + g;
+      s_lse[stage * TB + tid] = there ? p.lse[i] : 0.f;
+      s_delta[stage * TB + tid] = there ? p.delta[i] : 0.f;
     }
-    cp_async_wait_all();
+  };
+  // The first STAGES - 1 tiles' copies (with the own rows in the first
+  // group); one group is committed per tile slot, empty or not, so that
+  // waiting for all but the newest STAGES - 1 groups waits for the tile
+  // about to be used.
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < n_list) copy_tile(t, s_tiles[t]);
+    cp_async_commit();
+  }
 
-    // Partial x = a1 . b1 and y = a2 . b2 over this thread's slice of c.
-    {
-      float ax[MR][MK], ay[MR][MK];
+  // This thread's own rows (g, g + 8 of its row group), local to block b.
+  const int o0 = a0 + 16 * rg + (lane >> 2);
+  const int t4 = lane & 3;
+  // The DQ role's own rows: their lse and delta (lse covers every row of
+  // the padded blocks; delta is zero past n).
+  float row_lse[2] = {0.f, 0.f}, row_delta[2] = {0.f, 0.f};
+  if (!DKV) {
 #pragma unroll
-      for (int i = 0; i < MR; ++i)
-#pragma unroll
-        for (int j = 0; j < MK; ++j) ax[i][j] = ay[i][j] = 0.f;
-      const float* a1 = A1 + rg * LDA + sl * DS;
-      const float* a2 = A2 + rg * LDA + sl * DS;
-      const float* b1 = B1 + kg * LDA + sl * DS;
-      const float* b2 = B2 + kg * LDA + sl * DS;
-#pragma unroll 2
-      for (int d = 0; d < DS; d += 4) {
-        float4 v1[MK], v2[MK];
-#pragma unroll
-        for (int j = 0; j < MK; ++j) {
-          v1[j] = *reinterpret_cast<const float4*>(b1 + GK * j * LDA + d);
-          v2[j] = *reinterpret_cast<const float4*>(b2 + GK * j * LDA + d);
-        }
-#pragma unroll
-        for (int i = 0; i < MR; ++i) {
-          const float4 u1 = *reinterpret_cast<const float4*>(a1 + GR * i * LDA + d);
-          const float4 u2 = *reinterpret_cast<const float4*>(a2 + GR * i * LDA + d);
-#pragma unroll
-          for (int j = 0; j < MK; ++j) {
-            ax[i][j] = dot4(u1, v1[j], ax[i][j]);
-            ay[i][j] = dot4(u2, v2[j], ay[i][j]);
-          }
-        }
-      }
-      float* xs = Xs + sl * TA * LDS + rg * LDS + kg;
-      float* ys = Ys + sl * TA * LDS + rg * LDS + kg;
-#pragma unroll
-      for (int i = 0; i < MR; ++i)
-#pragma unroll
-        for (int j = 0; j < MK; ++j) {
-          xs[GR * i * LDS + GK * j] = ax[i][j];
-          ys[GR * i * LDS + GK * j] = ay[i][j];
-        }
-    }
-    __syncthreads();
-
-    // p and ds of this thread's pairs, transposed into Pt and Dt.
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      float x = 0.f, y = 0.f;
-#pragma unroll
-      for (int t = 0; t < SK; ++t) {
-        x += Xs[t * TA * LDS + sr * LDS + sk0 + e];
-        y += Ys[t * TA * LDS + sr * LDS + sk0 + e];
-      }
-      const float lse = IS_DKV ? s_lse[sk0 + e] : row_lse;
-      const float delta = IS_DKV ? s_delta[sk0 + e] : row_delta;
-      const float pr = expf(x * p.scale + ((edges >> e) & 1u ? 0.f : NEG) - lse);
-      Pt[(sk0 + e) * LDP + sr] = pr;
-      Dt[(sk0 + e) * LDP + sr] = pr * (y - delta);
-    }
-    __syncthreads();
-
-    // acc1 += ds b1 (and acc2 += p b2) for this thread's rows and channels.
-#pragma unroll 4
-    for (int kk = 0; kk < TB; ++kk) {
-      float ds[MR2], pr[MR2];
-      load_col<MR2>(Dt + kk * LDP + rg2 * MR2, ds);
-      if (IS_DKV) load_col<MR2>(Pt + kk * LDP + rg2 * MR2, pr);
-      const float* b1 = B1 + kk * LDA + 4 * dg;
-      const float* b2 = B2 + kk * LDA + 4 * dg;
-#pragma unroll
-      for (int jj = 0; jj < MD / 4; ++jj) {
-        const float4 u1 = *reinterpret_cast<const float4*>(b1 + 4 * GD * jj);
-#pragma unroll
-        for (int i = 0; i < MR2; ++i)
-#pragma unroll
-          for (int x = 0; x < 4; ++x)
-            acc1[i][4 * jj + x] = fmaf(ds[i], get(u1, x), acc1[i][4 * jj + x]);
-        if constexpr (IS_DKV) {
-          const float4 u2 = *reinterpret_cast<const float4*>(b2 + 4 * GD * jj);
-#pragma unroll
-          for (int i = 0; i < MR2; ++i)
-#pragma unroll
-            for (int x = 0; x < 4; ++x)
-              acc2[i][4 * jj + x] = fmaf(pr[i], get(u2, x), acc2[i][4 * jj + x]);
-        }
-      }
+    for (int h = 0; h < 2; ++h) {
+      const long long i = (l_base + b * p.block + o0 + 8 * h) * p.heads + g;
+      row_lse[h] = p.lse[i];
+      row_delta[h] = p.delta[i];
     }
   }
-  asm volatile("cp.async.wait_all;\n" ::);  // own rows, when every tile was skipped
+  const int c_begin = cs * CSW;
+  const float* a1_rows = A1 + 16 * rg * LD;
+  const float* a2_rows = A2 + 16 * rg * LD;
+
+  float acc1[NN][4], acc2[NN2][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n) acc1[n][0] = acc1[n][1] = acc1[n][2] = acc1[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NN2; ++n) acc2[n][0] = acc2[n][1] = acc2[n][2] = acc2[n][3] = 0.f;
+
+  for (int i = 0; i < n_list; ++i) {
+    const int tile = s_tiles[i];
+    const int stage = i % STAGES;
+    if (i + STAGES - 1 < n_list) copy_tile((i + STAGES - 1) % STAGES, s_tiles[i + STAGES - 1]);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    float* B1 = Bst + stage * STAGE;
+    const float* B2 = B1 + TB * LD;
+    const unsigned act = active_bits<NS>(flags, rg, tile, n_str);
+    const uint16_t* tile_bits = bits + (rg * n_sub + tile * NS) * 16;
+
+    // x and y of this warp's active 16-row warp tiles (partial over c_begin's
+    // slice where CS > 1, then summed across the row group).
+    float x[NS][2][4], y[NS][2][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (!((act >> j) & 1u)) continue;
+      row_products16<CSW / 8>(x[j], a1_rows, B1 + SUB * j * LD, LD, c_begin, lane);
+      row_products16<CSW / 8>(y[j], a2_rows, B2 + SUB * j * LD, LD, c_begin, lane);
+    }
+    if constexpr (CS > 1) {
+      sum_partials<NS, CS>(x, xpart, rg, cs, act, lane);
+      sum_partials<NS, CS>(y, ypart, rg, cs, act, lane);
+    }
+
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      if (!((act >> j) & 1u)) continue;
+      // p into y, ds into x, for this thread's pairs.
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int sl = SUB * j + 8 * h + 2 * t4 + (e & 1);  // streamed row within the tile
+          const float lse = DKV ? s_lse[stage * TB + sl] : row_lse[e >> 1];
+          const float delta = DKV ? s_delta[stage * TB + sl] : row_delta[e >> 1];
+          const bool edge = edge_bit(tile_bits + 16 * j, h, e, lane);
+          const float pr = exp_diff(x[j][h][e] * p.scale + (edge ? 0.f : NEG), lse);
+          x[j][h][e] = pr * (y[j][h][e] - delta);
+          y[j][h][e] = pr;
+        }
+      add_col_products<NN>(acc1, x[j], B1 + SUB * j * LD, LD, c_begin, lane);
+      if constexpr (DKV)
+        add_col_products<NN>(acc2, y[j], B2 + SUB * j * LD, LD, c_begin, lane);
+    }
+    __syncthreads();  // the stage is free for the copy two tiles on
+  }
+  cp_async_wait<0>();  // the own rows, when the list was empty
 
   // Outputs: dq and dk scaled, dv as summed.
 #pragma unroll
-  for (int i = 0; i < MR2; ++i) {
-    const int r = a0 + rg2 * MR2 + i;  // own row within the block, or key row
-    float* dst1;
-    float* dst2 = nullptr;
-    if (IS_DKV) {
-      if (r >= p.n) continue;
-      dst1 = p.dk + ((base + r) * p.heads + g) * p.c;
-      dst2 = p.dv + ((base + r) * p.heads + g) * p.c;
-    } else {
-      const int row = b * p.block + r;
-      if (r >= p.block || row >= p.n) continue;
-      dst1 = p.dq + ((base + row) * p.heads + g) * p.c;
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int row = b * p.block + o0 + 8 * h;
+    if (row >= p.n) continue;
+    float* dst1 = (DKV ? p.dk : p.dq) + ((base + row) * p.heads + g) * p.c;
+    float* dst2 = DKV ? p.dv + ((base + row) * p.heads + g) * p.c : nullptr;
 #pragma unroll
-    for (int jj = 0; jj < MD / 4; ++jj) {
-      const int d = 4 * dg + 4 * GD * jj;
-      float o1[4], o2[4];
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        o1[x] = acc1[i][4 * jj + x] * p.scale;
-        o2[x] = 0.f;
-        if constexpr (IS_DKV) o2[x] = acc2[i][4 * jj + x];
-      }
-      if (p.vec4 && d < p.c) {
-        *reinterpret_cast<float4*>(dst1 + d) = make_float4(o1[0], o1[1], o1[2], o1[3]);
-        if (IS_DKV)
-          *reinterpret_cast<float4*>(dst2 + d) = make_float4(o2[0], o2[1], o2[2], o2[3]);
+    for (int n = 0; n < NN; ++n) {
+      const int d = c_begin + 8 * n + 2 * t4;
+      if (d >= p.c) break;
+      const float x0 = acc1[n][2 * h] * p.scale, x1 = acc1[n][2 * h + 1] * p.scale;
+      if (p.vec4) {
+        *reinterpret_cast<float2*>(dst1 + d) = make_float2(x0, x1);
       } else {
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          if (d + x >= p.c) break;
-          dst1[d + x] = o1[x];
-          if (IS_DKV) dst2[d + x] = o2[x];
+        dst1[d] = x0;
+        if (d + 1 < p.c) dst1[d + 1] = x1;
+      }
+      if constexpr (DKV) {
+        const float y0 = acc2[n][2 * h], y1 = acc2[n][2 * h + 1];
+        if (p.vec4) {
+          *reinterpret_cast<float2*>(dst2 + d) = make_float2(y0, y1);
+        } else {
+          dst2[d] = y0;
+          if (d + 1 < p.c) dst2[d + 1] = y1;
         }
       }
     }
@@ -440,48 +387,66 @@ __global__ void __launch_bounds__(THREADS)
 
 template <class C, int ROLE>
 int launch(const Params& p, int batch, cudaStream_t stream) {
+  int n_str = p.width;  // the most streamed rows of any CTA
+  if (ROLE == DKV_GEN) {
+    n_str = 0;
+    for (int b = 0; b < p.n_blocks; ++b) {
+      int str0, n;
+      general_range(p, b, str0, n);
+      n_str = n > n_str ? n : n_str;
+    }
+  }
+  const int n_tiles = (n_str + C::TB - 1) / C::TB;
+  const size_t n_sub = (n_str + SUB - 1) / SUB;  // bits and flags per row group
+  const size_t smem = C::float_bytes + sizeof(int) * ((size_t)n_tiles + 1) +
+                      C::RG * n_sub * (16 * sizeof(uint16_t) + 1);
   cudaError_t err = cudaFuncSetAttribute(banded_flash_bwd_kernel<C, ROLE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)C::smem_bytes);
+                                         (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = ROLE == DQ ? p.n_blocks * ((p.block + C::TA - 1) / C::TA)
-                                 : (p.n + C::TA - 1) / C::TA;
-  const dim3 grid(n_tiles, p.heads, batch);
-  banded_flash_bwd_kernel<C, ROLE><<<grid, THREADS, C::smem_bytes, stream>>>(p);
+  const dim3 grid(p.n_blocks * (p.block / C::TA), p.heads, batch);
+  banded_flash_bwd_kernel<C, ROLE><<<grid, C::THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// mode 0: the dq kernel; 1: the dk/dv kernel.
+// mode 0: the dq kernel; 1: the dk/dv kernel, in the symmetric role when
+// `symmetric`, else the general one.
 template <class C>
-int run(const Params& p, int mode, int batch, cudaStream_t stream) {
+int run(const Params& p, int mode, int symmetric, int batch, cudaStream_t stream) {
   if (mode == 0) return launch<C, DQ>(p, batch, stream);
-  if (mode == 1) return launch<C, DKV>(p, batch, stream);
+  if (mode == 1) return symmetric ? launch<C, DKV_SYM>(p, batch, stream)
+                                  : launch<C, DKV_GEN>(p, batch, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-//                        CP   TA  TB  MR  MK  MR2  MD
-using Narrow = Cfg<32, 64, 64, 4, 4, 2, 4>;
-using Mid = Cfg<128, 64, 64, 4, 4, 4, 8>;
-using Wide = Cfg<512, 16, 32, 2, 4, 4, 8>;
+//                 CP  RG  CS  TB
+using W32 = Cfg<32, 8, 1, 32>;
+using W128 = Cfg<128, 4, 2, 32>;
+using W256 = Cfg<256, 2, 4, 16>;
+using W512 = Cfg<512, 1, 8, 16>;
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on `stream`, does not
 // synchronise, allocates nothing; returns a cudaError_t (0 on success), or
-// cudaErrorInvalidValue for c > 512 or an unknown mode. Pointers a mode does
-// not write may be null. The masks are [n_blocks, block, block + 2w] int8;
-// the batch entries share them.
+// cudaErrorInvalidValue for c > 512, an unknown mode or a block that is not
+// a multiple of 128. Pointers a mode does not write may be null. The masks
+// are [n_blocks, block, block + 2w] int8 (block a multiple of 512 and w of
+// 256, as the host checks); the batch entries share them. `symmetric`: the
+// edge set is symmetric (the dk/dv kernel then reads the masks as dq does).
 extern "C" int gwt_banded_flash_backward(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* delta, const signed char* masks, float* dq,
     float* dk, float* dv, int batch, int n, int heads, int c, int n_blocks,
-    int block, int w, int vec4, float scale, int mode, void* stream) {
+    int block, int w, int vec4, float scale, int mode, int symmetric, void* stream) {
   const Params p{q,  k,  v, dout,  lse,      delta, masks, dq, dk,
                  dv, n, heads, c, n_blocks, block, w,     block + 2 * w,
                  vec4, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c <= 32) return run<Narrow>(p, mode, batch, s);
-  if (c <= 128) return run<Mid>(p, mode, batch, s);
-  if (c <= 512) return run<Wide>(p, mode, batch, s);
+  if (block % 128 != 0) return (int)cudaErrorInvalidValue;
+  if (c <= 32) return run<W32>(p, mode, symmetric, batch, s);
+  if (c <= 128) return run<W128>(p, mode, symmetric, batch, s);
+  if (c <= 256) return run<W256>(p, mode, symmetric, batch, s);
+  if (c <= 512) return run<W512>(p, mode, symmetric, batch, s);
   return (int)cudaErrorInvalidValue;
 }

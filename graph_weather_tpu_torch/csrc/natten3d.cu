@@ -1,57 +1,82 @@
-// 3D neighborhood attention (NATTEN) forward, slot-serial, for Hopper
-// (sm_90a), FP32 on the CUDA cores.
+// 3D neighborhood attention (NATTEN) forward for Hopper (sm_90a), with each
+// window slab staged once per tile in shared memory and register-tiled FP32
+// products on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel K6, graph_weather_tpu/ops/pallas/natten3d.py:
 // _natten_fwd_impl (the pallas_call of _natten_kernel), which the JAX package
 // runs for the shapes its halo-tiled kernel (natten_flash.py) refuses. Here it
 // takes the shapes the port's K5a (natten_flash.cu) refuses: heads wider than
-// 128 channels, and heads of 96 or 128 at kernel (5, 7, 7), whose halo does
+// 128 channels, and heads of 96 or 128 at kernel (5, 7, 7), whose 3D halo does
 // not fit in shared memory. q, k, v are [B, D, H, W, heads, ch] f32 (views of
 // one fused qkv tensor qualify: positions at a stride of their own, [heads,
 // ch] dense). Query i attends to the kd x kh x kw keys of its window: on each
 // axis the window starts at clip(i - k/2, 0, size - k), or at i - k/2 modulo
 // W on a circular W axis. With q scaled by ch^-0.5 and rpb [heads, 2kd-1,
-// 2kh-1, 2kw-1] added at the relative offset key - query + k - 1 (a circular
-// axis: slot - k/2 + k - 1),
+// 2kh-1, 2kw-1] added at the relative offset key - query + k - 1 (on a
+// circular axis the same in unreduced coordinates: slot - k/2 + k - 1),
 //
 //     out[i] = sum_j softmax_j(q_i . k_j * scale + rpb[rel(i, j)]) v_j,
 //
-// with the online softmax in f32 from a running max of -1e30, over the slots
-// in the order of the JAX package's slot scan (x over kd, y over kh, z over
-// kw).
+// with an online softmax in f32 from a running max of -1e30.
 //
 // What bounds it on an H100. At the 768-d WeatherMesh's 1-degree latent
 // ([1, 14, 45, 90], 8 heads x 96, kernel (5, 7, 7)) one call computes 111.1 M
 // (query, key, head) pairs: 42.67 GFLOP (0.637 ms at the 67 TFLOP/s FP32 peak)
 // against 697 MB of q, k, v and out (0.208 ms at 3.35 TB/s), so operations
-// bound it. The TPU kernel pre-applied the W offsets as z-copies in XLA, fixed
-// the window edges with iota masks, summed lanes with a block-diagonal ones
-// matrix and added rpb through a one-hot class matmul, all to suit Mosaic;
-// none of that is needed here:
+// bound it; read per (query, key) pair, k and v would take ~85 GB per layer
+// through L1. Neighbouring queries share most of their keys, so the kernel
+// stages each key once per tile and feeds each staged element to several
+// queries:
 //
-//   * one CTA of 256 threads owns 32 consecutive positions (along W, then H,
-//     then D) of one (batch, head); eight lanes per query split ch (lane l
-//     holds channels 4 l + 32 j .. + 3), so one query's k or v row is read as
-//     128-byte segments, and a logit is three shuffles;
-//   * each query computes its keys' positions and relative ids directly and
-//     walks its window slot by slot, reading the k and v rows through L1/L2
-//     (neighbouring queries of a CTA share most of their keys); rpb of the
-//     head sits in shared memory (n_rel floats, 1,521 at (5, 7, 7));
-//   * m, l and the accumulator stay in registers; no halo is staged, so no
-//     shape is refused for shared memory except an rpb larger than 227 KB.
+//   * a CTA owns ROWS query rows (one warp each) by TW columns of one D
+//     plane, of one (batch, head); a group of LANES lanes owns four
+//     W-neighbouring queries, each lane ch / LANES of their channels
+//     (float4 i of lane l: channels 4 l + 4 LANES i ..), so each k or v
+//     float4 read from shared memory feeds four queries' FMAs;
+//   * for each of the kd key planes (slabs) of the tile's D window, the CTA
+//     copies the union of its queries' windows in that plane, at most
+//     (ROWS + kh - 1) x (TW + kw - 1) positions (fewer at a clamped edge,
+//     wrapped on a circular W axis), K and V, into shared memory with
+//     cp.async; an item is a strip of ry of the union's rows by rx of its
+//     columns (the whole slab where it fits), and the next item's copies are
+//     in flight in a second stage while the current one is computed;
+//   * per key row of the query row's window, in chunks of the four windows'
+//     union of columns (4 + kw - 1 of them, 10 at kw = 7, 70% in a window),
+//     the lanes form the 4 x 10 partial logits, sum them across the group by
+//     a reduce-scatter (shuffles, no shared memory), leave each logit with
+//     one lane, which masks it by its query's window (from coordinates), adds
+//     rpb (read through L1, so that every rpb `takes` accepts, up to 227 KB
+//     a head, leaves shared memory to the slabs) and runs the online
+//     softmax step of its query;
+//     p is then broadcast back (shuffles) and each lane accumulates p . v
+//     for its channels of the four queries.
+// A second design, split-TF32 tensor-core products of a warp's 4 x 4
+// queries against its union (scripts/natten3d_mma.cu), ran 5.1-5.2 ms per
+// layer on the 768-d layer against this one's 4.1-4.2 (scripts/
+// natten3d_variants.py, PERF.md): the union's keys outside each window (51%
+// there) and the three products of each split cost more than the FMAs they
+// replace. Here shared-memory bandwidth and the shuffles share the limit
+// with the FMA pipes.
+// The host (ops/natten3d.py, `plan`) picks the lanes per query group, the
+// CTA's rows and the item strip from the shape, before any launch, within
+// 227 KB.
 //
-// Not yet here: staging a slot's rows once for the whole tile, several
-// queries per thread, tensor cores, bf16. Each (query, slot) reads 2 x ch
-// floats through L1, so L1's bandwidth, not the FP32 pipes, limits it.
+// For a backward (K6b) the same tiles serve: its dq pass is this loop with
+// ds in place of p, and its dk/dv pass the same staging with the roles of
+// the query tile and the key slabs swapped (each key's inverse window is a
+// union of the same kind), with the lse this kernel would then write.
+//
+// Not yet here: lse (K6b's), bf16.
 
-#include <cuda_runtime.h>
+#include "clustered_tile.cuh"
 
 namespace {
 
-constexpr float NEG = -1e30f;  // running-max start: exp(NEG - s) == 0
-constexpr int LANES = 8;       // lanes per query
-constexpr int THREADS = 256;
-constexpr int QUERIES = THREADS / LANES;  // per CTA
+using namespace ctile;
+
+constexpr float NEG_MAX = -1e30f;  // running-max start
+constexpr int NQ = 4;              // W-neighbouring queries of a lane group
+constexpr int NC = 10;             // columns of a chunk (the union at kw = 7)
 
 struct Geometry {
   int batch, d, h, w, heads, ch;
@@ -67,6 +92,9 @@ struct Params {
   const float* __restrict__ rpb;  // or null
   float* __restrict__ out;        // [B, D, H, W, heads, ch], dense
   Geometry g;
+  int rows;    // query rows of a CTA, one warp each
+  int ry, rx;  // union rows and columns of an item
+  int vec4;    // ch, the strides and the pointers allow 16-byte copies
 };
 
 __device__ __forceinline__ int window_start(int i, int size, int k) {
@@ -74,176 +102,342 @@ __device__ __forceinline__ int window_start(int i, int size, int k) {
   return s < 0 ? 0 : (s > size - k ? size - k : s);
 }
 
-// This lane's channels of one row: float4 j holds channels 4 l + 32 j + 0..3
-// (zero past ch). VEC4: ch, the strides and the pointers allow 16-byte loads.
-template <int NV, bool VEC4>
-__device__ __forceinline__ void load_row(float4 (&r)[NV], const float* __restrict__ row, int l,
-                                         int ch) {
+// The window start of query i on the W axis, unreduced on a circular axis.
+__device__ __forceinline__ int start_w(const Geometry& g, int i) {
+  return g.circular_w ? i - g.kw / 2 : window_start(i, g.w, g.kw);
+}
+
+// An unreduced column of a union, within (-W, 2W) since kw <= W, reduced.
+__device__ __forceinline__ int wrap_w(const Geometry& g, int col) {
+  return col < 0 ? col + g.w : (col >= g.w ? col - g.w : col);
+}
+
+// n / d for 0 <= n < 2^20 and 1 <= d, as one multiply: (n + 1/2) / d lies at
+// least 1 / (2 d) from an integer, far above the rounding of the product.
+__device__ __forceinline__ int div_small(int n, float inv_d) {
+  return __float2int_rz((static_cast<float>(n) + 0.5f) * inv_d);
+}
+
+// The CL channels a lane holds of a staged row (or a q or out row): float4
+// i at channels 4 l + 4 LANES i .. + 3, so that the lanes of a group read
+// one row's consecutive 16-byte words.
+template <int CL, int LANES>
+__device__ __forceinline__ void load_slice(float (&x)[CL], const float* row, int l) {
 #pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int c = 4 * l + 32 * j;
-    if (VEC4) {
-      r[j] = c < ch ? __ldg(reinterpret_cast<const float4*>(row + c))
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-      r[j] = make_float4(c < ch ? __ldg(row + c) : 0.f, c + 1 < ch ? __ldg(row + c + 1) : 0.f,
-                         c + 2 < ch ? __ldg(row + c + 2) : 0.f,
-                         c + 3 < ch ? __ldg(row + c + 3) : 0.f);
-    }
+  for (int i = 0; i < CL / 4; ++i) {
+    const float4 t = *reinterpret_cast<const float4*>(row + 4 * l + 4 * LANES * i);
+    x[4 * i] = t.x;
+    x[4 * i + 1] = t.y;
+    x[4 * i + 2] = t.z;
+    x[4 * i + 3] = t.w;
   }
 }
 
-template <int NV, bool VEC4>
-__device__ __forceinline__ void store_row(float* row, const float4 (&r)[NV], float mul, int l,
-                                          int ch) {
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int c = 4 * l + 32 * j;
-    const float4 x = make_float4(r[j].x * mul, r[j].y * mul, r[j].z * mul, r[j].w * mul);
-    if (VEC4) {
-      if (c < ch) *reinterpret_cast<float4*>(row + c) = x;
-    } else {
-      if (c < ch) row[c] = x.x;
-      if (c + 1 < ch) row[c + 1] = x.y;
-      if (c + 2 < ch) row[c + 2] = x.z;
-      if (c + 3 < ch) row[c + 3] = x.w;
-    }
-  }
-}
-
-template <int NV, bool VEC4>
-__global__ void __launch_bounds__(THREADS) natten3d_forward_kernel(const Params p) {
-  const Geometry g = p.g;
-  extern __shared__ float rs[];  // [n_rel] rpb of this head
-  const int nrh = 2 * g.kh - 1, nrw = 2 * g.kw - 1;
-  const int n_rel = (2 * g.kd - 1) * nrh * nrw;
+// CL: channels of a lane (CP = CL LANES, a multiple of 32); LANES: lanes of
+// a query group (8 or 16). The reduce-scatter leaves lane bits (from the
+// top of the group) b1 b0 with query j = 2 b1 + b0 and the next bit with
+// half of the chunk's columns; at 16 lanes the lowest bit's two lanes hold
+// the same sums.
+template <int CL, int LANES>
+__global__ void __launch_bounds__(256, 1) natten3d_forward_kernel(const Params p) {
+  constexpr int CP = CL * LANES;
+  constexpr int LD = CP + 4;  // floats per staged row
+  constexpr int GROUPS = 32 / LANES;
+  constexpr int TW = NQ * GROUPS;  // query columns of a CTA
+  constexpr int HALF = LANES / 8;  // the lane bit that picks the chunk's half
+  const Geometry& g = p.g;
+  const int threads = 32 * p.rows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int l = lane % LANES, base = lane - l;
+  const int tiles_w = (g.w + TW - 1) / TW, tiles_h = (g.h + p.rows - 1) / p.rows;
+  const int tile_w = blockIdx.x % tiles_w;
+  const int tile_h = blockIdx.x / tiles_w % tiles_h;
+  const int qd = blockIdx.x / (tiles_w * tiles_h);
   const int head = blockIdx.y;
-  if (p.rpb != nullptr) {
-    for (int i = threadIdx.x; i < n_rel; i += THREADS) rs[i] = p.rpb[(long long)head * n_rel + i];
-    __syncthreads();
-  }
+  const long long b_pos = (long long)blockIdx.z * g.d * g.h * g.w;
+  const int h0 = tile_h * p.rows, w0 = tile_w * TW;
+  const int hl = min(h0 + p.rows, g.h) - 1, wl = min(w0 + TW, g.w) - 1;  // last queries
+  // The tile's union of windows: rows [u0h, u1h), unreduced columns [u0w, u1w).
+  const int u0h = window_start(h0, g.h, g.kh), u1h = window_start(hl, g.h, g.kh) + g.kh;
+  const int u0w = start_w(g, w0), u1w = start_w(g, wl) + g.kw;
+  const int sd = window_start(qd, g.d, g.kd);
+  const int strips_h = (u1h - u0h + p.ry - 1) / p.ry, strips_w = (u1w - u0w + p.rx - 1) / p.rx;
+  const int n_items = g.kd * strips_h * strips_w;
+  const int item_floats = p.ry * p.rx * LD;
 
-  // Eight lanes per query: lanes 8 t .. 8 t + 7 of a warp.
-  const int lane = threadIdx.x & 31;
-  const int l = lane & (LANES - 1);
-  const unsigned group = 0xffu << (lane & ~(LANES - 1));
-  const long long n_pos = (long long)g.d * g.h * g.w;
-  const long long qi = (long long)blockIdx.x * QUERIES + threadIdx.x / LANES;
-  if (qi >= n_pos) return;  // the whole group of eight lanes leaves together
-  const int iw = (int)(qi % g.w), ih = (int)(qi / g.w % g.h), id = (int)(qi / ((long long)g.w * g.h));
-  const long long b_pos = (long long)blockIdx.z * n_pos;
-  const long long pos = b_pos + qi;
+  extern __shared__ float4 smem4[];
+  float* stage_base = reinterpret_cast<float*>(smem4);  // [2][K, V][ry * rx][LD]
+
+  // This warp's query row and this group's four queries (repeating the last
+  // query of the volume past it: computed, never stored).
+  const bool row_live = h0 + warp < g.h;
+  const int qh = min(h0 + warp, g.h - 1);
+  const int sh = window_start(qh, g.h, g.kh);
+  const int qw0 = w0 + NQ * (lane / LANES);
+  int qw[NQ], sw[NQ];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    qw[j] = min(qw0 + j, g.w - 1);
+    sw[j] = start_w(g, qw[j]);
+  }
+  // The four windows' columns: [sw[0], sw[NQ - 1] + kw), in chunks of NC (as
+  // many for every group of the warp: 3 + kw columns at most).
+  const int n_chunks = (NQ - 1 + g.kw + NC - 1) / NC;
+  // After the reduce-scatter this lane holds query my_j, columns my_u0 .. + 4.
+  const int my_j = 2 * ((l / (LANES / 2)) & 1) + ((l / (LANES / 4)) & 1);
+  const int my_u0 = (NC / 2) * ((l / HALF) & 1);
+  const int my_qw = min(qw0 + my_j, g.w - 1);
+  const int my_sw = start_w(g, my_qw);
   const int col = head * g.ch;
 
-  float4 qr[NV];
-  load_row<NV, VEC4>(qr, p.q + pos * g.q_ps + col, l, g.ch);
+  float qr[NQ][CL], o[NQ][CL];
 #pragma unroll
-  for (int j = 0; j < NV; ++j)
-    qr[j] = make_float4(qr[j].x * g.scale, qr[j].y * g.scale, qr[j].z * g.scale,
-                        qr[j].w * g.scale);
-
-  const int sd = window_start(id, g.d, g.kd), sh = window_start(ih, g.h, g.kh);
-  const int sw = g.circular_w ? iw - g.kw / 2 : window_start(iw, g.w, g.kw);
-  float m = NEG, lsum = 0.f;
-  float4 acc[NV];
+  for (int j = 0; j < NQ; ++j) {
+    const float* row = p.q + (b_pos + ((long long)qd * g.h + qh) * g.w + qw[j]) * g.q_ps + col;
 #pragma unroll
-  for (int j = 0; j < NV; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int x = 0; x < g.kd; ++x) {
-    const int key_d = sd + x;
-    const int rel_d = (key_d - id + g.kd - 1) * nrh;
-    for (int y = 0; y < g.kh; ++y) {
-      const int key_h = sh + y;
-      const int rel_h = (rel_d + key_h - ih + g.kh - 1) * nrw;
-      const long long row = b_pos + ((long long)key_d * g.h + key_h) * g.w;
-      for (int z = 0; z < g.kw; ++z) {
-        int key_w = sw + z;  // circular: within (-W, 2W) since kw <= W
-        if (key_w < 0) key_w += g.w;
-        if (key_w >= g.w) key_w -= g.w;
-        const long long kp = row + key_w;
-        float4 kr[NV];
-        load_row<NV, VEC4>(kr, p.k + kp * g.k_ps + col, l, g.ch);
-        float s = 0.f;
+    for (int i = 0; i < CL / 4; ++i)
 #pragma unroll
-        for (int j = 0; j < NV; ++j) {
-          s = fmaf(qr[j].x, kr[j].x, s);
-          s = fmaf(qr[j].y, kr[j].y, s);
-          s = fmaf(qr[j].z, kr[j].z, s);
-          s = fmaf(qr[j].w, kr[j].w, s);
-        }
-        s += __shfl_xor_sync(group, s, 1);
-        s += __shfl_xor_sync(group, s, 2);
-        s += __shfl_xor_sync(group, s, 4);
-        if (p.rpb != nullptr)
-          s += rs[rel_h + (g.circular_w ? z + g.kw - 1 - g.kw / 2 : key_w - iw + g.kw - 1)];
-        float4 vr[NV];
-        load_row<NV, VEC4>(vr, p.v + kp * g.v_ps + col, l, g.ch);
-        if (s > m) {
-          const float a = expf(m - s);
-          lsum *= a;
-#pragma unroll
-          for (int j = 0; j < NV; ++j)
-            acc[j] = make_float4(acc[j].x * a, acc[j].y * a, acc[j].z * a, acc[j].w * a);
-          m = s;
-        }
-        const float pr = expf(s - m);
-        lsum += pr;
-#pragma unroll
-        for (int j = 0; j < NV; ++j)
-          acc[j] = make_float4(fmaf(pr, vr[j].x, acc[j].x), fmaf(pr, vr[j].y, acc[j].y),
-                               fmaf(pr, vr[j].z, acc[j].z), fmaf(pr, vr[j].w, acc[j].w));
+      for (int e = 0; e < 4; ++e) {
+        const int c = 4 * l + 4 * LANES * i + e;
+        qr[j][4 * i + e] = c < g.ch ? __ldg(row + c) * g.scale : 0.f;
+        o[j][4 * i + e] = 0.f;
       }
-    }
   }
 
-  store_row<NV, VEC4>(p.out + pos * ((long long)g.heads * g.ch) + col, acc, 1.f / lsum, l, g.ch);
+  // Item `it`: slab x, union rows [y0, y1), unreduced columns [c0, c1).
+  auto item_of = [&](int it, int& x, int& y0, int& y1, int& c0, int& c1) {
+    const int sw_i = it % strips_w, rest = it / strips_w;
+    const int sh_i = rest % strips_h;
+    x = rest / strips_h;
+    y0 = u0h + sh_i * p.ry;
+    y1 = min(y0 + p.ry, u1h);
+    c0 = u0w + sw_i * p.rx;
+    c1 = min(c0 + p.rx, u1w);
+  };
+  auto copy_item = [&](int it, int stage) {
+    int x, y0, y1, c0, c1;
+    item_of(it, x, y0, y1, c0, c1);
+    const int ncols = c1 - c0, nrows = (y1 - y0) * ncols;
+    const float inv_cols = 1.f / ncols;
+    float* ks_ = stage_base + stage * 2 * item_floats;
+    float* vs_ = ks_ + item_floats;
+    const long long plane = b_pos + (long long)(sd + x) * g.h * g.w;
+    if (p.vec4) {
+      constexpr int per_row = CP / 4;
+      for (int i = tid; i < nrows * per_row; i += threads) {
+        const int r = i / per_row, c = (i - r * per_row) * 4;
+        const int yy = div_small(r, inv_cols);
+        const long long pos = plane + (long long)(y0 + yy) * g.w + wrap_w(g, c0 + r - yy * ncols);
+        const bool ok = c < g.ch;
+        cp_async16(ks_ + r * LD + c, ok ? p.k + pos * g.k_ps + col + c : p.k, ok);
+        cp_async16(vs_ + r * LD + c, ok ? p.v + pos * g.v_ps + col + c : p.v, ok);
+      }
+    } else {
+      for (int i = tid; i < nrows * CP; i += threads) {
+        const int r = i / CP, c = i - r * CP;
+        const int yy = div_small(r, inv_cols);
+        const long long pos = plane + (long long)(y0 + yy) * g.w + wrap_w(g, c0 + r - yy * ncols);
+        const bool ok = c < g.ch;
+        cp_async4(ks_ + r * LD + c, ok ? p.k + pos * g.k_ps + col + c : p.k, ok);
+        cp_async4(vs_ + r * LD + c, ok ? p.v + pos * g.v_ps + col + c : p.v, ok);
+      }
+    }
+  };
+
+  const int nrh = 2 * g.kh - 1, nrw = 2 * g.kw - 1;
+  const float* rpb_head = p.rpb ? p.rpb + (long long)head * (2 * g.kd - 1) * nrh * nrw : nullptr;
+  float m = NEG_MAX, lsum = 0.f;  // query my_j's running max and (this lane's part of) its sum
+
+  copy_item(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < n_items; ++it) {
+    if (it + 1 < n_items) copy_item(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    int x, y0, y1, c0, c1;
+    item_of(it, x, y0, y1, c0, c1);
+    const float* ks_ = stage_base + (it & 1) * 2 * item_floats;
+    const float* vs_ = ks_ + item_floats;
+    const int ncols = c1 - c0;
+    const float* rpb_d =
+        rpb_head ? rpb_head + (long long)(sd + x - qd + g.kd - 1) * nrh * nrw : nullptr;
+    const int ya = max(y0, sh), yb = min(y1, sh + g.kh);  // the same for the whole warp
+    for (int y = ya; y < yb; ++y) {
+      const float* k_row = ks_ + (y - y0) * ncols * LD;
+      const float* v_row = vs_ + (y - y0) * ncols * LD;
+      for (int chunk = 0; chunk < n_chunks; ++chunk) {
+        const int cs = sw[0] + NC * chunk;  // the chunk's first unreduced column
+        // Partial logits of the four queries against the chunk's columns
+        // (a column outside the item reads a staged one, and is masked).
+        float s[NQ][NC];
+#pragma unroll
+        for (int u = 0; u < NC; ++u) {
+          const int cu = min(max(cs + u - c0, 0), ncols - 1);
+          float kv[CL];
+          load_slice<CL, LANES>(kv, k_row + cu * LD, l);
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            float a = 0.f, b = 0.f;  // two chains for the FMA pipes' latency
+#pragma unroll
+            for (int c = 0; c < CL; c += 2) {
+              a = fmaf(qr[j][c], kv[c], a);
+              b = fmaf(qr[j][c + 1], kv[c + 1], b);
+            }
+            s[j][u] = a + b;
+          }
+        }
+        // Reduce-scatter over the group: keep two queries, then one, then
+        // half of the columns; at 16 lanes the last pair sums in full.
+        float s2[2][NC];
+        const bool hi2 = (l / (LANES / 2)) & 1;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int u = 0; u < NC; ++u) {
+            const float send = hi2 ? s[jj][u] : s[2 + jj][u];
+            const float keep = hi2 ? s[2 + jj][u] : s[jj][u];
+            s2[jj][u] = keep + __shfl_xor_sync(0xffffffffu, send, LANES / 2);
+          }
+        float s1[NC];
+        const bool hi1 = (l / (LANES / 4)) & 1;
+#pragma unroll
+        for (int u = 0; u < NC; ++u) {
+          const float send = hi1 ? s2[0][u] : s2[1][u];
+          const float keep = hi1 ? s2[1][u] : s2[0][u];
+          s1[u] = keep + __shfl_xor_sync(0xffffffffu, send, LANES / 4);
+        }
+        float x5[NC / 2];
+        const bool hi0 = (l / HALF) & 1;
+#pragma unroll
+        for (int u = 0; u < NC / 2; ++u) {
+          const float send = hi0 ? s1[u] : s1[NC / 2 + u];
+          const float keep = hi0 ? s1[NC / 2 + u] : s1[u];
+          x5[u] = keep + __shfl_xor_sync(0xffffffffu, send, HALF);
+          if constexpr (LANES == 16) x5[u] += __shfl_xor_sync(0xffffffffu, x5[u], 1);
+        }
+        // Query my_j's window and rpb, and its online softmax step.
+        float cmax = NEG_MAX;
+        unsigned valid = 0;
+#pragma unroll
+        for (int u = 0; u < NC / 2; ++u) {
+          const int cu = cs + my_u0 + u;
+          const bool in = cu >= c0 && cu < c1 && cu >= my_sw && cu < my_sw + g.kw;
+          float xv = x5[u];
+          if (in && rpb_d != nullptr)
+            xv += __ldg(rpb_d + (y - qh + g.kh - 1) * nrw + (cu - my_qw + g.kw - 1));
+          x5[u] = xv;
+          if (in) {
+            valid |= 1u << u;
+            cmax = fmaxf(cmax, xv);
+          }
+        }
+        cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, HALF));
+        const float m_new = fmaxf(m, cmax);
+        const float alpha = exp_diff(m, m_new);
+        m = m_new;
+        lsum *= alpha;
+#pragma unroll
+        for (int u = 0; u < NC / 2; ++u) {
+          x5[u] = (valid >> u) & 1u ? exp_diff(x5[u], m) : 0.f;
+          lsum += x5[u];
+        }
+        // o[j] = alpha_j o[j] + sum_u p[j][u] v[u], p and alpha broadcast
+        // from the lanes that hold them.
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) {
+          const int src = base + (j >> 1) * (LANES / 2) + (j & 1) * (LANES / 4);
+          const float a = __shfl_sync(0xffffffffu, alpha, src);
+#pragma unroll
+          for (int c = 0; c < CL; ++c) o[j][c] *= a;
+        }
+#pragma unroll
+        for (int u = 0; u < NC; ++u) {
+          const int cu = min(max(cs + u - c0, 0), ncols - 1);
+          float vv[CL];
+          load_slice<CL, LANES>(vv, v_row + cu * LD, l);
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            const int src = base + (j >> 1) * (LANES / 2) + (j & 1) * (LANES / 4) +
+                            (u / (NC / 2)) * HALF;
+            const float pj = __shfl_sync(0xffffffffu, x5[u % (NC / 2)], src);
+#pragma unroll
+            for (int c = 0; c < CL; ++c) o[j][c] = fmaf(pj, vv[c], o[j][c]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for the copy two items on
+  }
+  cp_async_wait<0>();
+
+  // out = o / l for the group's queries inside the volume.
+  lsum += __shfl_xor_sync(0xffffffffu, lsum, HALF);
+  if (!row_live) return;
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    const int src = base + (j >> 1) * (LANES / 2) + (j & 1) * (LANES / 4);
+    const float lj = __shfl_sync(0xffffffffu, lsum, src);
+    if (qw0 + j >= g.w) continue;
+    const long long pos = b_pos + ((long long)qd * g.h + qh) * g.w + qw0 + j;
+    float* dst = p.out + pos * ((long long)g.heads * g.ch) + col;
+    const float inv = 1.f / lj;
+#pragma unroll
+    for (int i = 0; i < CL / 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 4 * l + 4 * LANES * i + e;
+        if (c < g.ch) dst[c] = o[j][4 * i + e] * inv;
+      }
+  }
 }
 
-template <int NV, bool VEC4>
+template <int CL, int LANES>
 int launch(const Params& p, cudaStream_t stream) {
   const Geometry& g = p.g;
-  const int n_rel = (2 * g.kd - 1) * (2 * g.kh - 1) * (2 * g.kw - 1);
-  const size_t smem = p.rpb != nullptr ? sizeof(float) * n_rel : 0;
-  cudaError_t err = cudaFuncSetAttribute(natten3d_forward_kernel<NV, VEC4>,
+  constexpr int LD = CL * LANES + 4;
+  const size_t smem = sizeof(float) * (size_t)2 * 2 * p.ry * p.rx * LD;
+  cudaError_t err = cudaFuncSetAttribute(natten3d_forward_kernel<CL, LANES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long n_pos = (long long)g.d * g.h * g.w;
-  const dim3 grid((unsigned)((n_pos + QUERIES - 1) / QUERIES), g.heads, g.batch);
-  natten3d_forward_kernel<NV, VEC4><<<grid, THREADS, smem, stream>>>(p);
+  constexpr int TW = NQ * 32 / LANES;
+  const long long tiles = (long long)g.d * ((g.h + p.rows - 1) / p.rows) * ((g.w + TW - 1) / TW);
+  const dim3 grid((unsigned)tiles, g.heads, g.batch);
+  natten3d_forward_kernel<CL, LANES><<<grid, 32 * p.rows, smem, stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-template <int NV>
-int launch_width(const Params& p, bool vec4, cudaStream_t stream) {
-  return vec4 ? launch<NV, true>(p, stream) : launch<NV, false>(p, stream);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Launches on `stream`, does not
 // synchronise, allocates nothing; returns a cudaError_t (0 on success), or
-// cudaErrorInvalidValue for ch > 256. rpb may be null. The host checked the
-// kernel against the volume, the rpb against shared memory, and batch and
-// heads against the grid's limits (ops/natten3d.py, `takes`).
+// cudaErrorInvalidValue for a (cp, lanes) that no instantiation has or a plan
+// out of range. rpb may be null. The host checked the kernel against the
+// volume and batch and heads against the grid's limits (ops/natten3d.py,
+// `takes`), and chose cp (the padded head width: 32, 64, 96, 128 or 256),
+// the lanes of a query group (8, or 16 above 96 channels), the CTA's query
+// rows (at most 8) and the item strip ry x rx so that two stages of K and V
+// fit in shared memory (`plan`).
 extern "C" int gwt_natten3d_forward(const float* q, const float* k, const float* v,
                                     const float* rpb, float* out, int batch, int d, int h, int w,
                                     int heads, int ch, long long q_ps, long long k_ps,
                                     long long v_ps, int kd, int kh, int kw, int circular_w,
-                                    int vec4, float scale, void* stream) {
+                                    int vec4, float scale, int cp, int lanes, int rows, int ry,
+                                    int rx, void* stream) {
   const Params p{q, k, v, rpb, out,
                  Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw, circular_w,
-                          scale}};
+                          scale},
+                 rows, ry, rx, vec4};
+  if (rows < 1 || rows > 8 || ry < 1 || rx < 1 || ch > cp) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool v4 = vec4 != 0;
-  switch ((ch + 31) / 32) {
-    case 1: return launch_width<1>(p, v4, s);
-    case 2: return launch_width<2>(p, v4, s);
-    case 3: return launch_width<3>(p, v4, s);
-    case 4: return launch_width<4>(p, v4, s);
-    case 5: return launch_width<5>(p, v4, s);
-    case 6: return launch_width<6>(p, v4, s);
-    case 7: return launch_width<7>(p, v4, s);
-    case 8: return launch_width<8>(p, v4, s);
+  switch (cp * 32 + lanes) {
+    case 32 * 32 + 8: return launch<4, 8>(p, s);
+    case 64 * 32 + 8: return launch<8, 8>(p, s);
+    case 96 * 32 + 8: return launch<12, 8>(p, s);
+    case 128 * 32 + 16: return launch<8, 16>(p, s);
+    case 256 * 32 + 16: return launch<16, 16>(p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

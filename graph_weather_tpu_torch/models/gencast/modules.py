@@ -173,7 +173,8 @@ class GraphTransformerConv(nn.Module):
     Without edge features, a graph with a cluster layout takes the clustered
     branch (K3a; its backward K3c when the graph is symmetric, as the k-hop
     mesh graph is, else K3b), and one with a band layout the banded branch
-    (K4a/K4b when `band_flash`, else the plain banded attention); otherwise
+    (K4a/K4b when `band_flash`, K4b's dk/dv kernel in its symmetric role on
+    a symmetric graph; else the plain banded attention); otherwise
     the segment-softmax branch. The linears are numbered as flax creates
     them: q, k, v, [edge], skip, beta.
     """
@@ -225,8 +226,11 @@ class GraphTransformerConv(nn.Module):
                     symmetric=graph.cluster_symmetric, scatter_index=graph.cluster_scatter,
                 )
             else:
-                attend = banded_flash_attention if graph.band_flash else banded_graph_attention
-                out = attend(q4, k4, v4, graph.band_masks, graph.band_block, graph.band_w)
+                band = (q4, k4, v4, graph.band_masks, graph.band_block, graph.band_w)
+                if graph.band_flash:
+                    out = banded_flash_attention(*band, symmetric=graph.band_symmetric)
+                else:
+                    out = banded_graph_attention(*band)
             return self._combine(x, out.reshape(out.shape[:-2] + (h * c,)))
 
         q_e = q.index_select(-2, graph.receivers)

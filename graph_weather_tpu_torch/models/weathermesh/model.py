@@ -23,7 +23,7 @@ processors.{p}.layers.{i}, decoder.split, ...), so its state_dict loads
 with `load_state_dict` as it is; the `bn*` names stay when the norm is a
 GroupNorm. On the card every attention layer runs impl="auto" of
 ops/neighborhood_attention.py: the halo-tiled CUDA kernel K5a (and K5b in
-the backward), or the slot-serial K6 where K5a's tiles do not fit in shared
+the backward), or the wide-head K6 where K5a's tiles do not fit in shared
 memory (heads wider than 128 channels, or of 96 or 128 at kernel (5, 7, 7),
 as at latent_dim 768 with 8 heads). K6 has no backward kernel yet, so
 training such a model on the card raises NotImplementedError.

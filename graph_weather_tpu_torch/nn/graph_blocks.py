@@ -81,8 +81,10 @@ class DeviceGraph:
     layout of a spatially sorted graph (ops/banded_attention.py,
     ops/banded_flash.py): receiver blocks of `band_block` rows against
     windows of band_block + 2 band_w key rows, through `band_masks`
-    ([nb, block, block + 2w] int8), and whether the attention runs the
-    flash kernels K4a/K4b (`band_flash`) or the plain banded attention.
+    ([nb, block, block + 2w] int8), whether the attention runs the flash
+    kernels K4a/K4b (`band_flash`) or the plain banded attention, and
+    whether the edge set is symmetric (`band_symmetric`: K4b's dk/dv kernel
+    then takes its symmetric role).
 
     receiver_sum and sender_sum (from_bundle(..., edge_sums=True): the
     forecaster's graphs) are the levels of padded CSR tables that sum edge
@@ -111,6 +113,7 @@ class DeviceGraph:
     band_block: int = 0
     band_w: int = 0
     band_flash: bool = False
+    band_symmetric: bool = False
 
     @classmethod
     def from_bundle(
@@ -167,6 +170,7 @@ class DeviceGraph:
                     device=device,
                 )
         band_masks, band_w = None, 0
+        band_symmetric = False
         if banded:
             span = int(np.abs(
                 bundle.senders.astype(np.int64) - bundle.receivers.astype(np.int64)
@@ -180,6 +184,9 @@ class DeviceGraph:
                 bundle.senders, bundle.receivers, bundle.n_receivers, block=band_block, w=band_w
             )
             band_masks = torch.as_tensor(masks.astype(np.int8), device=device)
+            band_symmetric = bundle.n_senders == bundle.n_receivers and (
+                is_symmetric_edges(bundle.senders, bundle.receivers)
+            )
         senders, receivers, edge_attr = bundle.device_arrays(device)
         return cls(
             senders=senders,
@@ -200,6 +207,7 @@ class DeviceGraph:
             band_block=band_block if banded else 0,
             band_w=band_w,
             band_flash=banded and band_flash,
+            band_symmetric=band_symmetric,
         )
 
     def aggregate(self, edge_feats: torch.Tensor) -> torch.Tensor:

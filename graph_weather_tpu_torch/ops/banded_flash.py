@@ -15,13 +15,17 @@ and the output divided by max(l, 1e-30): rows without a neighbour, and
 padded rows past N, come out exactly 0. q, k and v are [N, h, c] or
 [B, N, h, c] over one node set; the batch shares the masks.
 
-csrc/banded_flash.cu (K4a) and csrc/banded_flash_bwd.cu (K4b) run on the
-card in f32 on the CUDA cores, skipping key tiles without an edge. When
-autograd needs gradients, K4a also writes the log-sum-exp lse
-[B, nb * block, h]; the backward recomputes p = exp(s + bias - lse) in a dq
-kernel over receiver tiles and a dk/dv kernel over key tiles, which walks
-the receiver blocks whose window holds its keys and writes every dk/dv row
-once. The JAX package's backward takes its Pallas kernels only for
+csrc/banded_flash.cu (K4a) runs on the card in f32 on the CUDA cores,
+skipping key tiles without an edge; when autograd needs gradients it also
+writes the log-sum-exp lse [B, nb * block, h]. csrc/banded_flash_bwd.cu
+(K4b) recomputes p = exp(s + bias - lse) on the tensor cores (split-TF32
+products, f32 accuracy), skipping 16 x 16 tiles without an edge, in two
+launches: a dq kernel over receiver tiles and a dk/dv kernel over key tiles,
+which writes every dk/dv row once. With `symmetric=True` (a symmetric edge
+set, as GenCast's k-hop graph is: `DeviceGraph.band_symmetric`) the dk/dv
+kernel streams each key block's own window and reads its masks as the dq
+kernel does; otherwise it walks the receiver blocks whose window holds its
+keys. The JAX package's backward takes its Pallas kernels only for
 block == 512 and w % 512 == 0 (an XLA VJP otherwise); K4b takes every
 layout the forward takes.
 
@@ -29,7 +33,8 @@ Every kernel has a plain PyTorch twin here (`banded_flash_forward_reference`,
 `banded_flash_backward_reference`), written block by block so that the CPU
 never holds every block's logits at once; the twins run for CPU tensors,
 CUDA tensors launch the kernels. Launch counts: `LAUNCHES` (K4a),
-`BWD_DQ_LAUNCHES` and `BWD_DKV_LAUNCHES` (K4b's two kernels).
+`BWD_DQ_LAUNCHES` (K4b's dq kernel), `BWD_DKV_SYMMETRIC_LAUNCHES` and
+`BWD_DKV_LAUNCHES` (its dk/dv kernel in the symmetric and the general role).
 """
 
 from __future__ import annotations
@@ -44,7 +49,8 @@ from graph_weather_tpu_torch.ops._build import c_function
 
 LAUNCHES = 0  # K4a
 BWD_DQ_LAUNCHES = 0  # K4b, dq kernel
-BWD_DKV_LAUNCHES = 0  # K4b, dk/dv kernel
+BWD_DKV_SYMMETRIC_LAUNCHES = 0  # K4b, dk/dv kernel, symmetric role
+BWD_DKV_LAUNCHES = 0  # K4b, dk/dv kernel, general role
 MAX_CHANNELS = 512  # widest head the kernels' tiles hold
 KEY_TILE = 512  # the JAX contract: block and 2w are multiples of it
 _NEG = -1e30  # additive mask bias off an edge
@@ -63,7 +69,7 @@ _BWD_ARGTYPES = [
     _c_ptr, _c_ptr, _c_ptr,  # dq dk dv
     _c_int, _c_int, _c_int, _c_int,  # batch, n, heads, c
     _c_int, _c_int, _c_int, _c_int,  # n_blocks, block, w, vec4
-    ctypes.c_float, _c_int,  # scale, mode
+    ctypes.c_float, _c_int, _c_int,  # scale, mode, symmetric
     _c_ptr,  # cudaStream_t
 ]
 DQ, DKV = 0, 1  # backward modes of the C entry (K4b's two kernels)
@@ -204,11 +210,12 @@ def _forward_cuda(q, k, v, band_masks, block, w, with_lse):
     return out, lse
 
 
-def launch_backward(mode, q, k, v, band_masks, lse, dout, delta, grads, block, w):
+def launch_backward(mode, q, k, v, band_masks, lse, dout, delta, grads, block, w, symmetric=False):
     """One K4b kernel on the card: mode 0 (`DQ`) writes grads[0] (dq), mode
-    1 (`DKV`) grads[1] and grads[2] (dk, dv); delta = rowsum(dO * out),
+    1 (`DKV`) grads[1] and grads[2] (dk, dv), in the symmetric role when
+    `symmetric` (the edge set must be symmetric); delta = rowsum(dO * out),
     zero past n, [B, nb * block, h]."""
-    global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    global BWD_DQ_LAUNCHES, BWD_DKV_SYMMETRIC_LAUNCHES, BWD_DKV_LAUNCHES
     batch, n, heads, c, nb = _sizes(q, band_masks)
     outs = (grads[0], None, None) if mode == DQ else (None, grads[1], grads[2])
     with torch.cuda.device(q.device):
@@ -217,7 +224,7 @@ def launch_backward(mode, q, k, v, band_masks, lse, dout, delta, grads, block, w
             delta.data_ptr(), band_masks.data_ptr(),
             *(0 if t is None else t.data_ptr() for t in outs),
             batch, n, heads, c, nb, block, w, _vec4(c, (q, k, v, dout, *grads)),
-            1.0 / c**0.5, mode, torch.cuda.current_stream().cuda_stream,
+            1.0 / c**0.5, mode, int(symmetric), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -226,12 +233,15 @@ def launch_backward(mode, q, k, v, band_masks, lse, dout, delta, grads, block, w
         )
     if mode == DQ:
         BWD_DQ_LAUNCHES += 1
+    elif symmetric:
+        BWD_DKV_SYMMETRIC_LAUNCHES += 1
     else:
         BWD_DKV_LAUNCHES += 1
 
 
-def _backward_cuda(q, k, v, band_masks, out, lse, dout, block, w):
-    """K4b on the card: the dq kernel, then the dk/dv kernel. Returns (dq, dk, dv)."""
+def _backward_cuda(q, k, v, band_masks, out, lse, dout, block, w, symmetric=False):
+    """K4b on the card: the dq kernel, then the dk/dv kernel (its symmetric
+    role when `symmetric`). Returns (dq, dk, dv)."""
     _check_cuda(
         "banded_flash_attention backward", q.shape[-1], (q, k, v, band_masks, lse, dout), band_masks
     )
@@ -241,7 +251,7 @@ def _backward_cuda(q, k, v, band_masks, out, lse, dout, block, w):
     n_pad = band_masks.shape[0] * block
     delta = F.pad((dout * out).sum(-1), (0, 0, 0, n_pad - q.shape[-3])).contiguous()
     for mode in (DQ, DKV):
-        launch_backward(mode, q, k, v, band_masks, lse, dout, delta, grads, block, w)
+        launch_backward(mode, q, k, v, band_masks, lse, dout, delta, grads, block, w, symmetric)
     return grads
 
 
@@ -249,13 +259,13 @@ class _BandedFlashAttention(torch.autograd.Function):
     """K4a with lse forward; K4b backward (their twins on the CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, band_masks, block, w):
+    def forward(ctx, q, k, v, band_masks, block, w, symmetric):
         if q.device.type == "cpu":
             out, lse = banded_flash_forward_reference(q, k, v, band_masks, block, w, with_lse=True)
         else:
             out, lse = _forward_cuda(q, k, v, band_masks, block, w, with_lse=True)
         ctx.save_for_backward(q, k, v, band_masks, out, lse)
-        ctx.block, ctx.w = block, w
+        ctx.block, ctx.w, ctx.symmetric = block, w, symmetric
         return out
 
     @staticmethod
@@ -266,8 +276,8 @@ class _BandedFlashAttention(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv = banded_flash_backward_reference(*args)
         else:
-            dq, dk, dv = _backward_cuda(*args)
-        return dq, dk, dv, None, None, None
+            dq, dk, dv = _backward_cuda(*args, symmetric=ctx.symmetric)
+        return dq, dk, dv, None, None, None, None
 
 
 def banded_flash_attention(
@@ -277,12 +287,15 @@ def banded_flash_attention(
     band_masks: torch.Tensor,
     block: int,
     w: int,
+    symmetric: bool = False,
 ) -> torch.Tensor:
     """Banded graph attention (see the module docstring). Returns q's shape;
-    differentiable in q, k and v."""
+    differentiable in q, k and v. `symmetric`: the edge set is symmetric
+    (`DeviceGraph.band_symmetric`), so the card's dk/dv kernel takes its
+    symmetric role; the result does not depend on it."""
     _check(q, k, v, band_masks, block, w)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _BandedFlashAttention.apply(q, k, v, band_masks, block, w)
+        return _BandedFlashAttention.apply(q, k, v, band_masks, block, w, bool(symmetric))
     if q.device.type == "cpu":
         return banded_flash_forward_reference(q, k, v, band_masks, block, w)
     return _forward_cuda(q, k, v, band_masks, block, w, with_lse=False)[0]

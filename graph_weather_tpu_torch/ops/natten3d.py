@@ -1,14 +1,17 @@
-"""The slot-serial 3D neighborhood attention forward on the card: the port of
-the Pallas kernel K6 (`_natten_fwd_impl`) of
+"""The 3D neighborhood attention forward for the shapes K5a cannot tile: the
+port of the Pallas kernel K6 (`_natten_fwd_impl`) of
 graph_weather_tpu/ops/pallas/natten3d.py.
 
 The semantics are those of ops/neighborhood_attention.py, and the plain
 version is its `neighborhood_attention_3d_reference`: the JAX package's XLA
 slot scan, the same function K6 computes. The TPU kernel walked the window
 slots as a grid axis over VMEM-resident volumes; the CUDA kernel
-(csrc/natten3d.cu) gives each query eight lanes that walk its own window
-slot by slot, reading k and v rows through the caches. It stages no halo, so
-it takes what K5a (ops/natten_flash.py) refuses: heads wider than 128
+(csrc/natten3d.cu) gives each CTA a tile of query positions in one D plane
+and stages, one key plane (slab) at a time, the union of the tile's windows
+in that plane in shared memory, K and V; groups of lanes own four
+W-neighbouring queries each, so that every staged element feeds four
+queries' FMAs. A slab is staged in strips where it does not fit (`plan`), so the
+kernel takes what K5a (ops/natten_flash.py) refuses: heads wider than 128
 channels, and heads of 96 or 128 at kernel (5, 7, 7). `takes` names its
 limits. There is no backward kernel yet (the JAX package differentiates the
 XLA scan): a gradient through K6 on the card raises in the dispatcher
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -30,7 +34,8 @@ from graph_weather_tpu_torch.ops.neighborhood_attention import (
 )
 
 LAUNCHES = 0  # K6
-MAX_CHANNELS = 256  # widest head: eight lanes x eight float4s
+MAX_CHANNELS = 256  # widest head the kernel's tiles hold
+TILE_WIDTHS = (32, 64, 96, 128, 256)  # the kernel's padded head widths (CP)
 MAX_GRID_YZ = 65535  # heads and batch are the CTA grid's y and z
 GRADIENT_TODO = (
     "neighborhood_attention_3d: no backward kernel for the slot-serial K6 yet "
@@ -44,8 +49,58 @@ _ARGTYPES = (
     + [_c_int] * 6  # batch, D, H, W, heads, ch
     + [_c_ll] * 3  # position strides of q, k, v (in floats)
     + [_c_int] * 5  # kd, kh, kw, circular_w, vec4
-    + [ctypes.c_float, _c_ptr]  # scale, cudaStream_t
+    + [ctypes.c_float]  # scale
+    + [_c_int] * 5  # cp, lanes, rows, ry, rx
+    + [_c_ptr]  # cudaStream_t
 )
+
+
+@dataclass(frozen=True)
+class Plan:
+    """A launch of the kernel: padded head width `cp`, `lanes` lanes to a
+    group of four W-neighbouring queries (so 128 / lanes query columns to a
+    CTA), `rows` query rows to a CTA (one warp each), items of ry union rows
+    by rx union columns, and the shared memory it takes."""
+
+    cp: int
+    lanes: int
+    rows: int
+    ry: int
+    rx: int
+    smem: int
+
+    @property
+    def columns(self) -> int:
+        return 4 * 32 // self.lanes
+
+
+def union_span(size: int, k: int, circular: bool, t: int) -> int:
+    """The most positions the union of the windows of t consecutive queries
+    spans on an axis of `size` (window k): t + k - 1, at most `size` on a
+    clamped axis (its windows stay inside it)."""
+    span = min(t, size) + k - 1
+    return span if circular else min(size, span)
+
+
+def plan(shape, kernel, circular_w: bool) -> Plan:
+    """How the kernel tiles q of `shape` [B, D, H, W, heads, ch] at `kernel`:
+    eight lanes to a query group up to 96 channels (each lane 4 to 12 of
+    them), sixteen above; up to 8 query rows to a CTA; items as tall as two
+    stages of K and V allow in Hopper's 227 KB (the whole union where it
+    fits), of equal heights. A pure host function."""
+    _, _, h, w, _, ch = shape
+    _, kh, kw = kernel
+    cp = next(c for c in TILE_WIDTHS if ch <= c)
+    lanes = 8 if cp <= 96 else 16
+    rows = min(8, h)
+    cu_h = union_span(h, kh, False, rows)
+    cu_w = union_span(w, kw, circular_w, 4 * 32 // lanes)
+    per_row = 2 * 2 * 4 * (cp + 4)  # bytes of a staged row: K and V, two stages
+    most = SMEM_LIMIT // per_row  # staged rows an item may hold
+    rx = min(cu_w, most)
+    ry = min(cu_h, most // rx)
+    ry = -(-cu_h // -(-cu_h // ry))  # equal strips
+    return Plan(cp, lanes, rows, ry, rx, per_row * ry * rx)
 
 
 def takes(shape, kernel, circular_w: bool, has_bias: bool) -> bool:
@@ -59,8 +114,8 @@ def takes(shape, kernel, circular_w: bool, has_bias: bool) -> bool:
     for size, kk in zip((d, h, w), kernel):
         if kk > size:
             raise ValueError(f"natten3d: kernel {tuple(kernel)} exceeds the volume {(d, h, w)}")
-    n_rel = math.prod(2 * kk - 1 for kk in kernel)
-    if has_bias and 4 * n_rel > SMEM_LIMIT:
+    n_rel = math.prod(2 * kk - 1 for kk in kernel)  # rpb is read through L1, at most
+    if has_bias and 4 * n_rel > SMEM_LIMIT:  # 227 KB of it per head
         raise ValueError(f"natten3d: rpb of {n_rel} floats per head exceeds {SMEM_LIMIT} bytes "
                          "of shared memory")
     return True
@@ -76,10 +131,12 @@ def _forward_cuda(q, k, v, kernel, rpb, circular_w):
     strides = [_position_stride(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
     vec4 = int(ch % 4 == 0 and all(s % 4 == 0 for s in strides)
                and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+    tiles = plan(tuple(q.shape), kernel, circular_w)
     with torch.cuda.device(q.device):
         err = c_function("natten3d", "gwt_natten3d_forward", _ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), out.data_ptr(),
             b, d, h, w, heads, ch, *strides, *kernel, int(circular_w), vec4, ch**-0.5,
+            tiles.cp, tiles.lanes, tiles.rows, tiles.ry, tiles.rx,
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

@@ -33,7 +33,7 @@ rows over the whole volume. The kernels take ch <= 128 (MAX_CHANNELS), and
 a tile's halo must fit in shared memory (ch <= 64 fits every kernel up to
 (5, 7, 7); ch of 96 or 128 does not fit (5, 7, 7)). `takes` says, before
 any launch, whether the kernels take a shape; impl="auto" of
-`neighborhood_attention_3d` sends the shapes they refuse to the slot-serial
+`neighborhood_attention_3d` sends the shapes they refuse to the wide-head
 K6 (ops/natten3d.py), impl="flash" raises ValueError for them.
 
 The plain versions are `neighborhood_attention_3d_reference` (the forward,

@@ -16,7 +16,7 @@ backward (ops/natten_flash.py) under autograd. For CUDA tensors `route`
 picks the kernel from the shape alone, before any launch:
 
   * "auto": the halo-tiled K5a (ops/natten_flash.py; K5a and K5b under a
-    gradient) when its tiles fit, else the slot-serial K6 (ops/natten3d.py);
+    gradient) when its tiles fit, else the wide-head K6 (ops/natten3d.py);
   * "flash": K5a/K5b, or ValueError; "pallas": K6, or ValueError;
   * "xla": the plain version, because the caller named it (autograd
     differentiates it); no other impl reaches it on the card.

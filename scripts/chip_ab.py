@@ -1,6 +1,6 @@
-"""Times the GenCast and forecaster paths of one checkout of the PyTorch/CUDA
-port on one NVIDIA GPU, so that two trees can be compared on one card in
-one call, in turns (parent, change, change, parent):
+"""Times the GenCast, forecaster and WeatherMesh paths of one checkout of the
+PyTorch/CUDA port on one NVIDIA GPU, so that two trees can be compared on
+one card in one call, in turns (parent, change, change, parent):
 
     python3 scripts/chip_ab.py --root DIR [--label NAME]
 
@@ -10,13 +10,19 @@ from this script's own checkout: K3a at c = 128 and 512 against SDPA on the
 gathered unions (phase 8), K3c and K3b with SDPA's backward (phase 14), per
 evaluation and per train step; 3 GenCast denoiser requests (phase 9), one
 20-step sample (11), 3 train steps (15); 3 forecaster requests at 1° (4)
-and 3 train steps (34). Each kernel is held against its plain version as in
-those phases. Prints one JSON line. f32 throughout; TF32 is off.
+and 3 train steps (34); K4b's two kernels on the splits-5 band layout at
+c = 128 and 512 (phase 27; the dk/dv kernel in its symmetric role where the
+tree has one), per train step, and 3 banded GenCast train steps (30); K6 on
+the 768-d WeatherMesh's layer (phase 37, case a), 3 requests of the 768-d
+WeatherMesh (38) and 3 of the 128-d one (19). Each kernel is held against
+its plain version as in those phases. Prints one JSON line. f32
+throughout; TF32 is off.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -46,7 +52,10 @@ def main() -> int:
     from graph_weather_tpu_torch.meshes.clustering import build_cluster_scatter_index
     from graph_weather_tpu_torch.models.gencast.graphs import build_graphcast_graphs
     from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
-    from graph_weather_tpu_torch.ops import _build, clustered_flash, fused_mlp
+    from graph_weather_tpu_torch.ops import _build, banded_flash, clustered_flash, fused_mlp, natten3d
+    from graph_weather_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_3d_reference,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -54,7 +63,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    _build.load_libraries(["clustered_flash", "clustered_flash_bwd", "edge_mlp", "fused_mlp_bwd"])
+    _build.load_libraries(_build.all_sources())
     result = {"label": args.label or str(root), "card": card}
 
     # K3a, K3c and K3b on the real splits-5 layout (phases 8 and 14).
@@ -131,7 +140,88 @@ def main() -> int:
     result["fc_step_ms"] = [cs.timed(lambda: fc_step(fc_x, fc_y))[1] for _ in range(3)]
     if fused_mlp.BACKWARD_LAUNCHES - before != 33:
         raise AssertionError("the forecaster's train steps did not run K2b 11 times each")
-    for key in ("gencast_request_ms", "gencast_step_ms", "fc_request_ms", "fc_step_ms"):
+    del model, fc_step
+    torch.cuda.empty_cache()
+
+    # K4b on the splits-5 band layout (phase 27), then 3 banded train steps (30).
+    band = DeviceGraph.from_bundle(build_graphcast_graphs(
+        gc["grid_lon"], gc["grid_lat"], splits=5, num_hops=4, add_edge_features_to_khop=False,
+        spatial_sort=True,
+    ).khop, "cuda", banded=True, band_flash=True)
+    role = {}
+    if "symmetric" in inspect.signature(banded_flash.launch_backward).parameters:
+        role = {"symmetric": getattr(band, "band_symmetric", False)}
+    result["k4b_dkv_role"] = "symmetric" if role.get("symmetric") else "general"
+    masks, block, w, n = band.band_masks, band.band_block, band.band_w, band.n_receivers
+    k4b = {}
+    for c in per_eval:
+        _, (q, k, v, dout) = cs.band_inputs(gen, band, c, 4, 4)
+        out, lse = banded_flash._forward_cuda(q, k, v, masks, block, w, with_lse=True)
+        want = banded_flash.banded_flash_backward_reference(q, k, v, masks, out, lse, dout, block, w)
+        delta = torch.nn.functional.pad(
+            (dout * out).sum(-1), (0, 0, 0, masks.shape[0] * block - n)).contiguous()
+        grads = tuple(torch.empty_like(t) for t in (q, k, v))
+
+        def kernel(mode):
+            return lambda: banded_flash.launch_backward(
+                mode, q, k, v, masks, lse, dout, delta, grads, block, w, **role)
+
+        kernel(banded_flash.DQ)(), kernel(banded_flash.DKV)()
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(grads, want))
+        if not err <= cs.K4_TOL:
+            raise AssertionError(f"K4b c={c}: error {err} > {cs.K4_TOL}")
+        k4b[c] = {"dq": cs.cuda_ms(kernel(banded_flash.DQ)), "dkv": cs.cuda_ms(kernel(banded_flash.DKV)),
+                  "err": err}
+    for kind in ("dq", "dkv"):
+        result[f"k4b_{kind}_ms"] = {c: v[kind] for c, v in k4b.items()}
+        result[f"k4b_{kind}_ms"]["per_eval_or_step"] = sum(k4b[c][kind] * m for c, m in per_eval.items())
+    result["k4b_ms_per_step"] = result["k4b_dq_ms"]["per_eval_or_step"] + result["k4b_dkv_ms"]["per_eval_or_step"]
+    result["k4b_max_abs_err"] = max(v["err"] for v in k4b.values())
+    del band, masks, q, k, v, dout, out, lse, want, grads
+    bden = port.Denoiser(**cs.GENCAST_BANDED, device="cuda")
+    bden.init(torch.Generator().manual_seed(0))
+    bstep = port.make_train_step(
+        bden.module.parameters(), bden.forward_fn(), lambda p, t: loss(p, noise_t, t),
+        port.make_optimizer(1e-4),
+    )
+    result["band_step_ms"] = [
+        cs.timed(lambda: bstep(corrupted_t, prev_t, noise_t, target_t))[1] for _ in range(3)
+    ]
+    del bden, bstep
+    torch.cuda.empty_cache()
+
+    # K6 on the 768-d layer (phase 37 case a); 3 requests of the 768-d and of
+    # the 128-d WeatherMesh (phases 38 and 19).
+    kernel6 = (5, 7, 7)
+    q, k, v, rpb = cs.natten_inputs(gen, kernel6, 8, 96)
+    out = natten3d._forward_cuda(q, k, v, kernel6, rpb, False)
+    torch.cuda.synchronize()
+    result["k6_max_abs_err"] = (out - neighborhood_attention_3d_reference(
+        q, k, v, kernel6, rpb, False)).abs().max().item()
+    if not result["k6_max_abs_err"] <= cs.K5_TOL:
+        raise AssertionError(f"K6: error {result['k6_max_abs_err']} > {cs.K5_TOL}")
+    result["k6_ms_per_layer"] = cs.cuda_ms(lambda: natten3d._forward_cuda(q, k, v, kernel6, rpb, False))
+    del q, k, v, rpb, out
+    h, w = cs.WM_GRID
+    levels = cs.WEATHERMESH["pressure_levels"]
+    wm_gen = torch.Generator().manual_seed(1)
+    surfaces = torch.randn(3, 1, h, w, 8, generator=wm_gen).to("cuda")
+    pressures = torch.randn(3, 1, levels, h, w, 4, generator=wm_gen).to("cuda")
+    for key, cfg in (("wm_wide_request_ms", cs.WM_WIDE), ("wm_request_ms", cs.WEATHERMESH)):
+        wm = port.WeatherMesh(**cfg, device="cuda")
+        wm.init(torch.Generator().manual_seed(0))
+        with torch.no_grad():  # as in chip_smoke.py phase 19
+            for name, t in wm.module.named_parameters():
+                if name.endswith(("qkv.bias", "proj.bias")):
+                    t.zero_()
+        before = natten3d.LAUNCHES
+        result[key] = [cs.timed(lambda: wm(s_, p_))[1] for s_, p_ in zip(surfaces, pressures)]
+        result[key.replace("request_ms", "k6_launches")] = natten3d.LAUNCHES - before
+        del wm
+        torch.cuda.empty_cache()
+    for key in ("gencast_request_ms", "gencast_step_ms", "fc_request_ms", "fc_step_ms",
+                "band_step_ms", "wm_wide_request_ms", "wm_request_ms"):
         result[key + "_median_later"] = statistics.median(result[key][1:])
     print(json.dumps(result))
     return 0

@@ -586,7 +586,7 @@ def test_natten_refuses_what_it_cannot_take(gen):
             neighborhood_attention_3d(strided, k, v, (3, 3, 3), rpb, impl=impl)
 
 
-# -- K6: the slot-serial 3D neighborhood attention forward ---------------------
+# -- K6: the wide-head 3D neighborhood attention forward -----------------------
 
 K6_CASES = [
     # (B, D, H, W), heads, ch, kernel, rpb, circular_w
@@ -597,8 +597,14 @@ K6_CASES = [
     ((2, 4, 7, 9), 3, 5, (3, 3, 3), True, True),  # ch % 4 != 0: the scalar loads
     ((2, 5, 6, 7), 2, 200, (5, 5, 7), False, True),
     ((1, 3, 5, 12), 1, 1, (3, 5, 12), True, False),  # the window covers H and W
+    # 8 x 16 tiles whose last row of tiles straddles the clamped H edge and
+    # whose last column straddles the circular seam (W = 21)
+    ((1, 6, 13, 21), 2, 96, (5, 7, 7), True, True),
+    ((2, 7, 11, 19), 3, 64, (5, 7, 7), True, False),  # clamped edges on every axis
+    ((1, 5, 9, 18), 2, 128, (5, 7, 7), True, True),  # 16 lanes to a query group
 ]
-K6_IDS = ["wide", "wide_circular", "wm_1deg", "ch256", "odd_ch_batch2", "ch200_no_rpb", "ch1"]
+K6_IDS = ["wide", "wide_circular", "wm_1deg", "ch256", "odd_ch_batch2", "ch200_no_rpb", "ch1",
+          "seam_and_edge", "clamped_edges_batch2", "ch128_circular"]
 
 
 @pytest.mark.cuda
@@ -692,8 +698,9 @@ def test_banded_flash_matches_plain(gen, c, batch, w):
 @pytest.mark.parametrize("c", [16, 128, 512])
 def test_banded_flash_backward_matches_plain(gen, c, w):
     """K4b (through the autograd Function: K4a with lse, then the dq and
-    dk/dv kernels) against the plain backward at B = 2; exact-zero dq on
-    rows without a neighbour."""
+    dk/dv kernels, the latter in its general role: the graph is directed)
+    against the plain backward at B = 2; exact-zero dq on rows without a
+    neighbour."""
     q, k, v, dout, masks, empty = _band_case(gen, 2, 1300, 4, c, w, seed=1)
     counts = (banded_flash.BWD_DQ_LAUNCHES, banded_flash.BWD_DKV_LAUNCHES)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -705,6 +712,73 @@ def test_banded_flash_backward_matches_plain(gen, c, w):
     for name, a, b in zip("qkv", got, want):
         assert (a - b).abs().max().item() <= ATOL, f"d{name}"
     assert bool((got[0][:, empty] == 0).all())
+
+
+def _symmetric_band_case(gen, b, n, heads, c, w, seed=0):
+    """_band_case's graph made symmetric (each edge and its reverse), every
+    7th node without an edge, n = 1300 in 512-row blocks; q, k, v, dO over
+    the padded rows (3 * 512) with the masks of the first n nodes."""
+    rng = np.random.default_rng(seed)
+    receivers = np.repeat(np.arange(n), 3)
+    senders = np.clip(receivers + rng.integers(-w, w + 1, receivers.size), 0, n - 1)
+    pairs = np.concatenate([np.stack([receivers, senders], 1), np.stack([senders, receivers], 1)])
+    pairs = np.unique(pairs, axis=0)
+    pairs = pairs[(pairs[:, 0] % 7 != 0) & (pairs[:, 1] % 7 != 0)]
+    assert is_symmetric_edges(pairs[:, 1], pairs[:, 0])
+    masks = build_band_masks(pairs[:, 1], pairs[:, 0], n, 512, w)
+    q, k, v, dout = (torch.randn(b, masks.shape[0] * 512, heads, c, generator=gen, device="cuda")
+                     for _ in range(4))
+    masks = torch.as_tensor(masks.astype(np.int8), device="cuda")
+    return q, k, v, dout, masks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [256, 1024])
+@pytest.mark.parametrize("c", [16, 128, 192, 512])
+def test_banded_flash_backward_symmetric_role(gen, c, w):
+    """K4b's dk/dv kernel in its symmetric role on a symmetric band against
+    the plain backward (B = 2), and against the general role: within 1e-4;
+    exact-zero gradients in both roles on nodes without an edge and on the
+    padded rows past n; one launch of each kernel."""
+    n = 1300
+    q, k, v, dout, masks = _symmetric_band_case(gen, 2, n, 4, c, w, seed=c)
+    counts = (banded_flash.BWD_DQ_LAUNCHES, banded_flash.BWD_DKV_SYMMETRIC_LAUNCHES,
+              banded_flash.BWD_DKV_LAUNCHES)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = banded_flash.banded_flash_attention(*leaves, masks, 512, w, symmetric=True)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (banded_flash.BWD_DQ_LAUNCHES, banded_flash.BWD_DKV_SYMMETRIC_LAUNCHES,
+            banded_flash.BWD_DKV_LAUNCHES) == (counts[0] + 1, counts[1] + 1, counts[2])
+    ref, lse = banded_flash.banded_flash_forward_reference(q, k, v, masks, 512, w, with_lse=True)
+    want = banded_flash.banded_flash_backward_reference(q, k, v, masks, ref, lse, dout, 512, w)
+    general = banded_flash._backward_cuda(q, k, v, masks, ref, lse, dout, 512, w, symmetric=False)
+    torch.cuda.synchronize()
+    for name, a, b, g in zip("qkv", got, want, general):
+        assert (a - b).abs().max().item() <= ATOL, f"d{name}"
+        assert (a - g).abs().max().item() <= ATOL, f"d{name} against the general role"
+    empty = torch.arange(q.shape[1], device="cuda")
+    empty = (empty % 7 == 0) | (empty >= n)
+    for t in (*got, *general):
+        assert bool((t[:, empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["clustered_flash", "clustered_flash_bwd", "banded_flash_bwd"])
+def test_tensor_core_sass(gen, name):
+    """The libraries whose products run on the tensor cores hold TF32 mma
+    instructions (HMMA ... TF32) in their SASS (cuobjdump beside nvcc)."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from graph_weather_tpu_torch.ops import _build
+
+    _build.load_libraries([name])
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build._so_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    assert len(re.findall(r"HMMA\.\S*TF32", sass)) > 0
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""The port's slot-serial NATTEN (K6, ops/natten3d.py) and the `impl=`
+"""The port's wide-head NATTEN (K6, ops/natten3d.py) and the `impl=`
 dispatcher of ops/neighborhood_attention.py against the JAX package, on the
 CPU.
 
