@@ -78,8 +78,10 @@ non-zero exit:
      <= 1e-3
  21. an 8-step rollout: finite, exactly 36 K5a launches, ms per step
  22. K5b against the plain backward in cases (a)-(c): dq, dk, dv within
-     1e-4, drpb within 1e-4 of its max; medians of the kernels, the plain
-     backward and SDPA's backward; per train step and the bound
+     1e-4, drpb within 1e-4 of its max; medians of the whole backward and,
+     apart, of its dq kernel (with the drpb partials), its dk/dv kernel,
+     delta and the drpb sum, the plain backward and SDPA's backward; per
+     train step and the bounds (both kernels, and each)
  23. wm_train: 3 steps of make_train_step (bench.py's objective: MSE on
      surface + MSE on pressure; clip + AdamW at lr 1e-4), each with exactly 8
      K5a, 8 dq and 8 dk/dv launches; finite loss, every parameter changed;
@@ -89,16 +91,16 @@ non-zero exit:
      gradient within 1e-3 of its max|g| (the model's CPU convs run in
      PyTorch's own kernels, not oneDNN's, here and in phase 20)
  25. build: banded_flash.cu's and banded_flash_bwd.cu's registers and spills,
-     and the count of TF32 tensor-core instructions in banded_flash_bwd.cu's
-     SASS (K4b: split-TF32 mma.sync), which must not be 0
+     and the count of TF32 tensor-core instructions in each library's SASS
+     (K4a and K4b: split-TF32 mma.sync), which must not be 0
  26. K4a (banded flash attention) against its plain version on the real
      splits-5 band layout (nb 21, w 1024), B = 1, c = 128 and c = 512 x 4
      heads, with and without lse: max abs error <= 1e-4 on out and lse;
      padded rows exactly 0; CUDA-event medians of the kernel, the plain
      version and SDPA on the stacked windows with the band mask (timed
-     only); per evaluation (15 x c = 128 + c = 512) and the bound; the
-     share of the band's pairs in 16 x 16 tiles that hold an edge (those
-     K4b computes)
+     only); per evaluation (15 x c = 128 + c = 512) and the bounds (FP32,
+     and three TF32 products); the share of the band's pairs in 16 x 16
+     tiles that hold an edge (those K4a and K4b compute), and in 16 x 8
  27. K4b against the plain backward in the same cases, its dk/dv kernel in
      the symmetric role (the k-hop graph is symmetric: band_symmetric) and
      in the general role: dq, dk, dv within 1e-4, exact zeros on padded
@@ -626,8 +628,9 @@ def k5a_case(natten_flash, reference, name, gen, kernel, heads, circular):
 
 def k5b_case(natten_flash, name, gen, kernel, heads, circular):
     """K5b (dq and dk/dv kernels, drpb from their partials) against the plain
-    backward, on K5a's out and lse. Returns a dict of errors, times (ms),
-    flops and bytes."""
+    backward, on K5a's out and lse. Times the whole backward and, apart, the
+    dq kernel (with its drpb partials), the dk/dv kernel, delta and the drpb
+    sum. Returns a dict of errors, times (ms), flops and bytes."""
     q, k, v, rpb = natten_inputs(gen, kernel, heads)
     dout = torch.randn(q.shape, generator=gen, device="cuda")
     out, lse = natten_flash._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)
@@ -638,6 +641,18 @@ def k5b_case(natten_flash, name, gen, kernel, heads, circular):
     errs = {f"d{n}": (a - b).abs().max().item() for n, a, b in zip("qkv", got[:3], want[:3])}
     errs["drpb_rel"] = (got[3] - want[3]).abs().max().item() / want[3].abs().max().item()
     ms = cuda_ms(lambda: natten_flash._backward_cuda(*args))
+    delta = (dout * out).sum(-1).contiguous()
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    tile = natten_flash._pick_tile("dq", WM_LATENT, kernel, circular, q.shape[-1], True)
+    partial = torch.empty(tile.n_tiles, heads, rpb[0].numel(), device="cuda")
+
+    def kernel_fn(mode):
+        return lambda: natten_flash.launch_backward(
+            mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular)
+
+    split = {"dq": cuda_ms(kernel_fn(natten_flash.DQ)), "dkv": cuda_ms(kernel_fn(natten_flash.DKV)),
+             "delta": cuda_ms(lambda: (dout * out).sum(-1).contiguous()),
+             "drpb_sum": cuda_ms(lambda: partial.sum(0).reshape(rpb.shape))}
     plain_ms = cuda_ms(lambda: natten_flash.natten_flash_backward_reference(*args), runs=3, batch=1)
     qt, kt, vt, bias, dot = natten_sdpa_inputs(natten_flash, q, k, v, kernel, rpb, circular, dout)
     qt, kt, vt = (t.requires_grad_(True) for t in (qt, kt, vt))
@@ -645,8 +660,9 @@ def k5b_case(natten_flash, name, gen, kernel, heads, circular):
     sdpa_ms = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True))
     print(f"[k5b] {name}: kernel {kernel} heads {heads} x 32 circular_w={circular} | max_abs_err "
           + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
-          + f" | kernels_ms={ms:.4f} (dq + dk/dv + delta + drpb sum) plain_ms={plain_ms:.4f} "
-          f"sdpa_bwd_ms={sdpa_ms:.4f}", flush=True)
+          + f" | kernels_ms={ms:.4f} (dq + dk/dv + delta + drpb sum): dq {split['dq']:.4f} (with "
+          f"drpb partials) dk/dv {split['dkv']:.4f} delta {split['delta']:.4f} drpb sum "
+          f"{split['drpb_sum']:.4f} | plain_ms={plain_ms:.4f} sdpa_bwd_ms={sdpa_ms:.4f}", flush=True)
     for n, e in errs.items():
         if not (e <= K5_TOL):
             raise AssertionError(f"K5b {name}: {n} error {e} > {K5_TOL}")
@@ -654,8 +670,14 @@ def k5b_case(natten_flash, name, gen, kernel, heads, circular):
     n = q[..., 0].numel() * q.shape[-1]
     nbytes = 4 * (8 * n + 2 * lse.numel() + 2 * rpb.numel())  # q k v out dO dq dk dv, lse, rpb drpb
     del qt, kt, vt, bias, dot, o
-    return dict(errs=errs, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
-                flops=10 * n_pairs * q.shape[-1], nbytes=nbytes)
+    # Apart: the dq kernel computes s, dp and dq (6 ch flops per pair) and
+    # moves q, k, v, dO, dq, lse, delta and the drpb partials' rpb; the dk/dv
+    # kernel s, dp, dk and dv (8 ch) and q, k, v, dO, dk, dv, lse, delta.
+    stats = 4 * 2 * lse.numel()
+    return dict(errs=errs, ms=ms, split=split, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                flops=10 * n_pairs * q.shape[-1], nbytes=nbytes,
+                flops_split={"dq": 6 * n_pairs * q.shape[-1], "dkv": 8 * n_pairs * q.shape[-1]},
+                nbytes_split={"dq": 4 * 5 * n + stats + 4 * 2 * rpb.numel(), "dkv": 4 * 6 * n + stats})
 
 
 def window_sdpa_ms(window_indices, ref, q, k, v, kernel, rpb, circular, chunk_bytes=2 * 2**30):
@@ -1489,8 +1511,16 @@ def main() -> int:
     # 22. K5b against the plain backward in the cases of phase 18
     k5b = {n: k5b_case(natten_flash, n, gen, *c) for n, c in cases.items()}
     k5b_bound, k5b_bound_by = bound(k5b["a"]["flops"], k5b["a"]["nbytes"])
+    k5b_split_bound = {kind: bound(k5b["a"]["flops_split"][kind], k5b["a"]["nbytes_split"][kind])
+                       for kind in ("dq", "dkv")}
     print(f"[k5b] per train step ({K5_PER_FORWARD} x case a): kernels_ms="
-          f"{K5_PER_FORWARD * k5b['a']['ms']:.4f} plain_ms={K5_PER_FORWARD * k5b['a']['plain_ms']:.4f} "
+          f"{K5_PER_FORWARD * k5b['a']['ms']:.4f} (dq {K5_PER_FORWARD * k5b['a']['split']['dq']:.4f}, "
+          f"bound {K5_PER_FORWARD * k5b_split_bound['dq'][0]:.4f} {k5b_split_bound['dq'][1]}; dk/dv "
+          f"{K5_PER_FORWARD * k5b['a']['split']['dkv']:.4f}, bound "
+          f"{K5_PER_FORWARD * k5b_split_bound['dkv'][0]:.4f} {k5b_split_bound['dkv'][1]}; delta "
+          f"{K5_PER_FORWARD * k5b['a']['split']['delta']:.4f}; drpb sum "
+          f"{K5_PER_FORWARD * k5b['a']['split']['drpb_sum']:.4f}) "
+          f"plain_ms={K5_PER_FORWARD * k5b['a']['plain_ms']:.4f} "
           f"sdpa_bwd_ms={K5_PER_FORWARD * k5b['a']['sdpa_ms']:.4f} bound_ms="
           f"{K5_PER_FORWARD * k5b_bound:.4f} ({k5b_bound_by}: {k5b['a']['flops'] / 1e9:.2f} GFLOP, "
           f"{k5b['a']['nbytes'] / 1e6:.1f} MB per layer) | K5a with lse "
@@ -1570,7 +1600,9 @@ def main() -> int:
     # 25. build of the banded kernels (started with the others in phase 2)
     print(f"[build] banded_flash.cu + banded_flash_bwd.cu {build_s:.2f} s (parallel with the "
           "others) | " + " | ".join(ptxas("banded_flash") + ptxas("banded_flash_bwd")
-                                    + [tf32_mma_report(_build, "banded_flash_bwd")]), flush=True)
+                                    + ["banded_flash: " + tf32_mma_report(_build, "banded_flash"),
+                                       "banded_flash_bwd: " + tf32_mma_report(_build, "banded_flash_bwd")]),
+          flush=True)
 
     # 26. K4a on the real splits-5 band layout (the lat-lon sorted k-hop
     # graph), at the processor's two head widths
@@ -1593,7 +1625,8 @@ def main() -> int:
           f"{tuple(band.band_masks.shape)} {band.band_masks.numel() / 1e6:.1f} MB, density "
           f"{band.band_masks.float().mean().item():.4f} | empty key tiles 64x64 "
           f"{band_empty_tiles(64, 64):.4f} 32x32 {band_empty_tiles(32, 32):.4f} | pairs in 16x16 "
-          f"tiles with an edge (K4b's warp tiles) {1 - band_empty_tiles(16, 16):.4f} | "
+          f"tiles with an edge (K4a's and K4b's warp tiles) {1 - band_empty_tiles(16, 16):.4f}, in "
+          f"16x8 {1 - band_empty_tiles(16, 8):.4f} | "
           f"band_symmetric {band.band_symmetric}", flush=True)
     if not band.band_symmetric:
         raise AssertionError("the k-hop graph's band layout is not marked symmetric")
@@ -1605,9 +1638,11 @@ def main() -> int:
     k4a_sdpa_ms = per_eval_sum({c: v["sdpa_ms"] for c, v in k4a.items()})
     k4a_bound_ms = per_eval_sum({c: bound(v["flops"], v["nbytes"])[0] for c, v in k4a.items()})
     k4a_bound_by = bound(k4a[128]["flops"], k4a[128]["nbytes"])[1]
+    k4a_tf32x3 = per_eval_sum({c: tf32x3_ms(v["flops"]) for c, v in k4a.items()})
     print(f"[k4a] per denoiser eval (15 x c=128 + c=512): kernel_ms={k4a_ms:.4f} "
           f"plain_ms={k4a_plain_ms:.4f} sdpa_ms={k4a_sdpa_ms:.4f} bound_ms={k4a_bound_ms:.4f} "
-          f"({k4a_bound_by}, edges only) | with lse "
+          f"({k4a_bound_by}, edges only; three TF32 products at {TF32_PEAK / 1e12:.0f} TFLOP/s: "
+          f"{k4a_tf32x3:.4f}) | with lse "
           f"{per_eval_sum({c: v['lse_ms'] for c, v in k4a.items()}):.4f} | K3a (phase 8) "
           f"{k3a_ms:.4f}", flush=True)
 
@@ -2144,18 +2179,31 @@ def main() -> int:
             "train_launches": wm_train_launches[0],  # 3 train steps, with lse
         },
         {
-            "name": "natten_flash_backward",
+            "name": "natten_flash_backward_dq",
             "route": "cuda",
             "source": "graph_weather_tpu_torch/csrc/natten_flash_bwd.cu",
             "replaces": "graph_weather_tpu/ops/pallas/natten_flash.py:655",
-            "launches": wm_train_launches[1],  # dq kernel over 3 train steps
-            "launches_dkv": wm_train_launches[2],
-            "max_abs_err": max(max(v["errs"].values()) for v in k5b.values()),
-            "ms": K5_PER_FORWARD * k5b["a"]["ms"],  # per train step: 8 layers of case a
-            "plain_ms": K5_PER_FORWARD * k5b["a"]["plain_ms"],
-            "bound_ms": K5_PER_FORWARD * k5b_bound,
-            "bound_by": k5b_bound_by,
-            "library_ms": K5_PER_FORWARD * k5b["a"]["sdpa_ms"],
+            "launches": wm_train_launches[1],  # 3 train steps
+            "max_abs_err": max(max(v["errs"]["dq"], v["errs"]["drpb_rel"]) for v in k5b.values()),
+            "ms": K5_PER_FORWARD * k5b["a"]["split"]["dq"],  # per train step: 8 layers of case a
+            "backward_ms": K5_PER_FORWARD * k5b["a"]["ms"],  # both kernels, delta, drpb sum
+            "plain_ms": K5_PER_FORWARD * k5b["a"]["plain_ms"],  # the whole plain backward
+            "bound_ms": K5_PER_FORWARD * k5b_split_bound["dq"][0],
+            "bound_by": k5b_split_bound["dq"][1],
+            "library_ms": K5_PER_FORWARD * k5b["a"]["sdpa_ms"],  # SDPA's whole backward
+        },
+        {
+            "name": "natten_flash_backward_dkv",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/natten_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/natten_flash.py:655",
+            "launches": wm_train_launches[2],  # 3 train steps
+            "max_abs_err": max(max(v["errs"]["dk"], v["errs"]["dv"]) for v in k5b.values()),
+            "ms": K5_PER_FORWARD * k5b["a"]["split"]["dkv"],  # per train step: 8 layers of case a
+            "plain_ms": K5_PER_FORWARD * k5b["a"]["plain_ms"],  # the whole plain backward
+            "bound_ms": K5_PER_FORWARD * k5b_split_bound["dkv"][0],
+            "bound_by": k5b_split_bound["dkv"][1],
+            "library_ms": K5_PER_FORWARD * k5b["a"]["sdpa_ms"],  # SDPA's whole backward
         },
         {
             "name": "natten3d_slot_forward",
@@ -2181,6 +2229,7 @@ def main() -> int:
             "plain_ms": k4a_plain_ms,
             "bound_ms": k4a_bound_ms,
             "bound_by": k4a_bound_by,
+            "bound_tf32x3_ms": k4a_tf32x3,
             "library_ms": k4a_sdpa_ms,
             "train_launches": band_train_launches[0],  # 3 train steps, with lse
         },

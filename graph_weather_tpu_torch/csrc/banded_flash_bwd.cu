@@ -169,23 +169,6 @@ __device__ __forceinline__ void scan_general(unsigned char* flags, uint16_t* bit
   }
 }
 
-// acc += col_products16 of one warp tile, computed in a fresh accumulator
-// and added in f32: the tensor cores' accumulation truncates, and the
-// rows at a band's clamped ends (attended by hundreds of receivers) sum
-// hundreds of warp tiles, over which that bias would pass 1e-4.
-template <int NN>
-__device__ __forceinline__ void add_col_products(float (&acc)[NN][4], const float (&p)[2][4],
-                                                 const float* str, int ld, int n_begin, int lane) {
-  float part[NN][4];
-#pragma unroll
-  for (int n = 0; n < NN; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
-  col_products16<NN>(part, p, str, ld, n_begin, lane);
-#pragma unroll
-  for (int n = 0; n < NN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
-}
-
 template <class C, int ROLE>
 __global__ void __launch_bounds__(C::THREADS, 1)
     banded_flash_bwd_kernel(const Params p) {

@@ -1,8 +1,9 @@
 // The tile machinery shared by the clustered attention's forward
 // (clustered_flash.cu: K3a) and backward (clustered_flash_bwd.cu: K3b, K3c)
-// on sm_90a: split-TF32 tensor-core products, per-warp skipping of 16-key
-// warp tiles without an edge, and gathered rows copied into shared memory
-// with cp.async.
+// and the banded attention's (banded_flash.cu: K4a; banded_flash_bwd.cu:
+// K4b) on sm_90a: split-TF32 tensor-core products, per-warp skipping of
+// 16-key warp tiles without an edge, and gathered or contiguous rows copied
+// into shared memory with cp.async.
 //
 // Products. Every product of two f32 tiles runs on mma.sync m16n8k8 with
 // TF32 inputs and f32 accumulators, in three parts: x = big + small with
@@ -222,6 +223,23 @@ __device__ __forceinline__ void col_products16(float (&acc)[NN][4], const float 
     mma_tf32(acc[n], a0.big, b0.big);
     mma_tf32(acc[n], a1.big, b1.big);
   }
+}
+
+// acc += col_products16 of one warp tile, computed in a fresh accumulator
+// and added in f32: the tensor cores' accumulation truncates, and the
+// rows at a band's clamped ends (attended by hundreds of receivers) sum
+// hundreds of warp tiles, over which that bias would pass 1e-4 (K4a, K4b).
+template <int NN>
+__device__ __forceinline__ void add_col_products(float (&acc)[NN][4], const float (&p)[2][4],
+                                                 const float* str, int ld, int n_begin, int lane) {
+  float part[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+  col_products16<NN>(part, p, str, ld, n_begin, lane);
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
 }
 
 // Where the CS warps of a row group each computed a row product over their

@@ -1,5 +1,6 @@
 // 3D neighborhood attention (NATTEN) backward for Hopper (sm_90a), FP32 on the
-// CUDA cores, deterministic (no atomics).
+// CUDA cores, deterministic (no atomics), with W-neighbouring queries and keys
+// register-tiled in groups (four queries, two keys).
 //
 // Replaces the Pallas TPU kernel K5b, graph_weather_tpu/ops/pallas/
 // natten_flash.py: _flash_bwd_impl (the pallas_call of _flash_bwd_kernel),
@@ -16,41 +17,85 @@
 //
 //   * dq (mode 0), over query tiles, shaped like the forward: the CTA stages
 //     the K/V halo of its td x th x tw queries and rpb in shared memory with
-//     cp.async; four lanes per query split ch; each query walks its window.
-//     It keeps ds of every (query, slot) in shared memory and then sums it
-//     per relative offset in a fixed order, one thread per offset, into
-//     partial[cta, head, offset]; the host sums that over the CTAs.
-//   * dk/dv (mode 1), over key tiles: each key walks the queries whose window
-//     holds it. Per axis they are one contiguous range, (0 if j < k else
-//     j - (k - 1 - k/2)) .. (size - 1 if j >= size - k else j + k/2), at
-//     most k + k/2 positions on an axis of 2k or more; k modulo W on a
-//     circular axis. The key's lanes hold k_j, v_j
-//     and its dk, dv sums in registers and write them once: no overlap-add.
-//     The queries' rows (q, dO, lse, delta) are read through L1: their union
-//     for a key tile reaches up to k - 1 + k/2 positions past the tile at the
-//     clamped edges, which at kernel (5, 7, 7) outgrows shared memory.
+//     cp.async, one copy group per D plane, and a warp's key plane x waits
+//     only for the halo's first x + td planes, so the products start while
+//     the last planes are in flight. It keeps ds of every (query, slot) in
+//     shared memory and then sums it per relative offset in a fixed order,
+//     one thread per offset, from per-axis tables of each query's slot at
+//     each offset, into partial[cta, head, offset]; the host sums that over
+//     the CTAs.
+//   * dk/dv (mode 1), over key tiles: a key's queries (those whose window
+//     holds it) are per axis one contiguous range, (0 if j < k else
+//     j - (k - 1 - k/2)) .. (size - 1 if j >= size - k else j + k/2), k
+//     positions modulo W on a circular axis. The CTA stages the union of its
+//     keys' ranges (the inverse window) one D plane at a time, in strips of
+//     ry rows where a whole plane does not fit: the q and dO rows, lse and
+//     delta, with cp.async into two stages, the next strip's copies issued
+//     before the current one's products (where not even one row fits, a W
+//     window of ~70 and more at 128 channels, it reads them through L1). Each key's lanes hold k_j, v_j and
+//     their dk, dv sums in registers and write them once: no overlap-add.
+//
+// In both kernels a group of lanes owns NQ W-neighbouring positions, each
+// lane CH of their channels, so that one row read from shared memory serves
+// all NQ: in dq four queries (CP / 4 lanes of one float4 each; at kw = 5
+// four queries touch 8 W-keys for 20 pairs), in dk/dv two keys (CP / 8
+// lanes of two float4s), the best of one, two and four there. For every
+// row of the other side, the lanes form the NQ x 2 partial dots (q . k and
+// dO . v), sum them across the group by a reduce-scatter (shuffles: one
+// step per halving of the positions leaves each lane with its position's two
+// sums, wider groups then sum in full), each lane masks and exponentiates
+// its position's pair, and the group's p and ds are broadcast back for the
+// NQ positions' FMAs. A group takes NC_DQ
+// (NC_DKV) columns at once, so that their loads, shuffles and exponentials
+// are independent chains. Each group walks as many rows and columns as any
+// group of its warp (masked), so the shuffles stay convergent.
 //
 // What bounds it on an H100. At WeatherMesh's 1-degree latent ([1, 14, 45,
 // 90], 4 heads x 32, kernel (3, 5, 5)) the backward must read q, k, v, out,
-// dO and write dq, dk, dv (~232 MB, ~69 us at 3.35 TB/s) and compute s, dp,
-// dq, dk and dv over 17 M pairs (5.4 GFLOP, ~81 us on the FP32 pipes); each
-// pair is recomputed in both kernels, and its logit and dO.v cost four
-// shuffles. Not yet here: tensor cores, bf16.
+// dO and write dq, dk, dv (~234 MB with delta and drpb, ~70 us at 3.35
+// TB/s) and compute s, dp, dq, dk and dv over 17.0 M pairs (5.44 GFLOP,
+// ~81 us on the FP32 pipes): operations, by a little. Each pair is computed
+// in both kernels, and the groups compute their positions' union of
+// W-neighbours (8 of them at kw = 5 for four queries' 20 pairs). The design before this
+// one gave each query (key) four lanes of its own, walked its 75 pairs one at
+// a time through a chain of loads, four shuffles and an exponential, read
+// the dk/dv kernel's q and dO rows through L1 once per pair, and summed drpb
+// with one thread per offset over every query of the tile (0.61 of the dq
+// kernel's 1.08 ms at this layer; the dk/dv kernel 1.46 ms). Here, on an
+// H100 at 700 W (scripts/k4a_k5b_variants.py, PERF.md §6), the dk/dv kernel
+// reading its queries through L1 instead of the staged planes takes about
+// twice as long, the drpb loop of before would add 0.8 ms to the dq kernel,
+// one column at a time instead of chunks adds ~15% to it, and a group of
+// one position instead of four makes dq 35% slower; in dk/dv, groups of
+// four keys are 25% slower than pairs (more shuffles per FMA). What remains
+// is latency: each column's chain of loads, shuffles and an exponential at
+// 8 warps an SM (the dq kernel's halo allows one CTA).
+//
+// Not yet here: tensor cores, bf16.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int DQ = 0, DKV = 1;
+// Per kernel: W-neighbouring positions of a lane group, and channels of a
+// lane (a group has CP / channels lanes).
+constexpr int NQ_DQ = 4, CH_DQ = 4;
+constexpr int NQ_DKV = 2, CH_DKV = 8;
+// Columns a group takes at once (independent chains of loads, shuffles and
+// exponentials for the scheduler to interleave), in dq and in dk/dv.
+constexpr int NC_DQ = 4, NC_DKV = 2;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Geometry {
   int batch, d, h, w, heads, ch;
   long long q_ps, k_ps, v_ps;  // floats between consecutive positions
   int kd, kh, kw, circular_w;
   int td, th, tw;  // positions per tile, per axis
-  int ud, uh, uw;  // the most halo positions any tile stages, per axis (mode 0)
+  int ud, uh, uw;  // the most positions any tile stages, per axis
   int vec4;        // ch, strides and pointers allow 16-byte copies
   float scale;
+  int ry;  // dk/dv: rows of a staged strip (mode 1)
 };
 
 struct Params {
@@ -73,6 +118,11 @@ __device__ __forceinline__ int window_start(int i, int size, int k) {
   return s < 0 ? 0 : (s > size - k ? size - k : s);
 }
 
+// The window start of query i on the W axis, unreduced on a circular axis.
+__device__ __forceinline__ int start_w(const Geometry& g, int i) {
+  return g.circular_w ? i - g.kw / 2 : window_start(i, g.w, g.kw);
+}
+
 // Queries [i0, i0 + n) of one axis -> first key and number of keys of the
 // union of their windows (the first key unwrapped on a circular axis).
 __device__ __forceinline__ void window_span(int i0, int n, int size, int k, bool circular,
@@ -86,6 +136,23 @@ __device__ __forceinline__ void window_span(int i0, int n, int size, int k, bool
   span = window_start(i0 + n - 1, size, k) + k - lo;
 }
 
+// The first and last query whose window holds key j (unreduced on a
+// circular axis).
+__device__ __forceinline__ int inverse_lo(int j, int size, int k, bool circular) {
+  return circular ? j - (k - 1 - k / 2) : (j < k ? 0 : j - (k - 1 - k / 2));
+}
+__device__ __forceinline__ int inverse_hi(int j, int size, int k, bool circular) {
+  return circular ? j + k / 2 : (j >= size - k ? size - 1 : j + k / 2);
+}
+
+// Keys [j0, j0 + n) of one axis -> first query and number of queries of the
+// union of their inverse windows (ops/natten_flash.py: _inverse_span).
+__device__ __forceinline__ void inverse_span(int j0, int n, int size, int k, bool circular,
+                                             int& lo, int& span) {
+  lo = inverse_lo(j0, size, k, circular);
+  span = circular ? min(n + k - 1, size) : inverse_hi(j0 + n - 1, size, k, false) - lo + 1;
+}
+
 // The window slot of relative offset r for query i on one axis, or -1.
 __device__ __forceinline__ int slot_of(int r, int i, int size, int k, bool circular) {
   const int s = circular ? r - (k - 1) + k / 2 : i + r - (k - 1) - window_start(i, size, k);
@@ -95,6 +162,15 @@ __device__ __forceinline__ int slot_of(int r, int i, int size, int k, bool circu
 __device__ __forceinline__ int wrap(int i, int size) {
   i %= size;
   return i < 0 ? i + size : i;
+}
+
+// Index of an unreduced column in a staged union [lo, lo + span): wrapped
+// once where a circular union was capped at W columns, then clamped into the
+// union (a column outside it is masked by its caller).
+__device__ __forceinline__ int union_index(int col, int lo, int span, const Geometry& g) {
+  int c = col - lo;
+  if (g.circular_w && c >= span) c -= g.w;
+  return min(max(c, 0), span - 1);
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
@@ -109,50 +185,114 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok
                "r"(ok ? 16 : 0));
 }
 
-// Waits for this thread's copies, then for every thread's.
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::);
-  __syncthreads();
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// cp_async_wait<n> for a runtime n (past 7: waits for all but 7).
+__device__ __forceinline__ void cp_async_wait_n(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
 }
 
-__device__ __forceinline__ float4 axpy4(float a, const float4 x, float4 y) {
-  return make_float4(fmaf(a, x.x, y.x), fmaf(a, x.y, y.y), fmaf(a, x.z, y.z), fmaf(a, x.w, y.w));
-}
-
-// This lane's channels of one row: float4 jj holds channels 4 l + 16 jj + 0..3
-// (zero past ch), read through the read-only cache.
-template <int NV>
-__device__ __forceinline__ void load_row(float4 (&r)[NV], const float* row, int l, int ch,
-                                         bool vec4) {
+// dst[0:CP) = src[0:ch), zeros past ch (or everywhere when !ok); thread
+// part `c4` of CP / 4 copies channels 4 c4 .. 4 c4 + 3.
+template <int CP>
+__device__ __forceinline__ void copy_part(float* dst, const float* src, const float* any, int c4,
+                                          bool ok, const Geometry& g) {
+  const int c = 4 * c4;
+  if (g.vec4) {
+    const bool in = ok && c < g.ch;
+    cp_async16(dst + c, in ? src + c : any, in);
+  } else {
 #pragma unroll
-  for (int jj = 0; jj < NV; ++jj) {
-    const int c = 4 * l + 16 * jj;
-    if (vec4) {
-      r[jj] = c < ch ? __ldg(reinterpret_cast<const float4*>(row + c))
-                     : make_float4(0.f, 0.f, 0.f, 0.f);
-    } else {
-      r[jj] = make_float4(c < ch ? __ldg(row + c) : 0.f, c + 1 < ch ? __ldg(row + c + 1) : 0.f,
-                          c + 2 < ch ? __ldg(row + c + 2) : 0.f,
-                          c + 3 < ch ? __ldg(row + c + 3) : 0.f);
+    for (int x = 0; x < 4; ++x) {
+      const bool in = ok && c + x < g.ch;
+      cp_async4(dst + c + x, in ? src + c + x : any, in);
     }
   }
 }
 
+// A lane's channels of one row: float4 i holds channels 4 l + 4 LANES i ..
+// + 3 of its group lane l, so that a group reads a row's consecutive
+// 16-byte words.
 template <int NV>
-__device__ __forceinline__ void store_row(float* row, const float4 (&r)[NV], float mul, int l,
-                                          int ch, bool vec4) {
+struct Row {
+  float4 x[NV];
+};
+
+template <int NV>
+__device__ __forceinline__ float dot(const Row<NV>& a, const Row<NV>& b) {
+  float s = 0.f;
 #pragma unroll
-  for (int jj = 0; jj < NV; ++jj) {
-    const int c = 4 * l + 16 * jj;
-    const float4 x = make_float4(r[jj].x * mul, r[jj].y * mul, r[jj].z * mul, r[jj].w * mul);
+  for (int i = 0; i < NV; ++i)
+    s = fmaf(a.x[i].x, b.x[i].x, fmaf(a.x[i].y, b.x[i].y, fmaf(a.x[i].z, b.x[i].z, fmaf(a.x[i].w, b.x[i].w, s))));
+  return s;
+}
+
+template <int NV>
+__device__ __forceinline__ void axpy(float a, const Row<NV>& x, Row<NV>& y) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+    y.x[i] = make_float4(fmaf(a, x.x[i].x, y.x[i].x), fmaf(a, x.x[i].y, y.x[i].y),
+                         fmaf(a, x.x[i].z, y.x[i].z), fmaf(a, x.x[i].w, y.x[i].w));
+}
+
+template <int NV>
+__device__ __forceinline__ Row<NV> zero_row() {
+  Row<NV> r;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) r.x[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  return r;
+}
+
+// A staged row (shared memory, channels past ch are zeros).
+template <int NV, int LANES>
+__device__ __forceinline__ Row<NV> smem_row(const float* row, int l) {
+  Row<NV> r;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) r.x[i] = *reinterpret_cast<const float4*>(row + 4 * l + 4 * LANES * i);
+  return r;
+}
+
+// A global row, times `mul`, zero past ch.
+template <int NV, int LANES>
+__device__ __forceinline__ Row<NV> load_row(const float* row, int l, int ch, bool vec4,
+                                            float mul = 1.f) {
+  Row<NV> r;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = 4 * l + 4 * LANES * i;
+    float4 x;
+    if (vec4) {
+      x = c < ch ? __ldg(reinterpret_cast<const float4*>(row + c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      x = make_float4(c < ch ? __ldg(row + c) : 0.f, c + 1 < ch ? __ldg(row + c + 1) : 0.f,
+                      c + 2 < ch ? __ldg(row + c + 2) : 0.f, c + 3 < ch ? __ldg(row + c + 3) : 0.f);
+    }
+    r.x[i] = make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
+  }
+  return r;
+}
+
+template <int NV, int LANES>
+__device__ __forceinline__ void store_row(float* row, const Row<NV>& r, float mul, int l, int ch,
+                                          bool vec4) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = 4 * l + 4 * LANES * i;
+    const float4 x = make_float4(r.x[i].x * mul, r.x[i].y * mul, r.x[i].z * mul, r.x[i].w * mul);
     if (vec4) {
       if (c < ch) *reinterpret_cast<float4*>(row + c) = x;
     } else {
@@ -164,6 +304,64 @@ __device__ __forceinline__ void store_row(float* row, const float4 (&r)[NV], flo
   }
 }
 
+// The group's NQ positions' partial dots a[j] (first product) and b[j]
+// (second), summed over its LANES lanes: afterwards this lane holds the sums
+// of its position `position<LANES, NQ>(l)` (for four positions, the bits
+// LANES / 2 and LANES / 4 of its group lane l; for two, the bit LANES / 2);
+// wider groups then sum in full.
+template <int LANES, int NQ>
+__device__ __forceinline__ void reduce_scatter(const float (&a)[NQ], const float (&b)[NQ], int l,
+                                               float& sa, float& sb) {
+  static_assert(NQ == 1 || (NQ == 2 && LANES >= 2) || (NQ == 4 && LANES >= 4), "lane group layout");
+  int bit = LANES / 2;
+  if constexpr (NQ == 1) {
+    sa = a[0];
+    sb = b[0];
+  } else {
+    float a1[2], b1[2];
+    if constexpr (NQ == 4) {
+      const bool hi = l & bit;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        a1[jj] = (hi ? a[2 + jj] : a[jj]) + __shfl_xor_sync(0xffffffffu, hi ? a[jj] : a[2 + jj], bit);
+        b1[jj] = (hi ? b[2 + jj] : b[jj]) + __shfl_xor_sync(0xffffffffu, hi ? b[jj] : b[2 + jj], bit);
+      }
+      bit >>= 1;
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        a1[jj] = a[jj];
+        b1[jj] = b[jj];
+      }
+    }
+    const bool hi = l & bit;
+    sa = (hi ? a1[1] : a1[0]) + __shfl_xor_sync(0xffffffffu, hi ? a1[0] : a1[1], bit);
+    sb = (hi ? b1[1] : b1[0]) + __shfl_xor_sync(0xffffffffu, hi ? b1[0] : b1[1], bit);
+    bit >>= 1;
+  }
+#pragma unroll
+  for (; bit > 0; bit >>= 1) {
+    sa += __shfl_xor_sync(0xffffffffu, sa, bit);
+    sb += __shfl_xor_sync(0xffffffffu, sb, bit);
+  }
+}
+
+// Position j of a group lives on the lanes whose bits (from LANES / 2 down)
+// spell j; `base` is the group's first lane in the warp.
+template <int LANES, int NQ>
+__device__ __forceinline__ int holder(int base, int j) {
+  if constexpr (NQ == 4) return base + (j >> 1) * (LANES / 2) + (j & 1) * (LANES / 4);
+  if constexpr (NQ == 2) return base + j * (LANES / 2);
+  return base;
+}
+
+template <int LANES, int NQ>
+__device__ __forceinline__ int position(int l) {
+  if constexpr (NQ == 4) return 2 * ((l & (LANES / 2)) != 0) + ((l & (LANES / 4)) != 0);
+  if constexpr (NQ == 2) return (l & (LANES / 2)) != 0;
+  return 0;
+}
+
 // Tile blockIdx.x of the (td, th, tw) tiling -> its first position per axis.
 __device__ __forceinline__ void tile_origin(const Geometry& g, int& d0, int& h0, int& w0) {
   const int ntw = (g.w + g.tw - 1) / g.tw, nth = (g.h + g.th - 1) / g.th;
@@ -172,23 +370,33 @@ __device__ __forceinline__ void tile_origin(const Geometry& g, int& d0, int& h0,
   w0 = blockIdx.x % ntw * g.tw;
 }
 
-// Four lanes per position: lanes t, t + 8, t + 16, t + 24 of a warp. Returns
-// false for a thread past the tile or the volume.
-__device__ __forceinline__ bool my_position(const Geometry& g, int d0, int h0, int w0, int& pi,
-                                            int& id, int& ih, int& iw) {
-  const int lane = threadIdx.x & 31;
-  pi = (threadIdx.x >> 5) * 8 + (lane & 7);
-  id = d0 + pi / (g.th * g.tw);
-  ih = h0 + pi / g.tw % g.th;
-  iw = w0 + pi % g.tw;
-  return pi < g.td * g.th * g.tw && id < g.d && ih < g.h && iw < g.w;
-}
+// This thread's group of NQ positions: its tile row (td_local, th_local),
+// its first W position within the tile, and its lane l within the group.
+// The CTA's threads fill whole warps; a group past the tile's rows is not
+// `in_tile`.
+template <int LANES, int NQ>
+struct Group {
+  int pd, ph, pw0;  // tile-local
+  int l, base;      // lane within the group, the group's first lane in the warp
+  bool in_tile;
+  __device__ Group(const Geometry& g) {
+    const int gi = threadIdx.x / LANES;
+    const int per_row = g.tw / NQ;
+    const int row = gi / per_row;
+    in_tile = row < g.td * g.th;
+    pd = in_tile ? row / g.th : 0;
+    ph = in_tile ? row % g.th : 0;
+    pw0 = (gi % per_row) * NQ;
+    l = threadIdx.x % LANES;
+    base = (threadIdx.x & 31) - l;
+  }
+};
 
-template <int CP, int MAXT>
-__global__ void __launch_bounds__(MAXT) natten_dq_kernel(const Params p) {
+template <int CP>
+__global__ void __launch_bounds__(256, 1) natten_dq_kernel(const Params p) {
+  constexpr int NQ = NQ_DQ, LANES = CP / CH_DQ, NV = CH_DQ / 4;
   constexpr int LD = CP + 4;
-  constexpr int NV = CP / 16;
-  const Geometry g = p.g;
+  const Geometry& g = p.g;
   extern __shared__ float4 smem4[];
   const int U = g.ud * g.uh * g.uw;
   const int n_slots = g.kd * g.kh * g.kw;
@@ -208,204 +416,348 @@ __global__ void __launch_bounds__(MAXT) natten_dq_kernel(const Params p) {
   window_span(h0, min(g.th, g.h - h0), g.h, g.kh, false, lo_h, sp_h);
   window_span(w0, min(g.tw, g.w - w0), g.w, g.kw, g.circular_w, lo_w, sp_w);
 
+  // The halo, K and V, one cp.async group per D plane, so that the products
+  // of a warp's first key planes start before the last planes arrive.
+  if (p.rpb != nullptr)
+    for (int i = threadIdx.x; i < n_rel; i += blockDim.x) Rs[i] = p.rpb[head * n_rel + i];
   constexpr int V4 = CP / 4;
-  for (int i = threadIdx.x; i < U * V4; i += blockDim.x) {
-    const int r = i / V4, c = i % V4 * 4;
-    const int dd = r / (g.uh * g.uw), hh = r / g.uw % g.uh, ww = r % g.uw;
-    const bool in = dd < sp_d && hh < sp_h && ww < sp_w;
-    const long long pos =
-        in ? b_pos + ((long long)(lo_d + dd) * g.h + lo_h + hh) * g.w + wrap(lo_w + ww, g.w) : 0;
-    const float* kp = p.k + pos * g.k_ps + head * g.ch + c;
-    const float* vp = p.v + pos * g.v_ps + head * g.ch + c;
-    if (g.vec4) {
-      const bool ok = in && c < g.ch;
-      cp_async16(Ks + r * LD + c, ok ? kp : p.k, ok);
-      cp_async16(Vs + r * LD + c, ok ? vp : p.v, ok);
-    } else {
+  for (int dd = 0; dd < sp_d; ++dd) {
+    for (int i = threadIdx.x; i < sp_h * sp_w * V4; i += blockDim.x) {
+      const int r = i / V4, c4 = i - r * V4;
+      const int hh = r / sp_w, ww = r - hh * sp_w;
+      const long long pos = b_pos + ((long long)(lo_d + dd) * g.h + lo_h + hh) * g.w + wrap(lo_w + ww, g.w);
+      const int at = ((dd * g.uh + hh) * g.uw + ww) * LD;
+      copy_part<CP>(Ks + at, p.k + pos * g.k_ps + head * g.ch, p.k, c4, true, g);
+      copy_part<CP>(Vs + at, p.v + pos * g.v_ps + head * g.ch, p.v, c4, true, g);
+    }
+    cp_async_commit();
+  }
+
+  // The group's queries (past the volume: the last query again,
+  // computed and not stored).
+  const Group<LANES, NQ> grp(g);
+  const int l = grp.l;
+  const int id = min(d0 + grp.pd, g.d - 1), ih = min(h0 + grp.ph, g.h - 1);
+  const bool row_live = grp.in_tile && d0 + grp.pd < g.d && h0 + grp.ph < g.h;
+  const int hc = g.heads * g.ch;
+  Row<NV> qr[NQ], dor[NQ], dq[NQ];
+  int qw[NQ];
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const bool ok = in && c + x < g.ch;
-        cp_async4(Ks + r * LD + c + x, ok ? kp + x : p.k, ok);
-        cp_async4(Vs + r * LD + c + x, ok ? vp + x : p.v, ok);
+  for (int j = 0; j < NQ; ++j) {
+    qw[j] = min(w0 + grp.pw0 + j, g.w - 1);
+    const long long pos = b_pos + ((long long)id * g.h + ih) * g.w + qw[j];
+    qr[j] = load_row<NV, LANES>(p.q + pos * g.q_ps + head * g.ch, l, g.ch, g.vec4, g.scale);
+    dor[j] = load_row<NV, LANES>(p.dout + pos * hc + head * g.ch, l, g.ch, g.vec4);
+    dq[j] = zero_row<NV>();
+  }
+  // This lane's query after a reduce-scatter: its lse, delta and window.
+  const int mine = position<LANES, NQ>(l);
+  const int my_w = qw[mine];
+  const long long my_pos = b_pos + ((long long)id * g.h + ih) * g.w + my_w;
+  const float my_lse = p.lse[my_pos * g.heads + head];
+  const float my_delta = p.delta[my_pos * g.heads + head];
+  const int my_sw = start_w(g, my_w);
+  const bool writes_ds = p.rpb != nullptr && p.partial != nullptr && row_live &&
+                         w0 + grp.pw0 + mine < g.w && (l & (LANES / NQ - 1)) == 0;
+  const int my_q = ((grp.pd * g.th + grp.ph) * g.tw + grp.pw0 + mine) * n_slots;
+  const int sd = window_start(id, g.d, g.kd), sh = window_start(ih, g.h, g.kh);
+  const int cw0 = start_w(g, qw[0]);  // the group's first key column (unreduced)
+  const int n_cols = NQ - 1 + g.kw;    // the group's windows' columns, for every group
+
+  for (int x = 0; x < g.kd; ++x) {
+    // Key plane sd + x lies at most td - 1 planes past the halo's first.
+    cp_async_wait_n(max(sp_d - x - g.td, 0));
+    __syncthreads();
+    const int row_d = (sd + x - lo_d) * g.uh;
+    const int rel_d = (sd + x - id + g.kd - 1) * nrh;
+    for (int y = 0; y < g.kh; ++y) {
+      const int row_h = (row_d + sh + y - lo_h) * g.uw;
+      const int rel_h = (rel_d + sh + y - ih + g.kh - 1) * nrw;
+      const int slot_xy = (x * g.kh + y) * g.kw;
+      for (int u0 = 0; u0 < n_cols; u0 += NC_DQ) {
+        Row<NV> kv[NC_DQ];
+        float s[NC_DQ], dp[NC_DQ], ds[NC_DQ];
+#pragma unroll
+        for (int c = 0; c < NC_DQ; ++c) {
+          const int r = row_h + union_index(cw0 + u0 + c, lo_w, sp_w, g);
+          kv[c] = smem_row<NV, LANES>(Ks + r * LD, l);
+          const Row<NV> vv = smem_row<NV, LANES>(Vs + r * LD, l);
+          float a[NQ], b[NQ];
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            a[j] = dot(qr[j], kv[c]);
+            b[j] = dot(dor[j], vv);
+          }
+          reduce_scatter<LANES, NQ>(a, b, l, s[c], dp[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < NC_DQ; ++c) {
+          const int col = cw0 + u0 + c;
+          const int z = col - my_sw;  // slot of the key in this lane's window
+          const bool in = u0 + c < n_cols && z >= 0 && z < g.kw;
+          if (p.rpb != nullptr && in) s[c] += Rs[rel_h + col - my_w + g.kw - 1];
+          ds[c] = in ? exp2f((s[c] - my_lse) * LOG2E) * (dp[c] - my_delta) : 0.f;
+          if (writes_ds && in) DSs[my_q + slot_xy + z] = ds[c];
+        }
+#pragma unroll
+        for (int c = 0; c < NC_DQ; ++c)
+#pragma unroll
+          for (int j = 0; j < NQ; ++j)
+            axpy(__shfl_sync(0xffffffffu, ds[c], holder<LANES, NQ>(grp.base, j)), kv[c], dq[j]);
       }
     }
   }
-  if (p.rpb != nullptr)
-    for (int i = threadIdx.x; i < n_rel; i += blockDim.x) Rs[i] = p.rpb[head * n_rel + i];
-  cp_async_wait_all();
-
-  const int l = (threadIdx.x & 31) >> 3;
-  const unsigned group = 0x01010101u << (threadIdx.x & 7);
-  int qi, id, ih, iw;
-  if (my_position(g, d0, h0, w0, qi, id, ih, iw)) {
-    const long long pos = b_pos + ((long long)id * g.h + ih) * g.w + iw;
-    const int hc = g.heads * g.ch;
-    float4 qr[NV], dor[NV], dq[NV];
-    load_row<NV>(qr, p.q + pos * g.q_ps + head * g.ch, l, g.ch, g.vec4);
-    load_row<NV>(dor, p.dout + pos * hc + head * g.ch, l, g.ch, g.vec4);
+  if (row_live) {
 #pragma unroll
-    for (int jj = 0; jj < NV; ++jj) {
-      qr[jj] = make_float4(qr[jj].x * g.scale, qr[jj].y * g.scale, qr[jj].z * g.scale,
-                           qr[jj].w * g.scale);
-      dq[jj] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < NQ; ++j) {
+      if (w0 + grp.pw0 + j >= g.w) continue;
+      const long long pos = b_pos + ((long long)id * g.h + ih) * g.w + qw[j];
+      store_row<NV, LANES>(p.dq + pos * hc + head * g.ch, dq[j], g.scale, l, g.ch, g.vec4);
     }
-    const float lse = p.lse[pos * g.heads + head];
-    const float delta = p.delta[pos * g.heads + head];
-    const int sd = window_start(id, g.d, g.kd), sh = window_start(ih, g.h, g.kh);
-    const int sw = g.circular_w ? iw - g.kw / 2 : window_start(iw, g.w, g.kw);
-    int slot = 0;
-    for (int x = 0; x < g.kd; ++x) {
-      const int row_d = (sd + x - lo_d) * g.uh;
-      const int rel_d = (sd + x - id + g.kd - 1) * nrh;
-      for (int y = 0; y < g.kh; ++y) {
-        const int row_h = (row_d + sh + y - lo_h) * g.uw;
-        const int rel_h = (rel_d + sh + y - ih + g.kh - 1) * nrw;
-        for (int z = 0; z < g.kw; ++z, ++slot) {
-          int lw = sw + z - lo_w;
-          if (lw >= sp_w) lw -= g.w;  // circular halo capped at W positions
-          const float* kr = Ks + (row_h + lw) * LD + 4 * l;
-          const float* vr = Vs + (row_h + lw) * LD + 4 * l;
-          float4 kv[NV];
-          float s = 0.f, dp = 0.f;
-#pragma unroll
-          for (int jj = 0; jj < NV; ++jj) {
-            kv[jj] = *reinterpret_cast<const float4*>(kr + 16 * jj);
-            s = dot4(qr[jj], kv[jj], s);
-            dp = dot4(dor[jj], *reinterpret_cast<const float4*>(vr + 16 * jj), dp);
-          }
-          s += __shfl_xor_sync(group, s, 8);
-          dp += __shfl_xor_sync(group, dp, 8);
-          s += __shfl_xor_sync(group, s, 16);
-          dp += __shfl_xor_sync(group, dp, 16);
-          if (p.rpb != nullptr)
-            s += Rs[rel_h + (g.circular_w ? z + g.kw - 1 - g.kw / 2 : sw + z - iw + g.kw - 1)];
-          const float ds = expf(s - lse) * (dp - delta);
-#pragma unroll
-          for (int jj = 0; jj < NV; ++jj) dq[jj] = axpy4(ds, kv[jj], dq[jj]);
-          if (p.rpb != nullptr && l == 0) DSs[qi * n_slots + slot] = ds;
-        }
-      }
-    }
-    store_row<NV>(p.dq + pos * hc + head * g.ch, dq, g.scale, l, g.ch, g.vec4);
   }
   if (p.rpb == nullptr || p.partial == nullptr) return;
   __syncthreads();
 
-  // drpb partials: offset r sums ds over the tile's queries, in query order.
-  const int tq = g.td * g.th * g.tw;
+  // drpb partials. Per axis, the slot of each tile query at each relative
+  // offset (-1: none, or a query past the volume), in the halo's place.
+  signed char* t_d = reinterpret_cast<signed char*>(Ks);
+  signed char* t_h = t_d + (2 * g.kd - 1) * g.td;
+  signed char* t_w = t_h + nrh * g.th;
+  for (int i = threadIdx.x; i < (2 * g.kd - 1) * g.td; i += blockDim.x) {
+    const int r = i / g.td, qi = d0 + i % g.td;
+    t_d[i] = qi < g.d ? slot_of(r, qi, g.d, g.kd, false) : -1;
+  }
+  for (int i = threadIdx.x; i < nrh * g.th; i += blockDim.x) {
+    const int r = i / g.th, qi = h0 + i % g.th;
+    t_h[i] = qi < g.h ? slot_of(r, qi, g.h, g.kh, false) : -1;
+  }
+  for (int i = threadIdx.x; i < nrw * g.tw; i += blockDim.x) {
+    const int r = i / g.tw, qi = w0 + i % g.tw;
+    t_w[i] = qi < g.w ? slot_of(r, qi, g.w, g.kw, g.circular_w) : -1;
+  }
+  __syncthreads();
+  // Offset r sums ds over the tile's queries, in query order.
   for (int r = threadIdx.x; r < n_rel; r += blockDim.x) {
     const int rd = r / (nrh * nrw), rh = r / nrw % nrh, rw = r % nrw;
     float sum = 0.f;
-    for (int q = 0; q < tq; ++q) {
-      const int jd = d0 + q / (g.th * g.tw), jh = h0 + q / g.tw % g.th, jw = w0 + q % g.tw;
-      if (jd >= g.d || jh >= g.h || jw >= g.w) continue;
-      const int sx = slot_of(rd, jd, g.d, g.kd, false);
-      const int sy = slot_of(rh, jh, g.h, g.kh, false);
-      const int sz = slot_of(rw, jw, g.w, g.kw, g.circular_w);
-      if (sx < 0 || sy < 0 || sz < 0) continue;
-      sum += DSs[q * n_slots + (sx * g.kh + sy) * g.kw + sz];
+    for (int qd = 0; qd < g.td; ++qd) {
+      const int sx = t_d[rd * g.td + qd];
+      if (sx < 0) continue;
+      for (int qh = 0; qh < g.th; ++qh) {
+        const int sy = t_h[rh * g.th + qh];
+        if (sy < 0) continue;
+        const float* ds_row = DSs + ((qd * g.th + qh) * g.tw) * n_slots + (sx * g.kh + sy) * g.kw;
+        for (int qw_ = 0; qw_ < g.tw; ++qw_) {
+          const int sz = t_w[rw * g.tw + qw_];
+          if (sz >= 0) sum += ds_row[qw_ * n_slots + sz];
+        }
+      }
     }
     p.partial[(((long long)blockIdx.z * gridDim.x + blockIdx.x) * g.heads + head) * n_rel + r] =
         sum;
   }
 }
 
-template <int CP, int MAXT>
-__global__ void __launch_bounds__(MAXT) natten_dkv_kernel(const Params p) {
-  constexpr int NV = CP / 16;
-  const Geometry g = p.g;
+// STAGED: the queries' rows come from the staged strips; otherwise (a shape
+// whose inverse window cannot stage one row) through L1, once per pair.
+template <int CP, bool STAGED>
+__global__ void __launch_bounds__(256, 2) natten_dkv_kernel(const Params p) {
+  constexpr int NQ = NQ_DKV, LANES = CP / CH_DKV, NV = CH_DKV / 4;
+  constexpr int LD = CP + 4;
+  const Geometry& g = p.g;
   extern __shared__ float4 smem4[];
-  float* Rs = reinterpret_cast<float*>(smem4);  // [n_rel] rpb of this head
   const int nrh = 2 * g.kh - 1, nrw = 2 * g.kw - 1;
   const int n_rel = (2 * g.kd - 1) * nrh * nrw;
   const int head = blockIdx.y;
-  if (p.rpb != nullptr) {
-    for (int i = threadIdx.x; i < n_rel; i += blockDim.x) Rs[i] = p.rpb[head * n_rel + i];
-    __syncthreads();
-  }
-  int d0, h0, w0, ki, jd, jh, jw;
-  tile_origin(g, d0, h0, w0);
-  if (!my_position(g, d0, h0, w0, ki, jd, jh, jw)) return;
-  const int l = (threadIdx.x & 31) >> 3;
-  const unsigned group = 0x01010101u << (threadIdx.x & 7);
   const long long b_pos = (long long)blockIdx.z * g.d * g.h * g.w;
-  const long long pos = b_pos + ((long long)jd * g.h + jh) * g.w + jw;
   const int hc = g.heads * g.ch;
+  int d0, h0, w0;
+  tile_origin(g, d0, h0, w0);
+  // The tile's inverse window: query planes, rows and (unreduced) columns.
+  int lo_d, sp_d, lo_h, sp_h, lo_w, sp_w;
+  inverse_span(d0, min(g.td, g.d - d0), g.d, g.kd, false, lo_d, sp_d);
+  inverse_span(h0, min(g.th, g.h - h0), g.h, g.kh, false, lo_h, sp_h);
+  inverse_span(w0, min(g.tw, g.w - w0), g.w, g.kw, g.circular_w, lo_w, sp_w);
+  const int ry = STAGED ? g.ry : sp_h;  // rows of an item
+  const int strips = (sp_h + ry - 1) / ry;
+  const int n_items = sp_d * strips;
+  const int stage_pos = ry * g.uw;                    // positions of a stage
+  // q and dO rows, lse, delta; 16-byte aligned
+  const int stage_floats = (stage_pos * (2 * LD + 2) + 3) & ~3;
 
-  float4 kr[NV], vr[NV], dk[NV], dv[NV];
-  load_row<NV>(kr, p.k + pos * g.k_ps + head * g.ch, l, g.ch, g.vec4);
-  load_row<NV>(vr, p.v + pos * g.v_ps + head * g.ch, l, g.ch, g.vec4);
-#pragma unroll
-  for (int jj = 0; jj < NV; ++jj) {
-    dk[jj] = make_float4(0.f, 0.f, 0.f, 0.f);
-    dv[jj] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-  // The queries whose window holds this key, per axis.
-  const int d_lo = jd < g.kd ? 0 : jd - (g.kd - 1 - g.kd / 2);
-  const int d_hi = jd >= g.d - g.kd ? g.d - 1 : jd + g.kd / 2;
-  const int h_lo = jh < g.kh ? 0 : jh - (g.kh - 1 - g.kh / 2);
-  const int h_hi = jh >= g.h - g.kh ? g.h - 1 : jh + g.kh / 2;
-  const int w_lo = g.circular_w || jw < g.kw ? 0 : jw - (g.kw - 1 - g.kw / 2);
-  const int n_w = g.circular_w ? g.kw : (jw >= g.w - g.kw ? g.w - 1 : jw + g.kw / 2) - w_lo + 1;
+  float* Rs = reinterpret_cast<float*>(smem4);  // [n_rel] rpb of this head
+  float* stages = Rs + ((n_rel + 3) & ~3);      // [2][q rows, dO rows, lse, delta]
+  if (p.rpb != nullptr)
+    for (int i = threadIdx.x; i < n_rel; i += blockDim.x) Rs[i] = p.rpb[head * n_rel + i];
 
-  for (int id = d_lo; id <= d_hi; ++id) {
-    const int rel_d = (jd - id + g.kd - 1) * nrh;
-    for (int ih = h_lo; ih <= h_hi; ++ih) {
-      const int rel_h = (rel_d + jh - ih + g.kh - 1) * nrw;
-      const long long row = b_pos + ((long long)id * g.h + ih) * g.w;
-      for (int t = 0; t < n_w; ++t) {
-        // circular: slot t of query jw + kw/2 - t holds this key
-        const int iw = g.circular_w ? wrap(jw + g.kw / 2 - t, g.w) : w_lo + t;
-        const int rel_w = g.circular_w ? t + g.kw - 1 - g.kw / 2 : jw - iw + g.kw - 1;
-        const long long qpos = row + iw;
-        float4 qv[NV], dov[NV];
-        load_row<NV>(qv, p.q + qpos * g.q_ps + head * g.ch, l, g.ch, g.vec4);
-        load_row<NV>(dov, p.dout + qpos * hc + head * g.ch, l, g.ch, g.vec4);
-        float s = 0.f, dp = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < NV; ++jj) {
-          s = dot4(qv[jj], kr[jj], s);
-          dp = dot4(dov[jj], vr[jj], dp);
-        }
-        s += __shfl_xor_sync(group, s, 8);
-        dp += __shfl_xor_sync(group, dp, 8);
-        s += __shfl_xor_sync(group, s, 16);
-        dp += __shfl_xor_sync(group, dp, 16);
-        s *= g.scale;
-        if (p.rpb != nullptr) s += Rs[rel_h + rel_w];
-        const float pr = expf(s - __ldg(p.lse + qpos * g.heads + head));
-        const float ds = pr * (dp - __ldg(p.delta + qpos * g.heads + head));
-#pragma unroll
-        for (int jj = 0; jj < NV; ++jj) {
-          dv[jj] = axpy4(pr, dov[jj], dv[jj]);
-          dk[jj] = axpy4(ds, qv[jj], dk[jj]);
-        }
+  // Item `it`: query plane lo_d + it / strips, rows [y0, y1) of the union.
+  auto item_rows = [&](int it, int& y0, int& y1) {
+    y0 = lo_h + (it % strips) * ry;
+    y1 = min(y0 + ry, lo_h + sp_h);
+  };
+  auto copy_item = [&](int it, int stage) {
+    int y0, y1;
+    item_rows(it, y0, y1);
+    const int pd = lo_d + it / strips;
+    const int n_pos = (y1 - y0) * sp_w;
+    float* qs = stages + stage * stage_floats;
+    float* dos = qs + stage_pos * LD;
+    float* ls = dos + stage_pos * LD;
+    float* des = ls + stage_pos;
+    constexpr int V4 = CP / 4;
+    for (int i = threadIdx.x; i < n_pos * (V4 + 1); i += blockDim.x) {
+      const int r = i / (V4 + 1), c4 = i % (V4 + 1);
+      const int yy = r / sp_w, cc = r - yy * sp_w;
+      const long long pos = b_pos + ((long long)pd * g.h + y0 + yy) * g.w + wrap(lo_w + cc, g.w);
+      if (c4 < V4) {
+        copy_part<CP>(qs + r * LD, p.q + pos * g.q_ps + head * g.ch, p.q, c4, true, g);
+        copy_part<CP>(dos + r * LD, p.dout + pos * hc + head * g.ch, p.q, c4, true, g);
+      } else {
+        cp_async4(ls + r, p.lse + pos * g.heads + head, true);
+        cp_async4(des + r, p.delta + pos * g.heads + head, true);
       }
     }
+  };
+
+  // The group's keys (past the volume: the last key again, computed and
+  // not stored; a group past D or H walks no query).
+  const Group<LANES, NQ> grp(g);
+  const int l = grp.l;
+  const int jd = min(d0 + grp.pd, g.d - 1), jh = min(h0 + grp.ph, g.h - 1);
+  const bool row_live = grp.in_tile && d0 + grp.pd < g.d && h0 + grp.ph < g.h;
+  Row<NV> kr[NQ], vr[NQ], dk[NQ], dv[NQ];
+  int kw_[NQ];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    kw_[j] = min(w0 + grp.pw0 + j, g.w - 1);
+    const long long pos = b_pos + ((long long)jd * g.h + jh) * g.w + kw_[j];
+    kr[j] = load_row<NV, LANES>(p.k + pos * g.k_ps + head * g.ch, l, g.ch, g.vec4);
+    vr[j] = load_row<NV, LANES>(p.v + pos * g.v_ps + head * g.ch, l, g.ch, g.vec4);
+    dk[j] = dv[j] = zero_row<NV>();
   }
-  store_row<NV>(p.dk + pos * hc + head * g.ch, dk, g.scale, l, g.ch, g.vec4);
-  store_row<NV>(p.dv + pos * hc + head * g.ch, dv, 1.f, l, g.ch, g.vec4);
+  const int mine = position<LANES, NQ>(l);
+  const int my_j = kw_[mine];  // this lane's key column after a reduce-scatter
+  // The group's query ranges: planes and rows of its keys' D and H position,
+  // the columns of its keys' union.
+  const int qd_lo = inverse_lo(jd, g.d, g.kd, false), qd_hi = inverse_hi(jd, g.d, g.kd, false);
+  const int qh_lo = inverse_lo(jh, g.h, g.kh, false), qh_hi = inverse_hi(jh, g.h, g.kh, false);
+  const int qc_lo = inverse_lo(kw_[0], g.w, g.kw, g.circular_w);
+  const int my_cols = inverse_hi(kw_[NQ - 1], g.w, g.kw, g.circular_w) - qc_lo + 1;
+  const int n_cols = __reduce_max_sync(0xffffffffu, my_cols);
+
+  if (STAGED) copy_item(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < n_items; ++it) {
+    if (STAGED && it + 1 < n_items) copy_item(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* qs = stages + (it & 1) * stage_floats;
+    const float* dos = qs + stage_pos * LD;
+    const float* ls = dos + stage_pos * LD;
+    const float* des = ls + stage_pos;
+    int y0, y1;
+    item_rows(it, y0, y1);
+    const int pd = lo_d + it / strips;
+    // This group's rows of the strip, walked as far as its warp's longest.
+    const bool plane_in = row_live && pd >= qd_lo && pd <= qd_hi;
+    const int ya = max(y0, qh_lo), yb = min(y1, qh_hi + 1);
+    const int my_rows = plane_in && yb > ya ? yb - ya : 0;
+    const int n_rows = __reduce_max_sync(0xffffffffu, my_rows);
+    const int rel_d = (jd - pd + g.kd - 1) * nrh;
+    for (int t = 0; t < n_rows; ++t) {
+      const bool row_in = t < my_rows;
+      const int ih = row_in ? ya + t : y0;
+      const int row = (ih - y0) * sp_w;
+      const int rel_h = (rel_d + jh - ih + g.kh - 1) * nrw;
+      for (int u0 = 0; u0 < n_cols; u0 += NC_DKV) {
+        Row<NV> qv[NC_DKV], dov[NC_DKV];
+        float s[NC_DKV], dp[NC_DKV], pr[NC_DKV], ds[NC_DKV];
+#pragma unroll
+        for (int c = 0; c < NC_DKV; ++c) {
+          const int col = qc_lo + u0 + c;  // the query's column (unreduced)
+          const int r = row + union_index(col, lo_w, sp_w, g);
+          float lse_i, delta_i;
+          if constexpr (STAGED) {
+            qv[c] = smem_row<NV, LANES>(qs + r * LD, l);
+            dov[c] = smem_row<NV, LANES>(dos + r * LD, l);
+            lse_i = ls[r];
+            delta_i = des[r];
+          } else {
+            const long long gp = b_pos + ((long long)pd * g.h + ih) * g.w + wrap(lo_w + r - row, g.w);
+            qv[c] = load_row<NV, LANES>(p.q + gp * g.q_ps + head * g.ch, l, g.ch, g.vec4);
+            dov[c] = load_row<NV, LANES>(p.dout + gp * hc + head * g.ch, l, g.ch, g.vec4);
+            lse_i = __ldg(p.lse + gp * g.heads + head);
+            delta_i = __ldg(p.delta + gp * g.heads + head);
+          }
+          float a[NQ], b[NQ];
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            a[j] = dot(qv[c], kr[j]);
+            b[j] = dot(dov[c], vr[j]);
+          }
+          reduce_scatter<LANES, NQ>(a, b, l, s[c], dp[c]);
+          // Whether this lane's key lies in query col's window.
+          const int z = my_j - start_w(g, col);
+          const bool in = row_in && u0 + c < my_cols && z >= 0 && z < g.kw;
+          s[c] *= g.scale;
+          if (p.rpb != nullptr && in) s[c] += Rs[rel_h + my_j - col + g.kw - 1];
+          pr[c] = in ? exp2f((s[c] - lse_i) * LOG2E) : 0.f;
+          ds[c] = pr[c] * (dp[c] - delta_i);
+        }
+#pragma unroll
+        for (int c = 0; c < NC_DKV; ++c)
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            const int src = holder<LANES, NQ>(grp.base, j);
+            axpy(__shfl_sync(0xffffffffu, pr[c], src), dov[c], dv[j]);
+            axpy(__shfl_sync(0xffffffffu, ds[c], src), qv[c], dk[j]);
+          }
+      }
+    }
+    __syncthreads();  // the stage is free for the copy two items on
+  }
+  cp_async_wait<0>();
+  if (!row_live) return;
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    if (w0 + grp.pw0 + j >= g.w) continue;
+    const long long pos = b_pos + ((long long)jd * g.h + jh) * g.w + kw_[j];
+    store_row<NV, LANES>(p.dk + pos * hc + head * g.ch, dk[j], g.scale, l, g.ch, g.vec4);
+    store_row<NV, LANES>(p.dv + pos * hc + head * g.ch, dv[j], 1.f, l, g.ch, g.vec4);
+  }
 }
 
-template <int CP, int MAXT>
+template <int CP>
 int launch(int mode, const Params& p, cudaStream_t stream) {
   const Geometry& g = p.g;
   const int tq = g.td * g.th * g.tw;
-  const int threads = (4 * tq + 31) / 32 * 32;
-  if (threads > MAXT) return (int)cudaErrorInvalidValue;
+  const int nq = mode == DQ ? NQ_DQ : NQ_DKV, ch_lane = mode == DQ ? CH_DQ : CH_DKV;
+  const int threads = (tq / nq * (CP / ch_lane) + 31) / 32 * 32;  // whole warps
+  if (g.tw % nq != 0 || threads > 256) return (int)cudaErrorInvalidValue;
   const int n_rel = (2 * g.kd - 1) * (2 * g.kh - 1) * (2 * g.kw - 1);
   const int n_tiles = (g.d + g.td - 1) / g.td * ((g.h + g.th - 1) / g.th) * ((g.w + g.tw - 1) / g.tw);
   const dim3 grid(n_tiles, g.heads, g.batch);
-  size_t smem = p.rpb != nullptr ? sizeof(float) * n_rel : 0;
   if (mode == DQ) {
-    smem += sizeof(float) * (size_t)2 * g.ud * g.uh * g.uw * (CP + 4);
-    if (p.rpb != nullptr) smem += sizeof(float) * (size_t)tq * g.kd * g.kh * g.kw;
-    cudaError_t err = cudaFuncSetAttribute(natten_dq_kernel<CP, MAXT>,
+    size_t smem = sizeof(float) * ((size_t)2 * g.ud * g.uh * g.uw * (CP + 4));
+    if (p.rpb != nullptr) smem += sizeof(float) * ((size_t)n_rel + (size_t)tq * g.kd * g.kh * g.kw);
+    cudaError_t err = cudaFuncSetAttribute(natten_dq_kernel<CP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    natten_dq_kernel<CP, MAXT><<<grid, threads, smem, stream>>>(p);
+    natten_dq_kernel<CP><<<grid, threads, smem, stream>>>(p);
+  } else if (g.ry > 0) {
+    const size_t stage = ((size_t)g.ry * g.uw * (2 * (CP + 4) + 2) + 3) / 4 * 4;
+    const size_t smem = sizeof(float) * (((size_t)n_rel + 3) / 4 * 4 + 2 * stage);
+    cudaError_t err = cudaFuncSetAttribute(natten_dkv_kernel<CP, true>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    natten_dkv_kernel<CP, true><<<grid, threads, smem, stream>>>(p);
   } else {
-    natten_dkv_kernel<CP, MAXT><<<grid, threads, smem, stream>>>(p);
+    const size_t smem = sizeof(float) * (((size_t)n_rel + 3) / 4 * 4);
+    cudaError_t err = cudaFuncSetAttribute(natten_dkv_kernel<CP, false>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    natten_dkv_kernel<CP, false><<<grid, threads, smem, stream>>>(p);
   }
   return (int)cudaGetLastError();
 }
@@ -415,10 +767,12 @@ int launch(int mode, const Params& p, cudaStream_t stream) {
 // Plain C entry point (bound with ctypes). mode 0: dq, and the drpb partials
 // when rpb and partial are given; mode 1: dk and dv. Launches on `stream`,
 // does not synchronise, allocates nothing; returns a cudaError_t (0 on
-// success), or cudaErrorInvalidValue for ch > 128, an unknown mode or a tile
-// of more positions than the CTA takes. The tile and (mode 0) its halo
-// extents come from the host, which checked them against the volume and the
-// shared memory.
+// success), or cudaErrorInvalidValue for ch > 128, an unknown mode, or a
+// tile whose W extent is not a multiple of its groups or that needs more
+// than 256 threads. The tile, its staged extents (the halo in mode 0, the
+// inverse window in mode 1) and the strip rows ry (mode 1; 0: the queries
+// read through L1, unstaged) come from the host, which checked them against
+// the volume and the shared memory.
 extern "C" int gwt_natten_flash_backward(int mode, const float* q, const float* k,
                                          const float* v, const float* rpb, const float* dout,
                                          const float* lse, const float* delta, float* dq,
@@ -426,15 +780,15 @@ extern "C" int gwt_natten_flash_backward(int mode, const float* q, const float* 
                                          int h, int w, int heads, int ch, long long q_ps,
                                          long long k_ps, long long v_ps, int kd, int kh, int kw,
                                          int circular_w, int td, int th, int tw, int ud, int uh,
-                                         int uw, int vec4, float scale, void* stream) {
+                                         int uw, int vec4, float scale, int ry, void* stream) {
   if (mode != DQ && mode != DKV) return (int)cudaErrorInvalidValue;
   const Params p{q, k, v, rpb, dout, lse, delta, dq, dk, dv, partial,
                  Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw, circular_w,
-                          td, th, tw, ud, uh, uw, vec4, scale}};
+                          td, th, tw, ud, uh, uw, vec4, scale, ry}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ch <= 16) return launch<16, 512>(mode, p, s);
-  if (ch <= 32) return launch<32, 512>(mode, p, s);
-  if (ch <= 64) return launch<64, 256>(mode, p, s);
-  if (ch <= 128) return launch<128, 128>(mode, p, s);
+  if (ch <= 16) return launch<16>(mode, p, s);
+  if (ch <= 32) return launch<32>(mode, p, s);
+  if (ch <= 64) return launch<64>(mode, p, s);
+  if (ch <= 128) return launch<128>(mode, p, s);
   return (int)cudaErrorInvalidValue;
 }

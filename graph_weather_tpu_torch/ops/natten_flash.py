@@ -23,8 +23,13 @@ compute only the kd * kh * kw pairs of each query:
     which one torch sum turns into drpb; (ii) dk/dv over key tiles: each key
     walks the queries whose window holds it (per axis a contiguous range,
     of at most k + k//2 positions on an axis of 2k or more) and writes dk
-    and dv itself. This replaces
+    and dv itself; the CTA stages the union of its keys' ranges (the
+    inverse window) one D plane at a time, in strips of `_dkv_rows` rows,
+    q and dO rows, lse and delta. This replaces
     the TPU kernel's block-local dk/dv, XLA overlap-add and segment-sum.
+    A group of lanes owns W-neighbouring positions, so one row read from
+    shared memory serves them all: four queries on ch/4 lanes in the dq
+    kernel, two keys on ch/8 lanes in the dk/dv kernel.
 
 The host picks each kernel's tile (`_pick_tile`): among tiles of at most
 128 queries (64 at ch <= 64 in a 256-thread CTA, 32 at ch <= 128) whose
@@ -40,8 +45,9 @@ The plain versions are `neighborhood_attention_3d_reference` (the forward,
 in ops/neighborhood_attention.py) and `natten_flash_backward_reference`
 (the backward, written out as K5b computes it). `neighborhood_attention_3d`
 dispatches: CPU tensors take the plain versions, CUDA tensors launch the
-kernels or raise. Launch counts: `LAUNCHES` (K5a), `BWD_DQ_LAUNCHES` and
-`BWD_DKV_LAUNCHES` (K5b's two kernels).
+kernels or raise (`launch_backward` launches one K5b kernel). Launch
+counts: `LAUNCHES` (K5a), `BWD_DQ_LAUNCHES` and `BWD_DKV_LAUNCHES` (K5b's
+two kernels).
 """
 
 from __future__ import annotations
@@ -79,8 +85,10 @@ _GEOMETRY = [
     _c_ptr,  # cudaStream_t
 ]
 _FWD_ARGTYPES = [_c_ptr] * 6 + _GEOMETRY  # q k v rpb out lse
-_BWD_ARGTYPES = [_c_int] + [_c_ptr] * 11 + _GEOMETRY  # mode, q k v rpb dout lse delta dq dk dv partial
-_DQ, _DKV = 0, 1  # backward modes of the C entry
+# mode, q k v rpb dout lse delta dq dk dv partial, the geometry, ry (rows of a
+# dk/dv strip), the stream
+_BWD_ARGTYPES = [_c_int] + [_c_ptr] * 11 + _GEOMETRY[:-1] + [_c_int, _c_ptr]
+DQ, DKV = 0, 1  # backward modes of the C entry (K5b's two kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +201,8 @@ class Tile:
 @functools.lru_cache(maxsize=64)
 def _pick_tile(kind, dims, kernel, circular_w, ch, has_bias) -> Tile:
     """The tile of `kind` ("fwd", "dq" or "dkv"; see the module docstring).
-    The dk/dv kernel stages only rpb: its queries are read through L1."""
+    The dk/dv kernel's tile is chosen by rpb's shared memory alone; it
+    stages its inverse window in strips that fit (`_dkv_rows`)."""
     if ch > MAX_CHANNELS:
         raise ValueError(f"natten_flash: head width {ch} > {MAX_CHANNELS}")
     cp = _padded_width(ch)
@@ -226,6 +235,26 @@ def _pick_tile(kind, dims, kernel, circular_w, ch, has_bias) -> Tile:
             f"{SMEM_LIMIT} bytes of shared memory"
         )
     return best
+
+
+def _dkv_smem(ry: int, uw: int, cp: int, n_rel: int) -> int:
+    """Bytes of shared memory of the dk/dv kernel: rpb, and two stages of a
+    strip of ry rows x uw columns of q and dO rows, lse and delta."""
+    stage = -(-ry * uw * (2 * (cp + 4) + 2) // 4) * 4
+    return 4 * (-(-n_rel // 4) * 4 + 2 * stage)
+
+
+def _dkv_rows(tile: Tile, kernel, ch: int) -> int:
+    """Rows of the inverse window's strips that the dk/dv kernel stages at
+    once: the most, up to a whole plane (tile.uh), that fit in shared
+    memory. At WeatherMesh's shapes (ch 32, kernels (3, 5, 5) and (5, 7, 7))
+    a whole plane fits. 0 where not even one row fits (a W window of ~70
+    and more at 128 channels): the kernel then reads its queries through
+    L1, unstaged."""
+    cp = _padded_width(ch)
+    n_rel = math.prod(2 * kk - 1 for kk in kernel)
+    return max((ry for ry in range(1, tile.uh + 1) if _dkv_smem(ry, tile.uw, cp, n_rel) <= SMEM_LIMIT),
+               default=0)
 
 
 def takes(shape, kernel, circular_w: bool, has_bias: bool, backward: bool = False) -> bool:
@@ -287,43 +316,45 @@ def _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse):
     return out, lse
 
 
-def _backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular_w):
-    """K5b: (dq, dk, dv, drpb), drpb None without rpb."""
+def launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular_w):
+    """One K5b kernel on the card: mode `DQ` writes grads[0] (dq) and, with
+    rpb, its drpb partials into `partial` ([B * n_tiles, heads, n_rel] of
+    the dq tile); mode `DKV` writes grads[1] and grads[2] (dk, dv). rpb
+    contiguous or None, dout dense, delta = rowsum(dO * out)
+    [B, D, H, W, heads]."""
     global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
     dims, ch = tuple(q.shape[1:4]), q.shape[-1]
+    tile = _pick_tile("dq" if mode == DQ else "dkv", dims, kernel, circular_w, ch, rpb is not None)
+    geometry = _geometry(q, k, v, kernel, circular_w, tile, (q, k, v, dout, *grads))
+    ry = 0 if mode == DQ else _dkv_rows(tile, kernel, ch)
+    outs = (grads[0], None, None, partial) if mode == DQ else (None, grads[1], grads[2], None)
+    with torch.cuda.device(q.device):
+        err = c_function("natten_flash_bwd", "gwt_natten_flash_backward", _BWD_ARGTYPES)(
+            mode, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(_ptr(t) for t in outs),
+            *geometry[:-1], ry, geometry[-1],
+        )
+    _check_err(err, "backward (dq)" if mode == DQ else "backward (dk/dv)")
+    if mode == DQ:
+        BWD_DQ_LAUNCHES += 1
+    else:
+        BWD_DKV_LAUNCHES += 1
+
+
+def _backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular_w):
+    """K5b: (dq, dk, dv, drpb), drpb None without rpb."""
     rpb = None if rpb is None else rpb.contiguous()
     dout = dout.contiguous()
     delta = (dout * out).sum(-1).contiguous()  # [B, D, H, W, heads]
-    dq, dk, dv = (torch.empty(q.shape, device=q.device) for _ in range(3))
-    heads = q.shape[-2]
-    has_bias = rpb is not None
-    tensors = (q, k, v, dout, dq, dk, dv)
-    fn = c_function("natten_flash_bwd", "gwt_natten_flash_backward", _BWD_ARGTYPES)
-
-    tile = _pick_tile("dq", dims, kernel, circular_w, ch, has_bias)
+    grads = tuple(torch.empty(q.shape, device=q.device) for _ in range(3))
     partial = None
-    if has_bias:
-        partial = torch.empty(q.shape[0] * tile.n_tiles, heads, rpb[0].numel(), device=q.device)
-    with torch.cuda.device(q.device):
-        err = fn(
-            _DQ, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), 0, 0, _ptr(partial),
-            *_geometry(q, k, v, kernel, circular_w, tile, tensors),
-        )
-    _check_err(err, "backward (dq)")
-    BWD_DQ_LAUNCHES += 1
-
-    tile = _pick_tile("dkv", dims, kernel, circular_w, ch, has_bias)
-    with torch.cuda.device(q.device):
-        err = fn(
-            _DKV, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), 0, dk.data_ptr(), dv.data_ptr(), 0,
-            *_geometry(q, k, v, kernel, circular_w, tile, tensors),
-        )
-    _check_err(err, "backward (dk/dv)")
-    BWD_DKV_LAUNCHES += 1
-    drpb = partial.sum(0).reshape(rpb.shape) if has_bias else None
-    return dq, dk, dv, drpb
+    if rpb is not None:
+        tile = _pick_tile("dq", tuple(q.shape[1:4]), kernel, circular_w, q.shape[-1], True)
+        partial = torch.empty(q.shape[0] * tile.n_tiles, q.shape[-2], rpb[0].numel(), device=q.device)
+    for mode in (DQ, DKV):
+        launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular_w)
+    drpb = partial.sum(0).reshape(rpb.shape) if rpb is not None else None
+    return (*grads, drpb)
 
 
 class _NattenFlash(torch.autograd.Function):

@@ -10,13 +10,15 @@ from this script's own checkout: K3a at c = 128 and 512 against SDPA on the
 gathered unions (phase 8), K3c and K3b with SDPA's backward (phase 14), per
 evaluation and per train step; 3 GenCast denoiser requests (phase 9), one
 20-step sample (11), 3 train steps (15); 3 forecaster requests at 1° (4)
-and 3 train steps (34); K4b's two kernels on the splits-5 band layout at
-c = 128 and 512 (phase 27; the dk/dv kernel in its symmetric role where the
-tree has one), per train step, and 3 banded GenCast train steps (30); K6 on
-the 768-d WeatherMesh's layer (phase 37, case a), 3 requests of the 768-d
-WeatherMesh (38) and 3 of the 128-d one (19). Each kernel is held against
-its plain version as in those phases. Prints one JSON line. f32
-throughout; TF32 is off.
+and 3 train steps (34); K4a (phase 26) and K4b's two kernels (27) on the
+splits-5 band layout at c = 128 and 512 (the dk/dv kernel in its symmetric
+role where the tree has one), per evaluation and per train step, 3 banded
+GenCast requests (28) and 3 banded train steps (30); K6 on the 768-d
+WeatherMesh's layer (phase 37, case a), 3 requests of the 768-d WeatherMesh
+(38) and 3 of the 128-d one (19); K5b's dq and dk/dv kernels apart on the
+128-d layer (phase 22, case a) and 3 128-d WeatherMesh train steps (23).
+Each kernel is held against its plain version as in those phases. Prints
+one JSON line. f32 throughout; TF32 is off.
 """
 
 from __future__ import annotations
@@ -31,6 +33,53 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+
+def k5b_split(cs, natten_flash, gen) -> dict:
+    """K5b's dq kernel (with its drpb partials) and dk/dv kernel apart on the
+    128-d WeatherMesh's layer (phase 22, case a), after a check of the whole
+    backward against its plain version. A tree without
+    `natten_flash.launch_backward` (before the kernels could be launched
+    apart) is driven through its C entry as its own wrapper drove it."""
+    kernel, heads, circular = (3, 5, 5), 4, False
+    q, k, v, rpb = cs.natten_inputs(gen, kernel, heads)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    out, lse = natten_flash._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)
+    args = (q, k, v, rpb, out, lse, dout, kernel, circular)
+    got = natten_flash._backward_cuda(*args)
+    torch.cuda.synchronize()
+    want = natten_flash.natten_flash_backward_reference(*args)
+    err = max((a - b).abs().max().item() for a, b in zip(got[:3], want[:3]))
+    if not err <= cs.K5_TOL:
+        raise AssertionError(f"K5b: error {err} > {cs.K5_TOL}")
+    delta = (dout * out).sum(-1).contiguous()
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    dims, ch = tuple(q.shape[1:4]), q.shape[-1]
+    partial = torch.empty(natten_flash._pick_tile("dq", dims, kernel, circular, ch, True).n_tiles,
+                          heads, rpb[0].numel(), device="cuda")
+    if hasattr(natten_flash, "launch_backward"):
+        def launch(mode):
+            return lambda: natten_flash.launch_backward(
+                mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular)
+    else:
+        fn = natten_flash.c_function("natten_flash_bwd", "gwt_natten_flash_backward",
+                                     natten_flash._BWD_ARGTYPES)
+
+        def launch(mode):
+            tile = natten_flash._pick_tile(("dq", "dkv")[mode], dims, kernel, circular, ch, True)
+            geometry = natten_flash._geometry(q, k, v, kernel, circular, tile, (q, k, v, dout, *grads))
+            outs = (grads[0], None, None, partial) if mode == 0 else (None, grads[1], grads[2], None)
+
+            def run():
+                if fn(mode, q.data_ptr(), k.data_ptr(), v.data_ptr(), rpb.data_ptr(), dout.data_ptr(),
+                      lse.data_ptr(), delta.data_ptr(), *(natten_flash._ptr(t) for t in outs), *geometry):
+                    raise RuntimeError("K5b launch failed")
+            return run
+    dq_ms, dkv_ms = cs.cuda_ms(launch(0)), cs.cuda_ms(launch(1))
+    return {"k5b_max_abs_err": err, "k5b_dq_ms_per_layer": dq_ms, "k5b_dkv_ms_per_layer": dkv_ms,
+            "k5b_ms_per_layer": cs.cuda_ms(lambda: natten_flash._backward_cuda(*args)),
+            "k5b_dq_ms_per_step": cs.K5_PER_FORWARD * dq_ms,
+            "k5b_dkv_ms_per_step": cs.K5_PER_FORWARD * dkv_ms}
 
 
 def main() -> int:
@@ -52,7 +101,14 @@ def main() -> int:
     from graph_weather_tpu_torch.meshes.clustering import build_cluster_scatter_index
     from graph_weather_tpu_torch.models.gencast.graphs import build_graphcast_graphs
     from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
-    from graph_weather_tpu_torch.ops import _build, banded_flash, clustered_flash, fused_mlp, natten3d
+    from graph_weather_tpu_torch.ops import (
+        _build,
+        banded_flash,
+        clustered_flash,
+        fused_mlp,
+        natten3d,
+        natten_flash,
+    )
     from graph_weather_tpu_torch.ops.neighborhood_attention import (
         neighborhood_attention_3d_reference,
     )
@@ -153,6 +209,22 @@ def main() -> int:
         role = {"symmetric": getattr(band, "band_symmetric", False)}
     result["k4b_dkv_role"] = "symmetric" if role.get("symmetric") else "general"
     masks, block, w, n = band.band_masks, band.band_block, band.band_w, band.n_receivers
+    k4a = {}
+    for c in per_eval:
+        _, (q, k, v) = cs.band_inputs(gen, band, c, 4, 3)
+        out, lse = banded_flash._forward_cuda(q, k, v, masks, block, w, with_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = banded_flash.banded_flash_forward_reference(q, k, v, masks, block, w, with_lse=True)
+        err = max((out - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+        if not err <= cs.K4_TOL:
+            raise AssertionError(f"K4a c={c}: error {err} > {cs.K4_TOL}")
+        k4a[c] = {"ms": cs.cuda_ms(lambda: banded_flash._forward_cuda(q, k, v, masks, block, w, False)),
+                  "lse_ms": cs.cuda_ms(lambda: banded_flash._forward_cuda(q, k, v, masks, block, w, True)),
+                  "err": err}
+    for kind in ("ms", "lse_ms"):
+        result[f"k4a_{kind}"] = {c: v[kind] for c, v in k4a.items()}
+        result[f"k4a_{kind}"]["per_eval_or_step"] = sum(k4a[c][kind] * m for c, m in per_eval.items())
+    result["k4a_max_abs_err"] = max(v["err"] for v in k4a.values())
     k4b = {}
     for c in per_eval:
         _, (q, k, v, dout) = cs.band_inputs(gen, band, c, 4, 4)
@@ -181,6 +253,9 @@ def main() -> int:
     del band, masks, q, k, v, dout, out, lse, want, grads
     bden = port.Denoiser(**cs.GENCAST_BANDED, device="cuda")
     bden.init(torch.Generator().manual_seed(0))
+    result["band_request_ms"] = [
+        cs.timed(lambda: bden(x, c, sigma))[1] for x, c in zip(corrupted, prev)
+    ]
     bstep = port.make_train_step(
         bden.module.parameters(), bden.forward_fn(), lambda p, t: loss(p, noise_t, t),
         port.make_optimizer(1e-4),
@@ -218,10 +293,27 @@ def main() -> int:
         before = natten3d.LAUNCHES
         result[key] = [cs.timed(lambda: wm(s_, p_))[1] for s_, p_ in zip(surfaces, pressures)]
         result[key.replace("request_ms", "k6_launches")] = natten3d.LAUNCHES - before
+        if cfg is cs.WEATHERMESH:  # 3 train steps (phase 23)
+            targets = tuple(torch.randn(t.shape, generator=wm_gen).to("cuda")
+                            for t in (surfaces[0], pressures[0]))
+            wm_step = port.make_train_step(
+                wm.module.parameters(), wm.forward_fn(),
+                lambda pr, tg: ((pr.surface - tg[0]) ** 2).mean() + ((pr.pressure - tg[1]) ** 2).mean(),
+                port.make_optimizer(1e-4),
+            )
+            before = natten_flash.BWD_DQ_LAUNCHES
+            result["wm_step_ms"] = [
+                cs.timed(lambda: wm_step(surfaces[0], pressures[0], targets))[1] for _ in range(3)
+            ]
+            if natten_flash.BWD_DQ_LAUNCHES - before != 3 * cs.K5_PER_FORWARD:
+                raise AssertionError("the WeatherMesh train steps did not run K5b 8 times each")
+            del wm_step
         del wm
         torch.cuda.empty_cache()
+    result.update(k5b_split(cs, natten_flash, gen))
     for key in ("gencast_request_ms", "gencast_step_ms", "fc_request_ms", "fc_step_ms",
-                "band_step_ms", "wm_wide_request_ms", "wm_request_ms"):
+                "band_request_ms", "band_step_ms", "wm_wide_request_ms", "wm_request_ms",
+                "wm_step_ms"):
         result[key + "_median_later"] = statistics.median(result[key][1:])
     print(json.dumps(result))
     return 0

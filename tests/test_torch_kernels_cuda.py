@@ -554,6 +554,49 @@ def test_natten_backward_matches_plain(gen, case):
         assert (got[3] - want[3]).abs().max().item() <= ATOL * want[3].abs().max().item()
 
 
+K5B_TILE_CASES = [
+    # (B, D, H, W), heads, ch, kernel, circular_w
+    ((1, 5, 9, 11), 2, 32, (3, 3, 5), False),  # W past the last group of four
+    ((2, 5, 9, 11), 2, 32, (3, 3, 5), True),  # the circular seam
+    ((1, 6, 9, 14), 8, 32, (5, 7, 7), False),  # clamped windows at every edge
+    ((1, 6, 9, 14), 2, 64, (5, 7, 7), True),
+    ((1, 1, 2, 120), 1, 128, (1, 1, 71), False),  # no staged row fits: queries through L1
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K5B_TILE_CASES,
+                         ids=["k335", "k335_circular_b2", "k577", "k577_ch64_circular", "unstaged"])
+def test_natten_backward_kernels_apart(gen, case):
+    """K5b's dq kernel (with its drpb partials) and dk/dv kernel, each
+    launched alone through `launch_backward`, against the plain backward,
+    with one launch counted for each."""
+    shape, heads, ch, kernel, circular = case
+    q, k, v, rpb = _natten_inputs(gen, shape, heads, ch, kernel, True, fused=ch == 32)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    out, lse = neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular, with_lse=True)
+    want = natten_flash.natten_flash_backward_reference(q, k, v, rpb, out, lse, dout, kernel, circular)
+    delta = (dout * out).sum(-1).contiguous()
+    grads = tuple(torch.full_like(q, float("nan")) for _ in range(3))
+    tile = natten_flash._pick_tile("dq", tuple(shape[1:]), kernel, circular, ch, True)
+    partial = torch.empty(shape[0] * tile.n_tiles, heads, rpb[0].numel(), device="cuda")
+    counts = (natten_flash.BWD_DQ_LAUNCHES, natten_flash.BWD_DKV_LAUNCHES)
+    natten_flash.launch_backward(natten_flash.DQ, q, k, v, rpb, dout, lse, delta, grads, partial,
+                                 kernel, circular)
+    torch.cuda.synchronize()
+    assert (natten_flash.BWD_DQ_LAUNCHES, natten_flash.BWD_DKV_LAUNCHES) == (counts[0] + 1, counts[1])
+    assert (grads[0] - want[0]).abs().max().item() <= ATOL
+    assert torch.isnan(grads[1]).all() and torch.isnan(grads[2]).all()  # dq mode writes dq only
+    drpb = partial.sum(0).reshape(rpb.shape)
+    assert (drpb - want[3]).abs().max().item() <= ATOL * want[3].abs().max().item()
+    natten_flash.launch_backward(natten_flash.DKV, q, k, v, rpb, dout, lse, delta, grads, None,
+                                 kernel, circular)
+    torch.cuda.synchronize()
+    assert (natten_flash.BWD_DQ_LAUNCHES, natten_flash.BWD_DKV_LAUNCHES) == (counts[0] + 1, counts[1] + 1)
+    for name, a, b in zip("kv", grads[1:], want[1:3]):
+        assert (a - b).abs().max().item() <= ATOL, f"d{name}"
+
+
 @pytest.mark.cuda
 def test_natten_plain_backward_is_autograd_of_the_twin(gen):
     """The plain backward against autograd through the plain forward, in
@@ -764,7 +807,49 @@ def test_banded_flash_backward_symmetric_role(gen, c, w):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["clustered_flash", "clustered_flash_bwd", "banded_flash_bwd"])
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("c", [32, 33, 128, 512])
+def test_banded_flash_tensor_core_tiles(gen, c, batch):
+    """K4a on the tensor cores against its plain version at the widths of
+    its tile classes (32; 33, past a class and not a multiple of 4: scalar
+    copies; 128; 512: four warps a row group), B in {1, 2}: out and lse
+    within 1e-4, rows without a neighbour exactly 0."""
+    q, k, v, _, masks, empty = _band_case(gen, batch, 1300, 2, c, 512, seed=c)
+    before = banded_flash.LAUNCHES
+    out, lse = banded_flash._forward_cuda(q, k, v, masks, 512, 512, with_lse=True)
+    torch.cuda.synchronize()
+    assert banded_flash.LAUNCHES == before + 1
+    ref, ref_lse = banded_flash.banded_flash_forward_reference(q, k, v, masks, 512, 512, with_lse=True)
+    assert (out - ref).abs().max().item() <= ATOL
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    assert bool((out[:, empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [32, 128, 512])
+def test_banded_flash_one_edge_in_the_last_subtile_and_an_empty_block(gen, c):
+    """Receiver 511 of block 0 has its only edge on the last slot of its
+    window (the last 16-key warp tile of the last copied tile); block 1 has
+    no edge at all: its rows come out exactly 0, their lse -1e28 +
+    log(1e-30), with and without lse; B = 2."""
+    n, w = 1024, 512
+    masks = build_band_masks(np.array([511 + w]), np.array([511]), n, 512, w)
+    assert masks[0].nonzero()[1].tolist() == [512 + 2 * w - 1]
+    masks = torch.as_tensor(masks.astype(np.int8), device="cuda")
+    q, k, v = (torch.randn(2, n, 2, c, generator=gen, device="cuda") for _ in range(3))
+    out, lse = banded_flash._forward_cuda(q, k, v, masks, 512, w, with_lse=True)
+    served = banded_flash._forward_cuda(q, k, v, masks, 512, w, with_lse=False)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(out, served)
+    assert (out[:, 511] - v[:, 1023]).abs().max().item() <= ATOL
+    assert bool((out[:, :511] == 0).all()) and bool((out[:, 512:] == 0).all())
+    empty_lse = torch.tensor(-1e28, dtype=torch.float32) + torch.log(torch.tensor(1e-30))
+    assert bool((lse[:, 512:] == empty_lse.item()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["clustered_flash", "clustered_flash_bwd", "banded_flash",
+                                  "banded_flash_bwd"])
 def test_tensor_core_sass(gen, name):
     """The libraries whose products run on the tensor cores hold TF32 mma
     instructions (HMMA ... TF32) in their SASS (cuobjdump beside nvcc)."""
