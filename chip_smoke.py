@@ -24,9 +24,12 @@ non-zero exit:
   1. card: nvidia-smi's name and power limit, torch and CUDA versions
   2. build: every CUDA kernel from csrc/, one nvcc each, all at once, timed
   3. the fused edge update in both modes of csrc/edge_mlp.cu, K1 (raw node
-     rows) and K2 (per-node partial products), against their plain PyTorch
-     versions at the three main-path shapes (g2m, latent, m2g), max abs
-     error <= 1e-4, median CUDA-event times of both, per forward and bound
+     rows) and K2 (per-node partial products), split-TF32 mma.sync, against
+     their plain PyTorch versions at the three main-path shapes (g2m, latent,
+     m2g), max abs error <= 1e-4, median CUDA-event times of both, per
+     forward and bound; edge_mlp.cu's registers and spills (phase 2's line)
+     and the count of TF32 tensor-core instructions in its SASS, which must
+     not be 0
   4. serve: build the model on cuda, answer 3 requests (B=1), each with
      exactly 11 K2 launches and no K1 launch; NormalizedMSELoss; ms per
      request
@@ -63,7 +66,9 @@ non-zero exit:
      step; then two steps with remat=True (32 K3a launches each), peak GiB
  16. the same weights and one batch, forward and backward on the CPU (plain
      versions): loss within 1e-5 relative, every parameter's gradient within
-     1e-3 max|g| of that tensor (floored at 1e-6 of the largest gradient)
+     1e-3 max|g| of that tensor (floored at 1e-6 of the largest gradient);
+     and once more on the card: whether the loss and gradients repeat bit
+     for bit, and the largest difference if not (printed only)
  17. build: natten_flash.cu's and natten_flash_bwd.cu's registers and spills
  18. K5a (3D neighborhood attention) against its plain version on the
      [1, 14, 45, 90] latent with rpb ~N(0, 0.5^2): (a) kernel (3, 5, 5),
@@ -89,7 +94,9 @@ non-zero exit:
  24. the same weights and one batch at 1.5 deg (120 x 240), forward and
      backward on the card and on the CPU: loss within 1e-5 relative, every
      gradient within 1e-3 of its max|g| (the model's CPU convs run in
-     PyTorch's own kernels, not oneDNN's, here and in phase 20)
+     PyTorch's own kernels, not oneDNN's, here and in phase 20); and once
+     more on the card: whether the loss and gradients repeat bit for bit,
+     and the largest difference if not (printed only)
  25. build: banded_flash.cu's and banded_flash_bwd.cu's registers and spills,
      and the count of TF32 tensor-core instructions in each library's SASS
      (K4a and K4b: split-TF32 mma.sync), which must not be 0
@@ -123,7 +130,9 @@ non-zero exit:
  31. the same weights and one batch, forward and backward on the card and on
      the CPU: loss within 1e-5 relative, every gradient within 1e-3 of its
      tensor's max|g|
- 32. build: fused_mlp_bwd.cu's (K2b's) registers and spills
+ 32. build: fused_mlp_bwd.cu's (K2b's) registers and spills, and the count
+     of TF32 tensor-core instructions in its SASS (split-TF32 mma.sync),
+     which must not be 0
  33. K2b (the fused edge update's backward) with the sums after it against
      the plain backward at the three main-path shapes, B = 1, broadcast e,
      m2g with dst_is_zero: every gradient within 1e-4 of its tensor's
@@ -213,8 +222,8 @@ TIMING_RUNS = 10
 FP32_PEAK = 67e12
 HBM_RATE = 3.35e12
 # The same sheet's dense TF32 tensor-core rate: a kernel that splits each f32
-# product into three TF32 products (K3a-c, K4b) has, beside its FP32 bound,
-# the bound of 3 x its operations at this rate.
+# product into three TF32 products (K1, K2, K2b, K3a-c, K4a, K4b) has, beside
+# its FP32 bound, the bound of 3 x its operations at this rate.
 TF32_PEAK = 495e12
 # GenCast: bench.py's _make_denoiser at full size.
 GENCAST = dict(
@@ -325,13 +334,10 @@ def k1_case(edge_mlp, name, bundle, with_dst, gen, width=256):
     # Per edge: the x_src, x_dst and e rows of layer 1, then two H x H-wide layers.
     in_rows = 3 if with_dst else 2
     flops = 2 * bundle.n_edges * width * (in_rows * width + 2 * width)
-    nbytes = sum(t.numel() * t.element_size() for t in args if t is not None)
-    nbytes += out.numel() * out.element_size()
+    # Bytes: the rows each edge gathers (x_src, x_dst) and its e and e' rows,
+    # as the Pallas kernels count them (ops/pallas/fused_mlp.py:102).
+    nbytes = 4 * bundle.n_edges * ((in_rows - 1) * width + 2 * width)
     return err, ms, plain_ms, flops, nbytes
-
-
-def nbytes_of(tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
 def k2_inputs(graph, with_dst, gen, width=256):
@@ -365,9 +371,13 @@ def k2_case(fused_mlp, name, graph, with_dst, gen, width=256):
           f"max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
     if not (err <= K1_TOL):
         raise AssertionError(f"K2 {name}: max abs error {err} > {K1_TOL}")
-    # Per edge: e We, then two H x H-wide layers; the partial rows gathered.
-    flops = 2 * graph.senders.shape[0] * width * 3 * width
-    return err, ms, plain_ms, flops, nbytes_of(args) + nbytes_of([out])
+    # Per edge: e We, then two H x H-wide layers. Bytes: the partial rows each
+    # edge gathers (p_src, p_dst) and its e and e' rows, the Pallas kernel's
+    # own count (bytes_accessed, graph_weather_tpu/ops/pallas/fused_mlp.py:102).
+    n_edges = graph.senders.shape[0]
+    flops = 2 * n_edges * width * 3 * width
+    nbytes = 4 * n_edges * ((2 if with_dst else 1) * width + 2 * width)
+    return err, ms, plain_ms, flops, nbytes
 
 
 def k2b_case(fused_mlp, name, graph, with_dst, gen, width=256):
@@ -387,7 +397,9 @@ def k2b_case(fused_mlp, name, graph, with_dst, gen, width=256):
         return fused_mlp.launch_backward(*args[:12], dout)
 
     outs, sums = kernel()
-    kernel_bytes = nbytes_of(args[:12]) + nbytes_of([dout, *outs, *sums.values()])
+    # Per edge: the partial rows it gathers, its e and dout rows, and the six
+    # rows written (h0, h1, dh1, dh0, dh2, de), as K2's bytes are counted.
+    kernel_bytes = 4 * dout.shape[1] * (((2 if with_dst else 1) + 4) * width + 4 * width)
     activations = outs[:2]
     plain = fused_mlp.fused_edge_update_activations(*args[:9])
     act_err = max((a - p).abs().max().item() for a, p in zip(activations, plain))
@@ -957,6 +969,26 @@ def grads_near_exact(card: dict, cpu: dict, exact: dict) -> tuple[float, str, li
     return worst, name, outside
 
 
+def card_repeat(module, loss_fn, value: float, grads: dict) -> str:
+    """loss_fn()'s forward and backward once more on the card: whether the
+    loss and every parameter's gradient repeat bit for bit, and where they do
+    not, how many differ and the largest difference in grads_close's units
+    (error / limit against the first run). For printing only; nothing fails
+    on it."""
+    module.zero_grad(set_to_none=True)
+    again = loss_fn()
+    again.backward()
+    repeat = {k: t.grad.cpu() for k, t in module.named_parameters()}
+    module.zero_grad(set_to_none=True)
+    differ = [k for k in grads if not torch.equal(repeat[k], grads[k])]
+    if again.item() == value and not differ:
+        return "card repeat bit-equal True"
+    worst, worst_name = grads_close(repeat, grads)
+    return (f"card repeat bit-equal False: loss {value!r} then {again.item()!r}, {len(differ)} of "
+            f"{len(grads)} gradients differ, worst error / limit against the first {worst:.3e} "
+            f"({worst_name})")
+
+
 def forecaster_to_float64(model) -> None:
     """A CPU forecaster handle's weights and edge features in float64 (the
     port's plain versions take it): the exact gradients of phase 35."""
@@ -1085,7 +1117,8 @@ def main() -> int:
         return [line.strip() for line in log.read_text().splitlines()
                 if "registers" in line or "spill" in line]
 
-    print(f"[build] edge_mlp.cu {build_s:.2f} s | " + " | ".join(ptxas("edge_mlp")), flush=True)
+    print(f"[build] edge_mlp.cu {build_s:.2f} s | "
+          + " | ".join(ptxas("edge_mlp") + [tf32_mma_report(_build, "edge_mlp")]), flush=True)
 
     # 3. K1 and K2 at the main-path shapes, on the real 1° graphs
     lat_lons = grid(1.0)
@@ -1134,7 +1167,9 @@ def main() -> int:
     k2_gflop = per_forward({n: v[3] for n, v in k2.items()}) / 1e9
     print(f"[k2] per forward (g2m + 9 latent + m2g): kernel_ms={k2_ms:.4f} "
           f"plain_ms={k2_plain_ms:.4f} bound_ms={k2_bound_ms:.4f} ({k2_bound_by}: "
-          f"{k2_gflop:.1f} GFLOP) | K1 (raw mode) kernel_ms={k1_ms:.4f}", flush=True)
+          f"{k2_gflop:.1f} GFLOP) tf32x3_bound_ms="
+          f"{per_forward({n: tf32x3_ms(v[3]) for n, v in k2.items()}):.4f} | K1 (raw mode) "
+          f"kernel_ms={k1_ms:.4f}", flush=True)
 
     # 4. serve
     t0 = time.perf_counter()
@@ -1398,6 +1433,8 @@ def main() -> int:
     card_value = objective(den.forward_fn()(corrupted_t, prev_t, noise_t), target_t)
     card_value.backward()
     card_grads = {k: t.grad.cpu() for k, t in den.module.named_parameters()}
+    repeat = card_repeat(den.module, lambda: objective(den.forward_fn()(corrupted_t, prev_t, noise_t),
+                                                       target_t), card_value.item(), card_grads)
     cpu_den = port.Denoiser(**GENCAST, device="cpu")
     cpu_den.module.load_state_dict({k: v.cpu() for k, v in den.module.state_dict().items()})
     cpu_loss = port.WeightedMSELoss(grid_lat=GENCAST["grid_lat"], device="cpu")
@@ -1411,8 +1448,8 @@ def main() -> int:
     worst, worst_name = grads_close(card_grads, cpu_grads)
     print(f"[cpu] train loss card {card_value.item():.6f} cpu {cpu_value.item():.6f} rel "
           f"{loss_rel:.3e} (limit {LOSS_RTOL}) | gradients: worst error / limit {worst:.3e} "
-          f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s",
-          flush=True)
+          f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s | "
+          f"{repeat}", flush=True)
     if not (loss_rel <= LOSS_RTOL):
         raise AssertionError(f"train loss card vs CPU: {loss_rel} > {LOSS_RTOL}")
     if not (worst <= 1.0):
@@ -1577,6 +1614,12 @@ def main() -> int:
                               tuple(t.cuda() for t in check_targets))
     card_value.backward()
     card_grads = {k: t.grad.cpu() for k, t in wm.module.named_parameters()}
+    repeat = card_repeat(
+        wm.module,
+        lambda: wm_objective(wm.forward_fn()(*(t.cuda() for t in check)),
+                             tuple(t.cuda() for t in check_targets)),
+        card_value.item(), card_grads,
+    )
     cpu_wm.module.load_state_dict({k: v.cpu() for k, v in wm.module.state_dict().items()})
     t0 = time.perf_counter()
     cpu_value = wm_objective(cpu_wm.forward_fn()(*check), check_targets)
@@ -1588,8 +1631,8 @@ def main() -> int:
     print(f"[cpu] WeatherMesh at {check_h} x {check_w} (1.5 deg): train loss card {card_value.item():.6f} "
           f"cpu {cpu_value.item():.6f} "
           f"rel {loss_rel:.3e} (limit {LOSS_RTOL}) | gradients: worst error / limit {worst:.3e} "
-          f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s",
-          flush=True)
+          f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s | "
+          f"{repeat}", flush=True)
     if not (loss_rel <= LOSS_RTOL):
         raise AssertionError(f"WeatherMesh train loss card vs CPU: {loss_rel} > {LOSS_RTOL}")
     if not (worst <= 1.0):
@@ -1794,7 +1837,8 @@ def main() -> int:
 
     # 32. build of K2b (started with the others in phase 2)
     print(f"[build] fused_mlp_bwd.cu {build_s:.2f} s (parallel with the others) | "
-          + " | ".join(ptxas("fused_mlp_bwd")), flush=True)
+          + " | ".join(ptxas("fused_mlp_bwd") + [tf32_mma_report(_build, "fused_mlp_bwd")]),
+          flush=True)
 
     # 33. K2b with the sums after it, at the main-path shapes
     device_graphs = main_path_graphs()
@@ -1807,7 +1851,8 @@ def main() -> int:
     k2b_gflop = per_forward({n: v["flops"] for n, v in k2b.items()}) / 1e9
     print(f"[k2b] per train step (g2m + 9 latent + m2g): kernel_ms={k2b_ms['kernel']:.4f} "
           f"backward_ms={k2b_ms['backward']:.4f} plain_ms={k2b_ms['plain']:.4f} bound_ms="
-          f"{k2b_bound_ms:.4f} ({k2b_bound_by}: {k2b_gflop:.1f} GFLOP)", flush=True)
+          f"{k2b_bound_ms:.4f} ({k2b_bound_by}: {k2b_gflop:.1f} GFLOP) tf32x3_bound_ms="
+          f"{per_forward({n: tf32x3_ms(v['flops']) for n, v in k2b.items()}):.4f}", flush=True)
     del device_graphs
     torch.cuda.empty_cache()
 
@@ -2086,6 +2131,7 @@ def main() -> int:
             "plain_ms": k1_plain_ms,
             "bound_ms": k1_bound_ms,
             "bound_by": k1_bound_by,
+            "bound_tf32x3_ms": per_forward({n: tf32x3_ms(v[3]) for n, v in k1.items()}),
             "library_ms": None,  # no single PyTorch call computes the fused edge MLP
         },
         {
@@ -2099,6 +2145,7 @@ def main() -> int:
             "plain_ms": k2_plain_ms,
             "bound_ms": k2_bound_ms,
             "bound_by": k2_bound_by,
+            "bound_tf32x3_ms": per_forward({n: tf32x3_ms(v[3]) for n, v in k2.items()}),
             "library_ms": None,  # no single PyTorch call computes the fused edge update
             "train_launches": fc_launches[0],  # 3 train steps
         },
@@ -2116,6 +2163,7 @@ def main() -> int:
             "plain_ms": k2b_ms["plain"],
             "bound_ms": k2b_bound_ms,
             "bound_by": k2b_bound_by,
+            "bound_tf32x3_ms": per_forward({n: tf32x3_ms(v["flops"]) for n, v in k2b.items()}),
             "library_ms": None,  # no single PyTorch call computes the edge update's gradient
         },
         {

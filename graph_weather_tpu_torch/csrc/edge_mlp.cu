@@ -1,4 +1,5 @@
-// Fused MeshGraphNet edge update for Hopper (sm_90a), FP32 on the CUDA cores.
+// Fused MeshGraphNet edge update for Hopper (sm_90a), split-TF32 products on
+// the tensor cores.
 //
 // Replaces the Pallas TPU kernel graph_weather_tpu/ops/pallas/edge_mlp.py:
 // _kernel (launched by _fused_edge_mlp_padded). For every edge (s, r) of a
@@ -14,46 +15,48 @@
 // to be zero); gamma == nullptr skips the LayerNorm. A batch stride of 0
 // broadcasts an operand over the batch without materialising it.
 //
-// What bounds it on an H100. Per edge it reads one gathered row of x_src and
-// of x_dst and one row of e, and writes one row of e' (4 rows of 1 KB at
-// width 256), and does 2 * (3 * F * H + H * H + H * Fe) flops: about 160
-// flops per byte, where the card's FP32 balance point is about 20, so the
-// three products, not the bytes, are the bound at full width. The TPU kernel kept both node arrays and all weights resident
-// in VMEM; here a 64,800 x 256 f32 node array is 66 MB and one 256 x 256
-// weight is 256 KB, while a block has at most 227 KB of shared memory. So:
-//
-//   * a block owns a tile of TE = 64 edges of one batch entry and gathers
-//     their rows from global memory itself (the gather Mosaic could not do);
-//   * weights stream through shared memory in KC = 32-row slices over the
-//     reduction axis (all blocks read the same 1.3 MB, which stays in L2);
-//   * every copy into shared memory is a cp.async, so all of a slice's
-//     loads are in flight at once without holding registers, and the
-//     launch bounds cap a thread at 128 registers, so two blocks share an
-//     SM and one computes while the other waits for its slice (measured on
-//     an H100 at 700 W: 1.7x faster than register-staged loads at one
-//     block per SM);
-//   * h0 and h1 live in one shared [64, 256] buffer, h2 in registers: no
-//     [E, H] intermediate touches device memory; only e' is written;
-//   * each thread accumulates an 8-row x 8-column register tile, with A read
-//     as broadcast float4 and B as conflict-free float4, so the FMA units,
-//     not shared-memory traffic, set the pace;
-//   * warp w owns rows 8w..8w+7 of the tile in all three products, so the
-//     LayerNorm row statistics are warp shuffles over registers.
-//
 // Partial-product mode (K2). It replaces the Pallas TPU kernel
 // graph_weather_tpu/ops/pallas/fused_mlp.py: _kernel (launched by
 // _fused_padded), which takes the first layer's node terms as partial
 // products already gathered per edge. Here the caller makes p_src = x_src Ws
 // and p_dst = x_dst Wd once per node (N << E, plain GEMMs), and the kernel
-// gathers their rows itself: the tile's accumulator starts from
-// p_src[s] + p_dst[r] (each thread adds its 8 x 8 entries from global
-// memory), and only We's slices run through the slice loop before W1, W2,
-// the LayerNorm and the residual, as above. That is 3 products per edge
-// where raw mode does 5 (4 without x_dst): 2 * (Fe * H + H * H + H * Fe)
-// flops per edge. Its backward is K2b (fused_mlp_bwd.cu).
+// gathers their rows itself into the accumulators, so only We runs through
+// the first layer before W1, W2, the LayerNorm and the residual: 2 (Fe H +
+// H H + H Fe) flops per edge where raw mode (K1) does 2 (F_src H + F_dst H +
+// Fe H + H H + H Fe). Its backward is K2b (fused_mlp_bwd.cu).
 //
-// Widths up to 256 are accepted; narrower layers run on zero-padded tiles.
-// Not yet here: wgmma/TMA and bf16. The helpers are in edge_tile.cuh.
+// What bounds it on an H100. Per edge it gathers one row of p_src (or
+// x_src) and of p_dst, reads one row of e (twice: the first product and the
+// residual, the second from L2), and writes one row of e': 4 rows of 1 KB at
+// width 256 against 393 KFLOP (K2), ~100 flops a byte, where the card's FP32
+// balance point is ~20 and that of its TF32 tensor cores ~150. So products
+// bound it: 349 GFLOP a 1-degree forward is 5.2 ms at the FP32 peak, and 2.1
+// ms as three TF32 products at the tensor cores' dense peak. The TPU kernel
+// kept the node arrays and every weight in VMEM; here a block owns a tile
+// of 64 edges of one batch entry and
+//
+//   * stages the tile's e rows (K1: each gathered input, in chunks of 256
+//     columns) into shared memory with cp.async, as the A operand of the
+//     first product, and gathers the partial rows straight into the
+//     accumulators while that copy is in flight;
+//   * streams the weights through shared memory in 16-row slices, two
+//     stages, one slice in flight while the other multiplies, across the
+//     product boundaries; all blocks read the same weights, which stay in L2;
+//   * runs every product as three TF32 mma.sync (edge_tile.cuh), which keeps
+//     f32's accuracy at the tensor cores' rate;
+//   * keeps h0 and h1 in one shared buffer and h2 in registers: no [E, H]
+//     intermediate touches device memory; only e' is written;
+//   * does the LayerNorm and the residual row by row from h2 in shared
+//     memory, a row's statistics by warp shuffles: every launch repeats its
+//     bits.
+//
+// One kernel body serves both modes, instantiated for each: K2's has a single
+// first-layer chunk and fits two blocks an SM in 128 registers without
+// spills; K1's keeps its chunk loop and takes the registers of one block an
+// SM (it is on no model path).
+//
+// Widths up to 256 (H, Fe; any F_src and F_dst in K1) are accepted; narrower
+// layers run on zero-padded tiles. The helpers are in edge_tile.cuh.
 
 #include "edge_tile.cuh"
 
@@ -84,124 +87,172 @@ struct Params {
   int f_dst;
   int f_e;
   int hidden;
-  int partial;  // K2: x_src/x_dst hold [N, hidden] partial products, w0 is We
 };
 
-__global__ void __launch_bounds__(THREADS, 2)
-    edge_mlp_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  float* Hs = reinterpret_cast<float*>(smem4);  // [TE][NMAX] h0, then h1
-  float* Bs = Hs + TE * NMAX;                   // [KC][NMAX] weight slice
-  float* As = Bs + KC * NMAX;                   // [TE][KC] gathered inputs
-  int* sidx = reinterpret_cast<int*>(As + TE * KC);
-  int* ridx = sidx + TE;
+// A chunk of the first layer's input: columns [c0, c0 + cols) of input
+// `which` (0: x_src, gathered by sender; 1: x_dst, by receiver; 2: e) against
+// the rows w[0, cols) of W0.
+struct Chunk {
+  int which, width, c0, cols;
+  const float* w;
+};
 
+// The parameters with the mode fixed at compile time: the partial-product
+// instantiation (K2) has a single first-layer chunk, so it keeps no chunk
+// loop and its counters live across the products (the raw one, off every
+// model path, has the registers of one block an SM).
+template <bool PARTIAL>
+struct Mode : Params {};
+
+// The first layer's chunks: in raw mode x_src, x_dst (when given) and e,
+// each in chunks of NMAX columns; in partial mode e alone (f_e <= NMAX).
+template <bool PARTIAL>
+__device__ __forceinline__ int src_chunks(const Mode<PARTIAL>& p) {
+  return PARTIAL ? 0 : (p.f_src + NMAX - 1) / NMAX;
+}
+template <bool PARTIAL>
+__device__ __forceinline__ int dst_chunks(const Mode<PARTIAL>& p) {
+  return !PARTIAL && p.x_dst ? (p.f_dst + NMAX - 1) / NMAX : 0;
+}
+template <bool PARTIAL>
+__device__ __forceinline__ int chunk_count(const Mode<PARTIAL>& p) {
+  return PARTIAL ? 1 : src_chunks(p) + dst_chunks(p) + (p.f_e + NMAX - 1) / NMAX;
+}
+
+template <bool PARTIAL>
+__device__ __forceinline__ Chunk chunk(const Mode<PARTIAL>& p, int q) {
+  const int n_src = src_chunks(p), n_dst = dst_chunks(p);
+  Chunk c;
+  int row0;  // first row of W0 for this input
+  if (q < n_src) {
+    c = {0, p.f_src, q * NMAX, 0, nullptr};
+    row0 = 0;
+  } else if (q < n_src + n_dst) {
+    c = {1, p.f_dst, (q - n_src) * NMAX, 0, nullptr};
+    row0 = p.f_src;
+  } else {
+    c = {2, p.f_e, (q - n_src - n_dst) * NMAX, 0, nullptr};
+    row0 = PARTIAL ? 0 : p.f_src + p.f_dst;
+  }
+  c.cols = min(NMAX, c.width - c.c0);
+  c.w = p.w0 + (long long)(row0 + c.c0) * p.hidden;
+  return c;
+}
+
+// The kernel's products (edge_tile.cuh's stream): the first layer's chunks,
+// then W1 and W2.
+template <bool PARTIAL>
+__device__ __forceinline__ int product_count(const Mode<PARTIAL>& p) {
+  return chunk_count(p) + 2;
+}
+
+template <bool PARTIAL>
+__device__ __forceinline__ Prod product(const Mode<PARTIAL>& p, int i) {
+  const int n = chunk_count(p);
+  if (i < n) {
+    const Chunk c = chunk(p, i);
+    return {c.w, c.cols, p.hidden};
+  }
+  if (i == n) return {p.w1, p.hidden, p.hidden};
+  return {p.w2, p.hidden, p.f_e};
+}
+
+// A rows = the tile's rows of chunk c of batch entry b (not committed).
+__device__ __forceinline__ void stage_chunk(const Params& p, const Smem& sm, const Chunk& c, int b,
+                                            int e0) {
+  if (c.which == 2)
+    stage_rows(sm.H, p.e + b * p.e_bstride + (long long)e0 * p.f_e, nullptr, c.width, c.c0,
+               c.cols, p.n_edges - e0);
+  else if (c.which == 1)
+    stage_rows(sm.H, p.x_dst + b * p.xd_bstride, sm.ridx, c.width, c.c0, c.cols, p.n_edges - e0);
+  else
+    stage_rows(sm.H, p.x_src + b * p.xs_bstride, sm.sidx, c.width, c.c0, c.cols, p.n_edges - e0);
+}
+
+template <bool PARTIAL>
+__global__ void __launch_bounds__(THREADS, PARTIAL ? kBlocksPerSM : 1)
+    edge_mlp_kernel(const Mode<PARTIAL> p) {
+  extern __shared__ float4 smem4[];
+  const Smem sm = carve(smem4);
+  const Place q = place();
   const int b = blockIdx.y;
   const int e0 = blockIdx.x * TE;
   if (threadIdx.x < TE) {
     const int edge = e0 + threadIdx.x;
-    sidx[threadIdx.x] = edge < p.n_edges ? p.senders[edge] : 0;
-    ridx[threadIdx.x] = edge < p.n_edges ? p.receivers[edge] : 0;
+    sm.sidx[threadIdx.x] = edge < p.n_edges ? p.senders[edge] : 0;
+    sm.ridx[threadIdx.x] = edge < p.n_edges ? p.receivers[edge] : 0;
   }
   __syncthreads();
 
-  const float* e_b = p.e + b * p.e_bstride;
-  const float* xs_b = p.x_src + b * p.xs_bstride;
-  const float* xd_b = p.x_dst ? p.x_dst + b * p.xd_bstride : nullptr;
-  float acc[ROWS][8];
-  if (p.partial)
-    init_from_partials(acc, xs_b, xd_b, sidx, ridx, p.hidden);
+  // The first chunk's rows and the first slices in flight while the partial
+  // rows (K2) are gathered into the accumulators.
+  stage_chunk(p, sm, chunk(p, 0), b, e0);
+  Stream s = start(p, sm.ring);
+  Acc acc;
+  if (PARTIAL)
+    init_from_partials(acc, q, p.x_src + b * p.xs_bstride,
+                       p.x_dst ? p.x_dst + b * p.xd_bstride : nullptr, sm.sidx, sm.ridx, p.hidden);
   else
     zero(acc);
 
-  // h0: the row blocks of W0 against their gathered operands (only We's in
-  // partial mode), as one loop over slices, so the unrolled product is
-  // inlined once here (three inlined copies, one loop per block, measured
-  // 3.5% slower on an H100).
-  const float* e_tile = e_b + (long long)e0 * p.f_e;
-  const float* w_dst = p.w0 + (long long)p.f_src * p.hidden;
-  const float* w_e = p.partial ? p.w0 : w_dst + (long long)p.f_dst * p.hidden;
-  const int n_src = p.partial ? 0 : (p.f_src + KC - 1) / KC;
-  const int n_dst = xd_b && !p.partial ? (p.f_dst + KC - 1) / KC : 0;
-  const int n_all = n_src + n_dst + (p.f_e + KC - 1) / KC;
-  for (int i = 0; i < n_all; ++i) {
-    if (i < n_src) {
-      gather_slice(As, xs_b, sidx, p.f_src, i * KC, e0, p.n_edges);
-      load_weight_slice(Bs, p.w0, i * KC, p.f_src, p.hidden);
-    } else if (i < n_src + n_dst) {
-      const int k0 = (i - n_src) * KC;
-      gather_slice(As, xd_b, ridx, p.f_dst, k0, e0, p.n_edges);
-      load_weight_slice(Bs, w_dst, k0, p.f_dst, p.hidden);
-    } else {
-      const int k0 = (i - n_src - n_dst) * KC;
-      gather_slice(As, e_tile, nullptr, p.f_e, k0, 0, p.n_edges - e0);
-      load_weight_slice(Bs, w_e, k0, p.f_e, p.hidden);
+  // h0: W0's row blocks against their inputs, one chunk at a time.
+  const int n_chunks = chunk_count(p);
+  for (int i = 0; i < n_chunks; ++i) {
+    if (i > 0) {
+      __syncthreads();  // every warp is done with the last chunk's rows
+      stage_chunk(p, sm, chunk(p, i), b, e0);
+      ctile::cp_async_commit();
+      ctile::cp_async_wait<0>();
     }
-    cp_async_wait_all();
-    mma_slice(acc, As, KC, Bs);
-    __syncthreads();
+    dense(acc, q, sm.H, p, s, sm.ring, product(p, i));
   }
-  store_relu(Hs, acc, p.b0, p.hidden);
-  // h1 (each warp reads back only the rows it wrote; the barrier after the
-  // first weight slice orders the writes before the reads).
-  dense_from_smem(acc, Hs, Bs, p.w1, p.hidden, p.hidden);
-  store_relu(Hs, acc, p.b1, p.hidden);
-  // h2 stays in registers.
-  dense_from_smem(acc, Hs, Bs, p.w2, p.hidden, p.f_e);
+  __syncthreads();
+  add_bias(acc, q, p.b0, p.hidden, true);
+  store_rows(sm.H, acc, q, nullptr, 0, e0, p.n_edges);
+  dense(acc, q, sm.H, p, s, sm.ring, product(p, n_chunks));
+  __syncthreads();
+  add_bias(acc, q, p.b1, p.hidden, true);
+  store_rows(sm.H, acc, q, nullptr, 0, e0, p.n_edges);
+  dense(acc, q, sm.H, p, s, sm.ring, product(p, n_chunks + 1));
 
-  const int warp = threadIdx.x >> 5;
-  const float inv_fe = 1.f / p.f_e;
-#pragma unroll
+  // h2 = acc + b2 into H, then row by row its LayerNorm and the residual.
+  __syncthreads();
+  add_bias(acc, q, p.b2, p.f_e, false);
+  store_rows(sm.H, acc, q, nullptr, 0, e0, p.n_edges);
+  __syncthreads();
+  float gm[8], bt[8];
+  if (p.gamma != nullptr) {
+    load_row8(gm, p.gamma, p.f_e);
+    load_row8(bt, p.beta, p.f_e);
+  }
+  const int first = opaque(e0 + (threadIdx.x >> 5) * ROWS);
   for (int r = 0; r < ROWS; ++r) {
-    const int row = warp * ROWS + r;
-    float h[8];
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tile_col(j);
-      h[j] = c < p.f_e ? acc[r][j] + p.b2[c] : 0.f;
-      sum += h[j];
-    }
-    float mean = 0.f, rstd = 1.f;
+    const int edge = first + r, row = edge - e0;
+    if (edge >= p.n_edges) break;
+    float h[8], x[8];
+    load_row8(h, sm.H + row * LDA, NMAX);
     if (p.gamma != nullptr) {
+      normalise(h, p.f_e);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      mean = sum * inv_fe;
-      float sq = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float d = tile_col(j) < p.f_e ? h[j] - mean : 0.f;
-        sq += d * d;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sq += __shfl_xor_sync(0xffffffffu, sq, off);
-      rstd = rsqrtf(sq * inv_fe + 1e-5f);
+      for (int j = 0; j < 8; ++j) h[j] = h[j] * gm[j] + bt[j];
     }
-    const int edge = e0 + row;
-    if (edge >= p.n_edges) continue;
-    const float* e_row = e_b + (long long)edge * p.f_e;
-    float* o_row = p.out + ((long long)b * p.n_edges + edge) * p.f_e;
+    const long long bb = opaque(b);
+    load_row8(x, p.e + bb * p.e_bstride + (long long)edge * p.f_e, p.f_e);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tile_col(j);
-      if (c >= p.f_e) continue;
-      float y = h[j];
-      if (p.gamma != nullptr) y = (y - mean) * rstd * p.gamma[c] + p.beta[c];
-      o_row[c] = y + e_row[c];
-    }
+    for (int j = 0; j < 8; ++j) h[j] += x[j];
+    store_row8(p.out + (bb * p.n_edges + edge) * p.f_e, h, p.f_e);
   }
 }
 
-int launch(const Params& p, int batch, void* stream) {
+template <bool PARTIAL>
+int launch(const Params& params, int batch, void* stream) {
+  Mode<PARTIAL> p;
+  static_cast<Params&>(p) = params;
   cudaError_t err = cudaFuncSetAttribute(
-      edge_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kSmemBytes);
+      edge_mlp_kernel<PARTIAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.n_edges + TE - 1) / TE, batch);
-  edge_mlp_kernel<<<grid, THREADS, kSmemBytes,
-                    static_cast<cudaStream_t>(stream)>>>(p);
+  edge_mlp_kernel<PARTIAL><<<grid, THREADS, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -221,8 +272,8 @@ extern "C" int gwt_edge_mlp_forward(
     int n_edges, int batch, int hidden, void* stream) {
   const Params p{senders, receivers, x_src, x_dst, e, w0, b0, w1, b1, w2, b2,
                  gamma, beta, out, xs_bstride, xd_bstride, e_bstride, n_edges,
-                 f_src, f_dst, f_e, hidden, 0};
-  return launch(p, batch, stream);
+                 f_src, f_dst, f_e, hidden};
+  return launch<false>(p, batch, stream);
 }
 
 // Partial-product mode (K2): p_src [N_src, hidden] and p_dst [N_dst, hidden]
@@ -236,6 +287,6 @@ extern "C" int gwt_edge_update_forward(
     int n_edges, int batch, int hidden, void* stream) {
   const Params p{senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2,
                  gamma, beta, out, ps_bstride, pd_bstride, e_bstride, n_edges,
-                 hidden, hidden, f_e, hidden, 1};
-  return launch(p, batch, stream);
+                 hidden, hidden, f_e, hidden};
+  return launch<true>(p, batch, stream);
 }

@@ -1,5 +1,5 @@
 // Backward of the fused MeshGraphNet edge update (K2b) for Hopper (sm_90a),
-// FP32 on the CUDA cores.
+// split-TF32 products on the tensor cores.
 //
 // The forward is K2, the partial-product mode of edge_mlp.cu (the port of
 // graph_weather_tpu/ops/pallas/fused_mlp.py: _kernel, _fused_padded). For
@@ -14,12 +14,11 @@
 // EdgeBlock); this kernel is the per-edge chain of that gradient. Given dout
 // = dL/de', for each tile of TE = 64 edges of one batch entry it
 //
-//   * recomputes h0 and h1 (written out, with 64-bit ReLU masks of the
-//     thread's 8 x 8 tile kept in registers) and h2 with its LayerNorm
-//     statistics;
-//   * forms dh2 by the LayerNorm backward, rstd (g - mean(g) - n mean(g n))
-//     with g = dout gamma and n the normalised h2, as warp shuffles (dh2 =
-//     dout without the LayerNorm);
+//   * recomputes h0 and h1 (written out; their ReLU masks kept as one 64-bit
+//     word each of the thread's accumulators) and h2;
+//   * forms dh2 by the LayerNorm backward, row by row from h2 in shared
+//     memory, rstd (g - mean(g) - n mean(g n)) with g = dout gamma and n the
+//     normalised h2 (dh2 = dout without the LayerNorm);
 //   * computes dh1 = (dh2 W2^T) [h1 > 0], dh0 = (dh1 W1^T) [h0 > 0] and
 //     de = dout + dh0 We^T;
 //   * writes h0, h1, dh2, dh1, dh0 and de as [B, E, width] rows, and per
@@ -30,16 +29,17 @@
 // h1^T dh2, h0^T dh1 and e^T dh0 over the B E rows, the per-tile sums added
 // in a fixed order (no atomics anywhere), and dh0 summed to the sender and
 // receiver nodes. The transposed weights W2^T, W1^T and We^T come as
-// contiguous copies, so the same slice loader and product serve all six
+// contiguous copies, so one slice stream and one product serve all six
 // products.
 //
 // What bounds it on an H100: 6 products per edge, 2 * 2 * (Fe H + H H + H Fe)
-// flops, against about 11 rows of 1 KB moved per edge at width 256 (p_src
-// and p_dst rows, e, dout, and the seven rows written): ~70 flops per byte,
-// above the FP32 balance point of ~20, so the products bound it. Shared
-// memory is K1's: one [64, 256] buffer holds h0, then h1, then dh2, dh1 and
-// dh0 in turn (each warp rewrites only its own rows), so two blocks still
-// share an SM.
+// flops, against 12 rows of 1 KB moved per edge at width 256 (the p_src and
+// p_dst rows, e, dout and the six rows written): ~65 flops per byte, above
+// the FP32 balance point of ~20, so the products bound it: 10.4 ms a
+// 1-degree train step at the FP32 peak, 4.2 ms as three TF32 products at the
+// tensor cores' dense peak. The tiles, the slice stream and the split-TF32
+// products are K2's (edge_tile.cuh): one shared [64, 256] buffer holds e,
+// then h0, h1, h2, dh2, dh1 and dh0 in turn, so two blocks share an SM.
 
 #include "edge_tile.cuh"
 
@@ -82,226 +82,155 @@ struct Params {
   int hidden;
 };
 
-// Column sums of v over the block's 64 rows into dst[0, n_cols): each thread
-// sums its 8 rows, then thread c adds the 8 warps' partials of column c in
-// order, through red ([8][NMAX] floats of shared memory).
-__device__ __forceinline__ void block_colsum(const float (&part)[8], float* red,
-                                             float* dst, int n_cols) {
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) red[warp * NMAX + tile_col(j)] = part[j];
-  __syncthreads();
-  const int c = threadIdx.x;  // THREADS == NMAX
-  if (c < n_cols) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) s += red[w * NMAX + c];
-    dst[c] = s;
+// The kernel's products (edge_tile.cuh's stream) in order: We, W1, W2 (the
+// forward again), then W2^T, W1^T and We^T.
+__device__ __forceinline__ int product_count(const Params&) { return 6; }
+
+__device__ __forceinline__ Prod product(const Params& p, int i) {
+  switch (i) {
+    case 0: return {p.we, p.f_e, p.hidden};
+    case 1: return {p.w1, p.hidden, p.hidden};
+    case 2: return {p.w2, p.hidden, p.f_e};
+    case 3: return {p.w2t, p.f_e, p.hidden};
+    case 4: return {p.w1t, p.hidden, p.hidden};
+    default: return {p.wet, p.hidden, p.f_e};
   }
-  __syncthreads();
 }
 
-__device__ __forceinline__ void tile_colsum(const float (&acc)[ROWS][8],
-                                            float* red, float* dst,
-                                            int n_cols) {
-  float part[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    part[j] = 0.f;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) part[j] += acc[r][j];
-  }
-  block_colsum(part, red, dst, n_cols);
+// Where this block's rows of a [B, E, width] output and its column sums
+// begin; recomputed at each use (opaque) rather than kept live across the
+// product loops.
+__device__ __forceinline__ long long batch_row(const Params& p) {
+  return (long long)opaque(blockIdx.y) * p.n_edges;
+}
+__device__ __forceinline__ float* colsum_of(const Params& p, Slot slot) {
+  const int tile = opaque(blockIdx.y * gridDim.x + blockIdx.x);
+  return p.colsum + ((long long)slot * gridDim.x * gridDim.y + tile) * NMAX;
 }
 
-// Hs rows (and the global [E, width] rows `out` of the tile's valid edges)
-// = acc, which is zero past `width`; then acc = 0.
-__device__ __forceinline__ void store_rows(float* Hs, float (&acc)[ROWS][8],
-                                           float* out, int width, int e0,
-                                           int n_edges) {
-  const int warp = threadIdx.x >> 5;
+// dh2 by the LayerNorm backward, row by row from h2 in H (the warp's rows;
+// 0 past f_e): written over h2 in H (0 on the rows past the last edge) and
+// to p.dh2, with the tile's column sums of dout n (gamma), dout (beta) and
+// dh2 (b2). Without gamma, dh2 = dout.
+__device__ __forceinline__ void layernorm_backward(const Params& p, const Smem& sm, int e0) {
+  const float* dout_b = p.dout + batch_row(p) * p.f_e;
+  float* dh2_b = p.dh2 + batch_row(p) * p.f_e;
+  float gm[8], cdn[8], cd[8], cb2[8];
 #pragma unroll
+  for (int j = 0; j < 8; ++j) cdn[j] = cd[j] = cb2[j] = 0.f;
+  if (p.gamma != nullptr) load_row8(gm, p.gamma, p.f_e);
+  const float inv = 1.f / p.f_e;
+  const int first = opaque(e0 + (threadIdx.x >> 5) * ROWS);
   for (int r = 0; r < ROWS; ++r) {
-    const int row = warp * ROWS + r;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) Hs[row * NMAX + tile_col(j)] = acc[r][j];
-    if (e0 + row < n_edges)
-      store_row8(out + (long long)(e0 + row) * width, acc[r], width);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
-  }
-}
-
-// acc = relu(acc + bias) (zero past n_cols), stored as store_rows does;
-// returns the mask of positive entries, bit 8 r + j.
-__device__ __forceinline__ unsigned long long store_relu_rows(
-    float* Hs, float (&acc)[ROWS][8], const float* bias, float* out,
-    int n_cols, int e0, int n_edges) {
-  unsigned long long mask = 0ull;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = tile_col(j);
-    const float bj = c < n_cols ? bias[c] : 0.f;
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      const float v = c < n_cols ? fmaxf(acc[r][j] + bj, 0.f) : 0.f;
-      acc[r][j] = v;
-      if (v > 0.f) mask |= 1ull << (8 * r + j);
-    }
-  }
-  store_rows(Hs, acc, out, n_cols, e0, n_edges);
-  return mask;
-}
-
-__device__ __forceinline__ void apply_mask(float (&acc)[ROWS][8],
-                                           unsigned long long mask) {
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      if (!((mask >> (8 * r + j)) & 1ull)) acc[r][j] = 0.f;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__global__ void __launch_bounds__(THREADS, 2)
-    fused_mlp_bwd_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  float* Hs = reinterpret_cast<float*>(smem4);  // [TE][NMAX] h0, h1, dh2, dh1, dh0
-  float* Bs = Hs + TE * NMAX;                   // [KC][NMAX] weight slice; column-sum scratch
-  float* As = Bs + KC * NMAX;                   // [TE][KC] e slice
-  int* sidx = reinterpret_cast<int*>(As + TE * KC);
-  int* ridx = sidx + TE;
-
-  const int b = blockIdx.y;
-  const int e0 = blockIdx.x * TE;
-  const int n_tiles = gridDim.x * gridDim.y;
-  const int tile = b * gridDim.x + blockIdx.x;
-  if (threadIdx.x < TE) {
-    const int edge = e0 + threadIdx.x;
-    sidx[threadIdx.x] = edge < p.n_edges ? p.senders[edge] : 0;
-    ridx[threadIdx.x] = edge < p.n_edges ? p.receivers[edge] : 0;
-  }
-  __syncthreads();
-
-  const long long rows_b = (long long)b * p.n_edges;  // first row of batch b
-  const long long h_off = rows_b * p.hidden;
-  const long long fe_off = rows_b * p.f_e;
-  const float* e_b = p.e + b * p.e_bstride;
-  const float* dout_b = p.dout + fe_off;
-  float* col = p.colsum + (long long)tile * NMAX;
-  const long long slot = (long long)n_tiles * NMAX;
-
-  // Recompute h0 = relu(p_src[s] + p_dst[r] + e We + b0) and h1.
-  float acc[ROWS][8];
-  init_from_partials(acc, p.p_src + b * p.ps_bstride,
-                     p.p_dst ? p.p_dst + b * p.pd_bstride : nullptr, sidx, ridx,
-                     p.hidden);
-  const float* e_tile = e_b + (long long)e0 * p.f_e;
-  for (int k0 = 0; k0 < p.f_e; k0 += KC) {
-    gather_slice(As, e_tile, nullptr, p.f_e, k0, 0, p.n_edges - e0);
-    load_weight_slice(Bs, p.we, k0, p.f_e, p.hidden);
-    cp_async_wait_all();
-    mma_slice(acc, As, KC, Bs);
-    __syncthreads();
-  }
-  const unsigned long long m0 =
-      store_relu_rows(Hs, acc, p.b0, p.h0 + h_off, p.hidden, e0, p.n_edges);
-  dense_from_smem(acc, Hs, Bs, p.w1, p.hidden, p.hidden);
-  const unsigned long long m1 =
-      store_relu_rows(Hs, acc, p.b1, p.h1 + h_off, p.hidden, e0, p.n_edges);
-  dense_from_smem(acc, Hs, Bs, p.w2, p.hidden, p.f_e);
-
-  // dh2 by the LayerNorm backward, in place of h2 - b2 in acc; with the
-  // tile's sums of dout n (gamma) and dout (beta).
-  const int warp = threadIdx.x >> 5;
-  const float inv_fe = 1.f / p.f_e;
-  float sum_dn[8], sum_d[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) sum_dn[j] = sum_d[j] = 0.f;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int edge = e0 + warp * ROWS + r;
-    float d[8];
+    const int edge = first + r, row = edge - e0;
+    float d[8], h[8];
     if (edge < p.n_edges) {
       load_row8(d, dout_b + (long long)edge * p.f_e, p.f_e);
     } else {
 #pragma unroll
       for (int j = 0; j < 8; ++j) d[j] = 0.f;
     }
-    if (p.gamma == nullptr) {
+    if (p.gamma != nullptr) {
+      load_row8(h, sm.H + row * LDA, NMAX);
+      const float rstd = normalise(h, p.f_e);  // h = n, 0 past f_e
+      float gs = 0.f, gns = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[r][j] = d[j];
-      continue;
+      for (int j = 0; j < 8; ++j) {
+        cdn[j] += d[j] * h[j];
+        cd[j] += d[j];
+        d[j] *= gm[j];  // g
+        gs += d[j];
+        gns += d[j] * h[j];
+      }
+      const float g_mean = warp_sum(gs) * inv, gn_mean = warp_sum(gns) * inv;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        d[j] = row_col(j) < p.f_e ? rstd * (d[j] - g_mean - h[j] * gn_mean) : 0.f;
     }
-    float h[8];
-    float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tile_col(j);
-      h[j] = c < p.f_e ? acc[r][j] + p.b2[c] : 0.f;
-      sum += h[j];
-    }
-    const float mean = warp_sum(sum) * inv_fe;
-    float sq = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      h[j] = tile_col(j) < p.f_e ? h[j] - mean : 0.f;
-      sq += h[j] * h[j];
-    }
-    const float rstd = rsqrtf(warp_sum(sq) * inv_fe + 1e-5f);
-    float g_sum = 0.f, gn_sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = tile_col(j);
-      h[j] *= rstd;  // n, 0 past f_e
-      sum_dn[j] += d[j] * h[j];
-      sum_d[j] += d[j];
-      d[j] *= c < p.f_e ? p.gamma[c] : 0.f;  // g
-      g_sum += d[j];
-      gn_sum += d[j] * h[j];
-    }
-    const float g_mean = warp_sum(g_sum) * inv_fe;
-    const float gn_mean = warp_sum(gn_sum) * inv_fe;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      acc[r][j] = tile_col(j) < p.f_e ? rstd * (d[j] - g_mean - h[j] * gn_mean) : 0.f;
+    for (int j = 0; j < 8; ++j) cb2[j] += d[j];
+    store_row8(sm.H + row * LDA, d, NMAX);
+    if (edge < p.n_edges) store_row8(dh2_b + (long long)edge * p.f_e, d, p.f_e);
   }
   if (p.gamma != nullptr) {
-    block_colsum(sum_dn, Bs, col + kGamma * slot, p.f_e);
-    block_colsum(sum_d, Bs, col + kBeta * slot, p.f_e);
+    warp_colsum(cdn, sm.red, colsum_of(p, kGamma), p.f_e);
+    warp_colsum(cd, sm.red, colsum_of(p, kBeta), p.f_e);
   }
-  tile_colsum(acc, Bs, col + kB2 * slot, p.f_e);
-  store_rows(Hs, acc, p.dh2 + fe_off, p.f_e, e0, p.n_edges);
+  warp_colsum(cb2, sm.red, colsum_of(p, kB2), p.f_e);
+}
+
+__global__ void __launch_bounds__(THREADS, kBlocksPerSM) fused_mlp_bwd_kernel(const Params p) {
+  extern __shared__ float4 smem4[];
+  const Smem sm = carve(smem4);
+  const Place q = place();
+  const int b = blockIdx.y;
+  const int e0 = blockIdx.x * TE;
+  if (threadIdx.x < TE) {
+    const int edge = e0 + threadIdx.x;
+    sm.sidx[threadIdx.x] = edge < p.n_edges ? p.senders[edge] : 0;
+    sm.ridx[threadIdx.x] = edge < p.n_edges ? p.receivers[edge] : 0;
+  }
+  __syncthreads();
+
+  // Recompute h0 = relu(p_src[s] + p_dst[r] + e We + b0) and h1.
+  stage_rows(sm.H, p.e + b * p.e_bstride + (long long)e0 * p.f_e, nullptr, p.f_e, 0, p.f_e,
+             p.n_edges - e0);
+  Stream s = start(p, sm.ring);
+  Acc acc;
+  init_from_partials(acc, q, p.p_src + b * p.ps_bstride,
+                     p.p_dst ? p.p_dst + b * p.pd_bstride : nullptr, sm.sidx, sm.ridx, p.hidden);
+  dense(acc, q, sm.H, p, s, sm.ring, product(p, 0));
+  __syncthreads();
+  const unsigned long long m0 = add_bias(acc, q, p.b0, p.hidden, true);
+  store_rows(sm.H, acc, q, p.h0 + batch_row(p) * p.hidden, p.hidden, e0, p.n_edges);
+  dense(acc, q, sm.H, p, s, sm.ring, product(p, 1));
+  __syncthreads();
+  const unsigned long long m1 = add_bias(acc, q, p.b1, p.hidden, true);
+  store_rows(sm.H, acc, q, p.h1 + batch_row(p) * p.hidden, p.hidden, e0, p.n_edges);
+  dense(acc, q, sm.H, p, s, sm.ring, product(p, 2));
+
+  // h2 = acc + b2 into H; dh2 by the LayerNorm backward, with the tile's
+  // sums of dout n (gamma), dout (beta) and dh2 (b2).
+  __syncthreads();
+  add_bias(acc, q, p.b2, p.f_e, false);
+  store_rows(sm.H, acc, q, nullptr, 0, e0, p.n_edges);
+  __syncthreads();
+  layernorm_backward(p, sm, e0);
 
   // dh1 = (dh2 W2^T) [h1 > 0]
-  dense_from_smem(acc, Hs, Bs, p.w2t, p.f_e, p.hidden);
+  dense(acc, q, sm.H, p, s, sm.ring, product(p, 3));
   apply_mask(acc, m1);
-  tile_colsum(acc, Bs, col + kB1 * slot, p.hidden);
-  store_rows(Hs, acc, p.dh1 + h_off, p.hidden, e0, p.n_edges);
+  acc_colsum(acc, q, sm.red, 0, colsum_of(p, kB1), p.hidden);
+  store_rows(sm.H, acc, q, p.dh1 + batch_row(p) * p.hidden, p.hidden, e0, p.n_edges);
 
   // dh0 = (dh1 W1^T) [h0 > 0]
-  dense_from_smem(acc, Hs, Bs, p.w1t, p.hidden, p.hidden);
+  dense(acc, q, sm.H, p, s, sm.ring, product(p, 4));
   apply_mask(acc, m0);
-  tile_colsum(acc, Bs, col + kB0 * slot, p.hidden);
-  store_rows(Hs, acc, p.dh0 + h_off, p.hidden, e0, p.n_edges);
+  acc_colsum(acc, q, sm.red, 1, colsum_of(p, kB0), p.hidden);
+  store_rows(sm.H, acc, q, p.dh0 + batch_row(p) * p.hidden, p.hidden, e0, p.n_edges);
 
   // de = dout + dh0 We^T
-  dense_from_smem(acc, Hs, Bs, p.wet, p.hidden, p.f_e);
+  dense(acc, q, sm.H, p, s, sm.ring, product(p, 5));
+  const float* dout_b = p.dout + batch_row(p) * p.f_e;
+  float* de_b = p.de + batch_row(p) * p.f_e;
+  const bool vd = vec2_ok(dout_b, p.f_e), vo = vec2_ok(de_b, p.f_e);
+  const int first = opaque(e0 + q.row0 + q.g), col = opaque(acc_col(q, 0));
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    const int edge = e0 + warp * ROWS + r;
-    if (edge >= p.n_edges) continue;
-    float d[8];
-    load_row8(d, dout_b + (long long)edge * p.f_e, p.f_e);
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) d[j] += acc[r][j];
-    store_row8(p.de + fe_off + (long long)edge * p.f_e, d, p.f_e);
-  }
+    for (int h = 0; h < 2; ++h) {
+      const int edge = first + 16 * mt + 8 * h;
+      fence_loads();
+      if (edge >= p.n_edges) continue;
+      const float* d_row = dout_b + (long long)edge * p.f_e;
+      float* o_row = de_b + (long long)edge * p.f_e;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = col + 8 * nt;
+        const float2 d = load2(d_row, c, p.f_e, vd);
+        store2(o_row, c, p.f_e, vo, d.x + acc[mt][nt][2 * h], d.y + acc[mt][nt][2 * h + 1]);
+      }
+    }
 }
 
 }  // namespace

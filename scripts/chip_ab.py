@@ -9,8 +9,9 @@ package builds its kernels into DIR). The measurements are chip_smoke.py's,
 from this script's own checkout: K3a at c = 128 and 512 against SDPA on the
 gathered unions (phase 8), K3c and K3b with SDPA's backward (phase 14), per
 evaluation and per train step; 3 GenCast denoiser requests (phase 9), one
-20-step sample (11), 3 train steps (15); 3 forecaster requests at 1° (4)
-and 3 train steps (34); K4a (phase 26) and K4b's two kernels (27) on the
+20-step sample (11), 3 train steps (15); the fused edge update's kernels
+at the 1° forecaster's shapes, K1 and K2 per forward (phase 3) and K2b per
+train step (33); 3 forecaster requests at 1° (4) and 3 train steps (34); K4a (phase 26) and K4b's two kernels (27) on the
 splits-5 band layout at c = 128 and 512 (the dk/dv kernel in its symmetric
 role where the tree has one), per evaluation and per train step, 3 banded
 GenCast requests (28) and 3 banded train steps (30); K6 on the 768-d
@@ -99,12 +100,19 @@ def main() -> int:
     sys.path.insert(1, str(Path(__file__).resolve().parents[1]))
     import chip_smoke as cs
     from graph_weather_tpu_torch.meshes.clustering import build_cluster_scatter_index
+    from graph_weather_tpu_torch.meshes.graphs import (
+        build_grid_to_mesh_graph,
+        build_latent_graph,
+        build_mesh_to_grid_graph,
+    )
+    from graph_weather_tpu_torch.meshes.hexmesh import get_hexmesh
     from graph_weather_tpu_torch.models.gencast.graphs import build_graphcast_graphs
     from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
     from graph_weather_tpu_torch.ops import (
         _build,
         banded_flash,
         clustered_flash,
+        edge_mlp,
         fused_mlp,
         natten3d,
         natten_flash,
@@ -175,8 +183,32 @@ def main() -> int:
     del den, sampler, step
     torch.cuda.empty_cache()
 
-    # The 1° forecaster: 3 requests and 3 train steps (phases 4 and 34).
+    # K1, K2 and K2b on the 1° graphs (phases 3 and 33): per forward (g2m + 9
+    # latent + m2g) and per train step.
     lat_lons = cs.grid(1.0)
+    mesh = get_hexmesh(2)
+    bundles = {"g2m": build_grid_to_mesh_graph(np.asarray(lat_lons), mesh),
+               "latent": build_latent_graph(mesh),
+               "m2g": build_mesh_to_grid_graph(np.asarray(lat_lons), mesh)}
+    fc_graphs = {n: DeviceGraph.from_bundle(b, "cuda", edge_sums=True) for n, b in bundles.items()}
+    k1 = {n: cs.k1_case(edge_mlp, n, b, n != "m2g", gen) for n, b in bundles.items()}
+    k2 = {n: cs.k2_case(fused_mlp, n, fc_graphs[n], n != "m2g", gen) for n in bundles}
+    k2b = {n: cs.k2b_case(fused_mlp, n, fc_graphs[n], n != "m2g", gen) for n in bundles}
+    result.update({
+        "k1_ms": {n: v[1] for n, v in k1.items()},
+        "k2_ms": {n: v[1] for n, v in k2.items()},
+        "k2b_ms": {n: v["ms"]["kernel"] for n, v in k2b.items()},
+        "k2b_backward_ms": {n: v["ms"]["backward"] for n, v in k2b.items()},
+        "k1_max_abs_err": max(v[0] for v in k1.values()),
+        "k2_max_abs_err": max(v[0] for v in k2.values()),
+        "k2b_err": max(v["err"] for v in k2b.values()),
+    })
+    for key in ("k1_ms", "k2_ms", "k2b_ms", "k2b_backward_ms"):
+        result[key]["per_forward_or_step"] = sum(result[key][n] * c for n, c in cs.EDGE_UPDATES.items())
+    del fc_graphs, k1, k2, k2b
+    torch.cuda.empty_cache()
+
+    # The 1° forecaster: 3 requests and 3 train steps (phases 4 and 34).
     model = port.GraphWeatherForecaster(
         lat_lons, feature_dim=cs.FEATURE_DIM, aux_dim=cs.AUX_DIM, device="cuda"
     )

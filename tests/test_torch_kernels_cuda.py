@@ -234,6 +234,51 @@ def test_fused_edge_update_empty_graph_launches_nothing(gen):
     assert (fused_mlp.LAUNCHES, fused_mlp.BACKWARD_LAUNCHES) == before
 
 
+# The tensor-core tiles of K2 and K2b at their edges: one tile of edges, one
+# tile less or more one edge (the last tile holding a single valid edge), a
+# single edge; widths 8, 200 and 256 with Fe != H (mma wants multiples of 8
+# of the padded tiles; these are the widths that fill a tile, one n-tile,
+# and neither).
+_TE = fused_mlp.TILE_EDGES
+TILE_EDGES_CASES = [_TE, _TE - 1, _TE + 1, 1]
+TILE_WIDTHS = [(8, 200), (200, 256), (256, 8)]  # (Fe, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", TILE_WIDTHS, ids=["fe8_h200", "fe200_h256", "fe256_h8"])
+@pytest.mark.parametrize("n_edges", TILE_EDGES_CASES, ids=["tile", "tile_less_1", "tile_plus_1", "one"])
+def test_fused_edge_update_tiles_match_plain(gen, n_edges, widths):
+    """K2 and K2b (with the sums after it) against their plain versions at
+    the tile's edges, batched, with a destination term and the LayerNorm."""
+    f_e, hidden = widths
+    args = _k2_args(gen, 2, 40, 30, n_edges, 8, f_e, hidden, "yes", True)
+    tables = _tables(args)
+    with torch.no_grad():
+        out = fused_mlp.fused_edge_update(*args, **tables)
+        torch.cuda.synchronize()
+        assert (out - fused_mlp.fused_edge_update_reference(*args)).abs().max().item() <= ATOL
+    dout = torch.randn(2, n_edges, f_e, generator=gen, device="cuda")
+    activations = _kernel_activations(args, dout)
+    got = fused_mlp._backward_cuda(*args, dout, tables["sender_sum"], tables["receiver_sum"])
+    want = fused_mlp.fused_edge_update_backward_reference(
+        *args, dout, **tables, activations=activations
+    )
+    assert _max_rel(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fused_edge_update_backward_repeats_its_bits(gen):
+    """Two K2b launches on the same inputs write the same bits: no atomics,
+    every sum in a fixed order."""
+    args = _k2_args(gen, 2, 300, 100, 3 * _TE + 5, 256, 256, 256, "yes", True)
+    dout = torch.randn(2, 3 * _TE + 5, 256, generator=gen, device="cuda")
+    first_outs, first_sums = fused_mlp.launch_backward(*args[:12], dout)
+    second_outs, second_sums = fused_mlp.launch_backward(*args[:12], dout)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first_outs, second_outs))
+    assert all(torch.equal(first_sums[k], second_sums[k]) for k in first_sums)
+
+
 def _cluster_case(gen, b, n, heads, c, block, empty_every=7, seed=0):
     """A random graph whose every 7th receiver has no edge, laid out in
     `block`-row blocks; q/k/v [b, n, heads, c] on the card."""
@@ -849,7 +894,7 @@ def test_banded_flash_one_edge_in_the_last_subtile_and_an_empty_block(gen, c):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["clustered_flash", "clustered_flash_bwd", "banded_flash",
-                                  "banded_flash_bwd"])
+                                  "banded_flash_bwd", "edge_mlp", "fused_mlp_bwd"])
 def test_tensor_core_sass(gen, name):
     """The libraries whose products run on the tensor cores hold TF32 mma
     instructions (HMMA ... TF32) in their SASS (cuobjdump beside nvcc)."""
