@@ -69,14 +69,18 @@ non-zero exit:
      1e-3 max|g| of that tensor (floored at 1e-6 of the largest gradient);
      and once more on the card: whether the loss and gradients repeat bit
      for bit, and the largest difference if not (printed only)
- 17. build: natten_flash.cu's and natten_flash_bwd.cu's registers and spills
+ 17. build: natten_flash.cu's registers and spills by instantiation
+     (<CP, CL, NC, MINB>), and natten_flash_bwd.cu's
  18. K5a (3D neighborhood attention) against its plain version on the
      [1, 14, 45, 90] latent with rpb ~N(0, 0.5^2): (a) kernel (3, 5, 5),
      4 x 32; (b) the same with a circular W axis; (c) kernel (5, 7, 7),
-     8 x 32. Max abs error <= 1e-4 on out and lse; CUDA-event medians of the
-     kernel, the plain version and SDPA on the kernel's tiles with the window
-     and rpb as an additive mask (timed only); per forward (8 x case a) and
-     the bound
+     8 x 32; (d) kernel (3, 5, 5), 4 x 128, the widest head K5a takes. Max
+     abs error <= 1e-4 on out and lse, and out and lse bit-equal over two
+     launches; the plan (tile, lane group, chunk, slab strip, shared memory,
+     CTAs an SM); CUDA-event medians of the kernel, with and without lse,
+     the plain version and SDPA on the halo tiles of _pick_tile("fwd") with
+     the window and rpb as an additive mask (timed only); per forward (8 x
+     case a) and the bound
  19. wm_serve: the WeatherMesh answers 3 requests (B = 1), each with exactly
      8 K5a launches; ms per request, peak GiB, a profile of one more
  20. the same weights and the last request on the CPU: max abs difference
@@ -608,13 +612,16 @@ def natten_sdpa_inputs(natten_flash, q, k, v, kernel, rpb, circular, grads=None)
     return out
 
 
-def k5a_case(natten_flash, reference, name, gen, kernel, heads, circular):
-    """K5a against its plain version on WeatherMesh's 1-degree latent. Returns
-    a dict of errors, times (ms), flops and bytes."""
-    q, k, v, rpb = natten_inputs(gen, kernel, heads)
+def k5a_case(natten_flash, reference, name, gen, kernel, heads, circular, ch=32):
+    """K5a against its plain version on WeatherMesh's 1-degree latent, and
+    its out and lse against a second launch's (bit for bit). Returns a dict
+    of errors, times (ms), flops and bytes."""
+    q, k, v, rpb = natten_inputs(gen, kernel, heads, ch)
     args = (q, k, v, kernel, rpb, circular)
     out, lse = natten_flash._forward_cuda(*args, with_lse=True)
+    again = natten_flash._forward_cuda(*args, with_lse=True)
     torch.cuda.synchronize()
+    repeats = torch.equal(out, again[0]) and torch.equal(lse, again[1])
     ref, ref_lse = reference(q, k, v, kernel, rpb, circular, with_lse=True)
     err = max((out - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
     ms = cuda_ms(lambda: natten_flash._forward_cuda(*args, with_lse=False))
@@ -623,14 +630,19 @@ def k5a_case(natten_flash, reference, name, gen, kernel, heads, circular):
     qt, kt, vt, bias = natten_sdpa_inputs(natten_flash, *args)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=bias))
-    tile = natten_flash._pick_tile("fwd", WM_LATENT, kernel, circular, q.shape[-1], True)
-    print(f"[k5a] {name}: kernel {kernel} heads {heads} x 32 circular_w={circular} | tile "
-          f"{(tile.td, tile.th, tile.tw)} halo {(tile.ud, tile.uh, tile.uw)} smem {tile.smem} B | "
-          f"max_abs_err out/lse {err:.3e} | kernel_ms={ms:.4f} (with lse {lse_ms:.4f}) "
-          f"plain_ms={plain_ms:.4f} sdpa_ms={sdpa_ms:.4f} (SDPA on {tuple(bias.shape)} masked tiles)",
-          flush=True)
+    tile = natten_flash._pick_tile("fwd", WM_LATENT, kernel, circular, ch, True)
+    plan = natten_flash._fwd_plan(WM_LATENT, kernel, circular, ch, True)
+    print(f"[k5a] {name}: kernel {kernel} heads {heads} x {ch} circular_w={circular} | plan: tile "
+          f"{(plan.td, plan.th, plan.tw)} (query planes, rows, columns), groups of "
+          f"{natten_flash.FWD_NQ} queries on {plan.lanes} lanes, chunks of {plan.nc} columns, "
+          f"slab strip {plan.ry} x {plan.rx}, smem {plan.smem} B, {plan.ctas} CTAs an SM, "
+          f"{plan.n_tiles} tiles | max_abs_err out/lse {err:.3e} | repeat bit-equal {repeats} | "
+          f"kernel_ms={ms:.4f} (with lse {lse_ms:.4f}) plain_ms={plain_ms:.4f} sdpa_ms={sdpa_ms:.4f} "
+          f"(SDPA on {tuple(bias.shape)} masked halo tiles {(tile.td, tile.th, tile.tw)})", flush=True)
     if not (err <= K5_TOL):
         raise AssertionError(f"K5a {name}: max abs error {err} > {K5_TOL}")
+    if not repeats:
+        raise AssertionError(f"K5a {name}: out or lse differ between two launches")
     n_pairs = q[..., 0, 0].numel() * heads * math.prod(kernel)
     nbytes = 4 * (4 * q[..., 0].numel() * q.shape[-1] + rpb.numel())  # q, k, v, out, rpb
     del qt, kt, vt, bias
@@ -1019,6 +1031,22 @@ def tf32_mma_report(build, name: str, required: bool = True) -> str:
     if count == 0 and required:
         raise AssertionError(f"{name}.cu: no TF32 tensor-core instruction in its SASS")
     return f"TF32 HMMA in SASS {count}"
+
+
+def ptxas_by_kernel(build, name: str) -> list[str]:
+    """ptxas's registers and spills of each kernel in csrc/<name>.cu's build
+    log, by its template arguments (<CP, CL, NC, MINB> for K5a)."""
+    log = build.build_log_path(name)
+    if not log.exists():
+        return ["(cached build, no log)"]
+    report, current = {}, None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1] if "'" in line else line
+            current = "<" + ", ".join(re.findall(r"Li(\d+)E", mangled)) + ">"
+        elif current and ("registers" in line or "spill" in line):
+            report.setdefault(current, []).append(line.split(":", 1)[-1].strip())
+    return [f"{kernel}: " + ", ".join(lines) for kernel, lines in report.items()]
 
 
 def timed(fn):
@@ -1460,15 +1488,17 @@ def main() -> int:
 
     # 17. build of the NATTEN kernels (started with the others in phase 2)
     print(f"[build] natten_flash.cu + natten_flash_bwd.cu {build_s:.2f} s (parallel with the "
-          "others) | " + " | ".join(ptxas("natten_flash") + ptxas("natten_flash_bwd")), flush=True)
+          "others) | K5a: " + " | ".join(ptxas_by_kernel(_build, "natten_flash")) + " | K5b: "
+          + " | ".join(ptxas("natten_flash_bwd")), flush=True)
 
     # 18. K5a on WeatherMesh's 1-degree latent: (a) the model's layers, (b) a
-    # circular W axis, (c) the JAX module's default kernel and heads
+    # circular W axis, (c) the JAX module's default kernel and heads, (d) the
+    # widest head K5a takes; K5b (phase 22) takes (a)-(c)
     cases = {
         "a": ((3, 5, 5), 4, False), "b": ((3, 5, 5), 4, True), "c": ((5, 7, 7), 8, False),
     }
     k5a = {n: k5a_case(natten_flash, neighborhood_attention_3d_reference, n, gen, *c)
-           for n, c in cases.items()}
+           for n, c in {**cases, "d": ((3, 5, 5), 4, False, 128)}.items()}
     k5a_bound, k5a_bound_by = bound(k5a["a"]["flops"], k5a["a"]["nbytes"])
     print(f"[k5a] per forward ({K5_PER_FORWARD} x case a): kernel_ms="
           f"{K5_PER_FORWARD * k5a['a']['ms']:.4f} plain_ms={K5_PER_FORWARD * k5a['a']['plain_ms']:.4f} "
@@ -2225,6 +2255,11 @@ def main() -> int:
             "bound_by": k5a_bound_by,
             "library_ms": K5_PER_FORWARD * k5a["a"]["sdpa_ms"],
             "train_launches": wm_train_launches[0],  # 3 train steps, with lse
+            # per launch: case a (the model's layers) and c ((5, 7, 7), 8 x 32)
+            "case_a_ms": k5a["a"]["ms"],
+            "case_a_library_ms": k5a["a"]["sdpa_ms"],
+            "case_c_ms": k5a["c"]["ms"],
+            "case_c_library_ms": k5a["c"]["sdpa_ms"],
         },
         {
             "name": "natten_flash_backward_dq",

@@ -10,12 +10,19 @@ a gathered halo, with per-class masks and a head-block-diagonal key matrix
 so that Mosaic's 128-lane matrix unit could do the work; the CUDA kernels
 compute only the kd * kh * kw pairs of each query:
 
-  * K5a (csrc/natten_flash.cu): one CTA per tile of td x th x tw queries of
-    one (batch, head) stages the union of its queries' windows (the halo,
-    at most tile + k - 1 positions per axis) of K and V in shared memory
-    with cp.async; four lanes per query split ch, and each query runs an
-    online softmax in f32 over its window. Writes out and, for training,
-    lse [B, D, H, W, heads].
+  * K5a (csrc/natten_flash.cu): one CTA per tile of td x th query rows
+    (one warp each) of TW W-columns, of one (batch, head); a group of lanes
+    owns four W-neighbouring queries, so that every k or v element read
+    from shared memory feeds four queries. The CTA walks the key planes of
+    its tile's D windows one at a time: a slab is the union of its
+    queries' windows in that plane, K and V, staged in shared memory with
+    cp.async in two stages (the next strip of the slab in flight while the
+    current one is computed); per key row a group takes its queries' union
+    of W-columns in chunks, sums the partial logits by a reduce-scatter of
+    shuffles, and each query runs an online softmax in log2 units (exp2 of
+    x - m) once per chunk. Writes out and, for training, lse
+    [B, D, H, W, heads]. `_fwd_plan` picks the lane group, the tile and the
+    slab strip from the shape, before any launch.
   * K5b (csrc/natten_flash_bwd.cu), two kernels and no atomics:
     (i) dq over query tiles (the same halo), recomputing p = exp(s - lse)
     and ds = p (dO.v - delta), delta = rowsum(dO * out); it also writes, per
@@ -31,12 +38,13 @@ compute only the kd * kh * kw pairs of each query:
     shared memory serves them all: four queries on ch/4 lanes in the dq
     kernel, two keys on ch/8 lanes in the dk/dv kernel.
 
-The host picks each kernel's tile (`_pick_tile`): among tiles of at most
-128 queries (64 at ch <= 64 in a 256-thread CTA, 32 at ch <= 128) whose
-shared memory fits Hopper's 227 KB, the one that stages the fewest halo
-rows over the whole volume. The kernels take ch <= 128 (MAX_CHANNELS), and
-a tile's halo must fit in shared memory (ch <= 64 fits every kernel up to
-(5, 7, 7); ch of 96 or 128 does not fit (5, 7, 7)). `takes` says, before
+The host picks K5b's tiles (`_pick_tile`): among tiles of at most 128
+queries (64 at ch <= 64, 32 at ch <= 128) whose halo fits Hopper's 227 KB,
+the one that stages the fewest halo rows over the whole volume. The same
+choice for kind "fwd" decides which shapes K5a takes, as before its slabs:
+ch <= 128 (MAX_CHANNELS), and a halo that fits in shared memory (ch <= 64
+fits every kernel up to (5, 7, 7); ch of 96 or 128 does not fit (5, 7, 7)),
+so that no shape moves between K5a, K6 and an error. `takes` says, before
 any launch, whether the kernels take a shape; impl="auto" of
 `neighborhood_attention_3d` sends the shapes they refuse to the wide-head
 K6 (ops/natten3d.py), impl="flash" raises ValueError for them.
@@ -84,7 +92,10 @@ _GEOMETRY = [
     _c_int, ctypes.c_float,  # vec4, scale
     _c_ptr,  # cudaStream_t
 ]
-_FWD_ARGTYPES = [_c_ptr] * 6 + _GEOMETRY  # q k v rpb out lse
+# q k v rpb out lse, batch D H W heads ch, strides, kd kh kw circular_w vec4,
+# scale, the plan (cp lanes nc td th ry rx), the stream
+_FWD_ARGTYPES = ([_c_ptr] * 6 + _GEOMETRY[:13] + [_c_int, ctypes.c_float] + [_c_int] * 7
+                 + [_c_ptr])
 # mode, q k v rpb dout lse delta dq dk dv partial, the geometry, ry (rows of a
 # dk/dv strip), the stream
 _BWD_ARGTYPES = [_c_int] + [_c_ptr] * 11 + _GEOMETRY[:-1] + [_c_int, _c_ptr]
@@ -257,6 +268,101 @@ def _dkv_rows(tile: Tile, kernel, ch: int) -> int:
                default=0)
 
 
+# K5a's launch (csrc/natten_flash.cu): W-neighbouring queries of a lane
+# group (NQ), the columns of a chunk up to kw = 5 and above (NC_SHORT,
+# NC_LONG), threads of a CTA (THREADS: eight query rows), and per padded
+# head width the channels a lane holds and the CTAs an SM that the
+# instantiation's registers allow (its __launch_bounds__).
+FWD_NQ = 4
+FWD_NC = (8, 10)
+FWD_THREADS = 256
+FWD_GROUPS = {16: (4, 2), 32: (4, 2), 64: (8, 1), 128: (8, 1)}
+SM_SMEM = 233472  # bytes of shared memory of an SM; each CTA also takes 1 KB
+FWD_ROWS = ((1, 8), (2, 4), (4, 2), (8, 1))  # (td, th): query planes and rows of a CTA
+ITEM_COST = 2  # an item's barrier and copies, in key-row chunks of one warp
+
+
+@dataclass(frozen=True)
+class FwdPlan:
+    """A launch of K5a: padded head width `cp`, `lanes` lanes to a group of
+    FWD_NQ W-neighbouring queries, `nc` columns a chunk; td x th query rows
+    (one warp each) of `tw` columns a CTA; items of ry union rows by rx
+    union columns of a key plane's slab; the shared memory it takes, the
+    CTAs an SM holds, and the tiles over the volume."""
+
+    cp: int
+    lanes: int
+    nc: int
+    td: int
+    th: int
+    tw: int
+    ry: int
+    rx: int
+    smem: int
+    ctas: int
+    n_tiles: int
+
+
+def _fwd_item(uh, uw, budget, row_bytes):
+    """The largest item (ry, rx) of a slab of uh x uw positions that fits
+    `budget` bytes at `row_bytes` a staged position, in strips of equal
+    heights (widths); None when not even one position fits."""
+    if budget < row_bytes:
+        return None
+    rx = min(uw, budget // row_bytes)
+    ry = min(uh, budget // (row_bytes * rx))
+    rx = -(-uw // -(-uw // rx))
+    ry = -(-uh // -(-uh // ry))
+    return ry, rx
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_plan(dims, kernel, circular_w, ch, has_bias) -> FwdPlan:
+    """How K5a tiles q of volume `dims` at `kernel` (a pure host function,
+    called before any launch): for each split of the CTA's eight warps into
+    td query planes by th query rows, and each number of CTAs an SM (up to
+    what the registers allow), the largest slab strip that rpb and two
+    stages of K and V leave room for; then the plan whose critical path
+    over the volume is shortest: per CTA the items times the most key rows
+    a warp walks in one (all its rows in a whole slab, fewer in a strip),
+    in chunks, plus ITEM_COST an item, over the CTAs that share an SM.
+    Every shape that `takes` accepts has one (an item of one position fits
+    where the halo did)."""
+    cp = _padded_width(ch)
+    cl, most_ctas = FWD_GROUPS[cp]
+    lanes = cp // cl
+    tw = FWD_NQ * 32 // lanes
+    (d, h, w), (kd, kh, kw) = dims, kernel
+    cols = FWD_NQ - 1 + kw
+    nc = FWD_NC[0] if cols <= FWD_NC[0] else FWD_NC[1]
+    n_chunks = -(-cols // nc)
+    n_rel = math.prod(2 * kk - 1 for kk in kernel)
+    rpb_bytes = 4 * (-(-n_rel // 4) * 4) if has_bias else 0
+    row_bytes = 2 * 2 * 4 * (cp + 4)  # K and V, two stages
+    uw = min(tw, w) + kw - 1 if circular_w else _max_span(w, kw, tw, False, False)
+    best, best_cost = None, None
+    for td, th in FWD_ROWS:
+        ud, uh = _max_span(d, kd, td, False, False), _max_span(h, kh, th, False, False)
+        n_tiles = -(-d // td) * -(-h // th) * -(-w // tw)
+        for ctas in range(most_ctas, 0, -1):
+            budget = min(SMEM_LIMIT, SM_SMEM // ctas - 1024) - rpb_bytes
+            item = _fwd_item(uh, uw, budget, row_bytes)
+            if item is None:
+                continue
+            ry, rx = item
+            items = ud * -(-uh // ry) * -(-uw // rx)
+            rows = min(ry, kh) if ry < uh else kh  # the most a warp walks in an item
+            cost = n_tiles * items * (rows * n_chunks + ITEM_COST) / ctas
+            if best_cost is None or cost < best_cost:
+                smem = rpb_bytes + row_bytes * ry * rx
+                best = FwdPlan(cp, lanes, nc, td, th, tw, ry, rx, smem, ctas, n_tiles)
+                best_cost = cost
+    if best is None:
+        raise ValueError(f"natten_flash: no K5a plan of volume {dims} x ch {ch} at kernel {kernel} "
+                         f"fits {SMEM_LIMIT} bytes of shared memory")
+    return best
+
+
 def takes(shape, kernel, circular_w: bool, has_bias: bool, backward: bool = False) -> bool:
     """True when K5a (and, with `backward`, both kernels of K5b) take q of
     `shape` [B, D, H, W, heads, ch] at `kernel`; otherwise `_pick_tile`'s
@@ -284,14 +390,21 @@ def _position_stride(t: torch.Tensor, name: str) -> int:
     return ps
 
 
-def _geometry(q, k, v, kernel, circular_w, tile, tensors):
-    b, d, h, w, heads, ch = q.shape
+def _layout(q, k, v, kernel, circular_w, tensors):
+    """(shape, position strides, kernel and circular_w as the C entries take
+    them; vec4: 16-byte copies allowed)."""
+    ch = q.shape[-1]
     strides = [_position_stride(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
     vec4 = int(ch % 4 == 0 and all(s % 4 == 0 for s in strides)
                and all(t.data_ptr() % 16 == 0 for t in tensors))
-    return (b, d, h, w, heads, ch, *strides, *kernel, int(circular_w),
-            tile.td, tile.th, tile.tw, tile.ud, tile.uh, tile.uw, vec4, ch**-0.5,
-            torch.cuda.current_stream().cuda_stream)
+    return (*q.shape, *strides, *kernel, int(circular_w)), vec4
+
+
+def _geometry(q, k, v, kernel, circular_w, tile, tensors):
+    """K5b's geometry arguments, the stream last."""
+    layout, vec4 = _layout(q, k, v, kernel, circular_w, tensors)
+    return (*layout, tile.td, tile.th, tile.tw, tile.ud, tile.uh, tile.uw, vec4,
+            q.shape[-1]**-0.5, torch.cuda.current_stream().cuda_stream)
 
 
 def _check_err(err: int, what: str) -> None:
@@ -303,13 +416,17 @@ def _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse):
     """K5a: out [B, D, H, W, heads, ch], and lse [B, D, H, W, heads] when asked."""
     global LAUNCHES
     rpb = None if rpb is None else rpb.contiguous()
-    tile = _pick_tile("fwd", tuple(q.shape[1:4]), kernel, circular_w, q.shape[-1], rpb is not None)
+    dims, ch = tuple(q.shape[1:4]), q.shape[-1]
+    takes(q.shape, kernel, circular_w, rpb is not None)
+    plan = _fwd_plan(dims, kernel, circular_w, ch, rpb is not None)
     out = torch.empty(q.shape, device=q.device)
     lse = torch.empty(q.shape[:-1], device=q.device) if with_lse else None
+    layout, vec4 = _layout(q, k, v, kernel, circular_w, (q, k, v, out))
     with torch.cuda.device(q.device):
         err = c_function("natten_flash", "gwt_natten_flash_forward", _FWD_ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), out.data_ptr(), _ptr(lse),
-            *_geometry(q, k, v, kernel, circular_w, tile, (q, k, v, out)),
+            *layout, vec4, ch**-0.5, plan.cp, plan.lanes, plan.nc, plan.td, plan.th, plan.ry,
+            plan.rx, torch.cuda.current_stream().cuda_stream,
         )
     _check_err(err, "forward")
     LAUNCHES += 1

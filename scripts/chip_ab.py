@@ -16,8 +16,9 @@ splits-5 band layout at c = 128 and 512 (the dk/dv kernel in its symmetric
 role where the tree has one), per evaluation and per train step, 3 banded
 GenCast requests (28) and 3 banded train steps (30); K6 on the 768-d
 WeatherMesh's layer (phase 37, case a), 3 requests of the 768-d WeatherMesh
-(38) and 3 of the 128-d one (19); K5b's dq and dk/dv kernels apart on the
-128-d layer (phase 22, case a) and 3 128-d WeatherMesh train steps (23).
+(38) and 3 of the 128-d one (19); K5a at phase 18's cases a and c, with and
+without lse; K5b's dq and dk/dv kernels apart on the 128-d layer (phase 22,
+case a) and 3 128-d WeatherMesh train steps (23).
 Each kernel is held against its plain version as in those phases. Prints
 one JSON line. f32 throughout; TF32 is off.
 """
@@ -34,6 +35,33 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+
+def k5a_cases(cs, natten_flash, gen) -> dict:
+    """K5a at phase 18's cases a ((3, 5, 5), 4 x 32: the 128-d WeatherMesh's
+    layers) and c ((5, 7, 7), 8 x 32), with and without lse, after a check
+    of out and lse against the plain version; per launch, and per forward (8
+    launches of case a)."""
+    from graph_weather_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_3d_reference,
+    )
+
+    result = {}
+    for name, (kernel, heads) in {"a": ((3, 5, 5), 4), "c": ((5, 7, 7), 8)}.items():
+        q, k, v, rpb = cs.natten_inputs(gen, kernel, heads)
+        out, lse = natten_flash._forward_cuda(q, k, v, kernel, rpb, False, with_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = neighborhood_attention_3d_reference(q, k, v, kernel, rpb, False, with_lse=True)
+        err = max((out - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+        if not err <= cs.K5_TOL:
+            raise AssertionError(f"K5a case {name}: error {err} > {cs.K5_TOL}")
+        for lse_ in (False, True):
+            key = f"k5a_{name}{'_lse' if lse_ else ''}_ms_per_layer"
+            result[key] = cs.cuda_ms(
+                lambda: natten_flash._forward_cuda(q, k, v, kernel, rpb, False, with_lse=lse_))
+        result[f"k5a_{name}_max_abs_err"] = err
+    result["k5a_ms_per_forward"] = cs.K5_PER_FORWARD * result["k5a_a_ms_per_layer"]
+    return result
 
 
 def k5b_split(cs, natten_flash, gen) -> dict:
@@ -342,6 +370,7 @@ def main() -> int:
             del wm_step
         del wm
         torch.cuda.empty_cache()
+    result.update(k5a_cases(cs, natten_flash, gen))
     result.update(k5b_split(cs, natten_flash, gen))
     for key in ("gencast_request_ms", "gencast_step_ms", "fc_request_ms", "fc_step_ms",
                 "band_request_ms", "band_step_ms", "wm_wide_request_ms", "wm_request_ms",

@@ -7,6 +7,8 @@ so it runs on a GPU host without the JAX package's test setup:
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -572,6 +574,58 @@ def test_natten_forward_matches_plain(gen, case):
     with torch.no_grad():
         served = neighborhood_attention_3d(q, k, v, kernel, rpb, circular)
     assert torch.equal(served, out)
+
+
+K5A_PLAN_CASES = [
+    # (B, D, H, W), heads, ch, kernel, circular_w
+    ((1, 14, 45, 90), 8, 32, (5, 7, 7), False),  # phase 18's case c: four query planes a CTA
+    ((1, 14, 45, 90), 4, 128, (3, 5, 5), False),  # the widest head K5a takes: 16 lanes a group
+    ((2, 7, 11, 21), 2, 32, (3, 5, 5), True),  # tiles cut at every edge, the circular seam
+    ((2, 5, 9, 19), 3, 64, (5, 7, 7), True),
+    ((1, 5, 9, 37), 2, 16, (3, 3, 5), False),  # 4 lanes a group, 32-column tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K5A_PLAN_CASES,
+                         ids=["k577_1deg", "ch128_1deg", "edges_circular_b2", "k577_ch64_circular_b2",
+                              "ch16"])
+def test_natten_forward_plans(gen, case):
+    """K5a on the plans of `_fwd_plan` (whole slabs in two stages, lane
+    groups of four queries) against the plain version, out and lse; both
+    repeat bit for bit over two launches."""
+    shape, heads, ch, kernel, circular = case
+    q, k, v, rpb = _natten_inputs(gen, shape, heads, ch, kernel, True, fused=True)
+    before = natten_flash.LAUNCHES
+    out, lse = natten_flash._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)
+    out2, lse2 = natten_flash._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)
+    torch.cuda.synchronize()
+    assert natten_flash.LAUNCHES == before + 2
+    ref, ref_lse = neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular, with_lse=True)
+    assert (out - ref).abs().max().item() <= ATOL
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [(1, 8, 3, 7), (4, 2, 2, 20), (8, 1, 5, 5), (2, 4, 1, 1)],
+                         ids=["strips_1x8", "strips_4x2", "strips_8x1", "one_position"])
+def test_natten_forward_slab_strips(gen, monkeypatch, rows):
+    """K5a with its slabs cut into items of ry rows by rx columns (what
+    `_fwd_plan` picks where a whole slab does not fit), and each split of
+    the CTA's eight rows into query planes and rows, against the plain
+    version."""
+    shape, heads, ch, kernel, circular = (1, 6, 11, 21), 2, 32, (3, 5, 5), True
+    q, k, v, rpb = _natten_inputs(gen, shape, heads, ch, kernel, True, fused=True)
+    plan = natten_flash._fwd_plan(shape[1:], kernel, circular, ch, True)
+    td, th, ry, rx = rows
+    monkeypatch.setattr(natten_flash, "_fwd_plan",
+                        lambda *args: dataclasses.replace(plan, td=td, th=th, ry=ry, rx=rx))
+    out, lse = natten_flash._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular, with_lse=True)
+    assert (out - ref).abs().max().item() <= ATOL
+    assert (lse - ref_lse).abs().max().item() <= ATOL
 
 
 @pytest.mark.cuda
