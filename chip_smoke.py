@@ -17,7 +17,8 @@ and training; and the same GenCast denoiser with banded attention
 blocks of 512 rows against windows of 2,560 keys): serving and training;
 and the 768-d WeatherMesh (the same conv stack with the JAX package's
 default attention: latent 768, 8 heads of 96, kernel (5, 7, 7), 3 + 10 + 3
-layers), whose heads K5a cannot tile, served through K6.
+layers), whose heads K5a cannot tile: served through K6, trained through K6
+and its backward K6b.
 Phases, one line each, in order; any failure raises and ends the run with a
 non-zero exit:
 
@@ -175,9 +176,27 @@ non-zero exit:
  40. the same weights and one request at 3 deg (60 x 120, latent
      [14, 15, 30]) on the card (16 K6 launches) and on the CPU: max abs
      difference <= 1e-3; the CPU forward timed
- 41. a gradient through a K6 shape on the card (the wide model's
-     forward_fn, and the attention alone) raises NotImplementedError
-     before any K6 launch
+ 41. K6 with lse, and K6b (its backward: dq and dk/dv kernels) against
+     the plain backward (natten_flash_backward_reference) on K6's out and
+     lse, in phase 37's cases a, b, d, e and f and (g) case a without rpb:
+     out and lse within 1e-4 of the plain version's, each of dq, dk, dv and
+     drpb within 1e-4 of its tensor's max|g|, out, lse and the gradients
+     bit-equal over two launches; the plans; CUDA-event medians of K6 with
+     and without lse, of each K6b kernel, of the whole backward (with delta
+     and the drpb sum), of the plain backward and of SDPA's backward over
+     each query's gathered window with rpb as an additive bias, in chunks
+     of 2 GiB (the last two timed only, SDPA_BWD_RUNS runs); per train step
+     (16 x case a) and the bounds
+ 42. wm_wide_train: 3 steps of make_train_step on the 768-d WeatherMesh
+     (phase 23's objective and optimiser, phase 38's weights), each with
+     exactly 16 K6 (with lse), 16 K6b dq and 16 K6b dk/dv launches and no
+     K5a or K5b launch; finite loss, every parameter changed; ms per step,
+     peak GiB, a profile of one more step
+ 43. the same weights and one batch at 28 x 60 (latent [14, 7, 15]; at 3
+     deg the CPU would take ~4 min), forward and backward on the card and
+     on the CPU: loss within 1e-5 relative, every gradient within 1e-3 of
+     its tensor's max|g|; and once more on the card: whether the loss and
+     gradients repeat bit for bit (printed only)
 
 then one JSON line on the kernels, the card's name and power limit, and
 last {"ok": true, "device": ...}.
@@ -259,6 +278,7 @@ WM_WIDE = {
     "decoder_num_transformer_layers": 3,
 }
 WM_WIDE_CHECK_GRID = (60, 120)  # phase 40's card-against-CPU forward, at 3 deg
+WM_WIDE_GRAD_GRID = (28, 60)  # phase 43's card-against-CPU gradients: latent [14, 7, 15]
 K6_PER_FORWARD = 16  # 3 encoder + 10 processor + 3 decoder attention layers
 GENCAST_BANDED = {**GENCAST, "attention_impl": "banded_flash"}
 
@@ -704,14 +724,12 @@ def k5b_case(natten_flash, name, gen, kernel, heads, circular):
                 nbytes_split={"dq": 4 * 5 * n + stats + 4 * 2 * rpb.numel(), "dkv": 4 * 6 * n + stats})
 
 
-def window_sdpa_ms(window_indices, ref, q, k, v, kernel, rpb, circular, chunk_bytes=2 * 2**30):
-    """The library yardstick of K6: SDPA over each query's gathered window
-    (kd * kh * kw keys, [n, heads, slots, ch]) with rpb as an additive bias
-    [n, heads, 1, slots], in chunks of queries whose gathered K and V take
-    `chunk_bytes`. Returns (the chunks' median ms summed, the max abs error
-    of the first chunk's output against `ref`, the plain version's output).
-    Each chunk is gathered on the card outside the timing; timed only, never
-    used by the port."""
+def window_chunks(window_indices, q, k, v, kernel, rpb, circular, chunk_bytes, dout=None):
+    """Each query's gathered window (kd * kh * kw keys) in chunks of queries
+    whose gathered K and V take `chunk_bytes`: yields (first query, q
+    [n, heads, 1, ch], k and v [n, heads, slots, ch], rpb as an additive
+    bias [n, heads, 1, slots] (zeros without rpb), and dO like q when
+    given). Gathered on the card; the library yardstick of K6 and K6b."""
     _, d, h, w, heads, ch = q.shape
     dev = q.device
     tables = [
@@ -729,23 +747,55 @@ def window_sdpa_ms(window_indices, ref, q, k, v, kernel, rpb, circular, chunk_by
     key_ids = per_query(id_ * h * w, ih * w, iw)
     rel_ids = per_query(rd * nrh * nrw, rh * nrw, rw)
     qf, kf, vf = (t.reshape(d * h * w, heads, ch) for t in (q, k, v))
-    bias_table = rpb.reshape(heads, -1)
+    bias_table = (rpb.reshape(heads, -1) if rpb is not None
+                  else torch.zeros(heads, int(rel_ids.max()) + 1, device=dev))
     slots = key_ids.shape[1]
     chunk = max(1, chunk_bytes // (2 * 4 * slots * heads * ch))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    total_ms, err = 0.0, None
     for s in range(0, d * h * w, chunk):
         ids = key_ids[s:s + chunk]
-        qt = qf[s:s + chunk, :, None, :]
         kt, vt = (t[ids].transpose(1, 2).contiguous() for t in (kf, vf))
         bias = bias_table[:, rel_ids[s:s + chunk]].transpose(0, 1)[:, :, None, :].contiguous()
+        extra = () if dout is None else (dout.reshape(d * h * w, heads, ch)[s:s + chunk, :, None, :],)
+        yield (s, qf[s:s + chunk, :, None, :], kt, vt, bias, *extra)
+
+
+def window_sdpa_ms(window_indices, ref, q, k, v, kernel, rpb, circular, chunk_bytes=2 * 2**30):
+    """The library yardstick of K6: SDPA over each query's gathered window
+    with rpb as an additive bias (window_chunks). Returns (the chunks' median
+    ms summed, the max abs error of the first chunk's output against `ref`,
+    the plain version's output). Timed only, never used by the port."""
+    _, d, h, w, heads, ch = q.shape
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    total_ms, err = 0.0, None
+    for s, qt, kt, vt, bias in window_chunks(window_indices, q, k, v, kernel, rpb, circular,
+                                             chunk_bytes):
         if err is None:
             got = sdpa(qt, kt, vt, attn_mask=bias)[:, :, 0]
-            err = (got - ref.reshape(d * h * w, heads, ch)[s:s + chunk]).abs().max().item()
+            err = (got - ref.reshape(d * h * w, heads, ch)[s:s + qt.shape[0]]).abs().max().item()
             del got
         total_ms += cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=bias), runs=3, batch=2)
         del qt, kt, vt, bias
     return total_ms, err
+
+
+SDPA_BWD_RUNS = 2  # phase 41's timed runs of SDPA's backward per chunk (and of the plain backward)
+
+
+def window_sdpa_bwd_ms(window_indices, q, k, v, dout, kernel, rpb, circular,
+                       chunk_bytes=2 * 2**30):
+    """The library yardstick of K6b: SDPA's backward (dq, and dk and dv of
+    the gathered windows) over window_chunks, the forward outside the
+    timing; the chunks' medians of SDPA_BWD_RUNS runs summed. Timed only."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    total_ms = 0.0
+    for _, qt, kt, vt, bias, dot in window_chunks(window_indices, q, k, v, kernel, rpb, circular,
+                                                  chunk_bytes, dout):
+        qt, kt, vt = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        o = sdpa(qt, kt, vt, attn_mask=bias)
+        total_ms += cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True),
+                            runs=SDPA_BWD_RUNS, batch=1)
+        del qt, kt, vt, bias, dot, o
+    return total_ms
 
 
 def k6_case(natten3d, natten_flash, neighborhood_attention_3d, reference, window_indices, name,
@@ -782,6 +832,82 @@ def k6_case(natten3d, natten_flash, neighborhood_attention_3d, reference, window
     nbytes = 4 * (4 * q[..., 0].numel() * ch + rpb.numel())  # q, k, v, out, rpb
     return dict(err=max(err, k5a_err or 0.0), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 flops=4 * n_pairs * ch, nbytes=nbytes, pairs=n_pairs)
+
+
+def k6b_case(natten3d, natten_flash, reference, window_indices, name, gen, kernel, heads, ch,
+             circular, bias=True):
+    """K6 with lse against its plain version, and K6b (the dq and dk/dv
+    kernels, delta, the drpb sum) against the plain backward on K6's out and
+    lse, on the 1-degree latent; out, lse and the gradients repeated bit for
+    bit. Times K6 with and without lse, each K6b kernel, the whole backward,
+    the plain backward and SDPA's backward on the gathered windows. Returns
+    a dict of errors, times (ms), flops and bytes."""
+    q, k, v, rpb = natten_inputs(gen, kernel, heads, ch)
+    rpb = rpb if bias else None
+    args = (q, k, v, kernel, rpb, circular)
+    out, lse = natten3d._forward_cuda(*args, with_lse=True)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = reference(*args, with_lse=True)
+    fwd_err = max((out - ref_out).abs().max().item(), (lse - ref_lse).abs().max().item())
+    del ref_out, ref_lse
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    bargs = (q, k, v, rpb, out, lse, dout, kernel, circular)
+    got = natten3d._backward_cuda(*bargs)
+    again = natten3d._backward_cuda(*bargs)
+    out2, lse2 = natten3d._forward_cuda(*args, with_lse=True)
+    torch.cuda.synchronize()
+    repeats = (torch.equal(out, out2) and torch.equal(lse, lse2)
+               and all(torch.equal(a, b) for a, b in zip(got, again) if a is not None))
+    want = natten_flash.natten_flash_backward_reference(*bargs)
+    errs = {n: ((a - b).abs().max() / b.abs().max()).item()
+            for n, a, b in zip(("dq", "dk", "dv", "drpb"), got, want) if b is not None}
+    del got, again, want, out2, lse2
+    fwd_ms = cuda_ms(lambda: natten3d._forward_cuda(*args))
+    lse_ms = cuda_ms(lambda: natten3d._forward_cuda(*args, with_lse=True))
+    ms = cuda_ms(lambda: natten3d._backward_cuda(*bargs))
+    delta = (dout * out).sum(-1).contiguous()
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    dq_plan, dkv_plan = natten3d.plan_backward(tuple(q.shape), kernel, circular, bias)
+    partial = (torch.empty(dq_plan.n_tiles, heads, rpb[0].numel(), device="cuda") if bias
+               else None)
+
+    def kernel_fn(mode):
+        return lambda: natten3d.launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads,
+                                                partial, kernel, circular)
+
+    split = {"dq": cuda_ms(kernel_fn(natten3d.DQ)), "dkv": cuda_ms(kernel_fn(natten3d.DKV)),
+             "delta": cuda_ms(lambda: (dout * out).sum(-1).contiguous())}
+    plain_ms = cuda_ms(lambda: natten_flash.natten_flash_backward_reference(*bargs),
+                       runs=SDPA_BWD_RUNS, batch=1)
+    library_ms = window_sdpa_bwd_ms(window_indices, q, k, v, dout, kernel, rpb, circular)
+    print(f"[k6b] {name}: kernel {kernel} heads {heads} x {ch} circular_w={circular} rpb={bias} | "
+          f"K6 out/lse max_abs_err {fwd_err:.3e} | K6b error / max|g| "
+          + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+          + f" | repeat bit-equal {repeats} | plans dq {dq_plan} dk/dv {dkv_plan} | K6 ms {fwd_ms:.4f}, "
+          f"with lse {lse_ms:.4f} | backward_ms={ms:.4f} (dq {split['dq']:.4f} + dk/dv "
+          f"{split['dkv']:.4f} + delta {split['delta']:.4f} + drpb sum) | plain_ms={plain_ms:.4f} "
+          f"sdpa_bwd_ms={library_ms:.4f} (SDPA's backward on each query's "
+          f"{math.prod(kernel)}-key window, rpb as bias; plain and SDPA medians of "
+          f"{SDPA_BWD_RUNS} runs)", flush=True)
+    if not (fwd_err <= K5_TOL):
+        raise AssertionError(f"K6 {name}: out or lse error {fwd_err} > {K5_TOL}")
+    for n, e in errs.items():
+        if not (e <= K5_TOL):
+            raise AssertionError(f"K6b {name}: {n} error {e} of its max|g| > {K5_TOL}")
+    if not repeats:
+        raise AssertionError(f"K6b {name}: out, lse or a gradient differs between two launches")
+    n_pairs = q[..., 0, 0].numel() * heads * math.prod(kernel)
+    n = q[..., 0].numel() * ch
+    stats = 4 * 2 * lse.numel()  # lse and delta
+    rpb_bytes = 4 * rpb.numel() if bias else 0
+    return dict(errs=errs, fwd_err=fwd_err, ms=ms, split=split, fwd_ms=fwd_ms, lse_ms=lse_ms,
+                plain_ms=plain_ms, library_ms=library_ms, pairs=n_pairs,
+                # q k v out dO dq dk dv, lse and delta, rpb and drpb; the
+                # function's s, dp, dq, dk and dv (10 ch flops per pair):
+                # that the two kernels each recompute s and dp is their design
+                flops=10 * n_pairs * ch, nbytes=4 * 8 * n + stats + 2 * rpb_bytes,
+                flops_split={"dq": 6 * n_pairs * ch, "dkv": 8 * n_pairs * ch},
+                nbytes_split={"dq": 4 * 5 * n + stats + 2 * rpb_bytes, "dkv": 4 * 6 * n + stats})
 
 
 def band_sdpa_inputs(band_windows, q, k, v, masks, block, w, dout=None):
@@ -2126,26 +2252,112 @@ def main() -> int:
         raise AssertionError(f"wide WeatherMesh card vs CPU: {cpu_err} > {CPU_TOL}")
     del cpu_wide, cpu_pred, card_pred
 
-    # 41. a gradient through a K6 shape on the card raises before any launch
+    # 41. K6 with lse and K6b against their plain versions: phase 37's cases
+    # a, b, d, e and f, and (g) case a without rpb
     t0 = time.perf_counter()
-    before = natten3d.LAUNCHES
-    refusals = []
-    q, k, v, rpb = (t.requires_grad_(True) for t in natten_inputs(gen, (5, 7, 7), 8, 96))
-    for what, fn in (
-        ("the wide model's forward_fn", lambda: wide.forward_fn()(*(t.cuda() for t in check))),
-        ("neighborhood_attention_3d", lambda: neighborhood_attention_3d(q, k, v, (5, 7, 7), rpb)),
-    ):
-        try:
-            fn()
-        except NotImplementedError as e:
-            refusals.append(f"{what}: {e}")
-        else:
-            raise AssertionError(f"a gradient through K6 via {what} did not raise")
-    if natten3d.LAUNCHES != before:
-        raise AssertionError("a refused gradient launched K6")
-    print(f"[wm_wide_grad] NotImplementedError, no K6 launch | {refusals[0]} | phase "
+    k6b_cases = {n: k6_cases[n] for n in "abdef"}
+    k6b_cases["g"] = {**k6_cases["a"], "bias": False}
+    k6b = {n: k6b_case(natten3d, natten_flash, neighborhood_attention_3d_reference, _window_indices,
+                       n, gen, **c) for n, c in k6b_cases.items()}
+    k6b_bound, k6b_bound_by = bound(k6b["a"]["flops"], k6b["a"]["nbytes"])
+    k6b_split_bound = {kind: bound(k6b["a"]["flops_split"][kind], k6b["a"]["nbytes_split"][kind])
+                       for kind in ("dq", "dkv")}
+    print(f"[k6b] per train step ({K6_PER_FORWARD} x case a): backward_ms="
+          f"{K6_PER_FORWARD * k6b['a']['ms']:.4f} (dq {K6_PER_FORWARD * k6b['a']['split']['dq']:.4f}, "
+          f"bound {K6_PER_FORWARD * k6b_split_bound['dq'][0]:.4f} {k6b_split_bound['dq'][1]}; dk/dv "
+          f"{K6_PER_FORWARD * k6b['a']['split']['dkv']:.4f}, bound "
+          f"{K6_PER_FORWARD * k6b_split_bound['dkv'][0]:.4f} {k6b_split_bound['dkv'][1]}) "
+          f"plain_ms={K6_PER_FORWARD * k6b['a']['plain_ms']:.4f} "
+          f"sdpa_bwd_ms={K6_PER_FORWARD * k6b['a']['library_ms']:.4f} bound_ms="
+          f"{K6_PER_FORWARD * k6b_bound:.4f} ({k6b_bound_by}: {k6b['a']['pairs'] / 1e6:.1f} M pairs, "
+          f"{k6b['a']['flops'] / 1e9:.2f} GFLOP, {k6b['a']['nbytes'] / 1e6:.1f} MB per layer) | K6 "
+          f"{K6_PER_FORWARD * k6b['a']['fwd_ms']:.4f}, with lse {K6_PER_FORWARD * k6b['a']['lse_ms']:.4f} "
+          f"| phase {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 42. wm_wide_train: 3 steps of make_train_step on the 768-d WeatherMesh
+    # (phase 38's weights) with phase 23's objective and optimiser
+    t0 = time.perf_counter()
+    wide_targets = tuple(torch.randn(t.shape, generator=wm_gen).to("cuda") for t in (surface, pressure))
+
+    def wide_counts():
+        return (natten3d.LAUNCHES, natten3d.BWD_DQ_LAUNCHES, natten3d.BWD_DKV_LAUNCHES,
+                natten_flash.LAUNCHES, natten_flash.BWD_DQ_LAUNCHES, natten_flash.BWD_DKV_LAUNCHES)
+
+    before_params = [t.detach().clone() for t in wide.module.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    natten3d.LAUNCHES = natten3d.BWD_DQ_LAUNCHES = natten3d.BWD_DKV_LAUNCHES = 0
+    natten_flash.LAUNCHES = natten_flash.BWD_DQ_LAUNCHES = natten_flash.BWD_DKV_LAUNCHES = 0
+    wide_step = port.make_train_step(
+        wide.module.parameters(), wide.forward_fn(), wm_objective, port.make_optimizer(1e-4)
+    )
+    wide_train_ms, wide_losses = [], []
+    for _ in range(3):
+        before = wide_counts()
+        loss, ms = timed(lambda: wide_step(surface, pressure, wide_targets))
+        made = tuple(a - b for a, b in zip(wide_counts(), before))
+        if made != (K6_PER_FORWARD,) * 3 + (0,) * 3:
+            raise AssertionError(f"a wide train step made {made} (K6, K6b dq, K6b dk/dv, K5a, K5b dq, "
+                                 "K5b dk/dv) launches, expected 16 of each K6 kernel and no K5")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"wide WeatherMesh train loss {loss.item()}")
+        wide_train_ms.append(ms)
+        wide_losses.append(loss.item())
+    wide_train_launches = wide_counts()[:3]
+    wide_train_peak = torch.cuda.max_memory_allocated() / 2**30
+    names = [n for n, _ in wide.module.named_parameters()]
+    unchanged = [n for n, a, b in zip(names, before_params, wide.module.parameters())
+                 if torch.equal(a, b)]
+    if unchanged:
+        raise AssertionError(f"wide parameters unchanged after 3 train steps: {unchanged}")
+    print(f"[wm_wide_train] 3 steps | step_ms {[round(t, 3) for t in wide_train_ms]} | steady median "
+          f"{statistics.median(wide_train_ms[1:]):.3f} | loss {[round(v, 6) for v in wide_losses]} | "
+          f"launches per step K6 (with lse) 16, K6b dq 16, dk/dv 16, K5a/K5b 0 | all {len(names)} "
+          f"parameter tensors changed (rpb included) | peak GiB {wide_train_peak:.2f} | phase "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    del wide, q, k, v, rpb, surfaces, pressures
+    profile_request(lambda: wide_step(surface, pressure, wide_targets), "wide WeatherMesh train step")
+    del wide_step, before_params, wide_targets
+
+    # 43. the same weights and one batch at 28 x 60 (latent [14, 7, 15]; at 3
+    # deg the CPU's forward and backward would take ~4 min), forward and
+    # backward on the card and on the CPU
+    t0 = time.perf_counter()
+    check_h, check_w = WM_WIDE_GRAD_GRID
+    check = [torch.randn(1, check_h, check_w, 8, generator=wm_gen),
+             torch.randn(1, levels, check_h, check_w, 4, generator=wm_gen)]
+    check_targets = tuple(torch.randn(t.shape, generator=wm_gen) for t in check)
+
+    def wide_card_loss():
+        return wm_objective(wide.forward_fn()(*(t.cuda() for t in check)),
+                            tuple(t.cuda() for t in check_targets))
+
+    wide.module.zero_grad(set_to_none=True)
+    before = wide_counts()
+    card_value = wide_card_loss()
+    card_value.backward()
+    made = tuple(a - b for a, b in zip(wide_counts(), before))
+    if made != (K6_PER_FORWARD,) * 3 + (0,) * 3:
+        raise AssertionError(f"the wide check batch made {made} launches, expected 16 of each K6 kernel")
+    card_grads = {k: t.grad.cpu() for k, t in wide.module.named_parameters()}
+    repeat = card_repeat(wide.module, wide_card_loss, card_value.item(), card_grads)
+    cpu_wide = port.WeatherMesh(**WM_WIDE, device="cpu")
+    cpu_wide.module.load_state_dict({k: v.cpu() for k, v in wide.module.state_dict().items()})
+    t1 = time.perf_counter()
+    cpu_value = wm_objective(cpu_wide.forward_fn()(*check), check_targets)
+    cpu_value.backward()
+    cpu_s = time.perf_counter() - t1
+    cpu_grads = {k: t.grad for k, t in cpu_wide.module.named_parameters()}
+    loss_rel = abs(card_value.item() - cpu_value.item()) / abs(cpu_value.item())
+    worst, worst_name = grads_close(card_grads, cpu_grads)
+    print(f"[cpu] wide WeatherMesh at {check_h} x {check_w} (latent [14, {check_h // 4}, "
+          f"{check_w // 4}]): train loss card {card_value.item():.6f} cpu {cpu_value.item():.6f} rel "
+          f"{loss_rel:.3e} (limit {LOSS_RTOL}) | gradients: worst error / limit {worst:.3e} "
+          f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s | "
+          f"{repeat} | phase {time.perf_counter() - t0:.1f} s", flush=True)
+    if not (loss_rel <= LOSS_RTOL):
+        raise AssertionError(f"wide WeatherMesh train loss card vs CPU: {loss_rel} > {LOSS_RTOL}")
+    if not (worst <= 1.0):
+        raise AssertionError(f"wide WeatherMesh gradient of {worst_name} card vs CPU: {worst} x its limit")
+    del cpu_wide, wide, surfaces, pressures, card_grads, cpu_grads
     torch.cuda.empty_cache()
 
     kernels = [
@@ -2300,6 +2512,27 @@ def main() -> int:
             "bound_ms": K6_PER_FORWARD * k6_bound,
             "bound_by": k6_bound_by,
             "library_ms": K6_PER_FORWARD * k6["a"]["library_ms"],
+            "lse_ms": K6_PER_FORWARD * k6b["a"]["lse_ms"],  # per train step, with lse (phase 41)
+            "train_launches": wide_train_launches[0],  # 3 wide train steps, with lse
+        },
+        {
+            "name": "natten3d_backward",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/natten3d_bwd.cu",
+            # No Pallas backward exists: _natten_bwd differentiates the XLA
+            # slot scan (the custom_vjp of K6).
+            "replaces": "graph_weather_tpu/ops/pallas/natten3d.py:455",
+            "launches": wide_train_launches[1],  # dq kernel, 3 wide train steps
+            "launches_dkv": wide_train_launches[2],
+            "max_abs_err": max(max(v["errs"].values()) for v in k6b.values()),  # of each max|g|
+            "ms": K6_PER_FORWARD * (k6b["a"]["split"]["dq"] + k6b["a"]["split"]["dkv"]),
+            "dq_ms": K6_PER_FORWARD * k6b["a"]["split"]["dq"],  # per train step: 16 x case a
+            "dkv_ms": K6_PER_FORWARD * k6b["a"]["split"]["dkv"],
+            "backward_ms": K6_PER_FORWARD * k6b["a"]["ms"],  # both kernels, delta, drpb sum
+            "plain_ms": K6_PER_FORWARD * k6b["a"]["plain_ms"],
+            "bound_ms": K6_PER_FORWARD * k6b_bound,
+            "bound_by": k6b_bound_by,
+            "library_ms": K6_PER_FORWARD * k6b["a"]["library_ms"],  # SDPA's backward, windows
         },
         {
             "name": "banded_flash_attention",

@@ -61,12 +61,13 @@
 // CTA's rows and the item strip from the shape, before any launch, within
 // 227 KB.
 //
-// For a backward (K6b) the same tiles serve: its dq pass is this loop with
-// ds in place of p, and its dk/dv pass the same staging with the roles of
-// the query tile and the key slabs swapped (each key's inverse window is a
-// union of the same kind), with the lse this kernel would then write.
+// For training the kernel also writes lse = m + log l [B, D, H, W, heads]
+// in natural-log units (`lse` not null), from which the backward K6b
+// (natten3d_bwd.cu) recomputes p on the same tiles: its dq pass is this
+// loop with ds in place of p, its dk/dv pass the same staging with the roles
+// of the query tile and the key slabs swapped. Serving passes null.
 //
-// Not yet here: lse (K6b's), bf16.
+// Not yet here: bf16.
 
 #include "clustered_tile.cuh"
 
@@ -91,6 +92,7 @@ struct Params {
   const float* __restrict__ v;
   const float* __restrict__ rpb;  // or null
   float* __restrict__ out;        // [B, D, H, W, heads, ch], dense
+  float* __restrict__ lse;        // [B, D, H, W, heads], or null
   Geometry g;
   int rows;    // query rows of a CTA, one warp each
   int ry, rx;  // union rows and columns of an item
@@ -373,9 +375,13 @@ __global__ void __launch_bounds__(256, 1) natten3d_forward_kernel(const Params p
   }
   cp_async_wait<0>();
 
-  // out = o / l for the group's queries inside the volume.
+  // out = o / l for the group's queries inside the volume, and lse = m +
+  // log l from the first lane that holds each query's m and l.
   lsum += __shfl_xor_sync(0xffffffffu, lsum, HALF);
   if (!row_live) return;
+  if (p.lse != nullptr && (l & (2 * HALF - 1)) == 0 && qw0 + my_j < g.w)
+    p.lse[(b_pos + ((long long)qd * g.h + qh) * g.w + qw0 + my_j) * g.heads + head] =
+        m + logf(lsum);
 #pragma unroll
   for (int j = 0; j < NQ; ++j) {
     const int src = base + (j >> 1) * (LANES / 2) + (j & 1) * (LANES / 4);
@@ -414,19 +420,19 @@ int launch(const Params& p, cudaStream_t stream) {
 // Plain C entry point (bound with ctypes). Launches on `stream`, does not
 // synchronise, allocates nothing; returns a cudaError_t (0 on success), or
 // cudaErrorInvalidValue for a (cp, lanes) that no instantiation has or a plan
-// out of range. rpb may be null. The host checked the kernel against the
+// out of range. rpb and lse may be null. The host checked the kernel against the
 // volume and batch and heads against the grid's limits (ops/natten3d.py,
 // `takes`), and chose cp (the padded head width: 32, 64, 96, 128 or 256),
 // the lanes of a query group (8, or 16 above 96 channels), the CTA's query
 // rows (at most 8) and the item strip ry x rx so that two stages of K and V
 // fit in shared memory (`plan`).
 extern "C" int gwt_natten3d_forward(const float* q, const float* k, const float* v,
-                                    const float* rpb, float* out, int batch, int d, int h, int w,
-                                    int heads, int ch, long long q_ps, long long k_ps,
-                                    long long v_ps, int kd, int kh, int kw, int circular_w,
-                                    int vec4, float scale, int cp, int lanes, int rows, int ry,
-                                    int rx, void* stream) {
-  const Params p{q, k, v, rpb, out,
+                                    const float* rpb, float* out, float* lse, int batch, int d,
+                                    int h, int w, int heads, int ch, long long q_ps,
+                                    long long k_ps, long long v_ps, int kd, int kh, int kw,
+                                    int circular_w, int vec4, float scale, int cp, int lanes,
+                                    int rows, int ry, int rx, void* stream) {
+  const Params p{q, k, v, rpb, out, lse,
                  Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw, circular_w,
                           scale},
                  rows, ry, rx, vec4};

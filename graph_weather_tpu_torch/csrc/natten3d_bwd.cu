@@ -1,0 +1,744 @@
+// 3D neighborhood attention (NATTEN) backward of the wide-head forward K6
+// (natten3d.cu) for Hopper (sm_90a): K6b. FP32 on the CUDA cores,
+// deterministic (no atomics), on K6's tiles.
+//
+// Replaces no Pallas kernel: the JAX package's K6 is a custom_vjp whose
+// backward, _natten_bwd (graph_weather_tpu/ops/pallas/natten3d.py:455),
+// differentiates the XLA slot scan (neighborhood_attention_3d_xla). This
+// kernel computes that gradient for every shape K6 takes (heads up to 256
+// channels, the 768-d WeatherMesh's 8 x 96 at kernel (5, 7, 7), which the
+// halo tiles of K5b, natten_flash_bwd.cu, cannot hold). Layouts and
+// semantics are natten3d.cu's. From K6's lse, delta = rowsum(dO * out)
+// [B, D, H, W, heads] and dO, with s = q_i . k_j * scale + rpb[rel(i, j)]:
+//
+//     p = exp(s - lse_i),  ds = p (dO_i . v_j - delta_i),
+//     dq_i = scale sum_j ds k_j,  dk_j = scale sum_i ds q_i,  dv_j = sum_i p dO_i,
+//     drpb[head, r] = sum of ds over every pair at relative offset r.
+//
+// Two kernels (`mode` of the C entry):
+//
+//   * dq (mode 0): K6's forward loop with ds in place of p. A CTA owns ROWS
+//     query rows (one warp each) by TW columns of one D plane, of one
+//     (batch, head); a group of LANES lanes owns four W-neighbouring queries
+//     (q, dO and the dq sums of its channels in registers). For each of the
+//     kd key planes of the tile's D window the CTA stages the union of its
+//     windows in that plane, K and V, in items of ry union rows by rx union
+//     columns, two cp.async stages (the next item in flight). Per key row of
+//     its window a group takes the four windows' union of columns in chunks
+//     of NC: the 4 x NC partial dots of q . k and of dO . v are summed over
+//     the group by a reduce-scatter (shuffles) that leaves each lane five
+//     (query, column) pairs; the lane masks them by its query's window, adds
+//     rpb (through L1) and forms p and ds; ds is broadcast back for the
+//     four queries' dq FMAs (k read from shared memory again). With rpb each
+//     lane also writes its ds to a per-slab table of the CTA's (query, slot)
+//     in shared memory, which the CTA sums after the slab's last item, one
+//     thread per (rh, rw) offset in a fixed order, from per-axis tables of
+//     each query's slot, into partial[cta, head, n_rel]; one torch sum over
+//     the CTAs gives drpb.
+//   * dk/dv (mode 1): the same staging with the roles swapped. A CTA owns
+//     ROWS key rows by TWK key columns of one D plane; a group of lanes owns
+//     two W-neighbouring keys (k, v and the dk, dv sums in registers). The
+//     queries whose window holds a key are per axis a contiguous range (its
+//     inverse window: at most k + k/2 positions on a clamped axis, k on a
+//     circular one); the CTA walks the query planes of its plane's range and
+//     stages, per plane, the union of its keys' inverse windows: the q and
+//     dO rows with lse and delta, in items of ry x rx positions, two
+//     cp.async stages. Per query row of its key row's range a group takes
+//     its two keys' union of query columns in chunks of NCK: the 2 x NCK
+//     partial dots of k . q and v . dO, a reduce-scatter leaving each lane
+//     two (key, column) pairs, the mask by the query's window, p and ds
+//     broadcast back for the dk and dv FMAs. Each key's lanes write its dk
+//     and dv once.
+//
+// What bounds it on an H100. At the 768-d WeatherMesh's 1-degree latent
+// ([1, 14, 45, 90], 8 heads x 96, kernel (5, 7, 7)) the backward's
+// function is s, dp, dq, dk and dv (10 ch flops a pair) over 111.1 M
+// (query, key, head) pairs: 106.7 GFLOP, 1.59 ms at the 67 TFLOP/s FP32
+// peak (the two kernels each recompute s and dp: 6 ch in dq, 8 in
+// dk/dv), against ~1.6 GB of q, k, v, out, dO, dq, dk, dv, lse and delta
+// (0.47 ms at 3.35 TB/s): operations bound it. As in K6 each staged row
+// feeds a group's four queries (dq) or two keys (dk/dv), and the chains of
+// loads, shuffles, masks and exponentials per key row, not the FMAs, hold
+// the forward (PERF.md §6); a pair here carries two dot products and two
+// broadcasts. On an H100 at 700 W the 768-d layer takes 6.7 ms in the dq
+// kernel and 8.7 ms in the dk/dv kernel (chip_smoke.py phase 41), ~10x the
+// bound.
+//
+// The host (ops/natten3d.py, `plan_backward`) picks each kernel's lanes,
+// rows and item strip from the shape, before any launch, within 227 KB.
+//
+// Not yet here: tensor cores, bf16.
+
+#include "clustered_tile.cuh"
+
+namespace {
+
+using namespace ctile;
+
+constexpr int DQ = 0, DKV = 1;
+constexpr int NQ = 4;    // dq: W-neighbouring queries of a lane group
+constexpr int NC = 10;   // dq: key columns of a chunk (four windows' union at kw = 7)
+constexpr int NK = 2;    // dk/dv: W-neighbouring keys of a lane group
+constexpr int NCK = 8;   // dk/dv: query columns of a chunk (two inverse windows at kw = 7)
+constexpr int SPLIT = 3; // halvings of a reduce-scatter: eight parts of a chunk's pairs
+
+struct Geometry {
+  int batch, d, h, w, heads, ch;
+  long long q_ps, k_ps, v_ps;  // floats between consecutive positions
+  int kd, kh, kw, circular_w;
+  float scale;
+};
+
+struct Params {
+  const float* __restrict__ q;
+  const float* __restrict__ k;
+  const float* __restrict__ v;
+  const float* __restrict__ rpb;    // or null
+  const float* __restrict__ dout;   // [B, D, H, W, heads, ch], dense
+  const float* __restrict__ lse;    // [B, D, H, W, heads]
+  const float* __restrict__ delta;  // [B, D, H, W, heads]
+  float* __restrict__ dq;           // dense, mode 0
+  float* __restrict__ dk;           // dense, mode 1
+  float* __restrict__ dv;           // dense, mode 1
+  float* __restrict__ partial;      // [B * n_cta, heads, n_rel] (mode 0, with rpb)
+  Geometry g;
+  int rows;    // rows of a CTA's tile, one warp each
+  int ry, rx;  // union rows and columns of an item
+  int vec4;    // ch, the strides and the pointers allow 16-byte copies
+};
+
+__host__ __device__ constexpr int ilog2(int n) { return n <= 1 ? 0 : 1 + ilog2(n / 2); }
+
+__device__ __forceinline__ int window_start(int i, int size, int k) {
+  const int s = i - k / 2;
+  return s < 0 ? 0 : (s > size - k ? size - k : s);
+}
+
+// The window start of query i on the W axis, unreduced on a circular axis.
+__device__ __forceinline__ int start_w(const Geometry& g, int i) {
+  return g.circular_w ? i - g.kw / 2 : window_start(i, g.w, g.kw);
+}
+
+// The first and last query whose window holds key j on one axis (unreduced
+// on a circular axis).
+__device__ __forceinline__ int inverse_lo(int j, int k, bool circular) {
+  return circular ? j - (k - 1 - k / 2) : (j < k ? 0 : j - (k - 1 - k / 2));
+}
+__device__ __forceinline__ int inverse_hi(int j, int size, int k, bool circular) {
+  return circular ? j + k / 2 : (j >= size - k ? size - 1 : j + k / 2);
+}
+
+// An unreduced column, within (-W, 2W) since kw <= W, reduced.
+__device__ __forceinline__ int wrap_w(const Geometry& g, int col) {
+  return col < 0 ? col + g.w : (col >= g.w ? col - g.w : col);
+}
+
+// The window slot of relative offset r for query i on one axis, or -1.
+__device__ __forceinline__ int slot_of(int r, int i, int size, int k, bool circular) {
+  const int s = circular ? r - (k - 1) + k / 2 : i + r - (k - 1) - window_start(i, size, k);
+  return s >= 0 && s < k ? s : -1;
+}
+
+// n / d for 0 <= n < 2^20 and 1 <= d, as one multiply (natten3d.cu).
+__device__ __forceinline__ int div_small(int n, float inv_d) {
+  return __float2int_rz((static_cast<float>(n) + 0.5f) * inv_d);
+}
+
+// The CL channels a lane holds of a row: float4 i at channels 4 l + 4 LANES
+// i .. + 3, so that the lanes of a group read a row's consecutive 16-byte
+// words. From shared memory (zeros past ch, as staged).
+template <int CL, int LANES>
+__device__ __forceinline__ void load_slice(float (&x)[CL], const float* row, int l) {
+#pragma unroll
+  for (int i = 0; i < CL / 4; ++i) {
+    const float4 t = *reinterpret_cast<const float4*>(row + 4 * l + 4 * LANES * i);
+    x[4 * i] = t.x;
+    x[4 * i + 1] = t.y;
+    x[4 * i + 2] = t.z;
+    x[4 * i + 3] = t.w;
+  }
+}
+
+// The same from global memory, times `mul`, zeros past ch.
+template <int CL, int LANES>
+__device__ __forceinline__ void load_global(float (&x)[CL], const float* row, int l, int ch,
+                                            float mul) {
+#pragma unroll
+  for (int i = 0; i < CL / 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 4 * l + 4 * LANES * i + e;
+      x[4 * i + e] = c < ch ? __ldg(row + c) * mul : 0.f;
+    }
+}
+
+template <int CL, int LANES>
+__device__ __forceinline__ void store_global(float* row, const float (&x)[CL], int l, int ch,
+                                             float mul) {
+#pragma unroll
+  for (int i = 0; i < CL / 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 4 * l + 4 * LANES * i + e;
+      if (c < ch) row[c] = x[4 * i + e] * mul;
+    }
+}
+
+template <int CL>
+__device__ __forceinline__ float dot(const float (&a)[CL], const float (&b)[CL]) {
+  float x = 0.f, y = 0.f;  // two chains for the FMA pipes' latency
+#pragma unroll
+  for (int c = 0; c < CL; c += 2) {
+    x = fmaf(a[c], b[c], x);
+    y = fmaf(a[c + 1], b[c + 1], y);
+  }
+  return x + y;
+}
+
+template <int CL>
+__device__ __forceinline__ void axpy(float a, const float (&x)[CL], float (&y)[CL]) {
+#pragma unroll
+  for (int c = 0; c < CL; ++c) y[c] = fmaf(a, x[c], y[c]);
+}
+
+// One halving of a reduce-scatter: lanes with `bit` set keep a[H:2H), the
+// others a[0:H), each summed with its partner's, in a[0:H).
+template <int H, int N>
+__device__ __forceinline__ void halve(float (&a)[N], int bit, int l) {
+  const bool hi = l & bit;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = hi ? a[i] : a[H + i];
+    const float keep = hi ? a[H + i] : a[i];
+    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, bit);
+  }
+}
+
+// Sums a[0:N) over the LANES lanes of a group (l: the lane within it) and
+// scatters the sums in SPLIT = 3 halvings: afterwards a[0:N / 8) holds the
+// sums of a[N / 8 * part ..) with part = l >> (log2 LANES - 3); lanes that
+// differ only in the bits below it hold the same sums.
+template <int N, int LANES>
+__device__ __forceinline__ void reduce_scatter(float (&a)[N], int l) {
+  static_assert(SPLIT == 3 && N % 8 == 0 && LANES >= 8, "lane group layout");
+  halve<N / 2>(a, LANES / 2, l);
+  halve<N / 4>(a, LANES / 4, l);
+  halve<N / 8>(a, LANES / 8, l);
+#pragma unroll
+  for (int bit = LANES / 16; bit > 0; bit >>= 1)
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) a[i] += __shfl_xor_sync(0xffffffffu, a[i], bit);
+}
+
+// cp.async copies of `nrows` positions' CP channels (zeros past ch) into
+// rows of LD floats; pos(r) gives row r's float offset in `src`.
+template <int CP, class Pos>
+__device__ __forceinline__ void copy_positions(float* dst, const float* src, int nrows, int ld,
+                                               const Params& p, int threads, Pos pos) {
+  if (p.vec4) {
+    constexpr int per_row = CP / 4;
+    for (int i = threadIdx.x; i < nrows * per_row; i += threads) {
+      const int r = i / per_row, c = (i - r * per_row) * 4;
+      const bool ok = c < p.g.ch;
+      cp_async16(dst + r * ld + c, ok ? src + pos(r) + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nrows * CP; i += threads) {
+      const int r = i / CP, c = i - r * CP;
+      const bool ok = c < p.g.ch;
+      cp_async4(dst + r * ld + c, ok ? src + pos(r) + c : src, ok);
+    }
+  }
+}
+
+// CL: channels of a lane (CP = CL LANES); LANES: lanes of a query group (8,
+// 16 or 32). After a reduce-scatter of a chunk's 4 x NC pairs (query-major)
+// a lane holds query part / 2, columns (part % 2) NC / 2 .. + NC / 2.
+template <int CL, int LANES>
+__global__ void __launch_bounds__(256, 1) natten3d_dq_kernel(const Params p) {
+  constexpr int CP = CL * LANES;
+  constexpr int LD = CP + 4;  // floats per staged row
+  constexpr int TW = NQ * 32 / LANES;  // query columns of a CTA
+  constexpr int M = NQ * NC >> SPLIT;  // pairs a lane holds after a reduce-scatter
+  constexpr int SHIFT = ilog2(LANES) - SPLIT;
+  const Geometry& g = p.g;
+  const int threads = 32 * p.rows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int l = lane % LANES, base = lane - l;
+  const int tiles_w = (g.w + TW - 1) / TW, tiles_h = (g.h + p.rows - 1) / p.rows;
+  const int h0 = blockIdx.x / tiles_w % tiles_h * p.rows, w0 = blockIdx.x % tiles_w * TW;
+  const int qd = blockIdx.x / (tiles_w * tiles_h);
+  const int head = blockIdx.y;
+  const long long b_pos = (long long)blockIdx.z * g.d * g.h * g.w;
+  const int hl = min(h0 + p.rows, g.h) - 1, wl = min(w0 + TW, g.w) - 1;  // last queries
+  // The tile's union of windows: rows [u0h, u1h), unreduced columns [u0w, u1w).
+  const int u0h = window_start(h0, g.h, g.kh), u1h = window_start(hl, g.h, g.kh) + g.kh;
+  const int u0w = start_w(g, w0), u1w = start_w(g, wl) + g.kw;
+  const int sd = window_start(qd, g.d, g.kd);
+  const int strips_h = (u1h - u0h + p.ry - 1) / p.ry, strips_w = (u1w - u0w + p.rx - 1) / p.rx;
+  const int slab_items = strips_h * strips_w;
+  const int n_items = g.kd * slab_items;
+  const int item_floats = p.ry * p.rx * LD;
+  const int nrh = 2 * g.kh - 1, nrw = 2 * g.kw - 1;
+  const int n_rel = (2 * g.kd - 1) * nrh * nrw;
+  const int n_hw = g.kh * g.kw;  // window slots of a slab
+  const bool drpb = p.rpb != nullptr && p.partial != nullptr;
+
+  extern __shared__ float4 smem4[];
+  float* stage_base = reinterpret_cast<float*>(smem4);  // [2][K, V][ry * rx][LD]
+  float* ds_tab = stage_base + 4 * item_floats;         // [rows * TW][kh * kw] (drpb)
+  signed char* t_h = reinterpret_cast<signed char*>(ds_tab + (drpb ? p.rows * TW * n_hw : 0));
+  signed char* t_w = t_h + nrh * p.rows;  // per axis, each tile query's slot at an offset
+
+  float* part_cta = drpb ? p.partial + (((long long)blockIdx.z * gridDim.x + blockIdx.x) *
+                                            g.heads + head) * n_rel
+                         : nullptr;
+  const int rd0 = sd - qd + g.kd - 1;  // the D offset of key plane sd
+  if (drpb) {
+    for (int i = tid; i < nrh * p.rows; i += threads) {
+      const int r = i / p.rows, qi = h0 + i % p.rows;
+      t_h[i] = qi < g.h ? slot_of(r, qi, g.h, g.kh, false) : -1;
+    }
+    for (int i = tid; i < nrw * TW; i += threads) {
+      const int r = i / TW, qi = w0 + i % TW;
+      t_w[i] = qi < g.w ? slot_of(r, qi, g.w, g.kw, g.circular_w) : -1;
+    }
+    for (int i = tid; i < n_rel; i += threads) {  // D offsets that no key plane reaches
+      const int rd = i / (nrh * nrw);
+      if (rd < rd0 || rd >= rd0 + g.kd) part_cta[i] = 0.f;
+    }
+  }
+
+  // This warp's query row and this group's four queries (repeating the last
+  // query of the volume past it: computed, never stored).
+  const bool row_live = h0 + warp < g.h;
+  const int qh = min(h0 + warp, g.h - 1);
+  const int sh = window_start(qh, g.h, g.kh);
+  const int qw0 = w0 + NQ * (lane / LANES);
+  const int sw0 = start_w(g, min(qw0, g.w - 1));  // the four windows' first column
+  const int n_chunks = (NQ - 1 + g.kw + NC - 1) / NC;
+  // After a reduce-scatter this lane holds query my_j, columns my_u0 .. + M.
+  const int part = l >> SHIFT;
+  const int my_j = part >> 1, my_u0 = M * (part & 1);
+  const int my_qw = min(qw0 + my_j, g.w - 1);
+  const int my_sw = start_w(g, my_qw);
+  const long long my_pos = b_pos + ((long long)qd * g.h + qh) * g.w + my_qw;
+  const float my_lse = __ldg(p.lse + my_pos * g.heads + head);
+  const float my_delta = __ldg(p.delta + my_pos * g.heads + head);
+  const bool writes_ds =
+      drpb && row_live && qw0 + my_j < g.w && (l & ((1 << SHIFT) - 1)) == 0;
+  float* my_ds = ds_tab + (warp * TW + qw0 - w0 + my_j) * n_hw;
+  const int col = head * g.ch;
+  const long long hc = (long long)g.heads * g.ch;
+
+  float qr[NQ][CL], dor[NQ][CL], acc[NQ][CL];
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    const long long pos = b_pos + ((long long)qd * g.h + qh) * g.w + min(qw0 + j, g.w - 1);
+    load_global<CL, LANES>(qr[j], p.q + pos * g.q_ps + col, l, g.ch, g.scale);
+    load_global<CL, LANES>(dor[j], p.dout + pos * hc + col, l, g.ch, 1.f);
+#pragma unroll
+    for (int c = 0; c < CL; ++c) acc[j][c] = 0.f;
+  }
+
+  // Item `it`: slab x, union rows [y0, y1), unreduced columns [c0, c1).
+  auto item_of = [&](int it, int& x, int& y0, int& y1, int& c0, int& c1) {
+    const int sw_i = it % strips_w, rest = it / strips_w;
+    x = rest / strips_h;
+    y0 = u0h + rest % strips_h * p.ry;
+    y1 = min(y0 + p.ry, u1h);
+    c0 = u0w + sw_i * p.rx;
+    c1 = min(c0 + p.rx, u1w);
+  };
+  auto copy_item = [&](int it, int stage) {
+    int x, y0, y1, c0, c1;
+    item_of(it, x, y0, y1, c0, c1);
+    const int ncols = c1 - c0;
+    const float inv_cols = 1.f / ncols;
+    float* ks_ = stage_base + stage * 2 * item_floats;
+    const long long plane = b_pos + (long long)(sd + x) * g.h * g.w;
+    auto pos = [&](int r) {
+      const int yy = div_small(r, inv_cols);
+      return plane + (long long)(y0 + yy) * g.w + wrap_w(g, c0 + r - yy * ncols);
+    };
+    copy_positions<CP>(ks_, p.k + col, (y1 - y0) * ncols, LD, p, threads,
+                       [&](int r) { return pos(r) * g.k_ps; });
+    copy_positions<CP>(ks_ + item_floats, p.v + col, (y1 - y0) * ncols, LD, p, threads,
+                       [&](int r) { return pos(r) * g.v_ps; });
+  };
+
+  const float* rpb_head =
+      p.rpb ? p.rpb + (long long)head * (2 * g.kd - 1) * nrh * nrw : nullptr;
+
+  copy_item(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < n_items; ++it) {
+    if (it + 1 < n_items) copy_item(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    int x, y0, y1, c0, c1;
+    item_of(it, x, y0, y1, c0, c1);
+    const float* ks_ = stage_base + (it & 1) * 2 * item_floats;
+    const float* vs_ = ks_ + item_floats;
+    const int ncols = c1 - c0;
+    const float* rpb_d = rpb_head ? rpb_head + (long long)(rd0 + x) * nrh * nrw : nullptr;
+    const int ya = max(y0, sh), yb = min(y1, sh + g.kh);  // the same for the whole warp
+    for (int y = ya; y < yb; ++y) {
+      const float* k_row = ks_ + (y - y0) * ncols * LD;
+      const float* v_row = vs_ + (y - y0) * ncols * LD;
+      for (int chunk = 0; chunk < n_chunks; ++chunk) {
+        const int cs = sw0 + NC * chunk;  // the chunk's first unreduced column
+        // s and dp of the four queries against the chunk's columns (a column
+        // outside the item reads a staged one, and is masked).
+        float s[NQ * NC], dp[NQ * NC];
+#pragma unroll
+        for (int u = 0; u < NC; ++u) {
+          float kv[CL];
+          load_slice<CL, LANES>(kv, k_row + min(max(cs + u - c0, 0), ncols - 1) * LD, l);
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) s[j * NC + u] = dot<CL>(qr[j], kv);
+        }
+        reduce_scatter<NQ * NC, LANES>(s, l);
+#pragma unroll
+        for (int u = 0; u < NC; ++u) {
+          float vv[CL];
+          load_slice<CL, LANES>(vv, v_row + min(max(cs + u - c0, 0), ncols - 1) * LD, l);
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) dp[j * NC + u] = dot<CL>(dor[j], vv);
+        }
+        reduce_scatter<NQ * NC, LANES>(dp, l);
+        // Query my_j's pairs: its window, rpb, p and ds.
+        float ds[M];
+#pragma unroll
+        for (int u = 0; u < M; ++u) {
+          const int cu = cs + my_u0 + u;
+          const bool in = cu >= c0 && cu < c1 && cu >= my_sw && cu < my_sw + g.kw;
+          float xv = s[u];
+          if (in && rpb_d != nullptr)
+            xv += __ldg(rpb_d + (y - qh + g.kh - 1) * nrw + (cu - my_qw + g.kw - 1));
+          ds[u] = in ? exp_diff(xv, my_lse) * (dp[u] - my_delta) : 0.f;
+          if (writes_ds && in) my_ds[(y - sh) * g.kw + cu - my_sw] = ds[u];
+        }
+        // dq[j] += sum_u ds[j][u] k[u], ds broadcast from the lanes that hold it.
+#pragma unroll
+        for (int u = 0; u < NC; ++u) {
+          float kv[CL];
+          load_slice<CL, LANES>(kv, k_row + min(max(cs + u - c0, 0), ncols - 1) * LD, l);
+#pragma unroll
+          for (int j = 0; j < NQ; ++j) {
+            const int src = base + ((2 * j + u / M) << SHIFT);
+            axpy<CL>(__shfl_sync(0xffffffffu, ds[u % M], src), kv, acc[j]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for the copy two items on
+    if (drpb && (it + 1) % slab_items == 0) {
+      // Slab x is done: drpb partials at D offset rd0 + x, summed per (rh,
+      // rw) over the tile's queries in query order.
+      float* part_d = part_cta + (long long)(rd0 + x) * nrh * nrw;
+      for (int r = tid; r < nrh * nrw; r += threads) {
+        const int rh = r / nrw, rw = r - rh * nrw;
+        float sum = 0.f;
+        for (int qr_ = 0; qr_ < p.rows; ++qr_) {
+          const int sy = t_h[rh * p.rows + qr_];
+          if (sy < 0) continue;
+          const float* row = ds_tab + qr_ * TW * n_hw + sy * g.kw;
+          for (int qc = 0; qc < TW; ++qc) {
+            const int sz = t_w[rw * TW + qc];
+            if (sz >= 0) sum += row[qc * n_hw + sz];
+          }
+        }
+        part_d[r] = sum;
+      }
+      // The next item's __syncthreads orders these reads before its writes.
+    }
+  }
+  cp_async_wait<0>();
+
+  if (!row_live) return;
+#pragma unroll
+  for (int j = 0; j < NQ; ++j) {
+    if (qw0 + j >= g.w) continue;
+    const long long pos = b_pos + ((long long)qd * g.h + qh) * g.w + qw0 + j;
+    store_global<CL, LANES>(p.dq + pos * hc + col, acc[j], l, g.ch, g.scale);
+  }
+}
+
+// The dk/dv kernel. After a reduce-scatter of a chunk's 2 x NCK pairs
+// (key-major) a lane holds key part / 4, columns (part % 4) NCK / 4 .. +
+// NCK / 4.
+template <int CL, int LANES>
+__global__ void __launch_bounds__(256, 1) natten3d_dkv_kernel(const Params p) {
+  constexpr int CP = CL * LANES;
+  constexpr int LD = CP + 4;  // floats per staged q or dO row
+  constexpr int TWK = NK * 32 / LANES;  // key columns of a CTA
+  constexpr int M = NK * NCK >> SPLIT;  // pairs a lane holds after a reduce-scatter
+  constexpr int QUARTERS = NCK / M;
+  constexpr int SHIFT = ilog2(LANES) - SPLIT;
+  const Geometry& g = p.g;
+  const int threads = 32 * p.rows;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int l = lane % LANES, base = lane - l;
+  const int tiles_w = (g.w + TWK - 1) / TWK, tiles_h = (g.h + p.rows - 1) / p.rows;
+  const int h0 = blockIdx.x / tiles_w % tiles_h * p.rows, w0 = blockIdx.x % tiles_w * TWK;
+  const int jd = blockIdx.x / (tiles_w * tiles_h);
+  const int head = blockIdx.y;
+  const long long b_pos = (long long)blockIdx.z * g.d * g.h * g.w;
+  const int hl = min(h0 + p.rows, g.h) - 1, wl = min(w0 + TWK, g.w) - 1;  // last keys
+  // The tile's inverse window: query planes [pd0, pd0 + n_planes), rows
+  // [u0h, u1h), unreduced columns [u0w, u1w).
+  const int pd0 = inverse_lo(jd, g.kd, false);
+  const int n_planes = inverse_hi(jd, g.d, g.kd, false) - pd0 + 1;
+  const int u0h = inverse_lo(h0, g.kh, false), u1h = inverse_hi(hl, g.h, g.kh, false) + 1;
+  const int u0w = inverse_lo(w0, g.kw, g.circular_w);
+  const int u1w = inverse_hi(wl, g.w, g.kw, g.circular_w) + 1;
+  const int strips_h = (u1h - u0h + p.ry - 1) / p.ry, strips_w = (u1w - u0w + p.rx - 1) / p.rx;
+  const int n_items = n_planes * strips_h * strips_w;
+  const int item_pos = p.ry * p.rx;
+  // A stage: q rows, dO rows, lse, delta; 16-byte aligned.
+  const int stage_floats = (item_pos * (2 * LD + 2) + 3) & ~3;
+  const int nrh = 2 * g.kh - 1, nrw = 2 * g.kw - 1;
+  const long long hc = (long long)g.heads * g.ch;
+  const int col = head * g.ch;
+
+  extern __shared__ float4 smem4[];
+  float* stage_base = reinterpret_cast<float*>(smem4);  // [2][stage_floats]
+
+  // This warp's key row and this group's two keys (repeating the last key of
+  // the volume past it: computed, never stored).
+  const bool row_live = h0 + warp < g.h;
+  const int jh = min(h0 + warp, g.h - 1);
+  const int qh_lo = inverse_lo(jh, g.kh, false), qh_hi = inverse_hi(jh, g.h, g.kh, false);
+  const int kw0 = w0 + NK * (lane / LANES);
+  int kw_[NK];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) kw_[j] = min(kw0 + j, g.w - 1);
+  // The group's query columns: its keys' union of inverse windows, walked in
+  // chunks as far as the warp's widest union (convergent shuffles).
+  const int qc_lo = inverse_lo(kw_[0], g.kw, g.circular_w);
+  const int my_cols = inverse_hi(kw_[NK - 1], g.w, g.kw, g.circular_w) - qc_lo + 1;
+  const int n_chunks = (__reduce_max_sync(0xffffffffu, my_cols) + NCK - 1) / NCK;
+  const int part = l >> SHIFT;
+  const int my_k = part / QUARTERS, my_u0 = M * (part % QUARTERS);
+  const int my_kw = kw_[my_k];  // this lane's key column after a reduce-scatter
+
+  float kr[NK][CL], vr[NK][CL], dk[NK][CL], dv[NK][CL];
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    const long long pos = b_pos + ((long long)jd * g.h + jh) * g.w + kw_[j];
+    load_global<CL, LANES>(kr[j], p.k + pos * g.k_ps + col, l, g.ch, 1.f);
+    load_global<CL, LANES>(vr[j], p.v + pos * g.v_ps + col, l, g.ch, 1.f);
+#pragma unroll
+    for (int c = 0; c < CL; ++c) dk[j][c] = dv[j][c] = 0.f;
+  }
+
+  // Item `it`: query plane pd0 + x, union rows [y0, y1), unreduced columns [c0, c1).
+  auto item_of = [&](int it, int& x, int& y0, int& y1, int& c0, int& c1) {
+    const int sw_i = it % strips_w, rest = it / strips_w;
+    x = rest / strips_h;
+    y0 = u0h + rest % strips_h * p.ry;
+    y1 = min(y0 + p.ry, u1h);
+    c0 = u0w + sw_i * p.rx;
+    c1 = min(c0 + p.rx, u1w);
+  };
+  auto copy_item = [&](int it, int stage) {
+    int x, y0, y1, c0, c1;
+    item_of(it, x, y0, y1, c0, c1);
+    const int ncols = c1 - c0, n_pos = (y1 - y0) * ncols;
+    const float inv_cols = 1.f / ncols;
+    float* qs = stage_base + stage * stage_floats;
+    const long long plane = b_pos + (long long)(pd0 + x) * g.h * g.w;
+    auto pos = [&](int r) {
+      const int yy = div_small(r, inv_cols);
+      return plane + (long long)(y0 + yy) * g.w + wrap_w(g, c0 + r - yy * ncols);
+    };
+    copy_positions<CP>(qs, p.q + col, n_pos, LD, p, threads,
+                       [&](int r) { return pos(r) * g.q_ps; });
+    copy_positions<CP>(qs + item_pos * LD, p.dout + col, n_pos, LD, p, threads,
+                       [&](int r) { return pos(r) * hc; });
+    float* ls = qs + 2 * item_pos * LD;
+    for (int r = tid; r < n_pos; r += threads) {
+      const long long at = pos(r) * g.heads + head;
+      cp_async4(ls + r, p.lse + at, true);
+      cp_async4(ls + item_pos + r, p.delta + at, true);
+    }
+  };
+
+  const float* rpb_head =
+      p.rpb ? p.rpb + (long long)head * (2 * g.kd - 1) * nrh * nrw : nullptr;
+
+  copy_item(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < n_items; ++it) {
+    if (it + 1 < n_items) copy_item(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    int x, y0, y1, c0, c1;
+    item_of(it, x, y0, y1, c0, c1);
+    const float* qs = stage_base + (it & 1) * stage_floats;
+    const float* dos = qs + item_pos * LD;
+    const float* ls = dos + item_pos * LD;
+    const float* des = ls + item_pos;
+    const int ncols = c1 - c0;
+    const float* rpb_d =
+        rpb_head ? rpb_head + (long long)(jd - pd0 - x + g.kd - 1) * nrh * nrw : nullptr;
+    const int ya = max(y0, qh_lo), yb = min(y1, qh_hi + 1);  // the same for the whole warp
+    for (int y = ya; y < yb; ++y) {
+      const int row = (y - y0) * ncols;
+      for (int chunk = 0; chunk < n_chunks; ++chunk) {
+        const int cs = qc_lo + NCK * chunk;  // the chunk's first unreduced query column
+        float s[NK * NCK], dp[NK * NCK];
+#pragma unroll
+        for (int u = 0; u < NCK; ++u) {
+          float qv[CL];
+          load_slice<CL, LANES>(qv, qs + (row + min(max(cs + u - c0, 0), ncols - 1)) * LD, l);
+#pragma unroll
+          for (int j = 0; j < NK; ++j) s[j * NCK + u] = dot<CL>(kr[j], qv);
+        }
+        reduce_scatter<NK * NCK, LANES>(s, l);
+#pragma unroll
+        for (int u = 0; u < NCK; ++u) {
+          float dov[CL];
+          load_slice<CL, LANES>(dov, dos + (row + min(max(cs + u - c0, 0), ncols - 1)) * LD, l);
+#pragma unroll
+          for (int j = 0; j < NK; ++j) dp[j * NCK + u] = dot<CL>(vr[j], dov);
+        }
+        reduce_scatter<NK * NCK, LANES>(dp, l);
+        // Key my_k's pairs: the query's window, rpb, p and ds.
+        float pr[M], ds[M];
+#pragma unroll
+        for (int u = 0; u < M; ++u) {
+          const int cu = cs + my_u0 + u;  // the query's unreduced column
+          const int z = my_kw - start_w(g, cu);
+          const bool in = cu >= c0 && cu < c1 && z >= 0 && z < g.kw;
+          const int at = row + min(max(cu - c0, 0), ncols - 1);
+          float xv = s[u] * g.scale;
+          if (in && rpb_d != nullptr)
+            xv += __ldg(rpb_d + (jh - y + g.kh - 1) * nrw + (my_kw - cu + g.kw - 1));
+          pr[u] = in ? exp_diff(xv, ls[at]) : 0.f;
+          ds[u] = pr[u] * (dp[u] - des[at]);
+        }
+        // dv[j] += sum_u p[j][u] dO[u], dk[j] += sum_u ds[j][u] q[u], by
+        // quarters of the chunk (the M columns whose p and ds one lane holds).
+        auto accumulate = [&](int qi) {
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            float qv[CL], dov[CL];
+            const int at = row + min(max(cs + qi * M + m - c0, 0), ncols - 1);
+            load_slice<CL, LANES>(qv, qs + at * LD, l);
+            load_slice<CL, LANES>(dov, dos + at * LD, l);
+#pragma unroll
+            for (int j = 0; j < NK; ++j) {
+              const int src = base + ((QUARTERS * j + qi) << SHIFT);
+              axpy<CL>(__shfl_sync(0xffffffffu, pr[m], src), dov, dv[j]);
+              axpy<CL>(__shfl_sync(0xffffffffu, ds[m], src), qv, dk[j]);
+            }
+          }
+        };
+        if constexpr (CL > 8) {
+          // At 12 channels a lane the unrolled chunk's q and dO rows spill
+          // (740 bytes at 255 registers); on an H100 at 700 W a quarter at
+          // a time took the 768-d layer's dk/dv from 11.2 to 8.7 ms, and
+          // made 8 channels a lane 16% slower, so they stay unrolled.
+#pragma unroll 1
+          for (int qi = 0; qi < QUARTERS; ++qi) accumulate(qi);
+        } else {
+#pragma unroll
+          for (int qi = 0; qi < QUARTERS; ++qi) accumulate(qi);
+        }
+      }
+    }
+    __syncthreads();  // the stage is free for the copy two items on
+  }
+  cp_async_wait<0>();
+
+  if (!row_live) return;
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    if (kw0 + j >= g.w) continue;
+    const long long pos = b_pos + ((long long)jd * g.h + jh) * g.w + kw0 + j;
+    store_global<CL, LANES>(p.dk + pos * hc + col, dk[j], l, g.ch, g.scale);
+    store_global<CL, LANES>(p.dv + pos * hc + col, dv[j], l, g.ch, 1.f);
+  }
+}
+
+// Bytes of shared memory of a launch (ops/natten3d.py: `plan_backward`).
+size_t dq_smem(const Params& p, int cp, int tw) {
+  const Geometry& g = p.g;
+  size_t bytes = sizeof(float) * (size_t)4 * p.ry * p.rx * (cp + 4);
+  if (p.rpb != nullptr && p.partial != nullptr)
+    bytes += sizeof(float) * (size_t)p.rows * tw * g.kh * g.kw +
+             (size_t)(2 * g.kh - 1) * p.rows + (size_t)(2 * g.kw - 1) * tw;
+  return bytes;
+}
+
+size_t dkv_smem(const Params& p, int cp) {
+  return sizeof(float) * 2 * (((size_t)p.ry * p.rx * (2 * (cp + 4) + 2) + 3) & ~(size_t)3);
+}
+
+template <int CL, int LANES>
+int launch(int mode, const Params& p, cudaStream_t stream) {
+  const Geometry& g = p.g;
+  constexpr int CP = CL * LANES;
+  const int tw = (mode == DQ ? NQ : NK) * 32 / LANES;
+  const long long tiles = (long long)g.d * ((g.h + p.rows - 1) / p.rows) * ((g.w + tw - 1) / tw);
+  const dim3 grid((unsigned)tiles, g.heads, g.batch);
+  if (mode == DQ) {
+    const size_t smem = dq_smem(p, CP, tw);
+    cudaError_t err = cudaFuncSetAttribute(natten3d_dq_kernel<CL, LANES>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    natten3d_dq_kernel<CL, LANES><<<grid, 32 * p.rows, smem, stream>>>(p);
+  } else {
+    const size_t smem = dkv_smem(p, CP);
+    cudaError_t err = cudaFuncSetAttribute(natten3d_dkv_kernel<CL, LANES>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    natten3d_dkv_kernel<CL, LANES><<<grid, 32 * p.rows, smem, stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes). mode 0: dq, and the drpb partials
+// when rpb and partial are given; mode 1: dk and dv. Launches on `stream`,
+// does not synchronise, allocates nothing; returns a cudaError_t (0 on
+// success), or cudaErrorInvalidValue for an unknown mode, a (cp, lanes) that
+// no instantiation has or a plan out of range. The host checked the kernel
+// against the volume and batch and heads against the grid's limits, and
+// chose per kernel cp (the padded head width: 32, 64, 96, 128 or 256), the
+// lanes of a group (8 up to 96 channels, cp / 8 above), the CTA's rows (at
+// most 8) and the item strip ry x rx within shared memory
+// (ops/natten3d.py, `takes` and `plan_backward`).
+extern "C" int gwt_natten3d_backward(int mode, const float* q, const float* k, const float* v,
+                                     const float* rpb, const float* dout, const float* lse,
+                                     const float* delta, float* dq, float* dk, float* dv,
+                                     float* partial, int batch, int d, int h, int w, int heads,
+                                     int ch, long long q_ps, long long k_ps, long long v_ps,
+                                     int kd, int kh, int kw, int circular_w, int vec4,
+                                     float scale, int cp, int lanes, int rows, int ry, int rx,
+                                     void* stream) {
+  const Params p{q, k, v, rpb, dout, lse, delta, dq, dk, dv, partial,
+                 Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw, circular_w,
+                          scale},
+                 rows, ry, rx, vec4};
+  if ((mode != DQ && mode != DKV) || rows < 1 || rows > 8 || ry < 1 || rx < 1 || ch > cp)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cp * 64 + lanes) {
+    case 32 * 64 + 8: return launch<4, 8>(mode, p, s);
+    case 64 * 64 + 8: return launch<8, 8>(mode, p, s);
+    case 96 * 64 + 8: return launch<12, 8>(mode, p, s);
+    case 128 * 64 + 16: return launch<8, 16>(mode, p, s);
+    case 256 * 64 + 32: return launch<8, 32>(mode, p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

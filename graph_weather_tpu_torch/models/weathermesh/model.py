@@ -25,8 +25,8 @@ GroupNorm. On the card every attention layer runs impl="auto" of
 ops/neighborhood_attention.py: the halo-tiled CUDA kernel K5a (and K5b in
 the backward), or the wide-head K6 where K5a's tiles do not fit in shared
 memory (heads wider than 128 channels, or of 96 or 128 at kernel (5, 7, 7),
-as at latent_dim 768 with 8 heads). K6 has no backward kernel yet, so
-training such a model on the card raises NotImplementedError.
+as at latent_dim 768 with 8 heads), whose backward is K6b: such a model
+trains on the card through `forward_fn` too.
 
 On CPU tensors every conv runs in PyTorch's own CPU kernels, forward and
 backward, never oneDNN's: on the H100 hosts (torch 2.11+cu128) oneDNN's CPU

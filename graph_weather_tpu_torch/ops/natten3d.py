@@ -1,6 +1,6 @@
-"""The 3D neighborhood attention forward for the shapes K5a cannot tile: the
-port of the Pallas kernel K6 (`_natten_fwd_impl`) of
-graph_weather_tpu/ops/pallas/natten3d.py.
+"""The 3D neighborhood attention for the shapes K5a cannot tile: the port of
+the Pallas kernel K6 (`_natten_fwd_impl`) of
+graph_weather_tpu/ops/pallas/natten3d.py, and its backward K6b.
 
 The semantics are those of ops/neighborhood_attention.py, and the plain
 version is its `neighborhood_attention_3d_reference`: the JAX package's XLA
@@ -12,10 +12,21 @@ in that plane in shared memory, K and V; groups of lanes own four
 W-neighbouring queries each, so that every staged element feeds four
 queries' FMAs. A slab is staged in strips where it does not fit (`plan`), so the
 kernel takes what K5a (ops/natten_flash.py) refuses: heads wider than 128
-channels, and heads of 96 or 128 at kernel (5, 7, 7). `takes` names its
-limits. There is no backward kernel yet (the JAX package differentiates the
-XLA scan): a gradient through K6 on the card raises in the dispatcher
-(ops/neighborhood_attention.py). Launch count: `LAUNCHES`.
+channels, and heads of 96 or 128 at kernel (5, 7, 7). For training it also
+writes lse.
+
+The JAX package differentiates the XLA scan; the port's backward is K6b
+(csrc/natten3d_bwd.cu), two kernels on K6's tiles and no atomics: dq over
+query tiles (K6's loop with ds = p (dO.v - delta) in place of p, and per
+CTA the sums of ds per relative offset, [n_cta, heads, n_rel], which one
+torch sum turns into drpb), and dk/dv over key tiles, each CTA staging per
+query plane the union of its keys' inverse windows (q and dO rows, lse and
+delta). `plan_backward` picks both kernels' tiles; `takes(...,
+backward=True)` names the limits of both. Its plain version is
+ops/natten_flash.py's `natten_flash_backward_reference`. Under autograd
+natten_flash's `_NattenFlash` runs this module's KERNELS (K6 with lse,
+then K6b). Launch counts: `LAUNCHES`
+(K6), `BWD_DQ_LAUNCHES` and `BWD_DKV_LAUNCHES` (K6b's two kernels).
 """
 
 from __future__ import annotations
@@ -27,25 +38,31 @@ from dataclasses import dataclass
 import torch
 
 from graph_weather_tpu_torch.ops._build import c_function
-from graph_weather_tpu_torch.ops.natten_flash import SMEM_LIMIT, _position_stride, _ptr
+from graph_weather_tpu_torch.ops.natten_flash import (
+    SMEM_LIMIT,
+    _max_span,
+    _NattenFlash,
+    _ptr,
+    natten_flash_backward_reference,
+)
+from graph_weather_tpu_torch.ops.natten_flash import _layout as _flash_layout
 from graph_weather_tpu_torch.ops.neighborhood_attention import (
     _check,
     neighborhood_attention_3d_reference,
 )
 
 LAUNCHES = 0  # K6
+BWD_DQ_LAUNCHES = 0  # K6b, dq and drpb partials
+BWD_DKV_LAUNCHES = 0  # K6b, dk and dv
 MAX_CHANNELS = 256  # widest head the kernel's tiles hold
 TILE_WIDTHS = (32, 64, 96, 128, 256)  # the kernel's padded head widths (CP)
 MAX_GRID_YZ = 65535  # heads and batch are the CTA grid's y and z
-GRADIENT_TODO = (
-    "neighborhood_attention_3d: no backward kernel for the slot-serial K6 yet "
-    "(ROADMAP.md §2, 'K6b: the slot-serial backward'); pass impl=\"xla\" to "
-    "differentiate the plain version"
-)
+DQ, DKV = 0, 1  # backward modes of the C entry (K6b's two kernels)
+BWD_NQ, BWD_NK = 4, 2  # W-neighbouring queries (dq) and keys (dk/dv) of a lane group
 
 _c_ptr, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = (
-    [_c_ptr] * 5  # q k v rpb out
+    [_c_ptr] * 6  # q k v rpb out lse
     + [_c_int] * 6  # batch, D, H, W, heads, ch
     + [_c_ll] * 3  # position strides of q, k, v (in floats)
     + [_c_int] * 5  # kd, kh, kw, circular_w, vec4
@@ -53,6 +70,9 @@ _ARGTYPES = (
     + [_c_int] * 5  # cp, lanes, rows, ry, rx
     + [_c_ptr]  # cudaStream_t
 )
+# mode, q k v rpb dout lse delta dq dk dv partial, then as the forward from
+# batch on
+_BWD_ARGTYPES = [_c_int] + [_c_ptr] * 11 + _ARGTYPES[6:]
 
 
 @dataclass(frozen=True)
@@ -103,9 +123,88 @@ def plan(shape, kernel, circular_w: bool) -> Plan:
     return Plan(cp, lanes, rows, ry, rx, per_row * ry * rx)
 
 
-def takes(shape, kernel, circular_w: bool, has_bias: bool) -> bool:
-    """True when K6 takes q of `shape` [B, D, H, W, heads, ch] at `kernel`;
-    otherwise ValueError naming the limit. A pure host function."""
+@dataclass(frozen=True)
+class BwdPlan:
+    """A launch of one K6b kernel: padded head width `cp`, `lanes` lanes to a
+    group (of BWD_NQ queries in the dq kernel, BWD_NK keys in the dk/dv
+    kernel), `rows` rows (one warp each) by `columns` W positions a CTA,
+    items of ry union rows by rx union columns of a plane, the shared memory
+    it takes, and the CTAs over the volume of one batch entry."""
+
+    cp: int
+    lanes: int
+    rows: int
+    columns: int
+    ry: int
+    rx: int
+    smem: int
+    n_tiles: int
+
+
+def _bwd_lanes(cp: int) -> int:
+    """K6b's lanes to a group: eight up to 96 channels, cp / 8 above (eight
+    channels a lane, so that q, dO and the sums of a group's positions stay
+    in registers)."""
+    return 8 if cp <= 96 else cp // 8
+
+
+def _strips(span: int, most: int) -> int:
+    """The largest strip of at most `most` positions that cuts `span` into
+    pieces of equal size."""
+    most = min(span, most)
+    return -(-span // -(-span // most))
+
+
+def plan_backward(shape, kernel, circular_w: bool, has_bias: bool) -> tuple[BwdPlan, BwdPlan]:
+    """How K6b tiles q of `shape` [B, D, H, W, heads, ch] at `kernel`: (the
+    dq kernel's plan, the dk/dv kernel's), indexed by DQ and DKV. A pure host
+    function, called before any launch; ValueError where no tile fits.
+
+    dq: K6's tile (up to 8 query rows of 128 / lanes columns), two stages of
+    K and V items of the windows' union, and with rpb the CTA's ds per
+    (query, slot of a slab) and per-axis slot tables; the most rows whose
+    table leaves room for one staged position. dk/dv: up to 8 key rows of
+    64 / lanes columns, two stages of items of the keys' inverse windows (q
+    and dO rows, lse and delta)."""
+    _, d, h, w, _, ch = shape
+    _, kh, kw = kernel
+    cp = next(c for c in TILE_WIDTHS if ch <= c)
+    lanes = _bwd_lanes(cp)
+    columns = BWD_NQ * 32 // lanes
+    per_row = 2 * 2 * 4 * (cp + 4)  # bytes of a staged position: K and V, two stages
+    dq = None
+    for rows in range(min(8, h), 0, -1):
+        table = 0
+        if has_bias:
+            table = 4 * rows * columns * kh * kw + (2 * kh - 1) * rows + (2 * kw - 1) * columns
+        most = (SMEM_LIMIT - table) // per_row
+        if most < 1:
+            continue
+        cu_h, cu_w = union_span(h, kh, False, rows), union_span(w, kw, circular_w, columns)
+        rx = _strips(cu_w, most)
+        ry = _strips(cu_h, most // rx)
+        dq = BwdPlan(cp, lanes, rows, columns, ry, rx, per_row * ry * rx + table,
+                     d * -(-h // rows) * -(-w // columns))
+        break
+    if dq is None:
+        raise ValueError(f"natten3d: no backward tile of kernel {tuple(kernel)} x ch {ch} fits "
+                         f"{SMEM_LIMIT} bytes of shared memory (the dq kernel's ds per slot)")
+    rows, columns = min(8, h), BWD_NK * 32 // lanes
+    cu_h = _max_span(h, kh, rows, False, True)
+    cu_w = min(columns, w) + kw - 1 if circular_w else _max_span(w, kw, columns, False, True)
+    position = 4 * (2 * (cp + 4) + 2)  # q and dO rows, lse and delta
+    most = (SMEM_LIMIT // 2 - 16) // position  # two stages, each rounded up to 16 bytes
+    rx = _strips(cu_w, most)
+    ry = _strips(cu_h, most // rx)
+    dkv = BwdPlan(cp, lanes, rows, columns, ry, rx, 2 * (-(-position * ry * rx // 16) * 16),
+                  d * -(-h // rows) * -(-w // columns))
+    return dq, dkv
+
+
+def takes(shape, kernel, circular_w: bool, has_bias: bool, backward: bool = False) -> bool:
+    """True when K6 (and, with `backward`, both kernels of K6b) take q of
+    `shape` [B, D, H, W, heads, ch] at `kernel`; otherwise ValueError naming
+    the limit. A pure host function."""
     b, d, h, w, heads, ch = shape
     if ch > MAX_CHANNELS:
         raise ValueError(f"natten3d: head width {ch} > {MAX_CHANNELS}")
@@ -118,31 +217,86 @@ def takes(shape, kernel, circular_w: bool, has_bias: bool) -> bool:
     if has_bias and 4 * n_rel > SMEM_LIMIT:  # 227 KB of it per head
         raise ValueError(f"natten3d: rpb of {n_rel} floats per head exceeds {SMEM_LIMIT} bytes "
                          "of shared memory")
+    if backward:
+        plan_backward(shape, kernel, circular_w, has_bias)
     return True
 
 
-def _forward_cuda(q, k, v, kernel, rpb, circular_w):
-    """K6: out [B, D, H, W, heads, ch] (dense)."""
+def _layout(q, k, v, kernel, circular_w, tensors):
+    """The C entries' arguments from batch to scale (K5a's, and scale)."""
+    layout, vec4 = _flash_layout(q, k, v, kernel, circular_w, tensors)
+    return (*layout, vec4, q.shape[-1] ** -0.5)
+
+
+def _check_err(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"natten3d {what}: CUDA kernel launch failed (cudaError {err})")
+
+
+def _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=False):
+    """K6: out [B, D, H, W, heads, ch] (dense), and lse [B, D, H, W, heads]
+    when asked (else None)."""
     global LAUNCHES
     takes(tuple(q.shape), kernel, circular_w, rpb is not None)
     rpb = None if rpb is None else rpb.contiguous()
     out = torch.empty(q.shape, device=q.device)
-    b, d, h, w, heads, ch = q.shape
-    strides = [_position_stride(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
-    vec4 = int(ch % 4 == 0 and all(s % 4 == 0 for s in strides)
-               and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+    lse = torch.empty(q.shape[:-1], device=q.device) if with_lse else None
     tiles = plan(tuple(q.shape), kernel, circular_w)
     with torch.cuda.device(q.device):
         err = c_function("natten3d", "gwt_natten3d_forward", _ARGTYPES)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), out.data_ptr(),
-            b, d, h, w, heads, ch, *strides, *kernel, int(circular_w), vec4, ch**-0.5,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), out.data_ptr(), _ptr(lse),
+            *_layout(q, k, v, kernel, circular_w, (q, k, v, out)),
             tiles.cp, tiles.lanes, tiles.rows, tiles.ry, tiles.rx,
             torch.cuda.current_stream().cuda_stream,
         )
-    if err != 0:
-        raise RuntimeError(f"natten3d forward: CUDA kernel launch failed (cudaError {err})")
+    _check_err(err, "forward")
     LAUNCHES += 1
-    return out
+    return out, lse
+
+
+def launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular_w):
+    """One K6b kernel on the card: mode `DQ` writes grads[0] (dq) and, with
+    rpb, its drpb partials into `partial` ([B * n_tiles, heads, n_rel] of
+    the dq plan); mode `DKV` writes grads[1] and grads[2] (dk, dv). rpb
+    contiguous or None, dout dense, delta = rowsum(dO * out)
+    [B, D, H, W, heads]."""
+    global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    tiles = plan_backward(tuple(q.shape), kernel, circular_w, rpb is not None)[mode]
+    outs = (grads[0], None, None, partial) if mode == DQ else (None, grads[1], grads[2], None)
+    layout = _layout(q, k, v, kernel, circular_w, [q, k, v, dout, *(t for t in outs[:3] if t is not None)])
+    with torch.cuda.device(q.device):
+        err = c_function("natten3d_bwd", "gwt_natten3d_backward", _BWD_ARGTYPES)(
+            mode, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(_ptr(t) for t in outs), *layout,
+            tiles.cp, tiles.lanes, tiles.rows, tiles.ry, tiles.rx,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_err(err, "backward (dq)" if mode == DQ else "backward (dk/dv)")
+    if mode == DQ:
+        BWD_DQ_LAUNCHES += 1
+    else:
+        BWD_DKV_LAUNCHES += 1
+
+
+def _backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular_w):
+    """K6b: (dq, dk, dv, drpb), drpb None without rpb."""
+    rpb = None if rpb is None else rpb.contiguous()
+    dout = dout.contiguous()
+    delta = (dout * out).sum(-1).contiguous()  # [B, D, H, W, heads]
+    grads = tuple(torch.empty(q.shape, device=q.device) for _ in range(3))
+    partial = None
+    if rpb is not None:
+        tiles = plan_backward(tuple(q.shape), kernel, circular_w, True)[DQ]
+        partial = torch.empty(q.shape[0] * tiles.n_tiles, q.shape[-2], rpb[0].numel(),
+                              device=q.device)
+    for mode in (DQ, DKV):
+        launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular_w)
+    drpb = partial.sum(0).reshape(rpb.shape) if rpb is not None else None
+    return (*grads, drpb)
+
+
+# The (forward, backward) pair that `_NattenFlash` launches on the card.
+KERNELS = (_forward_cuda, _backward_cuda)
 
 
 def neighborhood_attention_3d_slot(
@@ -153,10 +307,9 @@ def neighborhood_attention_3d_slot(
     rpb: torch.Tensor | None = None,  # [heads, 2kd-1, 2kh-1, 2kw-1]
     circular_w: bool = False,
 ) -> torch.Tensor:
-    """Returns [B, D, H, W, heads, ch]. CUDA tensors launch K6 (ValueError
-    for a shape it does not take, NotImplementedError when a gradient is
-    asked for); CPU tensors take the plain version, which autograd
-    differentiates."""
+    """Returns [B, D, H, W, heads, ch]. CUDA tensors launch K6, and K6b under
+    a gradient (ValueError for a shape they do not take); CPU tensors take
+    the plain version, which autograd differentiates."""
     kernel = tuple(int(kk) for kk in kernel)
     circular_w = bool(circular_w)
     _check(q, k, v, kernel, rpb, circular_w)
@@ -164,5 +317,6 @@ def neighborhood_attention_3d_slot(
         return neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular_w)
     tensors = (q, k, v) if rpb is None else (q, k, v, rpb)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(GRADIENT_TODO)
-    return _forward_cuda(q, k, v, kernel, rpb, circular_w)
+        takes(tuple(q.shape), kernel, circular_w, rpb is not None, backward=True)
+        return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w, KERNELS)
+    return _forward_cuda(q, k, v, kernel, rpb, circular_w)[0]

@@ -474,19 +474,25 @@ def _backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular_w):
     return (*grads, drpb)
 
 
+# The (forward, backward) pair that `_NattenFlash` launches on the card.
+KERNELS = (_forward_cuda, _backward_cuda)
+
+
 class _NattenFlash(torch.autograd.Function):
-    """K5a with lse forward, K5b backward (their plain versions on the CPU)."""
+    """The forward with lse, then the backward, of `kernels`: this module's
+    KERNELS (K5a, K5b) or ops/natten3d.py's (K6, K6b). CPU tensors take
+    their plain versions."""
 
     @staticmethod
-    def forward(ctx, q, k, v, rpb, kernel, circular_w):
+    def forward(ctx, q, k, v, rpb, kernel, circular_w, kernels):
         if q.device.type == "cpu":
             out, lse = neighborhood_attention_3d_reference(
                 q, k, v, kernel, rpb, circular_w, with_lse=True
             )
         else:
-            out, lse = _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=True)
+            out, lse = kernels[0](q, k, v, kernel, rpb, circular_w, with_lse=True)
         ctx.save_for_backward(q, k, v, rpb, out, lse)
-        ctx.kernel, ctx.circular_w = kernel, circular_w
+        ctx.kernel, ctx.circular_w, ctx.kernels = kernel, circular_w, kernels
         return out
 
     @staticmethod
@@ -497,8 +503,8 @@ class _NattenFlash(torch.autograd.Function):
         if q.device.type == "cpu":
             dq, dk, dv, drpb = natten_flash_backward_reference(*args)
         else:
-            dq, dk, dv, drpb = _backward_cuda(*args)
-        return dq, dk, dv, drpb, None, None
+            dq, dk, dv, drpb = ctx.kernels[1](*args)
+        return dq, dk, dv, drpb, None, None, None
 
 
 def _ptr(t) -> int:

@@ -16,13 +16,13 @@ backward (ops/natten_flash.py) under autograd. For CUDA tensors `route`
 picks the kernel from the shape alone, before any launch:
 
   * "auto": the halo-tiled K5a (ops/natten_flash.py; K5a and K5b under a
-    gradient) when its tiles fit, else the wide-head K6 (ops/natten3d.py);
-  * "flash": K5a/K5b, or ValueError; "pallas": K6, or ValueError;
+    gradient) when its tiles fit, else the wide-head K6 (ops/natten3d.py;
+    K6 with lse and its backward K6b under a gradient);
+  * "flash": K5a/K5b, or ValueError; "pallas": K6/K6b, or ValueError;
   * "xla": the plain version, because the caller named it (autograd
     differentiates it); no other impl reaches it on the card.
 
-K6 has no backward kernel yet: a gradient through it on the card raises
-NotImplementedError. A failed build or launch always propagates.
+A failed build or launch always propagates.
 """
 
 from __future__ import annotations
@@ -150,9 +150,9 @@ def route(shape, kernel, circular_w: bool, has_bias: bool, needs_grad: bool,
           impl: str = "auto") -> str:
     """What `neighborhood_attention_3d(..., impl=impl)` runs for CUDA tensors
     of `shape` [B, D, H, W, heads, ch]: "flash" (K5a, with K5b under a
-    gradient), "slot" (K6) or "plain" (impl="xla"). A pure host function:
-    ValueError for an unknown impl or a shape the named kernel does not take,
-    NotImplementedError for a gradient through K6."""
+    gradient), "slot" (K6, with K6b under a gradient) or "plain"
+    (impl="xla"). A pure host function: ValueError for an unknown impl or a
+    shape the named kernel does not take."""
     from graph_weather_tpu_torch.ops import natten3d, natten_flash
 
     if impl not in IMPLS:
@@ -166,9 +166,7 @@ def route(shape, kernel, circular_w: bool, has_bias: bool, needs_grad: bool,
         except ValueError:
             if impl == "flash":
                 raise
-    natten3d.takes(shape, kernel, circular_w, has_bias)
-    if needs_grad:
-        raise NotImplementedError(natten3d.GRADIENT_TODO)
+    natten3d.takes(shape, kernel, circular_w, has_bias, backward=needs_grad)
     return "slot"
 
 
@@ -181,13 +179,13 @@ def neighborhood_attention_3d(
     circular_w: bool = False,
     impl: str = "auto",
 ) -> torch.Tensor:
-    """Returns [B, D, H, W, heads, ch]; differentiable in q, k, v and rpb
-    except through K6 on the card. impl: "auto", "flash", "pallas" or "xla"
+    """Returns [B, D, H, W, heads, ch]; differentiable in q, k, v and rpb.
+    impl: "auto", "flash", "pallas" or "xla"
     (see the module docstring; ValueError for any other). CPU tensors take
     the plain version (its explicit backward under autograd) under every
     impl; CUDA tensors run what `route` picks, or raise."""
-    from graph_weather_tpu_torch.ops import natten3d
-    from graph_weather_tpu_torch.ops.natten_flash import _forward_cuda, _NattenFlash
+    from graph_weather_tpu_torch.ops import natten3d, natten_flash
+    from graph_weather_tpu_torch.ops.natten_flash import _NattenFlash
 
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
@@ -198,13 +196,15 @@ def neighborhood_attention_3d(
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
     if q.device.type == "cpu":
         if needs_grad:
-            return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w)
+            return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w, natten_flash.KERNELS)
         return neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular_w)
     path = route(tuple(q.shape), kernel, circular_w, rpb is not None, needs_grad, impl)
     if path == "plain":
         return neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular_w)
     if path == "slot":
-        return natten3d._forward_cuda(q, k, v, kernel, rpb, circular_w)
+        if needs_grad:
+            return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w, natten3d.KERNELS)
+        return natten3d._forward_cuda(q, k, v, kernel, rpb, circular_w)[0]
     if needs_grad:
-        return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w)
-    return _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=False)[0]
+        return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w, natten_flash.KERNELS)
+    return natten_flash._forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=False)[0]

@@ -17,8 +17,12 @@ role where the tree has one), per evaluation and per train step, 3 banded
 GenCast requests (28) and 3 banded train steps (30); K6 on the 768-d
 WeatherMesh's layer (phase 37, case a), 3 requests of the 768-d WeatherMesh
 (38) and 3 of the 128-d one (19); K5a at phase 18's cases a and c, with and
-without lse; K5b's dq and dk/dv kernels apart on the 128-d layer (phase 22,
-case a) and 3 128-d WeatherMesh train steps (23).
+without lse, and on phase 37's case a (the 768-d layer, which `route`
+sends to K6) with its `takes` bypassed here only; K5b's dq and dk/dv
+kernels apart on the 128-d layer (phase 22, case a) and 3 128-d
+WeatherMesh train steps (23); where the tree has K6b, its dq and dk/dv
+kernels apart on the 768-d layer (phase 41, case a), K6 with lse, and 3
+768-d WeatherMesh train steps (42).
 Each kernel is held against its plain version as in those phases. Prints
 one JSON line. f32 throughout; TF32 is off.
 """
@@ -109,6 +113,74 @@ def k5b_split(cs, natten_flash, gen) -> dict:
             "k5b_ms_per_layer": cs.cuda_ms(lambda: natten_flash._backward_cuda(*args)),
             "k5b_dq_ms_per_step": cs.K5_PER_FORWARD * dq_ms,
             "k5b_dkv_ms_per_step": cs.K5_PER_FORWARD * dkv_ms}
+
+
+def k5a_on_wide_heads(cs, natten_flash, natten3d, gen) -> dict:
+    """K5a on the 768-d WeatherMesh's layer (phase 37's case a: 8 x 96 at
+    (5, 7, 7)), which `route` sends to K6: launched here with `takes`
+    bypassed (the halo check that keeps the shape off K5a), on the plan
+    `_fwd_plan` gives it, after a check of out and lse against the plain
+    version; K6 on the same inputs beside it. Only this script launches K5a
+    on such a shape; routing is unchanged. {} for a tree without
+    `_fwd_plan`."""
+    from graph_weather_tpu_torch.ops.neighborhood_attention import (
+        neighborhood_attention_3d_reference,
+    )
+
+    if not hasattr(natten_flash, "_fwd_plan"):
+        return {}
+    kernel, heads, ch = (5, 7, 7), 8, 96
+    q, k, v, rpb = cs.natten_inputs(gen, kernel, heads, ch)
+    plan = natten_flash._fwd_plan(tuple(q.shape[1:4]), kernel, False, ch, True)
+    takes = natten_flash.takes
+    natten_flash.takes = lambda *args, **kwargs: True
+    try:
+        out, lse = natten_flash._forward_cuda(q, k, v, kernel, rpb, False, with_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = neighborhood_attention_3d_reference(q, k, v, kernel, rpb, False, with_lse=True)
+        err = max((out - ref).abs().max().item(), (lse - ref_lse).abs().max().item())
+        if not err <= cs.K5_TOL:
+            raise AssertionError(f"K5a on the 768-d layer: error {err} > {cs.K5_TOL}")
+        ms = cs.cuda_ms(lambda: natten_flash._forward_cuda(q, k, v, kernel, rpb, False, with_lse=False))
+    finally:
+        natten_flash.takes = takes
+    k6_ms = cs.cuda_ms(lambda: natten3d._forward_cuda(q, k, v, kernel, rpb, False))
+    return {"k5a_wide_plan": str(plan), "k5a_wide_max_abs_err": err, "k5a_wide_ms_per_layer": ms,
+            "k6_wide_ms_per_layer_same_inputs": k6_ms}
+
+
+def k6b_split(cs, natten3d, natten_flash, gen) -> dict:
+    """K6b's dq kernel (with its drpb partials) and dk/dv kernel apart on the
+    768-d WeatherMesh's layer (phase 41, case a), after a check of the
+    whole backward against its plain version. {} for a tree without K6b."""
+    if not hasattr(natten3d, "launch_backward"):
+        return {}
+    kernel, heads, ch, circular = (5, 7, 7), 8, 96, False
+    q, k, v, rpb = cs.natten_inputs(gen, kernel, heads, ch)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    out, lse = natten3d._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)
+    args = (q, k, v, rpb, out, lse, dout, kernel, circular)
+    got = natten3d._backward_cuda(*args)
+    torch.cuda.synchronize()
+    want = natten_flash.natten_flash_backward_reference(*args)
+    err = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(got, want))
+    if not err <= cs.K5_TOL:
+        raise AssertionError(f"K6b: error {err} of max|g| > {cs.K5_TOL}")
+    del got, want
+    delta = (dout * out).sum(-1).contiguous()
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    plan = natten3d.plan_backward(tuple(q.shape), kernel, circular, True)[natten3d.DQ]
+    partial = torch.empty(plan.n_tiles, heads, rpb[0].numel(), device="cuda")
+
+    def launch(mode):
+        return lambda: natten3d.launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads,
+                                                partial, kernel, circular)
+
+    dq_ms, dkv_ms = cs.cuda_ms(launch(natten3d.DQ)), cs.cuda_ms(launch(natten3d.DKV))
+    return {"k6b_max_abs_err": err, "k6b_dq_ms_per_layer": dq_ms, "k6b_dkv_ms_per_layer": dkv_ms,
+            "k6_lse_ms_per_layer": cs.cuda_ms(
+                lambda: natten3d._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)),
+            "k6b_ms_per_step": cs.K6_PER_FORWARD * (dq_ms + dkv_ms)}
 
 
 def main() -> int:
@@ -331,6 +403,7 @@ def main() -> int:
     kernel6 = (5, 7, 7)
     q, k, v, rpb = cs.natten_inputs(gen, kernel6, 8, 96)
     out = natten3d._forward_cuda(q, k, v, kernel6, rpb, False)
+    out = out[0] if isinstance(out, tuple) else out  # (out, lse) since K6 writes lse
     torch.cuda.synchronize()
     result["k6_max_abs_err"] = (out - neighborhood_attention_3d_reference(
         q, k, v, kernel6, rpb, False)).abs().max().item()
@@ -353,6 +426,22 @@ def main() -> int:
         before = natten3d.LAUNCHES
         result[key] = [cs.timed(lambda: wm(s_, p_))[1] for s_, p_ in zip(surfaces, pressures)]
         result[key.replace("request_ms", "k6_launches")] = natten3d.LAUNCHES - before
+        if cfg is cs.WM_WIDE and hasattr(natten3d, "launch_backward"):  # 3 train steps (phase 42)
+            wide_gen = torch.Generator().manual_seed(2)
+            targets = tuple(torch.randn(t.shape, generator=wide_gen).to("cuda")
+                            for t in (surfaces[0], pressures[0]))
+            wide_step = port.make_train_step(
+                wm.module.parameters(), wm.forward_fn(),
+                lambda pr, tg: ((pr.surface - tg[0]) ** 2).mean() + ((pr.pressure - tg[1]) ** 2).mean(),
+                port.make_optimizer(1e-4),
+            )
+            before = natten3d.BWD_DKV_LAUNCHES
+            result["wm_wide_step_ms"] = [
+                cs.timed(lambda: wide_step(surfaces[0], pressures[0], targets))[1] for _ in range(3)
+            ]
+            if natten3d.BWD_DKV_LAUNCHES - before != 3 * cs.K6_PER_FORWARD:
+                raise AssertionError("the wide train steps did not run K6b 16 times each")
+            del wide_step
         if cfg is cs.WEATHERMESH:  # 3 train steps (phase 23)
             targets = tuple(torch.randn(t.shape, generator=wm_gen).to("cuda")
                             for t in (surfaces[0], pressures[0]))
@@ -371,11 +460,14 @@ def main() -> int:
         del wm
         torch.cuda.empty_cache()
     result.update(k5a_cases(cs, natten_flash, gen))
+    result.update(k5a_on_wide_heads(cs, natten_flash, natten3d, gen))
+    result.update(k6b_split(cs, natten3d, natten_flash, gen))
     result.update(k5b_split(cs, natten_flash, gen))
     for key in ("gencast_request_ms", "gencast_step_ms", "fc_request_ms", "fc_step_ms",
                 "band_request_ms", "band_step_ms", "wm_wide_request_ms", "wm_request_ms",
-                "wm_step_ms"):
-        result[key + "_median_later"] = statistics.median(result[key][1:])
+                "wm_step_ms", "wm_wide_step_ms"):
+        if key in result:
+            result[key + "_median_later"] = statistics.median(result[key][1:])
     print(json.dumps(result))
     return 0
 

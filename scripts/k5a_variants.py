@@ -304,7 +304,7 @@ def main() -> int:
     line = ["[k5a] k6         "]
     for case, (kernel, _) in CASES.items():
         q, k, v, rpb, ref, _ = inputs[case]
-        err = (natten3d._forward_cuda(q, k, v, kernel, rpb, False) - ref).abs().max().item()
+        err = (natten3d._forward_cuda(q, k, v, kernel, rpb, False)[0] - ref).abs().max().item()
         ms = cs.cuda_ms(lambda: natten3d._forward_cuda(q, k, v, kernel, rpb, False))
         line.append(f"{case}: plan {natten3d.plan(tuple(q.shape), kernel, False)} ms={ms:.4f} "
                     f"err {err:.2e}")

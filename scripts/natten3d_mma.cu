@@ -374,15 +374,17 @@ int launch(const Params& p, cudaStream_t stream) {
 // Plain C entry point (bound with ctypes). Launches on `stream`, does not
 // synchronise, allocates nothing; returns a cudaError_t (0 on success), or
 // cudaErrorInvalidValue for a (cp, nt) that no instantiation has or a plan
-// out of range. rpb may be null. The host checked the kernel against the volume and
+// out of range. rpb may be null; lse is not written (the same C interface as
+// natten3d.cu's, whose lse serves training). The host checked the kernel against the volume and
 // batch and heads against the grid's limits (ops/natten3d.py, `takes`), and
 // chose cp (the padded head width: 16, 32, 64, 96, 128 or 256) and nt (the
 // 8-key tiles of a chunk: 8, and 4 at cp 256), the warp grid
 // nwh x nww (at most 8 warps) and the item strip ry x rx so that two stages
 // of K and V fit in shared memory (`plan`).
 extern "C" int gwt_natten3d_forward(const float* q, const float* k, const float* v,
-                                    const float* rpb, float* out, int batch, int d, int h, int w,
-                                    int heads, int ch, long long q_ps, long long k_ps,
+                                    const float* rpb, float* out, float* /*lse*/, int batch,
+                                    int d, int h, int w, int heads, int ch, long long q_ps,
+                                    long long k_ps,
                                     long long v_ps, int kd, int kh, int kw, int circular_w,
                                     int vec4, float scale, int cp, int nt, int nwh, int nww,
                                     int ry, int rx, void* stream) {

@@ -175,7 +175,7 @@ def main() -> int:
         out = torch.zeros_like(q)
 
         def run():
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rpb.data_ptr(), out.data_ptr(),
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), rpb.data_ptr(), out.data_ptr(), 0,
                      b, d, h, w, heads, ch, *strides, *KERNEL, 0, 1, ch**-0.5, *tiles, stream())
             if err:
                 raise RuntimeError(f"{name}: launch failed ({err})")

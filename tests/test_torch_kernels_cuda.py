@@ -773,23 +773,96 @@ def test_natten3d_matches_plain(gen, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", K6_CASES, ids=K6_IDS)
+def test_natten3d_lse_matches_plain(gen, case):
+    """K6's lse (written only when asked) against the plain version's, its
+    out unchanged by it, and both bit-equal over two launches."""
+    shape, heads, ch, kernel, with_rpb, circular = case
+    q, k, v, rpb = _natten_inputs(gen, shape, heads, ch, kernel, with_rpb, fused=ch % 4 == 0)
+    out, lse = natten3d._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)
+    out2, lse2 = natten3d._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)
+    served, none = natten3d._forward_cuda(q, k, v, kernel, rpb, circular)
+    torch.cuda.synchronize()
+    ref, ref_lse = neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular, with_lse=True)
+    assert none is None and lse.shape == q.shape[:-1]
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    assert torch.equal(out, served) and torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert (out - ref).abs().max().item() <= ATOL
+
+
+def _k6b_against_plain(gen, case):
+    """K6b through the dispatcher's autograd path (K6 with lse, then the dq
+    and dk/dv kernels, one launch each) against the plain backward: every
+    gradient within 1e-4 of its tensor's max|g|; a second backward repeats
+    its bits."""
+    shape, heads, ch, kernel, with_rpb, circular = case
+    q, k, v, rpb = _natten_inputs(gen, shape, heads, ch, kernel, with_rpb, fused=ch % 4 == 0)
+    dout = torch.randn(q.shape, generator=gen, device="cuda")
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v) + ((rpb,) if with_rpb else ())]
+    counts = (natten3d.LAUNCHES, natten3d.BWD_DQ_LAUNCHES, natten3d.BWD_DKV_LAUNCHES,
+              natten_flash.LAUNCHES, natten_flash.BWD_DQ_LAUNCHES)
+    out = neighborhood_attention_3d(*leaves[:3], kernel, leaves[3] if with_rpb else None, circular,
+                                    impl="pallas")
+    got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (natten3d.LAUNCHES, natten3d.BWD_DQ_LAUNCHES, natten3d.BWD_DKV_LAUNCHES,
+            natten_flash.LAUNCHES, natten_flash.BWD_DQ_LAUNCHES) == (
+        counts[0] + 1, counts[1] + 2, counts[2] + 2, counts[3], counts[4])
+    ref_out, lse = neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular, with_lse=True)
+    want = natten_flash.natten_flash_backward_reference(q, k, v, rpb, ref_out, lse, dout, kernel,
+                                                        circular)
+    for name, a, b in zip(("dq", "dk", "dv", "drpb"), got, want):
+        assert (a - b).abs().max().item() <= ATOL * b.abs().max().item(), name
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K6_CASES, ids=K6_IDS)
+def test_natten3d_backward_matches_plain(gen, case):
+    _k6b_against_plain(gen, case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strips", [(1, None), (1, 3), (2, 5)], ids=["rows_1", "one_by_3", "two_by_5"])
+@pytest.mark.parametrize("case", [K6_CASES[7], K6_CASES[5], K6_CASES[9]],
+                         ids=["seam_and_edge", "ch200_no_rpb", "ch128_circular"])
+def test_natten3d_backward_strips(gen, monkeypatch, case, strips):
+    """K6b with both kernels' items cut into strips of ry rows by rx columns
+    (rx None: the plan's), as `plan_backward` cuts them where a plane does
+    not fit, against the plain backward."""
+    ry, rx = strips
+    plan_backward = natten3d.plan_backward
+    monkeypatch.setattr(natten3d, "plan_backward", lambda *args: tuple(
+        dataclasses.replace(p, ry=ry, rx=p.rx if rx is None else rx) for p in plan_backward(*args)))
+    _k6b_against_plain(gen, case)
+
+
+@pytest.mark.cuda
 def test_natten3d_refuses_a_gradient(gen):
-    """A gradient through a K6 shape raises NotImplementedError before any
-    launch, under "auto" and "pallas"; "xla" differentiates the plain
-    version."""
-    q, k, v, rpb = _natten_inputs(gen, (1, 5, 7, 8), 2, 96, (5, 7, 7), True)
+    """A gradient through a shape K6 serves and K6b's tiles cannot hold (a
+    (1, 61, 61) window with rpb: the dq kernel's ds per slot) raises
+    ValueError before any launch, under "auto" and "pallas"; "xla"
+    differentiates the plain version. Without a gradient K6 serves it."""
+    kernel = (1, 61, 61)
+    q, k, v, rpb = _natten_inputs(gen, (1, 1, 61, 61), 1, 8, kernel, True)
     leaves = [t.requires_grad_(True) for t in (q, k, v, rpb)]
-    before = (natten3d.LAUNCHES, natten_flash.LAUNCHES)
+    before = (natten3d.LAUNCHES, natten3d.BWD_DQ_LAUNCHES, natten_flash.LAUNCHES)
     for impl in ("auto", "pallas"):
-        with pytest.raises(NotImplementedError, match="K6b"):
-            neighborhood_attention_3d(*leaves[:3], (5, 7, 7), leaves[3], impl=impl)
-    with pytest.raises(NotImplementedError, match="K6b"):
-        natten3d.neighborhood_attention_3d_slot(*leaves[:3], (5, 7, 7), leaves[3])
-    assert (natten3d.LAUNCHES, natten_flash.LAUNCHES) == before
-    out = neighborhood_attention_3d(*leaves[:3], (5, 7, 7), leaves[3], impl="xla")
+        with pytest.raises(ValueError, match="no backward tile"):
+            neighborhood_attention_3d(*leaves[:3], kernel, leaves[3], impl=impl)
+    with pytest.raises(ValueError, match="no backward tile"):
+        natten3d.neighborhood_attention_3d_slot(*leaves[:3], kernel, leaves[3])
+    assert (natten3d.LAUNCHES, natten3d.BWD_DQ_LAUNCHES, natten_flash.LAUNCHES) == before
+    out = neighborhood_attention_3d(*leaves[:3], kernel, leaves[3], impl="xla")
     out.square().sum().backward()
     assert all(torch.isfinite(t.grad).all() for t in leaves)
-    assert (natten3d.LAUNCHES, natten_flash.LAUNCHES) == before
+    assert (natten3d.LAUNCHES, natten3d.BWD_DQ_LAUNCHES, natten_flash.LAUNCHES) == before
+    with torch.no_grad():
+        served = neighborhood_attention_3d(q, k, v, kernel, rpb)
+    torch.cuda.synchronize()
+    assert natten3d.LAUNCHES == before[0] + 1
+    assert (served - neighborhood_attention_3d_reference(q, k, v, kernel, rpb)).abs().max().item() <= ATOL
 
 
 # -- K4a / K4b: banded attention ----------------------------------------------

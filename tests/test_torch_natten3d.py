@@ -107,6 +107,8 @@ ROUTES = [
     ((1, 14, 45, 90, 4, 32), (3, 5, 5), False, "pallas", "slot"),
     ((1, 14, 45, 90, 8, 96), (5, 7, 7), True, "xla", "plain"),
     ((1, 14, 45, 90, 8, 96), (5, 7, 7), False, "xla", "plain"),
+    ((1, 14, 45, 90, 8, 96), (5, 7, 7), True, "auto", "slot"),  # training it: K6 and K6b
+    ((1, 14, 45, 90, 4, 32), (3, 5, 5), True, "pallas", "slot"),
 ]
 
 
@@ -116,15 +118,17 @@ def test_route_of_each_impl(shape, kernel, needs_grad, impl, want):
 
 
 def test_route_refusals():
-    """A gradient through K6 raises NotImplementedError naming ROADMAP's
-    item; "flash" and "pallas" raise ValueError naming the limit of the
-    kernel they name; an unknown impl raises ValueError in the dispatcher
-    too."""
+    """A gradient through a K6 shape routes to K6 and its backward K6b
+    ("slot"), unless K6b's tiles do not fit; "flash" and "pallas" raise
+    ValueError naming the limit of the kernel they name; an unknown impl
+    raises ValueError in the dispatcher too."""
     wide = (1, 14, 45, 90, 8, 96)
-    with pytest.raises(NotImplementedError, match="K6b: the slot-serial backward"):
-        route(wide, (5, 7, 7), False, True, True, "auto")
-    with pytest.raises(NotImplementedError, match="K6b"):
-        route((1, 14, 45, 90, 4, 32), (3, 5, 5), False, True, True, "pallas")
+    assert route(wide, (5, 7, 7), False, True, True, "auto") == "slot"
+    assert route((1, 14, 45, 90, 4, 32), (3, 5, 5), False, True, True, "pallas") == "slot"
+    huge = (1, 1, 61, 61, 1, 8)  # a (1, 61, 61) window with rpb: K6 serves it, K6b cannot
+    assert route(huge, (1, 61, 61), False, True, False, "auto") == "slot"
+    with pytest.raises(ValueError, match="no backward tile"):
+        route(huge, (1, 61, 61), False, True, True, "auto")
     with pytest.raises(ValueError, match="shared memory"):
         route(wide, (5, 7, 7), False, True, False, "flash")
     with pytest.raises(ValueError, match="head width 257 > 256"):
