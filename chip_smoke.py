@@ -176,14 +176,17 @@ non-zero exit:
  40. the same weights and one request at 3 deg (60 x 120, latent
      [14, 15, 30]) on the card (16 K6 launches) and on the CPU: max abs
      difference <= 1e-3; the CPU forward timed
- 41. K6 with lse, and K6b (its backward: dq and dk/dv kernels) against
-     the plain backward (natten_flash_backward_reference) on K6's out and
-     lse, in phase 37's cases a, b, d, e and f and (g) case a without rpb:
-     out and lse within 1e-4 of the plain version's, each of dq, dk, dv and
-     drpb within 1e-4 of its tensor's max|g|, out, lse and the gradients
-     bit-equal over two launches; the plans; CUDA-event medians of K6 with
-     and without lse, of each K6b kernel, of the whole backward (with delta
-     and the drpb sum), of the plain backward and of SDPA's backward over
+ 41. K6 with lse, and K6b (its backward: the dq kernel, which writes each
+     pair's p and ds to a slot table, and the dk/dv kernel, which reads
+     them) against the plain backward (natten_flash_backward_reference) on
+     K6's out and lse, in phase 37's cases a, b, d, e and f and (g) case a
+     without rpb: out and lse within 1e-4 of the plain version's, each of
+     dq, dk, dv and drpb within 1e-4 of its tensor's max|g|, out, lse and
+     the gradients bit-equal over two launches; the plans and the table's
+     bytes; CUDA-event medians of K6 with and without lse, of each K6b
+     kernel (the dq kernel forms delta = rowsum(dO * out) itself), of the
+     whole backward (with the table's allocation and the drpb sum), of the
+     plain backward and of SDPA's backward over
      each query's gathered window with rpb as an additive bias, in chunks
      of 2 GiB (the last two timed only, SDPA_BWD_RUNS runs); per train step
      (16 x case a) and the bounds
@@ -865,18 +868,17 @@ def k6b_case(natten3d, natten_flash, reference, window_indices, name, gen, kerne
     fwd_ms = cuda_ms(lambda: natten3d._forward_cuda(*args))
     lse_ms = cuda_ms(lambda: natten3d._forward_cuda(*args, with_lse=True))
     ms = cuda_ms(lambda: natten3d._backward_cuda(*bargs))
-    delta = (dout * out).sum(-1).contiguous()
     grads = tuple(torch.empty_like(q) for _ in range(3))
     dq_plan, dkv_plan = natten3d.plan_backward(tuple(q.shape), kernel, circular, bias)
     partial = (torch.empty(dq_plan.n_tiles, heads, rpb[0].numel(), device="cuda") if bias
                else None)
+    table = torch.empty(natten3d.table_shape(q.shape, kernel), device="cuda")
 
     def kernel_fn(mode):
-        return lambda: natten3d.launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads,
-                                                partial, kernel, circular)
+        return lambda: natten3d.launch_backward(mode, q, k, v, rpb, dout, lse, out, grads,
+                                                partial, table, kernel, circular)
 
-    split = {"dq": cuda_ms(kernel_fn(natten3d.DQ)), "dkv": cuda_ms(kernel_fn(natten3d.DKV)),
-             "delta": cuda_ms(lambda: (dout * out).sum(-1).contiguous())}
+    split = {"dq": cuda_ms(kernel_fn(natten3d.DQ)), "dkv": cuda_ms(kernel_fn(natten3d.DKV))}
     plain_ms = cuda_ms(lambda: natten_flash.natten_flash_backward_reference(*bargs),
                        runs=SDPA_BWD_RUNS, batch=1)
     library_ms = window_sdpa_bwd_ms(window_indices, q, k, v, dout, kernel, rpb, circular)
@@ -884,8 +886,9 @@ def k6b_case(natten3d, natten_flash, reference, window_indices, name, gen, kerne
           f"K6 out/lse max_abs_err {fwd_err:.3e} | K6b error / max|g| "
           + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
           + f" | repeat bit-equal {repeats} | plans dq {dq_plan} dk/dv {dkv_plan} | K6 ms {fwd_ms:.4f}, "
-          f"with lse {lse_ms:.4f} | backward_ms={ms:.4f} (dq {split['dq']:.4f} + dk/dv "
-          f"{split['dkv']:.4f} + delta {split['delta']:.4f} + drpb sum) | plain_ms={plain_ms:.4f} "
+          f"with lse {lse_ms:.4f} | backward_ms={ms:.4f} (dq with delta and the slot table's "
+          f"writes {split['dq']:.4f} + dk/dv {split['dkv']:.4f} + drpb sum; table "
+          f"{dq_plan.table / 1e6:.1f} MB) | plain_ms={plain_ms:.4f} "
           f"sdpa_bwd_ms={library_ms:.4f} (SDPA's backward on each query's "
           f"{math.prod(kernel)}-key window, rpb as bias; plain and SDPA medians of "
           f"{SDPA_BWD_RUNS} runs)", flush=True)
@@ -898,16 +901,20 @@ def k6b_case(natten3d, natten_flash, reference, window_indices, name, gen, kerne
         raise AssertionError(f"K6b {name}: out, lse or a gradient differs between two launches")
     n_pairs = q[..., 0, 0].numel() * heads * math.prod(kernel)
     n = q[..., 0].numel() * ch
-    stats = 4 * 2 * lse.numel()  # lse and delta
+    stats = 4 * lse.numel()
     rpb_bytes = 4 * rpb.numel() if bias else 0
     return dict(errs=errs, fwd_err=fwd_err, ms=ms, split=split, fwd_ms=fwd_ms, lse_ms=lse_ms,
-                plain_ms=plain_ms, library_ms=library_ms, pairs=n_pairs,
-                # q k v out dO dq dk dv, lse and delta, rpb and drpb; the
-                # function's s, dp, dq, dk and dv (10 ch flops per pair):
-                # that the two kernels each recompute s and dp is their design
+                plain_ms=plain_ms, library_ms=library_ms, pairs=n_pairs, table=dq_plan.table,
+                # q k v out dO dq dk dv, lse, rpb and drpb; the function's
+                # s, dp, dq, dk and dv (10 ch flops per pair). Apart: the dq
+                # kernel's s, dp and dq (6 ch) over q k v out dO dq, lse,
+                # rpb, drpb and the slot table it writes; the dk/dv
+                # kernel's dk and dv (4 ch) over q dO dk dv and the table it
+                # reads
                 flops=10 * n_pairs * ch, nbytes=4 * 8 * n + stats + 2 * rpb_bytes,
-                flops_split={"dq": 6 * n_pairs * ch, "dkv": 8 * n_pairs * ch},
-                nbytes_split={"dq": 4 * 5 * n + stats + 2 * rpb_bytes, "dkv": 4 * 6 * n + stats})
+                flops_split={"dq": 6 * n_pairs * ch, "dkv": 4 * n_pairs * ch},
+                nbytes_split={"dq": 4 * 6 * n + stats + 2 * rpb_bytes + dq_plan.table,
+                              "dkv": 4 * 4 * n + dq_plan.table})
 
 
 def band_sdpa_inputs(band_windows, q, k, v, masks, block, w, dout=None):
@@ -2270,7 +2277,8 @@ def main() -> int:
           f"plain_ms={K6_PER_FORWARD * k6b['a']['plain_ms']:.4f} "
           f"sdpa_bwd_ms={K6_PER_FORWARD * k6b['a']['library_ms']:.4f} bound_ms="
           f"{K6_PER_FORWARD * k6b_bound:.4f} ({k6b_bound_by}: {k6b['a']['pairs'] / 1e6:.1f} M pairs, "
-          f"{k6b['a']['flops'] / 1e9:.2f} GFLOP, {k6b['a']['nbytes'] / 1e6:.1f} MB per layer) | K6 "
+          f"{k6b['a']['flops'] / 1e9:.2f} GFLOP, {k6b['a']['nbytes'] / 1e6:.1f} MB per layer; the "
+          f"slot table {k6b['a']['table'] / 1e6:.1f} MB a layer, written by dq and read by dk/dv) | K6 "
           f"{K6_PER_FORWARD * k6b['a']['fwd_ms']:.4f}, with lse {K6_PER_FORWARD * k6b['a']['lse_ms']:.4f} "
           f"| phase {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -2529,6 +2537,9 @@ def main() -> int:
             "dq_ms": K6_PER_FORWARD * k6b["a"]["split"]["dq"],  # per train step: 16 x case a
             "dkv_ms": K6_PER_FORWARD * k6b["a"]["split"]["dkv"],
             "backward_ms": K6_PER_FORWARD * k6b["a"]["ms"],  # both kernels, delta, drpb sum
+            "dq_bound_ms": K6_PER_FORWARD * k6b_split_bound["dq"][0],
+            "dkv_bound_ms": K6_PER_FORWARD * k6b_split_bound["dkv"][0],
+            "table_bytes": k6b["a"]["table"],  # the slot table of one case-a layer
             "plain_ms": K6_PER_FORWARD * k6b["a"]["plain_ms"],
             "bound_ms": K6_PER_FORWARD * k6b_bound,
             "bound_by": k6b_bound_by,

@@ -8,19 +8,24 @@
 // kernel computes that gradient for every shape K6 takes (heads up to 256
 // channels, the 768-d WeatherMesh's 8 x 96 at kernel (5, 7, 7), which the
 // halo tiles of K5b, natten_flash_bwd.cu, cannot hold). Layouts and
-// semantics are natten3d.cu's. From K6's lse, delta = rowsum(dO * out)
-// [B, D, H, W, heads] and dO, with s = q_i . k_j * scale + rpb[rel(i, j)]:
+// semantics are natten3d.cu's. From K6's out and lse, and dO, with delta_i
+// = dO_i . out_i and s = q_i . k_j * scale + rpb[rel(i, j)]:
 //
 //     p = exp(s - lse_i),  ds = p (dO_i . v_j - delta_i),
 //     dq_i = scale sum_j ds k_j,  dk_j = scale sum_i ds q_i,  dv_j = sum_i p dO_i,
 //     drpb[head, r] = sum of ds over every pair at relative offset r.
 //
-// Two kernels (`mode` of the C entry):
+// Two kernels (`mode` of the C entry), joined by a slot table: p and ds of
+// every (query, window slot, head), float2 (p, ds), query-major, [B, D, H,
+// W, heads, kd, kh kw rounded up to even] (`table_at`; the pad keeps each
+// key plane's slots on 16 bytes), which the host allocates for one layer's
+// backward (0.91 GB at the 768-d layer) and frees after it.
 //
 //   * dq (mode 0): K6's forward loop with ds in place of p. A CTA owns ROWS
 //     query rows (one warp each) by TW columns of one D plane, of one
 //     (batch, head); a group of LANES lanes owns four W-neighbouring queries
-//     (q, dO and the dq sums of its channels in registers). For each of the
+//     (q, dO and the dq sums of its channels in registers; each query's
+//     delta, dO . out, summed over the group's lanes first). For each of the
 //     kd key planes of the tile's D window the CTA stages the union of its
 //     windows in that plane, K and V, in items of ry union rows by rx union
 //     columns, two cp.async stages (the next item in flight). Per key row of
@@ -28,44 +33,57 @@
 //     of NC: the 4 x NC partial dots of q . k and of dO . v are summed over
 //     the group by a reduce-scatter (shuffles) that leaves each lane five
 //     (query, column) pairs; the lane masks them by its query's window, adds
-//     rpb (through L1) and forms p and ds; ds is broadcast back for the
-//     four queries' dq FMAs (k read from shared memory again). With rpb each
-//     lane also writes its ds to a per-slab table of the CTA's (query, slot)
-//     in shared memory, which the CTA sums after the slab's last item, one
-//     thread per (rh, rw) offset in a fixed order, from per-axis tables of
-//     each query's slot, into partial[cta, head, n_rel]; one torch sum over
-//     the CTAs gives drpb.
-//   * dk/dv (mode 1): the same staging with the roles swapped. A CTA owns
-//     ROWS key rows by TWK key columns of one D plane; a group of lanes owns
-//     two W-neighbouring keys (k, v and the dk, dv sums in registers). The
-//     queries whose window holds a key are per axis a contiguous range (its
-//     inverse window: at most k + k/2 positions on a clamped axis, k on a
-//     circular one); the CTA walks the query planes of its plane's range and
-//     stages, per plane, the union of its keys' inverse windows: the q and
-//     dO rows with lse and delta, in items of ry x rx positions, two
-//     cp.async stages. Per query row of its key row's range a group takes
-//     its two keys' union of query columns in chunks of NCK: the 2 x NCK
-//     partial dots of k . q and v . dO, a reduce-scatter leaving each lane
-//     two (key, column) pairs, the mask by the query's window, p and ds
-//     broadcast back for the dk and dv FMAs. Each key's lanes write its dk
-//     and dv once.
+//     rpb (through L1), forms p and ds, and stores (p, ds) of each in-window
+//     pair at its slot of the table: every slot of every live query once
+//     (on a clamped axis every slot of a window is in range), none for
+//     out-of-window columns, 8 bytes a store, a lane's five slots
+//     consecutive (the L2 merges them into whole sectors). ds is broadcast
+//     back for the four queries' dq FMAs (k read from shared memory again).
+//     With rpb each lane also writes its ds to a per-slab table of the
+//     CTA's (query, slot) in shared memory, which the CTA sums after the
+//     slab's last item, one thread per (rh, rw) offset in a fixed order,
+//     from per-axis tables of each query's slot, into partial[cta, head,
+//     n_rel]; one torch sum over the CTAs gives drpb.
+//   * dk/dv (mode 1): a gather over the table, no dots. A CTA owns ROWS key
+//     rows by TWK key columns of one D plane; a group of lanes owns NK
+//     W-neighbouring keys (the dk, dv sums of its channels in registers).
+//     The queries whose window holds a key are per axis a contiguous range
+//     (its inverse window: at most k + k/2 positions on a clamped axis, k on
+//     a circular one); the CTA walks the query planes of its plane's range
+//     and stages, per plane, the union of its keys' inverse windows in items
+//     of ry x rx positions, two cp.async stages: each position's q and dO
+//     rows and its slots of this key plane from the table (16-byte copies).
+//     Per query of its keys' union a group takes each key's (p, ds) from
+//     the query's staged slots, at the key's column less the query's window
+//     start, (0, 0) where that is outside the window (one compare, no
+//     branch); loads the query's dO slice and adds p dO to each key's dv,
+//     then its q slice and adds ds q to each dk: no dot, reduce-scatter,
+//     exponential, mask from coordinates or shuffle per pair, and each
+//     staged slice feeds the FMAs of all NK keys. Each key's lanes write
+//     its dk and dv once.
 //
 // What bounds it on an H100. At the 768-d WeatherMesh's 1-degree latent
 // ([1, 14, 45, 90], 8 heads x 96, kernel (5, 7, 7)) the backward's
 // function is s, dp, dq, dk and dv (10 ch flops a pair) over 111.1 M
 // (query, key, head) pairs: 106.7 GFLOP, 1.59 ms at the 67 TFLOP/s FP32
-// peak (the two kernels each recompute s and dp: 6 ch in dq, 8 in
-// dk/dv), against ~1.6 GB of q, k, v, out, dO, dq, dk, dv, lse and delta
-// (0.47 ms at 3.35 TB/s): operations bound it. As in K6 each staged row
-// feeds a group's four queries (dq) or two keys (dk/dv), and the chains of
-// loads, shuffles, masks and exponentials per key row, not the FMAs, hold
-// the forward (PERF.md §6); a pair here carries two dot products and two
-// broadcasts. On an H100 at 700 W the 768-d layer takes 6.7 ms in the dq
-// kernel and 8.7 ms in the dk/dv kernel (chip_smoke.py phase 41), ~10x the
-// bound.
+// peak, against ~1.4 GB of q, k, v, out, dO, dq, dk, dv and lse (0.42 ms at
+// 3.35 TB/s): operations bound it. The dq kernel does 6 ch a pair (0.96
+// ms) and writes the table, the dk/dv kernel 4 ch (0.64 ms) and reads it:
+// 0.91 GB each way, 0.27 ms at 3.35 TB/s, under either's operations. As in
+// K6 each staged row feeds a group's four queries, and the dq kernel's
+// chains of loads, shuffles, masks and exponentials per key row, not its
+// FMAs, hold it (PERF.md §6); its table stores add ~5% to it. The dk/dv
+// kernel has none of those chains; it is held by its staging: without its
+// FMAs it keeps ~70% of its time (scripts/k6b_variants.py). Each staged
+// position (q and dO rows and its slots, 1.2 KB at 96 channels) feeds only
+// the CTA's 8 x 8 keys: at the 768-d layer the CTAs stage 6.7 M positions,
+// 8.0 GB through L2 (each query's q and dO ~15 times, its slots ~3 times).
+// On an H100 at 700 W the 768-d layer takes ~7.1 ms in the dq kernel and
+// ~4.3 ms in the dk/dv kernel.
 //
 // The host (ops/natten3d.py, `plan_backward`) picks each kernel's lanes,
-// rows and item strip from the shape, before any launch, within 227 KB.
+// rows and item strip from the shape, before any launch, within 227 KB, and
+// the table's bytes.
 //
 // Not yet here: tensor cores, bf16.
 
@@ -79,7 +97,7 @@ constexpr int DQ = 0, DKV = 1;
 constexpr int NQ = 4;    // dq: W-neighbouring queries of a lane group
 constexpr int NC = 10;   // dq: key columns of a chunk (four windows' union at kw = 7)
 constexpr int NK = 2;    // dk/dv: W-neighbouring keys of a lane group
-constexpr int NCK = 8;   // dk/dv: query columns of a chunk (two inverse windows at kw = 7)
+constexpr int DKV_CTAS = 2;  // dk/dv: CTAs an SM (at most 128 registers a thread)
 constexpr int SPLIT = 3; // halvings of a reduce-scatter: eight parts of a chunk's pairs
 
 struct Geometry {
@@ -95,12 +113,13 @@ struct Params {
   const float* __restrict__ v;
   const float* __restrict__ rpb;    // or null
   const float* __restrict__ dout;   // [B, D, H, W, heads, ch], dense
-  const float* __restrict__ lse;    // [B, D, H, W, heads]
-  const float* __restrict__ delta;  // [B, D, H, W, heads]
+  const float* __restrict__ lse;    // [B, D, H, W, heads] (mode 0)
+  const float* __restrict__ out;    // [B, D, H, W, heads, ch], dense (mode 0)
   float* __restrict__ dq;           // dense, mode 0
   float* __restrict__ dk;           // dense, mode 1
   float* __restrict__ dv;           // dense, mode 1
   float* __restrict__ partial;      // [B * n_cta, heads, n_rel] (mode 0, with rpb)
+  float2* __restrict__ table;       // (p, ds) per slot (`table_at`): written in mode 0, read in 1
   Geometry g;
   int rows;    // rows of a CTA's tile, one warp each
   int ry, rx;  // union rows and columns of an item
@@ -137,6 +156,22 @@ __device__ __forceinline__ int wrap_w(const Geometry& g, int col) {
 __device__ __forceinline__ int slot_of(int r, int i, int size, int k, bool circular) {
   const int s = circular ? r - (k - 1) + k / 2 : i + r - (k - 1) - window_start(i, size, k);
   return s >= 0 && s < k ? s : -1;
+}
+
+// Slots of a key plane in the table: kh kw, rounded up to even so that
+// each plane's slots start on 16 bytes.
+__host__ __device__ __forceinline__ int slab_slots(const Geometry& g) {
+  return (g.kh * g.kw + 1) & ~1;
+}
+
+// The table's entry of the query at in-batch position `pos` of batch `b`,
+// head `head`, window slot (x, s): key plane x of its window, s = y kw + z
+// within the plane. Query-major, [B, D, H, W, heads, kd, slab_slots]: each
+// query's slots of a head contiguous, the pad after a plane's slots never
+// written or read.
+__device__ __forceinline__ long long table_at(const Geometry& g, int b, long long pos, int head,
+                                              int x, int s) {
+  return ((((long long)b * g.d * g.h * g.w + pos) * g.heads + head) * g.kd + x) * slab_slots(g) + s;
 }
 
 // n / d for 0 <= n < 2^20 and 1 <= d, as one multiply (natten3d.cu).
@@ -324,21 +359,31 @@ __global__ void __launch_bounds__(256, 1) natten3d_dq_kernel(const Params p) {
   const int my_j = part >> 1, my_u0 = M * (part & 1);
   const int my_qw = min(qw0 + my_j, g.w - 1);
   const int my_sw = start_w(g, my_qw);
-  const long long my_pos = b_pos + ((long long)qd * g.h + qh) * g.w + my_qw;
+  const long long my_in = ((long long)qd * g.h + qh) * g.w + my_qw;  // in the batch entry
+  const long long my_pos = b_pos + my_in;
   const float my_lse = __ldg(p.lse + my_pos * g.heads + head);
-  const float my_delta = __ldg(p.delta + my_pos * g.heads + head);
-  const bool writes_ds =
-      drpb && row_live && qw0 + my_j < g.w && (l & ((1 << SHIFT) - 1)) == 0;
+  // One lane of those holding the same sums writes them, for a live query.
+  const bool writes = row_live && qw0 + my_j < g.w && (l & ((1 << SHIFT) - 1)) == 0;
+  const bool writes_ds = drpb && writes;
   float* my_ds = ds_tab + (warp * TW + qw0 - w0 + my_j) * n_hw;
   const int col = head * g.ch;
   const long long hc = (long long)g.heads * g.ch;
 
   float qr[NQ][CL], dor[NQ][CL], acc[NQ][CL];
+  float my_delta = 0.f;  // delta of query my_j
 #pragma unroll
   for (int j = 0; j < NQ; ++j) {
     const long long pos = b_pos + ((long long)qd * g.h + qh) * g.w + min(qw0 + j, g.w - 1);
     load_global<CL, LANES>(qr[j], p.q + pos * g.q_ps + col, l, g.ch, g.scale);
     load_global<CL, LANES>(dor[j], p.dout + pos * hc + col, l, g.ch, 1.f);
+    // delta = dO . out of query j, its channels summed over the group in a
+    // fixed order.
+    float ov[CL];
+    load_global<CL, LANES>(ov, p.out + pos * hc + col, l, g.ch, 1.f);
+    float dj = dot<CL>(dor[j], ov);
+#pragma unroll
+    for (int bit = LANES / 2; bit > 0; bit >>= 1) dj += __shfl_xor_sync(0xffffffffu, dj, bit);
+    if (my_j == j) my_delta = dj;
 #pragma unroll
     for (int c = 0; c < CL; ++c) acc[j][c] = 0.f;
   }
@@ -410,7 +455,9 @@ __global__ void __launch_bounds__(256, 1) natten3d_dq_kernel(const Params p) {
           for (int j = 0; j < NQ; ++j) dp[j * NC + u] = dot<CL>(dor[j], vv);
         }
         reduce_scatter<NQ * NC, LANES>(dp, l);
-        // Query my_j's pairs: its window, rpb, p and ds.
+        // Query my_j's pairs: its window, rpb, p and ds, stored at their
+        // slots of the table.
+        const int slot_row = (y - sh) * g.kw - my_sw;  // + cu: the slot in plane x
         float ds[M];
 #pragma unroll
         for (int u = 0; u < M; ++u) {
@@ -419,7 +466,11 @@ __global__ void __launch_bounds__(256, 1) natten3d_dq_kernel(const Params p) {
           float xv = s[u];
           if (in && rpb_d != nullptr)
             xv += __ldg(rpb_d + (y - qh + g.kh - 1) * nrw + (cu - my_qw + g.kw - 1));
-          ds[u] = in ? exp_diff(xv, my_lse) * (dp[u] - my_delta) : 0.f;
+          const float pr = exp_diff(xv, my_lse);
+          ds[u] = in ? pr * (dp[u] - my_delta) : 0.f;
+          if (writes && in)
+            p.table[table_at(g, blockIdx.z, my_in, head, x, slot_row + cu)] =
+                make_float2(pr, ds[u]);
           if (writes_ds && in) my_ds[(y - sh) * g.kw + cu - my_sw] = ds[u];
         }
         // dq[j] += sum_u ds[j][u] k[u], ds broadcast from the lanes that hold it.
@@ -468,23 +519,18 @@ __global__ void __launch_bounds__(256, 1) natten3d_dq_kernel(const Params p) {
   }
 }
 
-// The dk/dv kernel. After a reduce-scatter of a chunk's 2 x NCK pairs
-// (key-major) a lane holds key part / 4, columns (part % 4) NCK / 4 .. +
-// NCK / 4.
+// The dk/dv kernel: a gather over the table, lanes owning channels.
 template <int CL, int LANES>
-__global__ void __launch_bounds__(256, 1) natten3d_dkv_kernel(const Params p) {
+__global__ void __launch_bounds__(256, DKV_CTAS) natten3d_dkv_kernel(const Params p) {
   constexpr int CP = CL * LANES;
   constexpr int LD = CP + 4;  // floats per staged q or dO row
   constexpr int TWK = NK * 32 / LANES;  // key columns of a CTA
-  constexpr int M = NK * NCK >> SPLIT;  // pairs a lane holds after a reduce-scatter
-  constexpr int QUARTERS = NCK / M;
-  constexpr int SHIFT = ilog2(LANES) - SPLIT;
   const Geometry& g = p.g;
   const int threads = 32 * p.rows;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int l = lane % LANES, base = lane - l;
+  const int l = lane % LANES;
   const int tiles_w = (g.w + TWK - 1) / TWK, tiles_h = (g.h + p.rows - 1) / p.rows;
   const int h0 = blockIdx.x / tiles_w % tiles_h * p.rows, w0 = blockIdx.x % tiles_w * TWK;
   const int jd = blockIdx.x / (tiles_w * tiles_h);
@@ -501,42 +547,35 @@ __global__ void __launch_bounds__(256, 1) natten3d_dkv_kernel(const Params p) {
   const int strips_h = (u1h - u0h + p.ry - 1) / p.ry, strips_w = (u1w - u0w + p.rx - 1) / p.rx;
   const int n_items = n_planes * strips_h * strips_w;
   const int item_pos = p.ry * p.rx;
-  // A stage: q rows, dO rows, lse, delta; 16-byte aligned.
-  const int stage_floats = (item_pos * (2 * LD + 2) + 3) & ~3;
-  const int nrh = 2 * g.kh - 1, nrw = 2 * g.kw - 1;
+  const int sp = slab_slots(g);
+  // A stage: q rows, dO rows, and each position's (p, ds) of this key plane
+  // (sp float2).
+  const int stage_floats = item_pos * (2 * LD + 2 * sp);
   const long long hc = (long long)g.heads * g.ch;
   const int col = head * g.ch;
 
   extern __shared__ float4 smem4[];
   float* stage_base = reinterpret_cast<float*>(smem4);  // [2][stage_floats]
 
-  // This warp's key row and this group's two keys (repeating the last key of
+  // This warp's key row and this group's NK keys (repeating the last key of
   // the volume past it: computed, never stored).
   const bool row_live = h0 + warp < g.h;
   const int jh = min(h0 + warp, g.h - 1);
-  const int qh_lo = inverse_lo(jh, g.kh, false), qh_hi = inverse_hi(jh, g.h, g.kh, false);
+  const int qh_lo = inverse_lo(jh, g.kh, false);
+  const int qh_hi = row_live ? inverse_hi(jh, g.h, g.kh, false) : qh_lo - 1;  // none: no work
   const int kw0 = w0 + NK * (lane / LANES);
   int kw_[NK];
 #pragma unroll
   for (int j = 0; j < NK; ++j) kw_[j] = min(kw0 + j, g.w - 1);
-  // The group's query columns: its keys' union of inverse windows, walked in
-  // chunks as far as the warp's widest union (convergent shuffles).
+  // The group's query columns: its keys' union of inverse windows.
   const int qc_lo = inverse_lo(kw_[0], g.kw, g.circular_w);
-  const int my_cols = inverse_hi(kw_[NK - 1], g.w, g.kw, g.circular_w) - qc_lo + 1;
-  const int n_chunks = (__reduce_max_sync(0xffffffffu, my_cols) + NCK - 1) / NCK;
-  const int part = l >> SHIFT;
-  const int my_k = part / QUARTERS, my_u0 = M * (part % QUARTERS);
-  const int my_kw = kw_[my_k];  // this lane's key column after a reduce-scatter
+  const int qc_hi = inverse_hi(kw_[NK - 1], g.w, g.kw, g.circular_w);
 
-  float kr[NK][CL], vr[NK][CL], dk[NK][CL], dv[NK][CL];
+  float dk[NK][CL], dv[NK][CL];
 #pragma unroll
-  for (int j = 0; j < NK; ++j) {
-    const long long pos = b_pos + ((long long)jd * g.h + jh) * g.w + kw_[j];
-    load_global<CL, LANES>(kr[j], p.k + pos * g.k_ps + col, l, g.ch, 1.f);
-    load_global<CL, LANES>(vr[j], p.v + pos * g.v_ps + col, l, g.ch, 1.f);
+  for (int j = 0; j < NK; ++j)
 #pragma unroll
     for (int c = 0; c < CL; ++c) dk[j][c] = dv[j][c] = 0.f;
-  }
 
   // Item `it`: query plane pd0 + x, union rows [y0, y1), unreduced columns [c0, c1).
   auto item_of = [&](int it, int& x, int& y0, int& y1, int& c0, int& c1) {
@@ -553,25 +592,28 @@ __global__ void __launch_bounds__(256, 1) natten3d_dkv_kernel(const Params p) {
     const int ncols = c1 - c0, n_pos = (y1 - y0) * ncols;
     const float inv_cols = 1.f / ncols;
     float* qs = stage_base + stage * stage_floats;
-    const long long plane = b_pos + (long long)(pd0 + x) * g.h * g.w;
+    const long long plane = (long long)(pd0 + x) * g.h * g.w;  // in the batch entry
     auto pos = [&](int r) {
       const int yy = div_small(r, inv_cols);
       return plane + (long long)(y0 + yy) * g.w + wrap_w(g, c0 + r - yy * ncols);
     };
     copy_positions<CP>(qs, p.q + col, n_pos, LD, p, threads,
-                       [&](int r) { return pos(r) * g.q_ps; });
+                       [&](int r) { return (b_pos + pos(r)) * g.q_ps; });
     copy_positions<CP>(qs + item_pos * LD, p.dout + col, n_pos, LD, p, threads,
-                       [&](int r) { return pos(r) * hc; });
-    float* ls = qs + 2 * item_pos * LD;
-    for (int r = tid; r < n_pos; r += threads) {
-      const long long at = pos(r) * g.heads + head;
-      cp_async4(ls + r, p.lse + at, true);
-      cp_async4(ls + item_pos + r, p.delta + at, true);
+                       [&](int r) { return (b_pos + pos(r)) * hc; });
+    // Each position's slots of this key plane in its window, 16 bytes a copy.
+    float* ts = qs + 2 * item_pos * LD;
+    const int slab = jd - window_start(pd0 + x, g.d, g.kd);
+    const int per_pos = sp / 2;
+    const float inv_per = 1.f / per_pos;
+    for (int i = tid; i < n_pos * per_pos; i += threads) {
+      const int r = div_small(i, inv_per), c = i - r * per_pos;
+      cp_async16(ts + 2 * (r * sp + 2 * c),
+                 reinterpret_cast<const float*>(p.table + table_at(g, blockIdx.z, pos(r), head,
+                                                                   slab, 2 * c)),
+                 true);
     }
   };
-
-  const float* rpb_head =
-      p.rpb ? p.rpb + (long long)head * (2 * g.kd - 1) * nrh * nrw : nullptr;
 
   copy_item(0, 0);
   cp_async_commit();
@@ -584,75 +626,32 @@ __global__ void __launch_bounds__(256, 1) natten3d_dkv_kernel(const Params p) {
     item_of(it, x, y0, y1, c0, c1);
     const float* qs = stage_base + (it & 1) * stage_floats;
     const float* dos = qs + item_pos * LD;
-    const float* ls = dos + item_pos * LD;
-    const float* des = ls + item_pos;
+    const float2* ts = reinterpret_cast<const float2*>(dos + item_pos * LD);
     const int ncols = c1 - c0;
-    const float* rpb_d =
-        rpb_head ? rpb_head + (long long)(jd - pd0 - x + g.kd - 1) * nrh * nrw : nullptr;
-    const int ya = max(y0, qh_lo), yb = min(y1, qh_hi + 1);  // the same for the whole warp
+    const int ya = max(y0, qh_lo), yb = min(y1, qh_hi + 1);
+    const int ca = max(c0, qc_lo), cb = min(c1, qc_hi + 1);
     for (int y = ya; y < yb; ++y) {
-      const int row = (y - y0) * ncols;
-      for (int chunk = 0; chunk < n_chunks; ++chunk) {
-        const int cs = qc_lo + NCK * chunk;  // the chunk's first unreduced query column
-        float s[NK * NCK], dp[NK * NCK];
+      const int slot_row = (jh - window_start(y, g.h, g.kh)) * g.kw;  // this key row's slots
+#pragma unroll 2
+      for (int cu = ca; cu < cb; ++cu) {
+        const int at = (y - y0) * ncols + cu - c0;
+        const float2* tq = ts + at * sp + slot_row;  // the query's slots of this key row
+        const int sw = start_w(g, cu);
+        // (p, ds) of each key, (0, 0) for a key outside the query's window
+        // (its column less the window start: the key's slot, no other mask).
+        float2 pds[NK];
 #pragma unroll
-        for (int u = 0; u < NCK; ++u) {
-          float qv[CL];
-          load_slice<CL, LANES>(qv, qs + (row + min(max(cs + u - c0, 0), ncols - 1)) * LD, l);
-#pragma unroll
-          for (int j = 0; j < NK; ++j) s[j * NCK + u] = dot<CL>(kr[j], qv);
+        for (int j = 0; j < NK; ++j) {
+          const int z = kw_[j] - sw;
+          pds[j] = z >= 0 && z < g.kw ? tq[z] : make_float2(0.f, 0.f);
         }
-        reduce_scatter<NK * NCK, LANES>(s, l);
+        float xv[CL];
+        load_slice<CL, LANES>(xv, dos + at * LD, l);
 #pragma unroll
-        for (int u = 0; u < NCK; ++u) {
-          float dov[CL];
-          load_slice<CL, LANES>(dov, dos + (row + min(max(cs + u - c0, 0), ncols - 1)) * LD, l);
+        for (int j = 0; j < NK; ++j) axpy<CL>(pds[j].x, xv, dv[j]);
+        load_slice<CL, LANES>(xv, qs + at * LD, l);
 #pragma unroll
-          for (int j = 0; j < NK; ++j) dp[j * NCK + u] = dot<CL>(vr[j], dov);
-        }
-        reduce_scatter<NK * NCK, LANES>(dp, l);
-        // Key my_k's pairs: the query's window, rpb, p and ds.
-        float pr[M], ds[M];
-#pragma unroll
-        for (int u = 0; u < M; ++u) {
-          const int cu = cs + my_u0 + u;  // the query's unreduced column
-          const int z = my_kw - start_w(g, cu);
-          const bool in = cu >= c0 && cu < c1 && z >= 0 && z < g.kw;
-          const int at = row + min(max(cu - c0, 0), ncols - 1);
-          float xv = s[u] * g.scale;
-          if (in && rpb_d != nullptr)
-            xv += __ldg(rpb_d + (jh - y + g.kh - 1) * nrw + (my_kw - cu + g.kw - 1));
-          pr[u] = in ? exp_diff(xv, ls[at]) : 0.f;
-          ds[u] = pr[u] * (dp[u] - des[at]);
-        }
-        // dv[j] += sum_u p[j][u] dO[u], dk[j] += sum_u ds[j][u] q[u], by
-        // quarters of the chunk (the M columns whose p and ds one lane holds).
-        auto accumulate = [&](int qi) {
-#pragma unroll
-          for (int m = 0; m < M; ++m) {
-            float qv[CL], dov[CL];
-            const int at = row + min(max(cs + qi * M + m - c0, 0), ncols - 1);
-            load_slice<CL, LANES>(qv, qs + at * LD, l);
-            load_slice<CL, LANES>(dov, dos + at * LD, l);
-#pragma unroll
-            for (int j = 0; j < NK; ++j) {
-              const int src = base + ((QUARTERS * j + qi) << SHIFT);
-              axpy<CL>(__shfl_sync(0xffffffffu, pr[m], src), dov, dv[j]);
-              axpy<CL>(__shfl_sync(0xffffffffu, ds[m], src), qv, dk[j]);
-            }
-          }
-        };
-        if constexpr (CL > 8) {
-          // At 12 channels a lane the unrolled chunk's q and dO rows spill
-          // (740 bytes at 255 registers); on an H100 at 700 W a quarter at
-          // a time took the 768-d layer's dk/dv from 11.2 to 8.7 ms, and
-          // made 8 channels a lane 16% slower, so they stay unrolled.
-#pragma unroll 1
-          for (int qi = 0; qi < QUARTERS; ++qi) accumulate(qi);
-        } else {
-#pragma unroll
-          for (int qi = 0; qi < QUARTERS; ++qi) accumulate(qi);
-        }
+        for (int j = 0; j < NK; ++j) axpy<CL>(pds[j].y, xv, dk[j]);
       }
     }
     __syncthreads();  // the stage is free for the copy two items on
@@ -680,7 +679,7 @@ size_t dq_smem(const Params& p, int cp, int tw) {
 }
 
 size_t dkv_smem(const Params& p, int cp) {
-  return sizeof(float) * 2 * (((size_t)p.ry * p.rx * (2 * (cp + 4) + 2) + 3) & ~(size_t)3);
+  return sizeof(float) * 2 * (size_t)p.ry * p.rx * (2 * (cp + 4) + 2 * slab_slots(p.g));
 }
 
 template <int CL, int LANES>
@@ -708,8 +707,9 @@ int launch(int mode, const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). mode 0: dq, and the drpb partials
-// when rpb and partial are given; mode 1: dk and dv. Launches on `stream`,
+// Plain C entry point (bound with ctypes). mode 0: dq and the table, and
+// the drpb partials when rpb and partial are given; mode 1: dk and dv from
+// the table (q and dO; k, v, rpb, lse and out unread). Launches on `stream`,
 // does not synchronise, allocates nothing; returns a cudaError_t (0 on
 // success), or cudaErrorInvalidValue for an unknown mode, a (cp, lanes) that
 // no instantiation has or a plan out of range. The host checked the kernel
@@ -720,17 +720,19 @@ int launch(int mode, const Params& p, cudaStream_t stream) {
 // (ops/natten3d.py, `takes` and `plan_backward`).
 extern "C" int gwt_natten3d_backward(int mode, const float* q, const float* k, const float* v,
                                      const float* rpb, const float* dout, const float* lse,
-                                     const float* delta, float* dq, float* dk, float* dv,
-                                     float* partial, int batch, int d, int h, int w, int heads,
-                                     int ch, long long q_ps, long long k_ps, long long v_ps,
-                                     int kd, int kh, int kw, int circular_w, int vec4,
-                                     float scale, int cp, int lanes, int rows, int ry, int rx,
-                                     void* stream) {
-  const Params p{q, k, v, rpb, dout, lse, delta, dq, dk, dv, partial,
+                                     const float* out, float* dq, float* dk, float* dv,
+                                     float* partial, float* table, int batch, int d, int h, int w,
+                                     int heads, int ch, long long q_ps, long long k_ps,
+                                     long long v_ps, int kd, int kh, int kw, int circular_w,
+                                     int vec4, float scale, int cp, int lanes, int rows, int ry,
+                                     int rx, void* stream) {
+  const Params p{q, k, v, rpb, dout, lse, out, dq, dk, dv, partial,
+                 reinterpret_cast<float2*>(table),
                  Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw, circular_w,
                           scale},
                  rows, ry, rx, vec4};
-  if ((mode != DQ && mode != DKV) || rows < 1 || rows > 8 || ry < 1 || rx < 1 || ch > cp)
+  if ((mode != DQ && mode != DKV) || rows < 1 || rows > 8 || ry < 1 || rx < 1 || ch > cp ||
+      table == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (cp * 64 + lanes) {

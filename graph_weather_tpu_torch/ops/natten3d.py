@@ -16,13 +16,16 @@ channels, and heads of 96 or 128 at kernel (5, 7, 7). For training it also
 writes lse.
 
 The JAX package differentiates the XLA scan; the port's backward is K6b
-(csrc/natten3d_bwd.cu), two kernels on K6's tiles and no atomics: dq over
-query tiles (K6's loop with ds = p (dO.v - delta) in place of p, and per
-CTA the sums of ds per relative offset, [n_cta, heads, n_rel], which one
-torch sum turns into drpb), and dk/dv over key tiles, each CTA staging per
-query plane the union of its keys' inverse windows (q and dO rows, lse and
-delta). `plan_backward` picks both kernels' tiles; `takes(...,
-backward=True)` names the limits of both. Its plain version is
+(csrc/natten3d_bwd.cu), two kernels on K6's tiles and no atomics, joined
+by a slot table of p and ds per (query, window slot, head) (`table_shape`):
+dq over query tiles (K6's loop with ds = p (dO.v - dO.out) in place of p,
+storing each in-window pair's p and ds at its slot, and per CTA the sums of
+ds per relative offset, [n_cta, heads, n_rel], which one torch sum turns
+into drpb), and dk/dv over key tiles, each CTA staging per query plane the
+union of its keys' inverse windows (q and dO rows) and reading each pair's
+p and ds from the table. `plan_backward` picks both kernels' tiles and
+counts the table's bytes; `takes(..., backward=True)` names the limits of
+both. Its plain version is
 ops/natten_flash.py's `natten_flash_backward_reference`. Under autograd
 natten_flash's `_NattenFlash` runs this module's KERNELS (K6 with lse,
 then K6b). Launch counts: `LAUNCHES`
@@ -59,6 +62,9 @@ TILE_WIDTHS = (32, 64, 96, 128, 256)  # the kernel's padded head widths (CP)
 MAX_GRID_YZ = 65535  # heads and batch are the CTA grid's y and z
 DQ, DKV = 0, 1  # backward modes of the C entry (K6b's two kernels)
 BWD_NQ, BWD_NK = 4, 2  # W-neighbouring queries (dq) and keys (dk/dv) of a lane group
+# CTAs an SM the dk/dv kernel is built for (DKV_CTAS), each with that share of
+# the SM's shared memory: 233,472 bytes on Hopper, 1 KB of it reserved per CTA
+BWD_DKV_CTAS, SM_SMEM = 2, 233472
 
 _c_ptr, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = (
@@ -70,9 +76,9 @@ _ARGTYPES = (
     + [_c_int] * 5  # cp, lanes, rows, ry, rx
     + [_c_ptr]  # cudaStream_t
 )
-# mode, q k v rpb dout lse delta dq dk dv partial, then as the forward from
-# batch on
-_BWD_ARGTYPES = [_c_int] + [_c_ptr] * 11 + _ARGTYPES[6:]
+# mode, q k v rpb dout lse out dq dk dv partial table, then as the forward
+# from batch on
+_BWD_ARGTYPES = [_c_int] + [_c_ptr] * 12 + _ARGTYPES[6:]
 
 
 @dataclass(frozen=True)
@@ -129,7 +135,8 @@ class BwdPlan:
     group (of BWD_NQ queries in the dq kernel, BWD_NK keys in the dk/dv
     kernel), `rows` rows (one warp each) by `columns` W positions a CTA,
     items of ry union rows by rx union columns of a plane, the shared memory
-    it takes, and the CTAs over the volume of one batch entry."""
+    it takes, the CTAs over the volume of one batch entry, and the bytes of
+    the slot table that the dq kernel writes and the dk/dv kernel reads."""
 
     cp: int
     lanes: int
@@ -139,6 +146,18 @@ class BwdPlan:
     rx: int
     smem: int
     n_tiles: int
+    table: int
+
+
+def table_shape(shape, kernel) -> tuple[int, ...]:
+    """K6b's slot table for q of `shape` [B, D, H, W, heads, ch] at `kernel`:
+    [B, D, H, W, heads, kd, kh * kw rounded up to even, 2], (p, ds) of each
+    query's window slot (x, y * kw + z), f32, query-major
+    (csrc/natten3d_bwd.cu, `table_at`); the pad after a key plane's slots
+    (odd kh * kw) keeps each plane on 16 bytes and is never written or
+    read."""
+    kd, kh, kw = kernel
+    return (*shape[:5], kd, kh * kw + kh * kw % 2, 2)
 
 
 def _bwd_lanes(cp: int) -> int:
@@ -164,13 +183,17 @@ def plan_backward(shape, kernel, circular_w: bool, has_bias: bool) -> tuple[BwdP
     K and V items of the windows' union, and with rpb the CTA's ds per
     (query, slot of a slab) and per-axis slot tables; the most rows whose
     table leaves room for one staged position. dk/dv: up to 8 key rows of
-    64 / lanes columns, two stages of items of the keys' inverse windows (q
-    and dO rows, lse and delta)."""
+    BWD_NK * 32 / lanes columns, two stages of items of the keys' inverse
+    windows (q and dO rows, and each position's slots of the key plane from
+    the table), within 1 / BWD_DKV_CTAS of an SM, or within 227 KB where
+    one position does not fit that. Both: the slot table's bytes
+    (`table_shape`), in device memory."""
     _, d, h, w, _, ch = shape
     _, kh, kw = kernel
     cp = next(c for c in TILE_WIDTHS if ch <= c)
     lanes = _bwd_lanes(cp)
     columns = BWD_NQ * 32 // lanes
+    table_bytes = 4 * math.prod(table_shape(shape, kernel))
     per_row = 2 * 2 * 4 * (cp + 4)  # bytes of a staged position: K and V, two stages
     dq = None
     for rows in range(min(8, h), 0, -1):
@@ -184,7 +207,7 @@ def plan_backward(shape, kernel, circular_w: bool, has_bias: bool) -> tuple[BwdP
         rx = _strips(cu_w, most)
         ry = _strips(cu_h, most // rx)
         dq = BwdPlan(cp, lanes, rows, columns, ry, rx, per_row * ry * rx + table,
-                     d * -(-h // rows) * -(-w // columns))
+                     d * -(-h // rows) * -(-w // columns), table_bytes)
         break
     if dq is None:
         raise ValueError(f"natten3d: no backward tile of kernel {tuple(kernel)} x ch {ch} fits "
@@ -192,12 +215,19 @@ def plan_backward(shape, kernel, circular_w: bool, has_bias: bool) -> tuple[BwdP
     rows, columns = min(8, h), BWD_NK * 32 // lanes
     cu_h = _max_span(h, kh, rows, False, True)
     cu_w = min(columns, w) + kw - 1 if circular_w else _max_span(w, kw, columns, False, True)
-    position = 4 * (2 * (cp + 4) + 2)  # q and dO rows, lse and delta
-    most = (SMEM_LIMIT // 2 - 16) // position  # two stages, each rounded up to 16 bytes
+    slots = table_shape(shape, kernel)[-2]
+    position = 2 * 4 * (2 * (cp + 4) + 2 * slots)  # q and dO rows, (p, ds) per slot; two stages
+    most = min(SMEM_LIMIT, SM_SMEM // BWD_DKV_CTAS - 1024) // position
+    if most < 1:  # a window too wide for BWD_DKV_CTAS CTAs an SM: one CTA an SM
+        most = SMEM_LIMIT // position
+    if most < 1:
+        raise ValueError(f"natten3d: no backward tile of kernel {tuple(kernel)} x ch {ch} fits "
+                         f"{SMEM_LIMIT} bytes of shared memory (the dk/dv kernel's staged "
+                         f"slots of one query)")
     rx = _strips(cu_w, most)
     ry = _strips(cu_h, most // rx)
-    dkv = BwdPlan(cp, lanes, rows, columns, ry, rx, 2 * (-(-position * ry * rx // 16) * 16),
-                  d * -(-h // rows) * -(-w // columns))
+    dkv = BwdPlan(cp, lanes, rows, columns, ry, rx, position * ry * rx,
+                  d * -(-h // rows) * -(-w // columns), table_bytes)
     return dq, dkv
 
 
@@ -254,20 +284,26 @@ def _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=False):
     return out, lse
 
 
-def launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular_w):
-    """One K6b kernel on the card: mode `DQ` writes grads[0] (dq) and, with
-    rpb, its drpb partials into `partial` ([B * n_tiles, heads, n_rel] of
-    the dq plan); mode `DKV` writes grads[1] and grads[2] (dk, dv). rpb
-    contiguous or None, dout dense, delta = rowsum(dO * out)
-    [B, D, H, W, heads]."""
+def launch_backward(mode, q, k, v, rpb, dout, lse, out, grads, partial, table, kernel,
+                    circular_w):
+    """One K6b kernel on the card: mode `DQ` writes grads[0] (dq), every
+    slot of `table` (`table_shape`, contiguous f32) and, with rpb, its drpb
+    partials into `partial` ([B * n_tiles, heads, n_rel] of the dq plan);
+    mode `DKV` writes grads[1] and grads[2] (dk, dv) from q, dout and the
+    table the dq kernel wrote. rpb contiguous or None; dout and K6's out
+    dense (the dq kernel forms delta = rowsum(dO * out) itself)."""
     global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    if (table.shape != table_shape(q.shape, kernel) or table.dtype != torch.float32
+            or not table.is_contiguous() or table.device != q.device):
+        raise ValueError(f"natten3d backward: the slot table must be a contiguous f32 "
+                         f"{table_shape(q.shape, kernel)} on {q.device}")
     tiles = plan_backward(tuple(q.shape), kernel, circular_w, rpb is not None)[mode]
     outs = (grads[0], None, None, partial) if mode == DQ else (None, grads[1], grads[2], None)
     layout = _layout(q, k, v, kernel, circular_w, [q, k, v, dout, *(t for t in outs[:3] if t is not None)])
     with torch.cuda.device(q.device):
         err = c_function("natten3d_bwd", "gwt_natten3d_backward", _BWD_ARGTYPES)(
             mode, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), dout.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *(_ptr(t) for t in outs), *layout,
+            lse.data_ptr(), out.data_ptr(), *(_ptr(t) for t in outs), table.data_ptr(), *layout,
             tiles.cp, tiles.lanes, tiles.rows, tiles.ry, tiles.rx,
             torch.cuda.current_stream().cuda_stream,
         )
@@ -279,18 +315,21 @@ def launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel
 
 
 def _backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular_w):
-    """K6b: (dq, dk, dv, drpb), drpb None without rpb."""
+    """K6b: (dq, dk, dv, drpb), drpb None without rpb. The slot table lives
+    for this call only."""
     rpb = None if rpb is None else rpb.contiguous()
     dout = dout.contiguous()
-    delta = (dout * out).sum(-1).contiguous()  # [B, D, H, W, heads]
+    out = out.contiguous()
     grads = tuple(torch.empty(q.shape, device=q.device) for _ in range(3))
     partial = None
     if rpb is not None:
         tiles = plan_backward(tuple(q.shape), kernel, circular_w, True)[DQ]
         partial = torch.empty(q.shape[0] * tiles.n_tiles, q.shape[-2], rpb[0].numel(),
                               device=q.device)
+    table = torch.empty(table_shape(q.shape, kernel), device=q.device)
     for mode in (DQ, DKV):
-        launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular_w)
+        launch_backward(mode, q, k, v, rpb, dout, lse, out, grads, partial, table, kernel,
+                        circular_w)
     drpb = partial.sum(0).reshape(rpb.shape) if rpb is not None else None
     return (*grads, drpb)
 

@@ -22,7 +22,9 @@ sends to K6) with its `takes` bypassed here only; K5b's dq and dk/dv
 kernels apart on the 128-d layer (phase 22, case a) and 3 128-d
 WeatherMesh train steps (23); where the tree has K6b, its dq and dk/dv
 kernels apart on the 768-d layer (phase 41, case a), K6 with lse, and 3
-768-d WeatherMesh train steps (42).
+768-d WeatherMesh train steps (42) and their peak GiB; the whole K6b
+backward (both kernels, with delta apart where the tree's dq kernel does
+not form it, the slot table where the tree has one, the drpb sum).
 Each kernel is held against its plain version as in those phases. Prints
 one JSON line. f32 throughout; TF32 is off.
 """
@@ -150,9 +152,14 @@ def k5a_on_wide_heads(cs, natten_flash, natten3d, gen) -> dict:
 
 
 def k6b_split(cs, natten3d, natten_flash, gen) -> dict:
-    """K6b's dq kernel (with its drpb partials) and dk/dv kernel apart on the
-    768-d WeatherMesh's layer (phase 41, case a), after a check of the
-    whole backward against its plain version. {} for a tree without K6b."""
+    """K6b's dq kernel (with its drpb partials, and the slot table's writes
+    where the tree has one) and dk/dv kernel apart on the 768-d
+    WeatherMesh's layer (phase 41, case a), and the whole backward (both
+    kernels, delta where the tree computes it apart, the drpb sum), after a
+    check of the whole backward against its plain version. {} for a tree
+    without K6b; a tree whose `launch_backward` takes no slot table (before
+    the dk/dv kernel read p and ds from one) is launched without one, with
+    delta."""
     if not hasattr(natten3d, "launch_backward"):
         return {}
     kernel, heads, ch, circular = (5, 7, 7), 8, 96, False
@@ -171,13 +178,17 @@ def k6b_split(cs, natten3d, natten_flash, gen) -> dict:
     grads = tuple(torch.empty_like(q) for _ in range(3))
     plan = natten3d.plan_backward(tuple(q.shape), kernel, circular, True)[natten3d.DQ]
     partial = torch.empty(plan.n_tiles, heads, rpb[0].numel(), device="cuda")
+    table, stat = (), delta  # a parent's kernels read delta, the slot table's dq kernel out
+    if "table" in inspect.signature(natten3d.launch_backward).parameters:
+        table, stat = (torch.empty(natten3d.table_shape(q.shape, kernel), device="cuda"),), out
 
     def launch(mode):
-        return lambda: natten3d.launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads,
-                                                partial, kernel, circular)
+        return lambda: natten3d.launch_backward(mode, q, k, v, rpb, dout, lse, stat, grads,
+                                                partial, *table, kernel, circular)
 
     dq_ms, dkv_ms = cs.cuda_ms(launch(natten3d.DQ)), cs.cuda_ms(launch(natten3d.DKV))
     return {"k6b_max_abs_err": err, "k6b_dq_ms_per_layer": dq_ms, "k6b_dkv_ms_per_layer": dkv_ms,
+            "k6b_backward_ms_per_layer": cs.cuda_ms(lambda: natten3d._backward_cuda(*args)),
             "k6_lse_ms_per_layer": cs.cuda_ms(
                 lambda: natten3d._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)),
             "k6b_ms_per_step": cs.K6_PER_FORWARD * (dq_ms + dkv_ms)}
@@ -436,9 +447,11 @@ def main() -> int:
                 port.make_optimizer(1e-4),
             )
             before = natten3d.BWD_DKV_LAUNCHES
+            torch.cuda.reset_peak_memory_stats()
             result["wm_wide_step_ms"] = [
                 cs.timed(lambda: wide_step(surfaces[0], pressures[0], targets))[1] for _ in range(3)
             ]
+            result["wm_wide_step_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
             if natten3d.BWD_DKV_LAUNCHES - before != 3 * cs.K6_PER_FORWARD:
                 raise AssertionError("the wide train steps did not run K6b 16 times each")
             del wide_step

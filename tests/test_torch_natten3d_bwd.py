@@ -9,22 +9,29 @@ four W-neighbouring queries and takes, per key row of their window, the
 four windows' union of columns in chunks of NC, masking each query's pair by
 its window. With rpb it keeps ds per (tile query, slot of the slab) and,
 after the slab's last item, sums it per (rh, rw) offset from per-axis slot
-tables into the CTA's drpb partials. The dk/dv kernel gives a CTA `rows` key
-rows by 2 * 32 / lanes columns of one D plane, walks the query planes of its
-plane's inverse window and stages, per plane, the union of its keys'
-inverse windows (q and dO rows, lse and delta) in items; a group owns two
-W-neighbouring keys and takes, per query row of its key row's range, their
-union of query columns in chunks of NCK, masking each pair by the query's
-window. `dq_walk` and `dkv_walk` enumerate the pairs each kernel computes,
-item by item, row by row and chunk by chunk, from the host's plans or from
-plans whose strips are forced down to one row, with the staged position
-each reads. The tests check that every (query, key) pair of every window is
+tables into the CTA's drpb partials. It also stores each in-window pair's
+p and ds at the query's window slot of the slot table (`natten3d.table_shape`,
+query-major: [B, D, H, W, heads, kd * kh * kw, (p, ds)]). The dk/dv kernel
+gives a CTA `rows` key rows by NK * 32 / lanes columns of one D plane, walks
+the query planes of its plane's inverse window and stages, per plane, the
+union of its keys' inverse windows (q and dO rows) in items; a group owns NK
+W-neighbouring keys and takes, per query row of its key row's range, every
+query column of its keys' union within the item, reading for each key whose
+slot the query's window has that slot's p and ds from the table.
+`dq_walk` and `dkv_walk` enumerate the pairs each kernel computes, item by
+item, row by row and chunk (dq) or column (dk/dv) by column, from the
+host's plans or from plans whose strips are forced down to one row, with the
+staged position each reads and the table slot each writes (dq) or reads
+(dk/dv). The tests check that every (query, key) pair of every window is
 computed exactly once in each kernel, from the staged row of its key (dq)
-or query (dk/dv), with the right slot and relative offset; and hold the
-gradients computed along the walks (drpb through the kernel's per-slab
-tables) against jax.vjp of the JAX package's K6 run in interpret mode, whose
-backward differentiates the XLA slot scan. Tolerance: 2e-5, the JAX
-package's on K6 (f32 sums over at most 245 keys in another order).
+or query (dk/dv), with the right slot and relative offset; that the dq
+kernel writes every slot of every query exactly once and the dk/dv kernel
+reads each pair's p and ds from the slot the dq kernel wrote it to; and
+hold the gradients computed along the walks (dk and dv from the table the
+dq walk filled, drpb through the kernel's per-slab tables) against jax.vjp
+of the JAX package's K6 run in interpret mode, whose backward differentiates
+the XLA slot scan. Tolerance: 2e-5, the JAX package's on K6 (f32 sums over
+at most 245 keys in another order).
 """
 
 import dataclasses
@@ -55,21 +62,28 @@ SOURCE = Path(natten3d.__file__).resolve().parents[1] / "csrc" / "natten3d_bwd.c
 def _constants():
     """The kernels' lane groups and chunks, read from their source."""
     text = SOURCE.read_text()
-    found = {name: int(value) for name, value in re.findall(r"\b(NQ|NC|NK|NCK) = (\d+);", text)}
+    found = {name: int(value) for name, value in re.findall(r"\b(NQ|NC|NK) = (\d+);", text)}
     cases = {int(cp): int(lanes) for cp, lanes in re.findall(r"case (\d+) \* 64 \+ (\d+):", text)}
     return found, cases
 
 
 CONSTANTS, INSTANTIATIONS = _constants()
-NQ, NC, NK, NCK = (CONSTANTS[n] for n in ("NQ", "NC", "NK", "NCK"))
+NQ, NC, NK = (CONSTANTS[n] for n in ("NQ", "NC", "NK"))
 
 
 def test_host_constants_are_the_kernels():
     """The host's groups and lanes (ops/natten3d.py) are the source's: four
-    queries a dq group, two keys a dk/dv group, and an instantiation for
+    queries a dq group, NK keys a dk/dv group, and an instantiation for
     every padded head width at the lanes `_bwd_lanes` picks."""
-    assert (natten3d.BWD_NQ, natten3d.BWD_NK) == (NQ, NK)
+    assert (natten3d.BWD_NQ, natten3d.BWD_NK) == (NQ, NK) and NQ == 4
     assert INSTANTIATIONS == {cp: natten3d._bwd_lanes(cp) for cp in natten3d.TILE_WIDTHS}
+    # table_at: the row-major index of natten3d.table_shape's [B, D, H, W,
+    # heads, kd, slots of a plane], the plane's slots padded to even
+    text = SOURCE.read_text()
+    assert ("((((long long)b * g.d * g.h * g.w + pos) * g.heads + head) * g.kd + x) * "
+            "slab_slots(g) + s;") in text
+    assert "return (g.kh * g.kw + 1) & ~1;" in text
+    assert re.search(r"\bDKV_CTAS = (\d+);", text).group(1) == str(natten3d.BWD_DKV_CTAS)
 
 
 def _items(u0h, u1h, u0w, u1w, planes, ry, rx):
@@ -130,9 +144,11 @@ def dq_walk(shape, kernel, circular, plan):
 
 def dkv_walk(shape, kernel, circular, plan):
     """The dk/dv kernel's pairs of live keys, one row each: (query, key,
-    slot, rel), the slot of the key in the query's window. A group walks the
-    query rows of its key row's range item by item, and its keys' union of
-    query columns in chunks, as far as its warp's widest union."""
+    slot, rel), the slot of the table it reads, as the kernel computes it
+    (the key plane's and key row's slot in the query's windows, plus the
+    key column less the query's window start). A group walks the query rows
+    of its key row's range item by item and, in each, every query column of
+    its keys' union of inverse windows within the item."""
     _, D, H, W = shape[:4]
     kd, kh, kw = kernel
     nrh, nrw = 2 * kh - 1, 2 * kw - 1
@@ -145,28 +161,24 @@ def dkv_walk(shape, kernel, circular, plan):
         u0h, u1h = inverse_lo(h0, H, kh, False), inverse_hi(hl, H, kh, False) + 1
         u0w, u1w = inverse_lo(w0, W, kw, circular), inverse_hi(wl, W, kw, circular) + 1
         items = _items(u0h, u1h, u0w, u1w, planes, plan.ry, plan.rx)
-        for warp in range(rows):
-            jh = min(h0 + warp, H - 1)
-            groups = []
-            for g in range(tw // NK):
-                kw_ = np.minimum(w0 + NK * g + np.arange(NK), W - 1)
-                qc_lo = inverse_lo(int(kw_[0]), W, kw, circular)
-                span = inverse_hi(int(kw_[-1]), W, kw, circular) - qc_lo + 1
-                groups.append((w0 + NK * g + np.arange(NK) < W, kw_, qc_lo, span))
-            cols = np.arange(-(-max(span for *_, span in groups) // NCK) * NCK)  # the warp's widest
+        for warp, g in itertools.product(range(rows), range(tw // NK)):
             if h0 + warp >= H:
                 continue
+            jh = h0 + warp
+            live = w0 + NK * g + np.arange(NK) < W
+            kw_ = np.minimum(w0 + NK * g + np.arange(NK), W - 1)
             qh_lo, qh_hi = inverse_lo(jh, H, kh, False), inverse_hi(jh, H, kh, False)
-            for (live, kw_, qc_lo, span), (x, y0, y1, c0, c1) in itertools.product(groups, items):
+            qc_lo, qc_hi = inverse_lo(int(kw_[0]), W, kw, circular), inverse_hi(int(kw_[-1]), W, kw, circular)
+            for x, y0, y1, c0, c1 in items:
                 assert (y1 - y0) * (c1 - c0) <= plan.ry * plan.rx
-                if y1 <= qh_lo or y0 > qh_hi or c1 <= qc_lo or c0 >= qc_lo + span:
-                    continue  # no pair of the group in the item
                 pd = pd0 + x
-                y, cu, j = np.meshgrid(np.arange(max(y0, qh_lo), min(y1, qh_hi + 1)),
-                                       qc_lo + cols, np.arange(NK), indexing="ij")
-                r = (y - y0) * (c1 - c0) + np.clip(cu - c0, 0, c1 - c0 - 1)
+                ya, yb, ca, cb = max(y0, qh_lo), min(y1, qh_hi + 1), max(c0, qc_lo), min(c1, qc_hi + 1)
+                if ya >= yb or ca >= cb:
+                    continue  # no pair of the group in the item
+                y, cu, j = np.meshgrid(np.arange(ya, yb), np.arange(ca, cb), np.arange(NK), indexing="ij")
+                r = (y - y0) * (c1 - c0) + cu - c0  # the staged row read
                 z = kw_[j] - _start_w(cu, W, kw, circular)
-                ok = live[j] & (cu >= c0) & (cu < c1) & (z >= 0) & (z < kw)
+                ok = live[j] & (z >= 0) & (z < kw)
                 y, cu, j, r, z = y[ok], cu[ok], j[ok], r[ok], z[ok]
                 assert (y0 + r // (c1 - c0) == y).all(), "the staged row is the query's"
                 assert ((c0 + r % (c1 - c0)) % W == cu % W).all(), "the staged column is the query's"
@@ -191,7 +203,8 @@ def slot_table(size, k, t, i0, circular):
 
 def emulate(q, k, v, rpb, dout, kernel, circular, plans, walks):
     """dq, dk, dv, drpb computed along the two kernels' walks (on `plans`),
-    f32; drpb through the dq kernel's per-slab tables and per-CTA
+    f32: dk and dv from the slot table the dq walk filled (unwritten slots
+    NaN); drpb through the dq kernel's per-slab tables and per-CTA
     partials."""
     b_sz, D, H, W, heads, ch = q.shape
     kd, kh, kw = kernel
@@ -219,8 +232,11 @@ def emulate(q, k, v, rpb, dout, kernel, circular, plans, walks):
 
     walk = torch.from_numpy(walks[natten3d.DQ])
     qi, ki, slot, rel, cta, local = walk.T
-    _, ds = pair_terms(qi, ki, rel)
+    p, ds = pair_terms(qi, ki, rel)
     dq = torch.einsum("qkbh,bkhc->bqhc", dense(qi, ki, ds), kf) * scale
+    # the slot table as the dq kernel stores it, [query, slot, B, heads, (p, ds)]
+    slots = torch.full((qf.shape[1], math.prod(kernel), b_sz, heads, 2), float("nan"))
+    slots[qi, slot] = torch.stack([p, ds], -1).transpose(0, 1)
     drpb = None
     if rpb is not None:
         plan = plans[natten3d.DQ]
@@ -244,8 +260,8 @@ def emulate(q, k, v, rpb, dout, kernel, circular, plans, walks):
                 partial[:, c, :, rd0 + x] = terms.sum((3, 4)).permute(0, 3, 1, 2)
         drpb = partial.sum((0, 1)).reshape(rpb.shape)
     walk = torch.from_numpy(walks[natten3d.DKV])
-    qi, ki, _, rel = walk.T
-    p, ds = pair_terms(qi, ki, rel)
+    qi, ki, slot, _ = walk.T
+    p, ds = slots[qi, slot].transpose(0, 1).unbind(-1)  # [B, pairs, heads] each
     dk = torch.einsum("qkbh,bqhc->bkhc", dense(qi, ki, ds), qf) * scale
     dv = torch.einsum("qkbh,bqhc->bkhc", dense(qi, ki, p), df)
     return [t.reshape(q.shape) for t in (dq, dk, dv)] + [drpb]
@@ -293,6 +309,30 @@ def test_every_pair_once_in_each_kernel(case, strips):
     for walk in _walks(case, strips)[1]:
         assert len(np.unique(walk[:, :2], axis=0)) == len(walk), "a pair computed twice"
         np.testing.assert_array_equal(walk[np.lexsort((walk[:, 1], walk[:, 0])), :4], want)
+
+
+@pytest.mark.parametrize("strips", ["plan", "one_row"])
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_table_written_once_and_read_where_written(case, strips):
+    """The dq kernel stores every slot of every query of the table exactly
+    once (in the layout `natten3d.table_shape` names, at one (batch, head):
+    the grid's others take the same walk), and the dk/dv kernel reads each
+    pair's p and ds once, from the slot the dq kernel stored that pair at."""
+    shape, heads, ch, kernel, _, _ = case
+    n, (kd, kh, kw) = math.prod(shape[1:]), kernel
+    sp = kh * kw + kh * kw % 2  # a key plane's slots, padded to 16 bytes
+    assert natten3d.table_shape((*shape, heads, ch), kernel) == (*shape, heads, kd, sp, 2)
+    dq, dkv = _walks(case, strips)[1]
+
+    def entry(walk):  # flat entry of (query, head 0, key plane, slot in the plane)
+        return (walk[:, 0] * heads * kd + walk[:, 2] // (kh * kw)) * sp + walk[:, 2] % (kh * kw)
+
+    stored, read = entry(dq), entry(dkv)
+    assert len(np.unique(stored)) == len(stored) == n * kd * kh * kw, "a slot stored twice or never"
+    assert set(stored // (kd * sp) // heads) == set(range(n))
+    assert len(np.unique(read)) == len(read) == len(stored), "a slot read twice or never"
+    by_pair = [w[np.lexsort((w[:, 1], w[:, 0]))] for w in (dq, dkv)]
+    np.testing.assert_array_equal(by_pair[0][:, :3], by_pair[1][:, :3])
 
 
 def _jax_grads(q, k, v, rpb, dout, kernel, circular):
@@ -361,14 +401,16 @@ PLAN_SHAPES = [
 @pytest.mark.parametrize("shape,kernel", PLAN_SHAPES, ids=lambda c: str(c))
 def test_plans_fit_shared_memory(shape, kernel):
     """Both plans of every shape fit Hopper's 227 KB; their items hold the
-    largest union any tile stages, in strips; the 768-d layer's dq kernel
-    takes K6's tile (8 rows x 16 columns, strips of 5 x 22)."""
+    largest union any tile stages, in strips; both count the slot table's
+    bytes (device memory); the 768-d layer's dq kernel takes K6's tile (8
+    rows x 16 columns, strips of 5 x 22)."""
     for circular, bias in itertools.product((False, True), (False, True)):
         dq, dkv = natten3d.plan_backward(shape, kernel, circular, bias)
         for p in (dq, dkv):
             assert p.smem <= SMEM_LIMIT and p.ry >= 1 and p.rx >= 1 and 1 <= p.rows <= 8
             assert p.cp >= shape[-1] and p.lanes == natten3d._bwd_lanes(p.cp)
         assert dq.columns == NQ * 32 // dq.lanes and dkv.columns == NK * 32 // dkv.lanes
+        assert dq.table == dkv.table == 4 * math.prod(natten3d.table_shape(shape, kernel))
         _, d, h, w, _, _ = shape
         assert dq.n_tiles == d * -(-h // dq.rows) * -(-w // dq.columns)
     if shape[-1] == 96:
@@ -387,3 +429,18 @@ def test_takes_refuses_what_no_backward_tile_fits():
         natten3d.takes(shape, kernel, False, True, backward=True)
     assert natten3d.takes(shape, kernel, False, False, backward=True)
     assert math.prod(2 * kk - 1 for kk in kernel) * 4 <= SMEM_LIMIT
+
+
+def test_dkv_plan_takes_one_cta_an_sm_for_wide_windows():
+    """The dk/dv kernel stages each query's slots of a key plane: a window
+    whose slots do not fit BWD_DKV_CTAS CTAs an SM takes items of one
+    position within 227 KB (one CTA an SM); one whose slots of a single
+    query do not fit 227 KB is refused before any launch."""
+    wide, wider = (1, 87, 87), (1, 121, 121)
+    dkv = natten3d.plan_backward((1, 1, 87, 87, 1, 8), wide, False, False)[natten3d.DKV]
+    assert (dkv.ry, dkv.rx) == (1, 1)
+    assert natten3d.SM_SMEM // natten3d.BWD_DKV_CTAS < dkv.smem <= SMEM_LIMIT
+    assert natten3d.takes((1, 1, 87, 87, 1, 8), wide, False, False, backward=True)
+    assert natten3d.takes((1, 1, 121, 121, 1, 8), wider, False, False)
+    with pytest.raises(ValueError, match="staged slots of one query"):
+        natten3d.takes((1, 1, 121, 121, 1, 8), wider, False, False, backward=True)
