@@ -200,11 +200,38 @@ non-zero exit:
      on the CPU: loss within 1e-5 relative, every gradient within 1e-3 of
      its tensor's max|g|; and once more on the card: whether the loss and
      gradients repeat bit for bit (printed only)
+ 44. GenCast's bf16 policy: the bf16 instantiations of clustered_flash.cu
+     and clustered_flash_bwd.cu (phase 2's build; their bf16 tensor-core
+     instructions in SASS, which must not be 0), then K3a in bf16 (with and
+     without lse), K3c and K3b in bf16 against their plain versions on bf16
+     inputs on the real splits-5 layout at c = 128 and 512: out, dq, dk, dv
+     within 2^-6 of their max (two bf16 ulps), lse within 1e-4, exact zeros
+     on empty rows; CUDA-event medians (batches of 5) of each, of the f32
+     kernel on the same values, of the plain version and of SDPA in bf16 on
+     the gathered unions (timed only); CTAs an SM of each kernel in f32 and
+     bf16; per evaluation and the bounds (989 TFLOP/s dense BF16)
+ 45. serve_bf16: phase 9's weights and requests through
+     forward_fn(compute_dtype=torch.bfloat16), each with exactly 16 bf16
+     K3a launches and no f32 K3 launch, f32 out; ms per request, then one
+     request at B = 4 (bench.py's denoiser_batch4), ms per sample; a profile
+     of one more; the last request on the CPU in bf16: RMSE(card bf16 - CPU
+     bf16) <= 0.75 RMSE(card bf16 - card f32 of phase 9) (BF16_CARD_RULE;
+     the CPU against itself with 1 in 2,000 inputs one ulp off, printed)
+ 46. a bf16 20-step sample (592 bf16 K3a launches) and a 2-step AR rollout,
+     timed, finite, f32
+ 47. train_bf16: 3 steps of bench.py's gencast_train objective (mean squared
+     error, noise level 1, clip + AdamW at lr 1e-4) through the bf16
+     forward_fn, each with exactly 16 bf16 K3a, 16 K3c dq and 16 K3c dk/dv
+     launches and no K3b or f32 K3 launch; the parameters stay f32 and all
+     change; ms per step, peak GiB, a profile of one more step; then the
+     bf16 gradients of phase 16's objective at phase 16's weights and batch,
+     on the card and on the CPU: global norm of card - CPU <= 0.9 global
+     norm of card bf16 - card f32 (phase 16's gradients; BF16_CARD_GRAD_RULE)
 
 then one JSON line on the kernels, the card's name and power limit, and
 last {"ok": true, "device": ...}.
 Exits non-zero without a CUDA device, or when the port's package is not
-beside this file. f32 throughout; TF32 is off.
+beside this file. f32 but for phases 44-47 (bf16); TF32 is off.
 """
 
 from __future__ import annotations
@@ -251,6 +278,28 @@ HBM_RATE = 3.35e12
 # product into three TF32 products (K1, K2, K2b, K3a-c, K4a, K4b) has, beside
 # its FP32 bound, the bound of 3 x its operations at this rate.
 TF32_PEAK = 495e12
+# And its dense BF16 tensor-core rate: the bound of the bf16 kernels (K3a-c
+# in bf16), with HBM_RATE.
+BF16_PEAK = 989e12
+# Two bf16 ulps (8 significant bits) of a tensor's largest value: a bf16
+# kernel and its plain version round p, ds and the outputs to bf16 at the
+# same points but sum in f32 in another order (phase 44).
+BF16_TOL = 2.0**-6
+# Phases 45 and 47: RMSE(card bf16 - CPU bf16) within a share of RMSE(card
+# bf16 - card f32): 0.75 on the output, 0.9 in the global norm of the
+# gradients. Not the CPU tests' 0.5: at this width the bf16 denoiser's output
+# moves 0.58 of its bf16-to-f32 distance, and its gradients 0.75, when one in
+# 2,000 of its input elements changes by one bf16 ulp, on the CPU and on the
+# card alike, at 2 to 16 blocks (an H100 80GB HBM3 at 700 W): a change
+# smaller than an ulp flips a share of each later rounding. cuBLAS's and
+# oneDNN's bf16 GEMMs differ in one output rounding in ~3,400 (f32 sums in
+# another order), so the card sits at those readings against the CPU (0.58;
+# 0.66-0.75); a port rounding SiLU once, as F.silu does, where the policy
+# rounds each step, reads 1.09 and 1.12 (PERF.md §6). Phase 45 prints the
+# CPU's own reading of the output.
+BF16_CARD_RULE = 0.75
+BF16_CARD_GRAD_RULE = 0.9
+BF16_FLIP_SHARE = 5e-4  # phase 45's one-ulp input changes, for the CPU's own reading
 # GenCast: bench.py's _make_denoiser at full size.
 GENCAST = dict(
     grid_lon=np.arange(0.0, 360.0, 360.0 / 128), grid_lat=np.linspace(-90.0, 90.0, 64),
@@ -566,6 +615,345 @@ def k3_bwd_case(clustered_flash, khop, scatter, gen, c, heads=4):
     nbytes = sum(t.numel() * t.element_size() for t in (*args[:-1], *sym))
     return dict(errs=errs, ms=ms, plain=plain, sdpa_ms=sdpa_ms, flops=flops, nbytes=nbytes,
                 k3b_launches=k3b_launches)
+
+
+def bf16_bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms on the card, what bounds it) for `flops` operations on the
+    tensor cores' dense BF16 rate that must move `nbytes` bytes."""
+    by_ops, by_bytes = flops / BF16_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def bf16_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |got - want|, that over BF16_TOL max |want|: within the rule at <= 1)."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / (BF16_TOL * want.float().abs().max().item())
+
+
+def rmse(a: torch.Tensor, b: torch.Tensor) -> float:
+    return (a.double() - b.double()).pow(2).mean().sqrt().item()
+
+
+def global_norm(grads: dict) -> float:
+    return math.sqrt(sum(g.double().pow(2).sum().item() for g in grads.values()))
+
+
+def k3_bf16_case(clustered_flash, khop, scatter, gen, c, heads=4):
+    """K3a (with and without lse), K3c and K3b in bf16 against their plain
+    versions on bf16 inputs at the processor's shapes on the real cluster
+    layout: out, dq, dk and dv within BF16_TOL of their max, lse within
+    K3A_TOL. Times them beside the f32 kernels on the same values (upcast),
+    the plain versions and SDPA in bf16 on the gathered unions with the
+    adjacency as a boolean mask (timed only). Returns a dict."""
+    ids, masks, block = khop.cluster_ids, khop.cluster_masks, khop.cluster_block
+    nb, u_pad = ids.shape
+    n_pad = nb * block
+    q, k, v, dout = (torch.randn(1, n_pad, heads, c, generator=gen, device="cuda").bfloat16()
+                     for _ in range(4))
+    out = clustered_flash._forward_cuda(q, k, v, ids, masks, block, with_lse=False)[0]
+    out_l, lse = clustered_flash._forward_cuda(q, k, v, ids, masks, block, with_lse=True)
+    args = (q, k, v, ids, masks, out_l, lse, dout, block)
+    sym = clustered_flash._backward_cuda(*args, True, None)
+    before = clustered_flash.BF16_GENERAL_BWD_LAUNCHES
+    general = clustered_flash._backward_cuda(*args, False, scatter)
+    k3b_launches = clustered_flash.BF16_GENERAL_BWD_LAUNCHES - before
+    if k3b_launches != 1:
+        raise AssertionError(f"the bf16 general backward made {k3b_launches} K3b launches, expected 1")
+    torch.cuda.synchronize()
+    ref, ref_lse = clustered_flash.clustered_flash_forward_reference(q, k, v, ids, masks, block,
+                                                                     with_lse=True)
+    want = clustered_flash.clustered_flash_backward_reference(*args, symmetric=False)
+    fwd = [bf16_err(out, ref), bf16_err(out_l, ref)]
+    errs = {
+        "k3a": max(fwd, key=lambda e: e[1]),
+        "k3c": max((bf16_err(a, b) for a, b in zip(sym, want)), key=lambda e: e[1]),
+        "k3b": max((bf16_err(a, b) for a, b in zip(general, want)), key=lambda e: e[1]),
+    }
+    lse_err = (lse - ref_lse).abs().max().item()
+    empty = ~masks.reshape(n_pad, -1).bool().any(-1)  # no neighbour, or padding
+    zeros = all(bool((t[:, empty] == 0).all()) for t in (out, out_l, *sym, *general))
+    dtypes = {t.dtype for t in (out, out_l, *sym, *general)} == {torch.bfloat16}
+    wide = [t.float() for t in (q, k, v, dout)]
+    out32, lse32 = clustered_flash._forward_cuda(*wide[:3], ids, masks, block, with_lse=True)
+    args32 = (*wide[:3], ids, masks, out32, lse32, wide[3], block)
+    ms = {
+        "k3a": cuda_ms(lambda: clustered_flash._forward_cuda(q, k, v, ids, masks, block, False)),
+        "k3a_lse": cuda_ms(lambda: clustered_flash._forward_cuda(q, k, v, ids, masks, block, True)),
+        "k3c": cuda_ms(lambda: clustered_flash._backward_cuda(*args, True, None)),
+        "k3b": cuda_ms(lambda: clustered_flash._backward_cuda(*args, False, scatter)),
+    }
+    f32_ms = {
+        "k3a": cuda_ms(lambda: clustered_flash._forward_cuda(*wide[:3], ids, masks, block, False)),
+        "k3c": cuda_ms(lambda: clustered_flash._backward_cuda(*args32, True, None)),
+        "k3b": cuda_ms(lambda: clustered_flash._backward_cuda(*args32, False, scatter)),
+    }
+    plain_ms = {
+        "k3a": cuda_ms(lambda: clustered_flash.clustered_flash_forward_reference(
+            q, k, v, ids, masks, block)),
+        "k3c": cuda_ms(lambda: clustered_flash.clustered_flash_backward_reference(*args, symmetric=True)),
+        "k3b": cuda_ms(lambda: clustered_flash.clustered_flash_backward_reference(*args, symmetric=False)),
+    }
+    # The library yardstick, in bf16 (gathers outside the timing; rows
+    # without a neighbour give NaN there, so it is timed, never compared).
+    q_b = q.reshape(nb, block, heads, c).transpose(1, 2).detach().requires_grad_(True)
+    k_b, v_b = (t[0, ids.long()].transpose(1, 2).detach().requires_grad_(True) for t in (k, v))
+    attend = masks.bool()[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        sdpa_ms = cuda_ms(lambda: sdpa(q_b, k_b, v_b, attn_mask=attend))
+    o_b = sdpa(q_b, k_b, v_b, attn_mask=attend)
+    do_b = dout.reshape(nb, block, heads, c).transpose(1, 2)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(o_b, (q_b, k_b, v_b), do_b, retain_graph=True))
+    ctas = {kind: (clustered_flash.ctas_per_sm(kind, c, block, u_pad, torch.float32),
+                   clustered_flash.ctas_per_sm(kind, c, block, u_pad, torch.bfloat16))
+            for kind in ("forward", "dq", "symmetric_dkv", "general_dkv")}
+    print(
+        f"[k3_bf16] c={c}: max_abs_err / 2^-6 max K3a {errs['k3a'][1]:.3f} K3c {errs['k3c'][1]:.3f} "
+        f"K3b {errs['k3b'][1]:.3f} (abs {errs['k3a'][0]:.3e} {errs['k3c'][0]:.3e} "
+        f"{errs['k3b'][0]:.3e}) | lse {lse_err:.3e} | empty_rows {int(empty.sum())} zeros={zeros} "
+        f"bf16 outputs={dtypes} | bf16 ms K3a {ms['k3a']:.4f} (with lse {ms['k3a_lse']:.4f}) "
+        f"K3c {ms['k3c']:.4f} K3b {ms['k3b']:.4f} | f32 kernels on the same values K3a "
+        f"{f32_ms['k3a']:.4f} K3c {f32_ms['k3c']:.4f} K3b {f32_ms['k3b']:.4f} | plain K3a "
+        f"{plain_ms['k3a']:.4f} K3c {plain_ms['k3c']:.4f} K3b {plain_ms['k3b']:.4f} | SDPA bf16 "
+        f"{sdpa_ms:.4f} backward {sdpa_bwd_ms:.4f} | CTAs an SM (f32, bf16) "
+        + " ".join(f"{kind} {v}" for kind, v in ctas.items()),
+        flush=True,
+    )
+    for name, (_, ratio) in errs.items():
+        if not (ratio <= 1.0):
+            raise AssertionError(f"{name} bf16 c={c}: max abs error {ratio} x 2^-6 max|plain|")
+    if not (lse_err <= K3A_TOL):
+        raise AssertionError(f"K3a bf16 c={c}: lse error {lse_err} > {K3A_TOL}")
+    if not (zeros and dtypes):
+        raise AssertionError(f"K3 bf16 c={c}: empty rows not 0, or outputs not bf16")
+    n_edges = khop.senders.shape[0]
+    fwd_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, ids, masks, out))
+    bwd_bytes = sum(t.numel() * t.element_size() for t in (*args[:-1], *sym))
+    return dict(errs=errs, lse_err=lse_err, ms=ms, f32_ms=f32_ms, plain_ms=plain_ms,
+                sdpa_ms=sdpa_ms, sdpa_bwd_ms=sdpa_bwd_ms, ctas=ctas, k3b_launches=k3b_launches,
+                fwd=(4 * n_edges * heads * c, fwd_bytes), bwd=(10 * n_edges * heads * c, bwd_bytes))
+
+
+def gencast_bf16_phases(port, clustered_flash, build, gen, ref: dict) -> dict:
+    """Phases 44-47: GenCast's bf16 policy on the card (see the module
+    docstring). `ref` holds what phases 9-16 leave: phase 9's weights,
+    requests, last f32 output and request times, phase 11's sample time,
+    phase 15's steady step time, and phase 16's weights, batch, objective,
+    f32 loss and card gradients. Returns what the kernels' JSON line reads."""
+    from graph_weather_tpu_torch.meshes.clustering import build_cluster_scatter_index
+    from graph_weather_tpu_torch.models.gencast.graphs import build_graphcast_graphs
+    from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
+
+    blocks = GENCAST["num_blocks"]
+    n_lon, n_lat = len(GENCAST["grid_lon"]), len(GENCAST["grid_lat"])
+    f_in, f_out = GENCAST["input_features_dim"], GENCAST["output_features_dim"]
+    per_eval = {128: blocks - 1, 512: 1}  # launches per denoiser evaluation, by head width
+
+    def per_eval_sum(values):
+        return sum(values[c] * n for c, n in per_eval.items())
+
+    # 44. K3a, K3c and K3b in bf16 on the real splits-5 layout (built in phase 2)
+    t44 = time.perf_counter()
+    print(f"[build] bf16 instantiations of clustered_flash.cu and clustered_flash_bwd.cu "
+          f"(phase 2's build) | {tf32_mma_report(build, 'clustered_flash', kind='BF16')} | "
+          f"{tf32_mma_report(build, 'clustered_flash_bwd', kind='BF16')}", flush=True)
+    graphs = build_graphcast_graphs(
+        GENCAST["grid_lon"], GENCAST["grid_lat"], splits=5, num_hops=4,
+        add_edge_features_to_khop=False, spatial_sort="rcb",
+    )
+    khop = DeviceGraph.from_bundle(graphs.khop, "cuda", clustered=True)
+    scatter = torch.as_tensor(build_cluster_scatter_index(
+        khop.cluster_ids.cpu().numpy(), khop.cluster_masks.cpu().numpy(), khop.n_senders
+    ), device="cuda")
+    k3_16 = {c: k3_bf16_case(clustered_flash, khop, scatter, gen, c) for c in (128, 512)}
+    k3b16_phase44 = sum(v["k3b_launches"] for v in k3_16.values())  # the checked calls
+    del graphs, khop, scatter
+
+    def per_eval16(key, field):
+        return per_eval_sum({c: v[field][key] for c, v in k3_16.items()})
+
+    def per_eval16_bound(field):
+        by = {c: bf16_bound(*v[field]) for c, v in k3_16.items()}
+        return per_eval_sum({c: b[0] for c, b in by.items()}), by[128][1]
+
+    k3a16_bound, k3a16_by = per_eval16_bound("fwd")
+    bwd16_bound, bwd16_by = per_eval16_bound("bwd")
+    k3a16_sdpa = per_eval_sum({c: v["sdpa_ms"] for c, v in k3_16.items()})
+    bwd16_sdpa = per_eval_sum({c: v["sdpa_bwd_ms"] for c, v in k3_16.items()})
+    print(f"[k3_bf16] per denoiser eval / train step (15 x c=128 + c=512): K3a bf16 "
+          f"{per_eval16('k3a', 'ms'):.4f} ms (f32 {per_eval16('k3a', 'f32_ms'):.4f}, plain "
+          f"{per_eval16('k3a', 'plain_ms'):.4f}, SDPA bf16 {k3a16_sdpa:.4f}, bound {k3a16_bound:.4f} "
+          f"{k3a16_by}) | K3c bf16 {per_eval16('k3c', 'ms'):.4f} (f32 {per_eval16('k3c', 'f32_ms'):.4f}, "
+          f"plain {per_eval16('k3c', 'plain_ms'):.4f}) K3b bf16 {per_eval16('k3b', 'ms'):.4f} (f32 "
+          f"{per_eval16('k3b', 'f32_ms'):.4f}, plain {per_eval16('k3b', 'plain_ms'):.4f}), SDPA bf16 "
+          f"backward {bwd16_sdpa:.4f}, bound {bwd16_bound:.4f} {bwd16_by} | phase "
+          f"{time.perf_counter() - t44:.1f} s", flush=True)
+
+    # 45. bf16 serving: phase 9's weights and requests through forward_fn(bfloat16)
+    t45 = time.perf_counter()
+
+    def k3_counts():
+        return tuple(getattr(clustered_flash, name) for name in (
+            "LAUNCHES", "SYMMETRIC_DQ_LAUNCHES", "SYMMETRIC_DKV_LAUNCHES", "GENERAL_BWD_LAUNCHES",
+            "BF16_LAUNCHES", "BF16_SYMMETRIC_DQ_LAUNCHES", "BF16_SYMMETRIC_DKV_LAUNCHES",
+            "BF16_GENERAL_BWD_LAUNCHES"))
+
+    def zero_k3_counts():
+        for name in ("LAUNCHES", "SYMMETRIC_DQ_LAUNCHES", "SYMMETRIC_DKV_LAUNCHES",
+                     "GENERAL_BWD_LAUNCHES", "BF16_LAUNCHES", "BF16_SYMMETRIC_DQ_LAUNCHES",
+                     "BF16_SYMMETRIC_DKV_LAUNCHES", "BF16_GENERAL_BWD_LAUNCHES"):
+            setattr(clustered_flash, name, 0)
+
+    den16 = port.Denoiser(**GENCAST, device="cuda")
+    den16.module.load_state_dict(ref["weights9"])
+    serve16 = torch.no_grad()(den16.forward_fn(compute_dtype=torch.bfloat16))
+    corrupted, prev, sigma = ref["requests9"]
+    torch.cuda.reset_peak_memory_stats()
+    zero_k3_counts()
+    serve16_ms = []
+    for x, cond in zip(corrupted, prev):
+        before = k3_counts()
+        out16, ms = timed(lambda: serve16(x, cond, sigma))
+        serve16_ms.append(ms)
+        made = tuple(a - b for a, b in zip(k3_counts(), before))
+        if made != (0, 0, 0, 0, blocks, 0, 0, 0):
+            raise AssertionError(f"a bf16 request made {made} K3 launches (f32, then bf16), "
+                                 f"expected {blocks} bf16 K3a launches and nothing else")
+        if out16.dtype != torch.float32 or out16.shape != (1, n_lon, n_lat, f_out) \
+                or not torch.isfinite(out16).all():
+            raise AssertionError(f"bad bf16 denoiser output: {out16.dtype} {tuple(out16.shape)}")
+    serve16_launches = clustered_flash.BF16_LAUNCHES
+    serve16_peak = torch.cuda.max_memory_allocated() / 2**30
+    b4_gen = torch.Generator().manual_seed(6)
+    x4 = torch.randn(4, n_lon, n_lat, f_out, generator=b4_gen).to("cuda")
+    cond4 = torch.randn(4, n_lon, n_lat, 2 * f_in, generator=b4_gen).to("cuda")
+    sigma4 = torch.ones(4, 1, device="cuda")
+    b4_ms = [timed(lambda: serve16(x4, cond4, sigma4))[1] for _ in range(2)]
+    print(f"[serve_bf16] request_ms (B=1) {[round(t, 3) for t in serve16_ms]} | bf16 K3a launches "
+          f"{serve16_launches} (f32 K3 0) | B=4 request_ms {[round(t, 3) for t in b4_ms]} = "
+          f"{b4_ms[-1] / 4:.3f} ms per sample | peak GiB {serve16_peak:.2f} | f32 request_ms "
+          f"(phase 9) {[round(t, 3) for t in ref['denoise_ms']]}", flush=True)
+    profile_request(lambda: serve16(x, cond, sigma), "bf16 request")
+    cpu16 = port.Denoiser(**GENCAST, device="cpu")
+    cpu16.module.load_state_dict(ref["weights9"])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_out16 = cpu16.forward_fn(compute_dtype=torch.bfloat16)(x.cpu(), cond.cpu(), sigma.cpu())
+    cpu_s = time.perf_counter() - t0
+    to_cpu = rmse(out16.cpu(), cpu_out16)
+    to_f32 = rmse(out16.cpu(), ref["out9"])  # the card's f32 output of the same request
+    # The CPU's own reading: the same request with one bf16 ulp added to a
+    # random 1 in 2,000 of the corrupted targets' elements.
+    x16 = x.cpu().bfloat16()
+    flips = torch.rand(x16.shape, generator=torch.Generator().manual_seed(8)) < BF16_FLIP_SHARE
+    flipped = torch.where(flips, torch.nextafter(x16, torch.full_like(x16, 1e9)), x16).float()
+    with torch.no_grad():
+        cpu_flipped = cpu16.forward_fn(compute_dtype=torch.bfloat16)(flipped, cond.cpu(), sigma.cpu())
+    print(f"[cpu] bf16 denoiser: RMSE card bf16 - CPU bf16 {to_cpu:.4e} | RMSE card bf16 - card f32 "
+          f"{to_f32:.4e} | ratio {to_cpu / to_f32:.3f} (limit {BF16_CARD_RULE}) | CPU bf16 against "
+          f"itself with {int(flips.sum())} inputs one ulp off {rmse(cpu_out16, cpu_flipped) / to_f32:.3f} "
+          f"| max |card - CPU| {(out16.cpu() - cpu_out16).abs().max().item():.3e} | cpu bf16 forward "
+          f"{cpu_s:.2f} s | phase {time.perf_counter() - t45:.1f} s", flush=True)
+    if not (to_cpu <= BF16_CARD_RULE * to_f32):
+        raise AssertionError(f"bf16 denoiser card vs CPU: RMSE {to_cpu} > {BF16_CARD_RULE} x {to_f32}")
+    del cpu16, cpu_out16, cpu_flipped, x4, cond4
+
+    # 46. a bf16 20-step sample and a 2-step AR rollout
+    sampler16 = port.Sampler(num_steps=20, device="cuda")
+    noise16 = torch.Generator(device="cuda").manual_seed(7)
+    before = k3_counts()
+    sample16, sample16_ms = timed(lambda: sampler16.sample(den16, prev[0], noise16,
+                                                           compute_dtype=torch.bfloat16))
+    made = tuple(a - b for a, b in zip(k3_counts(), before))
+    if made != (0, 0, 0, 0, EVALS_PER_SAMPLE * blocks, 0, 0, 0):
+        raise AssertionError(f"a bf16 sample made {made} K3 launches, expected 592 bf16 K3a")
+    ar16 = port.make_ar_rollout_fn(sampler16, den16, 2, compute_dtype=torch.bfloat16, device="cuda")
+    traj16, ar16_ms = timed(lambda: ar16(prev[0], noise16))
+    for name, t, shape in (("sample", sample16, (1, n_lon, n_lat, f_out)),
+                           ("rollout", traj16, (2, 1, n_lon, n_lat, f_out))):
+        if t.shape != shape or t.dtype != torch.float32 or not torch.isfinite(t).all():
+            raise AssertionError(f"bad bf16 {name}: {t.dtype} {tuple(t.shape)}")
+    print(f"[sample_bf16] 20 steps ({EVALS_PER_SAMPLE} evals) finite | sample_ms {sample16_ms:.3f} "
+          f"(f32, phase 11: {ref['sample_ms']:.3f}) | ms per eval {sample16_ms / EVALS_PER_SAMPLE:.3f} | "
+          f"bf16 K3a launches {made[4]} | 2-step AR rollout ms per AR step {ar16_ms / 2:.3f}",
+          flush=True)
+    del sampler16, ar16, traj16
+
+    # 47. bf16 training: 3 steps of bench.py's gencast_train objective
+    t47 = time.perf_counter()
+    corrupted_t, prev_t, _, target_t = ref["batch16"]  # phase 15's batch
+    noise1 = torch.ones(1, 1, device="cuda")  # bench.py's noise level
+
+    def mse(pred, target):
+        return torch.mean((pred - target) ** 2)
+
+    step16 = port.make_train_step(den16.module.parameters(),
+                                  den16.forward_fn(compute_dtype=torch.bfloat16), mse,
+                                  port.make_optimizer(1e-4))
+    before_params = [t.detach().clone() for t in den16.module.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    zero_k3_counts()
+    train16_ms, train16_losses = [], []
+    for _ in range(3):
+        before = k3_counts()
+        loss, ms = timed(lambda: step16(corrupted_t, prev_t, noise1, target_t))
+        made = tuple(a - b for a, b in zip(k3_counts(), before))
+        if made != (0, 0, 0, 0, blocks, blocks, blocks, 0):
+            raise AssertionError(f"a bf16 train step made {made} K3 launches (f32, then bf16 K3a, "
+                                 f"K3c dq, K3c dk/dv, K3b), expected 16 of each bf16 K3a/K3c kernel")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"bf16 train loss {loss.item()}")
+        train16_ms.append(ms)
+        train16_losses.append(loss.item())
+    train16_launches = k3_counts()
+    train16_peak = torch.cuda.max_memory_allocated() / 2**30
+    params16 = list(den16.module.parameters())
+    if any(t.dtype != torch.float32 for t in params16):
+        raise AssertionError("a parameter left f32 under the bf16 policy")
+    unchanged = sum(torch.equal(a, b) for a, b in zip(before_params, params16))
+    if unchanged:
+        raise AssertionError(f"{unchanged} parameter tensors did not change in 3 bf16 train steps")
+    print(f"[train_bf16] 3 steps | step_ms {[round(t, 3) for t in train16_ms]} | steady median "
+          f"{statistics.median(train16_ms[1:]):.3f} (f32, phase 15: {ref['train_ms']:.3f}) "
+          f"| loss {[round(v, 6) for v in train16_losses]} | launches per step bf16 K3a {blocks} "
+          f"K3c dq {blocks} K3c dk/dv {blocks} K3b 0, f32 K3 0 | all {len(params16)} f32 parameter "
+          f"tensors changed | peak GiB {train16_peak:.2f}", flush=True)
+    profile_request(lambda: step16(corrupted_t, prev_t, noise1, target_t), "bf16 train step")
+    del step16, before_params
+    # The bf16 gradients at phase 16's weights and batch, card and CPU, held
+    # against phase 16's f32 gradients on the card.
+    den16.module.load_state_dict(ref["weights16"])
+    den16.module.zero_grad(set_to_none=True)
+    batch16, grads16 = ref["batch16"], ref["grads16"]
+    card16_value = ref["objective16"](
+        den16.forward_fn(compute_dtype=torch.bfloat16)(*batch16[:3]), batch16[3])
+    card16_value.backward()
+    card16_grads = {k: t.grad.cpu() for k, t in den16.module.named_parameters()}
+    cpu16 = port.Denoiser(**GENCAST, device="cpu")
+    cpu16.module.load_state_dict(ref["weights16"])
+    cpu_objective = port.WeightedMSELoss(grid_lat=GENCAST["grid_lat"], device="cpu")
+    t0 = time.perf_counter()
+    cpu16_value = cpu_objective(
+        cpu16.forward_fn(compute_dtype=torch.bfloat16)(*(t.cpu() for t in batch16[:3])),
+        batch16[2].cpu(), batch16[3].cpu())
+    cpu16_value.backward()
+    cpu_s = time.perf_counter() - t0
+    cpu16_grads = {k: t.grad for k, t in cpu16.module.named_parameters()}
+    to_cpu = global_norm({k: card16_grads[k] - cpu16_grads[k] for k in cpu16_grads})
+    to_f32 = global_norm({k: card16_grads[k] - grads16[k] for k in grads16})
+    print(f"[cpu] bf16 gradients at phase 16's weights and batch: global norm card bf16 - CPU bf16 "
+          f"{to_cpu:.4e} | card bf16 - card f32 {to_f32:.4e} | ratio {to_cpu / to_f32:.3f} (limit "
+          f"{BF16_CARD_GRAD_RULE}) | |g| {global_norm(card16_grads):.4e} | loss card {card16_value.item():.6f} "
+          f"cpu {cpu16_value.item():.6f} f32 (phase 16) {ref['loss16']:.6f} | cpu bf16 "
+          f"forward+backward {cpu_s:.2f} s | phase {time.perf_counter() - t47:.1f} s", flush=True)
+    if not (to_cpu <= BF16_CARD_GRAD_RULE * to_f32):
+        raise AssertionError(f"bf16 gradients card vs CPU: {to_cpu} > {BF16_CARD_GRAD_RULE} x {to_f32}")
+    del cpu16, den16, card16_grads, cpu16_grads
+    torch.cuda.empty_cache()
+    return dict(k3_16=k3_16, k3b16_phase44=k3b16_phase44, serve16_launches=serve16_launches,
+                train16_launches=train16_launches, per_eval16=per_eval16, k3a16_bound=k3a16_bound,
+                k3a16_by=k3a16_by, bwd16_bound=bwd16_bound, bwd16_by=bwd16_by, k3a16_sdpa=k3a16_sdpa,
+                bwd16_sdpa=bwd16_sdpa)
 
 
 def natten_inputs(gen, kernel, heads, ch=32, dims=WM_LATENT):
@@ -1143,11 +1531,12 @@ def forecaster_to_float64(model) -> None:
         setattr(model, graph, dataclasses.replace(g, edge_attr=g.edge_attr.double()))
 
 
-def tf32_mma_report(build, name: str, required: bool = True) -> str:
-    """The count of TF32 tensor-core instructions (HMMA ... TF32) in the SASS
-    of the library built from csrc/<name>.cu, by cuobjdump (the CUDA
-    toolkit's, or the copy Triton carries); raises when it is 0 and
-    `required` (the kernel's products run on the tensor cores)."""
+def tf32_mma_report(build, name: str, required: bool = True, kind: str = "TF32") -> str:
+    """The count of TF32 tensor-core instructions (HMMA ... TF32; with kind=
+    "BF16", the bf16 ones) in the SASS of the library built from
+    csrc/<name>.cu, by cuobjdump (the CUDA toolkit's, or the copy Triton
+    carries); raises when it is 0 and `required` (the kernel's products run
+    on the tensor cores)."""
     tools = [Path(build._nvcc()).with_name("cuobjdump"), shutil.which("cuobjdump")]
     try:
         import triton
@@ -1157,13 +1546,13 @@ def tf32_mma_report(build, name: str, required: bool = True) -> str:
         pass
     tool = next((t for t in tools if t is not None and Path(t).is_file()), None)
     if tool is None:
-        return "TF32 HMMA in SASS not read (no cuobjdump)"
+        return f"{kind} HMMA in SASS not read (no cuobjdump)"
     sass = subprocess.run([str(tool), "-sass", str(build._so_path(name))],
                           capture_output=True, text=True, check=True).stdout
-    count = len(re.findall(r"HMMA\.\S*TF32", sass))
+    count = len(re.findall(rf"HMMA\.\S*{kind}", sass))
     if count == 0 and required:
-        raise AssertionError(f"{name}.cu: no TF32 tensor-core instruction in its SASS")
-    return f"TF32 HMMA in SASS {count}"
+        raise AssertionError(f"{name}.cu: no {kind} tensor-core instruction in its SASS")
+    return f"{kind} HMMA in SASS {count}"
 
 
 def ptxas_by_kernel(build, name: str) -> list[str]:
@@ -1461,6 +1850,7 @@ def main() -> int:
     # that the peak memory of the phases between is the model's own.
     weights9 = {k: v.detach().cpu() for k, v in den.module.state_dict().items()}
     clustered_out = out.detach().cpu()
+    requests9 = (corrupted, prev, sigma)  # phase 45 serves them again, in bf16
 
     # 10. the same weights and the last request on the CPU
     cpu_den = port.Denoiser(**GENCAST, device="cpu")
@@ -1616,6 +2006,11 @@ def main() -> int:
     if not (worst <= 1.0):
         raise AssertionError(f"gradient of {worst_name} card vs CPU: {worst} x its limit")
     graphs_khop_edges = graphs.khop.n_edges
+    # Phase 47 takes the bf16 gradients at these weights and this batch, and
+    # holds them against these f32 ones.
+    weights16 = {k: v.detach().cpu() for k, v in den.module.state_dict().items()}
+    grads16, batch16, objective16 = card_grads, (corrupted_t, prev_t, noise_t, target_t), objective
+    card_value16 = card_value.item()
     del cpu_den, den, sampler, ar, khop, graphs, scatter
     torch.cuda.empty_cache()
 
@@ -1995,7 +2390,7 @@ def main() -> int:
         raise AssertionError(f"banded train loss card vs CPU: {loss_rel} > {LOSS_RTOL}")
     if not (worst <= 1.0):
         raise AssertionError(f"banded gradient of {worst_name} card vs CPU: {worst} x its limit")
-    del cpu_bden, bden, weights9
+    del cpu_bden, bden  # weights9 stays on the host for phase 45
     torch.cuda.empty_cache()
 
     # 32. build of K2b (started with the others in phase 2)
@@ -2368,6 +2763,14 @@ def main() -> int:
     del cpu_wide, wide, surfaces, pressures, card_grads, cpu_grads
     torch.cuda.empty_cache()
 
+    # 44-47: GenCast's bf16 policy
+    bf16 = gencast_bf16_phases(port, clustered_flash, _build, gen, dict(
+        weights9=weights9, requests9=requests9, out9=clustered_out, denoise_ms=denoise_ms,
+        sample_ms=sample_ms[-1], train_ms=statistics.median(train_ms[1:]), weights16=weights16,
+        grads16=grads16, batch16=batch16, objective16=objective16, loss16=card_value16,
+    ))
+    del weights9, weights16, grads16, batch16
+
     kernels = [
         {
             "name": "fused_edge_mlp",
@@ -2461,6 +2864,55 @@ def main() -> int:
             "bound_by": bwd_bound_by,
             "bound_tf32x3_ms": per_eval_sum({c: tf32x3_ms(v["flops"]) for c, v in bwd.items()}),
             "library_ms": bwd_sdpa_ms,
+        },
+        {
+            "name": "clustered_flash_attention_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/clustered_flash.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/clustered_flash.py:427",
+            "launches": bf16["serve16_launches"],  # phase 45's 3 bf16 requests
+            "max_abs_err": max(v["errs"]["k3a"][0] for v in bf16["k3_16"].values()),
+            "err_over_limit": max(v["errs"]["k3a"][1] for v in bf16["k3_16"].values()),  # of 2^-6 max|plain|
+            "ms": bf16["per_eval16"]("k3a", "ms"),  # per denoiser eval
+            "with_lse_ms": bf16["per_eval16"]("k3a_lse", "ms"),
+            "f32_ms": bf16["per_eval16"]("k3a", "f32_ms"),  # the f32 kernel on the same values
+            "plain_ms": bf16["per_eval16"]("k3a", "plain_ms"),
+            "bound_ms": bf16["k3a16_bound"],
+            "bound_by": bf16["k3a16_by"],
+            "library_ms": bf16["k3a16_sdpa"],  # SDPA in bf16
+            "train_launches": bf16["train16_launches"][4],  # phase 47's 3 bf16 train steps, with lse
+        },
+        {
+            "name": "clustered_flash_backward_general_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/clustered_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/clustered_flash.py:560",
+            "launches": bf16["train16_launches"][7],  # the k-hop graph is symmetric: K3c, not K3b
+            "launches_phase44": bf16["k3b16_phase44"],  # the checked call at each width, before the timings
+            "max_abs_err": max(v["errs"]["k3b"][0] for v in bf16["k3_16"].values()),
+            "err_over_limit": max(v["errs"]["k3b"][1] for v in bf16["k3_16"].values()),
+            "ms": bf16["per_eval16"]("k3b", "ms"),  # per train step
+            "f32_ms": bf16["per_eval16"]("k3b", "f32_ms"),
+            "plain_ms": bf16["per_eval16"]("k3b", "plain_ms"),
+            "bound_ms": bf16["bwd16_bound"],
+            "bound_by": bf16["bwd16_by"],
+            "library_ms": bf16["bwd16_sdpa"],  # SDPA's backward in bf16
+        },
+        {
+            "name": "clustered_flash_backward_symmetric_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/clustered_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/clustered_flash.py:749",
+            "launches": bf16["train16_launches"][5],  # dq kernel, phase 47; as many of the dk/dv kernel
+            "launches_dkv": bf16["train16_launches"][6],
+            "max_abs_err": max(v["errs"]["k3c"][0] for v in bf16["k3_16"].values()),
+            "err_over_limit": max(v["errs"]["k3c"][1] for v in bf16["k3_16"].values()),
+            "ms": bf16["per_eval16"]("k3c", "ms"),  # per train step
+            "f32_ms": bf16["per_eval16"]("k3c", "f32_ms"),
+            "plain_ms": bf16["per_eval16"]("k3c", "plain_ms"),
+            "bound_ms": bf16["bwd16_bound"],
+            "bound_by": bf16["bwd16_by"],
+            "library_ms": bf16["bwd16_sdpa"],
         },
         {
             "name": "natten_flash_forward",

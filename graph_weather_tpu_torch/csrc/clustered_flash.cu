@@ -1,5 +1,6 @@
 // Clustered (gathered-neighbour) flash attention forward for Hopper (sm_90a),
-// on the tensor cores with split-TF32 products.
+// on the tensor cores: split-TF32 products for f32 inputs, bf16 products for
+// bf16 inputs.
 //
 // Replaces the Pallas TPU kernel K3a, graph_weather_tpu/ops/pallas/
 // clustered_flash.py: _clustered_impl (pallas_calls of _fwd_kernel_onepass
@@ -14,7 +15,8 @@
 // with bias = 0 on an edge and -1e30 off it, the running max starting at
 // -1e28 and the output divided by max(l, 1e-30), as in the TPU kernel: a
 // row with no neighbour (and a padded row past the last receiver) comes out
-// exactly 0. q is [B, N_q, h, c]; k and v are [B, N_kv, h, c]; out is like q.
+// exactly 0. q is [B, N_q, h, c]; k and v are [B, N_kv, h, c]; out is like q,
+// f32 or bf16 (one kernel body, instantiated per element type).
 // When the caller asks for it (training), the kernel also writes the
 // log-sum-exp m + log(max(l, 1e-30)) of every row of every block, f32
 // [B, nb * block, h], which the backward (clustered_flash_bwd.cu) reads.
@@ -57,8 +59,15 @@
 // warps; 256 threads, one CTA per SM at CP >= 128. A narrower c runs its
 // tile's full CP (zeros past c).
 //
-// Not yet here: warps that do not wait for each other at every tile, wgmma,
-// bf16.
+// bf16 (GenCast's compute policy; the TPU kernel's bf16 mode). The tiles
+// hold bf16 rows (c = 512: 108 KB of shared memory where f32 takes 215 KB),
+// each product is one bf16 mma.sync m16n8k16 with f32 accumulators where
+// f32 takes three TF32 ones, p is rounded to bf16 in registers before the
+// P.V product (as the TPU kernel rounds it to the value dtype), V's B
+// fragments come from ldmatrix.trans, and out is rounded to bf16 once; the
+// softmax, m, l and lse stay f32 (clustered_tile.cuh).
+//
+// Not yet here: warps that do not wait for each other at every tile, wgmma.
 
 #include "clustered_tile.cuh"
 
@@ -66,13 +75,14 @@ namespace {
 
 using namespace ctile;
 
+template <class T>
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
+  const T* q;
+  const T* k;
+  const T* v;
   const int* ids;
   const signed char* masks;
-  float* out;
+  T* out;
   float* lse;  // [B, nb * block, h], or null: not written
   int n_q;
   int n_kv;
@@ -80,39 +90,42 @@ struct Params {
   int c;
   int block;
   int u_pad;
-  int vec4;  // c % 4 == 0 and every row 16-byte aligned
+  int vec;  // c a multiple of 16 bytes' elements, every row 16-byte aligned
   float scale;
 };
 
-// CP: widest c of the tiles (a multiple of 8); RG row groups of CS warps;
-// TK keys per copied tile.
-template <int CP_, int RG_, int CS_, int TK_>
+// T: element of q, k, v and out; CP: widest c of the tiles (a multiple of
+// 8); RG row groups of CS warps; TK keys per copied tile.
+template <class T_, int CP_, int RG_, int CS_, int TK_>
 struct Cfg {
+  using T = T_;
   static constexpr int CP = CP_, RG = RG_, CS = CS_, TK = TK_;
   static constexpr int THREADS = 32 * RG * CS;
   static constexpr int TQ = 16 * RG;  // rows per CTA
   static constexpr int CSW = CP / CS;  // channels per warp of a row group
   static constexpr int NS = TK / SUB;  // 16-key warp tiles per copied tile
   static constexpr int NN = CSW / 8;   // 8-channel tiles of a warp's output
-  static constexpr int LD = CP + 4;    // Q, K and V rows in shared memory
-  static constexpr int STAGE = 2 * TK * LD;  // floats per stage
-  static constexpr size_t float_bytes =
-      sizeof(float) * (TQ * LD + STAGES * STAGE + (CS > 1 ? RG * CS * NS * 2 * 32 * 4 : 0));
-  static_assert(THREADS == 256 && CSW % 8 == 0 && TK % SUB == 0 && NS <= 32, "tile layout");
+  static constexpr int LD = CP + row_pad<T>();  // Q, K and V rows in shared memory
+  static constexpr int STAGE = 2 * TK * LD;  // elements per stage
+  static constexpr size_t tile_bytes = sizeof(T) * (TQ * LD + STAGES * STAGE) +
+                                       (CS > 1 ? sizeof(float4) * RG * CS * NS * 2 * 32 : 0);
+  static_assert(THREADS == 256 && CSW % (sizeof(T) == 4 ? 8 : 16) == 0 && TK % SUB == 0 &&
+                    NS <= 32,
+                "tile layout");
 };
 
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, 1)
-    clustered_flash_kernel(const Params p) {
+    clustered_flash_kernel(const Params<typename C::T> p) {
+  using T = typename C::T;
   constexpr int RG = C::RG, CS = C::CS, TK = C::TK, TQ = C::TQ, CSW = C::CSW;
   constexpr int CP = C::CP, NS = C::NS, NN = C::NN, LD = C::LD, THREADS = C::THREADS;
   constexpr int STAGE = C::STAGE;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [TQ][LD]
-  float* KV = Qs + TQ * LD;  // [STAGES][K, V][TK][LD]
+  T* Qs = reinterpret_cast<T*>(smem4);  // [TQ][LD]
+  T* KV = Qs + TQ * LD;  // [STAGES][K, V][TK][LD]
   float4* part = reinterpret_cast<float4*>(KV + STAGES * STAGE);  // CS > 1
-  int* s_ids = reinterpret_cast<int*>(reinterpret_cast<float*>(smem4) +
-                                      C::float_bytes / sizeof(float));  // [u_pad]
+  int* s_ids = reinterpret_cast<int*>(reinterpret_cast<char*>(smem4) + C::tile_bytes);  // [u_pad]
   const int n_tiles = (p.u_pad + TK - 1) / TK;
   int* s_tiles = s_ids + p.u_pad;       // [n_tiles]
   int* s_count = s_tiles + n_tiles;     // [1]
@@ -139,20 +152,20 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   __syncthreads();
   const int n_list = *s_count;
 
-  copy_rows<THREADS, CP>(Qs, LD, TQ, p.c, p.vec4, p.q, [&](int r) -> const float* {
+  copy_rows<THREADS, CP>(Qs, LD, TQ, p.c, p.vec, p.q, [&](int r) -> const T* {
     const int lr = q0 + r;
     const int row = b * p.block + lr;
     return lr < p.block && row < p.n_q ? p.q + ((q_base + row) * p.heads + g) * p.c : nullptr;
   });
   auto copy_tile = [&](int stage, int tile) {
-    float* Ks = KV + stage * STAGE;
+    T* Ks = KV + stage * STAGE;
     const int u0 = tile * TK;
-    auto slot = [&](const float* t, int r) -> const float* {
+    auto slot = [&](const T* t, int r) -> const T* {
       const int u = u0 + r;
       return u < p.u_pad ? t + ((kv_base + s_ids[u]) * p.heads + g) * p.c : nullptr;
     };
-    copy_rows<THREADS, CP>(Ks, LD, TK, p.c, p.vec4, p.q, [&](int r) { return slot(p.k, r); });
-    copy_rows<THREADS, CP>(Ks + TK * LD, LD, TK, p.c, p.vec4, p.q,
+    copy_rows<THREADS, CP>(Ks, LD, TK, p.c, p.vec, p.q, [&](int r) { return slot(p.k, r); });
+    copy_rows<THREADS, CP>(Ks + TK * LD, LD, TK, p.c, p.vec, p.q,
                            [&](int r) { return slot(p.v, r); });
   };
   // The first STAGES - 1 tiles' copies (with Q in the first group); one
@@ -166,7 +179,7 @@ __global__ void __launch_bounds__(C::THREADS, 1)
 
   const int lr0 = q0 + 16 * rg + (lane >> 2);  // this thread's rows: lr0, lr0 + 8
   const int c_begin = cs * CSW;
-  const float* q_rows = Qs + 16 * rg * LD;
+  const T* q_rows = Qs + 16 * rg * LD;
 
   float m_i[2] = {SAFE, SAFE}, l_i[2] = {0.f, 0.f};  // l: this thread's share
   float o[NN][4];
@@ -179,8 +192,8 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     cp_async_commit();
     cp_async_wait<STAGES - 1>();
     __syncthreads();
-    float* Ks = KV + (i % STAGES) * STAGE;
-    const float* Vs = Ks + TK * LD;
+    const T* Ks = KV + (i % STAGES) * STAGE;
+    const T* Vs = Ks + TK * LD;
     const unsigned act = active_bits<NS>(flags, rg, tile, p.u_pad);
     const uint16_t* tile_bits = bits + (rg * n_sub + tile * NS) * 16;
 
@@ -266,28 +279,27 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     const int row = b * p.block + lr;
     if (row >= p.n_q) continue;
     const float l_safe = fmaxf(l[h], 1e-30f);
-    float* dst = p.out + ((q_base + row) * p.heads + g) * p.c;
+    T* dst = p.out + ((q_base + row) * p.heads + g) * p.c;
 #pragma unroll
     for (int n = 0; n < NN; ++n) {
       const int d = c_begin + 8 * n + 2 * t;
       if (d >= p.c) break;
-      const float x0 = o[n][2 * h] / l_safe, x1 = o[n][2 * h + 1] / l_safe;
-      if (p.vec4) {
-        *reinterpret_cast<float2*>(dst + d) = make_float2(x0, x1);
-      } else {
-        dst[d] = x0;
-        if (d + 1 < p.c) dst[d + 1] = x1;
-      }
+      store2(dst, d, p.c, p.vec, o[n][2 * h] / l_safe, o[n][2 * h + 1] / l_safe);
     }
   }
 }
 
 template <class C>
-int launch(const Params& p, int n_blocks, int batch, cudaStream_t stream) {
-  const int n_tiles = (p.u_pad + C::TK - 1) / C::TK;
-  const size_t n_sub = (p.u_pad + SUB - 1) / SUB;  // bits and flags per row group
-  const size_t smem = C::float_bytes + sizeof(int) * ((size_t)p.u_pad + n_tiles + 1) +
-                      C::RG * n_sub * (16 * sizeof(uint16_t) + 1);
+size_t smem_bytes(int u_pad) {
+  const int n_tiles = (u_pad + C::TK - 1) / C::TK;
+  const size_t n_sub = (u_pad + SUB - 1) / SUB;  // bits and flags per row group
+  return C::tile_bytes + sizeof(int) * ((size_t)u_pad + n_tiles + 1) +
+         C::RG * n_sub * (16 * sizeof(uint16_t) + 1);
+}
+
+template <class C>
+int launch(const Params<typename C::T>& p, int n_blocks, int batch, cudaStream_t stream) {
+  const size_t smem = smem_bytes<C>(p.u_pad);
   cudaError_t err = cudaFuncSetAttribute(clustered_flash_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -297,29 +309,74 @@ int launch(const Params& p, int n_blocks, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-//                 CP  RG  CS  TK
-using W32 = Cfg<32, 8, 1, 64>;
-using W128 = Cfg<128, 8, 1, 32>;
-using W256 = Cfg<256, 4, 2, 16>;
-using W512 = Cfg<512, 2, 4, 16>;
+// CTAs of the kernel that fit on one SM at this u_pad (registers and shared
+// memory), or -1 on an error.
+template <class C>
+int ctas_per_sm(int u_pad) {
+  const size_t smem = smem_bytes<C>(u_pad);
+  if (cudaFuncSetAttribute(clustered_flash_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return -1;
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, clustered_flash_kernel<C>, C::THREADS,
+                                                       smem) == cudaSuccess
+             ? n
+             : -1;
+}
+
+// The tiles of each width, for element T:
+//                      CP  RG  CS  TK
+template <class T> using W32 = Cfg<T, 32, 8, 1, 64>;
+template <class T> using W128 = Cfg<T, 128, 8, 1, 32>;
+template <class T> using W256 = Cfg<T, 256, 4, 2, 16>;
+template <class T> using W512 = Cfg<T, 512, 2, 4, 16>;
+
+template <class T>
+int forward(const void* q, const void* k, const void* v, const int* gather_ids,
+            const signed char* masks, void* out, float* lse, int batch, int n_q, int n_kv,
+            int heads, int c, int n_blocks, int block, int u_pad, int vec, float scale,
+            cudaStream_t s) {
+  const Params<T> p{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                    gather_ids, masks, static_cast<T*>(out), lse, n_q, n_kv, heads, c, block,
+                    u_pad, vec, scale};
+  if (c <= 32) return launch<W32<T>>(p, n_blocks, batch, s);
+  if (c <= 128) return launch<W128<T>>(p, n_blocks, batch, s);
+  if (c <= 256) return launch<W256<T>>(p, n_blocks, batch, s);
+  if (c <= 512) return launch<W512<T>>(p, n_blocks, batch, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <class T>
+int occupancy(int c, int u_pad) {
+  if (c <= 32) return ctas_per_sm<W32<T>>(u_pad);
+  if (c <= 128) return ctas_per_sm<W128<T>>(u_pad);
+  if (c <= 256) return ctas_per_sm<W256<T>>(u_pad);
+  if (c <= 512) return ctas_per_sm<W512<T>>(u_pad);
+  return -1;
+}
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Launches on `stream`, does not
-// synchronise, allocates nothing; returns a cudaError_t (0 on success), or
-// cudaErrorInvalidValue for c > 512. `lse` may be null (serving). gather_ids
-// are trusted: they are checked on the host when the graph's layout is built.
+// Plain C entry point (bound with ctypes). q, k, v and out are f32
+// (is_bf16 == 0) or bf16 (is_bf16 == 1); lse is f32. Launches on `stream`, does
+// not synchronise, allocates nothing; returns a cudaError_t (0 on success),
+// or cudaErrorInvalidValue for c > 512. `lse` may be null (serving).
+// gather_ids are trusted: they are checked on the host when the graph's
+// layout is built.
 extern "C" int gwt_clustered_flash_forward(
-    const float* q, const float* k, const float* v, const int* gather_ids,
-    const signed char* masks, float* out, float* lse, int batch, int n_q,
-    int n_kv, int heads, int c, int n_blocks, int block, int u_pad, int vec4,
-    float scale, void* stream) {
-  const Params p{q, k, v, gather_ids, masks, out, lse, n_q, n_kv, heads, c,
-                 block, u_pad, vec4, scale};
+    const void* q, const void* k, const void* v, const int* gather_ids,
+    const signed char* masks, void* out, float* lse, int batch, int n_q,
+    int n_kv, int heads, int c, int n_blocks, int block, int u_pad, int vec,
+    float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c <= 32) return launch<W32>(p, n_blocks, batch, s);
-  if (c <= 128) return launch<W128>(p, n_blocks, batch, s);
-  if (c <= 256) return launch<W256>(p, n_blocks, batch, s);
-  if (c <= 512) return launch<W512>(p, n_blocks, batch, s);
-  return (int)cudaErrorInvalidValue;
+  return is_bf16 ? forward<ctile::bf16>(q, k, v, gather_ids, masks, out, lse, batch, n_q, n_kv,
+                                        heads, c, n_blocks, block, u_pad, vec, scale, s)
+                 : forward<float>(q, k, v, gather_ids, masks, out, lse, batch, n_q, n_kv, heads,
+                                  c, n_blocks, block, u_pad, vec, scale, s);
+}
+
+// CTAs an SM of the forward's kernel for head width c at this u_pad
+// (f32: is_bf16 == 0, bf16: 1), or -1.
+extern "C" int gwt_clustered_flash_forward_ctas(int c, int u_pad, int is_bf16) {
+  return is_bf16 ? occupancy<ctile::bf16>(c, u_pad) : occupancy<float>(c, u_pad);
 }

@@ -1,5 +1,6 @@
 // Clustered (gathered-neighbour) flash attention backward for Hopper
-// (sm_90a), on the tensor cores with split-TF32 products.
+// (sm_90a), on the tensor cores: split-TF32 products for f32 inputs, bf16
+// products for bf16 inputs.
 //
 // Replaces the Pallas TPU kernels K3b and K3c, graph_weather_tpu/ops/pallas/
 // clustered_flash.py: _clustered_bwd_impl (the general backward:
@@ -58,8 +59,15 @@
 // CP = 128: 4 row groups of 2 warps, 32 rows; CP = 256: 2 groups of 4 warps,
 // 16 rows; CP = 512: one group of 8 warps, 16 rows. 256 threads.
 //
+// bf16 (the TPU kernels' bf16 mode): q, k, v and dO are staged as bf16 rows,
+// each product is one bf16 mma.sync m16n8k16 with f32 accumulators, p and
+// ds are computed in f32 and rounded to bf16 in registers before the column
+// products (as the TPU kernels round them to the input dtype), lse and delta
+// are read in f32, and dq, dk and dv are rounded to bf16 once, when written
+// (K3b's block-local dk/dv too; the caller sums those in f32).
+//
 // Not yet here: one pass for dq and dk/dv (it would need sums across CTAs,
-// or recomputing p twice as now), bf16.
+// or recomputing p twice as now).
 
 #include "clustered_tile.cuh"
 
@@ -69,18 +77,19 @@ using namespace ctile;
 
 enum Role { DQ = 0, DKV_GATHERED = 1, DKV_OWN = 2 };
 
+template <class T>
 struct Params {
-  const float* q;      // [B, n_q, h, c]
-  const float* k;      // [B, n_kv, h, c]
-  const float* v;
-  const float* dout;   // [B, n_q, h, c]
+  const T* q;          // [B, n_q, h, c]
+  const T* k;          // [B, n_kv, h, c]
+  const T* v;
+  const T* dout;       // [B, n_q, h, c]
   const float* lse;    // [B, n_pad, h]
   const float* delta;  // [B, n_pad, h], zero past n_q
   const int* ids;
   const signed char* masks;
-  float* dq;  // [B, n_q, h, c]
-  float* dk;  // DKV_GATHERED: [B, nb, u_pad, h, c]; DKV_OWN: [B, n_kv, h, c]
-  float* dv;
+  T* dq;  // [B, n_q, h, c]
+  T* dk;  // DKV_GATHERED: [B, nb, u_pad, h, c]; DKV_OWN: [B, n_kv, h, c]
+  T* dv;
   int n_q;
   int n_kv;
   int heads;
@@ -88,31 +97,35 @@ struct Params {
   int n_blocks;
   int block;
   int u_pad;
-  int vec4;  // c % 4 == 0 and every row 16-byte aligned
+  int vec;  // c a multiple of 16 bytes' elements, every row 16-byte aligned
   float scale;
 };
 
-// CP: widest c of the tiles (a multiple of 8); RG row groups of CS warps;
-// TB streamed rows per copied tile.
-template <int CP_, int RG_, int CS_, int TB_>
+// T: element of q, k, v, dO and the gradients; CP: widest c of the tiles (a
+// multiple of 8); RG row groups of CS warps; TB streamed rows per copied tile.
+template <class T_, int CP_, int RG_, int CS_, int TB_>
 struct Cfg {
+  using T = T_;
   static constexpr int CP = CP_, RG = RG_, CS = CS_, TB = TB_;
   static constexpr int THREADS = 32 * RG * CS;
   static constexpr int TA = 16 * RG;   // own rows per CTA
   static constexpr int CSW = CP / CS;  // channels per warp of a row group
   static constexpr int NS = TB / SUB;  // 16-row warp tiles per streamed tile
   static constexpr int NN = CSW / 8;   // 8-channel tiles of a warp's outputs
-  static constexpr int LD = CP + 4;    // rows in shared memory
-  static constexpr int STAGE = 2 * TB * LD;  // floats per stage
-  static constexpr size_t float_bytes =
-      sizeof(float) * (2 * TA * LD + STAGES * STAGE + STAGES * 2 * TB +
-                       (CS > 1 ? 2 * RG * CS * NS * 2 * 32 * 4 : 0));
-  static_assert(THREADS == 256 && CSW % 8 == 0 && TB % SUB == 0 && NS <= 32, "tile layout");
+  static constexpr int LD = CP + row_pad<T>();  // rows in shared memory
+  static constexpr int STAGE = 2 * TB * LD;  // elements per stage
+  static constexpr size_t tile_bytes = sizeof(T) * (2 * TA * LD + STAGES * STAGE) +
+                                       sizeof(float) * STAGES * 2 * TB +
+                                       (CS > 1 ? sizeof(float4) * 2 * RG * CS * NS * 2 * 32 : 0);
+  static_assert(THREADS == 256 && CSW % (sizeof(T) == 4 ? 8 : 16) == 0 && TB % SUB == 0 &&
+                    NS <= 32,
+                "tile layout");
 };
 
 template <class C, int ROLE>
 __global__ void __launch_bounds__(C::THREADS, 1)
-    clustered_flash_bwd_kernel(const Params p) {
+    clustered_flash_bwd_kernel(const Params<typename C::T> p) {
+  using T = typename C::T;
   constexpr int RG = C::RG, CS = C::CS, TB = C::TB, TA = C::TA, CSW = C::CSW;
   constexpr int CP = C::CP, NS = C::NS, NN = C::NN, LD = C::LD, THREADS = C::THREADS;
   constexpr int STAGE = C::STAGE;
@@ -121,15 +134,14 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   constexpr int NN2 = DKV ? NN : 1;
 
   extern __shared__ float4 smem4[];
-  float* A1 = reinterpret_cast<float*>(smem4);  // [TA][LD] own q or k
-  float* A2 = A1 + TA * LD;                     // [TA][LD] own dO or v
-  float* Bst = A2 + TA * LD;  // [STAGES][b1, b2][TB][LD]
-  float* s_lse = Bst + STAGES * STAGE;          // [STAGES][TB] streamed lse
-  float* s_delta = s_lse + STAGES * TB;         // [STAGES][TB] streamed delta
+  T* A1 = reinterpret_cast<T*>(smem4);  // [TA][LD] own q or k
+  T* A2 = A1 + TA * LD;                 // [TA][LD] own dO or v
+  T* Bst = A2 + TA * LD;                // [STAGES][b1, b2][TB][LD]
+  float* s_lse = reinterpret_cast<float*>(Bst + STAGES * STAGE);  // [STAGES][TB] streamed lse
+  float* s_delta = s_lse + STAGES * TB;  // [STAGES][TB] streamed delta
   float4* xpart = reinterpret_cast<float4*>(s_delta + STAGES * TB);  // CS > 1
   float4* ypart = xpart + RG * CS * NS * 2 * 32;
-  int* s_ids = reinterpret_cast<int*>(reinterpret_cast<float*>(smem4) +
-                                      C::float_bytes / sizeof(float));  // [u_pad]
+  int* s_ids = reinterpret_cast<int*>(reinterpret_cast<char*>(smem4) + C::tile_bytes);  // [u_pad]
   const int n_own = OWN_SLOTS ? p.u_pad : p.block;
   const int n_str = OWN_SLOTS ? p.block : p.u_pad;
   const int n_tiles = (n_str + TB - 1) / TB;
@@ -165,35 +177,35 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   const int n_list = *s_count;
 
   // Row lr of block b of a [B, N, h, c] tensor, or slot u of its union.
-  auto block_row = [&](const float* t, long long base, int n_rows, int lr) -> const float* {
+  auto block_row = [&](const T* t, long long base, int n_rows, int lr) -> const T* {
     const int row = b * p.block + lr;
     return lr < p.block && row < n_rows ? t + ((base + row) * p.heads + g) * p.c : nullptr;
   };
-  auto slot_row = [&](const float* t, long long base, int u) -> const float* {
+  auto slot_row = [&](const T* t, long long base, int u) -> const T* {
     return u < p.u_pad ? t + ((base + s_ids[u]) * p.heads + g) * p.c : nullptr;
   };
-  const float* own1 = DKV ? p.k : p.q;
-  const float* own2 = DKV ? p.v : p.dout;
-  const float* str1 = DKV ? p.q : p.k;
-  const float* str2 = DKV ? p.dout : p.v;
+  const T* own1 = DKV ? p.k : p.q;
+  const T* own2 = DKV ? p.v : p.dout;
+  const T* str1 = DKV ? p.q : p.k;
+  const T* str2 = DKV ? p.dout : p.v;
   const long long own_base = DKV ? kv_base : q_base;
   const long long str_base = DKV ? q_base : kv_base;
   const int own_n = DKV ? p.n_kv : p.n_q;
   const int str_n = DKV ? p.n_q : p.n_kv;
-  auto own_ptr = [&](const float* t, int r) -> const float* {
+  auto own_ptr = [&](const T* t, int r) -> const T* {
     return OWN_SLOTS ? slot_row(t, own_base, a0 + r) : block_row(t, own_base, own_n, a0 + r);
   };
-  copy_rows<THREADS, CP>(A1, LD, TA, p.c, p.vec4, p.q, [&](int r) { return own_ptr(own1, r); });
-  copy_rows<THREADS, CP>(A2, LD, TA, p.c, p.vec4, p.q, [&](int r) { return own_ptr(own2, r); });
+  copy_rows<THREADS, CP>(A1, LD, TA, p.c, p.vec, p.q, [&](int r) { return own_ptr(own1, r); });
+  copy_rows<THREADS, CP>(A2, LD, TA, p.c, p.vec, p.q, [&](int r) { return own_ptr(own2, r); });
 
   auto copy_tile = [&](int stage, int tile) {
-    float* B1 = Bst + stage * STAGE;
+    T* B1 = Bst + stage * STAGE;
     const int s0 = tile * TB;
-    auto str_ptr = [&](const float* t, int r) -> const float* {
+    auto str_ptr = [&](const T* t, int r) -> const T* {
       return OWN_SLOTS ? block_row(t, str_base, str_n, s0 + r) : slot_row(t, str_base, s0 + r);
     };
-    copy_rows<THREADS, CP>(B1, LD, TB, p.c, p.vec4, p.q, [&](int r) { return str_ptr(str1, r); });
-    copy_rows<THREADS, CP>(B1 + TB * LD, LD, TB, p.c, p.vec4, p.q,
+    copy_rows<THREADS, CP>(B1, LD, TB, p.c, p.vec, p.q, [&](int r) { return str_ptr(str1, r); });
+    copy_rows<THREADS, CP>(B1 + TB * LD, LD, TB, p.c, p.vec, p.q,
                            [&](int r) { return str_ptr(str2, r); });
     if (DKV && tid < TB) {
       // Streamed rows' lse and delta; 0 for rows that are not there (their
@@ -237,8 +249,8 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     }
   }
   const int c_begin = cs * CSW;
-  const float* a1_rows = A1 + 16 * rg * LD;
-  const float* a2_rows = A2 + 16 * rg * LD;
+  const T* a1_rows = A1 + 16 * rg * LD;
+  const T* a2_rows = A2 + 16 * rg * LD;
 
   float acc1[NN][4], acc2[NN2][4];
 #pragma unroll
@@ -253,8 +265,8 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     cp_async_commit();
     cp_async_wait<STAGES - 1>();
     __syncthreads();
-    float* B1 = Bst + stage * STAGE;
-    const float* B2 = B1 + TB * LD;
+    const T* B1 = Bst + stage * STAGE;
+    const T* B2 = B1 + TB * LD;
     const unsigned act = active_bits<NS>(flags, rg, tile, n_str);
     const uint16_t* tile_bits = bits + (rg * n_sub + tile * NS) * 16;
 
@@ -300,8 +312,8 @@ __global__ void __launch_bounds__(C::THREADS, 1)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = o0 + 8 * h;  // own row within the block, or slot
-    float* dst1;
-    float* dst2 = nullptr;
+    T* dst1;
+    T* dst2 = nullptr;
     if (ROLE == DQ) {
       const int row = b * p.block + r;
       if (r >= p.block || row >= p.n_q) continue;
@@ -321,34 +333,25 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     for (int n = 0; n < NN; ++n) {
       const int d = c_begin + 8 * n + 2 * t4;
       if (d >= p.c) break;
-      const float x0 = acc1[n][2 * h] * p.scale, x1 = acc1[n][2 * h + 1] * p.scale;
-      if (p.vec4) {
-        *reinterpret_cast<float2*>(dst1 + d) = make_float2(x0, x1);
-      } else {
-        dst1[d] = x0;
-        if (d + 1 < p.c) dst1[d + 1] = x1;
-      }
-      if constexpr (DKV) {
-        const float y0 = acc2[n][2 * h], y1 = acc2[n][2 * h + 1];
-        if (p.vec4) {
-          *reinterpret_cast<float2*>(dst2 + d) = make_float2(y0, y1);
-        } else {
-          dst2[d] = y0;
-          if (d + 1 < p.c) dst2[d + 1] = y1;
-        }
-      }
+      store2(dst1, d, p.c, p.vec, acc1[n][2 * h] * p.scale, acc1[n][2 * h + 1] * p.scale);
+      if constexpr (DKV) store2(dst2, d, p.c, p.vec, acc2[n][2 * h], acc2[n][2 * h + 1]);
     }
   }
 }
 
 template <class C, int ROLE>
-int launch(const Params& p, int batch, cudaStream_t stream) {
-  const int n_own = ROLE == DKV_GATHERED ? p.u_pad : p.block;
+size_t smem_bytes(const Params<typename C::T>& p) {
   const int n_str = ROLE == DKV_GATHERED ? p.block : p.u_pad;
   const int n_tiles = (n_str + C::TB - 1) / C::TB;
   const size_t n_sub = (n_str + SUB - 1) / SUB;  // bits and flags per row group
-  const size_t smem = C::float_bytes + sizeof(int) * ((size_t)p.u_pad + n_tiles + 1) +
-                      C::RG * n_sub * (16 * sizeof(uint16_t) + 1);
+  return C::tile_bytes + sizeof(int) * ((size_t)p.u_pad + n_tiles + 1) +
+         C::RG * n_sub * (16 * sizeof(uint16_t) + 1);
+}
+
+template <class C, int ROLE>
+int launch(const Params<typename C::T>& p, int batch, cudaStream_t stream) {
+  const int n_own = ROLE == DKV_GATHERED ? p.u_pad : p.block;
+  const size_t smem = smem_bytes<C, ROLE>(p);
   cudaError_t err = cudaFuncSetAttribute(clustered_flash_bwd_kernel<C, ROLE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
@@ -358,9 +361,30 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// CTAs of a role's kernel that fit on one SM (registers and shared memory).
+template <class C, int ROLE>
+int ctas_per_sm(const Params<typename C::T>& p) {
+  const size_t smem = smem_bytes<C, ROLE>(p);
+  if (cudaFuncSetAttribute(clustered_flash_bwd_kernel<C, ROLE>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) != cudaSuccess)
+    return -1;
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, clustered_flash_bwd_kernel<C, ROLE>,
+                                                       C::THREADS, smem) == cudaSuccess
+             ? n
+             : -1;
+}
+
 // mode 0: general backward (DQ, then DKV_GATHERED); 1: DQ alone; 2: DKV_OWN.
+// With `ctas`, launch nothing and return the mode's last kernel's CTAs an SM.
 template <class C>
-int run(const Params& p, int mode, int batch, cudaStream_t stream) {
+int run(const Params<typename C::T>& p, int mode, int batch, cudaStream_t stream, bool ctas) {
+  if (ctas) {
+    if (mode == 0) return ctas_per_sm<C, DKV_GATHERED>(p);
+    if (mode == 1) return ctas_per_sm<C, DQ>(p);
+    if (mode == 2) return ctas_per_sm<C, DKV_OWN>(p);
+    return -1;
+  }
   if (mode == 0) {
     const int err = launch<C, DQ>(p, batch, stream);
     return err != 0 ? err : launch<C, DKV_GATHERED>(p, batch, stream);
@@ -370,31 +394,69 @@ int run(const Params& p, int mode, int batch, cudaStream_t stream) {
   return (int)cudaErrorInvalidValue;
 }
 
-//                 CP  RG  CS  TB
-using W32 = Cfg<32, 8, 1, 32>;
-using W128 = Cfg<128, 4, 2, 32>;
-using W256 = Cfg<256, 2, 4, 16>;
-using W512 = Cfg<512, 1, 8, 16>;
+// The tiles of each width, for element T:
+//                      CP  RG  CS  TB
+template <class T> using W32 = Cfg<T, 32, 8, 1, 32>;
+template <class T> using W128 = Cfg<T, 128, 4, 2, 32>;
+template <class T> using W256 = Cfg<T, 256, 2, 4, 16>;
+template <class T> using W512 = Cfg<T, 512, 1, 8, 16>;
+
+template <class T>
+int backward(const Params<T>& p, int mode, int batch, cudaStream_t s, bool ctas) {
+  if (p.c <= 32) return run<W32<T>>(p, mode, batch, s, ctas);
+  if (p.c <= 128) return run<W128<T>>(p, mode, batch, s, ctas);
+  if (p.c <= 256) return run<W256<T>>(p, mode, batch, s, ctas);
+  if (p.c <= 512) return run<W512<T>>(p, mode, batch, s, ctas);
+  return ctas ? -1 : (int)cudaErrorInvalidValue;
+}
+
+template <class T>
+Params<T> params(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                 const float* delta, const int* gather_ids, const signed char* masks, void* dq,
+                 void* dk, void* dv, int n_q, int n_kv, int heads, int c, int n_blocks, int block,
+                 int u_pad, int vec, float scale) {
+  return Params<T>{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                   static_cast<const T*>(dout), lse, delta, gather_ids, masks,
+                   static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), n_q, n_kv,
+                   heads, c, n_blocks, block, u_pad, vec, scale};
+}
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Launches on `stream`, does not
-// synchronise, allocates nothing; returns a cudaError_t (0 on success), or
-// cudaErrorInvalidValue for c > 512 or an unknown mode. Pointers a mode
-// does not write may be null. gather_ids are trusted: they are checked on
-// the host when the graph's layout is built.
+// Plain C entry point (bound with ctypes). q, k, v, dout, dq, dk and dv are
+// f32 (is_bf16 == 0) or bf16 (is_bf16 == 1); lse and delta are f32.
+// Launches on `stream`, does not synchronise, allocates nothing; returns a
+// cudaError_t (0 on success), or cudaErrorInvalidValue for c > 512 or an
+// unknown mode. Pointers a mode does not write may be null. gather_ids are
+// trusted: they are checked on the host when the graph's layout is built.
 extern "C" int gwt_clustered_flash_backward(
-    const float* q, const float* k, const float* v, const float* dout,
+    const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, const int* gather_ids,
-    const signed char* masks, float* dq, float* dk, float* dv, int batch,
+    const signed char* masks, void* dq, void* dk, void* dv, int batch,
     int n_q, int n_kv, int heads, int c, int n_blocks, int block, int u_pad,
-    int vec4, float scale, int mode, void* stream) {
-  const Params p{q,  k,  v,  dout, lse,   delta,    gather_ids, masks, dq, dk,
-                 dv, n_q, n_kv, heads, c, n_blocks, block, u_pad, vec4, scale};
+    int vec, float scale, int mode, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (c <= 32) return run<W32>(p, mode, batch, s);
-  if (c <= 128) return run<W128>(p, mode, batch, s);
-  if (c <= 256) return run<W256>(p, mode, batch, s);
-  if (c <= 512) return run<W512>(p, mode, batch, s);
-  return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return backward(params<ctile::bf16>(q, k, v, dout, lse, delta, gather_ids, masks, dq, dk, dv,
+                                        n_q, n_kv, heads, c, n_blocks, block, u_pad, vec, scale),
+                    mode, batch, s, false);
+  return backward(params<float>(q, k, v, dout, lse, delta, gather_ids, masks, dq, dk, dv, n_q,
+                                n_kv, heads, c, n_blocks, block, u_pad, vec, scale),
+                  mode, batch, s, false);
+}
+
+// CTAs an SM of a mode's dk/dv kernel (mode 0: K3b's, 2: K3c's) or dq kernel
+// (mode 1) for head width c, this block and u_pad (f32: is_bf16 == 0, bf16:
+// 1), or -1.
+extern "C" int gwt_clustered_flash_backward_ctas(int c, int block, int u_pad, int mode,
+                                                 int is_bf16) {
+  if (is_bf16)
+    return backward(params<ctile::bf16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                        nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, 1, c,
+                                        1, block, u_pad, 0, 1.f),
+                    mode, 1, nullptr, true);
+  return backward(params<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                nullptr, nullptr, nullptr, nullptr, 0, 0, 1, c, 1, block, u_pad, 0,
+                                1.f),
+                  mode, 1, nullptr, true);
 }

@@ -31,9 +31,26 @@
 //     streamed rows 2t, 2t+1 at channel g.
 // Accumulator c of a thread holds (row g, col 2t), (g, 2t+1), (g+8, 2t),
 // (g+8, 2t+1).
+//
+// bf16 (K3a, K3b and K3c on bf16 inputs). Tiles hold bf16 rows with a
+// stride LD = CP + 8 elements (CP a multiple of 16), so a row is 16-byte
+// aligned and the 32-bit fragment loads of 8 rows x 4 words read 32
+// distinct banks. Every product is one mma.sync m16n8k16 with bf16 inputs
+// and f32 accumulators:
+//   * row products: the A fragment reads own rows g, g+8 at channel pairs
+//     (2t, 2t+1) and (2t+8, 2t+9), one 32-bit word each; the B fragment
+//     streamed row g at the same pairs;
+//   * column products: the two 8-column accumulators of a 16-row warp tile
+//     are, once rounded to bf16 in pairs, exactly the A fragment of the
+//     m16n8k16 product (no shuffle); the B fragment, streamed rows 2t, 2t+1
+//     (+8) at channel g, comes from ldmatrix.trans, four 8 x 8 matrices (two
+//     8-channel tiles) a call.
+// The accumulator layout is the f32 path's, so the softmax, the edge bits
+// and the output code are shared.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -53,13 +70,21 @@ __device__ __forceinline__ float exp_diff(float x, float m) {
   return exp2f((x - m) * LOG2E);
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+using bf16 = __nv_bfloat16;
+
+// Row stride in shared memory of a tile of element T: f32 CP + 4, bf16 CP + 8.
+template <class T>
+constexpr int row_pad() {
+  return sizeof(T) == 4 ? 4 : 8;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
                "l"(src), "r"(ok ? 4 : 0));
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
                "l"(src), "r"(ok ? 16 : 0));
@@ -77,16 +102,19 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // dst[r][0:CP) = row_ptr(r)[0:c), zeros past c (the products read all CP
 // channels) or where row_ptr(r) is null; r < nrows. 16-byte copies when
-// vec4 (c % 4 == 0 and every row 16-byte aligned), else 4-byte ones.
-template <int THREADS, int CP, class RowPtr>
-__device__ __forceinline__ void copy_rows(float* dst, int ld, int nrows, int c, bool vec4,
-                                          const float* any, RowPtr row_ptr) {
-  if (vec4) {
-    constexpr int per_row = CP / 4;
+// vec (c a multiple of 16 bytes' elements and every row 16-byte aligned),
+// else 4-byte cp.async copies (f32) or 2-byte loads and stores (bf16: there
+// is no 2-byte cp.async; they are visible after the tile's __syncthreads).
+template <int THREADS, int CP, class T, class RowPtr>
+__device__ __forceinline__ void copy_rows(T* dst, int ld, int nrows, int c, bool vec,
+                                          const T* any, RowPtr row_ptr) {
+  if (vec) {
+    constexpr int E = 16 / sizeof(T);  // elements a copy
+    constexpr int per_row = CP / E;
     for (int i = threadIdx.x; i < nrows * per_row; i += THREADS) {
       const int r = i / per_row;
-      const int d = (i - r * per_row) * 4;
-      const float* src = row_ptr(r);
+      const int d = (i - r * per_row) * E;
+      const T* src = row_ptr(r);
       const bool ok = src != nullptr && d < c;
       cp_async16(dst + r * ld + d, ok ? src + d : any, ok);
     }
@@ -94,10 +122,35 @@ __device__ __forceinline__ void copy_rows(float* dst, int ld, int nrows, int c, 
     for (int i = threadIdx.x; i < nrows * CP; i += THREADS) {
       const int r = i / CP;
       const int d = i - r * CP;
-      const float* src = row_ptr(r);
+      const T* src = row_ptr(r);
       const bool ok = src != nullptr && d < c;
-      cp_async4(dst + r * ld + d, ok ? src + d : any, ok);
+      if constexpr (sizeof(T) == 4) {
+        cp_async4(dst + r * ld + d, ok ? src + d : any, ok);
+      } else {
+        reinterpret_cast<uint16_t*>(dst)[r * ld + d] =
+            ok ? reinterpret_cast<const uint16_t*>(src)[d] : uint16_t{0};
+      }
     }
+  }
+}
+
+// dst[d], dst[d + 1] = x0, x1 (x1 only where d + 1 < c), for an output row
+// of f32 or bf16 (rounded to nearest); one 8- or 4-byte store when vec.
+__device__ __forceinline__ void store2(float* dst, int d, int c, bool vec, float x0, float x1) {
+  if (vec) {
+    *reinterpret_cast<float2*>(dst + d) = make_float2(x0, x1);
+  } else {
+    dst[d] = x0;
+    if (d + 1 < c) dst[d + 1] = x1;
+  }
+}
+
+__device__ __forceinline__ void store2(bf16* dst, int d, int c, bool vec, float x0, float x1) {
+  if (vec) {
+    *reinterpret_cast<__nv_bfloat162*>(dst + d) = __floats2bfloat162_rn(x0, x1);
+  } else {
+    dst[d] = __float2bfloat16_rn(x0);
+    if (d + 1 < c) dst[d + 1] = __float2bfloat16_rn(x1);
   }
 }
 
@@ -278,6 +331,95 @@ __device__ __forceinline__ void sum_partials(float (&acc)[NS][2][4], float4* par
       acc[j][h][2] = s.z;
       acc[j][h][3] = s.w;
     }
+  }
+}
+
+// --- bf16 products -------------------------------------------------------------
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t word(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// lo in the low half (the lower column of an mma fragment), rounded to nearest.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Four 8 x 8 b16 matrices, transposed: lanes 8i .. 8i + 7 give the row
+// addresses of matrix i, and a thread gets, of matrix i, rows 2t, 2t + 1 at
+// column g in r[i].
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// One warp tile of a row product over bf16 tiles, as the f32 one:
+// acc[h] = own[16 rows] . str[8h .. 8h + 8)^T over channels [k_begin,
+// k_begin + 8 KSTEPS). Even and odd 16-channel steps go to separate
+// accumulators, so four independent mma chains run.
+template <int KSTEPS>
+__device__ __forceinline__ void row_products16(float (&acc)[2][4], const bf16* own,
+                                               const bf16* str, int ld, int k_begin,
+                                               int lane) {
+  static_assert(KSTEPS % 2 == 0, "bf16 products take 16 channels a step");
+  float odd[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[h][e] = odd[h][e] = 0.f;
+  const int off = (lane >> 2) * ld + 2 * (lane & 3) + k_begin;
+  auto step = [&](float (&d)[2][4], int k0) {  // 16 channels from k0
+    const bf16* a_p = own + off + k0;
+    const uint32_t a[4] = {word(a_p), word(a_p + 8 * ld), word(a_p + 8), word(a_p + 8 * ld + 8)};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bf16* b_p = str + 8 * h * ld + off + k0;
+      const uint32_t b[2] = {word(b_p), word(b_p + 8)};
+      mma_bf16(d[h], a, b);
+    }
+  };
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS / 2; kk += 2) {
+    step(acc, 16 * kk);
+    if (kk + 1 < KSTEPS / 2) step(odd, 16 * (kk + 1));
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[h][e] += odd[h][e];
+}
+
+// One warp tile of a column product over a bf16 tile: acc[n] += bf16(p) .
+// str[0 .. 16) over channels n_begin + 8n .. + 8, for all NN channel tiles.
+// p is rounded to bf16 here, as the TPU kernel rounds it to the value dtype.
+template <int NN>
+__device__ __forceinline__ void col_products16(float (&acc)[NN][4], const float (&p)[2][4],
+                                               const bf16* str, int ld, int n_begin,
+                                               int lane) {
+  static_assert(NN % 2 == 0, "ldmatrix.x4 loads two 8-channel tiles");
+  const uint32_t a[4] = {pack_bf16(p[0][0], p[0][1]), pack_bf16(p[0][2], p[0][3]),
+                         pack_bf16(p[1][0], p[1][1]), pack_bf16(p[1][2], p[1][3])};
+  const int i = lane >> 3;  // matrix: key half i & 1, channel tile i >> 1
+  const bf16* row = str + ((i & 1) * 8 + (lane & 7)) * ld + n_begin + (i >> 1) * 8;
+#pragma unroll
+  for (int n = 0; n < NN; n += 2) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, row + 8 * n);
+    const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+    mma_bf16(acc[n], a, b0);
+    mma_bf16(acc[n + 1], a, b1);
   }
 }
 

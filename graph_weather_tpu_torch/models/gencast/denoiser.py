@@ -24,12 +24,19 @@ with edge features. `apply` serves, under torch.no_grad(), in f32.
 `forward_fn()` is the training forward: the same function with autograd,
 whose attention backward runs K3c (or K3b), or K4b, on the card;
 `remat=True` recomputes each transformer block in the backward.
+
+`forward_fn(compute_dtype=torch.bfloat16)` is the JAX package's bf16
+policy, for the clustered and segment attention: the network runs on bf16
+copies of the f32 parameters (the gradients reach the f32 masters through
+the cast), with bf16 inputs, static node features and edge features; the
+noise levels, the preconditioning and the output stay f32. The clustered
+attention then runs K3a, K3c and K3b in their bf16 mode on the card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Optional
 
 import numpy as np
 import torch
@@ -113,12 +120,15 @@ class DenoiserModule(nn.Module):
     ) -> torch.Tensor:
         precs = Preconditioner(sigma_data=1.0)
         batch = corrupted_targets.shape[0]
+        dtype = corrupted_targets.dtype
         sigma = noise_levels[:, :, None]
+        # The f32 factor is cast down, so that a bf16 policy stays bf16; the
+        # output (f32 factors times bf16 values) is f32.
         grid_feats = torch.cat(
             [
-                precs.c_in(sigma) * corrupted_targets,
-                prev_inputs,
-                grid_node_feats.expand((batch,) + grid_node_feats.shape),
+                precs.c_in(sigma).to(dtype) * corrupted_targets,
+                prev_inputs.to(dtype),
+                grid_node_feats.to(dtype).expand((batch,) + grid_node_feats.shape),
             ],
             dim=-1,
         )
@@ -126,6 +136,10 @@ class DenoiserModule(nn.Module):
         latent_mesh = self.GenCastProcessor_0(latent_mesh, precs.c_noise(noise_levels), khop)
         preds = self.GenCastDecoder_0(latent_mesh, latent_grid, m2g)
         return precs.c_skip(sigma) * corrupted_targets + precs.c_out(sigma) * preds
+
+
+# Where GenCast's bf16 policy on the banded attention is queued.
+BANDED_BF16_TODO = "ROADMAP.md, 'GenCast bf16 on the banded attention: K4a and K4b in bf16'"
 
 
 def _not_ported(option: str, item: str = GENCAST_TODO) -> NotImplementedError:
@@ -156,7 +170,6 @@ class Denoiser:
         attention_impl: str = "segment",
         mesh_orientation: str = "pole",
         node_layout: str = "consistent",
-        compute_dtype: Optional[torch.dtype] = None,
         device="cuda",
     ):
         if attention_impl not in ("segment", "banded", "banded_flash", "clustered_flash"):
@@ -167,11 +180,10 @@ class Denoiser:
                 "(matching the reference's sparse attention mode, which also "
                 "drops edge features)"
             )
-        if compute_dtype not in (None, torch.float32):
-            raise _not_ported(f"compute_dtype={compute_dtype}")
         if node_layout not in ("consistent", "reference"):
             raise ValueError(f"unknown node_layout {node_layout!r}")
         self.node_layout = node_layout
+        self.attention_impl = attention_impl
         self.num_lon = len(grid_lon)
         self.num_lat = len(grid_lat)
         self.input_features_dim = input_features_dim
@@ -272,11 +284,50 @@ class Denoiser:
 
     def forward_fn(self, compute_dtype=None):
         """The training forward: a differentiable callable
-        (corrupted_targets, prev_inputs, noise_levels) -> denoised, with the
-        layouts of `apply`, on self.device. Only f32 is ported."""
-        if compute_dtype not in (None, torch.float32):
+        (corrupted_targets, prev_inputs, noise_levels) -> denoised (f32),
+        with the layouts of `apply`, on self.device. compute_dtype=
+        torch.bfloat16 runs the network in bf16 (see the module docstring);
+        None or torch.float32 in f32."""
+        if compute_dtype in (None, torch.float32):
+            return self._forward
+        if compute_dtype != torch.bfloat16:
             raise _not_ported(f"compute_dtype={compute_dtype}")
-        return self._forward
+        if self.attention_impl.startswith("banded"):
+            raise _not_ported(
+                f"compute_dtype=bfloat16 with attention_impl={self.attention_impl!r}",
+                BANDED_BF16_TODO,
+            )
+        bf16 = torch.bfloat16
+        graphs = (
+            dataclasses.replace(g, edge_attr=g.edge_attr.to(bf16))
+            for g in (self.g2m, self.khop, self.m2g)
+        )
+        consts = (self.grid_node_feats.to(bf16), self.mesh_node_feats.to(bf16), *graphs)
+
+        def forward(corrupted_targets, prev_inputs, noise_levels):
+            corrupted_targets, prev_inputs, noise_levels = (
+                torch.as_tensor(t, dtype=torch.float32, device=self.device)
+                for t in (corrupted_targets, prev_inputs, noise_levels)
+            )
+            self._check_shapes(corrupted_targets, prev_inputs, noise_levels)
+            params = {name: p.to(bf16) for name, p in self.module.named_parameters()}
+            args = (
+                self._to_nodes(corrupted_targets.to(bf16)),
+                self._to_nodes(prev_inputs.to(bf16)),
+                noise_levels,
+                *consts,
+            )
+            # The products sum in f32, as XLA's: no bf16 partial sums in cuBLAS.
+            matmul = torch.backends.cuda.matmul
+            reduced = matmul.allow_bf16_reduced_precision_reduction
+            matmul.allow_bf16_reduced_precision_reduction = False
+            try:
+                out = torch.func.functional_call(self.module, params, args)
+            finally:
+                matmul.allow_bf16_reduced_precision_reduction = reduced
+            return self._from_nodes(out).float()
+
+        return forward
 
     @torch.no_grad()
     def apply(self, corrupted_targets, prev_inputs, noise_levels, conditioning=None):

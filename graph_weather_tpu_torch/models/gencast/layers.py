@@ -1,7 +1,9 @@
 """GenCast encoder / processor / decoder (port of
 graph_weather_tpu/models/gencast/layers.py).
 
-Data layout is [B, N, F] with graphs shared across the batch.
+Data layout is [B, N, F] with graphs shared across the batch. Under the
+bf16 policy the activations are bf16 and the noise embedding f32
+(modules.py).
 """
 
 from __future__ import annotations
@@ -9,7 +11,6 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
@@ -18,6 +19,7 @@ from graph_weather_tpu_torch.models.gencast.modules import (
     FourierEmbedding,
     GenCastMLP,
     InteractionNetwork,
+    _silu,
     cluster_pad_rows,
     cluster_unpad_rows,
 )
@@ -69,7 +71,9 @@ class GenCastProcessor(nn.Module):
     drops the activation. Rows are padded once to the clustered layout
     (a no-op for the segment layout) and sliced once at the end. With
     `remat`, each block's activations are recomputed in the backward
-    (torch.utils.checkpoint, the JAX package's nn.remat per block).
+    (torch.utils.checkpoint, the JAX package's nn.remat per block), with
+    the parameters the forward used (the bf16 copies under
+    Denoiser.forward_fn's bf16 policy, not the f32 masters).
     """
 
     NOISE_EMB_DIM = 16
@@ -107,7 +111,7 @@ class GenCastProcessor(nn.Module):
                     concat=not last,
                     use_edge_features=use_edges,
                     edge_dim=edge_emb_dim,
-                    activation=None if last else F.silu,
+                    activation=None if last else _silu,
                 ),
             )
 
@@ -126,8 +130,13 @@ class GenCastProcessor(nn.Module):
         for i in range(self.num_blocks):
             block = getattr(self, f"CondTransformerBlock_{i}")
             if self.remat and torch.is_grad_enabled():
+                state = dict(block.named_parameters())
+
+                def run(*args, block=block, state=state):
+                    return torch.func.functional_call(block, state, args)
+
                 latent_mesh = torch.utils.checkpoint.checkpoint(
-                    block, latent_mesh, khop, edge_attr, cond, use_reentrant=False
+                    run, latent_mesh, khop, edge_attr, cond, use_reentrant=False
                 )
             else:
                 latent_mesh = block(latent_mesh, khop, edge_attr, cond)

@@ -14,6 +14,24 @@
     (ops/banded_attention.py).
   * CondTransformerBlock: the conv, the conditional norm and the activation.
 
+bf16 compute policy (Denoiser.forward_fn(compute_dtype=torch.bfloat16)):
+the modules run on bf16 parameters (which is how they know the policy is
+on) and bf16 activations, rounded where the JAX package's run rounds them.
+XLA rounds every bf16 operation's result to bf16, with one exception: an
+elementwise operation whose only use is an upcast to f32 is computed in f32
+and not rounded. So:
+  * SiLU and the beta gate's sigmoid are x * (1 / (1 + exp(-x))), one
+    rounded operation at a time, and so are their gradients, as JAX
+    differentiates them (`_silu`, `_sigmoid`);
+  * a GenCastMLP's last bias add and the beta gate's last add, whose only
+    use is a LayerNorm's f32 statistics, stay f32 (`wide`);
+  * the LayerNorms' statistics and affine are f32, rounded once;
+  * the FourierEmbedding, and so the conditional norms' scale and bias, is
+    f32 from the f32 noise level; the conditional norm rounds its
+    normalised x to bf16 before that f32 affine, then rounds the result;
+  * the segment branch's logits sum f32 products, rounded once.
+f32 runs are unchanged.
+
 PyTorch needs every input width at construction, where flax infers them, so
 each module takes its input widths. Submodules carry the flax auto-names
 (GenCastMLP_0/TorchLinear_0, GraphTransformerConv_0, ...) so converted
@@ -38,6 +56,99 @@ from graph_weather_tpu_torch.ops.segment_softmax import segment_softmax
 
 # Where each GenCast option the port does not run yet is queued.
 GENCAST_TODO = "ROADMAP.md, 'GenCast options not yet ported'"
+
+
+class _Bf16Sigmoid(torch.autograd.Function):
+    """jax.nn.sigmoid on bf16 as XLA runs it: l = 1 / (1 + exp(-x)), each
+    operation rounded to bf16; the gradient ct * (l * (1 - l)), rounded as
+    JAX's (the derivative is a bf16 product of bf16 values)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        sig = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(sig)
+        return sig
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        (sig,) = ctx.saved_tensors
+        return grad * (sig * (1.0 - sig))
+
+
+class _Bf16Silu(torch.autograd.Function):
+    """flax's nn.silu on bf16, x * sigmoid(x), as XLA runs it (see
+    _Bf16Sigmoid); the gradient ct * l + (x * ct) * (l * (1 - l)), each
+    operation rounded to bf16, as JAX differentiates it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        sig = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(x, sig)
+        return x * sig
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x, sig = ctx.saved_tensors
+        return grad * sig + (x * grad) * (sig * (1.0 - sig))
+
+
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.sigmoid: with its bf16 rounding on bf16 (_Bf16Sigmoid)."""
+    return _Bf16Sigmoid.apply(x) if x.dtype == torch.bfloat16 else torch.sigmoid(x)
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """flax's nn.silu: with its bf16 rounding on bf16 (_Bf16Silu)."""
+    return _Bf16Silu.apply(x) if x.dtype == torch.bfloat16 else F.silu(x)
+
+
+class _Bf16LayerNorm(torch.autograd.Function):
+    """flax's LayerNorm (eps 1e-5) as the JAX package runs it under the bf16
+    policy, forward and backward. Forward: statistics, the optional scale
+    and bias in f32, the result rounded to bf16. Backward: as XLA
+    differentiates flax's program (the fast variance max(0, mean(x^2) -
+    mean(x)^2)), x's two f32 upcasts (one for the statistics, one centred)
+    each get their gradient rounded to bf16, and the two are added in bf16.
+    x is bf16, or the f32 of a `wide` linear or gate."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        affine = [None if t is None else t.float() for t in (weight, bias)]
+        return F.layer_norm(x.float(), x.shape[-1:], *affine, eps).to(torch.bfloat16)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        x32, g = x.float(), grad.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        r = torch.rsqrt(var + ctx.eps)
+        centred = x32 - mean
+        scale = 1.0 if weight is None else weight.float()
+        d_centred = g * (r * scale)  # through the centred upcast
+        d_r = (g * centred * scale).sum(-1, keepdim=True)
+        d_var = torch.where(var > 0, -0.5 * d_r * r**3, torch.zeros_like(d_r))
+        d_mean = -d_centred.sum(-1, keepdim=True) - 2.0 * mean * d_var
+        d_stats = (2.0 * x32 * d_var + d_mean) / x32.shape[-1]  # through the statistics' upcast
+        dx = (d_centred.to(torch.bfloat16) + d_stats.to(torch.bfloat16)).to(x.dtype)
+        if weight is None:
+            return dx, None, None, None
+        lead = tuple(range(g.dim() - 1))
+        d_weight = (g * centred * r).sum(lead).to(weight.dtype)
+        return dx, d_weight, g.sum(lead).to(weight.dtype), None
+
+
+def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """flax's LayerNorm under the bf16 policy (bf16 weights: _Bf16LayerNorm,
+    on x bf16 or the f32 of a `wide` linear); otherwise the module itself."""
+    if norm.weight.dtype != torch.bfloat16:
+        return norm(x)
+    return _Bf16LayerNorm.apply(x, norm.weight, norm.bias, norm.eps)
 
 
 def cluster_pad_rows(x: torch.Tensor, graph: DeviceGraph) -> torch.Tensor:
@@ -74,10 +185,11 @@ class GenCastMLP(nn.Module):
         self.LayerNorm_0 = nn.LayerNorm(width, eps=1e-5)
 
     def forward(self, x) -> torch.Tensor:
-        x = self.TorchLinear_0(x)
-        for i in range(1, self.n_layers):
-            x = getattr(self, f"TorchLinear_{i}")(F.silu(x))
-        return self.LayerNorm_0(x)
+        wide = self.LayerNorm_0.weight.dtype == torch.bfloat16  # the last layer's, for the norm
+        for i in range(self.n_layers):
+            linear = getattr(self, f"TorchLinear_{i}")
+            x = linear(x if i == 0 else _silu(x), wide=wide and i == self.n_layers - 1)
+        return _layer_norm(self.LayerNorm_0, x)
 
 
 class _FactorizedGenCastMLP(GenCastMLP):
@@ -137,7 +249,8 @@ class FourierEmbedding(nn.Module):
         self.TorchLinear_1 = TorchLinear(output_dim, output_dim)
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        # t: [..., 1]
+        # t: [..., 1], f32 (the noise level): the MLP computes in f32 on
+        # weights of any dtype
         n = self.NUM_FREQUENCIES
         steps = torch.arange(n, dtype=torch.float32, device=t.device)
         log_period = torch.log(torch.tensor(float(self.BASE_PERIOD)))
@@ -157,9 +270,17 @@ class ConditionalLayerNorm(nn.Module):
         self.TorchLinear_1 = TorchLinear(cond_dim, features_dim)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        # Under the bf16 policy (bf16 weights; x f32 from the gate's `wide`
+        # add): normalised in f32 and rounded, then the f32 scale and bias,
+        # rounded again, as the JAX package rounds them.
+        dtype = self.TorchLinear_0.kernel.dtype
         scale = self.TorchLinear_0(cond)
         bias = self.TorchLinear_1(cond)
-        return scale * F.layer_norm(x, (self.features_dim,), eps=1e-5) + bias
+        if dtype == torch.bfloat16:
+            x_norm = _Bf16LayerNorm.apply(x, None, None, 1e-5)
+        else:
+            x_norm = F.layer_norm(x, (self.features_dim,), eps=1e-5)
+        return (scale * x_norm + bias).to(dtype)
 
 
 class GraphTransformerConv(nn.Module):
@@ -244,7 +365,11 @@ class GraphTransformerConv(nn.Module):
         def heads(t):
             return t.reshape(t.shape[:-1] + (h, c))
 
-        logits = (heads(q_e) * heads(k_e)).sum(-1) / float(c) ** 0.5  # [..., E, H]
+        if q_e.dtype == torch.bfloat16:  # f32 products, the sum rounded
+            logits = (heads(q_e).float() * heads(k_e).float()).sum(-1).to(q_e.dtype)
+        else:
+            logits = (heads(q_e) * heads(k_e)).sum(-1)
+        logits = logits / float(c) ** 0.5  # [..., E, H]
         alpha = segment_softmax(logits, graph.receivers, graph.n_receivers)
         msg = heads(v_e) * alpha[..., None]
         msg = msg.reshape(msg.shape[:-2] + (h * c,))
@@ -256,7 +381,9 @@ class GraphTransformerConv(nn.Module):
             out = out.reshape(out.shape[:-1] + (h, c)).mean(-2)
         skip = getattr(self, self._skip)(x)
         gate_in = torch.cat([skip, out, skip - out], dim=-1)
-        b = torch.sigmoid(getattr(self, self._beta)(gate_in))
+        b = _sigmoid(getattr(self, self._beta)(gate_in))
+        if b.dtype == torch.bfloat16:  # the last add `wide`: the norm's input
+            return (b * skip).float() + ((1.0 - b) * out).float()
         return b * skip + (1.0 - b) * out
 
 
@@ -275,7 +402,7 @@ class CondTransformerBlock(nn.Module):
         concat: bool = True,
         use_edge_features: bool = True,
         edge_dim: Optional[int] = None,
-        activation: Optional[Callable] = F.silu,
+        activation: Optional[Callable] = _silu,
     ):
         super().__init__()
         self.activation = activation

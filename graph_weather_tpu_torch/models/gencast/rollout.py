@@ -31,13 +31,15 @@ def make_ar_rollout_fn(
     sampler,
     denoiser,
     num_ar_steps: int,
+    compute_dtype=None,
     update_fn: Optional[Callable] = None,
     collect: bool = True,
     device="cuda",
 ):
     """Build (prev_inputs, generator) -> residual trajectory, on `device`
     ("cuda" unless the caller asks for "cpu"; the sampler and the denoiser
-    must live there).
+    must live there), each denoiser evaluation in compute_dtype (None: f32;
+    torch.bfloat16: the denoiser's bf16 policy).
 
     Returns [num_ar_steps, B, lon, lat, F_out] when collect=True, else the
     final conditioning window [B, lon, lat, 2 F_in].
@@ -55,7 +57,7 @@ def make_ar_rollout_fn(
         prev = torch.as_tensor(prev_inputs, dtype=torch.float32, device=device)
         samples = []
         for _ in range(num_ar_steps):
-            sample = sampler.sample(denoiser, prev, generator)
+            sample = sampler.sample(denoiser, prev, generator, compute_dtype)
             prev = update(prev, sample)
             if collect:
                 samples.append(sample)

@@ -5,7 +5,9 @@ churn/inflation + Lu et al. DPMSolver++2S midpoint steps, final Euler
 step). The JAX package runs the trajectory inside one `lax.scan`; here it is
 a Python loop over the denoiser. Per-step isotropic noise comes from an
 explicit `torch.Generator` on the sampler's device. A num_steps trajectory
-makes 2 (num_steps - 2) + 1 denoiser evaluations.
+makes 2 (num_steps - 2) + 1 denoiser evaluations. compute_dtype=
+torch.bfloat16 runs each evaluation through the denoiser's bf16
+`forward_fn`; the solver's arithmetic stays f32.
 """
 
 from __future__ import annotations
@@ -80,11 +82,15 @@ class Sampler:
         prev_inputs: torch.Tensor,
         init_noise: torch.Tensor,
         churn_noises: Sequence[torch.Tensor],
+        compute_dtype=None,
     ) -> torch.Tensor:
         """The DPMSolver++2S trajectory over explicit per-step noise: one
         init_noise [B, lon, lat, F] and num_steps - 1 churn noises (S_noise
-        inflation is applied here). `sample` and `sample_injected` both run
-        this function."""
+        inflation is applied here), each denoiser evaluation in
+        compute_dtype. `sample` and `sample_injected` both run this
+        function."""
+        f32 = compute_dtype in (None, torch.float32)
+        denoise = denoiser if f32 else denoiser.forward_fn(compute_dtype)  # apply: serving, f32
         sigmas = [float(s) for s in self.sigmas()]
         gamma_const = min(self.S_churn / self.num_steps, 2**0.5 - 1)
         batch = prev_inputs.shape[0]
@@ -101,31 +107,36 @@ class Sampler:
             # DPMSolver++2S midpoint step (all but the last iteration).
             x, sigma_hat = churn(x, churn_noises[i], sigmas[i])
             sigma_next = sigmas[i + 1]
-            denoised = denoiser(x, prev_inputs, sigma_hat * ones)
+            denoised = denoise(x, prev_inputs, sigma_hat * ones)
             h = math.log(sigma_hat) - math.log(sigma_next)
             sigma_mid = math.exp(-(-math.log(sigma_hat) + self.r * h))
             u = sigma_mid / sigma_hat * x - (math.exp(-self.r * h) - 1.0) * denoised
-            denoised_2 = denoiser(u, prev_inputs, sigma_mid * ones)
+            denoised_2 = denoise(u, prev_inputs, sigma_mid * ones)
             d = (1.0 - 1.0 / (2.0 * self.r)) * denoised + denoised_2 / (2.0 * self.r)
             x = sigma_next / sigma_hat * x - (math.exp(-h) - 1.0) * d
         # The final iteration is a single-eval Euler step.
         last = self.num_steps - 2
         x, sigma_hat = churn(x, churn_noises[last], sigmas[last])
-        denoised = denoiser(x, prev_inputs, sigma_hat * ones)
+        denoised = denoise(x, prev_inputs, sigma_hat * ones)
         d = (x - denoised) / sigma_hat
         return x + d * (sigmas[self.num_steps - 1] - sigma_hat)
 
-    def sample(self, denoiser, prev_inputs, generator: torch.Generator) -> torch.Tensor:
+    def sample(
+        self, denoiser, prev_inputs, generator: torch.Generator, compute_dtype=None
+    ) -> torch.Tensor:
         """One residual sample [B, lon, lat, F_out] conditioned on the previous
         two steps prev_inputs [B, lon, lat, 2 F_in]; noise from `generator`,
-        which must live on the sampler's device."""
+        which must live on the sampler's device; the denoiser evaluations in
+        compute_dtype (None: f32)."""
         self._check_device(denoiser)
         prev_inputs = torch.as_tensor(prev_inputs, dtype=torch.float32, device=self.device)
         batch = prev_inputs.shape[0]
         noises = [self._noise(generator, denoiser, batch) for _ in range(self.num_steps)]
-        return self._traj(denoiser, prev_inputs, noises[0], noises[1:])
+        return self._traj(denoiser, prev_inputs, noises[0], noises[1:], compute_dtype)
 
-    def sample_injected(self, denoiser, prev_inputs, init_noise, churn_noises) -> torch.Tensor:
+    def sample_injected(
+        self, denoiser, prev_inputs, init_noise, churn_noises, compute_dtype=None
+    ) -> torch.Tensor:
         """The same trajectory with the per-step isotropic noise passed
         explicitly (un-inflated): init_noise [B, lon, lat, F] and
         churn_noises [num_steps - 1, B, lon, lat, F]. For parity against a
@@ -135,4 +146,6 @@ class Sampler:
         def dev(t):
             return torch.as_tensor(t, dtype=torch.float32, device=self.device)
 
-        return self._traj(denoiser, dev(prev_inputs), dev(init_noise), dev(churn_noises))
+        return self._traj(
+            denoiser, dev(prev_inputs), dev(init_noise), dev(churn_noises), compute_dtype
+        )

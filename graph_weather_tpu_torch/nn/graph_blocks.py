@@ -235,22 +235,24 @@ class _GatherSumLinear(TorchLinear):
         super().__init__(sum(widths), features)
         self.widths = tuple(widths)
 
-    def forward(self, parts) -> torch.Tensor:
+    def forward(self, parts, wide: bool = False) -> torch.Tensor:
         """parts: one (tensor_or_None, gather_index_or_None) per width.
 
         A None tensor skips its slice of the kernel, which is exact when that
-        input is known to be all zeros.
+        input is known to be all zeros. wide: as TorchLinear's.
         """
         y = None
         offset = 0
         for (tensor, idx), width in zip(parts, self.widths):
             if tensor is not None:
-                t = tensor @ self.kernel[offset : offset + width]
+                t = tensor @ self.kernel[offset : offset + width].to(tensor.dtype)
                 if idx is not None:
                     t = t.index_select(-2, idx)
                 y = t if y is None else y + t
             offset += width
-        return y + self.bias
+        if wide:
+            return y.float() + self.bias.float()
+        return y + self.bias.to(y.dtype)
 
 
 class _FactorizedPartsMLP(nn.Module):

@@ -36,9 +36,16 @@ class TorchLinear(nn.Module):
             draw = torch.rand(p.shape, generator=generator, dtype=torch.float32)
             p.copy_((draw * 2.0 - 1.0) * bound)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.kernel
-        return y if self.bias is None else y + self.bias
+    def forward(self, x: torch.Tensor, wide: bool = False) -> torch.Tensor:
+        """The weights take x's dtype, as in the JAX package: under a bf16
+        policy (bf16 weights) an f32 input computes in f32. wide=True adds
+        the bias in f32 to the (rounded) product and returns that f32 sum
+        unrounded: what XLA computes for a bf16 linear whose only use is an
+        f32 upcast (a LayerNorm's statistics)."""
+        y = x @ self.kernel.to(x.dtype)
+        if wide:
+            return y.float() + self.bias.float()
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 def make_norm(norm_type: Optional[str], dim: int) -> Optional[nn.Module]:

@@ -24,6 +24,14 @@ and csrc/clustered_flash_bwd.cu (backward) gather them themselves, skip the
 on the tensor cores as three TF32 products (split operands, f32 sums: f32
 accuracy; csrc/clustered_tile.cuh).
 
+bf16 (GenCast's compute policy): q, k and v may all be bf16, as the TPU
+kernels take them. Both products then take bf16 operands and sum in f32;
+p is rounded to bf16 before P.V, and in the backward ds before the dq and
+dk products and p before the dv product; out, dq, dk and dv come back in
+bf16, lse and delta stay f32, and K3b's block-local dk/dv (bf16) are summed
+to global rows in f32, then rounded (the TPU code's segment sum). The
+kernels' bf16 instantiations do this on one bf16 mma.sync per product.
+
 Training: when autograd needs gradients, the forward also keeps the
 log-sum-exp lse [B, nb * block, h], and the backward recomputes
 p = exp(s + bias - lse). `symmetric=True` (the caller asserts that the edge
@@ -39,7 +47,9 @@ Every kernel has a plain PyTorch twin here (`clustered_flash_forward_reference`,
 `clustered_flash_backward_reference`) that runs for CPU tensors; CUDA tensors
 launch the kernels, never the twins. Launch counts: `LAUNCHES` (K3a),
 `GENERAL_BWD_LAUNCHES` (K3b: its dq and block-local dk/dv kernels),
-`SYMMETRIC_DQ_LAUNCHES` and `SYMMETRIC_DKV_LAUNCHES` (K3c's two kernels).
+`SYMMETRIC_DQ_LAUNCHES` and `SYMMETRIC_DKV_LAUNCHES` (K3c's two kernels)
+count the f32 kernels; `BF16_LAUNCHES`, `BF16_GENERAL_BWD_LAUNCHES`,
+`BF16_SYMMETRIC_DQ_LAUNCHES` and `BF16_SYMMETRIC_DKV_LAUNCHES` the bf16 ones.
 """
 
 from __future__ import annotations
@@ -56,6 +66,10 @@ LAUNCHES = 0  # K3a
 GENERAL_BWD_LAUNCHES = 0  # K3b
 SYMMETRIC_DQ_LAUNCHES = 0  # K3c, dq kernel
 SYMMETRIC_DKV_LAUNCHES = 0  # K3c, dk/dv kernel
+BF16_LAUNCHES = 0  # K3a, bf16
+BF16_GENERAL_BWD_LAUNCHES = 0  # K3b, bf16
+BF16_SYMMETRIC_DQ_LAUNCHES = 0  # K3c's dq kernel, bf16
+BF16_SYMMETRIC_DKV_LAUNCHES = 0  # K3c's dk/dv kernel, bf16
 MAX_CHANNELS = 512  # widest head the kernels' tiles hold
 _NEG = -1e30  # additive mask bias off an edge
 _SAFE = -1e28  # running-max start: exp(_NEG - _SAFE) == 0, no inf - inf
@@ -64,19 +78,32 @@ _c_ptr, _c_int = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [
     _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # q k v ids masks out lse
     _c_int, _c_int, _c_int, _c_int, _c_int,  # batch, n_q, n_kv, heads, c
-    _c_int, _c_int, _c_int, _c_int,  # n_blocks, block, u_pad, vec4
-    ctypes.c_float,  # scale
+    _c_int, _c_int, _c_int, _c_int,  # n_blocks, block, u_pad, vec
+    ctypes.c_float, _c_int,  # scale, is_bf16
     _c_ptr,  # cudaStream_t
 ]
 _BWD_ARGTYPES = [
     _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # q k v dout lse delta
     _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # ids masks dq dk dv
     _c_int, _c_int, _c_int, _c_int, _c_int,  # batch, n_q, n_kv, heads, c
-    _c_int, _c_int, _c_int, _c_int,  # n_blocks, block, u_pad, vec4
-    ctypes.c_float, _c_int,  # scale, mode
+    _c_int, _c_int, _c_int, _c_int,  # n_blocks, block, u_pad, vec
+    ctypes.c_float, _c_int, _c_int,  # scale, mode, is_bf16
     _c_ptr,  # cudaStream_t
 ]
 _GENERAL, _SYMMETRIC_DQ, _SYMMETRIC_DKV = 0, 1, 2  # backward modes of the C entry
+DTYPES = (torch.float32, torch.bfloat16)  # what q, k and v may be (all one)
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """bf16 -> f32 (exact); f32 and f64 as they are. The plain versions take
+    every product on such upcasts: a bf16 x bf16 product is exact in f32."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _rounded(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t rounded to bf16 and back where the inputs are bf16 (where the
+    TPU kernels cast an f32 intermediate to the input dtype), else t."""
+    return t.to(dtype).to(t.dtype) if dtype == torch.bfloat16 else t
 
 
 def clustered_flash_forward_reference(
@@ -91,10 +118,14 @@ def clustered_flash_forward_reference(
     """Plain PyTorch version: gather each block's union rows, then a dense
     masked softmax per block with the kernel's _NEG/_SAFE arithmetic (that
     of the TPU kernel's one-pass form). Returns out, or (out, lse) with lse
-    [B, nb * block, h] ([nb * block, h] for unbatched inputs)."""
+    [B, nb * block, h] ([nb * block, h] for unbatched inputs). bf16 inputs:
+    products in f32 on their upcasts, p rounded to bf16 before P.V, out in
+    bf16 and lse in f32."""
     squeeze = q.dim() == 3
     if squeeze:
         q, k, v = q[None], k[None], v[None]
+    dtype = q.dtype
+    q, k, v = _wide(q), _wide(k), _wide(v)
     bsz, n, h, c = q.shape
     nb, _ = gather_ids.shape
     n_pad = nb * block
@@ -106,9 +137,9 @@ def clustered_flash_forward_reference(
     m = torch.clamp(s.amax(-1, keepdim=True), min=_SAFE)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)  # [B, nb, h, block, 1]
-    o = torch.einsum("bnhqu,bnuhc->bnqhc", p, v_loc)
+    o = torch.einsum("bnhqu,bnuhc->bnqhc", _rounded(p, dtype), v_loc)
     o = o / torch.clamp(l, min=1e-30).permute(0, 1, 3, 2, 4)
-    out = o.reshape(bsz, n_pad, h, c)[:, :n]
+    out = o.reshape(bsz, n_pad, h, c)[:, :n].to(dtype)
     out = out[0] if squeeze else out
     if not with_lse:
         return out
@@ -123,10 +154,16 @@ def clustered_flash_backward_reference(
     """Plain PyTorch version of the backward, written out as the kernels
     compute it: gather, recompute p from lse, ds, the products, then the
     scatter of block-local dk/dv (general) or the transposed pass over key
-    blocks (symmetric). Returns (dq, dk, dv) in q's and k's shapes."""
+    blocks (symmetric). Returns (dq, dk, dv) in q's and k's shapes and
+    dtype. bf16 inputs: products in f32 on their upcasts, delta in f32, ds
+    (and p before dv) rounded to bf16 before the products, block-local dk/dv
+    rounded to bf16, then summed in f32 (general), every gradient rounded to
+    bf16 once."""
     squeeze = q.dim() == 3
     if squeeze:
         q, k, v, out, dout, lse = (t[None] for t in (q, k, v, out, dout, lse))
+    dtype = q.dtype
+    q, k, v, out, dout = (_wide(t) for t in (q, k, v, out, dout))
     bsz, n, h, c = q.shape
     n_kv = k.shape[1]
     if symmetric and n != n_kv:
@@ -151,13 +188,14 @@ def clustered_flash_backward_reference(
     s = torch.einsum("bnqhc,bnuhc->bnhqu", q_b, k_loc) * scale
     p = torch.exp(torch.where(edge, s, _NEG) - lse_b)
     dp = torch.einsum("bnqhc,bnuhc->bnhqu", do_b, v_loc)
-    ds = p * (dp - delta_b)
+    ds = _rounded(p * (dp - delta_b), dtype)
     dq = torch.einsum("bnhqu,bnuhc->bnqhc", ds, k_loc) * scale
     dq = dq.reshape(bsz, n_pad, h, c)[:, :n]
     if not symmetric:
-        # Block-local dk/dv, then the scatter back to global rows.
-        dv_loc = torch.einsum("bnhqu,bnqhc->bnuhc", p, do_b)
-        dk_loc = torch.einsum("bnhqu,bnqhc->bnuhc", ds, q_b) * scale
+        # Block-local dk/dv (rounded as the kernel writes them), then the
+        # scatter back to global rows.
+        dv_loc = _rounded(torch.einsum("bnhqu,bnqhc->bnuhc", _rounded(p, dtype), do_b), dtype)
+        dk_loc = _rounded(torch.einsum("bnhqu,bnqhc->bnuhc", ds, q_b) * scale, dtype)
         flat = ids.reshape(-1)
         dk = k.new_zeros(k.shape).index_add_(1, flat, dk_loc.reshape(bsz, nb * u_pad, h, c))
         dv = v.new_zeros(v.shape).index_add_(1, flat, dv_loc.reshape(bsz, nb * u_pad, h, c))
@@ -170,10 +208,11 @@ def clustered_flash_backward_reference(
         delta_loc = delta_pad[:, ids].permute(0, 1, 3, 2)[:, :, :, None, :]
         st = torch.einsum("bnkhc,bnuhc->bnhku", k_b, q_loc) * scale
         pt = torch.exp(torch.where(edge, st, _NEG) - lse_loc)
-        dv = torch.einsum("bnhku,bnuhc->bnkhc", pt, do_loc)
-        dst = pt * (torch.einsum("bnkhc,bnuhc->bnhku", v_b, do_loc) - delta_loc)
+        dv = torch.einsum("bnhku,bnuhc->bnkhc", _rounded(pt, dtype), do_loc)
+        dst = _rounded(pt * (torch.einsum("bnkhc,bnuhc->bnhku", v_b, do_loc) - delta_loc), dtype)
         dk = torch.einsum("bnhku,bnuhc->bnkhc", dst, q_loc) * scale
         dk, dv = (t.reshape(bsz, n_pad, h, c)[:, :n_kv] for t in (dk, dv))
+    dq, dk, dv = dq.to(dtype), dk.to(dtype), dv.to(dtype)
     if squeeze:
         return dq[0], dk[0], dv[0]
     return dq, dk, dv
@@ -213,8 +252,8 @@ def _check(q, k, v, gather_ids, masks, block, symmetric):
         raise _node_set_error(q.shape[-3], k.shape[-3])
     if gather_ids.dtype != torch.int32 or masks.dtype != torch.int8:
         raise TypeError("clustered_flash_attention: gather_ids int32, masks int8")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError("clustered_flash_attention: q, k, v must be float32")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("clustered_flash_attention: q, k, v must all be float32 or all bfloat16")
     if any(t.device != q.device for t in (k, v, gather_ids, masks)):
         raise ValueError("clustered_flash_attention: all tensors must be on one device")
 
@@ -225,8 +264,11 @@ def _sizes(q, k, gather_ids):
     return batch, q.shape[-3], k.shape[-3], q.shape[-2], q.shape[-1], nb, u_pad
 
 
-def _vec4(c: int, tensors) -> int:
-    return int(c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+def _vec(c: int, tensors) -> int:
+    """1 where every row is whole 16-byte copies (4 f32 or 8 bf16) and
+    16-byte aligned: the kernels' vector copies."""
+    per = 16 // tensors[0].element_size()
+    return int(c % per == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _forward_cuda(q, k, v, gather_ids, masks, block, with_lse):
@@ -239,22 +281,25 @@ def _forward_cuda(q, k, v, gather_ids, masks, block, with_lse):
     out = torch.empty_like(q)
     lse = None
     if with_lse:
-        lse = torch.empty(q.shape[:-3] + (nb * block, heads), device=q.device)
+        lse = torch.empty(q.shape[:-3] + (nb * block, heads), dtype=torch.float32, device=q.device)
     if out.numel() == 0 or u_pad == 0:
         return out.zero_(), (None if lse is None else lse.fill_(_SAFE + math.log(1e-30)))
     with torch.cuda.device(q.device):
         err = c_function("clustered_flash", "gwt_clustered_flash_forward", _FWD_ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gather_ids.data_ptr(),
             masks.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-            batch, n_q, n_kv, heads, c, nb, block, u_pad,
-            _vec4(c, (q, k, v, out)), 1.0 / c**0.5, torch.cuda.current_stream().cuda_stream,
+            batch, n_q, n_kv, heads, c, nb, block, u_pad, _vec(c, (q, k, v, out)), 1.0 / c**0.5,
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
             f"clustered_flash_attention: CUDA kernel launch failed (cudaError {err})"
         )
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, BF16_LAUNCHES
+    if q.dtype == torch.bfloat16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out, lse
 
 
@@ -268,8 +313,9 @@ def _launch_backward(mode, q, k, v, dout, lse, delta, gather_ids, masks, dq, dk,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), gather_ids.data_ptr(), masks.data_ptr(),
             *(0 if t is None else t.data_ptr() for t in (dq, dk, dv)),
-            batch, n_q, n_kv, heads, c, nb, block, u_pad, _vec4(c, tensors),
-            1.0 / c**0.5, mode, torch.cuda.current_stream().cuda_stream,
+            batch, n_q, n_kv, heads, c, nb, block, u_pad, _vec(c, tensors),
+            1.0 / c**0.5, mode, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -278,8 +324,9 @@ def _launch_backward(mode, q, k, v, dout, lse, delta, gather_ids, masks, dq, dk,
 
 
 def _backward_cuda(q, k, v, gather_ids, masks, out, lse, dout, block, symmetric, scatter_index):
-    """K3c (symmetric) or K3b on the card. Returns (dq, dk, dv)."""
+    """K3c (symmetric) or K3b on the card. Returns (dq, dk, dv) in q's dtype."""
     global GENERAL_BWD_LAUNCHES, SYMMETRIC_DQ_LAUNCHES, SYMMETRIC_DKV_LAUNCHES
+    global BF16_GENERAL_BWD_LAUNCHES, BF16_SYMMETRIC_DQ_LAUNCHES, BF16_SYMMETRIC_DKV_LAUNCHES
     if not symmetric and scatter_index is None:
         raise ValueError(_NO_SCATTER_INDEX)
     if not all(t.is_contiguous() for t in (q, k, v, gather_ids, masks, lse, dout)):
@@ -288,22 +335,44 @@ def _backward_cuda(q, k, v, gather_ids, masks, out, lse, dout, block, symmetric,
     dq = torch.empty_like(q)
     if dq.numel() == 0 or u_pad == 0:
         return dq.zero_(), torch.zeros_like(k), torch.zeros_like(v)
-    # delta = rowsum(dO . out), zero on the rows past n_q: [B, nb * block, h]
-    delta = (dout * out).sum(-1)
+    # delta = rowsum(dO . out) in f32, zero on the rows past n_q: [B, nb * block, h]
+    delta = (_wide(dout) * _wide(out)).sum(-1)
     delta = F.pad(delta, (0, 0, 0, nb * block - n_q)).contiguous()
     args = (q, k, v, dout, lse, delta, gather_ids, masks)
     if symmetric:
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         _launch_backward(_SYMMETRIC_DQ, *args, dq, None, None, block)
-        SYMMETRIC_DQ_LAUNCHES += 1
         _launch_backward(_SYMMETRIC_DKV, *args, None, dk, dv, block)
-        SYMMETRIC_DKV_LAUNCHES += 1
+        if q.dtype == torch.bfloat16:
+            BF16_SYMMETRIC_DQ_LAUNCHES += 1
+            BF16_SYMMETRIC_DKV_LAUNCHES += 1
+        else:
+            SYMMETRIC_DQ_LAUNCHES += 1
+            SYMMETRIC_DKV_LAUNCHES += 1
         return dq, dk, dv
     local = q.shape[:-3] + (nb, u_pad) + q.shape[-2:]  # [B, nb, U_pad, h, c]
-    dk_loc, dv_loc = torch.empty(local, device=q.device), torch.empty(local, device=q.device)
+    dk_loc, dv_loc = (torch.empty(local, dtype=q.dtype, device=q.device) for _ in range(2))
     _launch_backward(_GENERAL, *args, dq, dk_loc, dv_loc, block)
-    GENERAL_BWD_LAUNCHES += 1
+    if q.dtype == torch.bfloat16:
+        BF16_GENERAL_BWD_LAUNCHES += 1
+    else:
+        GENERAL_BWD_LAUNCHES += 1
     return dq, gather_sum(dk_loc, scatter_index, n_kv), gather_sum(dv_loc, scatter_index, n_kv)
+
+
+def ctas_per_sm(kernel: str, c: int, block: int, u_pad: int, dtype: torch.dtype) -> int:
+    """How many CTAs of a K3 kernel fit on one SM of the current card at head
+    width c, this block and u_pad (registers and shared memory, by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor). kernel: "forward" (K3a),
+    "dq" (K3b's and K3c's dq kernel), "general_dkv" (K3b's dk/dv kernel) or
+    "symmetric_dkv" (K3c's)."""
+    bf16 = int(dtype == torch.bfloat16)
+    if kernel == "forward":
+        fn = c_function("clustered_flash", "gwt_clustered_flash_forward_ctas", [_c_int] * 3)
+        return fn(c, u_pad, bf16)
+    mode = {"general_dkv": _GENERAL, "dq": _SYMMETRIC_DQ, "symmetric_dkv": _SYMMETRIC_DKV}[kernel]
+    fn = c_function("clustered_flash_bwd", "gwt_clustered_flash_backward_ctas", [_c_int] * 5)
+    return fn(c, block, u_pad, mode, bf16)
 
 
 def gather_sum(local: torch.Tensor, scatter_index: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -311,14 +380,14 @@ def gather_sum(local: torch.Tensor, scatter_index: torch.Tensor, n_rows: int) ->
     row n sums local[scatter_index[n, j]] over j, in a fixed order (the
     index's padding entries point past the last slot, at a zero row). Rows
     past the index's (never gathered, as the padded rows of a processor)
-    are zero."""
+    are zero. bf16 rows are summed in f32 and the sums rounded to bf16."""
     lead = local.shape[:-4]
-    flat = local.reshape(lead + (-1,) + local.shape[-2:])
+    flat = _wide(local).reshape(lead + (-1,) + local.shape[-2:])
     flat = torch.cat([flat, flat.new_zeros(lead + (1,) + flat.shape[-2:])], dim=-3)
     out = flat.index_select(-3, scatter_index[:, 0])
     for j in range(1, scatter_index.shape[1]):
         out += flat.index_select(-3, scatter_index[:, j])
-    return F.pad(out, (0, 0, 0, 0, 0, n_rows - out.shape[-3]))
+    return F.pad(out, (0, 0, 0, 0, 0, n_rows - out.shape[-3])).to(local.dtype)
 
 
 class _ClusteredFlashAttention(torch.autograd.Function):

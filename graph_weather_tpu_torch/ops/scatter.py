@@ -5,7 +5,10 @@ Both strategies are XLA in the JAX package, so they are plain PyTorch here:
   * `segment_sum_agg`: `index_add_` over the receiver ids. Works for any
     degree distribution (grid->mesh cells receive up to 720 grid points at
     the poles of a 1° grid). On CUDA the sum uses atomics, so its order,
-    and the last bits of the result, change from run to run.
+    and the last bits of the result, change from run to run. bf16 edge
+    features are summed as the JAX package's bf16 `segment_sum` sums them:
+    each receiver's edges one at a time, in edge order, every partial sum
+    rounded to bf16 (in a fixed order on the card too).
   * `padded_csr_agg`: for bounded-degree graphs (latent mesh and
     mesh->grid: <= 7) a dense [N, K] gather and masked sum, scatter-free
     and deterministic.
@@ -29,7 +32,20 @@ def segment_sum_agg(
     """Sum [..., E, F] edge features into [..., N, F] by receiver id."""
     shape = edge_feats.shape[:-2] + (n_receivers, edge_feats.shape[-1])
     out = torch.zeros(shape, dtype=edge_feats.dtype, device=edge_feats.device)
-    return out.index_add_(-2, receivers, edge_feats)
+    if edge_feats.dtype != torch.bfloat16:
+        return out.index_add_(-2, receivers, edge_feats)
+    # The j-th edge of every receiver (in edge order) at step j: one add of
+    # each partial sum, rounded to bf16, as a sequential bf16 scatter-add.
+    receivers = receivers.long()
+    order = torch.argsort(receivers, stable=True)
+    counts = torch.bincount(receivers, minlength=n_receivers)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=order.device) - starts[receivers[order]]
+    for j in range(int(counts.max()) if counts.numel() else 0):
+        edges = torch.nonzero(rank == j).squeeze(1)
+        out.index_add_(-2, receivers[edges], edge_feats.index_select(-2, edges))
+    return out
 
 
 def _table_sum(edge_feats: torch.Tensor, edge_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

@@ -3,11 +3,15 @@
 Port of graph_weather_tpu/ops/segment_softmax.py, which is XLA in the JAX
 package, so plain PyTorch here. Logits live on edges; normalization groups
 are receiver segments. Leading batch dims ([..., E, H]) share the indices.
+bf16 logits stay bf16 throughout, every operation rounded as in the JAX
+package (its segment sums too: ops.scatter.segment_sum_agg).
 """
 
 from __future__ import annotations
 
 import torch
+
+from graph_weather_tpu_torch.ops.scatter import segment_sum_agg
 
 
 def _seg_reduce(edge_vals: torch.Tensor, receivers: torch.Tensor, n: int, reduce: str):
@@ -17,8 +21,7 @@ def _seg_reduce(edge_vals: torch.Tensor, receivers: torch.Tensor, n: int, reduce
         index = receivers.long().view(-1, 1).expand(edge_vals.shape)
         init = torch.full(shape, -torch.inf, dtype=edge_vals.dtype, device=edge_vals.device)
         return init.scatter_reduce(-2, index, edge_vals, "amax", include_self=True)
-    out = torch.zeros(shape, dtype=edge_vals.dtype, device=edge_vals.device)
-    return out.index_add_(-2, receivers, edge_vals)
+    return segment_sum_agg(edge_vals, receivers, n)
 
 
 def segment_softmax(

@@ -197,7 +197,7 @@ def main() -> int:
             def run_fwd():
                 err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), ids.data_ptr(), masks.data_ptr(),
                           o.data_ptr(), lse.data_ptr(), 1, n, n, 4, c, nb, block, u_pad, 1,
-                          1.0 / c**0.5, stream())
+                          1.0 / c**0.5, 0, stream())  # f32
                 if err:
                     raise RuntimeError(f"{name}: forward launch failed ({err})")
 
@@ -206,7 +206,7 @@ def main() -> int:
                           delta.data_ptr(), ids.data_ptr(), masks.data_ptr(),
                           dq.data_ptr() if mode == 1 else 0, dk.data_ptr() if mode == 2 else 0,
                           dv.data_ptr() if mode == 2 else 0, 1, n, n, 4, c, nb, block, u_pad, 1,
-                          1.0 / c**0.5, mode, stream())
+                          1.0 / c**0.5, mode, 0, stream())  # f32
                 if err:
                     raise RuntimeError(f"{name}: backward launch failed ({err})")
 

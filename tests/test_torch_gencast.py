@@ -326,18 +326,20 @@ def test_devices_must_agree(clustered_models):
     [
         (dict(attention_impl="banded"), None),
         (dict(attention_impl="banded_flash"), None),
-        (dict(compute_dtype=torch.bfloat16), "GenCast options"),
+        (dict(attention_impl="banded_flash", compute_dtype=torch.bfloat16), "K4a and K4b in bf16"),
     ],
     ids=["banded", "banded_flash", "bf16"],
 )
 def test_unported_options_raise(option, match):
-    """bf16 is not ported and raises; the banded options are ported and
-    build (through DenoiserConfig) the k-hop graph's band layout and no
-    cluster layout."""
+    """bf16 on the banded attention is not ported: forward_fn(compute_dtype=
+    bfloat16) raises and names its ROADMAP item; the banded options are
+    ported and build (through DenoiserConfig) the k-hop graph's band layout
+    and no cluster layout."""
     kw = {**CLUSTERED, **option}
     if match is not None:
+        dtype = kw.pop("compute_dtype")
         with pytest.raises(NotImplementedError, match=match):
-            Denoiser(**kw, device="cpu")
+            Denoiser(**kw, device="cpu").forward_fn(compute_dtype=dtype)
         return
     khop = DenoiserConfig(**kw, device="cpu").build().khop
     flash = option["attention_impl"] == "banded_flash"

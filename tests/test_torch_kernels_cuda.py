@@ -529,6 +529,85 @@ def test_clustered_warp_with_one_edge_in_the_last_subtile(gen, c):
         assert _max_err(got, want) <= ATOL
         assert all(bool((t[:, 17:32] == 0).all()) for t in got)
 
+# -- K3a, K3b and K3c in bf16 -------------------------------------------------
+
+# Two bf16 ulps (8 significant bits) of the tensor's largest value: the
+# kernels and the plain versions round p, ds and the outputs to bf16 at the
+# same points, but sum in f32 in another order, and the kernels round p
+# against the running max, so some elements round to the neighbouring value.
+BF16_TOL = 2.0**-6
+
+
+def _bf16_err(got, want):
+    """max |got - want| over BF16_TOL max |want|: within the rule when <= 1."""
+    got, want = got.float(), want.float()
+    return (got - want).abs().max().item() / (BF16_TOL * want.abs().max().item())
+
+
+def _k3_counts():
+    return tuple(getattr(clustered_flash, name) for name in (
+        "LAUNCHES", "GENERAL_BWD_LAUNCHES", "SYMMETRIC_DQ_LAUNCHES", "SYMMETRIC_DKV_LAUNCHES",
+        "BF16_LAUNCHES", "BF16_GENERAL_BWD_LAUNCHES", "BF16_SYMMETRIC_DQ_LAUNCHES",
+        "BF16_SYMMETRIC_DKV_LAUNCHES"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("c", [20, 32, 128, 192, 512])
+def test_clustered_flash_bf16_matches_plain(gen, c, batch):
+    """K3a in bf16 (with and without lse), K3c and K3b in bf16 against their
+    plain versions on bf16 inputs, at each tile width (c = 20: the 2-byte
+    copies, zeros to 32; 192 and 512: warps that share a row group), B in
+    {1, 2}, a ragged last block: out, dq, dk and dv bf16 within 2 ulps of
+    their max, lse within ATOL, exact zeros for the node without an edge;
+    the bf16 launch counts move, the f32 ones do not."""
+    q, k, v, dout, ids, masks, block = _symmetric_case(gen, batch, 701, 4, c, 256, seed=c)
+    q, k, v, dout = (t.bfloat16() for t in (q, k, v, dout))
+    before = _k3_counts()
+    with torch.no_grad():
+        out = clustered_flash.clustered_flash_attention(q, k, v, ids, masks, block)
+    out_l, lse = clustered_flash._forward_cuda(q, k, v, ids, masks, block, with_lse=True)
+    sym = _kernel_backward(q, k, v, ids, masks, block, dout, symmetric=True)
+    general = _kernel_backward(q, k, v, ids, masks, block, dout, symmetric=False)
+    torch.cuda.synchronize()
+    made = tuple(a - b for a, b in zip(_k3_counts(), before))
+    assert made == (0, 0, 0, 0, 4, 1, 1, 1)
+    ref, ref_lse = clustered_flash.clustered_flash_forward_reference(
+        q, k, v, ids, masks, block, with_lse=True
+    )
+    want = _plain_backward(q, k, v, ids, masks, block, dout, symmetric=False)
+    assert out.dtype == out_l.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert _bf16_err(out, ref) <= 1 and _bf16_err(out_l, ref) <= 1
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    for grads in (sym, general):
+        assert all(g.dtype == torch.bfloat16 for g in grads)
+        assert max(_bf16_err(a, b) for a, b in zip(grads, want)) <= 1
+        assert all(bool((t[:, 5] == 0).all()) for t in grads)
+    assert bool((out[:, 5] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_clustered_flash_bf16_unbatched_odd_width(gen, symmetric):
+    """[N, h, c] bf16 inputs, c = 6 (the 2-byte copies and stores), 96-row
+    blocks: the forward and the backward against their plain versions."""
+    q, k, v, dout, ids, masks, block = _symmetric_case(gen, 1, 301, 2, 6, 96, seed=1)
+    args = [t[0].bfloat16() for t in (q, k, v)] + [ids, masks, block]
+    with torch.no_grad():
+        out = clustered_flash.clustered_flash_attention(*args)
+    assert _bf16_err(out, clustered_flash.clustered_flash_forward_reference(*args)) <= 1
+    got = _kernel_backward(*args, dout[0].bfloat16(), symmetric)
+    want = _plain_backward(*args, dout[0].bfloat16(), symmetric)
+    assert max(_bf16_err(a, b) for a, b in zip(got, want)) <= 1
+
+
+@pytest.mark.cuda
+def test_clustered_flash_bf16_refuses_mixed_dtypes(gen):
+    q, k, v, _, ids, masks, block = _symmetric_case(gen, 1, 301, 2, 32, 128)
+    with pytest.raises(TypeError, match="all bfloat16"):
+        clustered_flash.clustered_flash_attention(q.bfloat16(), k, v, ids, masks, block)
+
+
 # -- K5a / K5b: 3D neighborhood attention -------------------------------------
 
 NATTEN_CASES = [
