@@ -5,7 +5,7 @@
 Drives the port's paths at full width, with random weights from a seed:
 the 1° GraphWeatherForecaster (64,800 grid points, 78 + 24 features, width
 256, 9 processor blocks, the 5,882-cell hex mesh): serving, and training
-(phases 32-35); and the
+(phases 32-35), and both in bf16 (phases 48-50); and the
 GenCast denoiser (128 x 64 grid, splits-5 icosphere, 4 hops, hidden
 (512, 512), 16 blocks, 4 heads, 89 -> 83 features, clustered attention):
 serving, the 20-step sampler and AR rollout, and training; and WeatherMesh
@@ -33,7 +33,7 @@ non-zero exit:
      not be 0
   4. serve: build the model on cuda, answer 3 requests (B=1), each with
      exactly 11 K2 launches and no K1 launch; NormalizedMSELoss; ms per
-     request
+     request; a profile of one more (its kernel count, for phase 49)
   5. the same weights and one request on the CPU (plain versions):
      max abs difference from the card <= 1e-3
   6. a 4-step autoregressive rollout on the card: finite, 44 K2 launches,
@@ -216,9 +216,11 @@ non-zero exit:
      request at B = 4 (bench.py's denoiser_batch4), ms per sample; a profile
      of one more; the last request on the CPU in bf16: RMSE(card bf16 - CPU
      bf16) <= 0.75 RMSE(card bf16 - card f32 of phase 9) (BF16_CARD_RULE;
-     the CPU against itself with 1 in 2,000 inputs one ulp off, printed)
+     the CPU against itself with 1 in 2,000 inputs one ulp off, printed);
+     the request times beside the earlier bf16 ones (GENCAST_BF16_EARLIER_MS,
+     before its bf16 segment sums ran through S)
  46. a bf16 20-step sample (592 bf16 K3a launches) and a 2-step AR rollout,
-     timed, finite, f32
+     timed, finite, f32; the sample time beside the earlier one
  47. train_bf16: 3 steps of bench.py's gencast_train objective (mean squared
      error, noise level 1, clip + AdamW at lr 1e-4) through the bf16
      forward_fn, each with exactly 16 bf16 K3a, 16 K3c dq and 16 K3c dk/dv
@@ -226,12 +228,43 @@ non-zero exit:
      change; ms per step, peak GiB, a profile of one more step; then the
      bf16 gradients of phase 16's objective at phase 16's weights and batch,
      on the card and on the CPU: global norm of card - CPU <= 0.9 global
-     norm of card bf16 - card f32 (phase 16's gradients; BF16_CARD_GRAD_RULE)
+     norm of card bf16 - card f32 (phase 16's gradients; BF16_CARD_GRAD_RULE),
+     with the CPU's own reading printed beside (its gradients with 1 in
+     2,000 inputs one ulp off); the step time beside the earlier one
+ 48. the forecaster's bf16 kernels (phase 2's build): the count of bf16
+     tensor-core instructions (HMMA ... BF16) in edge_mlp.cu's and
+     fused_mlp_bwd.cu's SASS, which must not be 0, and S's registers; K2 in
+     bf16 and K2b in bf16 (with the sums after it) against their plain
+     versions on bf16 operands at the g2m, latent and m2g shapes, within
+     2^-6 of the plain output's (each gradient's) max; S against its plain
+     version, bit-equal, on each graph's receivers and senders; CUDA-event
+     medians (batches of 5) of each kernel, of the f32 kernel on the same
+     values, of the plain version and, for S, of index_add_ in bf16 (timed
+     only); per forward (K2) or train step (K2b, S's 22 sums) and the
+     bounds (bytes over 3.35 TB/s, operations over 989 TFLOP/s)
+ 49. fc_serve_bf16: phase 4's weights and requests through
+     forward_fn(compute_dtype=torch.bfloat16), each with exactly 11 bf16 K2
+     launches, one S launch (the g2m aggregation) and no f32 K2 or K1
+     launch, f32 out; ms per request beside phase 4's; the kernels of a
+     profiled request, at most 1.5 x phase 4's f32 count; a 4-step bf16
+     rollout, finite, ms per step; the last request on the CPU in bf16 at
+     1°: RMSE(card bf16 - CPU bf16) <= the larger of 0.5 (FC_BF16_RULE) and
+     the CPU's own reading (one_ulp_off) x RMSE(card bf16 - card f32)
+ 50. fc_train_bf16: 3 steps of bench.py's bf16 train_step objective
+     (phase 34's: NormalizedMSELoss(normalize=True), clip 1 + AdamW at lr
+     1e-3, phase 34's batch) through the bf16 forward_fn, each with exactly
+     11 bf16 K2, 11 bf16 K2b and 22 S launches and no f32 K2, K2b or K1
+     launch; the parameters and the optimizer's moments stay f32, every
+     parameter changes; ms per step beside phase 34's, peak GiB, the
+     kernels of a profiled step; then at those weights the bf16 loss and
+     gradients on the card twice, bit for bit the same, and on the CPU at
+     1°: global norm of card bf16 - CPU bf16 within phase 49's rule of the
+     global norm of card bf16 - card f32
 
 then one JSON line on the kernels, the card's name and power limit, and
 last {"ok": true, "device": ...}.
 Exits non-zero without a CUDA device, or when the port's package is not
-beside this file. f32 but for phases 44-47 (bf16); TF32 is off.
+beside this file. f32 but for phases 44-50 (bf16); TF32 is off.
 """
 
 from __future__ import annotations
@@ -299,7 +332,16 @@ BF16_TOL = 2.0**-6
 # CPU's own reading of the output.
 BF16_CARD_RULE = 0.75
 BF16_CARD_GRAD_RULE = 0.9
-BF16_FLIP_SHARE = 5e-4  # phase 45's one-ulp input changes, for the CPU's own reading
+BF16_FLIP_SHARE = 5e-4  # one-ulp input changes, for the CPU's own reading (phases 45, 47, 49, 50)
+# GenCast's bf16 times while its bf16 segment sums ran as a loop of
+# index_add_ with host syncs (PERF.md §6; NVIDIA H100 80GB HBM3, 700 W),
+# printed beside phases 45-47's: ms per request at B = 1, per 20-step
+# sample, per train step (median of steps 2-3).
+GENCAST_BF16_EARLIER_MS = {"request": (32.0, 57.0), "sample": (1491.0, 1701.0), "step": (134.6, 173.4)}
+# Phases 49 and 50: RMSE(card bf16 - CPU bf16) within the larger of this
+# share of RMSE(card bf16 - card f32) (the global norm of the gradients)
+# and the CPU's own reading (one_ulp_off).
+FC_BF16_RULE = 0.5
 # GenCast: bench.py's _make_denoiser at full size.
 GENCAST = dict(
     grid_lon=np.arange(0.0, 360.0, 360.0 / 128), grid_lat=np.linspace(-90.0, 90.0, 64),
@@ -630,6 +672,16 @@ def bf16_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
     return err, err / (BF16_TOL * want.float().abs().max().item())
 
 
+def one_ulp_off(t: torch.Tensor, seed: int) -> tuple[torch.Tensor, int]:
+    """t on the host, rounded to bf16, with one bf16 ulp added to a random
+    BF16_FLIP_SHARE of its elements, as f32; and how many moved. The CPU's
+    own reading of a bf16 path (phases 45, 47, 49, 50) is how far its
+    output or gradients move for this input."""
+    t16 = t.cpu().bfloat16()
+    flips = torch.rand(t16.shape, generator=torch.Generator().manual_seed(seed)) < BF16_FLIP_SHARE
+    return torch.where(flips, torch.nextafter(t16, torch.full_like(t16, 1e9)), t16).float(), int(flips.sum())
+
+
 def rmse(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.double() - b.double()).pow(2).mean().sqrt().item()
 
@@ -832,7 +884,8 @@ def gencast_bf16_phases(port, clustered_flash, build, gen, ref: dict) -> dict:
     print(f"[serve_bf16] request_ms (B=1) {[round(t, 3) for t in serve16_ms]} | bf16 K3a launches "
           f"{serve16_launches} (f32 K3 0) | B=4 request_ms {[round(t, 3) for t in b4_ms]} = "
           f"{b4_ms[-1] / 4:.3f} ms per sample | peak GiB {serve16_peak:.2f} | f32 request_ms "
-          f"(phase 9) {[round(t, 3) for t in ref['denoise_ms']]}", flush=True)
+          f"(phase 9) {[round(t, 3) for t in ref['denoise_ms']]} | earlier bf16 request_ms "
+          f"{GENCAST_BF16_EARLIER_MS['request']}", flush=True)
     profile_request(lambda: serve16(x, cond, sigma), "bf16 request")
     cpu16 = port.Denoiser(**GENCAST, device="cpu")
     cpu16.module.load_state_dict(ref["weights9"])
@@ -844,14 +897,12 @@ def gencast_bf16_phases(port, clustered_flash, build, gen, ref: dict) -> dict:
     to_f32 = rmse(out16.cpu(), ref["out9"])  # the card's f32 output of the same request
     # The CPU's own reading: the same request with one bf16 ulp added to a
     # random 1 in 2,000 of the corrupted targets' elements.
-    x16 = x.cpu().bfloat16()
-    flips = torch.rand(x16.shape, generator=torch.Generator().manual_seed(8)) < BF16_FLIP_SHARE
-    flipped = torch.where(flips, torch.nextafter(x16, torch.full_like(x16, 1e9)), x16).float()
+    flipped, n_flips = one_ulp_off(x, 8)
     with torch.no_grad():
         cpu_flipped = cpu16.forward_fn(compute_dtype=torch.bfloat16)(flipped, cond.cpu(), sigma.cpu())
     print(f"[cpu] bf16 denoiser: RMSE card bf16 - CPU bf16 {to_cpu:.4e} | RMSE card bf16 - card f32 "
           f"{to_f32:.4e} | ratio {to_cpu / to_f32:.3f} (limit {BF16_CARD_RULE}) | CPU bf16 against "
-          f"itself with {int(flips.sum())} inputs one ulp off {rmse(cpu_out16, cpu_flipped) / to_f32:.3f} "
+          f"itself with {n_flips} inputs one ulp off {rmse(cpu_out16, cpu_flipped) / to_f32:.3f} "
           f"| max |card - CPU| {(out16.cpu() - cpu_out16).abs().max().item():.3e} | cpu bf16 forward "
           f"{cpu_s:.2f} s | phase {time.perf_counter() - t45:.1f} s", flush=True)
     if not (to_cpu <= BF16_CARD_RULE * to_f32):
@@ -874,7 +925,8 @@ def gencast_bf16_phases(port, clustered_flash, build, gen, ref: dict) -> dict:
         if t.shape != shape or t.dtype != torch.float32 or not torch.isfinite(t).all():
             raise AssertionError(f"bad bf16 {name}: {t.dtype} {tuple(t.shape)}")
     print(f"[sample_bf16] 20 steps ({EVALS_PER_SAMPLE} evals) finite | sample_ms {sample16_ms:.3f} "
-          f"(f32, phase 11: {ref['sample_ms']:.3f}) | ms per eval {sample16_ms / EVALS_PER_SAMPLE:.3f} | "
+          f"(f32, phase 11: {ref['sample_ms']:.3f}; earlier bf16 {GENCAST_BF16_EARLIER_MS['sample']}) "
+          f"| ms per eval {sample16_ms / EVALS_PER_SAMPLE:.3f} | "
           f"bf16 K3a launches {made[4]} | 2-step AR rollout ms per AR step {ar16_ms / 2:.3f}",
           flush=True)
     del sampler16, ar16, traj16
@@ -914,7 +966,8 @@ def gencast_bf16_phases(port, clustered_flash, build, gen, ref: dict) -> dict:
     if unchanged:
         raise AssertionError(f"{unchanged} parameter tensors did not change in 3 bf16 train steps")
     print(f"[train_bf16] 3 steps | step_ms {[round(t, 3) for t in train16_ms]} | steady median "
-          f"{statistics.median(train16_ms[1:]):.3f} (f32, phase 15: {ref['train_ms']:.3f}) "
+          f"{statistics.median(train16_ms[1:]):.3f} (f32, phase 15: {ref['train_ms']:.3f}; earlier "
+          f"bf16 {GENCAST_BF16_EARLIER_MS['step']}) "
           f"| loss {[round(v, 6) for v in train16_losses]} | launches per step bf16 K3a {blocks} "
           f"K3c dq {blocks} K3c dk/dv {blocks} K3b 0, f32 K3 0 | all {len(params16)} f32 parameter "
           f"tensors changed | peak GiB {train16_peak:.2f}", flush=True)
@@ -932,28 +985,389 @@ def gencast_bf16_phases(port, clustered_flash, build, gen, ref: dict) -> dict:
     cpu16 = port.Denoiser(**GENCAST, device="cpu")
     cpu16.module.load_state_dict(ref["weights16"])
     cpu_objective = port.WeightedMSELoss(grid_lat=GENCAST["grid_lat"], device="cpu")
+
+    def cpu_grads(corrupted):
+        cpu16.module.zero_grad(set_to_none=True)
+        value = cpu_objective(
+            cpu16.forward_fn(compute_dtype=torch.bfloat16)(corrupted, *(t.cpu() for t in batch16[1:3])),
+            batch16[2].cpu(), batch16[3].cpu())
+        value.backward()
+        return value, {k: t.grad for k, t in cpu16.module.named_parameters()}
+
     t0 = time.perf_counter()
-    cpu16_value = cpu_objective(
-        cpu16.forward_fn(compute_dtype=torch.bfloat16)(*(t.cpu() for t in batch16[:3])),
-        batch16[2].cpu(), batch16[3].cpu())
-    cpu16_value.backward()
+    cpu16_value, cpu16_grads = cpu_grads(batch16[0].cpu())
     cpu_s = time.perf_counter() - t0
-    cpu16_grads = {k: t.grad for k, t in cpu16.module.named_parameters()}
     to_cpu = global_norm({k: card16_grads[k] - cpu16_grads[k] for k in cpu16_grads})
     to_f32 = global_norm({k: card16_grads[k] - grads16[k] for k in grads16})
+    # The CPU's own reading: its gradients with one bf16 ulp added to 1 in
+    # 2,000 of the corrupted targets' elements, against its own.
+    flipped, n_flips = one_ulp_off(batch16[0], 9)
+    cpu_flipped = cpu_grads(flipped)[1]
+    own = global_norm({k: cpu16_grads[k] - cpu_flipped[k] for k in cpu16_grads}) / to_f32
     print(f"[cpu] bf16 gradients at phase 16's weights and batch: global norm card bf16 - CPU bf16 "
           f"{to_cpu:.4e} | card bf16 - card f32 {to_f32:.4e} | ratio {to_cpu / to_f32:.3f} (limit "
-          f"{BF16_CARD_GRAD_RULE}) | |g| {global_norm(card16_grads):.4e} | loss card {card16_value.item():.6f} "
+          f"{BF16_CARD_GRAD_RULE}) | CPU bf16 against itself with {n_flips} inputs one ulp off "
+          f"{own:.3f} | |g| {global_norm(card16_grads):.4e} | loss card {card16_value.item():.6f} "
           f"cpu {cpu16_value.item():.6f} f32 (phase 16) {ref['loss16']:.6f} | cpu bf16 "
           f"forward+backward {cpu_s:.2f} s | phase {time.perf_counter() - t47:.1f} s", flush=True)
     if not (to_cpu <= BF16_CARD_GRAD_RULE * to_f32):
         raise AssertionError(f"bf16 gradients card vs CPU: {to_cpu} > {BF16_CARD_GRAD_RULE} x {to_f32}")
-    del cpu16, den16, card16_grads, cpu16_grads
+    del cpu16, den16, card16_grads, cpu16_grads, cpu_flipped
     torch.cuda.empty_cache()
     return dict(k3_16=k3_16, k3b16_phase44=k3b16_phase44, serve16_launches=serve16_launches,
                 train16_launches=train16_launches, per_eval16=per_eval16, k3a16_bound=k3a16_bound,
                 k3a16_by=k3a16_by, bwd16_bound=bwd16_bound, bwd16_by=bwd16_by, k3a16_sdpa=k3a16_sdpa,
                 bwd16_sdpa=bwd16_sdpa)
+
+
+def k2_bf16_case(fused_mlp, name, graph, with_dst, gen, width=256):
+    """K2 in bf16 against its plain version on bf16 operands (phase 3's,
+    rounded), within BF16_TOL of the plain output's max, and the f32 kernel
+    on the same values. Returns a dict."""
+    args32 = k2_inputs(graph, with_dst, gen, width)
+    args = tuple(t.bfloat16() if t is not None and t.is_floating_point() else t for t in args32)
+    args32 = tuple(t.float() if t is not None and t.is_floating_point() else t for t in args)
+    tables = dict(sender_sum=graph.sender_sum, receiver_sum=graph.receiver_sum,
+                  sender_csr=graph.sender_csr, receiver_csr=graph.receiver_csr)
+    out = fused_mlp.fused_edge_update(*args, **tables)
+    torch.cuda.synchronize()
+    ref = fused_mlp.fused_edge_update_reference(*args)
+    err, ratio = bf16_err(out, ref)
+    equal = (out == ref).float().mean().item()
+    ms = cuda_ms(lambda: fused_mlp.fused_edge_update(*args, **tables))
+    f32_ms = cuda_ms(lambda: fused_mlp.fused_edge_update(*args32, **tables))
+    plain_ms = cuda_ms(lambda: fused_mlp.fused_edge_update_reference(*args))
+    print(f"[k2_bf16] {name}: E={graph.senders.shape[0]} p_dst={'yes' if with_dst else 'None'} "
+          f"out {out.dtype} max_abs_err={err:.3e} ({ratio:.3f} of 2^-6 max), bit-equal share "
+          f"{equal:.5f} | kernel_ms={ms:.4f} f32 kernel on the same values {f32_ms:.4f} "
+          f"plain_ms={plain_ms:.4f}", flush=True)
+    if not (ratio <= 1.0 and out.dtype == torch.bfloat16):
+        raise AssertionError(f"K2 bf16 {name}: max abs error {ratio} x 2^-6 max|plain|, or not bf16")
+    n_edges = graph.senders.shape[0]
+    # The bf16 rows each edge gathers (p_src, p_dst) and its e and e' rows.
+    nbytes = 2 * n_edges * ((2 if with_dst else 1) * width + 2 * width)
+    return dict(err=err, ratio=ratio, ms=ms, f32_ms=f32_ms, plain_ms=plain_ms,
+                flops=2 * n_edges * width * 3 * width, nbytes=nbytes)
+
+
+def k2b_bf16_case(fused_mlp, name, graph, with_dst, gen, width=256):
+    """K2b in bf16 with the sums after it (S by sender and receiver) against
+    the plain backward on bf16 operands at the kernel's ReLU masks (as
+    k2b_case), every gradient within BF16_TOL of its max; the kernel alone,
+    the whole backward, the f32 kernel on the same values and the plain
+    backward timed. Returns a dict."""
+    args = tuple(t.bfloat16() if t is not None and t.is_floating_point() else t
+                 for t in k2_inputs(graph, with_dst, gen, width))
+    args32 = tuple(t.float() if t is not None and t.is_floating_point() else t for t in args)
+    dout = torch.randn(1, graph.senders.shape[0], width, generator=gen, device="cuda").bfloat16()
+    tables = (graph.sender_sum, graph.receiver_sum, graph.sender_csr, graph.receiver_csr)
+    outs, _ = fused_mlp.launch_backward(*args[:12], dout)
+    activations = outs[:2]
+    plain = fused_mlp.fused_edge_update_activations(*args[:9])
+    act_equal = min((a == p).float().mean().item() for a, p in zip(activations, plain))
+    act_ratio = max(bf16_err(a, p.expand(a.shape))[1] for a, p in zip(activations, plain))
+    if not (act_ratio <= 1.0):
+        raise AssertionError(f"K2b bf16 {name}: recomputed h0/h1 error {act_ratio} x 2^-6 max|plain|")
+    del outs, plain
+    got = fused_mlp._backward_cuda(*args, dout, *tables)
+    torch.cuda.synchronize()
+    want = fused_mlp.fused_edge_update_backward_reference(
+        *args, dout, *tables[:2], activations=activations, sender_csr=tables[2],
+        receiver_csr=tables[3])
+    names = ("p_src", "p_dst", "e", "we", "b0", "w1", "b1", "w2", "b2", "gamma", "beta")
+    errs = {n: bf16_err(g, w) for n, g, w in zip(names, got, want) if w is not None}
+    dtypes = {g.dtype for g in got if g is not None}
+    worst = max(errs, key=lambda n: errs[n][1])
+    del got, want, activations
+    dout32 = dout.float()
+    ms = {
+        "kernel": cuda_ms(lambda: fused_mlp.launch_backward(*args[:12], dout)),
+        "backward": cuda_ms(lambda: fused_mlp._backward_cuda(*args, dout, *tables)),
+        "f32_kernel": cuda_ms(lambda: fused_mlp.launch_backward(*args32[:12], dout32)),
+        "plain": cuda_ms(lambda: fused_mlp.fused_edge_update_backward_reference(
+            *args, dout, *tables[:2], sender_csr=tables[2], receiver_csr=tables[3]), runs=3),
+    }
+    print(f"[k2b_bf16] {name}: E={graph.senders.shape[0]} p_dst={'yes' if with_dst else 'None'} "
+          f"h0/h1 bit-equal share {act_equal:.5f}, error {act_ratio:.3f} of 2^-6 max | worst error {errs[worst][1]:.3f} of 2^-6 max "
+          f"({worst}, abs {errs[worst][0]:.3e}) | gradients {sorted(str(d) for d in dtypes)} | "
+          f"kernel_ms={ms['kernel']:.4f} backward_ms={ms['backward']:.4f} f32 kernel on the same "
+          f"values {ms['f32_kernel']:.4f} plain_ms={ms['plain']:.4f}", flush=True)
+    if not (errs[worst][1] <= 1.0 and dtypes == {torch.bfloat16}):
+        raise AssertionError(f"K2b bf16 {name}: {worst} error {errs[worst][1]} x 2^-6 max, or not bf16")
+    n_edges = graph.senders.shape[0]
+    nbytes = 2 * n_edges * (((2 if with_dst else 1) + 4) * width + 4 * width)  # as k2b_case, bf16
+    return dict(err=errs[worst][0], ratio=errs[worst][1], ms=ms,
+                flops=2 * n_edges * width * 6 * width, nbytes=nbytes)
+
+
+def s_case(segment_sums, name, graph, gen, width=256):
+    """S against its plain version on bf16 edge rows [1, E, width] summed to
+    the graph's receivers and to its senders: bit-equal. Times S, the plain
+    version and index_add_ in bf16 (its atomics add in another order: timed
+    only). Returns {direction: dict}."""
+    rows = torch.randn(1, graph.senders.shape[0], width, generator=gen, device="cuda").bfloat16()
+    out = {}
+    for direction, csr, nodes in (("receivers", graph.receiver_csr, graph.receivers),
+                                  ("senders", graph.sender_csr, graph.senders)):
+        counts = (csr[0][1:] - csr[0][:-1]).cpu()
+        max_degree = int(counts.max())
+        got = segment_sums.segment_sum_bf16(rows, *csr)
+        torch.cuda.synchronize()
+        want = segment_sums.segment_sum_bf16_reference(rows, *csr)
+        equal = torch.equal(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        target = torch.zeros_like(got)
+        index = nodes.long()
+        ms = cuda_ms(lambda: segment_sums.segment_sum_bf16(rows, *csr))
+        plain_ms = cuda_ms(lambda: segment_sums.segment_sum_bf16_reference(rows, *csr),
+                           runs=3)
+        library_ms = cuda_ms(lambda: target.index_add_(-2, index, rows))
+        n_nodes, n_edges = counts.shape[0], rows.shape[1]
+        print(f"[s] {name} to the {direction}: N={n_nodes} E={n_edges} max degree {max_degree} | "
+              f"bit-equal {equal} | kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} index_add_ bf16 "
+              f"{library_ms:.4f}", flush=True)
+        if not equal:
+            raise AssertionError(f"S {name} {direction}: not bit-equal to its plain version")
+        # Each edge row read once, each node row written once, the flat CSR.
+        nbytes = 2 * (n_edges + n_nodes) * width + 4 * (n_nodes + 1 + n_edges)
+        out[direction] = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              flops=n_edges * width, nbytes=nbytes)
+    return out
+
+
+def forecaster_bf16_phases(port, fused_mlp, edge_mlp, segment_sums, build, gen, ref: dict) -> dict:
+    """Phases 48-50: the forecaster's bf16 policy on the card (see the module
+    docstring). `ref` holds the 1° grid and graphs (phase 3), phase 4's
+    requests, times and profiled kernel count, and phase 34's batch, step
+    time and profiled kernel count. Returns what the kernels' JSON line
+    reads."""
+    from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
+    from graph_weather_tpu_torch.train.rollout import make_rollout_fn
+
+    lat_lons = ref["lat_lons"]
+    n_grid = len(lat_lons)
+
+    def per_forward(values):
+        return sum(values[n] * c for n, c in EDGE_UPDATES.items())
+
+    # 48. K2, K2b and S in bf16 at the main-path shapes (built in phase 2)
+    t48 = time.perf_counter()
+    print(f"[build] bf16 K2 and K2b (phase 2's build of edge_mlp.cu, fused_mlp_bwd.cu; S: "
+          f"segment_sum_bf16.cu) | {tf32_mma_report(build, 'edge_mlp', kind='BF16')} | "
+          f"{tf32_mma_report(build, 'fused_mlp_bwd', kind='BF16')} | segment_sum_bf16.cu: "
+          + " | ".join(ptxas_by_kernel(build, "segment_sum_bf16")), flush=True)
+    graphs = {name: DeviceGraph.from_bundle(bundle, "cuda", edge_sums=True)
+              for name, bundle in ref["bundles"].items()}
+    k2_16 = {n: k2_bf16_case(fused_mlp, n, graphs[n], n != "m2g", gen) for n in EDGE_UPDATES}
+    k2b_16 = {n: k2b_bf16_case(fused_mlp, n, graphs[n], n != "m2g", gen) for n in EDGE_UPDATES}
+    s16 = {n: s_case(segment_sums, n, graphs[n], gen) for n in EDGE_UPDATES}
+    del graphs
+    torch.cuda.empty_cache()
+    # S per train step: the g2m aggregation and the node terms' gradients
+    # (g2m receivers twice, its senders, each latent graph's both sides, the
+    # m2g senders); per request the aggregation alone.
+    s_step = {("g2m", "receivers"): 2, ("g2m", "senders"): 1, ("latent", "receivers"): 9,
+              ("latent", "senders"): 9, ("m2g", "senders"): 1}
+
+    def s_sum(field):
+        return sum(s16[g][d][field] * c for (g, d), c in s_step.items())
+
+    def s_bound():
+        return sum(bf16_bound(s16[g][d]["flops"], s16[g][d]["nbytes"])[0] * c
+                   for (g, d), c in s_step.items())
+
+    k2_16_bound = per_forward({n: bf16_bound(v["flops"], v["nbytes"])[0] for n, v in k2_16.items()})
+    k2_16_by = bf16_bound(k2_16["m2g"]["flops"], k2_16["m2g"]["nbytes"])[1]
+    k2b_16_bound = per_forward({n: bf16_bound(v["flops"], v["nbytes"])[0] for n, v in k2b_16.items()})
+    k2b_16_by = bf16_bound(k2b_16["m2g"]["flops"], k2b_16["m2g"]["nbytes"])[1]
+    out = dict(
+        k2=dict(ms=per_forward({n: v["ms"] for n, v in k2_16.items()}),
+                f32_ms=per_forward({n: v["f32_ms"] for n, v in k2_16.items()}),
+                plain_ms=per_forward({n: v["plain_ms"] for n, v in k2_16.items()}),
+                bound_ms=k2_16_bound, bound_by=k2_16_by,
+                err=max(v["err"] for v in k2_16.values()),
+                ratio=max(v["ratio"] for v in k2_16.values()),
+                gflop=per_forward({n: v["flops"] for n, v in k2_16.items()}) / 1e9,
+                gb=per_forward({n: v["nbytes"] for n, v in k2_16.items()}) / 1e9),
+        k2b=dict(ms=per_forward({n: v["ms"]["kernel"] for n, v in k2b_16.items()}),
+                 backward_ms=per_forward({n: v["ms"]["backward"] for n, v in k2b_16.items()}),
+                 f32_ms=per_forward({n: v["ms"]["f32_kernel"] for n, v in k2b_16.items()}),
+                 plain_ms=per_forward({n: v["ms"]["plain"] for n, v in k2b_16.items()}),
+                 bound_ms=k2b_16_bound, bound_by=k2b_16_by,
+                 err=max(v["err"] for v in k2b_16.values()),
+                 ratio=max(v["ratio"] for v in k2b_16.values()),
+                 gflop=per_forward({n: v["flops"] for n, v in k2b_16.items()}) / 1e9,
+                 gb=per_forward({n: v["nbytes"] for n, v in k2b_16.items()}) / 1e9),
+        s=dict(err=max(v["err"] for d in s16.values() for v in d.values()),
+               ms=s_sum("ms"), plain_ms=s_sum("plain_ms"), library_ms=s_sum("library_ms"),
+               bound_ms=s_bound(), bound_by="bytes",
+               request_ms=s16["g2m"]["receivers"]["ms"]),
+    )
+    print(f"[k2_bf16] per forward (g2m + 9 latent + m2g): kernel_ms={out['k2']['ms']:.4f} (f32 kernel "
+          f"on the same values {out['k2']['f32_ms']:.4f}) plain_ms={out['k2']['plain_ms']:.4f} "
+          f"bound_ms={k2_16_bound:.4f} ({k2_16_by}: {out['k2']['gflop']:.1f} GFLOP, "
+          f"{out['k2']['gb']:.2f} GB) | K2b bf16 per train step kernel_ms={out['k2b']['ms']:.4f} "
+          f"(f32 kernel {out['k2b']['f32_ms']:.4f}) backward_ms={out['k2b']['backward_ms']:.4f} "
+          f"plain_ms={out['k2b']['plain_ms']:.4f} bound_ms={k2b_16_bound:.4f} ({k2b_16_by}: "
+          f"{out['k2b']['gflop']:.1f} GFLOP, {out['k2b']['gb']:.2f} GB) | S per train step (22 "
+          f"launches) kernel_ms={out['s']['ms']:.4f} plain_ms={out['s']['plain_ms']:.4f} index_add_ "
+          f"bf16 {out['s']['library_ms']:.4f} bound_ms={out['s']['bound_ms']:.4f} (bytes) | phase "
+          f"{time.perf_counter() - t48:.1f} s", flush=True)
+
+    def counts():
+        return (fused_mlp.LAUNCHES, fused_mlp.BF16_LAUNCHES, fused_mlp.BACKWARD_LAUNCHES,
+                fused_mlp.BF16_BACKWARD_LAUNCHES, edge_mlp.LAUNCHES, segment_sums.LAUNCHES)
+
+    def zero_counts():
+        fused_mlp.LAUNCHES = fused_mlp.BF16_LAUNCHES = fused_mlp.BACKWARD_LAUNCHES = 0
+        fused_mlp.BF16_BACKWARD_LAUNCHES = edge_mlp.LAUNCHES = segment_sums.LAUNCHES = 0
+
+    # 49. fc_serve_bf16: phase 4's weights and requests through forward_fn(bfloat16)
+    t49 = time.perf_counter()
+    model = port.GraphWeatherForecaster(lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM,
+                                        device="cuda")
+    model.init(torch.Generator().manual_seed(0))  # phase 4's weights
+    serve16 = torch.no_grad()(model.forward_fn(compute_dtype=torch.bfloat16))
+    per_request = (0, 11, 0, 0, 0, 1)  # (K2, K2 bf16, K2b, K2b bf16, K1, S)
+    zero_counts()
+    serve_ms = []
+    for features in ref["inputs"]:
+        before = counts()
+        pred16, ms = timed(lambda: serve16(features))
+        made = tuple(a - b for a, b in zip(counts(), before))
+        if made != per_request:
+            raise AssertionError(f"a bf16 forecaster request made {made} (K2, K2 bf16, K2b, K2b bf16, "
+                                 f"K1, S) launches, expected {per_request}")
+        if pred16.dtype != torch.float32 or pred16.shape != (1, n_grid, FEATURE_DIM) \
+                or not torch.isfinite(pred16).all():
+            raise AssertionError(f"bad bf16 prediction: {pred16.dtype} {tuple(pred16.shape)}")
+        serve_ms.append(ms)
+    serve16_launches = counts()
+    kernels16 = profile_request(lambda: serve16(features), "bf16 forecaster request")
+    kernels32 = ref["request_kernels"]
+    print(f"[fc_serve_bf16] request_ms (B=1) {[round(t, 3) for t in serve_ms]} | f32 (phase 4) "
+          f"{[round(t, 3) for t in ref['request_ms']]} | launches per request bf16 K2 11, S 1, f32 K2 "
+          f"0, K1 0 | kernels per request bf16 {kernels16}, f32 (phase 4) {kernels32}", flush=True)
+    if kernels16 is None or kernels32 is None:
+        raise AssertionError("the profiler recorded no device kernels: the bf16 request's kernel count "
+                             "against f32's is not measured")
+    if not kernels16 <= 1.5 * kernels32:
+        raise AssertionError(f"a bf16 request launched {kernels16} kernels, over 1.5 x f32's {kernels32}")
+    rollout = make_rollout_fn(model.forward_fn(compute_dtype=torch.bfloat16), 4)
+    before = counts()
+    traj, ms = timed(lambda: rollout(ref["inputs"][0]))
+    made = tuple(a - b for a, b in zip(counts(), before))
+    if traj.shape != (4, 1, n_grid, FEATURE_DIM) or traj.dtype != torch.float32 \
+            or not torch.isfinite(traj).all() or made != tuple(4 * c for c in per_request):
+        raise AssertionError(f"bad bf16 rollout: {traj.dtype} {tuple(traj.shape)}, launches {made}")
+    print(f"[fc_serve_bf16] 4-step rollout finite | ms per step {ms / 4:.3f} | bf16 K2 44, S 4", flush=True)
+    del traj, rollout
+    with torch.no_grad():
+        pred32 = model.forward_fn()(features)  # the card's f32 output of the same request
+    cpu = port.GraphWeatherForecaster(lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cpu")
+    cpu.module.load_state_dict({k: v.cpu() for k, v in model.module.state_dict().items()})
+    cpu16 = torch.no_grad()(cpu.forward_fn(compute_dtype=torch.bfloat16))
+    t0 = time.perf_counter()
+    cpu_pred16 = cpu16(features.cpu())
+    cpu_s = time.perf_counter() - t0
+    flipped, n_flips = one_ulp_off(features, 10)
+    to_cpu = rmse(pred16.cpu(), cpu_pred16)
+    to_f32 = rmse(pred16.cpu(), pred32.cpu())
+    own = rmse(cpu_pred16, cpu16(flipped)) / to_f32
+    limit = max(FC_BF16_RULE, own)
+    print(f"[cpu] bf16 forecaster at 1°: RMSE card bf16 - CPU bf16 {to_cpu:.4e} | card bf16 - card "
+          f"f32 {to_f32:.4e} | ratio {to_cpu / to_f32:.3f} (limit {limit:.3f}: the larger of "
+          f"{FC_BF16_RULE} and the CPU's own reading) | CPU bf16 against itself with {n_flips} inputs "
+          f"one ulp off {own:.3f} | max |card - CPU| {(pred16.cpu() - cpu_pred16).abs().max().item():.3e} "
+          f"| cpu bf16 forward {cpu_s:.2f} s | phase {time.perf_counter() - t49:.1f} s", flush=True)
+    if not (to_cpu <= limit * to_f32):
+        raise AssertionError(f"bf16 forecaster card vs CPU: RMSE {to_cpu} > {limit} x {to_f32}")
+    del cpu, cpu16, cpu_pred16, pred32, serve16
+
+    # 50. fc_train_bf16: 3 steps of bench.py's bf16 train_step objective
+    t50 = time.perf_counter()
+    x, y = ref["batch"]
+    loss_fn = port.NormalizedMSELoss(np.ones(FEATURE_DIM), lat_lons, normalize=True, device="cuda")
+    step = port.make_train_step(model.module.parameters(),
+                                model.forward_fn(compute_dtype=torch.bfloat16), loss_fn,
+                                port.make_optimizer(1e-3))
+    per_step = (0, 11, 0, 11, 0, 22)
+    before_params = [t.detach().clone() for t in model.module.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step_ms, losses = [], []
+    for _ in range(3):
+        before = counts()
+        loss, ms = timed(lambda: step(x, y))
+        made = tuple(a - b for a, b in zip(counts(), before))
+        if made != per_step:
+            raise AssertionError(f"a bf16 forecaster train step made {made} (K2, K2 bf16, K2b, K2b "
+                                 f"bf16, K1, S) launches, expected {per_step}")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"bf16 forecaster train loss {loss.item()}")
+        step_ms.append(ms)
+        losses.append(loss.item())
+    train16_launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = list(model.module.parameters())
+    if any(t.dtype != torch.float32 for t in params):
+        raise AssertionError("a forecaster parameter left f32 under the bf16 policy")
+    moments = [t for state in step.optimizer.state.values() for t in state.values()
+               if torch.is_tensor(t) and t.dim() > 0]
+    if any(t.dtype != torch.float32 for t in moments):
+        raise AssertionError("the optimizer's moments left f32 under the bf16 policy")
+    unchanged = sum(torch.equal(a, b) for a, b in zip(before_params, params))
+    if unchanged:
+        raise AssertionError(f"{unchanged} forecaster parameter tensors did not change in 3 bf16 steps")
+    step_kernels = profile_request(lambda: step(x, y), "bf16 forecaster train step")
+    print(f"[fc_train_bf16] 3 steps | step_ms {[round(t, 3) for t in step_ms]} | steady median "
+          f"{statistics.median(step_ms[1:]):.3f} (f32, phase 34: {ref['train_ms']:.3f}) | loss "
+          f"{[round(v, 6) for v in losses]} | launches per step bf16 K2 11, bf16 K2b 11, S 22, f32 "
+          f"K2/K2b 0, K1 0 | all {len(params)} f32 parameter tensors changed, f32 moments | peak GiB "
+          f"{peak:.2f} | kernels per step bf16 {step_kernels}, f32 (phase 34) {ref['step_kernels']}",
+          flush=True)
+    del step, before_params, moments
+
+    def grads(handle, loss, dtype, inputs, targets):
+        handle.module.zero_grad(set_to_none=True)
+        value = loss(handle.forward_fn(compute_dtype=dtype)(inputs), targets)
+        value.backward()
+        return value.item(), {k: t.grad.cpu() for k, t in handle.module.named_parameters()}
+
+    # The same weights and batch twice on the card: the loss and gradients
+    # repeat bit for bit (S, K2b and the table sums add in a fixed order).
+    card_value, card16 = grads(model, loss_fn, torch.bfloat16, x, y)
+    again_value, again = grads(model, loss_fn, torch.bfloat16, x, y)
+    differ = [k for k in card16 if not torch.equal(card16[k], again[k])]
+    if card_value != again_value or differ:
+        raise AssertionError(f"the card's repeated bf16 forecaster loss ({card_value!r}, "
+                             f"{again_value!r}) or gradients differ: {len(differ)} tensors, {differ[:8]}")
+    del again
+    f32_value, card32 = grads(model, loss_fn, torch.float32, x, y)
+    cpu = port.GraphWeatherForecaster(lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cpu")
+    cpu.module.load_state_dict({k: v.cpu() for k, v in model.module.state_dict().items()})
+    cpu_loss = port.NormalizedMSELoss(np.ones(FEATURE_DIM), lat_lons, normalize=True, device="cpu")
+    t0 = time.perf_counter()
+    cpu_value, cpu16_grads = grads(cpu, cpu_loss, torch.bfloat16, x.cpu(), y.cpu())
+    cpu_s = time.perf_counter() - t0
+    flipped, n_flips = one_ulp_off(x, 11)
+    cpu_flipped = grads(cpu, cpu_loss, torch.bfloat16, flipped, y.cpu())[1]
+    to_cpu = global_norm({k: card16[k] - cpu16_grads[k] for k in card16})
+    to_f32 = global_norm({k: card16[k] - card32[k] for k in card16})
+    own = global_norm({k: cpu16_grads[k] - cpu_flipped[k] for k in card16}) / to_f32
+    limit = max(FC_BF16_RULE, own)
+    print(f"[cpu] bf16 forecaster gradients at 1° after the steps: global norm card bf16 - CPU bf16 "
+          f"{to_cpu:.4e} | card bf16 - card f32 {to_f32:.4e} | ratio {to_cpu / to_f32:.3f} (limit "
+          f"{limit:.3f}) | CPU bf16 against itself with {n_flips} inputs one ulp off {own:.3f} | card "
+          f"repeat bit-equal True | loss card {card_value:.6f} cpu {cpu_value:.6f} f32 {f32_value:.6f} "
+          f"| |g| {global_norm(card16):.4e} | cpu bf16 forward+backward {cpu_s:.2f} s | phase "
+          f"{time.perf_counter() - t50:.1f} s", flush=True)
+    if not (to_cpu <= limit * to_f32):
+        raise AssertionError(f"bf16 forecaster gradients card vs CPU: {to_cpu} > {limit} x {to_f32}")
+    del cpu, model, card16, card32, cpu16_grads, cpu_flipped
+    torch.cuda.empty_cache()
+    out.update(serve16_launches=serve16_launches, train16_launches=train16_launches)
+    return out
 
 
 def natten_inputs(gen, kernel, heads, ch=32, dims=WM_LATENT):
@@ -1580,9 +1994,10 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def profile_request(fn, what: str = "request") -> None:
+def profile_request(fn, what: str = "request"):
     """One more request (or train step) under torch.profiler: device time by
-    kernel, and the device's busy share of its wall time."""
+    kernel, and the device's busy share of its wall time. Returns the count
+    of device kernels and copies (None when none was recorded)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1598,12 +2013,13 @@ def profile_request(fn, what: str = "request") -> None:
             entry[1] += 1
     if not by_name:
         print("[profile] no device events recorded: device time not measured", flush=True)
-        return
+        return None
     busy_ms = sum(ms for ms, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     print(f"[profile] {what} wall_ms {wall_ms:.3f} | device busy_ms {busy_ms:.3f} "
           f"({100 * busy_ms / wall_ms:.1f}%) | {sum(n for _, n in by_name.values())} kernels | "
           + " | ".join(f"{name[:60]} {ms:.3f} ms x{n}" for name, (ms, n) in top), flush=True)
+    return sum(n for _, n in by_name.values())
 
 
 def main() -> int:
@@ -1635,6 +2051,7 @@ def main() -> int:
         natten3d,
         natten_flash,
     )
+    from graph_weather_tpu_torch.ops import scatter as segment_sums
     from graph_weather_tpu_torch.ops.banded_attention import band_windows, build_band_masks
     from graph_weather_tpu_torch.ops.neighborhood_attention import (
         _window_indices,
@@ -1747,6 +2164,7 @@ def main() -> int:
     serve_launches, serve_k1_launches = fused_mlp.LAUNCHES, edge_mlp.LAUNCHES
     print(f"[serve] setup {setup_s:.2f} s | request_ms {[round(t, 3) for t in request_ms]} "
           f"| K2 launches {serve_launches}, K1 {serve_k1_launches} | loss {[round(v, 6) for v in losses]}", flush=True)
+    request_kernels = profile_request(lambda: model(features), "forecaster request")  # for phase 49
 
     # 5. the same weights and the last request on the CPU
     cpu_model = port.GraphWeatherForecaster(
@@ -2460,7 +2878,7 @@ def main() -> int:
           f"{statistics.median(fc_ms[1:]):.3f} | loss {[round(v, 6) for v in fc_losses]} | "
           f"launches per step K2 11 K2b 11 K1 0 | all {len(names)} parameter tensors changed | "
           f"peak GiB {fc_peak:.2f}", flush=True)
-    profile_request(lambda: fc_step(fc_x, fc_y), "forecaster train step")
+    step_kernels = profile_request(lambda: fc_step(fc_x, fc_y), "forecaster train step")
     del fc_step, fc_before
     fc_remat = port.GraphWeatherForecaster(
         lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, use_checkpointing=True, device="cuda"
@@ -2771,6 +3189,13 @@ def main() -> int:
     ))
     del weights9, weights16, grads16, batch16
 
+    # 48-50: the forecaster's bf16 policy
+    fc16 = forecaster_bf16_phases(port, fused_mlp, edge_mlp, segment_sums, _build, gen, dict(
+        lat_lons=lat_lons, bundles=dict(g2m=g2m, latent=latent, m2g=m2g), inputs=inputs,
+        request_ms=request_ms, request_kernels=request_kernels, batch=(fc_x, fc_y),
+        train_ms=statistics.median(fc_ms[1:]), step_kernels=step_kernels,
+    ))
+
     kernels = [
         {
             "name": "fused_edge_mlp",
@@ -2913,6 +3338,57 @@ def main() -> int:
             "bound_ms": bf16["bwd16_bound"],
             "bound_by": bf16["bwd16_by"],
             "library_ms": bf16["bwd16_sdpa"],
+        },
+        {
+            "name": "fused_edge_update_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/edge_mlp.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/fused_mlp.py:75",
+            "launches": fc16["serve16_launches"][1],  # phase 49's 3 bf16 requests
+            "max_abs_err": fc16["k2"]["err"],
+            "err_over_limit": fc16["k2"]["ratio"],  # of 2^-6 max|plain|
+            "ms": fc16["k2"]["ms"],  # per forward: g2m + 9 latent + m2g
+            "f32_ms": fc16["k2"]["f32_ms"],  # the f32 kernel on the same values
+            "plain_ms": fc16["k2"]["plain_ms"],
+            "bound_ms": fc16["k2"]["bound_ms"],
+            "bound_by": fc16["k2"]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes the fused edge update
+            "train_launches": fc16["train16_launches"][1],  # phase 50's 3 bf16 train steps
+        },
+        {
+            "name": "fused_edge_update_backward_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/fused_mlp_bwd.cu",
+            # No Pallas backward exists: XLA differentiates the JAX EdgeBlock.
+            "replaces": "graph_weather_tpu/nn/graph_blocks.py:160",
+            "launches": fc16["train16_launches"][3],  # phase 50's 3 bf16 train steps
+            "max_abs_err": fc16["k2b"]["err"],
+            "err_over_limit": fc16["k2b"]["ratio"],
+            "ms": fc16["k2b"]["ms"],  # per train step
+            "backward_ms": fc16["k2b"]["backward_ms"],  # with the weight products and S
+            "f32_ms": fc16["k2b"]["f32_ms"],
+            "plain_ms": fc16["k2b"]["plain_ms"],
+            "bound_ms": fc16["k2b"]["bound_ms"],
+            "bound_by": fc16["k2b"]["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes the edge update's gradient
+        },
+        {
+            "name": "segment_sum_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/segment_sum_bf16.cu",
+            # No Pallas kernel: XLA's bf16 segment_sum, and the gradient of
+            # jnp.take in the EdgeBlock (a scatter-add in edge order).
+            "replaces": "graph_weather_tpu/ops/scatter.py:35",
+            "also_replaces": "graph_weather_tpu/nn/graph_blocks.py:248",
+            "launches": fc16["train16_launches"][5],  # phase 50's 3 bf16 train steps
+            "serve_launches": fc16["serve16_launches"][5],  # phase 49's 3 bf16 requests
+            "max_abs_err": fc16["s"]["err"],  # bit-equal to its plain version
+            "ms": fc16["s"]["ms"],  # per train step: its 22 sums
+            "request_ms": fc16["s"]["request_ms"],  # per request: the g2m aggregation
+            "plain_ms": fc16["s"]["plain_ms"],
+            "bound_ms": fc16["s"]["bound_ms"],
+            "bound_by": fc16["s"]["bound_by"],
+            "library_ms": fc16["s"]["library_ms"],  # index_add_ in bf16 (atomics: another rounding)
         },
         {
             "name": "natten_flash_forward",

@@ -57,6 +57,19 @@
 //
 // Widths up to 256 (H, Fe; any F_src and F_dst in K1) are accepted; narrower
 // layers run on zero-padded tiles. The helpers are in edge_tile.cuh.
+//
+// bf16 (K2 on bf16 operands, the bf16 compute policy: the TPU kernel's bf16
+// mode, whose e' takes e's dtype). A third instantiation of K2's body over
+// bf16 tiles (edge_tile.cuh): one bf16 m16n8k16 mma.sync per product, f32
+// accumulators, and each result rounded where XLA rounds the JAX package's
+// bf16 EdgeBlock: e We rounded, then ((p_src[s] + p_dst[r]) + e We) + b0
+// with each add rounded, ReLU; h0 W1 rounded, + b1 rounded, ReLU; h1 W2
+// rounded, + b2 in f32 (that add's only use is the LayerNorm's f32
+// statistics, so XLA keeps it in f32); the LayerNorm in f32, rounded; the
+// residual rounded. The bf16 tiles halve the bytes staged and moved (e and
+// e' rows, the partial rows, the weight slices), and one bf16 product does
+// the work of three TF32 ones: 349 GFLOP a 1-degree forward is 0.35 ms at
+// the BF16 peak against ~1.6 GB of rows, 0.47 ms, so bytes bound it.
 
 #include "edge_tile.cuh"
 
@@ -256,6 +269,105 @@ int launch(const Params& params, int batch, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// --- bf16 (K2 on bf16 operands) ---------------------------------------------------
+
+struct Params16 {
+  const int* senders;
+  const int* receivers;
+  const bf16* p_src;
+  const bf16* p_dst;
+  const bf16* e;
+  const bf16* we;
+  const bf16* b0;
+  const bf16* w1;
+  const bf16* b1;
+  const bf16* w2;
+  const bf16* b2;
+  const bf16* gamma;
+  const bf16* beta;
+  bf16* out;
+  long long ps_bstride;
+  long long pd_bstride;
+  long long e_bstride;
+  int n_edges;
+  int f_e;
+  int hidden;
+};
+
+__device__ __forceinline__ int product_count(const Params16&) { return 3; }
+
+__device__ __forceinline__ Prod16 product(const Params16& p, int i) {
+  if (i == 0) return {p.we, p.f_e, p.hidden};
+  if (i == 1) return {p.w1, p.hidden, p.hidden};
+  return {p.w2, p.hidden, p.f_e};
+}
+
+__global__ void __launch_bounds__(THREADS, kBlocksPerSM16)
+    edge_update_bf16_kernel(const Params16 p) {
+  extern __shared__ float4 smem4[];
+  const Smem16 sm = carve16(smem4);
+  const Place q = place();
+  const int b = blockIdx.y;
+  const int e0 = blockIdx.x * TE;
+  if (threadIdx.x < TE) {
+    const int edge = e0 + threadIdx.x;
+    sm.sidx[threadIdx.x] = edge < p.n_edges ? p.senders[edge] : 0;
+    sm.ridx[threadIdx.x] = edge < p.n_edges ? p.receivers[edge] : 0;
+  }
+  __syncthreads();
+
+  // e We (the e rows staged with the first slices), then the first layer's
+  // rounded sums with the gathered partial rows.
+  stage_rows(sm.H, p.e + b * p.e_bstride + (long long)e0 * p.f_e, p.f_e, p.n_edges - e0);
+  Stream s = start(p, sm.ring);
+  Acc acc;
+  zero(acc);
+  dense(acc, q, sm.H, p, s, sm.ring, product(p, 0));
+  __syncthreads();  // every warp is done with the e rows
+  first_layer16(acc, q, p.p_src + b * p.ps_bstride, p.p_dst ? p.p_dst + b * p.pd_bstride : nullptr,
+                sm.sidx, sm.ridx, p.b0, p.hidden);
+  store_rows(sm.H, acc, q, nullptr, 0, e0, p.n_edges);
+  dense(acc, q, sm.H, p, s, sm.ring, product(p, 1));
+  __syncthreads();
+  add_bias_relu16(acc, q, p.b1, p.hidden);
+  store_rows(sm.H, acc, q, nullptr, 0, e0, p.n_edges);
+  dense(acc, q, sm.H, p, s, sm.ring, product(p, 2));
+
+  // h1 W2 rounded into H; then row by row + b2 in f32, the LayerNorm in
+  // f32 (rounded), the residual (rounded).
+  __syncthreads();
+  store_rows(sm.H, acc, q, nullptr, 0, e0, p.n_edges);
+  __syncthreads();
+  float b2[8], gm[8], bt[8];
+  load_row8(b2, p.b2, p.f_e);
+  if (p.gamma != nullptr) {
+    load_row8(gm, p.gamma, p.f_e);
+    load_row8(bt, p.beta, p.f_e);
+  }
+  const int first = opaque(e0 + (threadIdx.x >> 5) * ROWS);
+  for (int r = 0; r < ROWS; ++r) {
+    const int edge = first + r, row = edge - e0;
+    if (edge >= p.n_edges) break;
+    float h[8], x[8];
+    load_row8(h, sm.H + row * LDA16, NMAX);
+    if (p.gamma != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) h[j] += b2[j];
+      normalise(h, p.f_e);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) h[j] = round16(h[j] * gm[j] + bt[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) h[j] = round16(h[j] + b2[j]);
+    }
+    const long long bb = opaque(b);
+    load_row8(x, p.e + bb * p.e_bstride + (long long)edge * p.f_e, p.f_e);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) h[j] += x[j];
+    store_row8(p.out + (bb * p.n_edges + edge) * p.f_e, h, p.f_e);
+  }
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each launches on `stream`, does
@@ -289,4 +401,27 @@ extern "C" int gwt_edge_update_forward(
                  gamma, beta, out, ps_bstride, pd_bstride, e_bstride, n_edges,
                  hidden, hidden, f_e, hidden};
   return launch<true>(p, batch, stream);
+}
+
+// Partial-product mode in bf16 (K2 on bf16 operands): every operand but the
+// indices bf16, out bf16; the arguments as gwt_edge_update_forward's.
+extern "C" int gwt_edge_update_forward_bf16(
+    const int* senders, const int* receivers, const __nv_bfloat16* p_src,
+    long long ps_bstride, const __nv_bfloat16* p_dst, long long pd_bstride,
+    const __nv_bfloat16* e, long long e_bstride, int f_e, const __nv_bfloat16* we,
+    const __nv_bfloat16* b0, const __nv_bfloat16* w1, const __nv_bfloat16* b1,
+    const __nv_bfloat16* w2, const __nv_bfloat16* b2, const __nv_bfloat16* gamma,
+    const __nv_bfloat16* beta, __nv_bfloat16* out, int n_edges, int batch, int hidden,
+    void* stream) {
+  const Params16 p{senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2,
+                   gamma, beta, out, ps_bstride, pd_bstride, e_bstride, n_edges,
+                   f_e, hidden};
+  cudaError_t err = cudaFuncSetAttribute(
+      edge_update_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmemBytes16);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n_edges + TE - 1) / TE, batch);
+  edge_update_bf16_kernel<<<grid, THREADS, kSmemBytes16,
+                            static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
 }

@@ -42,6 +42,18 @@
 // rows g, g + 8 at channels t, t + 4: banks 4 g + t), weight slice rows
 // LDB = NMAX + 8 (the B fragment reads rows t, t + 4 at column g: banks
 // 8 t + g).
+//
+// bf16 (K2 and K2b on bf16 operands: the bf16 compute policy). The same
+// blocks, warps and accumulators; the A tile and the weight slices hold bf16
+// (rows of NMAX + 8 elements, 16-byte aligned), and every product is one
+// mma.sync m16n8k16 with bf16 inputs and f32 accumulators (clustered_tile.
+// cuh's mma_bf16): the A fragment as 32-bit words of rows g, g + 8 at
+// channel pairs 2 t and 2 t + 8 (banks 4 g + t), the B fragment of a
+// row-major [KC16, n] slice by ldmatrix.trans (rows at 528 bytes: 8 distinct
+// 16-byte bank groups). A slice holds KC16 = 32 rows, two 16-channel steps.
+// The epilogues round each result to bf16 where XLA rounds the JAX
+// package's bf16 run (edge_mlp.cu, fused_mlp_bwd.cu). Shared memory: 76 KB
+// a block, two blocks an SM.
 
 #pragma once
 
@@ -226,31 +238,6 @@ __device__ __forceinline__ void load_slice(float* dst, const float* W, int k0, i
   }
 }
 
-// Copies the stream's next slice (none past the last product) into `stage`
-// and commits one group, so that slice t is always group t.
-template <class Params>
-__device__ __forceinline__ void issue(const Params& prm, Stream& s, float* ring, int stage) {
-  if (s.p < product_count(prm)) {
-    const Prod pr = product(prm, s.p);
-    load_slice(ring + stage * kSlice, pr.w, s.k0, pr.k, pr.n);
-    s.k0 += KC;
-    if (s.k0 >= pr.k) {
-      ++s.p;
-      s.k0 = 0;
-    }
-  }
-  ctile::cp_async_commit();
-}
-
-// Starts the stream (the caller has copied the first A rows, not committed,
-// which join the first slice's group): the first STAGES - 1 slices.
-template <class Params>
-__device__ __forceinline__ Stream start(const Params& prm, float* ring) {
-  Stream s{0, 0, 0};
-  for (int i = 0; i < STAGES - 1; ++i) issue(prm, s, ring, i);
-  return s;
-}
-
 // acc += A[:, k0 : k0 + KC) . slice over the warp's tiles.
 __device__ __forceinline__ void mma_slice(Acc& acc, const Place& q, const float* A, int k0,
                                           const float* slice) {
@@ -274,25 +261,6 @@ __device__ __forceinline__ void mma_slice(Acc& acc, const Place& q, const float*
         ctile::mma_tf32(acc[mt][nt], a[mt].big, bb);
       }
     }
-  }
-}
-
-// acc += A[:, 0 : pr.k) W for the stream's current product pr (W [pr.k,
-// pr.n]), A the [TE, LDA] tile in shared memory, while the stream copies
-// STAGES - 1 slices ahead. The caller places a __syncthreads between this
-// and any write to A.
-template <class Params>
-__device__ __forceinline__ void dense(Acc& acc, const Place& q, const float* A, const Params& prm,
-                                      Stream& s, float* ring, const Prod pr) {
-  const int n = (pr.k + KC - 1) / KC;
-  for (int i = 0; i < n; ++i) {
-    ctile::cp_async_wait<STAGES - 2>();  // this thread's copies of slice `taken`
-    // The slice complete; every warp is past the slice before it, whose
-    // stage takes the slice STAGES - 1 ahead.
-    __syncthreads();
-    issue(prm, s, ring, (s.taken + STAGES - 1) % STAGES);
-    mma_slice(acc, q, A, i * KC, ring + (s.taken % STAGES) * kSlice);
-    ++s.taken;
   }
 }
 
@@ -527,6 +495,371 @@ __device__ __forceinline__ void warp_colsum(const float (&v)[8], float* red, flo
     dst[c] = s;
   }
   __syncthreads();
+}
+
+// --- bf16 tiles -------------------------------------------------------------------
+
+using ctile::bf16;
+
+constexpr int KC16 = 32;         // rows of a bf16 weight slice
+constexpr int LDA16 = NMAX + 8;  // bf16 A rows
+constexpr int LDB16 = NMAX + 8;  // bf16 slice rows
+constexpr int kH16 = TE * LDA16;
+constexpr int kSlice16 = KC16 * LDB16;
+constexpr size_t kSmemBytes16 =
+    sizeof(bf16) * (kH16 + STAGES * kSlice16) + sizeof(float) * kRed + sizeof(int) * 2 * TE;
+constexpr int kBlocksPerSM16 = 2 * (kSmemBytes16 + 1024) <= 233472 ? 2 : 1;
+static_assert(KC16 % 16 == 0 && (kH16 * sizeof(bf16)) % 16 == 0 &&
+              (kSlice16 * sizeof(bf16)) % 16 == 0, "bf16 edge tile layout");
+
+struct Smem16 {
+  bf16* H;     // [TE][LDA16]
+  bf16* ring;  // [STAGES][KC16][LDB16]
+  float* red;  // [WARPS][NMAX]
+  int* sidx;
+  int* ridx;
+};
+
+__device__ __forceinline__ Smem16 carve16(float4* base) {
+  Smem16 s;
+  s.H = reinterpret_cast<bf16*>(base);
+  s.ring = s.H + kH16;
+  s.red = reinterpret_cast<float*>(s.ring + STAGES * kSlice16);
+  s.sidx = reinterpret_cast<int*>(s.red + kRed);
+  s.ridx = s.sidx + TE;
+  return s;
+}
+
+// x rounded to the nearest bf16 (ties to even), as an f32.
+__device__ __forceinline__ float round16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Whether rows of `width` bf16 from `p` may be read as 4-byte pairs (as
+// 16-byte vectors).
+__device__ __forceinline__ bool pair_ok(const void* p, int width) {
+  return (width & 1) == 0 && (reinterpret_cast<uintptr_t>(p) & 3) == 0;
+}
+__device__ __forceinline__ bool vec8_ok(const void* p, int width) {
+  return (width & 7) == 0 && (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// (row[c], row[c + 1]) as f32, 0 at or past `width`; c is even.
+__device__ __forceinline__ float2 load2(const bf16* row, int c, int width, bool pair) {
+  if (pair)
+    return c < width ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c))
+                     : make_float2(0.f, 0.f);
+  return make_float2(c < width ? __bfloat162float(row[c]) : 0.f,
+                     c + 1 < width ? __bfloat162float(row[c + 1]) : 0.f);
+}
+
+// row[c], row[c + 1] = bf16(a), bf16(b) where c, c + 1 < width (c even).
+__device__ __forceinline__ void store2(bf16* row, int c, int width, bool pair, float a, float b) {
+  if (pair) {
+    if (c < width) *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(a, b);
+  } else {
+    if (c < width) row[c] = __float2bfloat16_rn(a);
+    if (c + 1 < width) row[c + 1] = __float2bfloat16_rn(b);
+  }
+}
+
+// Copies bf16 [rows, NMAX] into dst (stride ld), as copy_rows: src rows
+// base + ids[r] * stride (ids == nullptr: r * stride), zeros past cols and
+// n_rows. 16-byte cp.async copies when vec8 (not committed), else 2-byte
+// loads and stores (visible after the next __syncthreads).
+__device__ __forceinline__ void copy_rows(bf16* dst, int ld, int rows, const bf16* base,
+                                          const int* ids, long long stride, int n_rows, int cols,
+                                          bool vec8) {
+  if (vec8) {
+#pragma unroll 1
+    for (int i = threadIdx.x; i < rows * (NMAX / 8); i += THREADS) {
+      const int r = i / (NMAX / 8), d = 8 * (i % (NMAX / 8));
+      const bool ok = r < n_rows && d < cols;
+      const long long row = ok ? (ids ? ids[r] : r) : 0;
+      ctile::cp_async16(dst + r * ld + d, base + row * stride + (ok ? d : 0), ok);
+    }
+  } else {
+#pragma unroll 1
+    for (int i = threadIdx.x; i < rows * NMAX; i += THREADS) {
+      const int r = i / NMAX, d = i % NMAX;
+      const bool ok = r < n_rows && d < cols;
+      const long long row = ok ? (ids ? ids[r] : r) : 0;
+      dst[r * ld + d] = ok ? base[row * stride + d] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// A rows [TE, 0 : cols) = the tile's rows of src (the edge itself: src is
+// the tile's first row), zeros past cols and past the last edge. Not
+// committed.
+__device__ __forceinline__ void stage_rows(bf16* A, const bf16* src, int width, int n_rows) {
+  copy_rows(A, LDA16, TE, src, nullptr, width, n_rows, width, vec8_ok(src, width));
+}
+
+// A bf16 product of the stream: W [k, n] row-major in global memory.
+struct Prod16 {
+  const bf16* w;
+  int k, n;
+};
+
+// Copies W rows [k0, k0 + KC16) (zero at k >= k_end and past n_cols) into
+// `dst`; not committed. 16-byte vectors: thread i copies vector i % 32 of
+// rows i / 32 + 8 j.
+__device__ __forceinline__ void load_slice(bf16* dst, const bf16* W, int k0, int k_end,
+                                           int n_cols) {
+  if (vec8_ok(W, n_cols)) {
+    const int d = 8 * (threadIdx.x & 31);
+    const int r0 = threadIdx.x >> 5;
+#pragma unroll
+    for (int j = 0; j < KC16 / 8; ++j) {
+      const int r = r0 + 8 * j;
+      const bool ok = d < n_cols && k0 + r < k_end;
+      ctile::cp_async16(dst + r * LDB16 + d, ok ? W + (long long)(k0 + r) * n_cols + d : W, ok);
+    }
+  } else {
+    copy_rows(dst, LDB16, KC16, W + (long long)k0 * n_cols, nullptr, n_cols, k_end - k0, n_cols,
+              false);
+  }
+}
+
+// acc += A[:, k0 : k0 + KC16) . slice over the warp's tiles, bf16 m16n8k16.
+__device__ __forceinline__ void mma_slice(Acc& acc, const Place& q, const bf16* A, int k0,
+                                          const bf16* slice) {
+  const int lane = threadIdx.x & 31;
+  const int i = lane >> 3;  // ldmatrix matrix: k half i & 1, n-tile i >> 1
+  const bf16* b_row = slice + ((i & 1) * 8 + (lane & 7)) * LDB16 + q.col0 + (i >> 1) * 8;
+  const bf16* a_row = A + (q.row0 + q.g) * LDA16 + k0 + 2 * q.t;
+#pragma unroll
+  for (int ks = 0; ks < KC16 / 16; ++ks) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const bf16* p = a_row + 16 * mt * LDA16 + 16 * ks;
+      a[mt][0] = ctile::word(p);
+      a[mt][1] = ctile::word(p + 8 * LDA16);
+      a[mt][2] = ctile::word(p + 8);
+      a[mt][3] = ctile::word(p + 8 * LDA16 + 8);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; nt += 2) {
+      uint32_t b[4];
+      ctile::ldmatrix_x4_trans(b, b_row + 16 * ks * LDB16 + 8 * nt);
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        ctile::mma_bf16(acc[mt][nt], a[mt], b0);
+        ctile::mma_bf16(acc[mt][nt + 1], a[mt], b1);
+      }
+    }
+  }
+}
+
+// acc = bf16(acc): a product's result rounded, as XLA's bf16 dot.
+__device__ __forceinline__ void round_acc(Acc& acc) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = round16(acc[mt][nt][e]);
+}
+
+// The first layer under the bf16 policy, from acc = e We (unrounded):
+// h0 = relu(bf16(bf16(bf16(p_src[s] + p_dst[r]) + bf16(e We)) + b0)), each
+// add rounded in the JAX package's order (no p_dst: bf16(p_src[s] + bf16(e
+// We)) + b0); 0 past width. Returns the mask of positive entries, bit
+// 4 (NT mt + nt) + e, as add_bias.
+__device__ __forceinline__ unsigned long long first_layer16(Acc& acc, const Place& q,
+                                                            const bf16* p_src, const bf16* p_dst,
+                                                            const int* sidx, const int* ridx,
+                                                            const bf16* b0, int width) {
+  const bool vs = pair_ok(p_src, width), vd = p_dst != nullptr && pair_ok(p_dst, width);
+  const bool vb = pair_ok(b0, width);
+  const int first = opaque(q.row0 + q.g), col = opaque(acc_col(q, 0));
+  unsigned long long mask = 0ull;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    fence_loads();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bf16* ps = p_src + (long long)sidx[first + 16 * mt + 8 * h] * width;
+      const bf16* pd = p_dst ? p_dst + (long long)ridx[first + 16 * mt + 8 * h] * width : nullptr;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = col + 8 * nt;
+        const float2 s = load2(ps, c, width, vs);
+        float2 node = s;
+        if (pd != nullptr) {
+          const float2 d = load2(pd, c, width, vd);
+          node = make_float2(round16(s.x + d.x), round16(s.y + d.y));
+        }
+        const float2 b = load2(b0, c, width, vb);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float v = round16((j ? node.y : node.x) + round16(acc[mt][nt][2 * h + j]));
+          v = fmaxf(round16(v + (j ? b.y : b.x)), 0.f);
+          v = c + j < width ? v : 0.f;
+          acc[mt][nt][2 * h + j] = v;
+          if (v > 0.f) mask |= 1ull << (4 * (NT * mt + nt) + 2 * h + j);
+        }
+      }
+    }
+  }
+  return mask;
+}
+
+// acc = relu(bf16(bf16(acc) + bias)) (the product and the add rounded), 0
+// past n_cols; returns the mask of positive entries, as add_bias.
+__device__ __forceinline__ unsigned long long add_bias_relu16(Acc& acc, const Place& q,
+                                                              const bf16* bias, int n_cols) {
+  const bool vec = pair_ok(bias, n_cols);
+  const int col = opaque(acc_col(q, 0));
+  unsigned long long mask = 0ull;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int c = col + 8 * nt;
+    const float2 b = load2(bias, c, n_cols, vec);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float v = fmaxf(round16(round16(acc[mt][nt][e]) + ((e & 1) ? b.y : b.x)), 0.f);
+        v = c + (e & 1) < n_cols ? v : 0.f;
+        acc[mt][nt][e] = v;
+        if (v > 0.f) mask |= 1ull << (4 * (NT * mt + nt) + e);
+      }
+  }
+  return mask;
+}
+
+// H rows = bf16(acc) (all NMAX columns), and the global bf16 rows out[e0 +
+// row] of the tile's valid edges (columns < width; out == nullptr: none);
+// then acc = 0.
+__device__ __forceinline__ void store_rows(bf16* H, Acc& acc, const Place& q, bf16* out,
+                                           int width, int e0, int n_edges) {
+  const bool vec = out != nullptr && pair_ok(out, width);
+  const int first = opaque(q.row0 + q.g), col = opaque(acc_col(q, 0));
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = first + 16 * mt + 8 * h;
+      bf16* orow = out != nullptr && e0 + row < n_edges ? out + (long long)(e0 + row) * width
+                                                        : nullptr;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = col + 8 * nt;
+        const float a = acc[mt][nt][2 * h], b = acc[mt][nt][2 * h + 1];
+        *reinterpret_cast<__nv_bfloat162*>(H + row * LDA16 + c) = __floats2bfloat162_rn(a, b);
+        if (orow != nullptr) store2(orow, c, width, vec, a, b);
+        acc[mt][nt][2 * h] = acc[mt][nt][2 * h + 1] = 0.f;
+      }
+    }
+}
+
+// v[j] = row[row_col(j)] as f32, 0 at or past width: two 8-byte loads when
+// the row is 8-byte aligned and width % 4 == 0.
+__device__ __forceinline__ void load_row8(float (&v)[8], const bf16* row, int width) {
+  const bool vec = (width & 3) == 0 && (reinterpret_cast<uintptr_t>(row) & 7) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = row_col(4 * h);
+    if (vec) {
+      if (c < width) {
+        const uint2 w = *reinterpret_cast<const uint2*>(row + c);
+        const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
+        const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
+        v[4 * h] = lo.x, v[4 * h + 1] = lo.y, v[4 * h + 2] = hi.x, v[4 * h + 3] = hi.y;
+      } else {
+        v[4 * h] = v[4 * h + 1] = v[4 * h + 2] = v[4 * h + 3] = 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[4 * h + j] = c + j < width ? __bfloat162float(row[c + j]) : 0.f;
+    }
+  }
+}
+
+// row[row_col(j)] = bf16(v[j]) for row_col(j) < width (vectorised as
+// load_row8).
+__device__ __forceinline__ void store_row8(bf16* row, const float (&v)[8], int width) {
+  const bool vec = (width & 3) == 0 && (reinterpret_cast<uintptr_t>(row) & 7) == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = row_col(4 * h);
+    if (vec) {
+      if (c < width) {
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(v[4 * h], v[4 * h + 1]);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(v[4 * h + 2], v[4 * h + 3]);
+        uint2 w;
+        w.x = *reinterpret_cast<const uint32_t*>(&lo);
+        w.y = *reinterpret_cast<const uint32_t*>(&hi);
+        *reinterpret_cast<uint2*>(row + c) = w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < width) row[c + j] = __float2bfloat16_rn(v[4 * h + j]);
+    }
+  }
+}
+
+// --- the weight slices' stream, on the f32 or the bf16 ring ---------------------------
+
+// Rows and elements of a weight slice of element T.
+template <class T>
+struct Slice;
+template <>
+struct Slice<float> {
+  static constexpr int rows = KC, size = kSlice;
+};
+template <>
+struct Slice<bf16> {
+  static constexpr int rows = KC16, size = kSlice16;
+};
+
+// Copies the stream's next slice (none past the last product) into `stage`
+// and commits one group, so that slice t is always group t.
+template <class Params, class T>
+__device__ __forceinline__ void issue(const Params& prm, Stream& s, T* ring, int stage) {
+  if (s.p < product_count(prm)) {
+    const auto pr = product(prm, s.p);
+    load_slice(ring + stage * Slice<T>::size, pr.w, s.k0, pr.k, pr.n);
+    s.k0 += Slice<T>::rows;
+    if (s.k0 >= pr.k) {
+      ++s.p;
+      s.k0 = 0;
+    }
+  }
+  ctile::cp_async_commit();
+}
+
+// Starts the stream (the caller has copied the first A rows, not committed,
+// which join the first slice's group): the first STAGES - 1 slices.
+template <class Params, class T>
+__device__ __forceinline__ Stream start(const Params& prm, T* ring) {
+  Stream s{0, 0, 0};
+  for (int i = 0; i < STAGES - 1; ++i) issue(prm, s, ring, i);
+  return s;
+}
+
+// acc += A[:, 0 : pr.k) W for the stream's current product pr (W [pr.k,
+// pr.n]), A the [TE, LDA] (bf16: [TE, LDA16]) tile in shared memory, while
+// the stream copies STAGES - 1 slices ahead. The caller places a
+// __syncthreads between this and any write to A.
+template <class Params, class T, class P>
+__device__ __forceinline__ void dense(Acc& acc, const Place& q, const T* A, const Params& prm,
+                                      Stream& s, T* ring, const P pr) {
+  const int n = (pr.k + Slice<T>::rows - 1) / Slice<T>::rows;
+  for (int i = 0; i < n; ++i) {
+    ctile::cp_async_wait<STAGES - 2>();  // this thread's copies of slice `taken`
+    // The slice complete; every warp is past the slice before it, whose
+    // stage takes the slice STAGES - 1 ahead.
+    __syncthreads();
+    issue(prm, s, ring, (s.taken + STAGES - 1) % STAGES);
+    mma_slice(acc, q, A, i * Slice<T>::rows, ring + (s.taken % STAGES) * Slice<T>::size);
+    ++s.taken;
+  }
 }
 
 }  // namespace edge_tile

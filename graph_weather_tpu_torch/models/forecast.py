@@ -13,12 +13,14 @@ Serving: `apply` (and `model(...)`) runs under torch.no_grad(). Training:
 `forward_fn()` is the differentiable features -> prediction, for
 `train.make_train_step(model.module.parameters(), model.forward_fn(), loss,
 make_optimizer(lr))`; `use_checkpointing=True` recomputes each processor
-block in the backward. The bf16 policy and the cached static edge features
-are not ported yet.
+block in the backward. `forward_fn(compute_dtype=torch.bfloat16)` is the JAX
+package's bf16 policy (see forward_fn). The cached static edge features are
+not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -33,11 +35,12 @@ from graph_weather_tpu_torch.meshes.graphs import (
 )
 from graph_weather_tpu_torch.meshes.hexmesh import get_hexmesh
 from graph_weather_tpu_torch.models.layers import Decoder, Encoder, Processor
+from graph_weather_tpu_torch.nn.bf16 import Bf16Params, f32_sums
 from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
 from graph_weather_tpu_torch.nn.mlp import OPTIONS_TODO, init_parameters
 from graph_weather_tpu_torch.utils import validate_lat_lons
 
-BF16_TODO = "ROADMAP.md, 'bf16 and TF32 compute policies'"
+TF32_TODO = "ROADMAP.md, 'TF32 compute policy'"
 
 
 class ForecasterModule(nn.Module):
@@ -100,8 +103,13 @@ class ForecasterModule(nn.Module):
         x_mesh, latent_edge_feats = self.Encoder_0(features, g2m, latent)
         x_mesh = self.Processor_0(x_mesh, latent_edge_feats, latent)
         out = self.Decoder_0(x_mesh, m2g)
-        # Residual: predict the tendency, add the current state.
-        return out + features[..., : self.output_dim]
+        # Residual: predict the tendency, add the current state. Under the
+        # bf16 policy in f32: the add's only use is the f32 output, and XLA
+        # computes such an add in f32.
+        state = features[..., : self.output_dim]
+        if out.dtype == torch.bfloat16:
+            return out.float() + state.float()
+        return out + state
 
 
 def reversal_conjugated_latent(bundle: GraphBundle) -> GraphBundle:
@@ -190,6 +198,7 @@ class GraphWeatherForecaster:
             constraint_type=constraint_type,
             use_thermalizer=use_thermalizer,
         ).to(self.device)
+        self._bf16 = None  # (bf16 graphs, Bf16Params), made at the first bf16 forward_fn
 
     @property
     def num_grid_nodes(self) -> int:
@@ -208,17 +217,44 @@ class GraphWeatherForecaster:
         """The differentiable forward, features [B, N, feature+aux] ->
         prediction [B, N, output], over this handle's graphs and weights (the
         counterpart of the JAX package's forward_fn(params, features): here
-        the parameters are `self.module.parameters()`)."""
-        if compute_dtype not in (None, torch.float32):
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype}: the port runs float32 only. See {BF16_TODO}."
-            )
+        the parameters are `self.module.parameters()`).
+
+        compute_dtype=torch.bfloat16 is the JAX package's bf16 policy: the
+        parameters (bf16 copies through one flat cast, nn.bf16.Bf16Params:
+        kept while they are unchanged when serving, in the autograd graph
+        when training, so the f32 parameters get f32 gradients), the
+        features and every graph's edge_attr (cast once per handle) are
+        bf16; the modules round where XLA rounds the JAX package's run
+        (nn/mlp.py, nn/graph_blocks.py) and the edge updates run the bf16
+        kernels; the output is f32. None or torch.float32 run in f32; other
+        dtypes raise."""
         module, g2m, latent, m2g = self.module, self.g2m, self.latent, self.m2g
+        if compute_dtype in (None, torch.float32):
 
-        def fn(features: torch.Tensor) -> torch.Tensor:
-            return module(features, g2m, latent, m2g)
+            def fn(features: torch.Tensor) -> torch.Tensor:
+                return module(features, g2m, latent, m2g)
 
-        return fn
+            return fn
+        if compute_dtype != torch.bfloat16:
+            raise NotImplementedError(
+                f"compute_dtype={compute_dtype}: the port runs float32 and bfloat16. See {TF32_TODO}."
+            )
+        if self._bf16 is None:
+            graphs = tuple(
+                dataclasses.replace(g, edge_attr=g.edge_attr.to(torch.bfloat16))
+                for g in (g2m, latent, m2g)
+            )
+            self._bf16 = (graphs, Bf16Params(module))
+        graphs, params = self._bf16
+
+        def fn16(features: torch.Tensor) -> torch.Tensor:
+            with f32_sums():  # the products sum in f32, as XLA's
+                out = torch.func.functional_call(
+                    module, params(), (features.to(torch.bfloat16), *graphs)
+                )
+            return out.float()
+
+        return fn16
 
     @torch.no_grad()
     def apply(self, features: torch.Tensor) -> torch.Tensor:

@@ -49,6 +49,7 @@ from graph_weather_tpu_torch.models.gencast.layers import (
     GenCastProcessor,
 )
 from graph_weather_tpu_torch.models.gencast.modules import GENCAST_TODO
+from graph_weather_tpu_torch.nn.bf16 import f32_sums
 from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
 from graph_weather_tpu_torch.nn.mlp import init_parameters
 
@@ -317,14 +318,8 @@ class Denoiser:
                 noise_levels,
                 *consts,
             )
-            # The products sum in f32, as XLA's: no bf16 partial sums in cuBLAS.
-            matmul = torch.backends.cuda.matmul
-            reduced = matmul.allow_bf16_reduced_precision_reduction
-            matmul.allow_bf16_reduced_precision_reduction = False
-            try:
+            with f32_sums():  # the products sum in f32, as XLA's
                 out = torch.func.functional_call(self.module, params, args)
-            finally:
-                matmul.allow_bf16_reduced_precision_reduction = reduced
             return self._from_nodes(out).float()
 
         return forward

@@ -19,10 +19,10 @@ from graph_weather_tpu_torch.models.gencast.modules import (
     FourierEmbedding,
     GenCastMLP,
     InteractionNetwork,
-    _silu,
     cluster_pad_rows,
     cluster_unpad_rows,
 )
+from graph_weather_tpu_torch.nn.bf16 import silu
 from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph
 
 
@@ -111,7 +111,7 @@ class GenCastProcessor(nn.Module):
                     concat=not last,
                     use_edge_features=use_edges,
                     edge_dim=edge_emb_dim,
-                    activation=None if last else _silu,
+                    activation=None if last else silu,
                 ),
             )
 

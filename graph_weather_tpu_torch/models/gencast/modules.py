@@ -22,7 +22,7 @@ elementwise operation whose only use is an upcast to f32 is computed in f32
 and not rounded. So:
   * SiLU and the beta gate's sigmoid are x * (1 / (1 + exp(-x))), one
     rounded operation at a time, and so are their gradients, as JAX
-    differentiates them (`_silu`, `_sigmoid`);
+    differentiates them (`nn.bf16.silu`, `nn.bf16.sigmoid`);
   * a GenCastMLP's last bias add and the beta gate's last add, whose only
     use is a LayerNorm's f32 statistics, stay f32 (`wide`);
   * the LayerNorms' statistics and affine are f32, rounded once;
@@ -47,6 +47,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from graph_weather_tpu_torch.nn.bf16 import Bf16LayerNorm, layer_norm, sigmoid, silu
 from graph_weather_tpu_torch.nn.graph_blocks import DeviceGraph, _GatherSumLinear
 from graph_weather_tpu_torch.nn.mlp import TorchLinear
 from graph_weather_tpu_torch.ops.banded_attention import banded_graph_attention
@@ -56,99 +57,6 @@ from graph_weather_tpu_torch.ops.segment_softmax import segment_softmax
 
 # Where each GenCast option the port does not run yet is queued.
 GENCAST_TODO = "ROADMAP.md, 'GenCast options not yet ported'"
-
-
-class _Bf16Sigmoid(torch.autograd.Function):
-    """jax.nn.sigmoid on bf16 as XLA runs it: l = 1 / (1 + exp(-x)), each
-    operation rounded to bf16; the gradient ct * (l * (1 - l)), rounded as
-    JAX's (the derivative is a bf16 product of bf16 values)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        sig = 1.0 / (1.0 + torch.exp(-x))
-        ctx.save_for_backward(sig)
-        return sig
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        (sig,) = ctx.saved_tensors
-        return grad * (sig * (1.0 - sig))
-
-
-class _Bf16Silu(torch.autograd.Function):
-    """flax's nn.silu on bf16, x * sigmoid(x), as XLA runs it (see
-    _Bf16Sigmoid); the gradient ct * l + (x * ct) * (l * (1 - l)), each
-    operation rounded to bf16, as JAX differentiates it."""
-
-    @staticmethod
-    def forward(ctx, x):
-        sig = 1.0 / (1.0 + torch.exp(-x))
-        ctx.save_for_backward(x, sig)
-        return x * sig
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        x, sig = ctx.saved_tensors
-        return grad * sig + (x * grad) * (sig * (1.0 - sig))
-
-
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """jax.nn.sigmoid: with its bf16 rounding on bf16 (_Bf16Sigmoid)."""
-    return _Bf16Sigmoid.apply(x) if x.dtype == torch.bfloat16 else torch.sigmoid(x)
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """flax's nn.silu: with its bf16 rounding on bf16 (_Bf16Silu)."""
-    return _Bf16Silu.apply(x) if x.dtype == torch.bfloat16 else F.silu(x)
-
-
-class _Bf16LayerNorm(torch.autograd.Function):
-    """flax's LayerNorm (eps 1e-5) as the JAX package runs it under the bf16
-    policy, forward and backward. Forward: statistics, the optional scale
-    and bias in f32, the result rounded to bf16. Backward: as XLA
-    differentiates flax's program (the fast variance max(0, mean(x^2) -
-    mean(x)^2)), x's two f32 upcasts (one for the statistics, one centred)
-    each get their gradient rounded to bf16, and the two are added in bf16.
-    x is bf16, or the f32 of a `wide` linear or gate."""
-
-    @staticmethod
-    def forward(ctx, x, weight, bias, eps):
-        ctx.save_for_backward(x, weight)
-        ctx.eps = eps
-        affine = [None if t is None else t.float() for t in (weight, bias)]
-        return F.layer_norm(x.float(), x.shape[-1:], *affine, eps).to(torch.bfloat16)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        x, weight = ctx.saved_tensors
-        x32, g = x.float(), grad.float()
-        mean = x32.mean(-1, keepdim=True)
-        var = torch.clamp((x32 * x32).mean(-1, keepdim=True) - mean * mean, min=0.0)
-        r = torch.rsqrt(var + ctx.eps)
-        centred = x32 - mean
-        scale = 1.0 if weight is None else weight.float()
-        d_centred = g * (r * scale)  # through the centred upcast
-        d_r = (g * centred * scale).sum(-1, keepdim=True)
-        d_var = torch.where(var > 0, -0.5 * d_r * r**3, torch.zeros_like(d_r))
-        d_mean = -d_centred.sum(-1, keepdim=True) - 2.0 * mean * d_var
-        d_stats = (2.0 * x32 * d_var + d_mean) / x32.shape[-1]  # through the statistics' upcast
-        dx = (d_centred.to(torch.bfloat16) + d_stats.to(torch.bfloat16)).to(x.dtype)
-        if weight is None:
-            return dx, None, None, None
-        lead = tuple(range(g.dim() - 1))
-        d_weight = (g * centred * r).sum(lead).to(weight.dtype)
-        return dx, d_weight, g.sum(lead).to(weight.dtype), None
-
-
-def _layer_norm(norm: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """flax's LayerNorm under the bf16 policy (bf16 weights: _Bf16LayerNorm,
-    on x bf16 or the f32 of a `wide` linear); otherwise the module itself."""
-    if norm.weight.dtype != torch.bfloat16:
-        return norm(x)
-    return _Bf16LayerNorm.apply(x, norm.weight, norm.bias, norm.eps)
 
 
 def cluster_pad_rows(x: torch.Tensor, graph: DeviceGraph) -> torch.Tensor:
@@ -188,8 +96,8 @@ class GenCastMLP(nn.Module):
         wide = self.LayerNorm_0.weight.dtype == torch.bfloat16  # the last layer's, for the norm
         for i in range(self.n_layers):
             linear = getattr(self, f"TorchLinear_{i}")
-            x = linear(x if i == 0 else _silu(x), wide=wide and i == self.n_layers - 1)
-        return _layer_norm(self.LayerNorm_0, x)
+            x = linear(x if i == 0 else silu(x), wide=wide and i == self.n_layers - 1)
+        return layer_norm(self.LayerNorm_0, x)
 
 
 class _FactorizedGenCastMLP(GenCastMLP):
@@ -277,7 +185,7 @@ class ConditionalLayerNorm(nn.Module):
         scale = self.TorchLinear_0(cond)
         bias = self.TorchLinear_1(cond)
         if dtype == torch.bfloat16:
-            x_norm = _Bf16LayerNorm.apply(x, None, None, 1e-5)
+            x_norm = Bf16LayerNorm.apply(x, None, None, 1e-5)
         else:
             x_norm = F.layer_norm(x, (self.features_dim,), eps=1e-5)
         return (scale * x_norm + bias).to(dtype)
@@ -370,7 +278,7 @@ class GraphTransformerConv(nn.Module):
         else:
             logits = (heads(q_e) * heads(k_e)).sum(-1)
         logits = logits / float(c) ** 0.5  # [..., E, H]
-        alpha = segment_softmax(logits, graph.receivers, graph.n_receivers)
+        alpha = segment_softmax(logits, graph.receivers, graph.n_receivers, graph.receiver_csr)
         msg = heads(v_e) * alpha[..., None]
         msg = msg.reshape(msg.shape[:-2] + (h * c,))
         return self._combine(x, graph.aggregate(msg))
@@ -381,7 +289,7 @@ class GraphTransformerConv(nn.Module):
             out = out.reshape(out.shape[:-1] + (h, c)).mean(-2)
         skip = getattr(self, self._skip)(x)
         gate_in = torch.cat([skip, out, skip - out], dim=-1)
-        b = _sigmoid(getattr(self, self._beta)(gate_in))
+        b = sigmoid(getattr(self, self._beta)(gate_in))
         if b.dtype == torch.bfloat16:  # the last add `wide`: the norm's input
             return (b * skip).float() + ((1.0 - b) * out).float()
         return b * skip + (1.0 - b) * out
@@ -402,7 +310,7 @@ class CondTransformerBlock(nn.Module):
         concat: bool = True,
         use_edge_features: bool = True,
         edge_dim: Optional[int] = None,
-        activation: Optional[Callable] = _silu,
+        activation: Optional[Callable] = silu,
     ):
         super().__init__()
         self.activation = activation

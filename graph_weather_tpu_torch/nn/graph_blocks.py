@@ -7,6 +7,14 @@ package (and the reference's graph_net_block.py):
   EdgeBlock:  e' = MLP([x_src, x_dst, e]) + e     (the fused K2 kernel)
   NodeBlock:  x' = MLP([x, sum_{e into x} e']) + x
 
+On bf16 parameters (the bf16 compute policy, nn/mlp.py) the blocks compute
+in bf16, rounded where XLA rounds the JAX package's blocks: each product
+and add of the factorized first layer, ((src + dst) + e We) + b0; the last
+linear's bias add in f32 before a LayerNorm; the residuals. The sums to the
+nodes follow XLA's: a padded-CSR table sums in f32 and rounds once; a node
+without one (grid->mesh receivers) sums its edges in edge order, rounding
+each partial sum (the kernel S, over the graph's flat CSR).
+
 Bipartite graphs update destination nodes only. Submodules carry the flax
 auto-names (EdgeBlock_0/MLP_0/TorchLinear_0, ...) so converted parameters
 load with a mechanical mapping (convert.py).
@@ -28,15 +36,17 @@ from graph_weather_tpu_torch.meshes.clustering import (
     is_symmetric_edges,
 )
 from graph_weather_tpu_torch.meshes.graphs import GraphBundle
-from graph_weather_tpu_torch.nn.mlp import OPTIONS_TODO, TorchLinear, make_norm
+from graph_weather_tpu_torch.nn.mlp import OPTIONS_TODO, TorchLinear, make_norm, norm_wide
 from graph_weather_tpu_torch.ops.banded_attention import build_band_masks
 from graph_weather_tpu_torch.ops.fused_mlp import fused_edge_update
 from graph_weather_tpu_torch.ops.scatter import (
     build_chunked_csr,
+    build_flat_csr,
     build_padded_csr,
     chunked_csr_agg,
     padded_csr_agg,
     segment_sum_agg,
+    segment_sum_bf16,
     table_owner,
 )
 
@@ -93,6 +103,11 @@ class DeviceGraph:
     (ops.scatter.build_chunked_csr), each (edge_ids, mask, owner). The
     backward of EdgeBlock's fused edge update reads both; `aggregate` sums
     through receiver_sum, whose gradient is then a gather by the owners.
+
+    receiver_csr and sender_csr are the flat CSRs of the same sums
+    (ops.scatter.build_flat_csr: offsets int32 [N + 1], edge ids int32 [E]
+    in edge order), built for every graph: the bf16 sums to the nodes run
+    through them in edge order (ops.scatter.segment_sum_bf16).
     """
 
     senders: torch.Tensor  # [E] int32
@@ -104,6 +119,8 @@ class DeviceGraph:
     n_receivers: int
     receiver_sum: Optional[tuple] = None  # ((edge_ids, mask), ...) levels or None
     sender_sum: Optional[tuple] = None
+    receiver_csr: Optional[tuple] = None  # (offsets [N + 1], edge_ids [E]) int32
+    sender_csr: Optional[tuple] = None
     cluster_ids: Optional[torch.Tensor] = None  # [nb, U_pad] int32 or None
     cluster_masks: Optional[torch.Tensor] = None  # [nb, block, U_pad] int8 or None
     cluster_block: int = 0
@@ -149,6 +166,10 @@ class DeviceGraph:
             else:
                 receiver_sum = _sum_levels(bundle.receivers, bundle.n_receivers, device)
             sender_sum = _sum_levels(bundle.senders, bundle.n_senders, device)
+        receiver_csr, sender_csr = (
+            tuple(torch.as_tensor(a, device=device) for a in build_flat_csr(ids, n))
+            for ids, n in ((bundle.receivers, bundle.n_receivers), (bundle.senders, bundle.n_senders))
+        )
         cluster_ids = cluster_masks = cluster_scatter = None
         cluster_symmetric = False
         if clustered:
@@ -198,6 +219,8 @@ class DeviceGraph:
             n_receivers=bundle.n_receivers,
             receiver_sum=receiver_sum,
             sender_sum=sender_sum,
+            receiver_csr=receiver_csr,
+            sender_csr=sender_csr,
             cluster_ids=cluster_ids,
             cluster_masks=cluster_masks,
             cluster_block=cluster_block if clustered else 0,
@@ -215,7 +238,11 @@ class DeviceGraph:
         the receiver_sum levels where the graph carries them (in a fixed
         order at any degree, so the card repeats its bits), else the padded
         CSR table, else index_add_ (atomics on the card; GenCast's graphs,
-        where two levels were slower)."""
+        where two levels were slower). bf16 features without the padded
+        table sum in edge order, each partial sum rounded (S), as the JAX
+        package's bf16 segment_sum; its gradient is a gather."""
+        if edge_feats.dtype == torch.bfloat16 and self.csr_edge_ids is None:
+            return segment_sum_bf16(edge_feats, *self.receiver_csr, nodes=self.receivers)
         if self.receiver_sum is not None:
             return chunked_csr_agg(edge_feats, self.receiver_sum)
         if self.csr_edge_ids is not None:
@@ -283,8 +310,10 @@ class _FactorizedPartsMLP(nn.Module):
         h = torch.relu(self.TorchLinear_0(parts))
         for i in range(1, self.hidden_layers):
             h = torch.relu(getattr(self, f"TorchLinear_{i}")(h))
-        h = getattr(self, f"TorchLinear_{self.hidden_layers}")(h)
-        return h if self.LayerNorm_0 is None else self.LayerNorm_0(h)
+        last = getattr(self, f"TorchLinear_{self.hidden_layers}")
+        if self.LayerNorm_0 is None:
+            return last(h)
+        return self.LayerNorm_0(last(h, wide=norm_wide(self.LayerNorm_0)))
 
 
 class EdgeBlock(nn.Module):
@@ -351,6 +380,8 @@ class EdgeBlock(nn.Module):
             None if norm is None else norm.bias,
             sender_sum=graph.sender_sum,
             receiver_sum=graph.receiver_sum,
+            sender_csr=graph.sender_csr,
+            receiver_csr=graph.receiver_csr,
         )
 
 
@@ -432,7 +463,8 @@ class GraphProcessor(nn.Module):
 
     `remat` checkpoints each block under autograd (torch.utils.checkpoint):
     the block's activations are recomputed in the backward instead of kept,
-    as the JAX package's per-block nn.remat.
+    as the JAX package's per-block nn.remat, with the parameters the forward
+    used (the bf16 copies under the bf16 policy's functional_call).
     """
 
     def __init__(
@@ -465,8 +497,13 @@ class GraphProcessor(nn.Module):
         for i in range(self.num_blocks):
             block = getattr(self, f"GraphProcessorBlock_{i}")
             if self.remat and torch.is_grad_enabled():
+                state = dict(block.named_parameters())
+
+                def run(*args, block=block, state=state):
+                    return torch.func.functional_call(block, state, args)
+
                 x, edge_feats = torch.utils.checkpoint.checkpoint(
-                    block, x, x, edge_feats, graph, use_reentrant=False
+                    run, x, x, edge_feats, graph, use_reentrant=False
                 )
             else:
                 x, edge_feats = block(x, x, edge_feats, graph)

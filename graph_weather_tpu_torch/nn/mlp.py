@@ -6,6 +6,13 @@ optional normalization applied to the output. Kernels are kept as
 CUDA kernels stream weight rows without a transpose. Initialization matches
 torch.nn.Linear's default (uniform +-1/sqrt(fan_in) for kernel and bias),
 drawn from an explicit `torch.Generator` by `init_parameters`.
+
+bf16 compute policy (GraphWeatherForecaster.forward_fn(compute_dtype=
+torch.bfloat16)): on bf16 parameters every linear computes in bf16, each
+product and bias add rounded, as XLA rounds the JAX package's; the last
+linear before a LayerNorm adds its bias in f32 and keeps it (`wide`: its
+only use is the norm's f32 statistics), and the LayerNorm computes in f32
+and rounds its result once (nn.bf16.layer_norm).
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from graph_weather_tpu_torch.nn.bf16 import layer_norm
 
 # Where each option the port does not run yet is queued.
 OPTIONS_TODO = "ROADMAP.md, 'Forecaster options not yet ported'"
@@ -48,12 +57,21 @@ class TorchLinear(nn.Module):
         return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
+class LayerNorm(nn.LayerNorm):
+    """torch's LayerNorm; on bf16 weights flax's under the bf16 policy
+    (nn.bf16.layer_norm: f32 statistics and affine, the result rounded
+    once)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(self, x)
+
+
 def make_norm(norm_type: Optional[str], dim: int) -> Optional[nn.Module]:
     """LayerNorm (eps 1e-5, torch's and the JAX package's) or None."""
     if norm_type is None or norm_type == "none":
         return None
     if norm_type == "LayerNorm":
-        return nn.LayerNorm(dim, eps=1e-5)
+        return LayerNorm(dim, eps=1e-5)
     raise NotImplementedError(
         f"norm_type={norm_type!r} is not ported yet; only LayerNorm and None "
         f"are. See {OPTIONS_TODO}."
@@ -99,5 +117,14 @@ class MLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.hidden_layers):
             x = torch.relu(getattr(self, f"TorchLinear_{i}")(x))
-        x = getattr(self, f"TorchLinear_{self.hidden_layers}")(x)
-        return x if self.LayerNorm_0 is None else self.LayerNorm_0(x)
+        last = getattr(self, f"TorchLinear_{self.hidden_layers}")
+        if self.LayerNorm_0 is None:
+            return last(x)
+        return self.LayerNorm_0(last(x, wide=norm_wide(self.LayerNorm_0)))
+
+
+def norm_wide(norm: Optional[nn.Module]) -> bool:
+    """Whether the linear before `norm` keeps its bias add in f32: under the
+    bf16 policy (bf16 weights), where XLA computes that add, whose only use
+    is the norm's f32 statistics, in f32."""
+    return norm is not None and norm.weight.dtype == torch.bfloat16

@@ -41,8 +41,20 @@ under from_bundle(..., edge_sums=True)): scatter-free, so the whole backward
 is deterministic on the card, since K2b too adds in a fixed order and uses no
 atomics.
 
-The kernels take float32. On the CPU the plain versions also take float64
-(every operand but the indices), for reference gradients.
+The kernels take float32, or bfloat16 for the bf16 compute policy
+(GraphWeatherForecaster.forward_fn(compute_dtype=torch.bfloat16)): every
+operand but the indices bf16, the output and the gradients bf16, rounded
+where XLA rounds the JAX package's EdgeBlock in bf16 (the plain versions
+spell the points out: each product and add rounded; the last bias add and
+the LayerNorm in f32, rounded once, as flax's LayerNorm of a bf16 input; its
+backward as nn.bf16.layer_norm_backward). The bf16 sums of dh0 to the nodes
+are XLA's gradient of jnp.take, in edge order with every partial sum
+rounded: the kernel S (ops.scatter.segment_sum_bf16) over the flat CSRs
+`sender_csr` and `receiver_csr` ((offsets, edge_ids), as DeviceGraph
+carries them), which the bf16 calls require. `BF16_LAUNCHES` and
+`BF16_BACKWARD_LAUNCHES` count the bf16 kernels. On the CPU the plain
+versions also take float64 (every operand but the indices), for reference
+gradients.
 """
 
 from __future__ import annotations
@@ -53,12 +65,19 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from graph_weather_tpu_torch.nn.bf16 import f32_sums, layer_norm_backward
 from graph_weather_tpu_torch.ops._build import c_function
 from graph_weather_tpu_torch.ops.edge_mlp import _batch_stride, _ptr, _rows_contiguous
-from graph_weather_tpu_torch.ops.scatter import chunked_csr_agg
+from graph_weather_tpu_torch.ops.scatter import (
+    chunked_csr_agg,
+    segment_sum_bf16,
+    segment_sum_bf16_reference,
+)
 
 LAUNCHES = 0  # K2 (csrc/edge_mlp.cu, partial-product mode)
 BACKWARD_LAUNCHES = 0  # K2b (csrc/fused_mlp_bwd.cu)
+BF16_LAUNCHES = 0  # K2 in bf16
+BF16_BACKWARD_LAUNCHES = 0  # K2b in bf16
 MAX_WIDTH = 256  # widest H and Fe the kernels' tiles hold
 TILE_EDGES = 64  # edges per CUDA block (TE in csrc/edge_tile.cuh)
 _SLOTS = ("b0", "b1", "b2", "gamma", "beta")  # K2b's per-tile column sums
@@ -89,6 +108,11 @@ _BWD_ARGTYPES = [
 ]
 
 Levels = tuple  # ((edge_ids [N_l, K_l], mask [N_l, K_l]), ...)
+Csr = tuple  # (offsets int32 [N + 1], edge_ids int32 [E]): ops.scatter.build_flat_csr
+_ENTRIES = {  # (forward, backward) C entries by dtype
+    torch.float32: ("gwt_edge_update_forward", "gwt_fused_mlp_backward"),
+    torch.bfloat16: ("gwt_edge_update_forward_bf16", "gwt_fused_mlp_backward_bf16"),
+}
 
 
 def fused_edge_update_activations(senders, receivers, p_src, p_dst, e, we, b0, w1, b1):
@@ -103,11 +127,18 @@ def fused_edge_update_activations(senders, receivers, p_src, p_dst, e, we, b0, w
 def fused_edge_update_reference(
     senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2, gamma=None, beta=None
 ) -> torch.Tensor:
-    """Plain PyTorch version of K2: gather the partial rows, then the chain."""
+    """Plain PyTorch version of K2: gather the partial rows, then the chain
+    (in bf16 each operation rounded, see the module docstring)."""
     _, h1 = fused_edge_update_activations(senders, receivers, p_src, p_dst, e, we, b0, w1, b1)
-    h = h1 @ w2 + b2
-    if gamma is not None:
-        h = F.layer_norm(h, (h.shape[-1],), gamma, beta, eps=1e-5)
+    if h1.dtype == torch.bfloat16 and gamma is not None:
+        # The last bias add, whose only use is the LayerNorm's f32 statistics,
+        # in f32; the LayerNorm's statistics and affine in f32, rounded once.
+        h = (h1 @ w2).float() + b2.float()
+        h = F.layer_norm(h, (h.shape[-1],), gamma.float(), beta.float(), eps=1e-5).to(h1.dtype)
+    else:
+        h = h1 @ w2 + b2
+        if gamma is not None:
+            h = F.layer_norm(h, (h.shape[-1],), gamma, beta, eps=1e-5)
     return h + e
 
 
@@ -121,15 +152,27 @@ def _unbroadcast(grad: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return _batch_sum(grad) if like.dim() < grad.dim() else grad
 
 
-def _param_grads(p_src, p_dst, e, dh0, de, sender_sum, receiver_sum):
+def _param_grads(p_src, p_dst, e, dh0, de, sums, plain=False):
     """The node, edge and weight-slice gradients from dh0 [B, E, H] and de
-    [B, E, Fe]: the sums to the nodes, and e^T dh0."""
-    dp_src = _unbroadcast(chunked_csr_agg(dh0, sender_sum), p_src)
+    [B, E, Fe]: the sums to the nodes, and e^T dh0. `sums`: (sender_sum,
+    receiver_sum, sender_csr, receiver_csr), the tables of f32 and the flat
+    CSRs of bf16 (S, in edge order; its plain version when `plain`)."""
+    sender_sum, receiver_sum, sender_csr, receiver_csr = sums
+    bf16 = dh0.dtype == torch.bfloat16
+    edge_order_sum = segment_sum_bf16_reference if plain else segment_sum_bf16
+
+    def node_sum(levels, csr):
+        return edge_order_sum(dh0, *csr) if bf16 else chunked_csr_agg(dh0, levels)
+
+    dp_src = _unbroadcast(node_sum(sender_sum, sender_csr), p_src)
     dp_dst = None
     if p_dst is not None:
-        dp_dst = _unbroadcast(chunked_csr_agg(dh0, receiver_sum), p_dst)
+        dp_dst = _unbroadcast(node_sum(receiver_sum, receiver_csr), p_dst)
     if e.dim() == 3:
         dwe = e.reshape(-1, e.shape[-1]).t() @ dh0.reshape(-1, dh0.shape[-1])
+    elif bf16 and dh0.shape[0] > 1:  # one product over the B E rows, rounded once
+        dwe = e.expand(dh0.shape[:-1] + e.shape[-1:]).reshape(-1, e.shape[-1]).t() @ (
+            dh0.reshape(-1, dh0.shape[-1]))
     else:
         dwe = e.t() @ _batch_sum(dh0)
     return dp_src, dp_dst, _unbroadcast(de, e), dwe
@@ -138,12 +181,14 @@ def _param_grads(p_src, p_dst, e, dh0, de, sender_sum, receiver_sum):
 def fused_edge_update_backward_reference(
     senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2, gamma, beta, dout,
     sender_sum: Levels, receiver_sum: Levels, activations=None,
+    sender_csr: Optional[Csr] = None, receiver_csr: Optional[Csr] = None,
 ):
     """Plain PyTorch version of the backward, written out step by step: the
     recomputed chain, the LayerNorm backward, the ReLU masks, the three
     data-gradient products, the weight and bias sums and the sums to the
     nodes (through the tables `sender_sum` and `receiver_sum`, see the
-    module docstring). dout is [B, E, Fe] (or [E, Fe] when every operand is
+    module docstring; in bf16 through the flat CSRs `sender_csr` and
+    `receiver_csr`). dout is [B, E, Fe] (or [E, Fe] when every operand is
     unbatched).
     Returns the gradients of (p_src, p_dst, e, we, b0, w1, b1, w2, b2, gamma,
     beta), None for an operand that is None.
@@ -161,9 +206,13 @@ def fused_edge_update_backward_reference(
         )
     shape = dout.shape[:-1] + (w1.shape[0],)
     h0, h1 = (h.expand(shape) for h in activations)
-    h2 = h1 @ w2 + b2
     dgamma = dbeta = None
-    if gamma is not None:
+    if gamma is not None and dout.dtype == torch.bfloat16:
+        # flax's LayerNorm of the f32 bias add, differentiated as XLA does.
+        dh2, dgamma, dbeta = layer_norm_backward((h1 @ w2).float() + b2.float(), gamma, dout, 1e-5)
+        dh2, dgamma, dbeta = dh2.to(dout.dtype), dgamma.to(dout.dtype), dbeta.to(dout.dtype)
+    elif gamma is not None:
+        h2 = h1 @ w2 + b2
         centred = h2 - h2.mean(-1, keepdim=True)
         rstd = torch.rsqrt((centred * centred).mean(-1, keepdim=True) + 1e-5)
         normed = centred * rstd
@@ -182,7 +231,8 @@ def fused_edge_update_backward_reference(
 
     dw2 = rows(h1).t() @ rows(dh2)
     dw1 = rows(h0).t() @ rows(dh1)
-    dp_src, dp_dst, de, dwe = _param_grads(p_src, p_dst, e, dh0, de, sender_sum, receiver_sum)
+    sums = (sender_sum, receiver_sum, sender_csr, receiver_csr)
+    dp_src, dp_dst, de, dwe = _param_grads(p_src, p_dst, e, dh0, de, sums, plain=True)
     return (
         dp_src, dp_dst, de, dwe, dh0.sum((0, 1)), dw1, dh1.sum((0, 1)), dw2,
         dh2.sum((0, 1)), dgamma, dbeta,
@@ -201,10 +251,13 @@ def _check(senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2, gamma, b
     if senders.dtype != torch.int32 or receivers.dtype != torch.int32:
         raise TypeError(f"{name}: senders/receivers must be int32")
     dtypes = {t.dtype for t in tensors[2:]}
-    allowed = (torch.float32, torch.float64) if p_src.device.type == "cpu" else (torch.float32,)
+    allowed = (torch.float32, torch.bfloat16)
+    if p_src.device.type == "cpu":
+        allowed += (torch.float64,)
     if len(dtypes) != 1 or dtypes.pop() not in allowed:
         raise TypeError(
-            f"{name}: partials, edges and weights must be float32 (or all float64 on the CPU)"
+            f"{name}: partials, edges and weights must be all float32 or all bfloat16 (or all "
+            "float64 on the CPU)"
         )
     if (gamma is None) != (beta is None):
         raise ValueError(f"{name}: pass both gamma and beta, or neither")
@@ -248,12 +301,12 @@ def _forward_cuda(senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2, g
     batch, n_edges, f_e, hidden = _check(
         senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2, gamma, beta
     )
-    out = torch.empty((batch or 1, n_edges, f_e), dtype=torch.float32, device=p_src.device)
+    out = torch.empty((batch or 1, n_edges, f_e), dtype=e.dtype, device=p_src.device)
     if out.numel() == 0:  # nothing to launch
         return out if batch else out[0]
     with torch.cuda.device(p_src.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = c_function("edge_mlp", "gwt_edge_update_forward", _FWD_ARGTYPES)(
+        err = c_function("edge_mlp", _ENTRIES[e.dtype][0], _FWD_ARGTYPES)(
             senders.data_ptr(), receivers.data_ptr(),
             p_src.data_ptr(), _batch_stride(p_src),
             _ptr(p_dst), _batch_stride(p_dst),
@@ -264,22 +317,25 @@ def _forward_cuda(senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2, g
         )
     if err != 0:
         raise RuntimeError(f"fused_edge_update: CUDA kernel launch failed (cudaError {err})")
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, BF16_LAUNCHES
+    if e.dtype == torch.bfloat16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out if batch else out[0]
 
 
 def launch_backward(senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2, gamma, dout):
     """One K2b launch on [B, E, Fe] dout. Returns (h0, h1, dh2, dh1, dh0, de)
-    as [B, E, width] and the per-tile column sums, a dict of [B * n_tiles,
-    width] tensors under b0, b1, b2, gamma, beta (the last two only with the
-    LayerNorm)."""
+    as [B, E, width] in dout's dtype and the per-tile column sums (f32), a
+    dict of [B * n_tiles, width] tensors under b0, b1, b2, gamma, beta (the
+    last two only with the LayerNorm)."""
     batch, n_edges, f_e = dout.shape
     hidden = w1.shape[0]
     dev = dout.device
 
     def buf(width):
-        return torch.empty((batch, n_edges, width), dtype=torch.float32, device=dev)
+        return torch.empty((batch, n_edges, width), dtype=dout.dtype, device=dev)
 
     h0, h1, dh1, dh0 = buf(hidden), buf(hidden), buf(hidden), buf(hidden)
     dh2, de = buf(f_e), buf(f_e)
@@ -288,7 +344,7 @@ def launch_backward(senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2,
     transposed = [w.t().contiguous() for w in (w2, w1, we)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = c_function("fused_mlp_bwd", "gwt_fused_mlp_backward", _BWD_ARGTYPES)(
+        err = c_function("fused_mlp_bwd", _ENTRIES[dout.dtype][1], _BWD_ARGTYPES)(
             senders.data_ptr(), receivers.data_ptr(),
             p_src.data_ptr(), _batch_stride(p_src), _ptr(p_dst), _batch_stride(p_dst),
             e.data_ptr(), _batch_stride(e), dout.data_ptr(),
@@ -300,8 +356,11 @@ def launch_backward(senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2,
         )
     if err != 0:
         raise RuntimeError(f"fused_edge_update backward: CUDA kernel launch failed (cudaError {err})")
-    global BACKWARD_LAUNCHES
-    BACKWARD_LAUNCHES += 1
+    global BACKWARD_LAUNCHES, BF16_BACKWARD_LAUNCHES
+    if dout.dtype == torch.bfloat16:
+        BF16_BACKWARD_LAUNCHES += 1
+    else:
+        BACKWARD_LAUNCHES += 1
     widths = dict(b0=hidden, b1=hidden, b2=f_e, gamma=f_e, beta=f_e)
     slots = _SLOTS if gamma is not None else _SLOTS[:3]
     sums = {k: colsum[_SLOTS.index(k), :, : widths[k]] for k in slots}
@@ -309,7 +368,7 @@ def launch_backward(senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2,
 
 
 def _backward_cuda(senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2, gamma, beta,
-                   dout, sender_sum, receiver_sum):
+                   dout, sender_sum, receiver_sum, sender_csr=None, receiver_csr=None):
     """K2b, then the plain products and sums; the gradients as the reference
     returns them."""
     dout = (dout[None] if dout.dim() == 2 else dout).contiguous()
@@ -317,19 +376,21 @@ def _backward_cuda(senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2, 
         zero = [torch.zeros_like(t) if t is not None else None
                 for t in (p_src, p_dst, e, we, b0, w1, b1, w2, b2, gamma, beta)]
         return tuple(zero)
-    (h0, h1, dh2, dh1, dh0, de), sums = launch_backward(
+    (h0, h1, dh2, dh1, dh0, de), tiles = launch_backward(
         senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2, gamma, dout
     )
 
     def rows(t):
         return t.reshape(-1, t.shape[-1])
 
-    dw2 = rows(h1).t() @ rows(dh2)
-    dw1 = rows(h0).t() @ rows(dh1)
-    del h0, h1, dh2, dh1
-    # The per-tile sums, added in a fixed order (no atomics).
-    total = {k: v.sum(0) for k, v in sums.items()}
-    dp_src, dp_dst, de, dwe = _param_grads(p_src, p_dst, e, dh0, de, sender_sum, receiver_sum)
+    with f32_sums():
+        dw2 = rows(h1).t() @ rows(dh2)
+        dw1 = rows(h0).t() @ rows(dh1)
+        del h0, h1, dh2, dh1
+        # The per-tile sums (f32), added in a fixed order (no atomics).
+        total = {k: v.sum(0).to(dout.dtype) for k, v in tiles.items()}
+        sums = (sender_sum, receiver_sum, sender_csr, receiver_csr)
+        dp_src, dp_dst, de, dwe = _param_grads(p_src, p_dst, e, dh0, de, sums)
     return (
         dp_src, dp_dst, de, dwe, total["b0"], dw1, total["b1"], dw2, total["b2"],
         total.get("gamma"), total.get("beta"),
@@ -341,25 +402,28 @@ class _FusedEdgeUpdate(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2, gamma, beta,
-                sender_sum, receiver_sum):
+                sums):
         args = (senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2, gamma, beta)
         if p_src.device.type == "cpu":
             out = fused_edge_update_reference(*args)
         else:
             out = _forward_cuda(*args)
         ctx.save_for_backward(*args)
-        ctx.sums = (sender_sum, receiver_sum)
+        ctx.sums = sums
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
         args = ctx.saved_tensors
+        sender_sum, receiver_sum, sender_csr, receiver_csr = ctx.sums
+        tables = dict(sender_csr=sender_csr, receiver_csr=receiver_csr)
         if args[2].device.type == "cpu":
-            grads = fused_edge_update_backward_reference(*args, dout, *ctx.sums)
+            grads = fused_edge_update_backward_reference(
+                *args, dout, sender_sum, receiver_sum, **tables)
         else:
-            grads = _backward_cuda(*args, dout, *ctx.sums)
-        return (None, None, *grads, None, None)
+            grads = _backward_cuda(*args, dout, sender_sum, receiver_sum, **tables)
+        return (None, None, *grads, None)
 
 
 def fused_edge_update(
@@ -379,11 +443,14 @@ def fused_edge_update(
     *,
     sender_sum: Levels,
     receiver_sum: Levels,
+    sender_csr: Optional[Csr] = None,
+    receiver_csr: Optional[Csr] = None,
 ) -> torch.Tensor:
     """e' = LN(MLP chain from the gathered partials) + e (see the module
     docstring). Returns [B, E, Fe], or [E, Fe] when no operand is batched.
     Differentiable; the backward sums to the nodes through `sender_sum` and
-    `receiver_sum` (see the module docstring)."""
+    `receiver_sum`, in bf16 through `sender_csr` and `receiver_csr` (see the
+    module docstring)."""
     args = (senders, receivers, p_src, p_dst, e, we, b0, w1, b1, w2, b2, gamma, beta)
     _check(*args)
     if sender_sum is None or receiver_sum is None:
@@ -391,10 +458,16 @@ def fused_edge_update(
             "fused_edge_update: sender_sum/receiver_sum are required (ops.scatter."
             "build_chunked_csr, or a DeviceGraph built with edge_sums=True)"
         )
+    if e.dtype == torch.bfloat16 and (sender_csr is None or receiver_csr is None):
+        raise ValueError(
+            "fused_edge_update: bf16 needs sender_csr/receiver_csr (ops.scatter.build_flat_csr, "
+            "or a DeviceGraph's)"
+        )
     if p_src.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_edge_update: no kernel for device {p_src.device}")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
-        return _FusedEdgeUpdate.apply(*args, sender_sum, receiver_sum)
+        sums = (sender_sum, receiver_sum, sender_csr, receiver_csr)
+        return _FusedEdgeUpdate.apply(*args, sums)
     if p_src.device.type == "cpu":
         return fused_edge_update_reference(*args)
     return _forward_cuda(*args)

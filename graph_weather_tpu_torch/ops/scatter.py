@@ -1,29 +1,50 @@
 """Edge->node aggregation primitives (port of graph_weather_tpu/ops/scatter.py).
 
-Both strategies are XLA in the JAX package, so they are plain PyTorch here:
+Both strategies are XLA in the JAX package, so they are plain PyTorch here,
+but for the bf16 segment sum, which is a CUDA kernel on the card:
 
   * `segment_sum_agg`: `index_add_` over the receiver ids. Works for any
     degree distribution (grid->mesh cells receive up to 720 grid points at
     the poles of a 1° grid). On CUDA the sum uses atomics, so its order,
-    and the last bits of the result, change from run to run. bf16 edge
-    features are summed as the JAX package's bf16 `segment_sum` sums them:
-    each receiver's edges one at a time, in edge order, every partial sum
-    rounded to bf16 (in a fixed order on the card too).
+    and the last bits of the result, change from run to run. The JAX
+    package's bf16 `segment_sum` is `segment_sum_bf16`.
+  * `segment_sum_bf16` ("S", csrc/segment_sum_bf16.cu): the bf16 sum of
+    XLA's `segment_sum`, and of the gradient of `jnp.take` (a scatter-add):
+    each node's edges one at a time, in edge order, every partial sum
+    rounded to bf16, over a flat CSR (`build_flat_csr`: offsets [N + 1],
+    edge ids [E]). No atomics: the card repeats its bits and matches the
+    plain version, `segment_sum_bf16_reference`, bit for bit.
   * `padded_csr_agg`: for bounded-degree graphs (latent mesh and
     mesh->grid: <= 7) a dense [N, K] gather and masked sum, scatter-free
-    and deterministic.
+    and deterministic. In bf16 the sum runs in f32 and is rounded once, as
+    XLA's reduction of the JAX package's padded_csr_agg.
   * `chunked_csr_agg`: the same sum in levels of padded CSR tables
     (`build_chunked_csr`): each node's edges in chunks of at most 16, then
     each node's chunks. Scatter-free and deterministic at any degree; the
     forecaster's graphs sum to high-degree nodes this way, in the
     aggregation (grid->mesh receivers) and in the fused edge update's
-    backward (grid->mesh receivers, mesh->grid senders).
+    backward (grid->mesh receivers, mesh->grid senders), in f32.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from graph_weather_tpu_torch.ops._build import c_function
+
+LAUNCHES = 0  # S (csrc/segment_sum_bf16.cu)
+
+_c_ptr, _c_i64, _c_int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_ARGTYPES = [
+    _c_ptr, _c_i64,  # edge rows [batch, E, F], batch stride
+    _c_ptr, _c_ptr,  # offsets [N + 1], edge ids [E]
+    _c_ptr,  # out [batch, N, F]
+    _c_int, _c_int, _c_int,  # N, F, batch
+    _c_ptr,  # cudaStream_t
+]
 
 
 def segment_sum_agg(
@@ -32,20 +53,117 @@ def segment_sum_agg(
     """Sum [..., E, F] edge features into [..., N, F] by receiver id."""
     shape = edge_feats.shape[:-2] + (n_receivers, edge_feats.shape[-1])
     out = torch.zeros(shape, dtype=edge_feats.dtype, device=edge_feats.device)
-    if edge_feats.dtype != torch.bfloat16:
-        return out.index_add_(-2, receivers, edge_feats)
-    # The j-th edge of every receiver (in edge order) at step j: one add of
-    # each partial sum, rounded to bf16, as a sequential bf16 scatter-add.
-    receivers = receivers.long()
-    order = torch.argsort(receivers, stable=True)
-    counts = torch.bincount(receivers, minlength=n_receivers)
-    starts = torch.cumsum(counts, 0) - counts
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(order.numel(), device=order.device) - starts[receivers[order]]
-    for j in range(int(counts.max()) if counts.numel() else 0):
-        edges = torch.nonzero(rank == j).squeeze(1)
-        out.index_add_(-2, receivers[edges], edge_feats.index_select(-2, edges))
+    return out.index_add_(-2, receivers, edge_feats)
+
+
+def build_flat_csr(ids: np.ndarray, n_nodes: int) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side: the flat CSR of a sum of edges to `n_nodes` nodes by `ids`
+    (one per edge, any order): offsets int32 [N + 1] and edge ids int32 [E],
+    node n's edges at edge_ids[offsets[n] : offsets[n + 1]] in edge order."""
+    ids = np.asarray(ids)
+    offsets = np.zeros(n_nodes + 1, dtype=np.int32)
+    np.cumsum(np.bincount(ids, minlength=n_nodes), out=offsets[1:])
+    return offsets, np.argsort(ids, kind="stable").astype(np.int32)
+
+
+def segment_sum_bf16_reference(
+    edge_feats: torch.Tensor, offsets: torch.Tensor, edge_ids: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch version of S: at step j, the j-th edge of every node
+    with more than j edges is added to its partial sum in bf16 (rounded),
+    over the padded table of the flat CSR. The number of steps, the longest
+    run, is read from the offsets: on the host where the port runs it (CPU
+    tensors), a host sync on the card."""
+    starts = offsets[:-1].long()
+    counts = offsets[1:].long() - starts
+    max_degree = int(counts.max()) if counts.numel() else 0
+    shape = edge_feats.shape[:-2] + (counts.shape[0], edge_feats.shape[-1])
+    out = torch.zeros(shape, dtype=edge_feats.dtype, device=edge_feats.device)
+    for j in range(max_degree):
+        live = counts > j
+        rows = edge_feats.index_select(-2, edge_ids[torch.where(live, starts + j, 0)].long())
+        out = torch.where(live[:, None], out + rows, out)
     return out
+
+
+def _check_bf16_sum(edge_feats, offsets, edge_ids):
+    name = "segment_sum_bf16"
+    if edge_feats.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: edge rows must be bfloat16")
+    if offsets.dtype != torch.int32 or edge_ids.dtype != torch.int32:
+        raise TypeError(f"{name}: offsets and edge ids must be int32")
+    if offsets.dim() != 1 or offsets.shape[0] < 1 or edge_ids.shape != (edge_feats.shape[-2],):
+        raise ValueError(f"{name}: offsets must be [N + 1] and edge ids [E], E the rows' edges")
+    if edge_feats.dim() < 2 or any(t.device != edge_feats.device for t in (offsets, edge_ids)):
+        raise ValueError(f"{name}: [..., E, F] rows, offsets and edge ids on one device")
+
+
+def _segment_sum_cuda(edge_feats, offsets, edge_ids):
+    """One S launch on [..., E, F] rows."""
+    lead, (n_edges, width) = edge_feats.shape[:-2], edge_feats.shape[-2:]
+    rows = edge_feats.reshape(-1, n_edges, width)
+    if rows.stride(-1) != 1 or (n_edges > 1 and rows.stride(-2) != width):
+        rows = rows.contiguous()
+    n_nodes, batch = offsets.shape[0] - 1, rows.shape[0]
+    out = torch.empty((batch, n_nodes, width), dtype=torch.bfloat16, device=rows.device)
+    if out.numel():
+        with torch.cuda.device(rows.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = c_function("segment_sum_bf16", "gwt_segment_sum_bf16", _ARGTYPES)(
+                rows.data_ptr(), rows.stride(0) if batch > 1 else 0,
+                offsets.data_ptr(), edge_ids.data_ptr(), out.data_ptr(),
+                n_nodes, width, batch, stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"segment_sum_bf16: CUDA kernel launch failed (cudaError {err})")
+        global LAUNCHES
+        LAUNCHES += 1
+    return out.reshape(lead + (n_nodes, width))
+
+
+def _segment_sum_bf16(edge_feats, offsets, edge_ids):
+    _check_bf16_sum(edge_feats, offsets, edge_ids)
+    if edge_feats.device.type == "cpu":
+        return segment_sum_bf16_reference(edge_feats, offsets, edge_ids)
+    if edge_feats.device.type != "cuda":
+        raise ValueError(f"segment_sum_bf16: no kernel for device {edge_feats.device}")
+    return _segment_sum_cuda(edge_feats, offsets, edge_ids)
+
+
+class _EdgeOrderSum(torch.autograd.Function):
+    """S, whose gradient is a gather by each edge's node (exact: the
+    transpose of XLA's segment_sum)."""
+
+    @staticmethod
+    def forward(ctx, edge_feats, offsets, edge_ids, nodes):
+        ctx.save_for_backward(nodes)
+        return _segment_sum_bf16(edge_feats, offsets, edge_ids)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        (nodes,) = ctx.saved_tensors
+        return grad.index_select(-2, nodes), None, None, None
+
+
+def segment_sum_bf16(
+    edge_feats: torch.Tensor,
+    offsets: torch.Tensor,
+    edge_ids: torch.Tensor,
+    nodes: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Sum bf16 [..., E, F] edge rows to [..., N, F] nodes through the flat
+    CSR (offsets int32 [N + 1], edge_ids int32 [E]; `build_flat_csr`), each
+    node's edges one at a time in the CSR's order, each partial sum rounded
+    to bf16. CPU tensors take the plain version, CUDA tensors the kernel S
+    (never one for the other). Differentiable when `nodes` ([E], the node
+    of each edge) is given: the gradient of an edge row is its node's;
+    without `nodes`, rows that need a gradient raise on either device."""
+    if torch.is_grad_enabled() and edge_feats.requires_grad:
+        if nodes is None:
+            raise ValueError("segment_sum_bf16: rows that need a gradient need `nodes`")
+        return _EdgeOrderSum.apply(edge_feats, offsets, edge_ids, nodes)
+    return _segment_sum_bf16(edge_feats, offsets, edge_ids)
 
 
 def _table_sum(edge_feats: torch.Tensor, edge_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

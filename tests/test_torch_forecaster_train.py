@@ -116,7 +116,15 @@ def test_checkpointing_gives_bit_equal_gradients(reference):
 
 
 def test_bf16_policy_raises():
+    """forward_fn takes float32 and bfloat16 (tests/test_torch_forecaster_bf16.py
+    holds the bf16 policy to the JAX package's); other compute dtypes raise,
+    naming the queued TF32 policy."""
     model = GraphWeatherForecaster(_grid(30.0), **CONFIG, device="cpu")
     assert callable(model.forward_fn(compute_dtype=torch.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, 'bf16 and TF32 compute policies'"):
-        model.forward_fn(compute_dtype=torch.bfloat16)
+    features = torch.zeros(1, len(model.lat_lons), FEATURES + AUX)
+    with torch.no_grad():
+        out = model.forward_fn(compute_dtype=torch.bfloat16)(features)
+    assert out.dtype == torch.float32 and out.shape == (1, len(model.lat_lons), FEATURES)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, 'TF32 compute policy'"):
+            model.forward_fn(compute_dtype=dtype)

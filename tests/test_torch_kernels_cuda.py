@@ -25,9 +25,10 @@ from graph_weather_tpu_torch.ops import (
     fused_mlp,
     natten3d,
     natten_flash,
+    scatter,
 )
 from graph_weather_tpu_torch.ops.banded_attention import build_band_masks
-from graph_weather_tpu_torch.ops.scatter import build_chunked_csr
+from graph_weather_tpu_torch.ops.scatter import build_chunked_csr, build_flat_csr
 from graph_weather_tpu_torch.ops.neighborhood_attention import (
     neighborhood_attention_3d,
     neighborhood_attention_3d_reference,
@@ -157,12 +158,16 @@ def test_fused_edge_update_matches_plain(gen, shape):
 
 
 def _kernel_activations(args, dout):
-    """K2b's recomputed (h0, h1); the kernel is deterministic, so every
-    launch on these inputs draws the same ReLU masks."""
+    """K2b's recomputed (h0, h1), held against the plain ones (within ATOL
+    in f32, BF16_TOL of their max in bf16); the kernel is deterministic, so
+    every launch on these inputs draws the same ReLU masks."""
     (h0, h1, *_), _ = fused_mlp.launch_backward(*args[:12], dout)
     want = fused_mlp.fused_edge_update_activations(*args[:9])
     for got, ref in zip((h0, h1), want):
-        assert (got - ref.expand(got.shape)).abs().max().item() <= ATOL
+        if got.dtype == torch.bfloat16:  # BF16_TOL: with the bf16 kernels below
+            assert _bf16_err(got, ref.expand(got.shape)) <= 1.0
+        else:
+            assert (got - ref.expand(got.shape)).abs().max().item() <= ATOL
     return h0, h1
 
 
@@ -279,6 +284,72 @@ def test_fused_edge_update_backward_repeats_its_bits(gen):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first_outs, second_outs))
     assert all(torch.equal(first_sums[k], second_sums[k]) for k in first_sums)
+
+
+def _flat_csrs(args):
+    """The flat CSRs of both sides (build_flat_csr), as DeviceGraph builds them."""
+    s, r, p_src = args[0].cpu().numpy(), args[1].cpu().numpy(), args[2]
+    n_dst = args[3].shape[-2] if args[3] is not None else int(r.max()) + 1
+    return dict(
+        sender_csr=tuple(torch.as_tensor(a, device="cuda") for a in build_flat_csr(s, p_src.shape[-2])),
+        receiver_csr=tuple(torch.as_tensor(a, device="cuda") for a in build_flat_csr(r, n_dst)),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES, ids=EDGE_IDS)
+def test_fused_edge_update_bf16_matches_plain(gen, shape):
+    """K2 and K2b in bf16 (with S's sums to the nodes) against their plain
+    versions on bf16 operands: one launch of each bf16 kernel, bf16
+    outputs and gradients within BF16_TOL, K2b at its own ReLU masks (its
+    recomputed h0 and h1 within BF16_TOL of the plain ones)."""
+    args = tuple(a.bfloat16() if a is not None and a.is_floating_point() else a
+                 for a in _k2_args(gen, *shape))
+    tables = {**_tables(args), **_flat_csrs(args)}
+    with torch.no_grad():
+        before = fused_mlp.BF16_LAUNCHES
+        out = fused_mlp.fused_edge_update(*args, **tables)
+        torch.cuda.synchronize()
+        assert fused_mlp.BF16_LAUNCHES == before + 1
+        ref = fused_mlp.fused_edge_update_reference(*args)
+        assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+        assert _bf16_err(out, ref) <= 1.0
+    dout = torch.randn(shape[0], shape[3], shape[5], generator=gen, device="cuda").bfloat16()
+    h0, h1 = _kernel_activations(args, dout)
+    before = fused_mlp.BF16_BACKWARD_LAUNCHES
+    got = fused_mlp._backward_cuda(*args, dout, *(tables[k] for k in (
+        "sender_sum", "receiver_sum", "sender_csr", "receiver_csr")))
+    torch.cuda.synchronize()
+    assert fused_mlp.BF16_BACKWARD_LAUNCHES == before + 1
+    want = fused_mlp.fused_edge_update_backward_reference(
+        *args, dout, tables["sender_sum"], tables["receiver_sum"], activations=(h0, h1),
+        sender_csr=tables["sender_csr"], receiver_csr=tables["receiver_csr"],
+    )
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g.dtype == torch.bfloat16 and g.shape == w.shape
+            assert _bf16_err(g, w) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 7, 256])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_segment_sum_bf16_matches_plain(gen, width, batch):
+    """S against its plain version, bit for bit, over unsorted ids with empty
+    nodes and one node of 600 edges; a second launch repeats its bits."""
+    rng = np.random.default_rng(width + batch)
+    ids = np.concatenate([rng.integers(0, 90, 2000), np.full(600, 17)]).astype(np.int32)
+    ids = rng.permutation(ids[ids % 11 != 3])
+    offsets, edge_ids = (torch.as_tensor(a, device="cuda") for a in build_flat_csr(ids, 90))
+    rows = torch.randn(batch, ids.size, width, generator=gen, device="cuda").bfloat16()
+    before = scatter.LAUNCHES
+    got = scatter.segment_sum_bf16(rows, offsets, edge_ids)
+    again = scatter.segment_sum_bf16(rows, offsets, edge_ids)
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES == before + 2
+    want = scatter.segment_sum_bf16_reference(rows, offsets, edge_ids)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want) and torch.equal(got, again)
 
 
 def _cluster_case(gen, b, n, heads, c, block, empty_every=7, seed=0):
