@@ -18,7 +18,8 @@ blocks of 512 rows against windows of 2,560 keys): serving and training;
 and the 768-d WeatherMesh (the same conv stack with the JAX package's
 default attention: latent 768, 8 heads of 96, kernel (5, 7, 7), 3 + 10 + 3
 layers), whose heads K5a cannot tile: served through K6, trained through K6
-and its backward K6b.
+and its backward K6b; and both WeatherMesh models in bf16, as bench.py runs
+them (phases 51-55).
 Phases, one line each, in order; any failure raises and ends the run with a
 non-zero exit:
 
@@ -96,7 +97,7 @@ non-zero exit:
      surface + MSE on pressure; clip + AdamW at lr 1e-4), each with exactly 8
      K5a, 8 dq and 8 dk/dv launches; finite loss, every parameter changed;
      ms per step, peak GiB, a profile of one more step
- 24. the same weights and one batch at 1.5 deg (120 x 240), forward and
+ 24. the same weights and one batch at 3 deg (60 x 120), forward and
      backward on the card and on the CPU: loss within 1e-5 relative, every
      gradient within 1e-3 of its max|g| (the model's CPU convs run in
      PyTorch's own kernels, not oneDNN's, here and in phase 20); and once
@@ -173,9 +174,9 @@ non-zero exit:
      with exactly 16 K6 and no K5a launches; ms per request, peak GiB, a
      profile of one more
  39. a 2-step rollout: finite, exactly 26 K6 launches, ms per step
- 40. the same weights and one request at 3 deg (60 x 120, latent
-     [14, 15, 30]) on the card (16 K6 launches) and on the CPU: max abs
-     difference <= 1e-3; the CPU forward timed
+ 40. the same weights and one request at 28 x 60 (latent [14, 7, 15]) on
+     the card (16 K6 launches) and on the CPU: max abs difference <= 1e-3;
+     the CPU forward timed
  41. K6 with lse, and K6b (its backward: the dq kernel, which writes each
      pair's p and ds to a slot table, and the dk/dv kernel, which reads
      them) against the plain backward (natten_flash_backward_reference) on
@@ -260,11 +261,42 @@ non-zero exit:
      gradients on the card twice, bit for bit the same, and on the CPU at
      1°: global norm of card bf16 - CPU bf16 within phase 49's rule of the
      global norm of card bf16 - card f32
+ 51. WeatherMesh's bf16 kernels (phase 2's build; their registers and
+     spills): K5a and K5b in bf16 at phase 18's case a, K6 and K6b in bf16 at
+     phase 37's cases a and b, each against its plain version in bf16 (the
+     TPU kernels' roundings; the slot scan's as XLA computes it): out and
+     every gradient within 2^-6 of its max (BF16_TOL), lse (and K6's out32,
+     its f32 result before the rounding) within 1e-4, all bit-equal over
+     two launches; CUDA-event medians of each bf16 kernel (K5b's two and
+     K6b's four apart), of the f32 kernel on the same values, of the plain
+     version and of SDPA in bf16 on the same windows (timed only); per
+     request or train step and the bounds (2 bytes an element, 989 TFLOP/s)
+ 52. wm_serve_bf16: phase 19's weights and requests through
+     apply(compute_dtype=torch.bfloat16), each with exactly 8 bf16 K5a
+     launches and no other attention launch, bf16 out; ms per request beside
+     phase 19's, peak GiB, the kernels of a profiled request; a 4-step
+     rollout, finite
+ 53. wm_train_bf16: 3 steps of phase 23's objective and optimiser through
+     forward_fn(compute_dtype=torch.bfloat16), each with exactly 8 bf16 K5a
+     (with lse), 8 bf16 K5b dq and 8 dk/dv launches and no other attention
+     launch; f32 parameters and moments, every parameter changed; ms per
+     step beside phase 23's, peak GiB, a profile; then at those weights the
+     bf16 gradients on the card (twice: whether they repeat, printed) and on
+     the CPU at 3° (WM_CHECK_GRID): global norm of card bf16 - CPU bf16
+     within the larger of 0.5 (BF16_WM_RULE) and the CPU's own one-ulp
+     reading of the global norm of card bf16 - card f32 (a second CPU run,
+     taken only where the card misses 0.5)
+ 54. wm_wide_serve_bf16: phase 52 for the 768-d model (phase 38's weights and
+     requests, 16 bf16 K6 launches a request)
+ 55. wm_wide_train_bf16: phase 53 for the 768-d model, each step with exactly
+     16 bf16 K6 (with lse and out32), 16 bf16 K6b dq, 16 dk/dv and 16 of each
+     drpb kernel; the CPU check at 28 x 60 (WM_WIDE_GRAD_GRID)
 
 then one JSON line on the kernels, the card's name and power limit, and
 last {"ok": true, "device": ...}.
 Exits non-zero without a CUDA device, or when the port's package is not
-beside this file. f32 but for phases 44-50 (bf16); TF32 is off.
+beside this file. f32 but for phases 44-55 (bf16); TF32 is off, but for the
+bf16 WeatherMesh's convolutions of bf16 values (exact in TF32).
 """
 
 from __future__ import annotations
@@ -358,7 +390,7 @@ WEATHERMESH = dict(
     decoder_hidden_dim=64, processor_num_layers=4, kernel=(3, 5, 5), num_heads=4,
 )
 WM_GRID = (180, 360)
-WM_CHECK_GRID = (120, 240)  # phase 24's card-against-CPU gradients, at 1.5 deg
+WM_CHECK_GRID = (60, 120)  # phases 24 and 53's card-against-CPU checks, at 3 deg
 WM_LATENT = (14, 45, 90)  # 13 levels + the surface slice, on 180/4 x 360/4
 K5_PER_FORWARD = 8  # 2 encoder + 4 processor + 2 decoder attention layers
 K5_TOL = 1e-4  # softmax-weighted sums over <= 245 keys in another order
@@ -371,9 +403,14 @@ WM_WIDE = {
     "encoder_num_transformer_layers": 3, "processor_num_layers": 10,
     "decoder_num_transformer_layers": 3,
 }
-WM_WIDE_CHECK_GRID = (60, 120)  # phase 40's card-against-CPU forward, at 3 deg
+WM_WIDE_CHECK_GRID = (28, 60)  # phase 40's card-against-CPU forward
 WM_WIDE_GRAD_GRID = (28, 60)  # phase 43's card-against-CPU gradients: latent [14, 7, 15]
 K6_PER_FORWARD = 16  # 3 encoder + 10 processor + 3 decoder attention layers
+# Phases 53 and 55: the bf16 gradients card against CPU, RMSE(card bf16 - CPU
+# bf16) in global norm within the larger of this share of RMSE(card bf16 -
+# card f32) and the CPU's own reading (one_ulp_off), at WM_CHECK_GRID and
+# WM_WIDE_GRAD_GRID.
+BF16_WM_RULE = 0.5
 GENCAST_BANDED = {**GENCAST, "attention_impl": "banded_flash"}
 
 
@@ -1971,7 +2008,8 @@ def tf32_mma_report(build, name: str, required: bool = True, kind: str = "TF32")
 
 def ptxas_by_kernel(build, name: str) -> list[str]:
     """ptxas's registers and spills of each kernel in csrc/<name>.cu's build
-    log, by its template arguments (<CP, CL, NC, MINB> for K5a)."""
+    log, by its template arguments (<CP, CL, NC, MINB> for K5a), marked bf16
+    for the bf16 instantiations and kernels."""
     log = build.build_log_path(name)
     if not log.exists():
         return ["(cached build, no log)"]
@@ -1979,7 +2017,12 @@ def ptxas_by_kernel(build, name: str) -> list[str]:
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1] if "'" in line else line
-            current = "<" + ", ".join(re.findall(r"Li(\d+)E", mangled)) + ">"
+            kernel = next((name for m in re.finditer(r"\d+", mangled) for k in range(len(m.group()))
+                           for name in [mangled[m.end():m.end() + int(m.group()[k:])]]
+                           if name.endswith("_kernel")), None)  # a length-prefixed name
+            current = ((kernel + " " if kernel else "")
+                       + "<" + ", ".join(re.findall(r"Li(\d+)E", mangled)) + ">"
+                       + (" bf16" if "bfloat16" in mangled or "bf16" in mangled else ""))
         elif current and ("registers" in line or "spill" in line):
             report.setdefault(current, []).append(line.split(":", 1)[-1].strip())
     return [f"{kernel}: " + ", ".join(lines) for kernel, lines in report.items()]
@@ -2020,6 +2063,384 @@ def profile_request(fn, what: str = "request"):
           f"({100 * busy_ms / wall_ms:.1f}%) | {sum(n for _, n in by_name.values())} kernels | "
           + " | ".join(f"{name[:60]} {ms:.3f} ms x{n}" for name, (ms, n) in top), flush=True)
     return sum(n for _, n in by_name.values())
+
+
+def natten_bf16_inputs(gen, kernel, heads, ch, dims=WM_LATENT):
+    """bf16 q, k, v [1, D, H, W, heads, ch] as views of one fused bf16 qkv
+    tensor (the bf16 model's layout), bf16 rpb ~N(0, 0.5^2)."""
+    q, k, v, rpb = natten_inputs(gen, kernel, heads, ch, dims)
+    qkv = torch.cat([t.reshape(*t.shape[:-2], -1) for t in (q, k, v)], -1).bfloat16()
+    q, k, v = (t.reshape(*t.shape[:-1], heads, ch) for t in qkv.chunk(3, dim=-1))
+    return q, k, v, rpb.bfloat16()
+
+
+def natten_bf16_bytes(n: int, lse: int, rpb: int, backward: bool) -> float:
+    """Bytes a bf16 attention call must move: q, k, v, out (and dO, dq, dk,
+    dv, with lse and delta in f32, and drpb) at 2 bytes, rpb."""
+    return 2 * (8 if backward else 4) * n + (8 * lse if backward else 0) + 2 * (2 if backward else 1) * rpb
+
+
+def k5_bf16_case(natten_flash, name, gen, kernel, heads, circular, ch=32):
+    """K5a and K5b in bf16 against their plain versions (the TPU kernels'
+    roundings) on WeatherMesh's 1-degree latent: out, dq, dk, dv and drpb
+    within BF16_TOL of their max, lse within K5_TOL, all bit-equal over two
+    launches. Times each bf16 kernel, the f32 kernel on the same values, the
+    plain versions and SDPA in bf16 on the halo tiles. Returns a dict."""
+    q, k, v, rpb = natten_bf16_inputs(gen, kernel, heads, ch)
+    args = (q, k, v, kernel, rpb, circular)
+    out, lse = natten_flash._forward_cuda(*args, with_lse=True)
+    again = natten_flash._forward_cuda(*args, with_lse=True)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    bargs = (q, k, v, rpb, out, lse, dout, kernel, circular)
+    got = natten_flash._backward_cuda(*bargs)
+    got2 = natten_flash._backward_cuda(*bargs)
+    torch.cuda.synchronize()
+    repeats = (torch.equal(out, again[0]) and torch.equal(lse, again[1])
+               and all(torch.equal(a, b) for a, b in zip(got, got2)))
+    ref, ref_lse = natten_flash.flash_forward_reference(*args, with_lse=True)
+    want = natten_flash.natten_flash_backward_reference(*bargs)
+    errs = {"out": bf16_err(out, ref), **{n: bf16_err(a, b) for n, a, b in
+                                           zip(("dq", "dk", "dv", "drpb"), got, want)}}
+    lse_err = (lse - ref_lse).abs().max().item()
+    del ref, ref_lse, want, got2, again
+    f32 = tuple(t.float() for t in (q, k, v, rpb))
+    f32_args = (*f32[:3], kernel, f32[3], circular)
+    out32, lse32 = natten_flash._forward_cuda(*f32_args, with_lse=True)
+    ms = {
+        "k5a": cuda_ms(lambda: natten_flash._forward_cuda(*args, with_lse=False)),
+        "k5a_f32": cuda_ms(lambda: natten_flash._forward_cuda(*f32_args, with_lse=False)),
+        "k5a_plain": cuda_ms(lambda: natten_flash.flash_forward_reference(*args), runs=3, batch=1),
+        "k5b": cuda_ms(lambda: natten_flash._backward_cuda(*bargs)),
+        "k5b_f32": cuda_ms(lambda: natten_flash._backward_cuda(*f32[:3], f32[3], out32, lse32,
+                                                              dout.float(), kernel, circular)),
+        "k5b_plain": cuda_ms(lambda: natten_flash.natten_flash_backward_reference(*bargs), runs=2,
+                             batch=1),
+    }
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    tile = natten_flash._pick_tile("dq", WM_LATENT, kernel, circular, ch, True)
+    partial = torch.empty(tile.n_tiles, heads, rpb[0].numel(), device="cuda")
+    for mode, key in ((natten_flash.DQ, "dq"), (natten_flash.DKV, "dkv")):
+        ms[key] = cuda_ms(lambda mode=mode: natten_flash.launch_backward(
+            mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular))
+    qt, kt, vt, bias, dot = (t.bfloat16() for t in natten_sdpa_inputs(
+        natten_flash, *(t.float() for t in (q, k, v)), kernel, rpb.float(), circular, dout.float()))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ms["sdpa"] = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=bias))
+    qt, kt, vt = (t.requires_grad_(True) for t in (qt, kt, vt))
+    o = sdpa(qt, kt, vt, attn_mask=bias)
+    ms["sdpa_bwd"] = cuda_ms(lambda: torch.autograd.grad(o, (qt, kt, vt), dot, retain_graph=True))
+    del qt, kt, vt, bias, dot, o, out32, lse32
+    n_pairs = q[..., 0, 0].numel() * heads * math.prod(kernel)
+    n = q[..., 0].numel() * ch
+    tpu = natten_flash.tpu_backward_tile(WM_LATENT, kernel, circular, heads, ch, True)
+    print(f"[k5_bf16] {name}: kernel {kernel} heads {heads} x {ch} circular_w={circular} | error / "
+          f"(2^-6 max) " + " ".join(f"{k_} {e[1]:.3f}" for k_, e in errs.items())
+          + f" | lse max_abs_err {lse_err:.3e} | repeat bit-equal {repeats} | TPU backward tile {tpu} "
+          f"| K5a bf16 {ms['k5a']:.4f} ms (f32 kernel on the same values {ms['k5a_f32']:.4f}, plain "
+          f"{ms['k5a_plain']:.4f}, SDPA bf16 {ms['sdpa']:.4f}) | K5b bf16 {ms['k5b']:.4f} ms (dq "
+          f"{ms['dq']:.4f} + dk/dv {ms['dkv']:.4f}; f32 kernels {ms['k5b_f32']:.4f}, plain "
+          f"{ms['k5b_plain']:.4f}, SDPA bf16 backward {ms['sdpa_bwd']:.4f})", flush=True)
+    if not all(e[1] <= 1.0 for e in errs.values()) or not (lse_err <= K5_TOL):
+        raise AssertionError(f"K5a/K5b bf16 {name}: {errs}, lse {lse_err}")
+    if not repeats:
+        raise AssertionError(f"K5a/K5b bf16 {name}: a result differs between two launches")
+    return dict(errs=errs, ms=ms, pairs=n_pairs,
+                fwd=(4 * n_pairs * ch, natten_bf16_bytes(n, lse.numel(), rpb.numel(), False)),
+                bwd=(10 * n_pairs * ch, natten_bf16_bytes(n, lse.numel(), rpb.numel(), True)),
+                dq=(6 * n_pairs * ch, 2 * 5 * n + 8 * lse.numel() + 4 * rpb.numel()),
+                dkv=(8 * n_pairs * ch, 2 * 6 * n + 8 * lse.numel() + 2 * rpb.numel()))
+
+
+def k6_bf16_case(natten3d, window_indices, name, gen, kernel, heads, ch, circular):
+    """K6 and K6b in bf16 against their plain versions (the slot scan's bf16
+    roundings, as XLA computes them) on the 1-degree latent: out, dq, dk, dv
+    and drpb within BF16_TOL of their max, lse and out32 within K5_TOL, all
+    bit-equal over two launches. Times each bf16 kernel (K6b's dq, dk/dv and
+    two drpb kernels apart), the f32 kernels on the same values, the plain
+    versions and SDPA in bf16 on each query's gathered window. Returns a
+    dict."""
+    q, k, v, rpb = natten_bf16_inputs(gen, kernel, heads, ch)
+    args = (q, k, v, kernel, rpb, circular)
+    out32 = torch.empty(q.shape, device="cuda")
+    out, lse = natten3d._forward_cuda(*args, with_lse=True, out32=out32)
+    again = natten3d._forward_cuda(*args, with_lse=True)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    bargs = (q, k, v, rpb, out32, lse, dout, kernel, circular)
+    got = natten3d._backward_cuda(*bargs)
+    got2 = natten3d._backward_cuda(*bargs)
+    torch.cuda.synchronize()
+    repeats = (torch.equal(out, again[0]) and torch.equal(lse, again[1])
+               and all(torch.equal(a, b) for a, b in zip(got, got2)))
+    ref, ref_lse, ref32 = natten3d.slot_forward(*args)
+    t0 = time.perf_counter()
+    want = natten3d.slot_backward_reference(*bargs)
+    torch.cuda.synchronize()
+    plain_bwd_ms = (time.perf_counter() - t0) * 1e3  # once: ~250 slots of ordered scatters
+    errs = {"out": bf16_err(out, ref), **{n: bf16_err(a, b) for n, a, b in
+                                           zip(("dq", "dk", "dv", "drpb"), got, want)}}
+    f32_errs = max((lse - ref_lse).abs().max().item(), (out32 - ref32).abs().max().item())
+    del ref, ref_lse, ref32, want, got2, again
+    f32 = tuple(t.float() for t in (q, k, v, rpb))
+    f32_args = (*f32[:3], kernel, f32[3], circular)
+    f32_out, f32_lse = natten3d._forward_cuda(*f32_args, with_lse=True)
+    ms = {
+        "k6": cuda_ms(lambda: natten3d._forward_cuda(*args)),
+        "k6_f32": cuda_ms(lambda: natten3d._forward_cuda(*f32_args)),
+        "k6_plain": cuda_ms(lambda: natten3d.slot_forward(*args), runs=2, batch=1),
+        "k6b": cuda_ms(lambda: natten3d._backward_cuda(*bargs), runs=5, batch=2),
+        "k6b_f32": cuda_ms(lambda: natten3d._backward_cuda(*f32[:3], f32[3], f32_out, f32_lse,
+                                                          dout.float(), kernel, circular),
+                           runs=5, batch=2),
+        "k6b_plain": plain_bwd_ms,
+    }
+    del f32_out, f32_lse
+    grads = tuple(torch.empty_like(q) for _ in range(3))
+    table = torch.empty(natten3d.table_shape(q.shape, kernel), device="cuda")
+    work = torch.empty(natten3d.work_floats(q.shape, kernel), device="cuda")
+    drpb = torch.empty_like(rpb)
+    for mode, key in ((natten3d.DQ, "dq"), (natten3d.DKV, "dkv"), (natten3d.DRPB_SLOTS, "drpb_slots"),
+                      (natten3d.DRPB, "drpb")):
+        ms[key] = cuda_ms(lambda mode=mode: natten3d.launch_backward_bf16(
+            mode, q, k, v, rpb, dout, lse, out32, grads, table, work, drpb, kernel, circular),
+            runs=5, batch=2)
+    del grads, table, work
+    ms["sdpa"], _ = window_sdpa_ms(window_indices, out, *args)
+    ms["sdpa_bwd"] = window_sdpa_bwd_ms(window_indices, q, k, v, dout, kernel, rpb, circular)
+    n_pairs = q[..., 0, 0].numel() * heads * math.prod(kernel)
+    n = q[..., 0].numel() * ch
+    print(f"[k6_bf16] {name}: kernel {kernel} heads {heads} x {ch} circular_w={circular} | error / "
+          f"(2^-6 max) " + " ".join(f"{k_} {e[1]:.3f}" for k_, e in errs.items())
+          + f" | lse, out32 max_abs_err {f32_errs:.3e} | repeat bit-equal {repeats} | K6 bf16 "
+          f"{ms['k6']:.4f} ms (f32 kernel on the same values {ms['k6_f32']:.4f}, plain "
+          f"{ms['k6_plain']:.4f}, SDPA bf16 {ms['sdpa']:.4f}) | K6b bf16 {ms['k6b']:.4f} ms (dq "
+          f"{ms['dq']:.4f} + dk/dv {ms['dkv']:.4f} + drpb {ms['drpb_slots']:.4f} + "
+          f"{ms['drpb']:.4f}; f32 kernels {ms['k6b_f32']:.4f}, plain once {ms['k6b_plain']:.1f}, "
+          f"SDPA bf16 backward {ms['sdpa_bwd']:.4f})", flush=True)
+    if not all(e[1] <= 1.0 for e in errs.values()) or not (f32_errs <= K5_TOL):
+        raise AssertionError(f"K6/K6b bf16 {name}: {errs}, lse/out32 {f32_errs}")
+    if not repeats:
+        raise AssertionError(f"K6/K6b bf16 {name}: a result differs between two launches")
+    return dict(errs=errs, ms=ms, pairs=n_pairs,
+                fwd=(4 * n_pairs * ch, natten_bf16_bytes(n, lse.numel(), rpb.numel(), False)),
+                bwd=(10 * n_pairs * ch, natten_bf16_bytes(n, lse.numel(), rpb.numel(), True) + 2 * n),
+                dq=(6 * n_pairs * ch, 2 * 5 * n + 4 * n + 4 * lse.numel() + 2 * rpb.numel()),
+                dkv=(4 * n_pairs * ch, 2 * 4 * n))
+
+
+def wm_counts(natten_flash, natten3d):
+    """Every NATTEN launch count: f32 K5a, dq, dk/dv; bf16 K5a, dq, dk/dv; f32
+    K6, dq, dk/dv; bf16 K6, dq, dk/dv, drpb slots, drpb."""
+    return (natten_flash.LAUNCHES, natten_flash.BWD_DQ_LAUNCHES, natten_flash.BWD_DKV_LAUNCHES,
+            natten_flash.BF16_LAUNCHES, natten_flash.BF16_BWD_DQ_LAUNCHES,
+            natten_flash.BF16_BWD_DKV_LAUNCHES, natten3d.LAUNCHES, natten3d.BWD_DQ_LAUNCHES,
+            natten3d.BWD_DKV_LAUNCHES, natten3d.BF16_LAUNCHES, natten3d.BF16_BWD_DQ_LAUNCHES,
+            natten3d.BF16_BWD_DKV_LAUNCHES, natten3d.BF16_DRPB_SLOT_LAUNCHES,
+            natten3d.BF16_DRPB_LAUNCHES)
+
+
+def zero_wm_counts(natten_flash, natten3d):
+    for mod, names in ((natten_flash, ("LAUNCHES", "BWD_DQ_LAUNCHES", "BWD_DKV_LAUNCHES",
+                                       "BF16_LAUNCHES", "BF16_BWD_DQ_LAUNCHES",
+                                       "BF16_BWD_DKV_LAUNCHES")),
+                       (natten3d, ("LAUNCHES", "BWD_DQ_LAUNCHES", "BWD_DKV_LAUNCHES", "BF16_LAUNCHES",
+                                   "BF16_BWD_DQ_LAUNCHES", "BF16_BWD_DKV_LAUNCHES",
+                                   "BF16_DRPB_SLOT_LAUNCHES", "BF16_DRPB_LAUNCHES"))):
+        for n in names:
+            setattr(mod, n, 0)
+
+
+def wm_bf16_model_phases(port, natten_flash, natten3d, cfg, name, per_forward, counts_of, per_step,
+                         check_grid, ref):
+    """Phases 52-53 (cfg WEATHERMESH) or 54-55 (WM_WIDE): 3 bf16 requests
+    with `per_forward` bf16 attention forwards each (counts_of(made) picks
+    them), a profile and a 4-step rollout; 3 bf16 train steps of phase 23's
+    objective and optimiser, a profile; then at the weights after the steps
+    the bf16 gradients on the card (twice: whether they repeat, printed)
+    and on the CPU at `check_grid`: RMSE of card bf16 - CPU bf16 in global
+    norm within the larger of BF16_WM_RULE and the CPU's own one-ulp reading
+    of the card's bf16-to-f32 distance (that reading, a second CPU run, is
+    taken only where the card misses BF16_WM_RULE). `ref` holds the f32 phases' request
+    and step times; `per_step` the launches a train step must make
+    (wm_counts' order). Returns the launch counts of the requests and steps."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    wm = port.WeatherMesh(**cfg, device="cuda")
+    wm.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():  # as phase 19
+        for n, t in wm.module.named_parameters():
+            if n.endswith(("qkv.bias", "proj.bias")):
+                t.zero_()
+    h, w = WM_GRID
+    levels = cfg["pressure_levels"]
+    wm_gen = torch.Generator().manual_seed(1)  # phase 19's requests and phase 23's targets
+    surfaces = torch.randn(3, 1, h, w, 8, generator=wm_gen).to("cuda")
+    pressures = torch.randn(3, 1, levels, h, w, 4, generator=wm_gen).to("cuda")
+    bf16 = torch.bfloat16
+    zero_wm_counts(natten_flash, natten3d)
+    serve_ms = []
+    for surface, pressure in zip(surfaces, pressures):
+        before = wm_counts(natten_flash, natten3d)
+        pred, ms = timed(lambda: wm.apply(surface, pressure, compute_dtype=bf16))
+        made = tuple(a - b for a, b in zip(wm_counts(natten_flash, natten3d), before))
+        if counts_of(made) != (per_forward,) or sum(made) != per_forward:
+            raise AssertionError(f"a bf16 {name} request made {made} launches, expected {per_forward} "
+                                 "bf16 attention forwards and nothing else")
+        if (pred.surface.dtype != bf16 or pred.pressure.shape != (1, levels, h, w, 4)
+                or not (torch.isfinite(pred.surface.float()).all()
+                        and torch.isfinite(pred.pressure.float()).all())):
+            raise AssertionError(f"bad bf16 {name} output: {pred.surface.dtype}, "
+                                 f"{tuple(pred.pressure.shape)}")
+        serve_ms.append(ms)
+    serve_launches = wm_counts(natten_flash, natten3d)
+    serve_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{name}_serve_bf16] request_ms {[round(t, 3) for t in serve_ms]} | f32 "
+          f"{[round(t, 3) for t in ref['request_ms']]} | bf16 attention launches per request "
+          f"{per_forward}, f32 0 | peak GiB {serve_peak:.2f}", flush=True)
+    kernels16 = profile_request(lambda: wm.apply(surface, pressure, compute_dtype=bf16),
+                                f"bf16 {name} request")
+    before = wm_counts(natten_flash, natten3d)
+    roll, ms = timed(lambda: wm.apply(surface, pressure, forecast_steps=4, compute_dtype=bf16))
+    made = sum(a - b for a, b in zip(wm_counts(natten_flash, natten3d), before))
+    want = cfg["encoder_num_transformer_layers"] + 4 * cfg["processor_num_layers"] + cfg[
+        "decoder_num_transformer_layers"]
+    if made != want or not (torch.isfinite(roll.surface.float()).all()
+                            and torch.isfinite(roll.pressure.float()).all()):
+        raise AssertionError(f"the bf16 {name} rollout made {made} launches (expected {want}) or is "
+                             "not finite")
+    print(f"[{name}_serve_bf16] 4-step rollout finite | ms per step {ms / 4:.3f} | bf16 attention "
+          f"launches {made} | kernels per request {kernels16} | phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del roll, pred
+
+    t0 = time.perf_counter()
+    targets = tuple(torch.randn(t.shape, generator=wm_gen).to("cuda") for t in (surface, pressure))
+
+    def objective(pred, tgt):
+        return (((pred.surface.float() - tgt[0]) ** 2).mean()
+                + ((pred.pressure.float() - tgt[1]) ** 2).mean())
+
+    before_params = [t.detach().clone() for t in wm.module.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    zero_wm_counts(natten_flash, natten3d)
+    step = port.make_train_step(wm.module.parameters(), wm.forward_fn(compute_dtype=bf16), objective,
+                                port.make_optimizer(1e-4))
+    step_ms, losses = [], []
+    for _ in range(3):
+        before = wm_counts(natten_flash, natten3d)
+        loss, ms = timed(lambda: step(surface, pressure, targets))
+        made = tuple(a - b for a, b in zip(wm_counts(natten_flash, natten3d), before))
+        if made != per_step or not torch.isfinite(loss):
+            raise AssertionError(f"a bf16 {name} train step made {made} launches (expected "
+                                 f"{per_step}, wm_counts' order), loss {loss.item()}")
+        step_ms.append(ms)
+        losses.append(loss.item())
+    train_launches = wm_counts(natten_flash, natten3d)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = list(wm.module.parameters())
+    moments = [t for st in step.optimizer.state.values() for t in st.values()
+               if torch.is_tensor(t) and t.dim() > 0]
+    if any(t.dtype != torch.float32 for t in params + moments):
+        raise AssertionError(f"a {name} parameter or moment left f32 under the bf16 policy")
+    unchanged = [n for (n, _), a, b in zip(wm.module.named_parameters(), before_params, params)
+                 if torch.equal(a, b)]
+    if unchanged:
+        raise AssertionError(f"{name} parameters unchanged after 3 bf16 steps: {unchanged}")
+    step_kernels = profile_request(lambda: step(surface, pressure, targets), f"bf16 {name} train step")
+    print(f"[{name}_train_bf16] 3 steps | step_ms {[round(t, 3) for t in step_ms]} | steady median "
+          f"{statistics.median(step_ms[1:]):.3f} (f32: {ref['train_ms']:.3f}) | loss "
+          f"{[round(v, 6) for v in losses]} | launches per step {per_step} (wm_counts' order) | all "
+          f"{len(params)} f32 parameter tensors changed, f32 moments | peak GiB {peak:.2f} | kernels "
+          f"per step {step_kernels} | phase {time.perf_counter() - t0:.1f} s", flush=True)
+    del step, before_params, moments, surfaces, pressures
+
+    t0 = time.perf_counter()
+    ch_, cw_ = check_grid
+    check = [torch.randn(1, ch_, cw_, 8, generator=wm_gen),
+             torch.randn(1, levels, ch_, cw_, 4, generator=wm_gen)]
+    check_targets = tuple(torch.randn(t.shape, generator=wm_gen) for t in check)
+
+    def grads(handle, dtype, inputs, tgts, device):
+        handle.module.zero_grad(set_to_none=True)
+        value = objective(handle.forward_fn(compute_dtype=dtype)(*(t.to(device) for t in inputs)),
+                          tuple(t.to(device) for t in tgts))
+        value.backward()
+        return value.item(), {k: t.grad.cpu() for k, t in handle.module.named_parameters()}
+
+    card_value, card16 = grads(wm, bf16, check, check_targets, "cuda")
+    again_value, again = grads(wm, bf16, check, check_targets, "cuda")
+    differ = [k for k in card16 if not torch.equal(card16[k], again[k])]
+    repeat = (f"card repeat bit-equal {card_value == again_value and not differ}"
+              + (f" ({len(differ)} of {len(card16)} gradients differ)" if differ else ""))
+    del again
+    _, card32 = grads(wm, torch.float32, check, check_targets, "cuda")
+    cpu = port.WeatherMesh(**cfg, device="cpu")
+    cpu.module.load_state_dict({k: v.cpu() for k, v in wm.module.state_dict().items()})
+    t1 = time.perf_counter()
+    cpu_value, cpu16 = grads(cpu, bf16, check, check_targets, "cpu")
+    cpu_s = time.perf_counter() - t1
+    to_cpu = global_norm({k: card16[k] - cpu16[k] for k in card16})
+    to_f32 = global_norm({k: card16[k] - card32[k] for k in card16})
+    own = None  # the CPU's own reading, a second CPU run, only where the rule alone is missed
+    if not (to_cpu <= BF16_WM_RULE * to_f32):
+        flipped = [one_ulp_off(t, 12 + i)[0] for i, t in enumerate(check)]
+        cpu_flipped = grads(cpu, bf16, flipped, check_targets, "cpu")[1]
+        own = global_norm({k: cpu16[k] - cpu_flipped[k] for k in card16}) / to_f32
+        del cpu_flipped
+    limit = max(BF16_WM_RULE, own or 0.0)
+    own_text = ("not needed" if own is None
+                else f"with its inputs one ulp off at {BF16_FLIP_SHARE} {own:.3f}")
+    print(f"[cpu] bf16 {name} gradients at {ch_} x {cw_} after the steps: global norm card bf16 - "
+          f"CPU bf16 {to_cpu:.4e} | card bf16 - card f32 {to_f32:.4e} | ratio {to_cpu / to_f32:.3f} "
+          f"(limit {limit:.3f}: the larger of {BF16_WM_RULE} and the CPU's own reading) | CPU bf16 "
+          f"against itself {own_text} | loss card {card_value:.6f} cpu {cpu_value:.6f} | {repeat} | "
+          f"cpu bf16 forward+backward {cpu_s:.2f} s | phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if not (to_cpu <= limit * to_f32):
+        raise AssertionError(f"bf16 {name} gradients card vs CPU: {to_cpu} > {limit} x {to_f32}")
+    del cpu, wm, card16, card32, cpu16
+    torch.cuda.empty_cache()
+    return dict(serve_launches=serve_launches, train_launches=train_launches,
+                serve_ms=serve_ms, step_ms=statistics.median(step_ms[1:]), per_step=per_step)
+
+
+def weathermesh_bf16_phases(port, natten_flash, natten3d, window_indices, build, gen, ref) -> dict:
+    """Phases 51-55: WeatherMesh's bf16 policy on the card (see the module
+    docstring). `ref` holds phases 19, 23, 38 and 42's request and step
+    times. Returns what the kernels' JSON line reads."""
+    # 51. K5a, K5b, K6 and K6b in bf16 (built in phase 2)
+    t0 = time.perf_counter()
+    regs = [f"{lib}: " + " | ".join(r for r in ptxas_by_kernel(build, lib) if "bf16" in r)
+            for lib in ("natten_flash", "natten_flash_bwd", "natten3d", "natten3d_bwd")]
+    print("[build] the bf16 NATTEN kernels (phase 2's build) | " + " || ".join(regs), flush=True)
+    k5 = k5_bf16_case(natten_flash, "a", gen, (3, 5, 5), 4, False)
+    k6 = {n: k6_bf16_case(natten3d, window_indices, n, gen, (5, 7, 7), 8, 96, circ)
+          for n, circ in (("a", False), ("b", True))}
+    out = {"k5": k5, "k6": k6["a"], "k6_errs": {n: max(e[1] for e in c["errs"].values())
+                                                for n, c in k6.items()}}
+    for key, case in (("k5a", k5), ("k6", k6["a"])):
+        out[key + "_bound"] = bf16_bound(*case["fwd"])
+    for key, case in (("k5b", k5), ("k6b", k6["a"])):
+        out[key + "_bound"] = bf16_bound(*case["bwd"])
+        out[key + "_dq_bound"] = bf16_bound(*case["dq"])
+        out[key + "_dkv_bound"] = bf16_bound(*case["dkv"])
+    print(f"[natten_bf16] per request / train step: K5a bf16 {K5_PER_FORWARD * k5['ms']['k5a']:.4f} ms "
+          f"(bound {K5_PER_FORWARD * out['k5a_bound'][0]:.4f}, {out['k5a_bound'][1]}), K5b bf16 "
+          f"{K5_PER_FORWARD * k5['ms']['k5b']:.4f} (bound {K5_PER_FORWARD * out['k5b_bound'][0]:.4f}) | "
+          f"K6 bf16 {K6_PER_FORWARD * k6['a']['ms']['k6']:.4f} (bound "
+          f"{K6_PER_FORWARD * out['k6_bound'][0]:.4f}, {out['k6_bound'][1]}), K6b bf16 "
+          f"{K6_PER_FORWARD * k6['a']['ms']['k6b']:.4f} (bound {K6_PER_FORWARD * out['k6b_bound'][0]:.4f}) "
+          f"| phase {time.perf_counter() - t0:.1f} s", flush=True)
+    # 52-53. the 128-d WeatherMesh in bf16; 54-55. the 768-d one
+    out["wm"] = wm_bf16_model_phases(
+        port, natten_flash, natten3d, WEATHERMESH, "wm", K5_PER_FORWARD, lambda m: (m[3],),
+        (0,) * 3 + (K5_PER_FORWARD,) * 3 + (0,) * 8, WM_CHECK_GRID,
+        dict(request_ms=ref["wm_ms"], train_ms=ref["wm_train_ms"]))
+    out["wide"] = wm_bf16_model_phases(
+        port, natten_flash, natten3d, WM_WIDE, "wm_wide", K6_PER_FORWARD, lambda m: (m[9],),
+        (0,) * 9 + (K6_PER_FORWARD,) * 5, WM_WIDE_GRAD_GRID,
+        dict(request_ms=ref["wide_ms"], train_ms=ref["wide_train_ms"]))
+    return out
 
 
 def main() -> int:
@@ -2578,9 +2999,9 @@ def main() -> int:
     profile_request(lambda: wm_step(surface, pressure, targets), "WeatherMesh train step")
     del wm_step, before_params
 
-    # 24. the same weights and one batch at 1.5 deg (the weights do not depend
-    # on the grid; the CPU's forward alone takes ~2 min at 1 deg, phase 20):
-    # gradients on the card and on the CPU
+    # 24. the same weights and one batch at 3 deg (the weights do not depend
+    # on the grid; at 1 deg the CPU's forward alone takes ~1-2 min): gradients
+    # on the card and on the CPU
     check_h, check_w = WM_CHECK_GRID
     check = [torch.randn(1, check_h, check_w, 8, generator=wm_gen),
              torch.randn(1, levels, check_h, check_w, 4, generator=wm_gen)]
@@ -2604,7 +3025,7 @@ def main() -> int:
     cpu_grads = {k: t.grad for k, t in cpu_wm.module.named_parameters()}
     loss_rel = abs(card_value.item() - cpu_value.item()) / abs(cpu_value.item())
     worst, worst_name = grads_close(card_grads, cpu_grads)
-    print(f"[cpu] WeatherMesh at {check_h} x {check_w} (1.5 deg): train loss card {card_value.item():.6f} "
+    print(f"[cpu] WeatherMesh at {check_h} x {check_w} (3 deg): train loss card {card_value.item():.6f} "
           f"cpu {cpu_value.item():.6f} "
           f"rel {loss_rel:.3e} (limit {LOSS_RTOL}) | gradients: worst error / limit {worst:.3e} "
           f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s | "
@@ -3047,7 +3468,7 @@ def main() -> int:
           f"launches {roll_launches} | phase {time.perf_counter() - t0:.1f} s", flush=True)
     del roll, pred
 
-    # 40. the same weights and one request at 3 deg on the card and on the CPU
+    # 40. the same weights and one request at 28 x 60 on the card and on the CPU
     t0 = time.perf_counter()
     check_h, check_w = WM_WIDE_CHECK_GRID
     check = [torch.randn(1, check_h, check_w, 8, generator=wm_gen),
@@ -3056,7 +3477,7 @@ def main() -> int:
     card_pred = wide(*(t.cuda() for t in check))
     torch.cuda.synchronize()
     if natten3d.LAUNCHES - before != K6_PER_FORWARD:
-        raise AssertionError(f"the 3-deg request made {natten3d.LAUNCHES - before} K6 launches")
+        raise AssertionError(f"the check request made {natten3d.LAUNCHES - before} K6 launches")
     cpu_wide = port.WeatherMesh(**WM_WIDE, device="cpu")
     cpu_wide.module.load_state_dict({k: v.cpu() for k, v in wide.module.state_dict().items()})
     t1 = time.perf_counter()
@@ -3064,7 +3485,7 @@ def main() -> int:
     cpu_s = time.perf_counter() - t1
     cpu_err = max((card_pred.surface.cpu() - cpu_pred.surface).abs().max().item(),
                   (card_pred.pressure.cpu() - cpu_pred.pressure).abs().max().item())
-    print(f"[cpu] wide WeatherMesh at {check_h} x {check_w} (3 deg, latent [14, {check_h // 4}, "
+    print(f"[cpu] wide WeatherMesh at {check_h} x {check_w} (latent [14, {check_h // 4}, "
           f"{check_w // 4}]): max_abs_diff {cpu_err:.3e} (limit {CPU_TOL}) | card K6 launches "
           f"{K6_PER_FORWARD} | cpu forward {cpu_s:.2f} s | phase {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -3195,6 +3616,13 @@ def main() -> int:
         request_ms=request_ms, request_kernels=request_kernels, batch=(fc_x, fc_y),
         train_ms=statistics.median(fc_ms[1:]), step_kernels=step_kernels,
     ))
+
+    # 51-55: WeatherMesh's bf16 policy
+    wm16 = weathermesh_bf16_phases(port, natten_flash, natten3d, _window_indices, _build, gen, dict(
+        wm_ms=wm_ms, wm_train_ms=statistics.median(wm_train_ms[1:]), wide_ms=wide_ms,
+        wide_train_ms=statistics.median(wide_train_ms[1:]),
+    ))
+    k5_16, k6_16 = wm16["k5"], wm16["k6"]
 
     kernels = [
         {
@@ -3531,6 +3959,84 @@ def main() -> int:
             "bound_by": k4b_bound["dkv"][1],
             "bound_tf32x3_ms": k4b_tf32x3["dkv"],
             "library_ms": k4b_sdpa_ms,
+        },
+        {
+            "name": "natten_flash_forward_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/natten_flash.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/natten_flash.py:435",
+            "launches": wm16["wm"]["serve_launches"][3],  # phase 52's 3 bf16 requests
+            "max_abs_err": k5_16["errs"]["out"][0],
+            "err_over_limit": k5_16["errs"]["out"][1],  # of 2^-6 max|plain|
+            "ms": K5_PER_FORWARD * k5_16["ms"]["k5a"],  # per request: 8 layers of case a
+            "f32_ms": K5_PER_FORWARD * k5_16["ms"]["k5a_f32"],  # the f32 kernel on the same values
+            "plain_ms": K5_PER_FORWARD * k5_16["ms"]["k5a_plain"],
+            "bound_ms": K5_PER_FORWARD * wm16["k5a_bound"][0],
+            "bound_by": wm16["k5a_bound"][1],
+            "library_ms": K5_PER_FORWARD * k5_16["ms"]["sdpa"],  # SDPA in bf16 on the halo tiles
+            "train_launches": wm16["wm"]["train_launches"][3],  # phase 53's 3 steps, with lse
+        },
+        {
+            "name": "natten_flash_backward_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/natten_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/natten_flash.py:655",
+            "launches": wm16["wm"]["train_launches"][4],  # dq kernel, phase 53's 3 steps
+            "launches_dkv": wm16["wm"]["train_launches"][5],
+            "max_abs_err": max(k5_16["errs"][n][0] for n in ("dq", "dk", "dv", "drpb")),
+            "err_over_limit": max(k5_16["errs"][n][1] for n in ("dq", "dk", "dv", "drpb")),
+            "ms": K5_PER_FORWARD * k5_16["ms"]["k5b"],  # per train step: both kernels, delta, drpb sum
+            "dq_ms": K5_PER_FORWARD * k5_16["ms"]["dq"],
+            "dkv_ms": K5_PER_FORWARD * k5_16["ms"]["dkv"],
+            "dq_bound_ms": K5_PER_FORWARD * wm16["k5b_dq_bound"][0],
+            "dkv_bound_ms": K5_PER_FORWARD * wm16["k5b_dkv_bound"][0],
+            "f32_ms": K5_PER_FORWARD * k5_16["ms"]["k5b_f32"],
+            "plain_ms": K5_PER_FORWARD * k5_16["ms"]["k5b_plain"],
+            "bound_ms": K5_PER_FORWARD * wm16["k5b_bound"][0],
+            "bound_by": wm16["k5b_bound"][1],
+            "library_ms": K5_PER_FORWARD * k5_16["ms"]["sdpa_bwd"],  # SDPA's backward in bf16
+        },
+        {
+            "name": "natten3d_slot_forward_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/natten3d.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/natten3d.py:294",
+            "launches": wm16["wide"]["serve_launches"][9],  # phase 54's 3 bf16 requests
+            "max_abs_err": k6_16["errs"]["out"][0],
+            "err_over_limit": max(wm16["k6_errs"].values()),  # every output and gradient, cases a, b
+            "ms": K6_PER_FORWARD * k6_16["ms"]["k6"],  # per request: 16 layers of case a
+            "f32_ms": K6_PER_FORWARD * k6_16["ms"]["k6_f32"],
+            "plain_ms": K6_PER_FORWARD * k6_16["ms"]["k6_plain"],
+            "bound_ms": K6_PER_FORWARD * wm16["k6_bound"][0],
+            "bound_by": wm16["k6_bound"][1],
+            "library_ms": K6_PER_FORWARD * k6_16["ms"]["sdpa"],  # SDPA in bf16, gathered windows
+            "train_launches": wm16["wide"]["train_launches"][9],  # phase 55's 3 steps, with lse
+        },
+        {
+            "name": "natten3d_backward_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/natten3d_bwd.cu",
+            # No Pallas backward exists: _natten_bwd differentiates the XLA
+            # slot scan (the custom_vjp of K6), whose bf16 roundings this mirrors.
+            "replaces": "graph_weather_tpu/ops/pallas/natten3d.py:455",
+            "launches": wm16["wide"]["train_launches"][10],  # dq kernel, phase 55's 3 steps
+            "launches_dkv": wm16["wide"]["train_launches"][11],
+            "launches_drpb": wm16["wide"]["train_launches"][12:14],  # the two drpb kernels
+            "max_abs_err": max(k6_16["errs"][n][0] for n in ("dq", "dk", "dv", "drpb")),
+            "err_over_limit": max(k6_16["errs"][n][1] for n in ("dq", "dk", "dv", "drpb")),
+            "ms": K6_PER_FORWARD * (k6_16["ms"]["dq"] + k6_16["ms"]["dkv"] + k6_16["ms"]["drpb_slots"]
+                                    + k6_16["ms"]["drpb"]),  # per train step: 16 x case a
+            "dq_ms": K6_PER_FORWARD * k6_16["ms"]["dq"],
+            "dkv_ms": K6_PER_FORWARD * k6_16["ms"]["dkv"],
+            "drpb_ms": K6_PER_FORWARD * (k6_16["ms"]["drpb_slots"] + k6_16["ms"]["drpb"]),
+            "backward_ms": K6_PER_FORWARD * k6_16["ms"]["k6b"],  # with the table's allocation
+            "dq_bound_ms": K6_PER_FORWARD * wm16["k6b_dq_bound"][0],
+            "dkv_bound_ms": K6_PER_FORWARD * wm16["k6b_dkv_bound"][0],
+            "f32_ms": K6_PER_FORWARD * k6_16["ms"]["k6b_f32"],
+            "plain_ms": K6_PER_FORWARD * k6_16["ms"]["k6b_plain"],  # one run of the plain backward
+            "bound_ms": K6_PER_FORWARD * wm16["k6b_bound"][0],
+            "bound_by": wm16["k6b_bound"][1],
+            "library_ms": K6_PER_FORWARD * k6_16["ms"]["sdpa_bwd"],  # SDPA's backward in bf16, windows
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -67,13 +67,26 @@
 // loop with ds in place of p, its dk/dv pass the same staging with the roles
 // of the query tile and the key slabs swapped. Serving passes null.
 //
-// Not yet here: bf16.
+// bf16 (the JAX package's bf16 policy, gwt_natten3d_forward_bf16): q, k, v,
+// rpb and out bf16, one instantiation of the same kernel on the element type.
+// Its slabs are staged as f32, converted on the copy (plain loads, not
+// cp.async), so it takes the f32 kernel's plans; the sums, the softmax and
+// lse stay f32. q-hat is q times the bf16 scale in f32, unrounded, as XLA
+// computes the JAX package's slot scan (`x * scale` upcast at once), and
+// out is rounded to bf16 once; for training it also writes out32, the f32
+// result before that rounding, from which the backward's delta is formed
+// (the scan's gradient runs on that f32 value).
+//
+// Not yet here: tensor cores; bf16 staging by cp.async (slabs of half the
+// bytes, larger items).
 
 #include "clustered_tile.cuh"
+#include "natten_elem.cuh"
 
 namespace {
 
 using namespace ctile;
+using nelem::bf16;
 
 constexpr float NEG_MAX = -1e30f;  // running-max start
 constexpr int NQ = 4;              // W-neighbouring queries of a lane group
@@ -86,13 +99,15 @@ struct Geometry {
   float scale;
 };
 
+template <class T>
 struct Params {
-  const float* __restrict__ q;
-  const float* __restrict__ k;
-  const float* __restrict__ v;
-  const float* __restrict__ rpb;  // or null
-  float* __restrict__ out;        // [B, D, H, W, heads, ch], dense
-  float* __restrict__ lse;        // [B, D, H, W, heads], or null
+  const T* __restrict__ q;
+  const T* __restrict__ k;
+  const T* __restrict__ v;
+  const T* __restrict__ rpb;  // or null
+  T* __restrict__ out;        // [B, D, H, W, heads, ch], dense
+  float* __restrict__ lse;    // [B, D, H, W, heads], or null
+  float* __restrict__ out32;  // bf16 only: out before its rounding, f32, or null
   Geometry g;
   int rows;    // query rows of a CTA, one warp each
   int ry, rx;  // union rows and columns of an item
@@ -140,8 +155,8 @@ __device__ __forceinline__ void load_slice(float (&x)[CL], const float* row, int
 // top of the group) b1 b0 with query j = 2 b1 + b0 and the next bit with
 // half of the chunk's columns; at 16 lanes the lowest bit's two lanes hold
 // the same sums.
-template <int CL, int LANES>
-__global__ void __launch_bounds__(256, 1) natten3d_forward_kernel(const Params p) {
+template <int CL, int LANES, class T>
+__global__ void __launch_bounds__(256, 1) natten3d_forward_kernel(const Params<T> p) {
   constexpr int CP = CL * LANES;
   constexpr int LD = CP + 4;  // floats per staged row
   constexpr int GROUPS = 32 / LANES;
@@ -197,13 +212,13 @@ __global__ void __launch_bounds__(256, 1) natten3d_forward_kernel(const Params p
   float qr[NQ][CL], o[NQ][CL];
 #pragma unroll
   for (int j = 0; j < NQ; ++j) {
-    const float* row = p.q + (b_pos + ((long long)qd * g.h + qh) * g.w + qw[j]) * g.q_ps + col;
+    const T* row = p.q + (b_pos + ((long long)qd * g.h + qh) * g.w + qw[j]) * g.q_ps + col;
 #pragma unroll
     for (int i = 0; i < CL / 4; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 4 * l + 4 * LANES * i + e;
-        qr[j][4 * i + e] = c < g.ch ? __ldg(row + c) * g.scale : 0.f;
+        qr[j][4 * i + e] = c < g.ch ? nelem::to_f(__ldg(row + c)) * g.scale : 0.f;
         o[j][4 * i + e] = 0.f;
       }
   }
@@ -226,7 +241,16 @@ __global__ void __launch_bounds__(256, 1) natten3d_forward_kernel(const Params p
     float* ks_ = stage_base + stage * 2 * item_floats;
     float* vs_ = ks_ + item_floats;
     const long long plane = b_pos + (long long)(sd + x) * g.h * g.w;
-    if (p.vec4) {
+    if constexpr (nelem::is_bf16<T>) {
+      constexpr int per_row = CP / 8;  // eight channels a thread, converted to f32
+      for (int i = tid; i < nrows * per_row; i += threads) {
+        const int r = i / per_row, c = (i - r * per_row) * 8;
+        const int yy = div_small(r, inv_cols);
+        const long long pos = plane + (long long)(y0 + yy) * g.w + wrap_w(g, c0 + r - yy * ncols);
+        nelem::convert8(ks_ + r * LD, p.k + pos * g.k_ps + col, c, g.ch, p.vec4, true);
+        nelem::convert8(vs_ + r * LD, p.v + pos * g.v_ps + col, c, g.ch, p.vec4, true);
+      }
+    } else if (p.vec4) {
       constexpr int per_row = CP / 4;
       for (int i = tid; i < nrows * per_row; i += threads) {
         const int r = i / per_row, c = (i - r * per_row) * 4;
@@ -249,7 +273,7 @@ __global__ void __launch_bounds__(256, 1) natten3d_forward_kernel(const Params p
   };
 
   const int nrh = 2 * g.kh - 1, nrw = 2 * g.kw - 1;
-  const float* rpb_head = p.rpb ? p.rpb + (long long)head * (2 * g.kd - 1) * nrh * nrw : nullptr;
+  const T* rpb_head = p.rpb ? p.rpb + (long long)head * (2 * g.kd - 1) * nrh * nrw : nullptr;
   float m = NEG_MAX, lsum = 0.f;  // query my_j's running max and (this lane's part of) its sum
 
   copy_item(0, 0);
@@ -264,7 +288,7 @@ __global__ void __launch_bounds__(256, 1) natten3d_forward_kernel(const Params p
     const float* ks_ = stage_base + (it & 1) * 2 * item_floats;
     const float* vs_ = ks_ + item_floats;
     const int ncols = c1 - c0;
-    const float* rpb_d =
+    const T* rpb_d =
         rpb_head ? rpb_head + (long long)(sd + x - qd + g.kd - 1) * nrh * nrw : nullptr;
     const int ya = max(y0, sh), yb = min(y1, sh + g.kh);  // the same for the whole warp
     for (int y = ya; y < yb; ++y) {
@@ -329,7 +353,7 @@ __global__ void __launch_bounds__(256, 1) natten3d_forward_kernel(const Params p
           const bool in = cu >= c0 && cu < c1 && cu >= my_sw && cu < my_sw + g.kw;
           float xv = x5[u];
           if (in && rpb_d != nullptr)
-            xv += __ldg(rpb_d + (y - qh + g.kh - 1) * nrw + (cu - my_qw + g.kw - 1));
+            xv += nelem::to_f(__ldg(rpb_d + (y - qh + g.kh - 1) * nrw + (cu - my_qw + g.kw - 1)));
           x5[u] = xv;
           if (in) {
             valid |= 1u << u;
@@ -388,31 +412,51 @@ __global__ void __launch_bounds__(256, 1) natten3d_forward_kernel(const Params p
     const float lj = __shfl_sync(0xffffffffu, lsum, src);
     if (qw0 + j >= g.w) continue;
     const long long pos = b_pos + ((long long)qd * g.h + qh) * g.w + qw0 + j;
-    float* dst = p.out + pos * ((long long)g.heads * g.ch) + col;
+    T* dst = p.out + pos * ((long long)g.heads * g.ch) + col;
+    float* dst32 = p.out32 != nullptr ? p.out32 + pos * ((long long)g.heads * g.ch) + col : nullptr;
     const float inv = 1.f / lj;
 #pragma unroll
     for (int i = 0; i < CL / 4; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int c = 4 * l + 4 * LANES * i + e;
-        if (c < g.ch) dst[c] = o[j][4 * i + e] * inv;
+        if constexpr (nelem::is_bf16<T>) {
+          nelem::store1(dst, c, g.ch, o[j][4 * i + e] * inv);
+          if (dst32 != nullptr && c < g.ch) dst32[c] = o[j][4 * i + e] * inv;
+        } else {
+          if (c < g.ch) dst[c] = o[j][4 * i + e] * inv;
+        }
       }
   }
 }
 
-template <int CL, int LANES>
-int launch(const Params& p, cudaStream_t stream) {
+template <int CL, int LANES, class T>
+int launch(const Params<T>& p, cudaStream_t stream) {
   const Geometry& g = p.g;
   constexpr int LD = CL * LANES + 4;
   const size_t smem = sizeof(float) * (size_t)2 * 2 * p.ry * p.rx * LD;
-  cudaError_t err = cudaFuncSetAttribute(natten3d_forward_kernel<CL, LANES>,
+  cudaError_t err = cudaFuncSetAttribute(natten3d_forward_kernel<CL, LANES, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   constexpr int TW = NQ * 32 / LANES;
   const long long tiles = (long long)g.d * ((g.h + p.rows - 1) / p.rows) * ((g.w + TW - 1) / TW);
   const dim3 grid((unsigned)tiles, g.heads, g.batch);
-  natten3d_forward_kernel<CL, LANES><<<grid, 32 * p.rows, smem, stream>>>(p);
+  natten3d_forward_kernel<CL, LANES, T><<<grid, 32 * p.rows, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <class T>
+int dispatch(const Params<T>& p, int cp, int lanes, cudaStream_t s) {
+  if (p.rows < 1 || p.rows > 8 || p.ry < 1 || p.rx < 1 || p.g.ch > cp)
+    return (int)cudaErrorInvalidValue;
+  switch (cp * 32 + lanes) {
+    case 32 * 32 + 8: return launch<4, 8>(p, s);
+    case 64 * 32 + 8: return launch<8, 8>(p, s);
+    case 96 * 32 + 8: return launch<12, 8>(p, s);
+    case 128 * 32 + 16: return launch<8, 16>(p, s);
+    case 256 * 32 + 16: return launch<16, 16>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -432,18 +476,29 @@ extern "C" int gwt_natten3d_forward(const float* q, const float* k, const float*
                                     long long k_ps, long long v_ps, int kd, int kh, int kw,
                                     int circular_w, int vec4, float scale, int cp, int lanes,
                                     int rows, int ry, int rx, void* stream) {
-  const Params p{q, k, v, rpb, out, lse,
-                 Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw, circular_w,
-                          scale},
-                 rows, ry, rx, vec4};
-  if (rows < 1 || rows > 8 || ry < 1 || rx < 1 || ch > cp) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (cp * 32 + lanes) {
-    case 32 * 32 + 8: return launch<4, 8>(p, s);
-    case 64 * 32 + 8: return launch<8, 8>(p, s);
-    case 96 * 32 + 8: return launch<12, 8>(p, s);
-    case 128 * 32 + 16: return launch<8, 16>(p, s);
-    case 256 * 32 + 16: return launch<16, 16>(p, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Params<float> p{q, k, v, rpb, out, lse, nullptr,
+                        Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw,
+                                 circular_w, scale},
+                        rows, ry, rx, vec4};
+  return dispatch(p, cp, lanes, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 mode: q, k, v, rpb and out bf16 (q_ps .. in elements), lse and
+// out32 f32 or null; scale is the bf16 scale. vec: ch, the strides and the
+// pointers allow 16-byte copies of eight channels. The plan is the f32
+// kernel's for the same shape (`plan`).
+extern "C" int gwt_natten3d_forward_bf16(const void* q, const void* k, const void* v,
+                                         const void* rpb, void* out, float* lse, float* out32,
+                                         int batch, int d, int h, int w, int heads, int ch,
+                                         long long q_ps, long long k_ps, long long v_ps, int kd,
+                                         int kh, int kw, int circular_w, int vec, float scale,
+                                         int cp, int lanes, int rows, int ry, int rx,
+                                         void* stream) {
+  const Params<bf16> p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v), static_cast<const bf16*>(rpb),
+                       static_cast<bf16*>(out), lse, out32,
+                       Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw,
+                                circular_w, scale},
+                       rows, ry, rx, vec};
+  return dispatch(p, cp, lanes, static_cast<cudaStream_t>(stream));
 }

@@ -85,15 +85,44 @@
 // rows and item strip from the shape, before any launch, within 227 KB, and
 // the table's bytes.
 //
-// Not yet here: tensor cores, bf16.
+// bf16 (gwt_natten3d_backward_bf16): the gradient of the JAX package's bf16
+// slot scan as XLA computes it on bf16 q, k, v, rpb and dO (ops/natten3d.py,
+// `slot_backward_reference`). q-hat is q times the bf16 scale in f32,
+// unrounded, and delta = dO . out32, K6's f32 result before its rounding.
+//   * dq (mode 0): this file's dq kernel on bf16 loads (slabs staged as f32,
+//     converted on the copy), the same table of f32 p and ds; dq =
+//     bf16(bf16(sum ds k) x scale), the scan's rounding of its f32 sum and
+//     its bf16 product with the scale.
+//   * dk/dv (mode 1): XLA transposes the scan. Each (query, slot) pair's ds
+//     q-hat and p dO is rounded to bf16, scattered back by the transposes of
+//     the slot's three per-axis takes (W, then H, then D, each adding in
+//     bf16 in ascending query order) and added into the key's bf16 running
+//     sum in reverse slot order. A lane group per key (CL channels a lane)
+//     walks its slots from the last, per slot the queries that reach it
+//     through that slot (per axis one query, or a run of them at a clamped
+//     edge), nested W in H in D, rounding every sum; it reads each pair's p
+//     and ds from the table and the query's q and dO rows through L1. In the
+//     interior this is dk = bf16(dk + bf16(ds q-hat)).
+//   * drpb (modes 2 and 3): per (slot, head) a CTA takes bf16(sum over the
+//     batch of ds) from the table at every query and scatters it through the
+//     transposes of the slot's bias gathers (along W into its 2kw - 1
+//     offsets, then H, then D; each in ascending order in bf16) into
+//     work[head, slot, n_rel]; mode 3 adds each offset's sums over the slots
+//     in reverse order in bf16 (a thread per (head, offset)).
+// The sums run in f32 on bf16 values; the slot table stays f32.
+//
+// Not yet here: tensor cores; a bf16 dk/dv kernel that stages its queries.
 
 #include "clustered_tile.cuh"
+#include "natten_elem.cuh"
 
 namespace {
 
 using namespace ctile;
+using nelem::bf16;
+using nelem::round_bf16;
 
-constexpr int DQ = 0, DKV = 1;
+constexpr int DQ = 0, DKV = 1, DRPB_SLOTS = 2, DRPB = 3;
 constexpr int NQ = 4;    // dq: W-neighbouring queries of a lane group
 constexpr int NC = 10;   // dq: key columns of a chunk (four windows' union at kw = 7)
 constexpr int NK = 2;    // dk/dv: W-neighbouring keys of a lane group
@@ -107,19 +136,22 @@ struct Geometry {
   float scale;
 };
 
+template <class T>
 struct Params {
-  const float* __restrict__ q;
-  const float* __restrict__ k;
-  const float* __restrict__ v;
-  const float* __restrict__ rpb;    // or null
-  const float* __restrict__ dout;   // [B, D, H, W, heads, ch], dense
+  const T* __restrict__ q;
+  const T* __restrict__ k;
+  const T* __restrict__ v;
+  const T* __restrict__ rpb;        // or null
+  const T* __restrict__ dout;       // [B, D, H, W, heads, ch], dense
   const float* __restrict__ lse;    // [B, D, H, W, heads] (mode 0)
-  const float* __restrict__ out;    // [B, D, H, W, heads, ch], dense (mode 0)
-  float* __restrict__ dq;           // dense, mode 0
-  float* __restrict__ dk;           // dense, mode 1
-  float* __restrict__ dv;           // dense, mode 1
-  float* __restrict__ partial;      // [B * n_cta, heads, n_rel] (mode 0, with rpb)
+  const float* __restrict__ out;    // [B, D, H, W, heads, ch], dense, f32 (mode 0; bf16: out32)
+  T* __restrict__ dq;               // dense, mode 0
+  T* __restrict__ dk;               // dense, mode 1
+  T* __restrict__ dv;               // dense, mode 1
+  float* __restrict__ partial;      // [B * n_cta, heads, n_rel] (mode 0, with rpb; f32 only)
   float2* __restrict__ table;       // (p, ds) per slot (`table_at`): written in mode 0, read in 1
+  float* __restrict__ work;         // bf16 drpb: per (head, slot) sums (modes 2 and 3)
+  T* __restrict__ drpb;             // bf16 drpb [heads, n_rel] (mode 3)
   Geometry g;
   int rows;    // rows of a CTA's tile, one warp each
   int ry, rx;  // union rows and columns of an item
@@ -195,27 +227,33 @@ __device__ __forceinline__ void load_slice(float (&x)[CL], const float* row, int
 }
 
 // The same from global memory, times `mul`, zeros past ch.
-template <int CL, int LANES>
-__device__ __forceinline__ void load_global(float (&x)[CL], const float* row, int l, int ch,
+template <int CL, int LANES, class T>
+__device__ __forceinline__ void load_global(float (&x)[CL], const T* row, int l, int ch,
                                             float mul) {
 #pragma unroll
   for (int i = 0; i < CL / 4; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = 4 * l + 4 * LANES * i + e;
-      x[4 * i + e] = c < ch ? __ldg(row + c) * mul : 0.f;
+      x[4 * i + e] = c < ch ? nelem::to_f(__ldg(row + c)) * mul : 0.f;
     }
 }
 
-template <int CL, int LANES>
-__device__ __forceinline__ void store_global(float* row, const float (&x)[CL], int l, int ch,
+// x times `mul` into a global row: f32 as it is; bf16 as the slot scan's
+// dq, bf16(bf16(x) mul) (mul the bf16 scale), or bf16(x) for mul 1.
+template <int CL, int LANES, class T>
+__device__ __forceinline__ void store_global(T* row, const float (&x)[CL], int l, int ch,
                                              float mul) {
 #pragma unroll
   for (int i = 0; i < CL / 4; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = 4 * l + 4 * LANES * i + e;
-      if (c < ch) row[c] = x[4 * i + e] * mul;
+      if constexpr (nelem::is_bf16<T>) {
+        nelem::store1(row, c, ch, round_bf16(x[4 * i + e]) * mul);
+      } else {
+        if (c < ch) row[c] = x[4 * i + e] * mul;
+      }
     }
 }
 
@@ -266,11 +304,18 @@ __device__ __forceinline__ void reduce_scatter(float (&a)[N], int l) {
 }
 
 // cp.async copies of `nrows` positions' CP channels (zeros past ch) into
-// rows of LD floats; pos(r) gives row r's float offset in `src`.
-template <int CP, class Pos>
-__device__ __forceinline__ void copy_positions(float* dst, const float* src, int nrows, int ld,
-                                               const Params& p, int threads, Pos pos) {
-  if (p.vec4) {
+// rows of LD floats; pos(r) gives row r's element offset in `src`. bf16:
+// plain loads of eight channels, converted to f32.
+template <int CP, class T, class Pos>
+__device__ __forceinline__ void copy_positions(float* dst, const T* src, int nrows, int ld,
+                                               const Params<T>& p, int threads, Pos pos) {
+  if constexpr (nelem::is_bf16<T>) {
+    constexpr int per_row = CP / 8;
+    for (int i = threadIdx.x; i < nrows * per_row; i += threads) {
+      const int r = i / per_row, c = (i - r * per_row) * 8;
+      nelem::convert8(dst + r * ld, src + pos(r), c, p.g.ch, p.vec4, true);
+    }
+  } else if (p.vec4) {
     constexpr int per_row = CP / 4;
     for (int i = threadIdx.x; i < nrows * per_row; i += threads) {
       const int r = i / per_row, c = (i - r * per_row) * 4;
@@ -289,8 +334,8 @@ __device__ __forceinline__ void copy_positions(float* dst, const float* src, int
 // CL: channels of a lane (CP = CL LANES); LANES: lanes of a query group (8,
 // 16 or 32). After a reduce-scatter of a chunk's 4 x NC pairs (query-major)
 // a lane holds query part / 2, columns (part % 2) NC / 2 .. + NC / 2.
-template <int CL, int LANES>
-__global__ void __launch_bounds__(256, 1) natten3d_dq_kernel(const Params p) {
+template <int CL, int LANES, class T>
+__global__ void __launch_bounds__(256, 1) natten3d_dq_kernel(const Params<T> p) {
   constexpr int CP = CL * LANES;
   constexpr int LD = CP + 4;  // floats per staged row
   constexpr int TW = NQ * 32 / LANES;  // query columns of a CTA
@@ -414,7 +459,7 @@ __global__ void __launch_bounds__(256, 1) natten3d_dq_kernel(const Params p) {
                        [&](int r) { return pos(r) * g.v_ps; });
   };
 
-  const float* rpb_head =
+  const T* rpb_head =
       p.rpb ? p.rpb + (long long)head * (2 * g.kd - 1) * nrh * nrw : nullptr;
 
   copy_item(0, 0);
@@ -429,7 +474,7 @@ __global__ void __launch_bounds__(256, 1) natten3d_dq_kernel(const Params p) {
     const float* ks_ = stage_base + (it & 1) * 2 * item_floats;
     const float* vs_ = ks_ + item_floats;
     const int ncols = c1 - c0;
-    const float* rpb_d = rpb_head ? rpb_head + (long long)(rd0 + x) * nrh * nrw : nullptr;
+    const T* rpb_d = rpb_head ? rpb_head + (long long)(rd0 + x) * nrh * nrw : nullptr;
     const int ya = max(y0, sh), yb = min(y1, sh + g.kh);  // the same for the whole warp
     for (int y = ya; y < yb; ++y) {
       const float* k_row = ks_ + (y - y0) * ncols * LD;
@@ -465,7 +510,7 @@ __global__ void __launch_bounds__(256, 1) natten3d_dq_kernel(const Params p) {
           const bool in = cu >= c0 && cu < c1 && cu >= my_sw && cu < my_sw + g.kw;
           float xv = s[u];
           if (in && rpb_d != nullptr)
-            xv += __ldg(rpb_d + (y - qh + g.kh - 1) * nrw + (cu - my_qw + g.kw - 1));
+            xv += nelem::to_f(__ldg(rpb_d + (y - qh + g.kh - 1) * nrw + (cu - my_qw + g.kw - 1)));
           const float pr = exp_diff(xv, my_lse);
           ds[u] = in ? pr * (dp[u] - my_delta) : 0.f;
           if (writes && in)
@@ -521,7 +566,7 @@ __global__ void __launch_bounds__(256, 1) natten3d_dq_kernel(const Params p) {
 
 // The dk/dv kernel: a gather over the table, lanes owning channels.
 template <int CL, int LANES>
-__global__ void __launch_bounds__(256, DKV_CTAS) natten3d_dkv_kernel(const Params p) {
+__global__ void __launch_bounds__(256, DKV_CTAS) natten3d_dkv_kernel(const Params<float> p) {
   constexpr int CP = CL * LANES;
   constexpr int LD = CP + 4;  // floats per staged q or dO row
   constexpr int TWK = NK * 32 / LANES;  // key columns of a CTA
@@ -668,8 +713,236 @@ __global__ void __launch_bounds__(256, DKV_CTAS) natten3d_dkv_kernel(const Param
   }
 }
 
+// The queries of one clamped axis of `size` that reach position j through
+// window slot `slot`: [lo, hi] (empty when lo > hi). Their window starts at
+// j - slot: one query in the interior, a run at an edge (the windows there
+// all start at 0, or at size - k).
+__device__ __forceinline__ void slot_queries(int j, int slot, int size, int k, int& lo, int& hi) {
+  const int st = j - slot;
+  if (st < 0 || st > size - k) {
+    lo = 1;
+    hi = 0;
+    return;
+  }
+  lo = st == 0 ? 0 : st + k / 2;
+  hi = st == size - k ? size - 1 : st + k / 2;
+}
+
+// One (query, slot) pair's bf16 contributions to a key, channels 4 i ..
+// 4 i + 3 of lane l: bf16(ds q-hat) and bf16(p dO).
+__device__ __forceinline__ void pair_terms(const Params<bf16>& p, float2 pds, const bf16* q_row,
+                                           const bf16* o_row, int c, float4& tk, float4& tv) {
+  const float4 qv = nelem::load4(q_row, c, p.g.ch, p.vec4);
+  const float4 ov = nelem::load4(o_row, c, p.g.ch, p.vec4);
+  const float s = p.g.scale;
+  tk = make_float4(round_bf16(pds.y * (qv.x * s)), round_bf16(pds.y * (qv.y * s)),
+                   round_bf16(pds.y * (qv.z * s)), round_bf16(pds.y * (qv.w * s)));
+  tv = make_float4(round_bf16(pds.x * ov.x), round_bf16(pds.x * ov.y), round_bf16(pds.x * ov.z),
+                   round_bf16(pds.x * ov.w));
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(round_bf16(a.x + b.x), round_bf16(a.y + b.y), round_bf16(a.z + b.z),
+                     round_bf16(a.w + b.w));
+}
+
+// The bf16 dk/dv kernel (mode 1): see the file's head. A group of LANES
+// lanes per key, CL channels a lane (float4 i of lane l at channels 4 l +
+// 4 LANES i ..), keys over the grid's x (all batch entries), heads on y.
+// A slot that one query reaches (the interior) adds its pair's rounded
+// terms to the key's sums; a slot that a run of queries reaches (a clamped
+// edge) sums their terms first, W inside H inside D, four channels at a
+// time (the rare path, kept out of the registers of the common one).
+template <int CL, int LANES>
+__global__ void __launch_bounds__(256, 2) natten3d_dkv_bf16_kernel(const Params<bf16> p) {
+  const Geometry& g = p.g;
+  const int l = threadIdx.x % LANES;
+  const long long n_pos = (long long)g.batch * g.d * g.h * g.w;
+  const long long key = (long long)blockIdx.x * (blockDim.x / LANES) + threadIdx.x / LANES;
+  if (key >= n_pos) return;  // a whole group: no shuffles here
+  const int head = blockIdx.y;
+  const int jw = key % g.w, jh = key / g.w % g.h, jd = key / ((long long)g.w * g.h) % g.d;
+  const int b = key / ((long long)g.w * g.h * g.d);
+  const long long b_pos = (long long)b * g.d * g.h * g.w;
+  const long long hc = (long long)g.heads * g.ch;
+  const int col = head * g.ch;
+  float4 dk[CL / 4], dv[CL / 4];
+#pragma unroll
+  for (int i = 0; i < CL / 4; ++i) dk[i] = dv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int x = g.kd - 1; x >= 0; --x) {
+    int d_lo, d_hi;
+    slot_queries(jd, x, g.d, g.kd, d_lo, d_hi);
+    for (int y = g.kh - 1; y >= 0; --y) {
+      int h_lo, h_hi;
+      slot_queries(jh, y, g.h, g.kh, h_lo, h_hi);
+      if (d_lo > d_hi || h_lo > h_hi) continue;
+      const bool one_dh = d_lo == d_hi && h_lo == h_hi;
+      for (int z = g.kw - 1; z >= 0; --z) {
+        int w_lo, w_hi;
+        if (g.circular_w) {
+          w_lo = w_hi = wrap_w(g, jw - z + g.kw / 2);
+        } else {
+          slot_queries(jw, z, g.w, g.kw, w_lo, w_hi);
+        }
+        if (w_lo > w_hi) continue;
+        const int slot = y * g.kw + z;
+        if (one_dh && w_lo == w_hi) {  // one query: its terms, added to the sums
+          const long long in = ((long long)d_lo * g.h + h_lo) * g.w + w_lo;
+          const float2 pds = p.table[table_at(g, b, in, head, x, slot)];
+          const bf16* q_row = p.q + (b_pos + in) * g.q_ps + col;
+          const bf16* o_row = p.dout + (b_pos + in) * hc + col;
+#pragma unroll
+          for (int i = 0; i < CL / 4; ++i) {
+            float4 tk, tv;
+            pair_terms(p, pds, q_row, o_row, 4 * l + 4 * LANES * i, tk, tv);
+            dk[i] = add4(dk[i], tk);
+            dv[i] = add4(dv[i], tv);
+          }
+          continue;
+        }
+#pragma unroll 1
+        for (int i = 0; i < CL / 4; ++i) {  // a run of queries, four channels at a time
+          const int c = 4 * l + 4 * LANES * i;
+          float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;  // D of H of W, each rounded
+          for (int qd = d_lo; qd <= d_hi; ++qd) {
+            float4 uk = make_float4(0.f, 0.f, 0.f, 0.f), uv = uk;
+            for (int qh = h_lo; qh <= h_hi; ++qh) {
+              float4 wk = make_float4(0.f, 0.f, 0.f, 0.f), wv = wk;
+              for (int qw = w_lo; qw <= w_hi; ++qw) {
+                const long long in = ((long long)qd * g.h + qh) * g.w + qw;
+                float4 tk, tv;
+                pair_terms(p, p.table[table_at(g, b, in, head, x, slot)],
+                           p.q + (b_pos + in) * g.q_ps + col, p.dout + (b_pos + in) * hc + col, c,
+                           tk, tv);
+                wk = add4(wk, tk);
+                wv = add4(wv, tv);
+              }
+              uk = add4(uk, wk);
+              uv = add4(uv, wv);
+            }
+            sk = add4(sk, uk);
+            sv = add4(sv, uv);
+          }
+          // i is not unrolled here: select dk[i] by a loop the compiler can keep in registers
+#pragma unroll
+          for (int ii = 0; ii < CL / 4; ++ii)
+            if (ii == i) {
+              dk[ii] = add4(dk[ii], sk);
+              dv[ii] = add4(dv[ii], sv);
+            }
+        }
+      }
+    }
+  }
+  const long long pos = b_pos + ((long long)jd * g.h + jh) * g.w + jw;
+  bf16* dk_row = p.dk + pos * hc + col;
+  bf16* dv_row = p.dv + pos * hc + col;
+#pragma unroll
+  for (int i = 0; i < CL / 4; ++i) {
+    const int c = 4 * l + 4 * LANES * i;
+    const float ka[4] = {dk[i].x, dk[i].y, dk[i].z, dk[i].w};
+    const float va[4] = {dv[i].x, dv[i].y, dv[i].z, dv[i].w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      nelem::store1(dk_row, c + e, g.ch, ka[e]);
+      nelem::store1(dv_row, c + e, g.ch, va[e]);
+    }
+  }
+}
+
+// The relative offset (0 .. 2k - 2) of the key that query i of an axis
+// reaches through window slot `slot`.
+__device__ __forceinline__ int rel_of(int i, int slot, int size, int k, bool circular) {
+  return circular ? slot - k / 2 + k - 1 : window_start(i, size, k) + slot - i + k - 1;
+}
+
+// One pass of an ordered bf16 scatter along an axis: the values src(i), i
+// = 0 .. n - 1, into bins rel(i), each bin their bf16 sum in ascending i. A
+// bin's values are consecutive in i (the interior's, or one edge query's),
+// so a run is summed in a register and written once; bins no value reaches
+// are 0.
+template <class Src, class Rel, class Dst>
+__device__ __forceinline__ void scatter_run(int n, int n_bins, Src src, Rel rel, Dst dst) {
+  for (int r = 0; r < n_bins; ++r) dst(r) = 0.f;
+  int bin = rel(0);
+  float acc = src(0);
+  for (int i = 1; i < n; ++i) {
+    const int r = rel(i);
+    const float v = src(i);
+    if (r == bin) {
+      acc = round_bf16(acc + v);
+    } else {
+      dst(bin) = acc;
+      bin = r;
+      acc = v;
+    }
+  }
+  dst(bin) = acc;
+}
+
+// The bf16 drpb, mode 2: CTA (slot, head) scatters bf16(sum over the batch
+// of ds) of every query at its slot through the transposes of the bias
+// gathers: along W into [D, H, 2kw-1], then H into [D, 2kh-1, 2kw-1], then D
+// into [2kd-1, 2kh-1, 2kw-1] (its slice of work: head, slot).
+__global__ void __launch_bounds__(256) natten3d_drpb_slots_kernel(const Params<bf16> p) {
+  const Geometry& g = p.g;
+  const int slot = blockIdx.x, head = blockIdx.y;
+  const int n_hw = g.kh * g.kw, n_slots = g.kd * n_hw;
+  const int x = slot / n_hw, y = slot / g.kw % g.kh, z = slot % g.kw;
+  const int nrd = 2 * g.kd - 1, nrh = 2 * g.kh - 1, nrw = 2 * g.kw - 1;
+  const long long per_slot = (long long)g.d * g.h * nrw + (long long)g.d * nrh * nrw + nrd * nrh * nrw;
+  float* t1 = p.work + ((long long)head * n_slots + slot) * per_slot;  // [D, H, nrw]
+  float* t2 = t1 + (long long)g.d * g.h * nrw;                          // [D, nrh, nrw]
+  float* t3 = t2 + (long long)g.d * nrh * nrw;                          // [nrd, nrh, nrw]
+  for (int i = threadIdx.x; i < g.d * g.h; i += blockDim.x) {
+    const long long row = (long long)i * g.w;  // query (i / H, i % H, 0)
+    scatter_run(
+        g.w, nrw,
+        [&](int qw) {
+          float sum = 0.f;
+          for (int b = 0; b < g.batch; ++b) sum += p.table[table_at(g, b, row + qw, head, x, y * g.kw + z)].y;
+          return round_bf16(sum);
+        },
+        [&](int qw) { return rel_of(qw, z, g.w, g.kw, g.circular_w); },
+        [&](int r) -> float& { return t1[(long long)i * nrw + r]; });
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < g.d * nrw; i += blockDim.x) {
+    const int qd = i / nrw, rw = i % nrw;
+    scatter_run(
+        g.h, nrh, [&](int qh) { return t1[((long long)qd * g.h + qh) * nrw + rw]; },
+        [&](int qh) { return rel_of(qh, y, g.h, g.kh, false); },
+        [&](int r) -> float& { return t2[((long long)qd * nrh + r) * nrw + rw]; });
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < nrh * nrw; i += blockDim.x) {
+    scatter_run(
+        g.d, nrd, [&](int qd) { return t2[(long long)qd * nrh * nrw + i]; },
+        [&](int qd) { return rel_of(qd, x, g.d, g.kd, false); },
+        [&](int r) -> float& { return t3[(long long)r * nrh * nrw + i]; });
+  }
+}
+
+// The bf16 drpb, mode 3: each (head, offset) adds its slots' sums in
+// reverse slot order in bf16 (the scan's transposed carry).
+__global__ void __launch_bounds__(256) natten3d_drpb_kernel(const Params<bf16> p) {
+  const Geometry& g = p.g;
+  const int nrd = 2 * g.kd - 1, nrh = 2 * g.kh - 1, nrw = 2 * g.kw - 1;
+  const int n_rel = nrd * nrh * nrw, n_slots = g.kd * g.kh * g.kw;
+  const long long per_slot = (long long)g.d * g.h * nrw + (long long)g.d * nrh * nrw + n_rel;
+  const long long t3 = (long long)g.d * g.h * nrw + (long long)g.d * nrh * nrw;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= g.heads * n_rel) return;
+  const int head = i / n_rel, r = i % n_rel;
+  float acc = 0.f;
+  for (int s = n_slots - 1; s >= 0; --s)
+    acc = round_bf16(acc + p.work[((long long)head * n_slots + s) * per_slot + t3 + r]);
+  p.drpb[i] = __float2bfloat16_rn(acc);
+}
+
 // Bytes of shared memory of a launch (ops/natten3d.py: `plan_backward`).
-size_t dq_smem(const Params& p, int cp, int tw) {
+template <class T>
+size_t dq_smem(const Params<T>& p, int cp, int tw) {
   const Geometry& g = p.g;
   size_t bytes = sizeof(float) * (size_t)4 * p.ry * p.rx * (cp + 4);
   if (p.rpb != nullptr && p.partial != nullptr)
@@ -678,29 +951,55 @@ size_t dq_smem(const Params& p, int cp, int tw) {
   return bytes;
 }
 
-size_t dkv_smem(const Params& p, int cp) {
+size_t dkv_smem(const Params<float>& p, int cp) {
   return sizeof(float) * 2 * (size_t)p.ry * p.rx * (2 * (cp + 4) + 2 * slab_slots(p.g));
 }
 
-template <int CL, int LANES>
-int launch(int mode, const Params& p, cudaStream_t stream) {
+template <int CL, int LANES, class T>
+int launch_dq(const Params<T>& p, cudaStream_t stream) {
   const Geometry& g = p.g;
   constexpr int CP = CL * LANES;
-  const int tw = (mode == DQ ? NQ : NK) * 32 / LANES;
+  constexpr int tw = NQ * 32 / LANES;
   const long long tiles = (long long)g.d * ((g.h + p.rows - 1) / p.rows) * ((g.w + tw - 1) / tw);
   const dim3 grid((unsigned)tiles, g.heads, g.batch);
-  if (mode == DQ) {
-    const size_t smem = dq_smem(p, CP, tw);
-    cudaError_t err = cudaFuncSetAttribute(natten3d_dq_kernel<CL, LANES>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    natten3d_dq_kernel<CL, LANES><<<grid, 32 * p.rows, smem, stream>>>(p);
+  const size_t smem = dq_smem(p, CP, tw);
+  cudaError_t err = cudaFuncSetAttribute(natten3d_dq_kernel<CL, LANES, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  natten3d_dq_kernel<CL, LANES, T><<<grid, 32 * p.rows, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int CL, int LANES>
+int launch(int mode, const Params<float>& p, cudaStream_t stream) {
+  const Geometry& g = p.g;
+  constexpr int CP = CL * LANES;
+  if (mode == DQ) return launch_dq<CL, LANES>(p, stream);
+  const int tw = NK * 32 / LANES;
+  const long long tiles = (long long)g.d * ((g.h + p.rows - 1) / p.rows) * ((g.w + tw - 1) / tw);
+  const dim3 grid((unsigned)tiles, g.heads, g.batch);
+  const size_t smem = dkv_smem(p, CP);
+  cudaError_t err = cudaFuncSetAttribute(natten3d_dkv_kernel<CL, LANES>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  natten3d_dkv_kernel<CL, LANES><<<grid, 32 * p.rows, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int CL, int LANES>
+int launch_bf16(int mode, const Params<bf16>& p, cudaStream_t stream) {
+  const Geometry& g = p.g;
+  if (mode == DQ) return launch_dq<CL, LANES>(p, stream);
+  if (mode == DKV) {
+    const long long n_pos = (long long)g.batch * g.d * g.h * g.w;
+    constexpr int per_cta = 256 / LANES;
+    const dim3 grid((unsigned)((n_pos + per_cta - 1) / per_cta), g.heads);
+    natten3d_dkv_bf16_kernel<CL, LANES><<<grid, 256, 0, stream>>>(p);
+  } else if (mode == DRPB_SLOTS) {
+    natten3d_drpb_slots_kernel<<<dim3(g.kd * g.kh * g.kw, g.heads), 256, 0, stream>>>(p);
   } else {
-    const size_t smem = dkv_smem(p, CP);
-    cudaError_t err = cudaFuncSetAttribute(natten3d_dkv_kernel<CL, LANES>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    natten3d_dkv_kernel<CL, LANES><<<grid, 32 * p.rows, smem, stream>>>(p);
+    const int n = g.heads * (2 * g.kd - 1) * (2 * g.kh - 1) * (2 * g.kw - 1);
+    natten3d_drpb_kernel<<<(n + 255) / 256, 256, 0, stream>>>(p);
   }
   return (int)cudaGetLastError();
 }
@@ -726,11 +1025,11 @@ extern "C" int gwt_natten3d_backward(int mode, const float* q, const float* k, c
                                      long long v_ps, int kd, int kh, int kw, int circular_w,
                                      int vec4, float scale, int cp, int lanes, int rows, int ry,
                                      int rx, void* stream) {
-  const Params p{q, k, v, rpb, dout, lse, out, dq, dk, dv, partial,
-                 reinterpret_cast<float2*>(table),
-                 Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw, circular_w,
-                          scale},
-                 rows, ry, rx, vec4};
+  const Params<float> p{q, k, v, rpb, dout, lse, out, dq, dk, dv, partial,
+                        reinterpret_cast<float2*>(table), nullptr, nullptr,
+                        Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw,
+                                 circular_w, scale},
+                        rows, ry, rx, vec4};
   if ((mode != DQ && mode != DKV) || rows < 1 || rows > 8 || ry < 1 || rx < 1 || ch > cp ||
       table == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -741,6 +1040,44 @@ extern "C" int gwt_natten3d_backward(int mode, const float* q, const float* k, c
     case 96 * 64 + 8: return launch<12, 8>(mode, p, s);
     case 128 * 64 + 16: return launch<8, 16>(mode, p, s);
     case 256 * 64 + 32: return launch<8, 32>(mode, p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 mode: q, k, v, rpb, dout, dq, dk, dv and drpb bf16 (strides in
+// elements), out the f32 out32 of K6, scale the bf16 scale; no drpb
+// partials. mode 0: dq and the table (the dq plan's cp, lanes, rows, ry,
+// rx); mode 1: dk and dv from the table (cp and lanes as mode 0's; rows, ry
+// and rx unread); mode 2: each (head, slot)'s drpb sums into `work` ([heads,
+// slots, D H (2kw-1) + D (2kh-1)(2kw-1) + n_rel] f32); mode 3: drpb from work.
+// vec: ch, the strides and the pointers allow 16-byte copies.
+extern "C" int gwt_natten3d_backward_bf16(int mode, const void* q, const void* k, const void* v,
+                                          const void* rpb, const void* dout, const float* lse,
+                                          const float* out32, void* dq, void* dk, void* dv,
+                                          float* table, float* work, void* drpb, int batch, int d,
+                                          int h, int w, int heads, int ch, long long q_ps,
+                                          long long k_ps, long long v_ps, int kd, int kh, int kw,
+                                          int circular_w, int vec, float scale, int cp, int lanes,
+                                          int rows, int ry, int rx, void* stream) {
+  const Params<bf16> p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v), static_cast<const bf16*>(rpb),
+                       static_cast<const bf16*>(dout), lse, out32, static_cast<bf16*>(dq),
+                       static_cast<bf16*>(dk), static_cast<bf16*>(dv), nullptr,
+                       reinterpret_cast<float2*>(table), work, static_cast<bf16*>(drpb),
+                       Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw,
+                                circular_w, scale},
+                       rows, ry, rx, vec};
+  if (mode < DQ || mode > DRPB || rows < 1 || rows > 8 || ry < 1 || rx < 1 || ch > cp ||
+      table == nullptr || (mode >= DRPB_SLOTS && (work == nullptr || rpb == nullptr)) ||
+      (mode == DRPB && drpb == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (cp * 64 + lanes) {
+    case 32 * 64 + 8: return launch_bf16<4, 8>(mode, p, s);
+    case 64 * 64 + 8: return launch_bf16<8, 8>(mode, p, s);
+    case 96 * 64 + 8: return launch_bf16<12, 8>(mode, p, s);
+    case 128 * 64 + 16: return launch_bf16<8, 16>(mode, p, s);
+    case 256 * 64 + 32: return launch_bf16<8, 32>(mode, p, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -72,10 +72,20 @@
 // were all slower or no faster; groups of four lanes at 32 channels (spilling
 // at 128 registers) were 2% faster at (5, 7, 7) and 16% slower at (3, 5, 5).
 //
+// bf16 (gwt_natten_flash_forward_bf16): the TPU kernel's bf16 roundings.
+// q-hat = bf16(q x the bf16 scale); f32 logits plus the bf16 bias; the TPU
+// kernel then rounds the normalised p to bf16 before p . v, which needs each
+// query's max m and sum l first: the same kernel on the element type walks
+// its items twice, the first pass forming m and l (no V, no products with
+// it), the second recomputing the logits and accumulating bf16(exp2(x - m)
+// / l) . v in f32, rounded to bf16 once at the end. Slabs are staged as f32,
+// converted on the copy (plain loads), so the plan is the f32 kernel's.
+//
 // Not yet here: tensor cores (K6's split-TF32 design of the same function
-// lost to FP32 FMAs, scripts/natten3d_mma.cu), bf16.
+// lost to FP32 FMAs, scripts/natten3d_mma.cu).
 
 #include "clustered_tile.cuh"
+#include "natten_elem.cuh"
 
 namespace {
 
@@ -97,16 +107,17 @@ struct Geometry {
   int batch, d, h, w, heads, ch;
   long long q_ps, k_ps, v_ps;  // floats between consecutive positions
   int kd, kh, kw, circular_w;
-  float scale;  // ch^-0.5 * log2(e)
+  float scale;  // ch^-0.5 * log2(e); bf16: the bf16 ch^-0.5
 };
 
+template <class T>
 struct Params {
-  const float* __restrict__ q;
-  const float* __restrict__ k;
-  const float* __restrict__ v;
-  const float* __restrict__ rpb;  // or null
-  float* __restrict__ out;        // [B, D, H, W, heads, ch], dense
-  float* __restrict__ lse;        // [B, D, H, W, heads], or null: not written
+  const T* __restrict__ q;
+  const T* __restrict__ k;
+  const T* __restrict__ v;
+  const T* __restrict__ rpb;  // or null
+  T* __restrict__ out;        // [B, D, H, W, heads, ch], dense
+  float* __restrict__ lse;    // [B, D, H, W, heads], or null: not written
   Geometry g;
   int td, th;  // query planes and rows of a CTA (td * th warps)
   int ry, rx;  // union rows and columns of an item
@@ -150,9 +161,12 @@ __device__ __forceinline__ void load_slice(float (&x)[CL], const float* row, int
 }
 
 // CP: padded head width; CL: channels of a lane (LANES = CP / CL lanes a
-// group); NC: columns of a chunk; MINB: CTAs an SM the registers allow.
-template <int CP, int CL, int NC, int MINB>
-__global__ void __launch_bounds__(THREADS, MINB) natten_forward_kernel(const Params p) {
+// group); NC: columns of a chunk; MINB: CTAs an SM the registers allow; T:
+// the element type (bf16: two passes over the items).
+template <int CP, int CL, int NC, int MINB, class T>
+__global__ void __launch_bounds__(THREADS, MINB) natten_forward_kernel(const Params<T> p) {
+  constexpr bool BF = nelem::is_bf16<T>;
+  constexpr int PASSES = BF ? 2 : 1;
   constexpr int LANES = CP / CL;
   constexpr int LD = CP + 4;  // floats per staged row
   constexpr int TW = NQ * 32 / LANES;  // query columns of a CTA
@@ -188,7 +202,8 @@ __global__ void __launch_bounds__(THREADS, MINB) natten_forward_kernel(const Par
   float* Rs = reinterpret_cast<float*>(smem4);  // [n_rel] rpb of this head, times log2(e)
   float* stage_base = Rs + (p.rpb != nullptr ? (n_rel + 3) & ~3 : 0);  // [2][K, V][ry * rx][LD]
   if (p.rpb != nullptr)
-    for (int i = tid; i < n_rel; i += THREADS) Rs[i] = __ldg(p.rpb + (long long)head * n_rel + i) * LOG2E;
+    for (int i = tid; i < n_rel; i += THREADS)
+      Rs[i] = nelem::to_f(__ldg(p.rpb + (long long)head * n_rel + i)) * LOG2E;
 
   // This warp's query row and this group's queries (repeating the last
   // query of the volume past it: computed, never stored; a row past the
@@ -217,24 +232,37 @@ __global__ void __launch_bounds__(THREADS, MINB) natten_forward_kernel(const Par
   float qr[NQ][CL], o[NQ][CL];
 #pragma unroll
   for (int j = 0; j < NQ; ++j) {
-    const float* row =
+    const T* row =
         p.q + (b_pos + ((long long)qd * g.h + qh) * g.w + min(qw0 + (j ^ my_j), g.w - 1)) * g.q_ps +
         col;
 #pragma unroll
     for (int i = 0; i < CL / 4; ++i) {
       const int c = 4 * l + 4 * LANES * i;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (p.vec4) {
-        if (c < g.ch) x = __ldg(reinterpret_cast<const float4*>(row + c));
+      if constexpr (BF) {
+        x = nelem::load4(row, c, g.ch, p.vec4);
+        // q-hat = bf16(q x scale), in log2 units
+        x = make_float4(nelem::round_bf16(x.x * g.scale) * LOG2E,
+                        nelem::round_bf16(x.y * g.scale) * LOG2E,
+                        nelem::round_bf16(x.z * g.scale) * LOG2E,
+                        nelem::round_bf16(x.w * g.scale) * LOG2E);
+        qr[j][4 * i] = x.x;
+        qr[j][4 * i + 1] = x.y;
+        qr[j][4 * i + 2] = x.z;
+        qr[j][4 * i + 3] = x.w;
       } else {
-        x = make_float4(c < g.ch ? __ldg(row + c) : 0.f, c + 1 < g.ch ? __ldg(row + c + 1) : 0.f,
-                        c + 2 < g.ch ? __ldg(row + c + 2) : 0.f,
-                        c + 3 < g.ch ? __ldg(row + c + 3) : 0.f);
+        if (p.vec4) {
+          if (c < g.ch) x = __ldg(reinterpret_cast<const float4*>(row + c));
+        } else {
+          x = make_float4(c < g.ch ? __ldg(row + c) : 0.f, c + 1 < g.ch ? __ldg(row + c + 1) : 0.f,
+                          c + 2 < g.ch ? __ldg(row + c + 2) : 0.f,
+                          c + 3 < g.ch ? __ldg(row + c + 3) : 0.f);
+        }
+        qr[j][4 * i] = x.x * g.scale;
+        qr[j][4 * i + 1] = x.y * g.scale;
+        qr[j][4 * i + 2] = x.z * g.scale;
+        qr[j][4 * i + 3] = x.w * g.scale;
       }
-      qr[j][4 * i] = x.x * g.scale;
-      qr[j][4 * i + 1] = x.y * g.scale;
-      qr[j][4 * i + 2] = x.z * g.scale;
-      qr[j][4 * i + 3] = x.w * g.scale;
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[j][4 * i + e] = 0.f;
     }
@@ -250,7 +278,10 @@ __global__ void __launch_bounds__(THREADS, MINB) natten_forward_kernel(const Par
     c0 = u0w + sw_i * p.rx;
     c1 = min(c0 + p.rx, u1w);
   };
+  // Item `it` of the walk (of pass it / n_items in bf16: V from the second).
   auto copy_item = [&](int it, int stage) {
+    const bool with_v = !BF || it >= n_items;
+    if constexpr (BF) it %= n_items;
     int kp, y0, y1, c0, c1;
     item_of(it, kp, y0, y1, c0, c1);
     const int ncols = c1 - c0, nrows = (y1 - y0) * ncols;
@@ -258,14 +289,23 @@ __global__ void __launch_bounds__(THREADS, MINB) natten_forward_kernel(const Par
     float* ks_ = stage_base + stage * 2 * item_floats;
     float* vs_ = ks_ + item_floats;
     const long long plane = b_pos + (long long)kp * g.h * g.w;
-    if (p.vec4) {
+    if constexpr (BF) {
+      constexpr int per_row = CP / 8;  // eight channels a thread, converted to f32
+      for (int i = tid; i < nrows * per_row; i += THREADS) {
+        const int r = i / per_row, c = (i - r * per_row) * 8;
+        const int yy = div_small(r, inv_cols);
+        const long long pos = plane + (long long)(y0 + yy) * g.w + wrap_w(g, c0 + r - yy * ncols);
+        nelem::convert8(ks_ + r * LD, p.k + pos * g.k_ps + col, c, g.ch, p.vec4, true);
+        if (with_v) nelem::convert8(vs_ + r * LD, p.v + pos * g.v_ps + col, c, g.ch, p.vec4, true);
+      }
+    } else if (p.vec4) {
       constexpr int parts = CP / 4 / COPY_F4;  // threads that copy a row
       for (int i = tid; i < nrows * parts; i += THREADS) {
         const int r = i / parts, c = (i - r * parts) * 4 * COPY_F4;
         const int yy = div_small(r, inv_cols);
         const long long pos = plane + (long long)(y0 + yy) * g.w + wrap_w(g, c0 + r - yy * ncols);
-        const float* k_src = p.k + pos * g.k_ps + col;
-        const float* v_src = p.v + pos * g.v_ps + col;
+        const T* k_src = p.k + pos * g.k_ps + col;
+        const T* v_src = p.v + pos * g.v_ps + col;
 #pragma unroll
         for (int f = 0; f < COPY_F4; ++f) {
           const int cf = c + 4 * f;
@@ -287,20 +327,29 @@ __global__ void __launch_bounds__(THREADS, MINB) natten_forward_kernel(const Par
   };
 
   float m = NEG_MAX, lsum = 0.f;  // query my_j's running max and (this lane's part of) its sum
+  float inv_l = 0.f;              // bf16, second pass: 1 / l of query my_j
 
   copy_item(0, 0);
   cp_async_commit();
-  for (int it = 0; it < n_items; ++it) {
-    if (it + 1 < n_items) copy_item(it + 1, (it + 1) & 1);
+  for (int walk = 0; walk < PASSES * n_items; ++walk) {
+    if (walk + 1 < PASSES * n_items) copy_item(walk + 1, (walk + 1) & 1);
     cp_async_commit();
     cp_async_wait<1>();
+    if constexpr (BF) {
+      if (walk == n_items) {  // the first pass is done: l of query my_j, whole
+        if constexpr (HALVE) lsum += __shfl_xor_sync(0xffffffffu, lsum, QL / 2);
+        inv_l = 1.f / lsum;
+      }
+    }
+    const bool second = BF && walk >= n_items;
+    const int it = BF ? walk % n_items : walk;
     __syncthreads();
     int kp, y0, y1, c0, c1;
     item_of(it, kp, y0, y1, c0, c1);
     // The same for the whole warp: its plane's window and its row's rows.
     const int ya = max(y0, sh), yb = min(y1, sh + g.kh);
     if (row_live && kp >= sd && kp < sd + g.kd && ya < yb) {
-      const float* ks_ = stage_base + (it & 1) * 2 * item_floats;
+      const float* ks_ = stage_base + (walk & 1) * 2 * item_floats;
       const float* vs_ = ks_ + item_floats;
       const int ncols = c1 - c0;
       const float* rpb_d = p.rpb != nullptr ? Rs + (kp - qd + g.kd - 1) * nrh * nrw : nullptr;
@@ -366,6 +415,28 @@ __global__ void __launch_bounds__(THREADS, MINB) natten_forward_kernel(const Par
               cmax = fmaxf(cmax, x[u]);
             }
           }
+          if constexpr (BF) {
+            if (second) {
+              // p-hat = bf16(exp2(x - m) / l), the TPU kernel's normalised p
+#pragma unroll
+              for (int u = 0; u < NCL; ++u)
+                x[u] = (valid >> u) & 1u ? nelem::round_bf16(exp2f(x[u] - m) * inv_l) : 0.f;
+#pragma unroll
+              for (int u = 0; u < NC; ++u) {
+                const int cu = min(max(cs + u - c0, 0), ncols - 1);
+                float vv[CL];
+                load_slice<CL, LANES>(vv, v_row + cu * LD, l);
+#pragma unroll
+                for (int j = 0; j < NQ; ++j) {
+                  const float pj = __shfl_sync(0xffffffffu, x[u % NCL],
+                                               (j * QL ^ qbits) + u / NCL * (QL / 2), LANES);
+#pragma unroll
+                  for (int c = 0; c < CL; ++c) o[j][c] = fmaf(pj, vv[c], o[j][c]);
+                }
+              }
+              continue;
+            }
+          }
           if constexpr (HALVE) cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, QL / 2));
           const float m_new = fmaxf(m, cmax);
           const float alpha = exp2f(m - m_new);
@@ -376,25 +447,27 @@ __global__ void __launch_bounds__(THREADS, MINB) natten_forward_kernel(const Par
             x[u] = (valid >> u) & 1u ? exp2f(x[u] - m) : 0.f;
             lsum += x[u];
           }
-          // o[j] = alpha_j o[j] + sum_u p[j][u] v[u], p and alpha broadcast
-          // from the lanes that hold them.
-#pragma unroll
-          for (int j = 0; j < NQ; ++j) {
-            const float a = __shfl_sync(0xffffffffu, alpha, j * QL ^ qbits, LANES);
-#pragma unroll
-            for (int c = 0; c < CL; ++c) o[j][c] *= a;
-          }
-#pragma unroll
-          for (int u = 0; u < NC; ++u) {
-            const int cu = min(max(cs + u - c0, 0), ncols - 1);
-            float vv[CL];
-            load_slice<CL, LANES>(vv, v_row + cu * LD, l);
+          if constexpr (!BF) {  // (bf16: the first pass forms m and l only)
+            // o[j] = alpha_j o[j] + sum_u p[j][u] v[u], p and alpha broadcast
+            // from the lanes that hold them.
 #pragma unroll
             for (int j = 0; j < NQ; ++j) {
-              const float pj =
-                  __shfl_sync(0xffffffffu, x[u % NCL], (j * QL ^ qbits) + u / NCL * (QL / 2), LANES);
+              const float a = __shfl_sync(0xffffffffu, alpha, j * QL ^ qbits, LANES);
 #pragma unroll
-              for (int c = 0; c < CL; ++c) o[j][c] = fmaf(pj, vv[c], o[j][c]);
+              for (int c = 0; c < CL; ++c) o[j][c] *= a;
+            }
+#pragma unroll
+            for (int u = 0; u < NC; ++u) {
+              const int cu = min(max(cs + u - c0, 0), ncols - 1);
+              float vv[CL];
+              load_slice<CL, LANES>(vv, v_row + cu * LD, l);
+#pragma unroll
+              for (int j = 0; j < NQ; ++j) {
+                const float pj = __shfl_sync(0xffffffffu, x[u % NCL],
+                                             (j * QL ^ qbits) + u / NCL * (QL / 2), LANES);
+#pragma unroll
+                for (int c = 0; c < CL; ++c) o[j][c] = fmaf(pj, vv[c], o[j][c]);
+              }
             }
           }
         }
@@ -405,8 +478,9 @@ __global__ void __launch_bounds__(THREADS, MINB) natten_forward_kernel(const Par
   cp_async_wait<0>();
   if (!row_live) return;  // a whole warp
 
-  // out = o / l and lse for the group's queries inside the volume.
-  if constexpr (HALVE) lsum += __shfl_xor_sync(0xffffffffu, lsum, QL / 2);
+  // out = o / l and lse for the group's queries inside the volume (bf16: o,
+  // already normalised; lsum whole since the first pass).
+  if constexpr (HALVE && !BF) lsum += __shfl_xor_sync(0xffffffffu, lsum, QL / 2);
   const long long row_pos = b_pos + ((long long)qd * g.h + qh) * g.w;
   if (p.lse != nullptr && l == qbits && qw0 + my_j < g.w)
     p.lse[(row_pos + qw0 + my_j) * g.heads + head] = (m + log2f(lsum)) * LN2;
@@ -414,41 +488,65 @@ __global__ void __launch_bounds__(THREADS, MINB) natten_forward_kernel(const Par
   for (int j = 0; j < NQ; ++j) {
     const float lj = __shfl_sync(0xffffffffu, lsum, j * QL ^ qbits, LANES);
     if (qw0 + (j ^ my_j) >= g.w) continue;
-    float* dst = p.out + (row_pos + qw0 + (j ^ my_j)) * ((long long)g.heads * g.ch) + col;
-    const float inv = 1.f / lj;
+    T* dst = p.out + (row_pos + qw0 + (j ^ my_j)) * ((long long)g.heads * g.ch) + col;
+    if constexpr (BF) {
 #pragma unroll
-    for (int i = 0; i < CL / 4; ++i) {
-      const int c = 4 * l + 4 * LANES * i;
-      const float4 x = make_float4(o[j][4 * i] * inv, o[j][4 * i + 1] * inv,
-                                   o[j][4 * i + 2] * inv, o[j][4 * i + 3] * inv);
-      if (p.vec4) {
-        if (c < g.ch) *reinterpret_cast<float4*>(dst + c) = x;
-      } else {
-        if (c < g.ch) dst[c] = x.x;
-        if (c + 1 < g.ch) dst[c + 1] = x.y;
-        if (c + 2 < g.ch) dst[c + 2] = x.z;
-        if (c + 3 < g.ch) dst[c + 3] = x.w;
+      for (int i = 0; i < CL / 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) nelem::store1(dst, 4 * l + 4 * LANES * i + e, g.ch, o[j][4 * i + e]);
+    } else {
+      const float inv = 1.f / lj;
+#pragma unroll
+      for (int i = 0; i < CL / 4; ++i) {
+        const int c = 4 * l + 4 * LANES * i;
+        const float4 x = make_float4(o[j][4 * i] * inv, o[j][4 * i + 1] * inv,
+                                     o[j][4 * i + 2] * inv, o[j][4 * i + 3] * inv);
+        if (p.vec4) {
+          if (c < g.ch) *reinterpret_cast<float4*>(dst + c) = x;
+        } else {
+          if (c < g.ch) dst[c] = x.x;
+          if (c + 1 < g.ch) dst[c + 1] = x.y;
+          if (c + 2 < g.ch) dst[c + 2] = x.z;
+          if (c + 3 < g.ch) dst[c + 3] = x.w;
+        }
       }
     }
   }
 }
 
-template <int CP, int CL, int NC, int MINB>
-int launch(const Params& p, cudaStream_t stream) {
+template <int CP, int CL, int NC, int MINB, class T>
+int launch(const Params<T>& p, cudaStream_t stream) {
   const Geometry& g = p.g;
   constexpr int LD = CP + 4;
   constexpr int TW = NQ * 32 / (CP / CL);
   const int n_rel = (2 * g.kd - 1) * (2 * g.kh - 1) * (2 * g.kw - 1);
   const size_t smem = sizeof(float) * ((p.rpb != nullptr ? (size_t)(n_rel + 3) / 4 * 4 : 0) +
                                        (size_t)2 * 2 * p.ry * p.rx * LD);
-  cudaError_t err = cudaFuncSetAttribute(natten_forward_kernel<CP, CL, NC, MINB>,
+  cudaError_t err = cudaFuncSetAttribute(natten_forward_kernel<CP, CL, NC, MINB, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long tiles = (long long)((g.d + p.td - 1) / p.td) * ((g.h + p.th - 1) / p.th) *
                           ((g.w + TW - 1) / TW);
   const dim3 grid((unsigned)tiles, g.heads, g.batch);
-  natten_forward_kernel<CP, CL, NC, MINB><<<grid, THREADS, smem, stream>>>(p);
+  natten_forward_kernel<CP, CL, NC, MINB, T><<<grid, THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <class T>
+int dispatch(const Params<T>& p, int cp, int lanes, int nc, cudaStream_t s) {
+  if (p.td < 1 || p.th < 1 || p.td * p.th * 32 != THREADS || p.ry < 1 || p.rx < 1 || p.g.ch > cp)
+    return (int)cudaErrorInvalidValue;
+  switch ((cp * 32 + lanes) * 16 + nc) {
+    case (16 * 32 + 4) * 16 + NC_SHORT: return launch<16, 4, NC_SHORT, 2>(p, s);
+    case (16 * 32 + 4) * 16 + NC_LONG: return launch<16, 4, NC_LONG, 2>(p, s);
+    case (32 * 32 + 8) * 16 + NC_SHORT: return launch<32, 4, NC_SHORT, 2>(p, s);
+    case (32 * 32 + 8) * 16 + NC_LONG: return launch<32, 4, NC_LONG, 2>(p, s);
+    case (64 * 32 + 8) * 16 + NC_SHORT: return launch<64, 8, NC_SHORT, 1>(p, s);
+    case (64 * 32 + 8) * 16 + NC_LONG: return launch<64, 8, NC_LONG, 1>(p, s);
+    case (128 * 32 + 16) * 16 + NC_SHORT: return launch<128, 8, NC_SHORT, 1>(p, s);
+    case (128 * 32 + 16) * 16 + NC_LONG: return launch<128, 8, NC_LONG, 1>(p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -467,22 +565,29 @@ extern "C" int gwt_natten_flash_forward(const float* q, const float* k, const fl
                                         long long k_ps, long long v_ps, int kd, int kh, int kw,
                                         int circular_w, int vec4, float scale, int cp, int lanes,
                                         int nc, int td, int th, int ry, int rx, void* stream) {
-  const Params p{q, k, v, rpb, out, lse,
-                 Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw, circular_w,
-                          scale * LOG2E},
-                 td, th, ry, rx, vec4};
-  if (td < 1 || th < 1 || td * th * 32 != THREADS || ry < 1 || rx < 1 || ch > cp)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((cp * 32 + lanes) * 16 + nc) {
-    case (16 * 32 + 4) * 16 + NC_SHORT: return launch<16, 4, NC_SHORT, 2>(p, s);
-    case (16 * 32 + 4) * 16 + NC_LONG: return launch<16, 4, NC_LONG, 2>(p, s);
-    case (32 * 32 + 8) * 16 + NC_SHORT: return launch<32, 4, NC_SHORT, 2>(p, s);
-    case (32 * 32 + 8) * 16 + NC_LONG: return launch<32, 4, NC_LONG, 2>(p, s);
-    case (64 * 32 + 8) * 16 + NC_SHORT: return launch<64, 8, NC_SHORT, 1>(p, s);
-    case (64 * 32 + 8) * 16 + NC_LONG: return launch<64, 8, NC_LONG, 1>(p, s);
-    case (128 * 32 + 16) * 16 + NC_SHORT: return launch<128, 8, NC_SHORT, 1>(p, s);
-    case (128 * 32 + 16) * 16 + NC_LONG: return launch<128, 8, NC_LONG, 1>(p, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Params<float> p{q, k, v, rpb, out, lse,
+                        Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw,
+                                 circular_w, scale * LOG2E},
+                        td, th, ry, rx, vec4};
+  return dispatch(p, cp, lanes, nc, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 mode: q, k, v, rpb and out bf16 (strides in elements), lse f32 or
+// null, scale the bf16 scale; vec: ch, the strides and the pointers allow
+// 16-byte copies of eight channels. The plan is the f32 kernel's (`_fwd_plan`).
+extern "C" int gwt_natten_flash_forward_bf16(const void* q, const void* k, const void* v,
+                                             const void* rpb, void* out, float* lse, int batch,
+                                             int d, int h, int w, int heads, int ch,
+                                             long long q_ps, long long k_ps, long long v_ps,
+                                             int kd, int kh, int kw, int circular_w, int vec,
+                                             float scale, int cp, int lanes, int nc, int td,
+                                             int th, int ry, int rx, void* stream) {
+  using nelem::bf16;
+  const Params<bf16> p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v), static_cast<const bf16*>(rpb),
+                       static_cast<bf16*>(out), lse,
+                       Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw,
+                                circular_w, scale},
+                       td, th, ry, rx, vec};
+  return dispatch(p, cp, lanes, nc, static_cast<cudaStream_t>(stream));
 }

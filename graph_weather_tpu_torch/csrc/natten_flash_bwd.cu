@@ -71,11 +71,33 @@
 // is latency: each column's chain of loads, shuffles and an exponential at
 // 8 warps an SM (the dq kernel's halo allows one CTA).
 //
-// Not yet here: tensor cores, bf16.
+// bf16 (gwt_natten_flash_backward_bf16): the TPU kernel's bf16 roundings,
+// with q-hat = bf16(q x the bf16 scale) and delta = dO . out of the bf16 out
+// (ops/natten_flash.py, `natten_flash_backward_reference`).
+//   * dq (mode 0): the dq kernel above on bf16 loads (its halo staged as f32,
+//     converted on the copy), ds rounded to bf16 before its products with k,
+//     dq = bf16(sum x ch^-0.5); the drpb partials sum ds unrounded, as the
+//     TPU kernel's f32 dbias.
+//   * dk/dv (mode 1): the TPU kernel rounds each query tile's part of a key's
+//     dk (sum bf16(ds) q-hat) and dv (sum bf16(p) dO) to bf16 and adds the
+//     parts in f32, so a key's sums depend on the tiles that tiling (all of
+//     D by th x tw of H and W, `tpu_backward_tile`) cuts its inverse window
+//     into. A group of CP / 4 lanes per key (four channels a lane, k and v
+//     in registers) walks its inverse window once per tile part, recomputing
+//     s, p, dp and ds per pair (the dots summed over the group by shuffles)
+//     and reading each query's q, dO, lse and delta through L1; it rounds
+//     each part and writes bf16 of their f32 sum.
+//
+// Not yet here: tensor cores; a bf16 dk/dv kernel that stages its queries.
 
 #include <cuda_runtime.h>
 
+#include "natten_elem.cuh"
+
 namespace {
+
+using nelem::bf16;
+using nelem::round_bf16;
 
 constexpr int DQ = 0, DKV = 1;
 // Per kernel: W-neighbouring positions of a lane group, and channels of a
@@ -98,19 +120,21 @@ struct Geometry {
   int ry;  // dk/dv: rows of a staged strip (mode 1)
 };
 
+template <class T>
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* rpb;    // or null
-  const float* dout;   // [B, D, H, W, heads, ch], dense
+  const T* q;
+  const T* k;
+  const T* v;
+  const T* rpb;        // or null
+  const T* dout;       // [B, D, H, W, heads, ch], dense
   const float* lse;    // [B, D, H, W, heads]
   const float* delta;  // [B, D, H, W, heads]
-  float* dq;           // dense, mode 0
-  float* dk;           // dense, mode 1
-  float* dv;           // dense, mode 1
+  T* dq;               // dense, mode 0
+  T* dk;               // dense, mode 1
+  T* dv;               // dense, mode 1
   float* partial;      // [B * n_tiles, heads, n_rel] (mode 0, with rpb)
   Geometry g;
+  int jth, jtw;        // bf16 dk/dv: the TPU kernel's query tile (H, W)
 };
 
 __device__ __forceinline__ int window_start(int i, int size, int k) {
@@ -207,7 +231,16 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
 }
 
 // dst[0:CP) = src[0:ch), zeros past ch (or everywhere when !ok); thread
-// part `c4` of CP / 4 copies channels 4 c4 .. 4 c4 + 3.
+// part `c4` of CP / 4 copies channels 4 c4 .. 4 c4 + 3 (bf16: a plain load,
+// converted to f32).
+template <int CP>
+__device__ __forceinline__ void copy_part(float* dst, const bf16* src, const bf16* any, int c4,
+                                          bool ok, const Geometry& g) {
+  const int c = 4 * c4;
+  *reinterpret_cast<float4*>(dst + c) =
+      ok ? nelem::load4(src, c, g.ch, g.vec4) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
 template <int CP>
 __device__ __forceinline__ void copy_part(float* dst, const float* src, const float* any, int c4,
                                           bool ok, const Geometry& g) {
@@ -284,6 +317,38 @@ __device__ __forceinline__ Row<NV> load_row(const float* row, int l, int ch, boo
     r.x[i] = make_float4(x.x * mul, x.y * mul, x.z * mul, x.w * mul);
   }
   return r;
+}
+
+// The same of a bf16 row; a non-unit `mul` (q's scale) is the bf16 scale of
+// mul, and the products are rounded to bf16: q-hat = bf16(q x scale).
+template <int NV, int LANES>
+__device__ __forceinline__ Row<NV> load_row(const bf16* row, int l, int ch, bool vec4,
+                                            float mul = 1.f) {
+  Row<NV> r;
+  const bool scaled = mul != 1.f;
+  const float m16 = round_bf16(mul);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float4 x = nelem::load4(row, 4 * l + 4 * LANES * i, ch, vec4);
+    r.x[i] = scaled ? make_float4(round_bf16(x.x * m16), round_bf16(x.y * m16), round_bf16(x.z * m16),
+                                  round_bf16(x.w * m16))
+                    : x;
+  }
+  return r;
+}
+
+// r times `mul`, rounded to bf16.
+template <int NV, int LANES>
+__device__ __forceinline__ void store_row(bf16* row, const Row<NV>& r, float mul, int l, int ch,
+                                          bool vec4) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int c = 4 * l + 4 * LANES * i;
+    nelem::store1(row, c, ch, r.x[i].x * mul);
+    nelem::store1(row, c + 1, ch, r.x[i].y * mul);
+    nelem::store1(row, c + 2, ch, r.x[i].z * mul);
+    nelem::store1(row, c + 3, ch, r.x[i].w * mul);
+  }
 }
 
 template <int NV, int LANES>
@@ -392,8 +457,8 @@ struct Group {
   }
 };
 
-template <int CP>
-__global__ void __launch_bounds__(256, 1) natten_dq_kernel(const Params p) {
+template <int CP, class T>
+__global__ void __launch_bounds__(256, 1) natten_dq_kernel(const Params<T> p) {
   constexpr int NQ = NQ_DQ, LANES = CP / CH_DQ, NV = CH_DQ / 4;
   constexpr int LD = CP + 4;
   const Geometry& g = p.g;
@@ -419,7 +484,7 @@ __global__ void __launch_bounds__(256, 1) natten_dq_kernel(const Params p) {
   // The halo, K and V, one cp.async group per D plane, so that the products
   // of a warp's first key planes start before the last planes arrive.
   if (p.rpb != nullptr)
-    for (int i = threadIdx.x; i < n_rel; i += blockDim.x) Rs[i] = p.rpb[head * n_rel + i];
+    for (int i = threadIdx.x; i < n_rel; i += blockDim.x) Rs[i] = nelem::to_f(p.rpb[head * n_rel + i]);
   constexpr int V4 = CP / 4;
   for (int dd = 0; dd < sp_d; ++dd) {
     for (int i = threadIdx.x; i < sp_h * sp_w * V4; i += blockDim.x) {
@@ -499,6 +564,10 @@ __global__ void __launch_bounds__(256, 1) natten_dq_kernel(const Params p) {
           ds[c] = in ? exp2f((s[c] - my_lse) * LOG2E) * (dp[c] - my_delta) : 0.f;
           if (writes_ds && in) DSs[my_q + slot_xy + z] = ds[c];
         }
+        if constexpr (nelem::is_bf16<T>) {  // the TPU kernel's bf16 ds, for dq's products
+#pragma unroll
+          for (int c = 0; c < NC_DQ; ++c) ds[c] = round_bf16(ds[c]);
+        }
 #pragma unroll
         for (int c = 0; c < NC_DQ; ++c)
 #pragma unroll
@@ -561,7 +630,7 @@ __global__ void __launch_bounds__(256, 1) natten_dq_kernel(const Params p) {
 // STAGED: the queries' rows come from the staged strips; otherwise (a shape
 // whose inverse window cannot stage one row) through L1, once per pair.
 template <int CP, bool STAGED>
-__global__ void __launch_bounds__(256, 2) natten_dkv_kernel(const Params p) {
+__global__ void __launch_bounds__(256, 2) natten_dkv_kernel(const Params<float> p) {
   constexpr int NQ = NQ_DKV, LANES = CP / CH_DKV, NV = CH_DKV / 4;
   constexpr int LD = CP + 4;
   const Geometry& g = p.g;
@@ -728,24 +797,127 @@ __global__ void __launch_bounds__(256, 2) natten_dkv_kernel(const Params p) {
   }
 }
 
+// The bf16 dk/dv kernel (mode 1): see the file's head. One group of CP / 4
+// lanes per key (grid x over the keys of every batch entry, y the head);
+// lane l holds channels 4 l .. 4 l + 3.
 template <int CP>
-int launch(int mode, const Params& p, cudaStream_t stream) {
+__global__ void __launch_bounds__(256, 1) natten_dkv_bf16_kernel(const Params<bf16> p) {
+  constexpr int LANES = CP / 4;
+  const Geometry& g = p.g;
+  const int l = threadIdx.x % LANES;
+  const long long n_pos = (long long)g.batch * g.d * g.h * g.w;
+  const long long key = (long long)blockIdx.x * (blockDim.x / LANES) + threadIdx.x / LANES;
+  if (key >= n_pos) return;  // a whole group
+  const unsigned mask =
+      LANES == 32 ? 0xffffffffu : ((1u << LANES) - 1) << ((threadIdx.x & 31) / LANES * LANES);
+  const int head = blockIdx.y;
+  const int jw = key % g.w, jh = key / g.w % g.h, jd = key / ((long long)g.w * g.h) % g.d;
+  const long long b_pos = key / ((long long)g.w * g.h * g.d) * g.d * g.h * g.w;
+  const int hc = g.heads * g.ch, col = head * g.ch;
+  const int c = 4 * l;
+  const long long j_pos = b_pos + ((long long)jd * g.h + jh) * g.w + jw;
+  const float4 kv = nelem::load4(p.k + j_pos * g.k_ps + col, c, g.ch, g.vec4);
+  const float4 vv = nelem::load4(p.v + j_pos * g.v_ps + col, c, g.ch, g.vec4);
+  const int nrh = 2 * g.kh - 1, nrw = 2 * g.kw - 1;
+  const bf16* rpb = p.rpb != nullptr ? p.rpb + (long long)head * (2 * g.kd - 1) * nrh * nrw : nullptr;
+  const float qscale = round_bf16(g.scale);
+  // The queries whose window holds the key: per axis a range (W unreduced).
+  const int d_lo = inverse_lo(jd, g.d, g.kd, false), d_hi = inverse_hi(jd, g.d, g.kd, false);
+  const int h_lo = inverse_lo(jh, g.h, g.kh, false), h_hi = inverse_hi(jh, g.h, g.kh, false);
+  const int w_lo = inverse_lo(jw, g.w, g.kw, g.circular_w);
+  const int w_hi = inverse_hi(jw, g.w, g.kw, g.circular_w);
+  auto tile_h = [&](int qh) { return qh / p.jth; };
+  auto tile_w = [&](int qc) { return wrap(qc, g.w) / p.jtw; };
+  float4 tk = make_float4(0.f, 0.f, 0.f, 0.f), tv = tk;  // f32 sums of the rounded parts
+  for (int h0 = h_lo; h0 <= h_hi; ++h0) {
+    if (h0 > h_lo && tile_h(h0) == tile_h(h0 - 1)) continue;  // a part per H tile (runs)
+    for (int c0 = w_lo; c0 <= w_hi; ++c0) {
+      bool seen = false;  // a part per W tile, at its first column
+      for (int cc = w_lo; cc < c0; ++cc) seen |= tile_w(cc) == tile_w(c0);
+      if (seen) continue;
+      float4 pk = make_float4(0.f, 0.f, 0.f, 0.f), pv = pk;
+      for (int qd = d_lo; qd <= d_hi; ++qd) {
+        const int zd = jd - window_start(qd, g.d, g.kd);
+        if (zd < 0 || zd >= g.kd) continue;
+        for (int qh = h0; qh <= h_hi && tile_h(qh) == tile_h(h0); ++qh) {
+          const int zh = jh - window_start(qh, g.h, g.kh);
+          if (zh < 0 || zh >= g.kh) continue;
+          for (int qc = c0; qc <= w_hi; ++qc) {
+            if (tile_w(qc) != tile_w(c0)) continue;
+            const int qw = wrap(qc, g.w);
+            const int zw = g.circular_w ? wrap(jw - qw + g.kw / 2, g.w) : jw - window_start(qw, g.w, g.kw);
+            if (zw < 0 || zw >= g.kw) continue;
+            const long long q_pos = b_pos + ((long long)qd * g.h + qh) * g.w + qw;
+            float4 qv = nelem::load4(p.q + q_pos * g.q_ps + col, c, g.ch, g.vec4);
+            qv = make_float4(round_bf16(qv.x * qscale), round_bf16(qv.y * qscale),
+                             round_bf16(qv.z * qscale), round_bf16(qv.w * qscale));
+            const float4 ov = nelem::load4(p.dout + q_pos * hc + col, c, g.ch, g.vec4);
+            float s = qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
+            float dp = ov.x * vv.x + ov.y * vv.y + ov.z * vv.z + ov.w * vv.w;
+#pragma unroll
+            for (int bit = LANES / 2; bit > 0; bit >>= 1) {
+              s += __shfl_xor_sync(mask, s, bit);
+              dp += __shfl_xor_sync(mask, dp, bit);
+            }
+            if (rpb != nullptr) {
+              const int rw = g.circular_w ? zw - g.kw / 2 + g.kw - 1 : jw - qw + g.kw - 1;
+              s += nelem::to_f(__ldg(rpb + ((jd - qd + g.kd - 1) * nrh + jh - qh + g.kh - 1) * nrw + rw));
+            }
+            const float pr = exp2f((s - __ldg(p.lse + q_pos * g.heads + head)) * LOG2E);
+            const float ds = pr * (dp - __ldg(p.delta + q_pos * g.heads + head));
+            const float ds16 = round_bf16(ds), p16 = round_bf16(pr);
+            pk = make_float4(fmaf(ds16, qv.x, pk.x), fmaf(ds16, qv.y, pk.y), fmaf(ds16, qv.z, pk.z),
+                             fmaf(ds16, qv.w, pk.w));
+            pv = make_float4(fmaf(p16, ov.x, pv.x), fmaf(p16, ov.y, pv.y), fmaf(p16, ov.z, pv.z),
+                             fmaf(p16, ov.w, pv.w));
+          }
+        }
+      }
+      tk = make_float4(tk.x + round_bf16(pk.x), tk.y + round_bf16(pk.y), tk.z + round_bf16(pk.z),
+                       tk.w + round_bf16(pk.w));
+      tv = make_float4(tv.x + round_bf16(pv.x), tv.y + round_bf16(pv.y), tv.z + round_bf16(pv.z),
+                       tv.w + round_bf16(pv.w));
+    }
+  }
+  bf16* dk = p.dk + j_pos * hc + col;
+  bf16* dv = p.dv + j_pos * hc + col;
+  const float ka[4] = {tk.x, tk.y, tk.z, tk.w}, va[4] = {tv.x, tv.y, tv.z, tv.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    nelem::store1(dk, c + e, g.ch, ka[e]);
+    nelem::store1(dv, c + e, g.ch, va[e]);
+  }
+}
+
+template <int CP, class T>
+int launch_dq(const Params<T>& p, cudaStream_t stream) {
   const Geometry& g = p.g;
   const int tq = g.td * g.th * g.tw;
-  const int nq = mode == DQ ? NQ_DQ : NQ_DKV, ch_lane = mode == DQ ? CH_DQ : CH_DKV;
-  const int threads = (tq / nq * (CP / ch_lane) + 31) / 32 * 32;  // whole warps
-  if (g.tw % nq != 0 || threads > 256) return (int)cudaErrorInvalidValue;
+  const int threads = (tq / NQ_DQ * (CP / CH_DQ) + 31) / 32 * 32;  // whole warps
+  if (g.tw % NQ_DQ != 0 || threads > 256) return (int)cudaErrorInvalidValue;
   const int n_rel = (2 * g.kd - 1) * (2 * g.kh - 1) * (2 * g.kw - 1);
   const int n_tiles = (g.d + g.td - 1) / g.td * ((g.h + g.th - 1) / g.th) * ((g.w + g.tw - 1) / g.tw);
   const dim3 grid(n_tiles, g.heads, g.batch);
-  if (mode == DQ) {
-    size_t smem = sizeof(float) * ((size_t)2 * g.ud * g.uh * g.uw * (CP + 4));
-    if (p.rpb != nullptr) smem += sizeof(float) * ((size_t)n_rel + (size_t)tq * g.kd * g.kh * g.kw);
-    cudaError_t err = cudaFuncSetAttribute(natten_dq_kernel<CP>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    natten_dq_kernel<CP><<<grid, threads, smem, stream>>>(p);
-  } else if (g.ry > 0) {
+  size_t smem = sizeof(float) * ((size_t)2 * g.ud * g.uh * g.uw * (CP + 4));
+  if (p.rpb != nullptr) smem += sizeof(float) * ((size_t)n_rel + (size_t)tq * g.kd * g.kh * g.kw);
+  cudaError_t err = cudaFuncSetAttribute(natten_dq_kernel<CP, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  natten_dq_kernel<CP, T><<<grid, threads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int CP>
+int launch(int mode, const Params<float>& p, cudaStream_t stream) {
+  const Geometry& g = p.g;
+  if (mode == DQ) return launch_dq<CP>(p, stream);
+  const int tq = g.td * g.th * g.tw;
+  const int threads = (tq / NQ_DKV * (CP / CH_DKV) + 31) / 32 * 32;  // whole warps
+  if (g.tw % NQ_DKV != 0 || threads > 256) return (int)cudaErrorInvalidValue;
+  const int n_rel = (2 * g.kd - 1) * (2 * g.kh - 1) * (2 * g.kw - 1);
+  const int n_tiles = (g.d + g.td - 1) / g.td * ((g.h + g.th - 1) / g.th) * ((g.w + g.tw - 1) / g.tw);
+  const dim3 grid(n_tiles, g.heads, g.batch);
+  if (g.ry > 0) {
     const size_t stage = ((size_t)g.ry * g.uw * (2 * (CP + 4) + 2) + 3) / 4 * 4;
     const size_t smem = sizeof(float) * (((size_t)n_rel + 3) / 4 * 4 + 2 * stage);
     cudaError_t err = cudaFuncSetAttribute(natten_dkv_kernel<CP, true>,
@@ -759,6 +931,18 @@ int launch(int mode, const Params& p, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     natten_dkv_kernel<CP, false><<<grid, threads, smem, stream>>>(p);
   }
+  return (int)cudaGetLastError();
+}
+
+template <int CP>
+int launch_bf16(int mode, const Params<bf16>& p, cudaStream_t stream) {
+  const Geometry& g = p.g;
+  if (mode == DQ) return launch_dq<CP>(p, stream);
+  if (p.jth < 1 || p.jtw < 1) return (int)cudaErrorInvalidValue;
+  constexpr int per_cta = 256 / (CP / 4);
+  const long long n_pos = (long long)g.batch * g.d * g.h * g.w;
+  const dim3 grid((unsigned)((n_pos + per_cta - 1) / per_cta), g.heads);
+  natten_dkv_bf16_kernel<CP><<<grid, 256, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -782,13 +966,47 @@ extern "C" int gwt_natten_flash_backward(int mode, const float* q, const float* 
                                          int circular_w, int td, int th, int tw, int ud, int uh,
                                          int uw, int vec4, float scale, int ry, void* stream) {
   if (mode != DQ && mode != DKV) return (int)cudaErrorInvalidValue;
-  const Params p{q, k, v, rpb, dout, lse, delta, dq, dk, dv, partial,
-                 Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw, circular_w,
-                          td, th, tw, ud, uh, uw, vec4, scale, ry}};
+  const Params<float> p{q, k, v, rpb, dout, lse, delta, dq, dk, dv, partial,
+                        Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw,
+                                 circular_w, td, th, tw, ud, uh, uw, vec4, scale, ry},
+                        0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ch <= 16) return launch<16>(mode, p, s);
   if (ch <= 32) return launch<32>(mode, p, s);
   if (ch <= 64) return launch<64>(mode, p, s);
   if (ch <= 128) return launch<128>(mode, p, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 mode: q, k, v, rpb, dout, dq, dk and dv bf16 (strides in
+// elements), lse and delta (= dO . out of the bf16 out) f32, partial f32 (the
+// sums of ds unrounded); scale is ch^-0.5 (q-hat takes its bf16 value). vec:
+// ch, the strides and the pointers allow 16-byte copies of eight channels.
+// mode 0 takes the f32 dq kernel's tile; mode 1 reads jth x jtw, the TPU
+// kernel's query tile (H and W extents; the whole H and W where it has
+// none), and none of the tile geometry.
+extern "C" int gwt_natten_flash_backward_bf16(int mode, const void* q, const void* k,
+                                              const void* v, const void* rpb, const void* dout,
+                                              const float* lse, const float* delta, void* dq,
+                                              void* dk, void* dv, float* partial, int batch,
+                                              int d, int h, int w, int heads, int ch,
+                                              long long q_ps, long long k_ps, long long v_ps,
+                                              int kd, int kh, int kw, int circular_w, int td,
+                                              int th, int tw, int ud, int uh, int uw, int vec,
+                                              float scale, int ry, int jth, int jtw,
+                                              void* stream) {
+  if (mode != DQ && mode != DKV) return (int)cudaErrorInvalidValue;
+  const Params<bf16> p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                       static_cast<const bf16*>(v), static_cast<const bf16*>(rpb),
+                       static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),
+                       static_cast<bf16*>(dk), static_cast<bf16*>(dv), partial,
+                       Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw,
+                                circular_w, td, th, tw, ud, uh, uw, vec, scale, ry},
+                       jth, jtw};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ch <= 16) return launch_bf16<16>(mode, p, s);
+  if (ch <= 32) return launch_bf16<32>(mode, p, s);
+  if (ch <= 64) return launch_bf16<64>(mode, p, s);
+  if (ch <= 128) return launch_bf16<128>(mode, p, s);
   return (int)cudaErrorInvalidValue;
 }

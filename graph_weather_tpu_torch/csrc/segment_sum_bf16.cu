@@ -38,10 +38,14 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;
+constexpr int AHEAD = 32;  // rows a thread keeps in flight ahead of its adds
 
-// a + b in f32, rounded to nearest even bf16, kept as the f32 of that bf16.
+// a + b in f32, rounded to nearest even bf16, kept as the f32 of that bf16
+// (integer ops on the bits: a shorter chain than the conversions; finite
+// values, as __float2bfloat16_rn rounds them).
 __device__ __forceinline__ float add_round(float a, float b) {
-  return __bfloat162float(__float2bfloat16_rn(a + b));
+  const unsigned u = __float_as_uint(a + b);
+  return __uint_as_float((u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u);
 }
 
 __global__ void __launch_bounds__(THREADS) segment_sum_bf16_kernel(
@@ -56,8 +60,36 @@ __global__ void __launch_bounds__(THREADS) segment_sum_bf16_kernel(
   const bf16* base = rows + blockIdx.y * batch_stride + c;
   const int begin = offsets[node], end = offsets[node + 1];
   float a0 = 0.f, a1 = 0.f;
-#pragma unroll 4
-  for (int j = begin; j < end; ++j) {
+  // A ring of AHEAD rows in flight: each add's row was loaded AHEAD rows
+  // before it, so only the adds form a chain (a long run, as a bias
+  // gradient's sum over every row, is otherwise one load latency a row).
+  auto load = [&](int jj) {
+    const bf16* row = base + (long long)edge_ids[jj] * width;
+    return vec ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row))
+               : make_float2(__bfloat162float(row[0]), two ? __bfloat162float(row[1]) : 0.f);
+  };
+  int j = begin;
+  if (end - begin >= 2 * AHEAD) {
+    float2 ring[AHEAD];
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) ring[u] = load(j + u);
+    for (; j + 2 * AHEAD <= end; j += AHEAD) {
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) {
+        const float2 v = ring[u];
+        ring[u] = load(j + AHEAD + u);
+        a0 = add_round(a0, v.x);
+        a1 = add_round(a1, v.y);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < AHEAD; ++u) {
+      a0 = add_round(a0, ring[u].x);
+      a1 = add_round(a1, ring[u].y);
+    }
+    j += AHEAD;
+  }
+  for (; j < end; ++j) {
     const bf16* row = base + (long long)edge_ids[j] * width;
     if (vec) {
       const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row));

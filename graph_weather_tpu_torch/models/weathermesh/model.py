@@ -28,6 +28,14 @@ memory (heads wider than 128 channels, or of 96 or 128 at kernel (5, 7, 7),
 as at latent_dim 768 with 8 heads), whose backward is K6b: such a model
 trains on the card through `forward_fn` too.
 
+`forward_fn(compute_dtype=torch.bfloat16)` and `apply(...,
+compute_dtype=torch.bfloat16)` run the module as `bench.py` runs the JAX one
+(`_wm_bf16`: every floating parameter and both inputs in bf16): the modules
+see bf16 weights (the convs f32 ones, which they round) and round where XLA
+rounds the JAX module's bf16 run on the CPU: `_Bf16Conv`, `_linear`,
+`_resize_bf16` here, the norms, GELU and bias gradients in nn/bf16.py, the
+attention's bf16 kernels in ops/.
+
 On CPU tensors every conv runs in PyTorch's own CPU kernels, forward and
 backward, never oneDNN's: on the H100 hosts (torch 2.11+cu128) oneDNN's CPU
 conv backward gave a weight gradient off by its own size now and then, and
@@ -46,7 +54,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from graph_weather_tpu_torch.nn.bf16 import Bf16Params, bias_add, f32_sums, norm_gelu
 from graph_weather_tpu_torch.ops.neighborhood_attention import neighborhood_attention_3d
+
+# Where the compute policies the port does not run yet are queued.
+POLICY_TODO = "ROADMAP.md, 'TF32 compute policy'"
 
 
 class _RunningBatchNorm(nn.modules.batchnorm._NormBase):
@@ -115,9 +127,14 @@ class _CpuConv(torch.autograd.Function):
 
 class _NativeCpuConv:
     """Mixin for nn.Conv2d/nn.Conv3d: CPU tensors take _CpuConv; CUDA
-    tensors cuDNN, as the plain module."""
+    tensors cuDNN, as the plain module. On bf16 x the convolution is
+    `_Bf16Conv`'s, rounded, and the bias added after it, rounded again
+    (flax's Conv under the bf16 policy, nn.bf16.bias_add)."""
 
     def _conv_forward(self, input, weight, bias):
+        if input.dtype == torch.bfloat16:
+            out = _Bf16Conv.apply(input, weight, self.stride, self.padding, True)
+            return out if bias is None else bias_add(out, bias, 1)
         if input.device.type != "cpu":
             return super()._conv_forward(input, weight, bias)
         if self.padding_mode != "zeros" or isinstance(self.padding, str):
@@ -138,6 +155,104 @@ class _Conv3d(_NativeCpuConv, nn.Conv3d):
 
 def _conv(ndim: int, *args, **kwargs) -> nn.Module:
     return (_Conv3d if ndim == 3 else _Conv2d)(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def _exact_convs(device: torch.device):
+    """Around convolutions of bf16 values upcast to f32: on the CPU with
+    oneDNN off (see the module docstring); on the card with cuDNN's TF32
+    tensor cores on, which are exact here: a bf16 value's 8 significant
+    bits fit TF32's 11, the products are exact and the sums f32, so the
+    result is the f32 convolution's at tensor-core speed."""
+    if device.type == "cpu":
+        with _without_onednn():
+            yield
+        return
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+class _Bf16Conv(torch.autograd.Function):
+    """A bias-free convolution under the bf16 policy, as XLA computes it: of
+    bf16 x and the f32 weight rounded to bf16, in f32 (`_exact_convs`); the
+    result rounded to bf16 (`rounded`), or kept in f32 where its only use is
+    a GroupNorm (whose centred term reads the f32 value and its statistics
+    the rounded one: nn.bf16.norm_gelu). The gradient as convolutions of the
+    bf16 cotangent in f32: dx rounded to bf16; dweight kept in f32, its only
+    use being the f32 weight's (so the bf16 policy hands the convs their f32
+    weights: `_conv_weights`)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, stride, padding, rounded):
+        n = x.dim() - 2
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (list(stride), list(padding), [1] * n, [0] * n)
+        with _exact_convs(x.device):
+            y = torch.ops.aten.convolution(x.float(), weight.to(torch.bfloat16).float(), None,
+                                           *ctx.conf[:3], False, ctx.conf[3], 1)
+        return y.to(torch.bfloat16) if rounded else y
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        stride, padding, dilation, zeros = ctx.conf
+        with _exact_convs(x.device):
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                grad.to(torch.bfloat16).float(), x.float(), weight.to(torch.bfloat16).float(), None,
+                stride, padding, dilation, False, zeros, 1, [ctx.needs_input_grad[0], True, False],
+            )
+        return None if dx is None else dx.to(x.dtype), dw.to(weight.dtype), None, None, None
+
+
+def _conv_normed(conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """conv(x) whose only use is a norm: on bf16 x `_Bf16Conv`, f32 out."""
+    if x.dtype != torch.bfloat16:
+        return conv(x)
+    return _Bf16Conv.apply(x, conv.weight, conv.stride, conv.padding, False)
+
+
+def _norm_gelu(norm_a: nn.Module, xa: torch.Tensor, norm_b: nn.Module | None = None,
+               xb: torch.Tensor | None = None) -> torch.Tensor:
+    """gelu(norm_a(xa) (+ norm_b(xb))), exact GELU: GroupNorms through
+    nn.bf16.norm_gelu (flax's GroupNorm and jax.nn.gelu under the bf16
+    policy), BatchNorms as they are."""
+    if isinstance(norm_a, nn.GroupNorm):
+        return norm_gelu(norm_a, xa, norm_b, xb)
+    return F.gelu(norm_a(xa) if norm_b is None else norm_a(xa) + norm_b(xb))
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """nn.Linear; on bf16 weights the product and the bias add each rounded,
+    as XLA rounds TorchLinear's two operations (nn.bf16.bias_add)."""
+    if layer.weight.dtype != torch.bfloat16:
+        return layer(x)
+    return bias_add(F.linear(x, layer.weight), layer.bias)
+
+
+def _upsample_weights(n: int, scale: int, device) -> torch.Tensor:
+    """[n * scale, n]: half-pixel-centred linear interpolation by `scale`
+    along one axis (F.interpolate's weights, align_corners=False)."""
+    eye = torch.eye(n, device=device)[None]  # [1, n (channels), n]
+    return F.interpolate(eye, scale_factor=scale, mode="linear", align_corners=False)[0].T
+
+
+def _resize_bf16(x: torch.Tensor, scales) -> torch.Tensor:
+    """The x2 resize of H and W (the last two axes) of x [B, C, (D,) H, W]
+    under the bf16 policy, as jax.image.resize computes it: one einsum of x
+    and two bf16 weight matrices, which contracts one axis at a time (each
+    result rounded to bf16) in the order of least cost, W first where W > H,
+    else H first (as the JAX package's einsum chooses a tie)."""
+    h_axis, w_axis = x.dim() - 2, x.dim() - 1
+    order = (w_axis, h_axis) if x.shape[w_axis] > x.shape[h_axis] else (h_axis, w_axis)
+    for axis in order:
+        w = _upsample_weights(x.shape[axis], scales[axis - 2], x.device).to(x.dtype)
+        x = torch.movedim(torch.movedim(x, axis, -1) @ w.T, -1, axis)
+    return x
 
 
 class NeighborhoodAttention3D(nn.Module):
@@ -166,10 +281,10 @@ class NeighborhoodAttention3D(nn.Module):
         b, d, h, w, c = x.shape
         heads = self.num_heads
         q, k, v = (
-            t.reshape(b, d, h, w, heads, c // heads) for t in self.qkv(x).chunk(3, dim=-1)
+            t.reshape(b, d, h, w, heads, c // heads) for t in _linear(self.qkv, x).chunk(3, dim=-1)
         )
         out = neighborhood_attention_3d(q, k, v, self.kernel_size, self.rpb, self.circular_w)
-        return self.proj(out.reshape(b, d, h, w, c))
+        return _linear(self.proj, out.reshape(b, d, h, w, c))
 
 
 class ConvDownBlock(nn.Module):
@@ -198,10 +313,9 @@ class ConvDownBlock(nn.Module):
         self.bn_down = _norm(out_channels, norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        identity = self.bn_down(self.downsample(x))
-        out = F.gelu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        return F.gelu(out + identity)
+        identity = _conv_normed(self.downsample, x)
+        out = _norm_gelu(self.bn1, _conv_normed(self.conv1, x))
+        return _norm_gelu(self.bn2, _conv_normed(self.conv2, out), self.bn_down, identity)
 
 
 class ConvUpBlock(nn.Module):
@@ -230,11 +344,13 @@ class ConvUpBlock(nn.Module):
         self.bn2 = _norm(out_channels, norm)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.interpolate(x, scale_factor=self.scale, mode=self.mode, align_corners=False)
-        identity = self.bn_up(self.upsample(x))
-        out = F.gelu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
-        return F.gelu(out + identity)
+        if x.dtype == torch.bfloat16:
+            x = _resize_bf16(x, self.scale)
+        else:
+            x = F.interpolate(x, scale_factor=self.scale, mode=self.mode, align_corners=False)
+        identity = _conv_normed(self.upsample, x)
+        out = _norm_gelu(self.bn1, _conv_normed(self.conv1, x))
+        return _norm_gelu(self.bn2, _conv_normed(self.conv2, out), self.bn_up, identity)
 
 
 class WeatherMeshProcessor(nn.Module):
@@ -407,13 +523,22 @@ class WeatherMeshModule(nn.Module):
         return WeatherMeshOutput(surface=surface_out, pressure=pressure_out)
 
 
+def _conv_weights(module: nn.Module) -> set[str]:
+    """The names of the convs' weights, which the bf16 policy leaves f32
+    (`_Bf16Conv` rounds them, and keeps their gradients in f32)."""
+    return {f"{name}.weight" for name, sub in module.named_modules()
+            if isinstance(sub, (nn.Conv2d, nn.Conv3d))}
+
+
 class WeatherMesh:
     """WeatherMesh handle: owns the nn.Module (`.module`) and runs it on
     `device` ("cuda" unless the caller asks for "cpu").
 
     __call__(surface [B, H, W, C2], pressure [B, D, H, W, C3],
     forecast_steps=1) serves under torch.no_grad(); forward_fn() is the
-    same function with autograd, for training. f32."""
+    same function with autograd, for training. Both run in f32, or with
+    compute_dtype=torch.bfloat16 in bf16 (the JAX package's bench.py policy:
+    see forward_fn)."""
 
     def __init__(
         self,
@@ -438,6 +563,8 @@ class WeatherMesh:
         self.pressure_channels = pressure_channels
         self.pressure_levels = pressure_levels
         self.device = torch.device(device)
+        self.norm = norm
+        self._bf16 = None  # Bf16Params of the module, made at the first bf16 forward
         self.module = WeatherMeshModule(
             timesteps, surface_channels, pressure_channels, pressure_levels, latent_dim,
             encoder_num_conv_blocks, encoder_num_transformer_layers, encoder_hidden_dim,
@@ -483,21 +610,61 @@ class WeatherMesh:
             )
 
     def _forward(self, surface, pressure, forecast_steps: int = 1) -> WeatherMeshOutput:
+        """The module in its parameters' dtype, as the JAX module runs in its
+        variables' (the inputs are cast to it)."""
+        dtype = next(self.module.parameters()).dtype
         surface, pressure = (
-            torch.as_tensor(t, dtype=torch.float32, device=self.device) for t in (surface, pressure)
+            torch.as_tensor(t, device=self.device).to(dtype) for t in (surface, pressure)
         )
         self._check_shapes(surface, pressure)
         return self.module(surface, pressure, forecast_steps)
 
-    def forward_fn(self):
+    def _forward16(self, surface, pressure, forecast_steps: int = 1) -> WeatherMeshOutput:
+        if self._bf16 is None:
+            self._bf16 = Bf16Params(self.module, keep_f32=_conv_weights(self.module))
+        surface, pressure = (
+            torch.as_tensor(t, device=self.device).to(torch.bfloat16) for t in (surface, pressure)
+        )
+        self._check_shapes(surface, pressure)
+        with f32_sums():  # the products sum in f32, as XLA's
+            return torch.func.functional_call(
+                self.module, self._bf16(), (surface, pressure, forecast_steps)
+            )
+
+    def forward_fn(self, compute_dtype=None):
         """The training forward: a differentiable callable (surface,
-        pressure, forecast_steps=1) -> WeatherMeshOutput, on self.device."""
-        return self._forward
+        pressure, forecast_steps=1) -> WeatherMeshOutput, on self.device.
+
+        compute_dtype=torch.bfloat16 is what bench.py's `_wm_bf16` does to
+        the JAX model: every floating parameter cast to bf16 (one flat cast,
+        nn.bf16.Bf16Params: kept while the parameters are unchanged when
+        serving, in the autograd graph when training, so the f32 parameters
+        get f32 gradients), both inputs cast to bf16, bf16 outputs. The
+        modules round where XLA rounds the JAX module's bf16 run (nn.bf16:
+        GroupNorm in f32 rounded once, GELU one operation at a time; each
+        linear's and conv's product and bias add; the resize one axis at a
+        time), and the attention runs the bf16 modes of its kernels. None
+        or torch.float32 run in f32; other dtypes, and bf16 with norm
+        "batch", raise."""
+        if compute_dtype in (None, torch.float32):
+            return self._forward
+        if compute_dtype != torch.bfloat16:
+            raise NotImplementedError(
+                f"compute_dtype={compute_dtype}: WeatherMesh runs float32 and bfloat16. "
+                f"See {POLICY_TODO}."
+            )
+        if self.norm != "group":
+            raise NotImplementedError(
+                f"compute_dtype=bfloat16 with norm={self.norm!r}: only GroupNorm has a bf16 "
+                f"policy. See {POLICY_TODO}."
+            )
+        return self._forward16
 
     @torch.no_grad()
-    def apply(self, surface, pressure, forecast_steps: int = 1) -> WeatherMeshOutput:
-        """Channels-last inputs (moved to self.device) -> WeatherMeshOutput."""
-        return self._forward(surface, pressure, forecast_steps)
+    def apply(self, surface, pressure, forecast_steps: int = 1, compute_dtype=None) -> WeatherMeshOutput:
+        """Channels-last inputs (moved to self.device) -> WeatherMeshOutput,
+        in f32 or in compute_dtype (see forward_fn)."""
+        return self.forward_fn(compute_dtype)(surface, pressure, forecast_steps)
 
     __call__ = apply
 

@@ -30,6 +30,14 @@ ops/natten_flash.py's `natten_flash_backward_reference`. Under autograd
 natten_flash's `_NattenFlash` runs this module's KERNELS (K6 with lse,
 then K6b). Launch counts: `LAUNCHES`
 (K6), `BWD_DQ_LAUNCHES` and `BWD_DKV_LAUNCHES` (K6b's two kernels).
+
+bf16 q, k, v and rpb take the kernels' bf16 modes (the JAX package's bf16
+slot scan, as XLA computes it on the CPU; the plain versions `slot_forward`
+and `slot_backward_reference`): K6·bf16 also writes out32, its f32 result,
+from which K6b·bf16 forms delta; K6b·bf16 is the dq kernel on bf16 loads, a
+dk/dv kernel in the scan's reverse slot order and two drpb kernels
+(`launch_backward_bf16`; counts `BF16_LAUNCHES`, `BF16_BWD_DQ_LAUNCHES`,
+`BF16_BWD_DKV_LAUNCHES`, `BF16_DRPB_SLOT_LAUNCHES`, `BF16_DRPB_LAUNCHES`).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 from graph_weather_tpu_torch.ops._build import c_function
 from graph_weather_tpu_torch.ops.natten_flash import (
     SMEM_LIMIT,
+    Kernels,
     _max_span,
     _NattenFlash,
     _ptr,
@@ -51,16 +60,31 @@ from graph_weather_tpu_torch.ops.natten_flash import (
 from graph_weather_tpu_torch.ops.natten_flash import _layout as _flash_layout
 from graph_weather_tpu_torch.ops.neighborhood_attention import (
     _check,
+    _gather,
+    _slot_bias,
+    _slot_tables,
+    _slots,
+    bf16_scale,
     neighborhood_attention_3d_reference,
+    ordered_scatter_bf16,
+    round_bf16,
+    scaled_q,
+    slot_forward,
 )
 
 LAUNCHES = 0  # K6
 BWD_DQ_LAUNCHES = 0  # K6b, dq and drpb partials
 BWD_DKV_LAUNCHES = 0  # K6b, dk and dv
+BF16_LAUNCHES = 0  # K6 in bf16
+BF16_BWD_DQ_LAUNCHES = 0  # K6b in bf16: dq and the slot table
+BF16_BWD_DKV_LAUNCHES = 0  # K6b in bf16: dk and dv in the slot scan's order
+BF16_DRPB_SLOT_LAUNCHES = 0  # K6b in bf16: each slot's drpb sums
+BF16_DRPB_LAUNCHES = 0  # K6b in bf16: drpb over the slots
 MAX_CHANNELS = 256  # widest head the kernel's tiles hold
 TILE_WIDTHS = (32, 64, 96, 128, 256)  # the kernel's padded head widths (CP)
 MAX_GRID_YZ = 65535  # heads and batch are the CTA grid's y and z
 DQ, DKV = 0, 1  # backward modes of the C entry (K6b's two kernels)
+DRPB_SLOTS, DRPB = 2, 3  # and the bf16 entry's drpb kernels
 BWD_NQ, BWD_NK = 4, 2  # W-neighbouring queries (dq) and keys (dk/dv) of a lane group
 # CTAs an SM the dk/dv kernel is built for (DKV_CTAS), each with that share of
 # the SM's shared memory: 233,472 bytes on Hopper, 1 KB of it reserved per CTA
@@ -79,6 +103,10 @@ _ARGTYPES = (
 # mode, q k v rpb dout lse out dq dk dv partial table, then as the forward
 # from batch on
 _BWD_ARGTYPES = [_c_int] + [_c_ptr] * 12 + _ARGTYPES[6:]
+# bf16: q k v rpb out lse out32, then as the forward; the backward's mode, q k
+# v rpb dout lse out32 dq dk dv table work drpb, then as the forward
+_FWD16_ARGTYPES = [_c_ptr] * 7 + _ARGTYPES[6:]
+_BWD16_ARGTYPES = [_c_int] + [_c_ptr] * 13 + _ARGTYPES[6:]
 
 
 @dataclass(frozen=True)
@@ -263,25 +291,38 @@ def _check_err(err: int, what: str) -> None:
         raise RuntimeError(f"natten3d {what}: CUDA kernel launch failed (cudaError {err})")
 
 
-def _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=False):
-    """K6: out [B, D, H, W, heads, ch] (dense), and lse [B, D, H, W, heads]
-    when asked (else None)."""
-    global LAUNCHES
+def _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=False, out32=None):
+    """K6: out [B, D, H, W, heads, ch] (dense, q's dtype), and lse [B, D, H,
+    W, heads] (f32) when asked (else None). bf16 q, k, v and rpb take K6's
+    bf16 mode (the f32 plan), which also writes `out32` (f32, dense: out
+    before its rounding) when given."""
+    global LAUNCHES, BF16_LAUNCHES
     takes(tuple(q.shape), kernel, circular_w, rpb is not None)
     rpb = None if rpb is None else rpb.contiguous()
-    out = torch.empty(q.shape, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     lse = torch.empty(q.shape[:-1], device=q.device) if with_lse else None
     tiles = plan(tuple(q.shape), kernel, circular_w)
+    layout = _layout(q, k, v, kernel, circular_w, (q, k, v, out))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), out.data_ptr(), _ptr(lse))
+    args = (*_tiles_args(tiles), torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(q.device):
-        err = c_function("natten3d", "gwt_natten3d_forward", _ARGTYPES)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), out.data_ptr(), _ptr(lse),
-            *_layout(q, k, v, kernel, circular_w, (q, k, v, out)),
-            tiles.cp, tiles.lanes, tiles.rows, tiles.ry, tiles.rx,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        if bf16:
+            err = c_function("natten3d", "gwt_natten3d_forward_bf16", _FWD16_ARGTYPES)(
+                *ptrs, _ptr(out32), *layout[:-1], bf16_scale(q.shape[-1]), *args)
+        else:
+            err = c_function("natten3d", "gwt_natten3d_forward", _ARGTYPES)(*ptrs, *layout, *args)
     _check_err(err, "forward")
-    LAUNCHES += 1
+    if bf16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out, lse
+
+
+def _tiles_args(tiles) -> tuple[int, ...]:
+    """A plan's arguments to the C entries: cp, lanes, rows, ry, rx."""
+    return tiles.cp, tiles.lanes, tiles.rows, tiles.ry, tiles.rx
 
 
 def launch_backward(mode, q, k, v, rpb, dout, lse, out, grads, partial, table, kernel,
@@ -293,6 +334,8 @@ def launch_backward(mode, q, k, v, rpb, dout, lse, out, grads, partial, table, k
     table the dq kernel wrote. rpb contiguous or None; dout and K6's out
     dense (the dq kernel forms delta = rowsum(dO * out) itself)."""
     global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    if q.dtype == torch.bfloat16:
+        raise TypeError("natten3d backward: bf16 tensors take launch_backward_bf16")
     if (table.shape != table_shape(q.shape, kernel) or table.dtype != torch.float32
             or not table.is_contiguous() or table.device != q.device):
         raise ValueError(f"natten3d backward: the slot table must be a contiguous f32 "
@@ -314,10 +357,68 @@ def launch_backward(mode, q, k, v, rpb, dout, lse, out, grads, partial, table, k
         BWD_DKV_LAUNCHES += 1
 
 
+def work_floats(shape, kernel) -> int:
+    """Floats of the bf16 drpb kernels' work buffer for q of `shape`: per
+    (head, slot) the sums after the W, H and D transposes."""
+    _, d, h, _, heads, _ = shape
+    nrd, nrh, nrw = (2 * kk - 1 for kk in kernel)
+    return heads * math.prod(kernel) * (d * h * nrw + d * nrh * nrw + nrd * nrh * nrw)
+
+
+def launch_backward_bf16(mode, q, k, v, rpb, dout, lse, out32, grads, table, work, drpb, kernel,
+                         circular_w):
+    """One kernel of K6b's bf16 mode on the card (bf16 q, k, v, rpb, dout and
+    grads; f32 lse, out32, table and work): mode `DQ` writes grads[0] (dq)
+    and the slot table, `DKV` grads[1] and grads[2] (dk, dv) from the table,
+    `DRPB_SLOTS` each slot's drpb sums into `work` (`work_floats`), `DRPB`
+    drpb (bf16, rpb's shape) from work."""
+    global BF16_BWD_DQ_LAUNCHES, BF16_BWD_DKV_LAUNCHES, BF16_DRPB_SLOT_LAUNCHES, BF16_DRPB_LAUNCHES
+    if (table.shape != table_shape(q.shape, kernel) or table.dtype != torch.float32
+            or not table.is_contiguous() or table.device != q.device):
+        raise ValueError(f"natten3d backward: the slot table must be a contiguous f32 "
+                         f"{table_shape(q.shape, kernel)} on {q.device}")
+    if mode in (DRPB_SLOTS, DRPB) and (rpb is None or work is None
+                                       or work.numel() < work_floats(q.shape, kernel)):
+        raise ValueError("natten3d backward: the drpb kernels take rpb and a work buffer of "
+                         "work_floats(shape, kernel) floats")
+    tiles = plan_backward(tuple(q.shape), kernel, circular_w, rpb is not None)[DQ]
+    layout = _layout(q, k, v, kernel, circular_w, [q, k, v, dout, *grads])
+    with torch.cuda.device(q.device):
+        err = c_function("natten3d_bwd", "gwt_natten3d_backward_bf16", _BWD16_ARGTYPES)(
+            mode, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), dout.data_ptr(),
+            lse.data_ptr(), out32.data_ptr(), *(_ptr(t) for t in grads), table.data_ptr(),
+            _ptr(work), _ptr(drpb), *layout[:-1], bf16_scale(q.shape[-1]), *_tiles_args(tiles),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_err(err, ("backward (dq)", "backward (dk/dv)", "backward (drpb slots)",
+                     "backward (drpb)")[mode])
+    if mode == DQ:
+        BF16_BWD_DQ_LAUNCHES += 1
+    elif mode == DKV:
+        BF16_BWD_DKV_LAUNCHES += 1
+    elif mode == DRPB_SLOTS:
+        BF16_DRPB_SLOT_LAUNCHES += 1
+    else:
+        BF16_DRPB_LAUNCHES += 1
+
+
 def _backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular_w):
-    """K6b: (dq, dk, dv, drpb), drpb None without rpb. The slot table lives
-    for this call only."""
+    """K6b: (dq, dk, dv, drpb) in q's dtype, drpb None without rpb. The slot
+    table lives for this call only. On bf16 tensors K6b's bf16 mode, whose
+    `out` is K6's out32."""
     rpb = None if rpb is None else rpb.contiguous()
+    if q.dtype == torch.bfloat16:
+        dout, out = dout.contiguous(), out.contiguous()
+        grads = tuple(torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(3))
+        table = torch.empty(table_shape(q.shape, kernel), device=q.device)
+        work = drpb = None
+        if rpb is not None:
+            work = torch.empty(work_floats(q.shape, kernel), device=q.device)
+            drpb = torch.empty(rpb.shape, device=q.device, dtype=rpb.dtype)
+        for mode in (DQ, DKV) + ((DRPB_SLOTS, DRPB) if rpb is not None else ()):
+            launch_backward_bf16(mode, q, k, v, rpb, dout, lse, out, grads, table, work, drpb,
+                                 kernel, circular_w)
+        return (*grads, drpb)
     dout = dout.contiguous()
     out = out.contiguous()
     grads = tuple(torch.empty(q.shape, device=q.device) for _ in range(3))
@@ -334,8 +435,79 @@ def _backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular_w):
     return (*grads, drpb)
 
 
-# The (forward, backward) pair that `_NattenFlash` launches on the card.
-KERNELS = (_forward_cuda, _backward_cuda)
+def _scatter_slot_bf16(src, tables, slot):
+    """The transposes of the slot's per-axis takes (W, then H, then D) of
+    src [B, D, H, W, ...] bf16 values, each an ordered bf16 scatter."""
+    for axis in (3, 2, 1):
+        idx = tables[axis - 1][0][:, slot[axis - 1]]
+        src = ordered_scatter_bf16(src, axis, idx, src.shape[axis])
+    return src
+
+
+def _scatter_bias_bf16(ds, tables, slot, rpb_shape):
+    """The transposes of the slot's per-axis bias gathers (W, then H, then D)
+    of ds [heads, D, H, W] bf16 values into [heads, 2kd-1, 2kh-1, 2kw-1]."""
+    for axis in (3, 2, 1):
+        rel = tables[axis - 1][1][:, slot[axis - 1]]
+        ds = ordered_scatter_bf16(ds, axis, rel, rpb_shape[axis])
+    return ds
+
+
+def slot_backward_reference(q, k, v, rpb, out32, lse, dout, kernel, circular_w=False):
+    """Plain PyTorch version of K6b: (dq, dk, dv, drpb), drpb None without
+    rpb. On f32 tensors ops/natten_flash.py's `natten_flash_backward_reference`
+    (the same function). On bf16 the gradient of the JAX package's bf16 slot
+    scan as XLA computes it: delta = dO . out32 (the scan's f32 result
+    before its rounding); per slot, in reverse slot order, p and ds in f32,
+    dq's f32 sum of ds k; each (query, slot) pair's ds q-hat and p dO rounded
+    to bf16 and scattered back by the transposes of the slot's three takes
+    (W, then H, then D: `ordered_scatter_bf16`), whose sum is added into
+    each key's bf16 running sum; drpb likewise from bf16(sum over the batch
+    of ds) through the bias gathers' transposes; dq = bf16(bf16(sum) x
+    bf16(ch^-0.5)) (its f32 sum is rounded, then scaled in bf16)."""
+    if q.dtype != torch.bfloat16:
+        return natten_flash_backward_reference(q, k, v, rpb, out32, lse, dout, kernel, circular_w)
+    tables = _slot_tables(q.shape, kernel, circular_w, q.device)
+    qs = scaled_q(q)
+    g = dout.float()
+    ch = q.shape[-1]
+    delta = (g * out32).sum(-1)
+    dq = torch.zeros(q.shape, device=q.device)
+    dk, dv = torch.zeros(q.shape, device=q.device), torch.zeros(q.shape, device=q.device)
+    drpb = None if rpb is None else torch.zeros(rpb.shape, device=q.device)
+    for slot in reversed(_slots(kernel)):
+        ks, vs = _gather(k, tables, slot).float(), _gather(v, tables, slot).float()
+        s = (qs * ks).sum(-1)
+        if rpb is not None:
+            s = s + _slot_bias(rpb, tables, slot).float()
+        p = torch.exp(s - lse)
+        ds = p * ((g * vs).sum(-1) - delta)
+        dq += ds[..., None] * ks
+        both = torch.cat([ds[..., None] * qs, p[..., None] * g], -1)  # dk's and dv's pairs
+        both = _scatter_slot_bf16(round_bf16(both), tables, slot)
+        dk = round_bf16(dk + both[..., :ch])
+        dv = round_bf16(dv + both[..., ch:])
+        if rpb is not None:
+            ds_b = round_bf16(ds.sum(0)).permute(3, 0, 1, 2)  # [heads, D, H, W]
+            drpb = round_bf16(drpb + _scatter_bias_bf16(ds_b, tables, slot, rpb.shape))
+    dq = round_bf16(round_bf16(dq) * bf16_scale(q.shape[-1]))
+    bf16 = torch.bfloat16
+    return dq.to(bf16), dk.to(bf16), dv.to(bf16), None if drpb is None else drpb.to(bf16)
+
+
+def _forward_for_grad(q, k, v, kernel, rpb, circular_w):
+    """K6 with lse, and the tensor its backward forms delta from: out, or in
+    bf16 out32 (the slot scan differentiates its f32 result)."""
+    if q.dtype != torch.bfloat16:
+        out, lse = _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=True)
+        return out, lse, out
+    out32 = torch.empty(q.shape, device=q.device)
+    out, lse = _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=True, out32=out32)
+    return out, lse, out32
+
+
+# K6 and K6b, and their plain versions (the slot scan).
+KERNELS = Kernels(_forward_for_grad, _backward_cuda, slot_forward, slot_backward_reference)
 
 
 def neighborhood_attention_3d_slot(
@@ -348,14 +520,18 @@ def neighborhood_attention_3d_slot(
 ) -> torch.Tensor:
     """Returns [B, D, H, W, heads, ch]. CUDA tensors launch K6, and K6b under
     a gradient (ValueError for a shape they do not take); CPU tensors take
-    the plain version, which autograd differentiates."""
+    the plain version, which autograd differentiates in f32 (in bf16 the
+    plain backward, `slot_backward_reference`)."""
     kernel = tuple(int(kk) for kk in kernel)
     circular_w = bool(circular_w)
     _check(q, k, v, kernel, rpb, circular_w)
-    if q.device.type == "cpu":
-        return neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular_w)
     tensors = (q, k, v) if rpb is None else (q, k, v, rpb)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if q.device.type == "cpu":
+        if needs_grad and q.dtype == torch.bfloat16:
+            return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w, KERNELS)
+        return neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular_w)
+    if needs_grad:
         takes(tuple(q.shape), kernel, circular_w, rpb is not None, backward=True)
         return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w, KERNELS)
     return _forward_cuda(q, k, v, kernel, rpb, circular_w)[0]

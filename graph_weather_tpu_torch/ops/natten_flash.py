@@ -3,7 +3,7 @@ Pallas kernels K5a (forward, `_flash_fwd_impl`) and K5b (backward,
 `_flash_bwd_impl`) of graph_weather_tpu/ops/pallas/natten_flash.py.
 
 The semantics are those of ops/neighborhood_attention.py: q, k, v
-[B, D, H, W, heads, ch] f32, clamped windows (a circular W axis on request),
+[B, D, H, W, heads, ch] f32 or bf16, clamped windows (a circular W axis on request),
 q scaled by ch^-0.5, rpb [heads, 2kd-1, 2kh-1, 2kw-1] added by relative
 offset. The TPU kernel cut the volume into blocks attended densely against
 a gathered halo, with per-class masks and a head-block-diagonal key matrix
@@ -56,6 +56,14 @@ dispatches: CPU tensors take the plain versions, CUDA tensors launch the
 kernels or raise (`launch_backward` launches one K5b kernel). Launch
 counts: `LAUNCHES` (K5a), `BWD_DQ_LAUNCHES` and `BWD_DKV_LAUNCHES` (K5b's
 two kernels).
+
+bf16 q, k, v and rpb take K5a's and K5b's bf16 modes, with the TPU kernels'
+roundings (the plain versions `flash_forward_reference` and
+`natten_flash_backward_reference` on bf16): q-hat = bf16(q x bf16 scale), p
+rounded after its normalisation (K5a walks its slabs twice), ds and p
+rounded before their products, dk and dv rounded per TPU query tile
+(`tpu_backward_tile`). Counts `BF16_LAUNCHES`, `BF16_BWD_DQ_LAUNCHES`,
+`BF16_BWD_DKV_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -64,7 +72,9 @@ import ctypes
 import functools
 import math
 from dataclasses import dataclass
+from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from graph_weather_tpu_torch.ops._build import c_function
@@ -73,12 +83,18 @@ from graph_weather_tpu_torch.ops.neighborhood_attention import (
     _slot_bias,
     _slot_tables,
     _slots,
+    bf16_scale,
     neighborhood_attention_3d_reference,
+    round_bf16,
+    scaled_q,
 )
 
 LAUNCHES = 0  # K5a
 BWD_DQ_LAUNCHES = 0  # K5b, dq and drpb partials
 BWD_DKV_LAUNCHES = 0  # K5b, dk and dv
+BF16_LAUNCHES = 0  # K5a in bf16
+BF16_BWD_DQ_LAUNCHES = 0  # K5b in bf16, dq and drpb partials
+BF16_BWD_DKV_LAUNCHES = 0  # K5b in bf16, dk and dv
 MAX_CHANNELS = 128  # widest head a lane group holds (4 lanes x 32 channels)
 SMEM_LIMIT = 232448  # bytes of shared memory one CTA may use on Hopper
 _TILES = [(td, th, tw) for td in (1, 2, 4) for th in (1, 2, 4, 8) for tw in (4, 8, 16)]
@@ -99,6 +115,9 @@ _FWD_ARGTYPES = ([_c_ptr] * 6 + _GEOMETRY[:13] + [_c_int, ctypes.c_float] + [_c_
 # mode, q k v rpb dout lse delta dq dk dv partial, the geometry, ry (rows of a
 # dk/dv strip), the stream
 _BWD_ARGTYPES = [_c_int] + [_c_ptr] * 11 + _GEOMETRY[:-1] + [_c_int, _c_ptr]
+# the bf16 entries: as the f32 ones (the forward's the same); the backward's
+# also takes the TPU kernel's query tile (th, tw) before the stream
+_BWD16_ARGTYPES = _BWD_ARGTYPES[:-1] + [_c_int, _c_int, _c_ptr]
 DQ, DKV = 0, 1  # backward modes of the C entry (K5b's two kernels)
 
 
@@ -115,34 +134,147 @@ def _scatter_add(dst, tables, slot, src):
     dst += src
 
 
+_SAFE = -1e28  # the floor of each query's max in the TPU kernel's softmax
+
+
+def flash_forward_reference(q, k, v, kernel, rpb=None, circular_w=False, with_lse=False):
+    """Plain PyTorch version of K5a. On f32 tensors the slot scan
+    (`neighborhood_attention_3d_reference`); on bf16 the TPU kernel's
+    roundings: q-hat (`scaled_q`), f32 logits plus the bf16 bias, each
+    query's max (floored at -1e28) and sum l of exp(s - max) over its whole
+    window, p-hat = bf16(exp(s - max) / l), out = bf16(sum p-hat v) summed
+    in f32 (q-hat rounded to bf16: `scaled_q(q, rounded=True)`). Returns out, or (out, lse)."""
+    if q.dtype != torch.bfloat16:
+        return neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular_w, with_lse)
+    tables = _slot_tables(q.shape, kernel, circular_w, q.device)
+    qs = scaled_q(q, rounded=True)
+    logits = []
+    for slot in _slots(kernel):
+        s = (qs * _gather(k, tables, slot).float()).sum(-1)
+        if rpb is not None:
+            s = s + _slot_bias(rpb, tables, slot).float()
+        logits.append(s)
+    logits = torch.stack(logits, -1)  # [B, D, H, W, heads, slots]
+    m = logits.max(-1).values.clamp(min=_SAFE)
+    e = torch.exp(logits - m[..., None])
+    l = e.sum(-1)
+    p = round_bf16(e / l.clamp(min=1e-30)[..., None])
+    out = torch.zeros(q.shape, device=q.device)
+    for i, slot in enumerate(_slots(kernel)):
+        out += p[..., i, None] * _gather(v, tables, slot).float()
+    out = out.to(torch.bfloat16)
+    return (out, m + torch.log(l.clamp(min=1e-30))) if with_lse else out
+
+
+# ---------------------------------------------------------------------------
+# The TPU kernel's backward tiles, whose bf16 dk and dv partials it rounds
+# ---------------------------------------------------------------------------
+
+_TPU_BWD_BUDGET = 36 * 2**20  # bytes of VMEM the TPU kernel's backward tile may take
+
+
+def _tpu_halo(k: int, circular: bool) -> tuple[int, int]:
+    return (k // 2, k // 2) if circular else (k - 1, k // 2)
+
+
+def _tpu_patterns(size: int, k: int, tile: int, circular: bool) -> int:
+    """How many distinct per-tile window masks an axis has (the TPU kernel's
+    mask classes)."""
+    c = k // 2
+    back, front = _tpu_halo(k, circular)
+    u = tile + back + front
+    q_off, k_off = np.arange(tile), np.arange(u)
+    seen = set()
+    for t in range(-(-size // tile)):
+        q_abs, k_raw = t * tile + q_off, t * tile - back + k_off
+        if circular:
+            delta = np.mod(np.mod(k_raw, size)[None, :] - q_abs[:, None] + c, size) - c
+            member, k_ok = np.abs(delta) <= c, np.ones(u, bool)
+        else:
+            start = np.clip(q_abs - c, 0, size - k)
+            member = (k_raw[None, :] >= start[:, None]) & (k_raw[None, :] < start[:, None] + k)
+            k_ok = (k_raw >= 0) & (k_raw < size)
+        seen.add((member & (q_abs < size)[:, None] & k_ok[None, :]).tobytes())
+    return len(seen)
+
+
+@functools.lru_cache(maxsize=64)
+def tpu_backward_tile(dims, kernel, circular_w: bool, heads: int, ch: int, has_bias: bool):
+    """(th, tw): the H x W extent of the query tiles (all of D) over which
+    the JAX package's bf16 K5b sums each key's dk and dv before rounding
+    them to bf16 (graph_weather_tpu/ops/pallas/natten_flash.py, the tile
+    `_flash_bwd_impl` picks within its VMEM budget: the candidate of least
+    halo whose modelled bytes fit). None where no tile fits: the JAX package
+    then differentiates its slot scan; the port rounds each key's sums once
+    there (ROADMAP.md, "bf16 policies"). A pure host function."""
+    (d, h, w), (_, kh, kw) = dims, kernel
+    hc, hpg = heads * ch, max(1, 128 // ch)
+    bh, fh = _tpu_halo(kh, False)
+    bw, fw = _tpu_halo(kw, circular_w)
+    cands = [(th, tw) for th in (16, 12, 8, 6, 4, 3, 2, 1) for tw in (16, 12, 8, 6, 4, 3, 2, 1)
+             if th >= kh // 2 + 1 and tw >= kw // 2 + 1 and not (circular_w and tw + bw + fw > w)
+             and (d * th * tw) % 8 == 0]
+    cands.sort(key=lambda c: ((c[0] + bh + fh) * (c[1] + bw + fw) / (c[0] * c[1]), -c[0] * c[1]))
+    for th, tw in cands:
+        if th > h or tw > w:
+            continue
+        block = d * th * tw
+        u_pad = -(-d * (th + bh + fh) * (tw + bw + fw) // 128) * 128
+        wide = hpg * u_pad
+        n_cls = _tpu_patterns(h, kh, th, False) * _tpu_patterns(w, kw, tw, circular_w)
+        est = (4 * block * wide * 4 + (block * wide * 6 if has_bias else 0) + 2 * 128 * wide * 2
+               + 2 * wide * 128 * 2 + 2 * 128 * wide * 4 + n_cls * block * u_pad
+               + 4 * block * 128 * 2 + 2 * block * 128 * 4 + 2 * 128 * u_pad * 2)
+        if est <= _TPU_BWD_BUDGET:
+            return th, tw
+    return None
+
+
 def natten_flash_backward_reference(
     q, k, v, rpb, out, lse, dout, kernel, circular_w=False
 ):
     """Plain PyTorch version of K5b, written out as the kernels compute it:
     per window slot, p = exp(s - lse), ds = p (dO.v - delta); dq and drpb
     on the query side, dk and dv scattered back to the keys. Returns
-    (dq, dk, dv, drpb), drpb None without rpb."""
+    (dq, dk, dv, drpb), drpb None without rpb.
+
+    On bf16 tensors the TPU kernel's roundings (f32 sums throughout): delta
+    = dO . out of the bf16 out; ds and p rounded to bf16 before their
+    products; dq = bf16(sum ds k * ch^-0.5); dk = sum ds q-hat and dv = sum
+    p dO summed per key over the queries of each of the TPU kernel's tiles
+    (`tpu_backward_tile`: all of D by th x tw of H and W), each tile's part
+    rounded to bf16, the parts added in f32 and rounded (one part where no
+    tile fits); drpb the f32 sum of ds per offset, rounded once."""
+    bf16 = q.dtype == torch.bfloat16
     tables = _slot_tables(q.shape, kernel, circular_w, q.device)
     heads, ch = q.shape[-2:]
     scale = ch**-0.5
-    qs = q * scale
-    delta = (dout * out).sum(-1)  # [B, D, H, W, heads]
-    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    qs = scaled_q(q, rounded=True)
+    g, o = dout.float(), out.float()
+    delta = (g * o).sum(-1)  # [B, D, H, W, heads]
+    dq, dk, dv = (torch.zeros(q.shape, device=q.device) for _ in range(3))
     drpb = None
     if rpb is not None:
         _, nh, nw = rpb.shape[1:]
         drpb = torch.zeros(heads, rpb[0].numel(), device=q.device)
         (_, rd), (_, rh), (_, rw) = tables
+    if bf16:
+        parts = _TileParts(q.shape, kernel, circular_w, rpb is not None, tables)
     for slot in _slots(kernel):
-        ks, vs = _gather(k, tables, slot), _gather(v, tables, slot)
+        ks, vs = _gather(k, tables, slot).float(), _gather(v, tables, slot).float()
         s = (qs * ks).sum(-1)
         if rpb is not None:
-            s = s + _slot_bias(rpb, tables, slot)
+            s = s + _slot_bias(rpb, tables, slot).float()
         p = torch.exp(s - lse)
-        ds = p * ((dout * vs).sum(-1) - delta)
-        dq += ds[..., None] * ks
-        _scatter_add(dk, tables, slot, ds[..., None] * qs)
-        _scatter_add(dv, tables, slot, p[..., None] * dout)
+        ds = p * ((g * vs).sum(-1) - delta)
+        if bf16:
+            ds_p = round_bf16(ds)
+            dq += ds_p[..., None] * ks
+            parts.add(slot, ds_p[..., None] * qs, round_bf16(p)[..., None] * g)
+        else:
+            dq += ds[..., None] * ks
+            _scatter_add(dk, tables, slot, ds[..., None] * qs)
+            _scatter_add(dv, tables, slot, p[..., None] * g)
         if rpb is not None:
             x, y, z = slot
             rel = (rd[:, x, None, None] * nh + rh[None, :, y, None]) * nw + rw[None, None, :, z]
@@ -150,7 +282,63 @@ def natten_flash_backward_reference(
     dq *= scale
     if drpb is not None:
         drpb = drpb.reshape(rpb.shape)
+    if bf16:
+        dk, dv = parts.sums()
+        return tuple(None if t is None else t.to(torch.bfloat16) for t in (dq, dk, dv, drpb))
     return dq, dk, dv, drpb
+
+
+class _TileParts:
+    """Each key's dk and dv parts per query tile of the TPU kernel
+    (`tpu_backward_tile`), f32, for the bf16 plain backward: a key's
+    queries lie in at most `span` tiles of each axis, counted from the tile
+    of its first query; `sums` rounds each part to bf16 and adds them."""
+
+    def __init__(self, shape, kernel, circular_w, has_bias, tables):
+        b, d, h, w, heads, ch = shape
+        tile = tpu_backward_tile((d, h, w), tuple(kernel), bool(circular_w), heads, ch, has_bias)
+        th, tw = tile if tile is not None else (h, w)
+        self.tables, self.shape = tables, shape
+        dev = tables[0][0].device
+        # per axis: each query's tile, and each key's first query's tile
+        self.tile_h = torch.arange(h, device=dev) // th
+        self.tile_w = torch.arange(w, device=dev) // tw
+        ch_, cw = kernel[1] // 2, kernel[2] // 2
+        first_h = torch.tensor([0 if j < kernel[1] else j - (kernel[1] - 1 - ch_) for j in range(h)],
+                               device=dev)
+        first_w = torch.tensor([(j - (kernel[2] - 1 - cw)) % w if circular_w else
+                                (0 if j < kernel[2] else j - (kernel[2] - 1 - cw)) for j in range(w)],
+                               device=dev)
+        self.base_h, self.base_w = first_h // th, first_w // tw
+        self.n_tw = -(-w // tw)
+        self.nh = -(-(kernel[1] + ch_) // th) + 1
+        self.nw = min(self.n_tw, -(-kernel[2] // tw) + 2) if circular_w else -(-(kernel[2] + cw) // tw) + 1
+        n = b * d * h * w
+        self.dk = torch.zeros(n * self.nh * self.nw, heads * ch, device=dev)
+        self.dv = torch.zeros_like(self.dk)
+
+    def add(self, slot, ck, cv):
+        """The slot's contributions ck, cv [B, D, H, W, heads, ch] at their
+        queries, into their keys' parts."""
+        b, d, h, w, heads, ch = self.shape
+        (idx_d, _), (idx_h, _), (idx_w, _) = self.tables
+        x, y, z = slot
+        kd_, kh_, kw_ = idx_d[:, x], idx_h[:, y], idx_w[:, z]  # each query's key, per axis
+        rel_h = self.tile_h - self.base_h[kh_]  # [H] the query's tile from its key's first
+        rel_w = torch.remainder(self.tile_w - self.base_w[kw_], self.n_tw)
+        key = ((torch.arange(b, device=kd_.device)[:, None, None, None] * d + kd_[None, :, None, None])
+               * h + kh_[None, None, :, None]) * w + kw_[None, None, None, :]
+        if int(rel_h.max()) >= self.nh or int(rel_w.max()) >= self.nw:
+            raise AssertionError("a key's queries span more tiles than its parts hold")
+        part = rel_h[None, None, :, None] * self.nw + rel_w[None, None, None, :]
+        rows = (key * (self.nh * self.nw) + part).reshape(-1)
+        self.dk.index_add_(0, rows, ck.reshape(-1, heads * ch))
+        self.dv.index_add_(0, rows, cv.reshape(-1, heads * ch))
+
+    def sums(self):
+        parts = self.nh * self.nw
+        return tuple(round_bf16(t).view(-1, parts, t.shape[-1]).sum(1).view(self.shape)
+                     for t in (self.dk, self.dv))
 
 
 # ---------------------------------------------------------------------------
@@ -391,11 +579,12 @@ def _position_stride(t: torch.Tensor, name: str) -> int:
 
 
 def _layout(q, k, v, kernel, circular_w, tensors):
-    """(shape, position strides, kernel and circular_w as the C entries take
-    them; vec4: 16-byte copies allowed)."""
-    ch = q.shape[-1]
+    """(shape, position strides in elements, kernel and circular_w as the C
+    entries take them; vec4: 16-byte copies allowed, of four f32 or eight
+    bf16 channels)."""
+    ch, per16 = q.shape[-1], 16 // q.element_size()
     strides = [_position_stride(t, n) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
-    vec4 = int(ch % 4 == 0 and all(s % 4 == 0 for s in strides)
+    vec4 = int(ch % per16 == 0 and all(s % per16 == 0 for s in strides)
                and all(t.data_ptr() % 16 == 0 for t in tensors))
     return (*q.shape, *strides, *kernel, int(circular_w)), vec4
 
@@ -413,23 +602,30 @@ def _check_err(err: int, what: str) -> None:
 
 
 def _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse):
-    """K5a: out [B, D, H, W, heads, ch], and lse [B, D, H, W, heads] when asked."""
-    global LAUNCHES
+    """K5a: out [B, D, H, W, heads, ch] in q's dtype, and lse [B, D, H, W,
+    heads] (f32) when asked. bf16 q, k, v and rpb take K5a's bf16 mode
+    (the f32 plan)."""
+    global LAUNCHES, BF16_LAUNCHES
     rpb = None if rpb is None else rpb.contiguous()
     dims, ch = tuple(q.shape[1:4]), q.shape[-1]
     takes(q.shape, kernel, circular_w, rpb is not None)
     plan = _fwd_plan(dims, kernel, circular_w, ch, rpb is not None)
-    out = torch.empty(q.shape, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    out = torch.empty(q.shape, device=q.device, dtype=q.dtype)
     lse = torch.empty(q.shape[:-1], device=q.device) if with_lse else None
     layout, vec4 = _layout(q, k, v, kernel, circular_w, (q, k, v, out))
+    entry = "gwt_natten_flash_forward_bf16" if bf16 else "gwt_natten_flash_forward"
     with torch.cuda.device(q.device):
-        err = c_function("natten_flash", "gwt_natten_flash_forward", _FWD_ARGTYPES)(
+        err = c_function("natten_flash", entry, _FWD_ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), out.data_ptr(), _ptr(lse),
-            *layout, vec4, ch**-0.5, plan.cp, plan.lanes, plan.nc, plan.td, plan.th, plan.ry,
-            plan.rx, torch.cuda.current_stream().cuda_stream,
+            *layout, vec4, bf16_scale(ch) if bf16 else ch**-0.5, plan.cp, plan.lanes, plan.nc,
+            plan.td, plan.th, plan.ry, plan.rx, torch.cuda.current_stream().cuda_stream,
         )
     _check_err(err, "forward")
-    LAUNCHES += 1
+    if bf16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out, lse
 
 
@@ -439,43 +635,85 @@ def launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel
     the dq tile); mode `DKV` writes grads[1] and grads[2] (dk, dv). rpb
     contiguous or None, dout dense, delta = rowsum(dO * out)
     [B, D, H, W, heads]."""
-    global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES, BF16_BWD_DQ_LAUNCHES, BF16_BWD_DKV_LAUNCHES
     dims, ch = tuple(q.shape[1:4]), q.shape[-1]
     tile = _pick_tile("dq" if mode == DQ else "dkv", dims, kernel, circular_w, ch, rpb is not None)
     geometry = _geometry(q, k, v, kernel, circular_w, tile, (q, k, v, dout, *grads))
     ry = 0 if mode == DQ else _dkv_rows(tile, kernel, ch)
     outs = (grads[0], None, None, partial) if mode == DQ else (None, grads[1], grads[2], None)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:  # the TPU kernel's query tile, whose parts of dk and dv it rounds
+        entry = ("gwt_natten_flash_backward_bf16", _BWD16_ARGTYPES)
+        tpu = tpu_backward_tile(dims, tuple(kernel), bool(circular_w), q.shape[-2], ch,
+                                rpb is not None)
+        extra = tpu if tpu is not None else dims[1:]
+    else:
+        entry, extra = ("gwt_natten_flash_backward", _BWD_ARGTYPES), ()
     with torch.cuda.device(q.device):
-        err = c_function("natten_flash_bwd", "gwt_natten_flash_backward", _BWD_ARGTYPES)(
+        err = c_function("natten_flash_bwd", *entry)(
             mode, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(_ptr(t) for t in outs),
-            *geometry[:-1], ry, geometry[-1],
+            *geometry[:-1], ry, *extra, geometry[-1],
         )
     _check_err(err, "backward (dq)" if mode == DQ else "backward (dk/dv)")
     if mode == DQ:
-        BWD_DQ_LAUNCHES += 1
+        if bf16:
+            BF16_BWD_DQ_LAUNCHES += 1
+        else:
+            BWD_DQ_LAUNCHES += 1
+    elif bf16:
+        BF16_BWD_DKV_LAUNCHES += 1
     else:
         BWD_DKV_LAUNCHES += 1
 
 
 def _backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular_w):
-    """K5b: (dq, dk, dv, drpb), drpb None without rpb."""
+    """K5b: (dq, dk, dv, drpb) in q's dtype, drpb None without rpb (bf16:
+    K5b's bf16 mode, delta from the bf16 out and drpb rounded once)."""
     rpb = None if rpb is None else rpb.contiguous()
     dout = dout.contiguous()
-    delta = (dout * out).sum(-1).contiguous()  # [B, D, H, W, heads]
-    grads = tuple(torch.empty(q.shape, device=q.device) for _ in range(3))
+    if q.dtype == torch.bfloat16:
+        delta = (dout.float() * out.float()).sum(-1).contiguous()
+    else:
+        delta = (dout * out).sum(-1).contiguous()  # [B, D, H, W, heads]
+    grads = tuple(torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(3))
     partial = None
     if rpb is not None:
         tile = _pick_tile("dq", tuple(q.shape[1:4]), kernel, circular_w, q.shape[-1], True)
         partial = torch.empty(q.shape[0] * tile.n_tiles, q.shape[-2], rpb[0].numel(), device=q.device)
     for mode in (DQ, DKV):
         launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular_w)
-    drpb = partial.sum(0).reshape(rpb.shape) if rpb is not None else None
+    drpb = partial.sum(0).reshape(rpb.shape).to(rpb.dtype) if rpb is not None else None
     return (*grads, drpb)
 
 
-# The (forward, backward) pair that `_NattenFlash` launches on the card.
-KERNELS = (_forward_cuda, _backward_cuda)
+class Kernels(NamedTuple):
+    """What `_NattenFlash` runs: `forward` and `backward` on CUDA tensors,
+    `plain_forward` and `plain_backward` on CPU tensors. forward(q, k, v,
+    kernel, rpb, circular_w) -> (out, lse, residual); backward(q, k, v, rpb,
+    residual, lse, dout, kernel, circular_w) -> (dq, dk, dv, drpb), which
+    forms delta = dO . residual (out itself, but for the slot path in
+    bf16: ops/natten3d.py)."""
+
+    forward: Callable
+    backward: Callable
+    plain_forward: Callable
+    plain_backward: Callable
+
+
+def _forward_for_grad(q, k, v, kernel, rpb, circular_w):
+    out, lse = _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=True)
+    return out, lse, out
+
+
+def _plain_forward_for_grad(q, k, v, kernel, rpb, circular_w):
+    out, lse = flash_forward_reference(q, k, v, kernel, rpb, circular_w, with_lse=True)
+    return out, lse, out
+
+
+# K5a and K5b, and their plain versions.
+KERNELS = Kernels(_forward_for_grad, _backward_cuda, _plain_forward_for_grad,
+                  natten_flash_backward_reference)
 
 
 class _NattenFlash(torch.autograd.Function):
@@ -485,25 +723,19 @@ class _NattenFlash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, rpb, kernel, circular_w, kernels):
-        if q.device.type == "cpu":
-            out, lse = neighborhood_attention_3d_reference(
-                q, k, v, kernel, rpb, circular_w, with_lse=True
-            )
-        else:
-            out, lse = kernels[0](q, k, v, kernel, rpb, circular_w, with_lse=True)
-        ctx.save_for_backward(q, k, v, rpb, out, lse)
+        fwd = kernels.plain_forward if q.device.type == "cpu" else kernels.forward
+        out, lse, residual = fwd(q, k, v, kernel, rpb, circular_w)
+        ctx.save_for_backward(q, k, v, rpb, residual, lse)
         ctx.kernel, ctx.circular_w, ctx.kernels = kernel, circular_w, kernels
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
-        q, k, v, rpb, out, lse = ctx.saved_tensors
-        args = (q, k, v, rpb, out, lse, dout, ctx.kernel, ctx.circular_w)
-        if q.device.type == "cpu":
-            dq, dk, dv, drpb = natten_flash_backward_reference(*args)
-        else:
-            dq, dk, dv, drpb = ctx.kernels[1](*args)
+        q, k, v, rpb, residual, lse = ctx.saved_tensors
+        kernels = ctx.kernels
+        bwd = kernels.plain_backward if q.device.type == "cpu" else kernels.backward
+        dq, dk, dv, drpb = bwd(q, k, v, rpb, residual, lse, dout, ctx.kernel, ctx.circular_w)
         return dq, dk, dv, drpb, None, None, None
 
 

@@ -13,7 +13,9 @@ slot - k//2 + k - 1), is added to every logit.
 CPU tensors take the plain PyTorch version
 (`neighborhood_attention_3d_reference`) under every impl, and its explicit
 backward (ops/natten_flash.py) under autograd. For CUDA tensors `route`
-picks the kernel from the shape alone, before any launch:
+picks the kernel from the shape alone, before any launch (bf16 tensors too:
+each kernel has a bf16 mode that rounds as the JAX package's bf16 run of the
+same path does, and on the CPU the plain version of what `route` names):
 
   * "auto": the halo-tiled K5a (ops/natten_flash.py; K5a and K5b under a
     gradient) when its tiles fit, else the wide-head K6 (ops/natten3d.py;
@@ -88,22 +90,60 @@ def _slot_bias(rpb, tables, slot):
     return bias.permute(1, 2, 3, 0)
 
 
-def neighborhood_attention_3d_reference(
-    q: torch.Tensor,  # [B, D, H, W, heads, ch]
-    k: torch.Tensor,
-    v: torch.Tensor,
-    kernel: tuple[int, int, int],
-    rpb: torch.Tensor | None = None,  # [heads, 2kd-1, 2kh-1, 2kw-1]
-    circular_w: bool = False,
-    with_lse: bool = False,
-):
-    """Plain PyTorch version (the JAX package's slot scan): a loop over the
-    window slots, per-axis gathers, an online softmax in f32. Differentiable
-    by autograd. Returns out, or (out, lse) with the log-sum-exp of each
-    (node, head) [B, D, H, W, heads] of the biased, scaled logits."""
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """t rounded to bf16, as f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def ordered_scatter_bf16(src: torch.Tensor, axis: int, idx: torch.Tensor, size: int) -> torch.Tensor:
+    """The transpose of a take of `idx` [n] along `axis` (into an axis of
+    `size`) on bf16 values, as XLA runs it: each target adds the sources
+    that reach it in ascending order, rounding every sum to bf16. src holds
+    bf16 values as f32; so does the result. On a clamped window table a
+    target has more than one source only at the edges (at most k / 2 + 1)."""
+    sources: dict[int, list[int]] = {}
+    for i, t in enumerate(idx.tolist()):
+        sources.setdefault(t, []).append(i)
+    shape = list(src.shape)
+    shape[axis] = size
+    out = torch.zeros(shape, device=src.device).index_add_(axis, idx, src)  # exact: one source
+    for t, run in sources.items():
+        if len(run) > 1:
+            acc = src.select(axis, run[0])
+            for i in run[1:]:
+                acc = round_bf16(acc + src.select(axis, i))
+            out.select(axis, t).copy_(acc)
+    return out
+
+
+def bf16_scale(ch: int) -> float:
+    """ch^-0.5 as the JAX package's bf16 run scales q: `q * scale` with q bf16
+    takes the Python float as bf16 (a weak type), so the scale is rounded
+    to bf16 first."""
+    return float(torch.tensor(ch**-0.5).to(torch.bfloat16))
+
+
+def scaled_q(q: torch.Tensor, rounded: bool = False) -> torch.Tensor:
+    """q-hat, the scaled q that every kernel and plain version multiplies k
+    with, in f32: on f32 q, q * ch^-0.5; on bf16 q, q * bf16_scale(ch) in
+    f32, and with `rounded` that product rounded to bf16. The JAX package's
+    Pallas kernels take bf16(q * scale) (K5a, K5b: `rounded`); its XLA slot
+    scan upcasts q * scale to f32 right away, which XLA computes in f32
+    unrounded (the slot path, K6 and K6b)."""
+    ch = q.shape[-1]
+    if q.dtype != torch.bfloat16:
+        return (q * ch**-0.5).float()
+    qs = q.float() * bf16_scale(ch)
+    return round_bf16(qs) if rounded else qs
+
+
+def slot_forward(q, k, v, kernel, rpb=None, circular_w=False):
+    """The slot scan: (out, lse, out32). out32 is the f32 result acc / l
+    before out's rounding to q's dtype (out itself in f32): the JAX package
+    differentiates the scan through that f32 value, so the bf16 backward
+    takes delta = dO . out32 (ops/natten3d.py)."""
     tables = _slot_tables(q.shape, kernel, circular_w, q.device)
-    scale = q.shape[-1] ** -0.5
-    qs = (q * scale).float()
+    qs = scaled_q(q)
     m = torch.full(q.shape[:-1], _NEG, device=q.device)
     l = torch.zeros(q.shape[:-1], device=q.device)
     acc = torch.zeros(q.shape, device=q.device)
@@ -117,10 +157,27 @@ def neighborhood_attention_3d_reference(
         l = l * alpha + p
         acc = acc * alpha[..., None] + p[..., None] * _gather(v, tables, slot).float()
         m = m_new
-    out = (acc / l[..., None]).to(q.dtype)
-    if not with_lse:
-        return out
-    return out, m + torch.log(l)
+    out32 = acc / l[..., None]
+    return out32.to(q.dtype), m + torch.log(l), out32
+
+
+def neighborhood_attention_3d_reference(
+    q: torch.Tensor,  # [B, D, H, W, heads, ch]
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kernel: tuple[int, int, int],
+    rpb: torch.Tensor | None = None,  # [heads, 2kd-1, 2kh-1, 2kw-1]
+    circular_w: bool = False,
+    with_lse: bool = False,
+):
+    """Plain PyTorch version (the JAX package's slot scan): a loop over the
+    window slots, per-axis gathers, an online softmax in f32. Differentiable
+    by autograd. Returns out, or (out, lse) with the log-sum-exp of each
+    (node, head) [B, D, H, W, heads] of the biased, scaled logits. On bf16
+    tensors the scan's bf16 forward as XLA computes it: q-hat (`scaled_q`,
+    unrounded), f32 logits, bias and softmax, out rounded to bf16 once."""
+    out, lse, _ = slot_forward(q, k, v, kernel, rpb, circular_w)
+    return (out, lse) if with_lse else out
 
 
 def _check(q, k, v, kernel, rpb, circular_w):
@@ -135,8 +192,9 @@ def _check(q, k, v, kernel, rpb, circular_w):
         raise ValueError(f"neighborhood_attention_3d: rpb {tuple(rpb.shape)} must be "
                          f"[heads, 2kd-1, 2kh-1, 2kw-1] for heads {heads}, kernel {kernel}")
     tensors = (q, k, v) if rpb is None else (q, k, v, rpb)
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("neighborhood_attention_3d: q, k, v and rpb must be float32")
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError("neighborhood_attention_3d: q, k, v and rpb must share one dtype, "
+                        "float32 or bfloat16")
     if any(t.device != q.device for t in tensors):
         raise ValueError("neighborhood_attention_3d: all tensors must be on one device")
     if q.device.type not in ("cpu", "cuda"):
@@ -144,6 +202,7 @@ def _check(q, k, v, kernel, rpb, circular_w):
 
 
 IMPLS = ("auto", "flash", "pallas", "xla")
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def route(shape, kernel, circular_w: bool, has_bias: bool, needs_grad: bool,
@@ -183,7 +242,8 @@ def neighborhood_attention_3d(
     impl: "auto", "flash", "pallas" or "xla"
     (see the module docstring; ValueError for any other). CPU tensors take
     the plain version (its explicit backward under autograd) under every
-    impl; CUDA tensors run what `route` picks, or raise."""
+    impl (on bf16 tensors the plain version of what `route` names for the
+    card: `_cpu_path`); CUDA tensors run what `route` picks, or raise."""
     from graph_weather_tpu_torch.ops import natten3d, natten_flash
     from graph_weather_tpu_torch.ops.natten_flash import _NattenFlash
 
@@ -195,9 +255,13 @@ def neighborhood_attention_3d(
     tensors = (q, k, v) if rpb is None else (q, k, v, rpb)
     needs_grad = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
     if q.device.type == "cpu":
+        kernels = natten_flash.KERNELS
+        if q.dtype == torch.bfloat16 and _cpu_path(q.shape, kernel, circular_w, rpb, needs_grad,
+                                                   impl) != "flash":
+            kernels = natten3d.KERNELS
         if needs_grad:
-            return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w, natten_flash.KERNELS)
-        return neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular_w)
+            return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w, kernels)
+        return kernels.plain_forward(q, k, v, kernel, rpb, circular_w)[0]
     path = route(tuple(q.shape), kernel, circular_w, rpb is not None, needs_grad, impl)
     if path == "plain":
         return neighborhood_attention_3d_reference(q, k, v, kernel, rpb, circular_w)
@@ -208,3 +272,14 @@ def neighborhood_attention_3d(
     if needs_grad:
         return _NattenFlash.apply(q, k, v, rpb, kernel, circular_w, natten_flash.KERNELS)
     return natten_flash._forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse=False)[0]
+
+
+def _cpu_path(shape, kernel, circular_w, rpb, needs_grad, impl) -> str:
+    """What `route` names for CUDA tensors of `shape`, for CPU tensors in
+    bf16, whose plain versions round as the kernel they stand for (flash:
+    K5a/K5b's roundings; slot or plain: the slot scan's); "slot" where no
+    kernel takes the shape (the JAX package's slot scan runs it)."""
+    try:
+        return route(tuple(shape), kernel, circular_w, rpb is not None, needs_grad, impl)
+    except ValueError:
+        return "slot"

@@ -18,6 +18,7 @@ from graph_weather_tpu_torch.meshes.clustering import (
     build_cluster_scatter_index,
     is_symmetric_edges,
 )
+from graph_weather_tpu_torch.nn import bf16
 from graph_weather_tpu_torch.ops import (
     banded_flash,
     clustered_flash,
@@ -350,6 +351,27 @@ def test_segment_sum_bf16_matches_plain(gen, width, batch):
     assert scatter.LAUNCHES == before + 2
     want = scatter.segment_sum_bf16_reference(rows, offsets, edge_ids)
     assert got.dtype == torch.bfloat16 and torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(1, 5, 7, 9), (1, 14, 45, 90)], ids=["serial", "latent_1deg"])
+def test_bias_add_grad_on_s_matches_cpu(gen, dims):
+    """nn.bf16.bias_add's bias gradient (XLA:CPU's windowed bf16 sum, one S
+    launch a level) on the card against the same function on the CPU, bit
+    for bit, at the tests' latent (one level) and the 1 degree latent (two:
+    6 windows, then their sum)."""
+    cot = torch.randn(*dims, 384, generator=gen, device="cuda").bfloat16()
+
+    def bias_grad(grad):
+        bias = torch.zeros(grad.shape[-1], dtype=torch.bfloat16, device=grad.device, requires_grad=True)
+        bf16.bias_add(torch.zeros_like(grad), bias).backward(grad)
+        return bias.grad
+
+    before = scatter.LAUNCHES
+    got = bias_grad(cot)
+    torch.cuda.synchronize()
+    assert scatter.LAUNCHES == before + len(bf16.xla_sum_order(dims))
+    assert torch.equal(got.cpu(), bias_grad(cot.cpu()))
 
 
 def _cluster_case(gen, b, n, heads, c, block, empty_every=7, seed=0):
@@ -878,6 +900,69 @@ def test_natten_refuses_what_it_cannot_take(gen):
             neighborhood_attention_3d(strided, k, v, (3, 3, 3), rpb, impl=impl)
 
 
+# -- K5a and K5b in bf16 ----------------------------------------------------------
+
+NATTEN_BF16_CASES = [
+    # (B, D, H, W), heads, ch, kernel, rpb, circular_w
+    ((1, 14, 45, 90), 4, 32, (3, 5, 5), True, False),  # the 128-d WeatherMesh's layers
+    ((2, 5, 9, 11), 2, 32, (3, 3, 5), True, True),  # the circular seam, two batch entries
+    ((1, 6, 9, 14), 8, 32, (5, 7, 7), True, False),  # clamped windows at every edge
+    ((2, 4, 7, 9), 3, 12, (3, 3, 3), False, False),  # ch % 8 != 0: element loads
+]
+NATTEN_BF16_IDS = ["wm_1deg", "circular_b2", "k577", "ch12_no_rpb"]
+
+
+def _bf16_inputs(gen, shape, heads, ch, kernel, with_rpb):
+    q, k, v, rpb = _natten_inputs(gen, shape, heads, ch, kernel, with_rpb, fused=ch % 8 == 0)
+    return tuple(None if t is None else t.bfloat16() for t in (q, k, v, rpb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NATTEN_BF16_CASES, ids=NATTEN_BF16_IDS)
+def test_natten_bf16_forward_matches_plain(gen, case):
+    """K5a's bf16 mode against its plain version (the TPU kernel's
+    roundings): out within two bf16 ulps of its max, lse within 1e-4; one
+    bf16 launch a call, bit-equal over two."""
+    shape, heads, ch, kernel, with_rpb, circular = case
+    q, k, v, rpb = _bf16_inputs(gen, shape, heads, ch, kernel, with_rpb)
+    before = (natten_flash.LAUNCHES, natten_flash.BF16_LAUNCHES)
+    out, lse = natten_flash._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)
+    out2, lse2 = natten_flash._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)
+    torch.cuda.synchronize()
+    assert (natten_flash.LAUNCHES, natten_flash.BF16_LAUNCHES) == (before[0], before[1] + 2)
+    ref, ref_lse = natten_flash.flash_forward_reference(q, k, v, kernel, rpb, circular, with_lse=True)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert _bf16_err(out, ref) <= 1
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", NATTEN_BF16_CASES, ids=NATTEN_BF16_IDS)
+def test_natten_bf16_backward_matches_plain(gen, case):
+    """K5b's bf16 mode through the dispatcher's autograd path (K5a with lse,
+    then the dq and dk/dv kernels) against the plain backward: every
+    gradient within two bf16 ulps of its max; bit-equal over two backwards."""
+    shape, heads, ch, kernel, with_rpb, circular = case
+    q, k, v, rpb = _bf16_inputs(gen, shape, heads, ch, kernel, with_rpb)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v) + ((rpb,) if with_rpb else ())]
+    counts = (natten_flash.BF16_BWD_DQ_LAUNCHES, natten_flash.BF16_BWD_DKV_LAUNCHES,
+              natten_flash.BWD_DQ_LAUNCHES)
+    out = neighborhood_attention_3d(*leaves[:3], kernel, leaves[3] if with_rpb else None, circular)
+    got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (natten_flash.BF16_BWD_DQ_LAUNCHES, natten_flash.BF16_BWD_DKV_LAUNCHES,
+            natten_flash.BWD_DQ_LAUNCHES) == (counts[0] + 2, counts[1] + 2, counts[2])
+    ref_out, lse = natten_flash.flash_forward_reference(q, k, v, kernel, rpb, circular, with_lse=True)
+    want = natten_flash.natten_flash_backward_reference(q, k, v, rpb, ref_out, lse, dout, kernel,
+                                                        circular)
+    for name, a, b in zip(("dq", "dk", "dv", "drpb"), got, want):
+        assert a.dtype == torch.bfloat16 and _bf16_err(a, b) <= 1, name
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 # -- K6: the wide-head 3D neighborhood attention forward -----------------------
 
 K6_CASES = [
@@ -1224,3 +1309,61 @@ def test_banded_flash_gradients_flow(gen):
         banded_flash.banded_flash_attention(wide, wide, wide, masks, 512, 512)
     with pytest.raises(TypeError, match="int8"):
         banded_flash.banded_flash_attention(q, k, v, masks.bool(), 512, 512)
+
+
+# -- K6 and K6b in bf16 ------------------------------------------------------------
+
+K6_BF16_CASES = [K6_CASES[i] for i in (0, 1, 4, 7, 9)]
+K6_BF16_IDS = [K6_IDS[i] for i in (0, 1, 4, 7, 9)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K6_BF16_CASES, ids=K6_BF16_IDS)
+def test_natten3d_bf16_matches_plain(gen, case):
+    """K6's bf16 mode against the slot scan in bf16: out within two bf16 ulps
+    of its max, lse within 1e-4, out32 (out before its rounding) within 1e-4;
+    bit-equal over two launches."""
+    shape, heads, ch, kernel, with_rpb, circular = case
+    q, k, v, rpb = _bf16_inputs(gen, shape, heads, ch, kernel, with_rpb)
+    before = (natten3d.LAUNCHES, natten3d.BF16_LAUNCHES)
+    out32 = torch.empty(q.shape, device="cuda")
+    out, lse = natten3d._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True, out32=out32)
+    out2, lse2 = natten3d._forward_cuda(q, k, v, kernel, rpb, circular, with_lse=True)
+    torch.cuda.synchronize()
+    assert (natten3d.LAUNCHES, natten3d.BF16_LAUNCHES) == (before[0], before[1] + 2)
+    ref, ref_lse, ref32 = natten3d.slot_forward(q, k, v, kernel, rpb, circular)
+    assert out.dtype == torch.bfloat16 and _bf16_err(out, ref) <= 1
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    assert (out32 - ref32).abs().max().item() <= ATOL
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K6_BF16_CASES, ids=K6_BF16_IDS)
+def test_natten3d_bf16_backward_matches_plain(gen, case):
+    """K6b's bf16 mode through the dispatcher's autograd path (K6 with lse
+    and out32; the dq, dk/dv and the two drpb kernels, one launch each)
+    against the slot scan's bf16 backward: every gradient within two bf16
+    ulps of its max; bit-equal over two backwards."""
+    shape, heads, ch, kernel, with_rpb, circular = case
+    q, k, v, rpb = _bf16_inputs(gen, shape, heads, ch, kernel, with_rpb)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v) + ((rpb,) if with_rpb else ())]
+
+    def counts():
+        return (natten3d.BF16_LAUNCHES, natten3d.BF16_BWD_DQ_LAUNCHES, natten3d.BF16_BWD_DKV_LAUNCHES,
+                natten3d.BF16_DRPB_SLOT_LAUNCHES, natten3d.BF16_DRPB_LAUNCHES, natten3d.LAUNCHES)
+
+    before = counts()
+    out = neighborhood_attention_3d(*leaves[:3], kernel, leaves[3] if with_rpb else None, circular,
+                                    impl="pallas")
+    got = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    again = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    n = 2 * with_rpb
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 2, 2, n, n, 0)
+    ref_out, lse, out32 = natten3d.slot_forward(q, k, v, kernel, rpb, circular)
+    want = natten3d.slot_backward_reference(q, k, v, rpb, out32, lse, dout, kernel, circular)
+    for name, a, b in zip(("dq", "dk", "dv", "drpb"), got, want):
+        assert a.dtype == torch.bfloat16 and _bf16_err(a, b) <= 1, name
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
