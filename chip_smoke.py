@@ -19,7 +19,11 @@ and the 768-d WeatherMesh (the same conv stack with the JAX package's
 default attention: latent 768, 8 heads of 96, kernel (5, 7, 7), 3 + 10 + 3
 layers), whose heads K5a cannot tile: served through K6, trained through K6
 and its backward K6b; and both WeatherMesh models in bf16, as bench.py runs
-them (phases 51-55).
+them (phases 51-55); and FGN at bench.py's reference scale (128 x 64 grid,
+89 -> 83 features, a noise vector of 32, 768-d, 24 blocks of 4 heads: c =
+192, the last c = 768; splits-6 icosphere, 6 hops, clustered attention):
+member requests, the 8-member ensemble, an ensemble rollout and remat
+training, in f32 and bf16 (phases 56-61).
 Phases, one line each, in order; any failure raises and ends the run with a
 non-zero exit:
 
@@ -48,7 +52,8 @@ non-zero exit:
      plain version and torch's scaled_dot_product_attention on the
      gathered unions (timed only, never used by the port)
   9. denoise: the full-width Denoiser on cuda answers 3 requests (B = 1,
-     sigma = 1), each with exactly 16 K3a launches; ms per request
+     sigma = 1), each with exactly 16 K3a launches and one f32 S launch
+     (the g2m aggregation in edge order); ms per request
  10. the same weights and one request on the CPU (plain versions): max abs
      difference from the card <= 1e-3
  11. sample: 2 samples of the 20-step sampler, 592 K3a launches each
@@ -66,11 +71,13 @@ non-zero exit:
      K3a, 16 K3c dq and 16 K3c dk/dv launches and no K3b launch; finite
      loss, parameters changed; ms per step, peak GiB; a profile of one more
      step; then two steps with remat=True (32 K3a launches each), peak GiB
- 16. the same weights and one batch, forward and backward on the CPU (plain
-     versions): loss within 1e-5 relative, every parameter's gradient within
-     1e-3 max|g| of that tensor (floored at 1e-6 of the largest gradient);
-     and once more on the card: whether the loss and gradients repeat bit
-     for bit, and the largest difference if not (printed only)
+ 16. the same weights and one batch, forward and backward on the card
+     twice, where the loss and gradients must repeat bit for bit (every
+     graph sum runs in a fixed order: S in f32); then at 2 blocks
+     (GENCAST_CHECK_BLOCKS: the trained first and last blocks) on the card
+     and on the CPU (plain versions): loss within 1e-5 relative, every
+     parameter's gradient within 1e-3 max|g| of that tensor (floored at
+     1e-6 of the largest gradient)
  17. build: natten_flash.cu's registers and spills by instantiation
      (<CP, CL, NC, MINB>), and natten_flash_bwd.cu's
  18. K5a (3D neighborhood attention) against its plain version on the
@@ -101,8 +108,9 @@ non-zero exit:
      backward on the card and on the CPU: loss within 1e-5 relative, every
      gradient within 1e-3 of its max|g| (the model's CPU convs run in
      PyTorch's own kernels, not oneDNN's, here and in phase 20); and once
-     more on the card: whether the loss and gradients repeat bit for bit,
-     and the largest difference if not (printed only)
+     more on the card, where the loss and gradients must repeat bit for bit
+     (the convs' backward on cuDNN's deterministic algorithms, the resize's
+     a product)
  25. build: banded_flash.cu's and banded_flash_bwd.cu's registers and spills,
      and the count of TF32 tensor-core instructions in each library's SASS
      (K4a and K4b: split-TF32 mma.sync), which must not be 0
@@ -133,9 +141,9 @@ non-zero exit:
      symmetric role, and no K3 launch; finite
      loss, every parameter changed; ms per step, peak GiB, a profile of one
      more step; then 2 steps with remat=True (32 K4a launches each), peak GiB
- 31. the same weights and one batch, forward and backward on the card and on
-     the CPU: loss within 1e-5 relative, every gradient within 1e-3 of its
-     tensor's max|g|
+ 31. the same weights and one batch at 2 blocks (GENCAST_CHECK_BLOCKS),
+     forward and backward on the card and on the CPU: loss within 1e-5
+     relative, every gradient within 1e-3 of its tensor's max|g|
  32. build: fused_mlp_bwd.cu's (K2b's) registers and spills, and the count
      of TF32 tensor-core instructions in its SASS (split-TF32 mma.sync),
      which must not be 0
@@ -174,9 +182,9 @@ non-zero exit:
      with exactly 16 K6 and no K5a launches; ms per request, peak GiB, a
      profile of one more
  39. a 2-step rollout: finite, exactly 26 K6 launches, ms per step
- 40. the same weights and one request at 28 x 60 (latent [14, 7, 15]) on
-     the card (16 K6 launches) and on the CPU: max abs difference <= 1e-3;
-     the CPU forward timed
+ 40. the same weights and one request at 28 x 60 (latent [14, 7, 15]) and
+     2 processor layers (WM_WIDE_CHECK_LAYERS) on the card (8 K6 launches)
+     and on the CPU: max abs difference <= 1e-3; the CPU forward timed
  41. K6 with lse, and K6b (its backward: the dq kernel, which writes each
      pair's p and ds to a slot table, and the dk/dv kernel, which reads
      them) against the plain backward (natten_flash_backward_reference) on
@@ -197,10 +205,11 @@ non-zero exit:
      K5a or K5b launch; finite loss, every parameter changed; ms per step,
      peak GiB, a profile of one more step
  43. the same weights and one batch at 28 x 60 (latent [14, 7, 15]; at 3
-     deg the CPU would take ~4 min), forward and backward on the card and
-     on the CPU: loss within 1e-5 relative, every gradient within 1e-3 of
-     its tensor's max|g|; and once more on the card: whether the loss and
-     gradients repeat bit for bit (printed only)
+     deg the CPU would take ~4 min), forward and backward on the card
+     twice, where the loss and gradients must repeat bit for bit; then at
+     2 processor layers (WM_WIDE_CHECK_LAYERS) on the card and on the CPU:
+     loss within 1e-5 relative, every gradient within 1e-3 of its tensor's
+     max|g|
  44. GenCast's bf16 policy: the bf16 instantiations of clustered_flash.cu
      and clustered_flash_bwd.cu (phase 2's build; their bf16 tensor-core
      instructions in SASS, which must not be 0), then K3a in bf16 (with and
@@ -230,8 +239,9 @@ non-zero exit:
      bf16 gradients of phase 16's objective at phase 16's weights and batch,
      on the card and on the CPU: global norm of card - CPU <= 0.9 global
      norm of card bf16 - card f32 (phase 16's gradients; BF16_CARD_GRAD_RULE),
-     with the CPU's own reading printed beside (its gradients with 1 in
-     2,000 inputs one ulp off); the step time beside the earlier one
+     with the CPU's own reading (its gradients with 1 in 2,000 inputs one
+     ulp off) taken and printed beside a miss (it read 0.668 against the
+     card's 0.665-0.672 in PRs 16-18); the step time beside the earlier one
  48. the forecaster's bf16 kernels (phase 2's build): the count of bf16
      tensor-core instructions (HMMA ... BF16) in edge_mlp.cu's and
      fused_mlp_bwd.cu's SASS, which must not be 0, and S's registers; K2 in
@@ -260,7 +270,8 @@ non-zero exit:
      kernels of a profiled step; then at those weights the bf16 loss and
      gradients on the card twice, bit for bit the same, and on the CPU at
      1°: global norm of card bf16 - CPU bf16 within phase 49's rule of the
-     global norm of card bf16 - card f32
+     global norm of card bf16 - card f32 (the CPU's own reading, a second
+     CPU run, taken only where the card misses 0.5, as phases 53 and 55)
  51. WeatherMesh's bf16 kernels (phase 2's build; their registers and
      spills): K5a and K5b in bf16 at phase 18's case a, K6 and K6b in bf16 at
      phase 37's cases a and b, each against its plain version in bf16 (the
@@ -290,19 +301,60 @@ non-zero exit:
      requests, 16 bf16 K6 launches a request)
  55. wm_wide_train_bf16: phase 53 for the 768-d model, each step with exactly
      16 bf16 K6 (with lse and out32), 16 bf16 K6b dq, 16 dk/dv and 16 of each
-     drpb kernel; the CPU check at 28 x 60 (WM_WIDE_GRAD_GRID)
+     drpb kernel; the CPU check at 28 x 60 (WM_WIDE_GRAD_GRID) and 2
+     processor layers (WM_WIDE_CHECK_LAYERS), the repeat at full depth
+ 56. FGN's build: registers and spills of K3a's and K3c's c = 768
+     instantiations (W768: one row group of 8 warps of 96 channels; one copy
+     stage in f32, two in bf16), and the tensor-core instructions in each
+     one's SASS (TF32 in f32, BF16 in bf16: neither total may be 0)
+ 57. FGN's graphs (splits 6, 6 hops: 40,962 mesh nodes, 5,156,760 k-hop
+     edges, 161 blocks of 256 rows, U_pad 1,024) and each graph's sum route;
+     K3a (with and without lse) and K3c at c = 192 and
+     768, f32 and bf16, on that layout at B = 1: against the plain versions
+     (f32 1e-4; bf16 2^-6 of the max, lse 1e-4), exact zeros on empty rows,
+     a bit-equal repeat; CUDA-event medians of each, of the plain versions
+     and of SDPA and its backward on the gathered unions (timed only, with
+     the backend SDPA took); the bounds; CTAs an SM; S in f32 against its
+     plain version, bit for bit, on the g2m receivers and m2g senders at 768
+     columns, timed beside index_add_
+ 58. fgn_serve (f32): 3 member requests at B = 1 after a warm-up, each with
+     exactly 24 K3a launches (23 at c = 192, one at 768: the W768 tile's
+     own counter) and one f32 S (the g2m aggregation); ms, peak GiB, a
+     profile of one more (K3a's device ms, all and at c = 768); the
+     8-member ensemble with member_chunk=1 (192 K3a, 8 at c = 768), ms per
+     member; a 2-member 2-step ensemble rollout (a handle with 89 outputs,
+     the same graphs), ms per step
+ 59. fgn_serve_bf16: phase 58 through member_fn(compute_dtype=bfloat16), the
+     bf16 counts
+ 60. fgn_train: 3 steps of bench.py's fgn_member_train_ms (MSE through the
+     member, clip + AdamW at lr 1e-4) with remat=True, in bf16 then f32,
+     each with exactly 48 K3a (with lse: remat recomputes each block), 24
+     K3c dq, 24 K3c dk/dv (of which 2, 1 and 1 at c = 768) and 5 S launches
+     of its dtype and no K3b launch; every parameter changes; ms per step
+     (median of steps 2-3), peak GiB, a profile of one more step (K3c's
+     device ms); then the loss and gradients twice at those weights:
+     bit-equal
+ 61. the card against the CPU at full width and 2 blocks (one at c = 192,
+     the last at 768): f32 output within 1e-3, loss within 1e-5 relative,
+     each gradient within 1e-3 of its max|g|; bf16: RMSE(card bf16 - CPU
+     bf16) within 0.75 (output) and 0.9 (gradients, global norm) of the
+     card's bf16-to-f32 distance, GenCast's rule (phases 45, 47), the
+     card's own one-ulp reading printed beside it; beside a miss the CPU's
+     own reading, and the limit the larger of that, 0.5 and GenCast's
 
 then one JSON line on the kernels, the card's name and power limit, and
 last {"ok": true, "device": ...}.
 Exits non-zero without a CUDA device, or when the port's package is not
-beside this file. f32 but for phases 44-55 (bf16); TF32 is off, but for the
-bf16 WeatherMesh's convolutions of bf16 values (exact in TF32).
+beside this file. f32 but for phases 44-55 and FGN's bf16 (bf16); TF32 is
+off, but for the bf16 WeatherMesh's convolutions of bf16 values (exact in
+TF32).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import faulthandler
+import functools
 import json
 import math
 import re
@@ -405,6 +457,15 @@ WM_WIDE = {
 }
 WM_WIDE_CHECK_GRID = (28, 60)  # phase 40's card-against-CPU forward
 WM_WIDE_GRAD_GRID = (28, 60)  # phase 43's card-against-CPU gradients: latent [14, 7, 15]
+# Phases 40, 43 and 55 hold the 768-d model against the CPU at this processor
+# depth (3 + 2 + 3 attention layers, the trained model's first two processor
+# layers), and phases 16 and 31 GenCast's gradients at GENCAST_CHECK_BLOCKS
+# blocks (its first and its last, heads-averaged, one): at full depth, with
+# FGN's phases, the script took 1,296 s of its 1,200 on an H100 whose host
+# ran the CPU checks ~1.5x slower than others (phase 43 97 s, 40 48 s, 31
+# 44 s, 16 41 s, 55 86 s at full depth there or before; PERF.md §6, PR 18).
+WM_WIDE_CHECK_LAYERS = 2
+GENCAST_CHECK_BLOCKS = 2
 K6_PER_FORWARD = 16  # 3 encoder + 10 processor + 3 decoder attention layers
 # Phases 53 and 55: the bf16 gradients card against CPU, RMSE(card bf16 - CPU
 # bf16) in global norm within the larger of this share of RMSE(card bf16 -
@@ -1036,20 +1097,24 @@ def gencast_bf16_phases(port, clustered_flash, build, gen, ref: dict) -> dict:
     cpu_s = time.perf_counter() - t0
     to_cpu = global_norm({k: card16_grads[k] - cpu16_grads[k] for k in cpu16_grads})
     to_f32 = global_norm({k: card16_grads[k] - grads16[k] for k in grads16})
-    # The CPU's own reading: its gradients with one bf16 ulp added to 1 in
-    # 2,000 of the corrupted targets' elements, against its own.
-    flipped, n_flips = one_ulp_off(batch16[0], 9)
-    cpu_flipped = cpu_grads(flipped)[1]
-    own = global_norm({k: cpu16_grads[k] - cpu_flipped[k] for k in cpu16_grads}) / to_f32
+    # The CPU's own reading, beside a miss only (a second CPU run): its
+    # gradients with one bf16 ulp added to 1 in 2,000 of the corrupted
+    # targets' elements, against its own.
+    own_text = "not taken (within the limit)"
+    if not (to_cpu <= BF16_CARD_GRAD_RULE * to_f32):
+        flipped, n_flips = one_ulp_off(batch16[0], 9)
+        cpu_flipped = cpu_grads(flipped)[1]
+        own = global_norm({k: cpu16_grads[k] - cpu_flipped[k] for k in cpu16_grads}) / to_f32
+        own_text = f"with {n_flips} inputs one ulp off {own:.3f}"
     print(f"[cpu] bf16 gradients at phase 16's weights and batch: global norm card bf16 - CPU bf16 "
           f"{to_cpu:.4e} | card bf16 - card f32 {to_f32:.4e} | ratio {to_cpu / to_f32:.3f} (limit "
-          f"{BF16_CARD_GRAD_RULE}) | CPU bf16 against itself with {n_flips} inputs one ulp off "
-          f"{own:.3f} | |g| {global_norm(card16_grads):.4e} | loss card {card16_value.item():.6f} "
+          f"{BF16_CARD_GRAD_RULE}) | CPU bf16 against itself {own_text} "
+          f"| |g| {global_norm(card16_grads):.4e} | loss card {card16_value.item():.6f} "
           f"cpu {cpu16_value.item():.6f} f32 (phase 16) {ref['loss16']:.6f} | cpu bf16 "
           f"forward+backward {cpu_s:.2f} s | phase {time.perf_counter() - t47:.1f} s", flush=True)
     if not (to_cpu <= BF16_CARD_GRAD_RULE * to_f32):
         raise AssertionError(f"bf16 gradients card vs CPU: {to_cpu} > {BF16_CARD_GRAD_RULE} x {to_f32}")
-    del cpu16, den16, card16_grads, cpu16_grads, cpu_flipped
+    del cpu16, den16, card16_grads, cpu16_grads
     torch.cuda.empty_cache()
     return dict(k3_16=k3_16, k3b16_phase44=k3b16_phase44, serve16_launches=serve16_launches,
                 train16_launches=train16_launches, per_eval16=per_eval16, k3a16_bound=k3a16_bound,
@@ -1150,13 +1215,13 @@ def s_case(segment_sums, name, graph, gen, width=256):
         max_degree = int(counts.max())
         got = segment_sums.segment_sum_bf16(rows, *csr)
         torch.cuda.synchronize()
-        want = segment_sums.segment_sum_bf16_reference(rows, *csr)
+        want = segment_sums.edge_order_sum_reference(rows, *csr)
         equal = torch.equal(got, want)
         err = (got.float() - want.float()).abs().max().item()
         target = torch.zeros_like(got)
         index = nodes.long()
         ms = cuda_ms(lambda: segment_sums.segment_sum_bf16(rows, *csr))
-        plain_ms = cuda_ms(lambda: segment_sums.segment_sum_bf16_reference(rows, *csr),
+        plain_ms = cuda_ms(lambda: segment_sums.edge_order_sum_reference(rows, *csr),
                            runs=3)
         library_ms = cuda_ms(lambda: target.index_add_(-2, index, rows))
         n_nodes, n_edges = counts.shape[0], rows.shape[1]
@@ -1387,21 +1452,24 @@ def forecaster_bf16_phases(port, fused_mlp, edge_mlp, segment_sums, build, gen, 
     t0 = time.perf_counter()
     cpu_value, cpu16_grads = grads(cpu, cpu_loss, torch.bfloat16, x.cpu(), y.cpu())
     cpu_s = time.perf_counter() - t0
-    flipped, n_flips = one_ulp_off(x, 11)
-    cpu_flipped = grads(cpu, cpu_loss, torch.bfloat16, flipped, y.cpu())[1]
     to_cpu = global_norm({k: card16[k] - cpu16_grads[k] for k in card16})
     to_f32 = global_norm({k: card16[k] - card32[k] for k in card16})
-    own = global_norm({k: cpu16_grads[k] - cpu_flipped[k] for k in card16}) / to_f32
+    own, own_text = 0.0, "not needed (within 0.5)"  # a second CPU run, where the card misses 0.5
+    if not (to_cpu <= FC_BF16_RULE * to_f32):
+        flipped, n_flips = one_ulp_off(x, 11)
+        cpu_flipped = grads(cpu, cpu_loss, torch.bfloat16, flipped, y.cpu())[1]
+        own = global_norm({k: cpu16_grads[k] - cpu_flipped[k] for k in card16}) / to_f32
+        own_text = f"with {n_flips} inputs one ulp off {own:.3f}"
     limit = max(FC_BF16_RULE, own)
     print(f"[cpu] bf16 forecaster gradients at 1° after the steps: global norm card bf16 - CPU bf16 "
           f"{to_cpu:.4e} | card bf16 - card f32 {to_f32:.4e} | ratio {to_cpu / to_f32:.3f} (limit "
-          f"{limit:.3f}) | CPU bf16 against itself with {n_flips} inputs one ulp off {own:.3f} | card "
+          f"{limit:.3f}) | CPU bf16 against itself {own_text} | card "
           f"repeat bit-equal True | loss card {card_value:.6f} cpu {cpu_value:.6f} f32 {f32_value:.6f} "
           f"| |g| {global_norm(card16):.4e} | cpu bf16 forward+backward {cpu_s:.2f} s | phase "
           f"{time.perf_counter() - t50:.1f} s", flush=True)
     if not (to_cpu <= limit * to_f32):
         raise AssertionError(f"bf16 forecaster gradients card vs CPU: {to_cpu} > {limit} x {to_f32}")
-    del cpu, model, card16, card32, cpu16_grads, cpu_flipped
+    del cpu, model, card16, card32, cpu16_grads
     torch.cuda.empty_cache()
     out.update(serve16_launches=serve16_launches, train16_launches=train16_launches)
     return out
@@ -1953,12 +2021,13 @@ def grads_near_exact(card: dict, cpu: dict, exact: dict) -> tuple[float, str, li
     return worst, name, outside
 
 
-def card_repeat(module, loss_fn, value: float, grads: dict) -> str:
+def card_repeat(module, loss_fn, value: float, grads: dict, required: bool = False) -> str:
     """loss_fn()'s forward and backward once more on the card: whether the
     loss and every parameter's gradient repeat bit for bit, and where they do
     not, how many differ and the largest difference in grads_close's units
-    (error / limit against the first run). For printing only; nothing fails
-    on it."""
+    (error / limit against the first run). With `required` a difference
+    raises (every sum on the path runs in a fixed order); else it is
+    printed only."""
     module.zero_grad(set_to_none=True)
     again = loss_fn()
     again.backward()
@@ -1968,9 +2037,39 @@ def card_repeat(module, loss_fn, value: float, grads: dict) -> str:
     if again.item() == value and not differ:
         return "card repeat bit-equal True"
     worst, worst_name = grads_close(repeat, grads)
-    return (f"card repeat bit-equal False: loss {value!r} then {again.item()!r}, {len(differ)} of "
-            f"{len(grads)} gradients differ, worst error / limit against the first {worst:.3e} "
-            f"({worst_name})")
+    text = (f"card repeat bit-equal False: loss {value!r} then {again.item()!r}, {len(differ)} of "
+            f"{len(grads)} gradients differ ({', '.join(differ[:6])}), worst error / limit against "
+            f"the first {worst:.3e} ({worst_name})")
+    if required:
+        raise AssertionError(text)
+    return text
+
+
+def shallow_weathermesh(port, cfg, module, device, layers=WM_WIDE_CHECK_LAYERS):
+    """A WeatherMesh of cfg with `layers` processor layers on `device`,
+    holding `module`'s weights (its first `layers` processor layers)."""
+    handle = port.WeatherMesh(**{**cfg, "processor_num_layers": layers}, device=device)
+    keys = handle.module.state_dict().keys()
+    handle.module.load_state_dict({k: v.to(device) for k, v in module.state_dict().items() if k in keys})
+    return handle
+
+
+def shallow_denoiser(port, cfg, module, device, blocks=GENCAST_CHECK_BLOCKS):
+    """A Denoiser of cfg with `blocks` processor blocks on `device`, holding
+    `module`'s weights: its first blocks - 1 processor blocks, then its last
+    (the heads-averaged one) as the last."""
+    handle = port.Denoiser(**{**cfg, "num_blocks": blocks}, device=device)
+    last = cfg["num_blocks"] - 1
+    state = {}
+    for key, value in module.state_dict().items():
+        found = re.search(r"CondTransformerBlock_(\d+)\.", key)
+        if found and int(found.group(1)) == last:
+            key = key.replace(found.group(0), f"CondTransformerBlock_{blocks - 1}.")
+        elif found and int(found.group(1)) >= blocks - 1:
+            continue
+        state[key] = value.to(device)
+    handle.module.load_state_dict(state)
+    return handle
 
 
 def forecaster_to_float64(model) -> None:
@@ -1988,6 +2087,19 @@ def tf32_mma_report(build, name: str, required: bool = True, kind: str = "TF32")
     csrc/<name>.cu, by cuobjdump (the CUDA toolkit's, or the copy Triton
     carries); raises when it is 0 and `required` (the kernel's products run
     on the tensor cores)."""
+    sass = library_sass(build, name)
+    if sass is None:
+        return f"{kind} HMMA in SASS not read (no cuobjdump)"
+    count = len(re.findall(rf"HMMA\.\S*{kind}", sass))
+    if count == 0 and required:
+        raise AssertionError(f"{name}.cu: no {kind} tensor-core instruction in its SASS")
+    return f"{kind} HMMA in SASS {count}"
+
+
+@functools.lru_cache(maxsize=None)
+def library_sass(build, name: str):
+    """The SASS of the library built from csrc/<name>.cu, by cuobjdump (the
+    CUDA toolkit's, or the copy Triton carries); None without one."""
     tools = [Path(build._nvcc()).with_name("cuobjdump"), shutil.which("cuobjdump")]
     try:
         import triton
@@ -1997,13 +2109,28 @@ def tf32_mma_report(build, name: str, required: bool = True, kind: str = "TF32")
         pass
     tool = next((t for t in tools if t is not None and Path(t).is_file()), None)
     if tool is None:
-        return f"{kind} HMMA in SASS not read (no cuobjdump)"
-    sass = subprocess.run([str(tool), "-sass", str(build._so_path(name))],
+        return None
+    return subprocess.run([str(tool), "-sass", str(build._so_path(name))],
                           capture_output=True, text=True, check=True).stdout
-    count = len(re.findall(rf"HMMA\.\S*{kind}", sass))
-    if count == 0 and required:
-        raise AssertionError(f"{name}.cu: no {kind} tensor-core instruction in its SASS")
-    return f"{kind} HMMA in SASS {count}"
+
+
+def mma_by_function(build, name: str, mangled: str) -> list[tuple[str, str, int]]:
+    """(template arguments, kind, count) of the tensor-core instructions
+    (HMMA ... TF32 in an f32 instantiation, HMMA ... BF16 in a bf16 one) in
+    each function of csrc/<name>.cu's SASS whose mangled name holds
+    `mangled` (as "Li768E"); [] where the SASS was not read."""
+    sass = library_sass(build, name)
+    if sass is None:
+        return []
+    parts = re.split(r"Function : (\S+)", sass)
+    found = []
+    for function, body in zip(parts[1::2], parts[2::2]):
+        if mangled not in function:
+            continue
+        kind = "BF16" if "bfloat16" in function else "TF32"
+        found.append(("<" + ", ".join(re.findall(r"Li(\d+)E", function)) + ">", kind,
+                      len(re.findall(rf"HMMA\.\S*{kind}", body))))
+    return found
 
 
 def ptxas_by_kernel(build, name: str) -> list[str]:
@@ -2037,10 +2164,11 @@ def timed(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def profile_request(fn, what: str = "request"):
+def profile_request(fn, what: str = "request", table: dict | None = None):
     """One more request (or train step) under torch.profiler: device time by
     kernel, and the device's busy share of its wall time. Returns the count
-    of device kernels and copies (None when none was recorded)."""
+    of device kernels and copies (None when none was recorded); fills
+    `table`, where given, with [device ms, launches] by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2054,6 +2182,8 @@ def profile_request(fn, what: str = "request"):
             entry = by_name.setdefault(e.name, [0.0, 0])
             entry[0] += e.time_range.elapsed_us() / 1e3
             entry[1] += 1
+    if table is not None:
+        table.update(by_name)
     if not by_name:
         print("[profile] no device events recorded: device time not measured", flush=True)
         return None
@@ -2373,9 +2503,15 @@ def wm_bf16_model_phases(port, natten_flash, natten3d, cfg, name, per_forward, c
     repeat = (f"card repeat bit-equal {card_value == again_value and not differ}"
               + (f" ({len(differ)} of {len(card16)} gradients differ)" if differ else ""))
     del again
+    depth = ""
+    layers = cfg["processor_num_layers"]
+    if cfg is WM_WIDE:  # card against CPU at WM_WIDE_CHECK_LAYERS processor layers
+        layers = WM_WIDE_CHECK_LAYERS
+        wm = shallow_weathermesh(port, cfg, wm.module, "cuda", layers)
+        card_value, card16 = grads(wm, bf16, check, check_targets, "cuda")
+        depth = f", {layers} processor layers"
     _, card32 = grads(wm, torch.float32, check, check_targets, "cuda")
-    cpu = port.WeatherMesh(**cfg, device="cpu")
-    cpu.module.load_state_dict({k: v.cpu() for k, v in wm.module.state_dict().items()})
+    cpu = shallow_weathermesh(port, cfg, wm.module, "cpu", layers)
     t1 = time.perf_counter()
     cpu_value, cpu16 = grads(cpu, bf16, check, check_targets, "cpu")
     cpu_s = time.perf_counter() - t1
@@ -2390,7 +2526,7 @@ def wm_bf16_model_phases(port, natten_flash, natten3d, cfg, name, per_forward, c
     limit = max(BF16_WM_RULE, own or 0.0)
     own_text = ("not needed" if own is None
                 else f"with its inputs one ulp off at {BF16_FLIP_SHARE} {own:.3f}")
-    print(f"[cpu] bf16 {name} gradients at {ch_} x {cw_} after the steps: global norm card bf16 - "
+    print(f"[cpu] bf16 {name} gradients at {ch_} x {cw_}{depth} after the steps: global norm card bf16 - "
           f"CPU bf16 {to_cpu:.4e} | card bf16 - card f32 {to_f32:.4e} | ratio {to_cpu / to_f32:.3f} "
           f"(limit {limit:.3f}: the larger of {BF16_WM_RULE} and the CPU's own reading) | CPU bf16 "
           f"against itself {own_text} | loss card {card_value:.6f} cpu {cpu_value:.6f} | {repeat} | "
@@ -2441,6 +2577,473 @@ def weathermesh_bf16_phases(port, natten_flash, natten3d, window_indices, build,
         (0,) * 9 + (K6_PER_FORWARD,) * 5, WM_WIDE_GRAD_GRID,
         dict(request_ms=ref["wide_ms"], train_ms=ref["wide_train_ms"]))
     return out
+
+
+# FGN at bench.py's reference scale (metric_fgn, metric_fgn_ensemble): 128 x 64
+# grid, 89 -> 83 features, a noise vector of 32, 768-d, 24 blocks of 4 heads
+# (c = 192, the last c = 768), splits 6 and 6 hops, clustered attention.
+FGN = dict(
+    grid_lon=np.arange(0.0, 360.0, 360.0 / 128), grid_lat=np.linspace(-90.0, 90.0, 64),
+    input_features_dim=89, output_features_dim=83, noise_dimension=32, hidden_dims=(768, 768),
+    num_blocks=24, num_heads=4, splits=6, num_hops=6, use_edges_features=False,
+    attention_impl="clustered_flash",
+)
+FGN_WIDTHS = {192: FGN["num_blocks"] - 1, 768: 1}  # K3a launches per member forward, by head width
+FGN_MEMBERS = 8  # bench.py's fgn_ensemble: 8 members, member_chunk=1
+FGN_CHECK_BLOCKS = 2  # phase 61's card-against-CPU depth: one block at c = 192, the last at 768
+# Phase 61 holds FGN's bf16 card against the CPU within GenCast's limits
+# (BF16_CARD_RULE, BF16_CARD_GRAD_RULE: FGN's blocks are GenCast's, as chaotic
+# in bf16 at full width), and prints the card's own one-ulp reading beside
+# it; beside a miss it takes the CPU's own reading, and the limit becomes
+# the larger of that, 0.5 and GenCast's. At 2 blocks of 768-d, on four seeds
+# of weights and inputs (scripts/fgn_bf16_chaos.py and this phase), the card
+# read 0.605-0.611 (output) and 0.747-0.753 (gradients) from the CPU, and
+# one ulp on 1 in 2,000 inputs moved the CPU's own run 0.586-0.589 and
+# 0.722-0.734, the card's 0.580-0.591 and 0.722-0.735 (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md §6, PR 18).
+# S's launches per FGN member forward (the g2m aggregation) and per train
+# step (that, and the gradients of the encoder's and decoder's gathers onto
+# edges: two each), in the member's dtype.
+FGN_S_PER_FORWARD, FGN_S_PER_STEP = 1, 5
+
+
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend scaled_dot_product_attention takes for these inputs: the
+    first, in its order of priority, that runs them."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    order = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+             SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
+    if hasattr(torch._C, "_get_sdp_priority_order"):
+        order = [SDPBackend(i) for i in torch._C._get_sdp_priority_order()]
+    for backend in order:
+        try:
+            with sdpa_kernel([backend]):
+                torch.nn.functional.scaled_dot_product_attention(q[:1], k[:1], v[:1], attn_mask=mask[:1])
+            return backend.name
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def k3_fgn_case(clustered_flash, khop, gen, c, dtype, heads=4):
+    """K3a (with and without lse) and K3c at head width c on FGN's splits-6
+    layout, B = 1, in f32 or bf16: against the plain versions (f32 within
+    K3A_TOL and K3_BWD_TOL; bf16 within BF16_TOL of the max, lse K3A_TOL),
+    exact zeros on empty rows, a bit-equal repeat of out, lse, dq, dk and dv;
+    CUDA-event medians of each, of the plain versions and of SDPA (and its
+    backward) on the gathered unions with the adjacency as a boolean mask
+    (timed only), the backend SDPA took, CTAs an SM. Returns a dict."""
+    ids, masks, block = khop.cluster_ids, khop.cluster_masks, khop.cluster_block
+    nb, u_pad = ids.shape
+    n_pad = nb * block
+    bf16 = dtype == torch.bfloat16
+    q, k, v, dout = (torch.randn(1, n_pad, heads, c, generator=gen, device="cuda").to(dtype)
+                     for _ in range(4))
+    fwd = clustered_flash._forward_cuda
+    out = fwd(q, k, v, ids, masks, block, with_lse=False)[0]
+    out_l, lse = fwd(q, k, v, ids, masks, block, with_lse=True)
+    args = (q, k, v, ids, masks, out_l, lse, dout, block)
+    grads = clustered_flash._backward_cuda(*args, True, None)
+    again = (fwd(q, k, v, ids, masks, block, with_lse=True),
+             clustered_flash._backward_cuda(*args, True, None))
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip((out_l, lse, *grads), (*again[0], *again[1])))
+    ref, ref_lse = clustered_flash.clustered_flash_forward_reference(q, k, v, ids, masks, block,
+                                                                     with_lse=True)
+    want = clustered_flash.clustered_flash_backward_reference(*args, symmetric=True)
+    if bf16:
+        errs = {"k3a": max((bf16_err(out, ref), bf16_err(out_l, ref)), key=lambda e: e[1]),
+                "k3c": max((bf16_err(a, b) for a, b in zip(grads, want)), key=lambda e: e[1])}
+    else:
+        errs = {"k3a": (max((out - ref).abs().max().item(), (out_l - ref).abs().max().item()),) * 2,
+                "k3c": (max((a - b).abs().max().item() for a, b in zip(grads, want)),) * 2}
+        errs = {"k3a": (errs["k3a"][0], errs["k3a"][0] / K3A_TOL),
+                "k3c": (errs["k3c"][0], errs["k3c"][0] / K3_BWD_TOL)}
+    lse_err = (lse - ref_lse).abs().max().item()
+    empty = ~masks.reshape(n_pad, -1).bool().any(-1)  # no neighbour, or padding
+    zeros = all(bool((t[:, empty] == 0).all()) for t in (out, out_l, *grads))
+    ms = {
+        "k3a": cuda_ms(lambda: fwd(q, k, v, ids, masks, block, False)),
+        "k3a_lse": cuda_ms(lambda: fwd(q, k, v, ids, masks, block, True)),
+        "k3c": cuda_ms(lambda: clustered_flash._backward_cuda(*args, True, None)),
+    }
+    plain_ms = {
+        "k3a": cuda_ms(lambda: clustered_flash.clustered_flash_forward_reference(
+            q, k, v, ids, masks, block), runs=3, batch=2),
+        "k3c": cuda_ms(lambda: clustered_flash.clustered_flash_backward_reference(
+            *args, symmetric=True), runs=3, batch=2),
+    }
+    q_b = q.reshape(nb, block, heads, c).transpose(1, 2).detach().requires_grad_(True)
+    k_b, v_b = (t[0, ids.long()].transpose(1, 2).detach().requires_grad_(True) for t in (k, v))
+    attend = masks.bool()[:, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    backend = sdpa_backend(q_b, k_b, v_b, attend)
+    with torch.no_grad():
+        sdpa_ms = cuda_ms(lambda: sdpa(q_b, k_b, v_b, attn_mask=attend))
+    o_b = sdpa(q_b, k_b, v_b, attn_mask=attend)
+    do_b = dout.reshape(nb, block, heads, c).transpose(1, 2)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(o_b, (q_b, k_b, v_b), do_b, retain_graph=True))
+    del q_b, k_b, v_b, o_b, ref, want
+    ctas = {kind: clustered_flash.ctas_per_sm(kind, c, block, u_pad, dtype)
+            for kind in ("forward", "dq", "symmetric_dkv")}
+    n_edges = khop.senders.shape[0]
+    fwd_bytes = sum(t.numel() * t.element_size() for t in (q, k, v, ids, masks, out))
+    bwd_bytes = sum(t.numel() * t.element_size() for t in (*args[:-1], *grads))
+    rule = bf16_bound if bf16 else bound
+    fwd_bound, bwd_bound = rule(4 * n_edges * heads * c, fwd_bytes), rule(10 * n_edges * heads * c, bwd_bytes)
+    name = "bf16" if bf16 else "f32"
+    print(f"[k3_fgn] c={c} {name}: nb={nb} U_pad={u_pad} heads={heads} | max_abs_err K3a "
+          f"{errs['k3a'][0]:.3e} K3c {errs['k3c'][0]:.3e} (of the limit: {errs['k3a'][1]:.3f}, "
+          f"{errs['k3c'][1]:.3f}) lse {lse_err:.3e} | empty rows {int(empty.sum())} zeros={zeros} | "
+          f"bit-equal repeat {repeat} | ms K3a {ms['k3a']:.4f} (with lse {ms['k3a_lse']:.4f}) K3c "
+          f"{ms['k3c']:.4f} | plain K3a {plain_ms['k3a']:.4f} K3c {plain_ms['k3c']:.4f} | SDPA "
+          f"{sdpa_ms:.4f} backward {sdpa_bwd_ms:.4f} (backend {backend}) | bound K3a "
+          f"{fwd_bound[0]:.4f} ({fwd_bound[1]}) K3c {bwd_bound[0]:.4f} ({bwd_bound[1]}) | CTAs an SM "
+          + " ".join(f"{kind} {n}" for kind, n in ctas.items()), flush=True)
+    for kernel, (_, ratio) in errs.items():
+        if not (ratio <= 1.0):
+            raise AssertionError(f"{kernel} {name} c={c}: error {ratio} x its limit")
+    if not (lse_err <= K3A_TOL and zeros and repeat):
+        raise AssertionError(f"K3 {name} c={c}: lse {lse_err}, empty rows zero {zeros}, "
+                             f"bit-equal repeat {repeat}")
+    return dict(errs=errs, lse_err=lse_err, ms=ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                sdpa_bwd_ms=sdpa_bwd_ms, backend=backend, ctas=ctas, fwd_bound=fwd_bound,
+                bwd_bound=bwd_bound)
+
+
+def s32_case(segment_sums, name, csr, n_rows, width, gen):
+    """S in f32 against its plain version (bit for bit) on edge rows [1,
+    n_rows, width] summed through `csr`; CUDA-event medians of the kernel,
+    the plain version and index_add_ (atomics: timed only); its bound."""
+    offsets, edge_ids = csr
+    rows = torch.randn(1, n_rows, width, generator=gen, device="cuda")
+    got = segment_sums.edge_order_sum(rows, offsets, edge_ids)
+    again = segment_sums.edge_order_sum(rows, offsets, edge_ids)
+    want = segment_sums.edge_order_sum_reference(rows, offsets, edge_ids)
+    exact = torch.equal(got, want) and torch.equal(got, again)
+    nodes = torch.repeat_interleave(torch.arange(offsets.shape[0] - 1, device="cuda"),
+                                    (offsets[1:] - offsets[:-1]).long())
+    index = torch.empty_like(nodes).scatter_(0, edge_ids.long(), nodes)  # each edge's node
+    ms = cuda_ms(lambda: segment_sums.edge_order_sum(rows, offsets, edge_ids))
+    plain_ms = cuda_ms(lambda: segment_sums.edge_order_sum_reference(rows, offsets, edge_ids),
+                       runs=3, batch=2)
+    zeros = torch.zeros_like(got)
+    library_ms = cuda_ms(lambda: zeros.index_add(1, index, rows))
+    nbytes = sum(t.numel() * t.element_size() for t in (rows, got, offsets, edge_ids))
+    err = (got.double() - zeros.index_add(1, index, rows).double()).abs().max().item()
+    print(f"[s_f32] {name}: {n_rows} rows x {width} -> {got.shape[1]} nodes | bit-equal to plain "
+          f"and repeated {exact} | max |S - index_add_| {err:.3e} | ms {ms:.4f} plain {plain_ms:.4f} "
+          f"index_add_ {library_ms:.4f} | bound {bound(n_rows * width, nbytes)[0]:.4f} (bytes)",
+          flush=True)
+    if not exact:
+        raise AssertionError(f"S f32 {name}: not bit-equal to its plain version, or to itself")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound=bound(n_rows * width, nbytes))
+
+
+def fgn_phases(port, clustered_flash, segment_sums, build, gen) -> dict:
+    """Phases 56-61: FGN at bench.py's scale (FGN), f32 and bf16 (see the
+    module docstring). Returns what the kernels' JSON line reads. Runs alone
+    after `_build.load_libraries(_build.all_sources())`."""
+    from graph_weather_tpu_torch.ops.clustered_flash import GENERAL_MAX_CHANNELS
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    blocks = FGN["num_blocks"]
+    n_lon, n_lat = len(FGN["grid_lon"]), len(FGN["grid_lat"])
+    f_in, f_out, zdim = FGN["input_features_dim"], FGN["output_features_dim"], FGN["noise_dimension"]
+    # K3's counters (f32; bf16 with the prefix BF16_): every K3a, dq, dk/dv
+    # and K3b launch, and the K3a, dq and dk/dv launches at c = 768 apart.
+    k3_counters = ("LAUNCHES", "SYMMETRIC_DQ_LAUNCHES", "SYMMETRIC_DKV_LAUNCHES",
+                   "GENERAL_BWD_LAUNCHES", "WIDE_LAUNCHES", "WIDE_SYMMETRIC_DQ_LAUNCHES",
+                   "WIDE_SYMMETRIC_DKV_LAUNCHES")
+    counters = k3_counters + tuple("BF16_" + n for n in k3_counters)
+
+    def counts():  # K3's counters, then S's (f32, bf16)
+        return {**{n: getattr(clustered_flash, n) for n in counters},
+                "S_F32": segment_sums.F32_LAUNCHES, "S_BF16": segment_sums.LAUNCHES}
+
+    def zero_counts():
+        for n in counters:
+            setattr(clustered_flash, n, 0)
+        segment_sums.F32_LAUNCHES = segment_sums.LAUNCHES = 0
+
+    def made_since(before):
+        return {n: v - before[n] for n, v in counts().items()}
+
+    def expect(dtype, k3a=0, dq=0, dkv=0, s=0, wide=(0, 0, 0)):
+        """The counts() increments of FGN work in `dtype` (never K3b); `wide`:
+        the K3a, dq and dk/dv launches at c = 768 among them."""
+        prefix = "" if dtype == f32 else "BF16_"
+        want = dict.fromkeys(counts(), 0)
+        want.update({prefix + n: v for n, v in zip(k3_counters, (k3a, dq, dkv, 0, *wide))})
+        want["S_F32" if dtype == f32 else "S_BF16"] = s
+        return want
+
+    def nonzero(made):
+        return {n: v for n, v in made.items() if v}
+
+    def device_ms(table, kernel):  # profiled [ms, launches] of `kernel`: all, and at c = 768
+        rows = [(name, ms, n) for name, (ms, n) in table.items() if f"::{kernel}<" in name]
+        wide = [(ms, n) for name, ms, n in rows if re.search(r"\b768\b", name)]
+        return (sum(ms for _, ms, _ in rows), sum(n for _, _, n in rows),
+                sum(ms for ms, _ in wide), sum(n for _, n in wide))
+
+    # 56. build: the W768 instantiations (started with the others in phase 2)
+    t56 = time.perf_counter()
+    wide = [line for name in ("clustered_flash", "clustered_flash_bwd")
+            for line in ptxas_by_kernel(build, name) if "<768" in line]
+    print("[build] K3a's and K3c's c = 768 tiles (phase 2's build; registers and spills by "
+          "instantiation <CP, RG, CS, TK or TB, stages[, role]>): " + " | ".join(wide or ["(no log)"]),
+          flush=True)
+    if any("bytes spill" in line and not re.search(r"\b0 bytes spill stores, 0 bytes spill loads", line)
+           for line in wide):
+        print("[build] note: a c = 768 instantiation spills (printed above)", flush=True)
+    mma = {name: mma_by_function(build, name, "Li768E") for name in ("clustered_flash", "clustered_flash_bwd")}
+    print("[build] tensor-core instructions of the c = 768 instantiations (HMMA ... TF32 in f32, "
+          "... BF16 in bf16; SASS by cuobjdump): " + " | ".join(
+              f"{name} {args} {kind} {n}" for name, found in mma.items() for args, kind, n in found)
+          if any(mma.values()) else "[build] c = 768 SASS not read (no cuobjdump, or no such function)",
+          flush=True)
+    for name, found in mma.items():
+        for kind in ("TF32", "BF16"):
+            if found and not sum(n for _, k, n in found if k == kind):
+                raise AssertionError(f"{name}.cu: no {kind} tensor-core instruction in its c = 768 "
+                                     "instantiations")
+
+    # 57. K3a and K3c at FGN's head widths on its splits-6, 6-hop layout; S in f32
+    fgn = port.FunctionalGenerativeNetwork(**FGN, device="cuda")
+    graph_s = time.perf_counter() - t56
+    khop = fgn.khop
+    nb, u_pad = khop.cluster_ids.shape
+    print(f"[fgn] graphs (SciPy k-hop) + layout {graph_s:.2f} s | mesh nodes {khop.n_receivers} | "
+          f"k-hop edges {khop.senders.shape[0]} | g2m {fgn.g2m.senders.shape[0]} | m2g "
+          f"{fgn.m2g.senders.shape[0]} | nb {nb} x {khop.cluster_block} | U_pad {u_pad} | mask "
+          f"density {khop.cluster_masks.float().mean().item():.4f} | sum routes (f32) g2m "
+          f"{fgn.g2m.sum_route(f32)} k-hop {khop.sum_route(f32)} m2g {fgn.m2g.sum_route(f32)}",
+          flush=True)
+    if (khop.n_receivers, khop.senders.shape[0], nb, u_pad) != (40962, 5156760, 161, 1024):
+        raise AssertionError(f"splits-6 layout: {khop.n_receivers} nodes, {khop.senders.shape[0]} "
+                             f"edges, nb {nb}, U_pad {u_pad}")
+    if not khop.cluster_symmetric:
+        raise AssertionError("FGN's k-hop graph is not symmetric")
+    k3 = {(c, dtype): k3_fgn_case(clustered_flash, khop, gen, c, dtype)
+          for dtype in (f32, bf16) for c in FGN_WIDTHS}
+    s32 = {
+        "g2m receivers": s32_case(segment_sums, "g2m receivers (the aggregation)", fgn.g2m.receiver_csr,
+                                  fgn.g2m.senders.shape[0], 768, gen),
+        "m2g senders": s32_case(segment_sums, "m2g senders (a gather's gradient)", fgn.m2g.sender_csr,
+                                fgn.m2g.senders.shape[0], 768, gen),
+    }
+
+    def per_member(dtype, field, key):
+        return sum(k3[(c, dtype)][field][key] * n for c, n in FGN_WIDTHS.items())
+
+    print(f"[k3_fgn] per member forward / train step, composed of these single-launch times "
+          f"(23 x c=192 + c=768): f32 K3a "
+          f"{per_member(f32, 'ms', 'k3a'):.4f} ms K3c {per_member(f32, 'ms', 'k3c'):.4f} | bf16 K3a "
+          f"{per_member(bf16, 'ms', 'k3a'):.4f} K3c {per_member(bf16, 'ms', 'k3c'):.4f} | K3b's general "
+          f"dk/dv stops at c = {GENERAL_MAX_CHANNELS} | phase {time.perf_counter() - t56:.1f} s",
+          flush=True)
+
+    # 58-59. serving: member requests at B = 1, the 8-member ensemble, an ensemble rollout
+    fgn.init(torch.Generator().manual_seed(0))
+    data = torch.Generator().manual_seed(1)
+    prev = torch.randn(4, 1, n_lon, n_lat, f_in, generator=data).to("cuda")
+    z = torch.randn(4, 1, zdim, generator=data).to("cuda")
+    roll = port.FunctionalGenerativeNetwork(**{**FGN, "output_features_dim": f_in}, device="cuda")
+    roll.init(torch.Generator().manual_seed(2))
+    serve = {}
+    for phase, dtype in ((58, f32), (59, bf16)):
+        t0 = time.perf_counter()
+        name = "f32" if dtype == f32 else "bf16"
+        member = torch.no_grad()(fgn.member_fn(compute_dtype=dtype))
+        member(prev[0], z[0])  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        request_ms = []
+        per_request = expect(dtype, k3a=blocks, s=FGN_S_PER_FORWARD, wide=(1, 0, 0))
+        for x, zz in zip(prev[1:], z[1:]):
+            before = counts()
+            out, ms = timed(lambda: member(x, zz))
+            request_ms.append(ms)
+            if made_since(before) != per_request:
+                raise AssertionError(f"an FGN {name} member request made {nonzero(made_since(before))} "
+                                     f"launches, expected {nonzero(per_request)}")
+            if out.shape != (1, n_lon, n_lat, f_out) or out.dtype != f32 or not torch.isfinite(out).all():
+                raise AssertionError(f"bad FGN {name} output {out.dtype} {tuple(out.shape)}")
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        table = {}
+        kernels = profile_request(lambda: member(x, zz), f"FGN {name} member request", table)
+        k3a_device = device_ms(table, "clustered_flash_kernel")
+        ensemble = torch.no_grad()(fgn.forward_fn(FGN_MEMBERS, compute_dtype=dtype, member_chunk=1))
+        before = counts()
+        ens, ens_ms = timed(lambda: ensemble(prev[1], torch.Generator(device="cuda").manual_seed(3)))
+        if made_since(before) != expect(dtype, k3a=FGN_MEMBERS * blocks, s=FGN_MEMBERS * FGN_S_PER_FORWARD,
+                                        wide=(FGN_MEMBERS, 0, 0)):
+            raise AssertionError(f"the {name} ensemble made {nonzero(made_since(before))} launches")
+        if ens.shape != (1, FGN_MEMBERS, n_lon, n_lat, f_out) or not torch.isfinite(ens).all() \
+                or torch.equal(ens[:, 0], ens[:, 1]):
+            raise AssertionError(f"bad {name} ensemble {tuple(ens.shape)}, or equal members")
+        spread = ens.std(1).mean().item()
+        rollout = torch.no_grad()(roll.ensemble_rollout_fn(2, 2, compute_dtype=dtype, member_chunk=1))
+        before = counts()
+        traj, roll_ms = timed(lambda: rollout(prev[1], torch.Generator(device="cuda").manual_seed(4)))
+        if made_since(before) != expect(dtype, k3a=4 * blocks, s=4 * FGN_S_PER_FORWARD, wide=(4, 0, 0)):
+            raise AssertionError(f"the {name} ensemble rollout made {nonzero(made_since(before))} launches")
+        if traj.shape != (1, 2, 2, n_lon, n_lat, f_in) or not torch.isfinite(traj).all():
+            raise AssertionError(f"bad {name} ensemble rollout {tuple(traj.shape)}")
+        serve[name] = dict(request_ms=request_ms, launches=launches, kernels=kernels, peak=peak,
+                           member_ms=ens_ms / FGN_MEMBERS, ensemble_ms=ens_ms, step_ms=roll_ms / 2,
+                           out=out.cpu(), k3a_device=k3a_device)
+        print(f"[fgn_serve_{name}] member request_ms (B=1) {[round(t, 3) for t in request_ms]} | "
+              f"{blocks} K3a (1 at c = 768: counted {launches[('' if dtype == f32 else 'BF16_') + 'WIDE_LAUNCHES']} "
+              f"in the 3) and {FGN_S_PER_FORWARD} S launch each | profiled request: K3a device ms "
+              f"{k3a_device[0]:.3f} over {k3a_device[1]} launches, at c = 768 {k3a_device[2]:.3f} over "
+              f"{k3a_device[3]} | peak GiB {peak:.2f} | "
+              f"{FGN_MEMBERS}-member ensemble (member_chunk=1) {ens_ms:.3f} ms = "
+              f"{ens_ms / FGN_MEMBERS:.3f} ms per member, member spread {spread:.4f} | 2-member "
+              f"2-step ensemble rollout {roll_ms:.3f} ms = {roll_ms / 2:.3f} ms per step "
+              f"({roll_ms / 4:.3f} per member-step) | phase {phase} {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del ens, traj, member, ensemble, rollout
+    del roll
+    torch.cuda.empty_cache()
+
+    # 60. training: 3 remat steps of bench.py's fgn_member_train_ms (MSE, AdamW at 1e-4), bf16, f32
+    target = torch.randn(1, n_lon, n_lat, f_out, generator=data).to("cuda")
+
+    def mse(pred, tgt):
+        return torch.mean((pred - tgt) ** 2)
+
+    weights = {k: v.detach().clone() for k, v in fgn.module.state_dict().items()}
+    train = {}
+    for dtype in (bf16, f32):
+        t0 = time.perf_counter()
+        name = "f32" if dtype == f32 else "bf16"
+        remat = port.FunctionalGenerativeNetwork(**FGN, remat=True, device="cuda")
+        remat.module.load_state_dict(weights)
+        member = remat.member_fn(compute_dtype=dtype)
+        step = port.make_train_step(remat.module.parameters(), member, mse, port.make_optimizer(1e-4))
+        before_params = [t.detach().clone() for t in remat.module.parameters()]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        step_ms, losses = [], []
+        per_step = expect(dtype, k3a=2 * blocks, dq=blocks, dkv=blocks, s=FGN_S_PER_STEP, wide=(2, 1, 1))
+        for _ in range(3):
+            before = counts()
+            loss, ms = timed(lambda: step(prev[1], z[1], target))
+            if made_since(before) != per_step:
+                raise AssertionError(f"an FGN {name} remat train step made {nonzero(made_since(before))} "
+                                     f"launches, expected {nonzero(per_step)}")
+            if not torch.isfinite(loss):
+                raise AssertionError(f"FGN {name} train loss {loss.item()}")
+            step_ms.append(ms)
+            losses.append(loss.item())
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        unchanged = sum(torch.equal(a, b) for a, b in zip(before_params, remat.module.parameters()))
+        if unchanged or any(t.dtype != f32 for t in remat.module.parameters()):
+            raise AssertionError(f"{unchanged} FGN parameter tensors unchanged in 3 {name} steps, "
+                                 "or a parameter left f32")
+        table = {}
+        kernels = profile_request(lambda: step(prev[1], z[1], target), f"FGN {name} remat train step",
+                                  table)
+        k3c_device = device_ms(table, "clustered_flash_bwd_kernel")
+
+        def objective(member=member):
+            return mse(member(prev[2], z[2]), target)
+
+        remat.module.zero_grad(set_to_none=True)
+        value = objective()
+        value.backward()
+        grads = {k: t.grad.cpu() for k, t in remat.module.named_parameters()}
+        repeat = card_repeat(remat.module, objective, value.item(), grads, required=True)
+        train[name] = dict(step_ms=step_ms, launches=launches, kernels=kernels, peak=peak,
+                           k3c_device=k3c_device)
+        print(f"[fgn_train_{name}] 3 remat steps | step_ms {[round(t, 3) for t in step_ms]} | steady "
+              f"median {statistics.median(step_ms[1:]):.3f} | loss {[round(v, 6) for v in losses]} | "
+              f"launches per step K3a {2 * blocks} (with lse; remat recomputes each block), K3c dq "
+              f"{blocks}, K3c dk/dv {blocks}, K3b 0, S {FGN_S_PER_STEP}; at c = 768 2, 1 and 1 | "
+              f"profiled step: K3c device ms {k3c_device[0]:.3f} over {k3c_device[1]} launches, at "
+              f"c = 768 {k3c_device[2]:.3f} over {k3c_device[3]} | all parameter tensors "
+              f"changed | peak GiB {peak:.2f} | {repeat} | phase 60 {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del remat, step, member, before_params, grads
+        torch.cuda.empty_cache()
+
+    # 61. card against CPU at full width, 2 blocks (one at c = 192, the last at c = 768)
+    t61 = time.perf_counter()
+    short = {**FGN, "num_blocks": FGN_CHECK_BLOCKS}
+    card2 = port.FunctionalGenerativeNetwork(**short, device="cuda")
+    card2.init(torch.Generator().manual_seed(5))
+    cpu2 = port.FunctionalGenerativeNetwork(**short, device="cpu")
+    cpu2.module.load_state_dict({k: v.cpu() for k, v in card2.module.state_dict().items()})
+    x, zz, tgt = prev[3], z[3], target
+
+    def value_and_grads(model, dtype, state=None):
+        model.module.zero_grad(set_to_none=True)
+        dev = model.device
+        out = model.member_fn(compute_dtype=dtype)((x if state is None else state).to(dev), zz.to(dev))
+        value = mse(out, tgt.to(dev))
+        value.backward()
+        grads = {k: t.grad.cpu() for k, t in model.module.named_parameters()}
+        model.module.zero_grad(set_to_none=True)
+        return out.detach().cpu(), value.item(), grads
+
+    card32, card16 = value_and_grads(card2, f32), value_and_grads(card2, bf16)
+    t0 = time.perf_counter()
+    cpu32 = value_and_grads(cpu2, f32)
+    cpu32_s = time.perf_counter() - t0
+    out_err = (card32[0] - cpu32[0]).abs().max().item()
+    loss_rel = abs(card32[1] - cpu32[1]) / abs(cpu32[1])
+    worst, worst_name = grads_close(card32[2], cpu32[2])
+    print(f"[cpu] FGN f32 at {FGN_CHECK_BLOCKS} blocks: max |out card - CPU| {out_err:.3e} (limit "
+          f"{CPU_TOL}) | loss card {card32[1]:.6f} cpu {cpu32[1]:.6f} rel {loss_rel:.3e} (limit "
+          f"{LOSS_RTOL}) | gradients: worst error / limit {worst:.3e} ({worst_name}) over "
+          f"{len(cpu32[2])} tensors | cpu forward+backward {cpu32_s:.2f} s", flush=True)
+    if not (out_err <= CPU_TOL and loss_rel <= LOSS_RTOL and worst <= 1.0):
+        raise AssertionError(f"FGN f32 card vs CPU: out {out_err}, loss {loss_rel}, gradient of "
+                             f"{worst_name} {worst} x its limit")
+    t0 = time.perf_counter()
+    cpu16 = value_and_grads(cpu2, bf16)
+    cpu16_s = time.perf_counter() - t0
+    # The same input with one bf16 ulp on 1 in 2,000 elements (one_ulp_off):
+    # how far it moves the card's own bf16 run, and beside a miss the CPU's.
+    flipped, n_flips = one_ulp_off(x, 10)
+    card_flip = value_and_grads(card2, bf16, state=flipped)
+
+    def distances(a, b):
+        return {"output": rmse(a[0], b[0]),
+                "gradients": global_norm({k: a[2][k] - b[2][k] for k in a[2]})}
+
+    scale = distances(card16, card32)  # card bf16 - card f32
+    ratios, card_own = ({k: v / scale[k] for k, v in distances(a, b).items()}
+                        for a, b in ((card16, cpu16), (card16, card_flip)))
+    limits = {"output": BF16_CARD_RULE, "gradients": BF16_CARD_GRAD_RULE}
+    own = {}
+    if any(ratios[k] > limits[k] for k in ratios):
+        # Never below the rule of phases 49-50: the larger of 0.5 and the
+        # CPU's own reading.
+        cpu_flip = value_and_grads(cpu2, bf16, state=flipped)
+        own = {k: v / scale[k] for k, v in distances(cpu16, cpu_flip).items()}
+        limits = {k: max(limit, 0.5, own[k]) for k, limit in limits.items()}
+    print(f"[cpu] FGN bf16 at {FGN_CHECK_BLOCKS} blocks: RMSE card bf16 - CPU bf16 over card bf16 - "
+          f"card f32: output {ratios['output']:.3f} gradients (global norm) {ratios['gradients']:.3f} "
+          f"(limits {limits['output']:.3f}, {limits['gradients']:.3f}: GenCast's, or beside a miss the "
+          f"larger of 0.5 and the CPU's own reading) | one bf16 ulp on {n_flips} of {x.numel()} "
+          f"inputs moves the card's bf16 run output {card_own['output']:.3f} gradients "
+          f"{card_own['gradients']:.3f}" + (f", the CPU's {own['output']:.3f} and "
+                                             f"{own['gradients']:.3f}" if own else "")
+          + f" | loss card {card16[1]:.6f} cpu {cpu16[1]:.6f} f32 {card32[1]:.6f} | cpu bf16 "
+          f"forward+backward {cpu16_s:.2f} s | phase 61 {time.perf_counter() - t61:.1f} s", flush=True)
+    for key, ratio in ratios.items():
+        if not (ratio <= limits[key]):
+            raise AssertionError(f"FGN bf16 card vs CPU ({key}): {ratio} > {limits[key]}")
+    del card2, cpu2, fgn
+    torch.cuda.empty_cache()
+    return dict(k3=k3, s32=s32, serve=serve, train=train)
 
 
 def main() -> int:
@@ -2668,20 +3271,23 @@ def main() -> int:
     prev = torch.randn(3, 1, n_lon, n_lat, 2 * f_in, generator=data_gen).to("cuda")
     sigma = torch.ones(1, 1, device="cuda")
     edge_mlp.LAUNCHES = fused_mlp.LAUNCHES = clustered_flash.LAUNCHES = 0
+    segment_sums.F32_LAUNCHES = 0
     denoise_ms = []
     for x, cond in zip(corrupted, prev):
-        before = clustered_flash.LAUNCHES
+        before = clustered_flash.LAUNCHES, segment_sums.F32_LAUNCHES
         out, ms = timed(lambda: den(x, cond, sigma))
         denoise_ms.append(ms)
-        if clustered_flash.LAUNCHES - before != GENCAST["num_blocks"]:
-            raise AssertionError(f"{clustered_flash.LAUNCHES - before} K3a launches, expected 16")
+        made = clustered_flash.LAUNCHES - before[0], segment_sums.F32_LAUNCHES - before[1]
+        if made != (GENCAST["num_blocks"], 1):
+            raise AssertionError(f"{made} K3a and f32 S launches, expected 16 and 1 (the g2m "
+                                 "aggregation in edge order)")
         if out.shape != (1, n_lon, n_lat, f_out) or not torch.isfinite(out).all():
             raise AssertionError(f"bad denoiser output: shape {tuple(out.shape)}")
-    denoise_launches = clustered_flash.LAUNCHES
+    denoise_launches, gencast_s32_launches = clustered_flash.LAUNCHES, segment_sums.F32_LAUNCHES
     if edge_mlp.LAUNCHES or fused_mlp.LAUNCHES:
         raise AssertionError("the GenCast path launched K1 or K2")
     print(f"[denoise] setup {setup_s:.2f} s | request_ms {[round(t, 3) for t in denoise_ms]} "
-          f"| K3a launches {denoise_launches} | peak GiB "
+          f"| K3a launches {denoise_launches}, f32 S {gencast_s32_launches} | peak GiB "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f}", flush=True)
     profile_request(lambda: den(x, cond, sigma))
     # Phase 28 serves the same requests with these weights through the
@@ -2824,9 +3430,15 @@ def main() -> int:
     card_value.backward()
     card_grads = {k: t.grad.cpu() for k, t in den.module.named_parameters()}
     repeat = card_repeat(den.module, lambda: objective(den.forward_fn()(corrupted_t, prev_t, noise_t),
-                                                       target_t), card_value.item(), card_grads)
-    cpu_den = port.Denoiser(**GENCAST, device="cpu")
-    cpu_den.module.load_state_dict({k: v.cpu() for k, v in den.module.state_dict().items()})
+                                                       target_t), card_value.item(), card_grads,
+                         required=True)
+    # Card against CPU at GENCAST_CHECK_BLOCKS blocks (the trained weights).
+    short = shallow_denoiser(port, GENCAST, den.module, "cuda")
+    short_value = objective(short.forward_fn()(corrupted_t, prev_t, noise_t), target_t)
+    short_value.backward()
+    short_grads = {k: t.grad.cpu() for k, t in short.module.named_parameters()}
+    cpu_den = shallow_denoiser(port, GENCAST, den.module, "cpu")
+    del short
     cpu_loss = port.WeightedMSELoss(grid_lat=GENCAST["grid_lat"], device="cpu")
     t0 = time.perf_counter()
     cpu_value = cpu_loss(cpu_den.forward_fn()(corrupted_t.cpu(), prev_t.cpu(), noise_t.cpu()),
@@ -2834,9 +3446,10 @@ def main() -> int:
     cpu_value.backward()
     cpu_s = time.perf_counter() - t0
     cpu_grads = {k: t.grad for k, t in cpu_den.module.named_parameters()}
-    loss_rel = abs(card_value.item() - cpu_value.item()) / abs(cpu_value.item())
-    worst, worst_name = grads_close(card_grads, cpu_grads)
-    print(f"[cpu] train loss card {card_value.item():.6f} cpu {cpu_value.item():.6f} rel "
+    loss_rel = abs(short_value.item() - cpu_value.item()) / abs(cpu_value.item())
+    worst, worst_name = grads_close(short_grads, cpu_grads)
+    print(f"[cpu] {GENCAST_CHECK_BLOCKS} blocks: train loss card {short_value.item():.6f} cpu "
+          f"{cpu_value.item():.6f} rel "
           f"{loss_rel:.3e} (limit {LOSS_RTOL}) | gradients: worst error / limit {worst:.3e} "
           f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s | "
           f"{repeat}", flush=True)
@@ -3015,7 +3628,7 @@ def main() -> int:
         wm.module,
         lambda: wm_objective(wm.forward_fn()(*(t.cuda() for t in check)),
                              tuple(t.cuda() for t in check_targets)),
-        card_value.item(), card_grads,
+        card_value.item(), card_grads, required=True,
     )
     cpu_wm.module.load_state_dict({k: v.cpu() for k, v in wm.module.state_dict().items()})
     t0 = time.perf_counter()
@@ -3211,8 +3824,14 @@ def main() -> int:
     bden.module.zero_grad(set_to_none=True)
     card_value = objective(bden.forward_fn()(corrupted_t, prev_t, noise_t), target_t)
     card_value.backward()
-    card_grads = {k: t.grad.cpu() for k, t in bden.module.named_parameters()}
-    cpu_bden.module.load_state_dict({k: v.cpu() for k, v in bden.module.state_dict().items()})
+    # Card against CPU at GENCAST_CHECK_BLOCKS blocks (the trained weights).
+    short = shallow_denoiser(port, GENCAST_BANDED, bden.module, "cuda")
+    short.module.zero_grad(set_to_none=True)
+    card_value = objective(short.forward_fn()(corrupted_t, prev_t, noise_t), target_t)
+    card_value.backward()
+    card_grads = {k: t.grad.cpu() for k, t in short.module.named_parameters()}
+    cpu_bden = shallow_denoiser(port, GENCAST_BANDED, bden.module, "cpu")
+    del short
     t0 = time.perf_counter()
     cpu_value = cpu_loss(cpu_bden.forward_fn()(corrupted_t.cpu(), prev_t.cpu(), noise_t.cpu()),
                          noise_t.cpu(), target_t.cpu())
@@ -3224,7 +3843,7 @@ def main() -> int:
     print(f"[cpu] banded train loss card {card_value.item():.6f} cpu {cpu_value.item():.6f} rel "
           f"{loss_rel:.3e} (limit {LOSS_RTOL}) | gradients: worst error / limit {worst:.3e} "
           f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s "
-          f"(full depth)", flush=True)
+          f"({GENCAST_CHECK_BLOCKS} blocks)", flush=True)
     if not (loss_rel <= LOSS_RTOL):
         raise AssertionError(f"banded train loss card vs CPU: {loss_rel} > {LOSS_RTOL}")
     if not (worst <= 1.0):
@@ -3473,21 +4092,24 @@ def main() -> int:
     check_h, check_w = WM_WIDE_CHECK_GRID
     check = [torch.randn(1, check_h, check_w, 8, generator=wm_gen),
              torch.randn(1, levels, check_h, check_w, 4, generator=wm_gen)]
+    short = shallow_weathermesh(port, WM_WIDE, wide.module, "cuda")  # WM_WIDE_CHECK_LAYERS
+    short_k6 = K6_PER_FORWARD - WM_WIDE["processor_num_layers"] + WM_WIDE_CHECK_LAYERS
     before = natten3d.LAUNCHES
-    card_pred = wide(*(t.cuda() for t in check))
+    card_pred = short(*(t.cuda() for t in check))
     torch.cuda.synchronize()
-    if natten3d.LAUNCHES - before != K6_PER_FORWARD:
+    if natten3d.LAUNCHES - before != short_k6:
         raise AssertionError(f"the check request made {natten3d.LAUNCHES - before} K6 launches")
-    cpu_wide = port.WeatherMesh(**WM_WIDE, device="cpu")
-    cpu_wide.module.load_state_dict({k: v.cpu() for k, v in wide.module.state_dict().items()})
+    cpu_wide = shallow_weathermesh(port, WM_WIDE, short.module, "cpu")
+    del short
     t1 = time.perf_counter()
     cpu_pred = cpu_wide(*check)
     cpu_s = time.perf_counter() - t1
     cpu_err = max((card_pred.surface.cpu() - cpu_pred.surface).abs().max().item(),
                   (card_pred.pressure.cpu() - cpu_pred.pressure).abs().max().item())
     print(f"[cpu] wide WeatherMesh at {check_h} x {check_w} (latent [14, {check_h // 4}, "
-          f"{check_w // 4}]): max_abs_diff {cpu_err:.3e} (limit {CPU_TOL}) | card K6 launches "
-          f"{K6_PER_FORWARD} | cpu forward {cpu_s:.2f} s | phase {time.perf_counter() - t0:.1f} s",
+          f"{check_w // 4}]), {WM_WIDE_CHECK_LAYERS} processor layers: max_abs_diff {cpu_err:.3e} "
+          f"(limit {CPU_TOL}) | card K6 launches {short_k6} | cpu forward {cpu_s:.2f} s | phase "
+          f"{time.perf_counter() - t0:.1f} s",
           flush=True)
     if not (cpu_err <= CPU_TOL):
         raise AssertionError(f"wide WeatherMesh card vs CPU: {cpu_err} > {CPU_TOL}")
@@ -3580,9 +4202,16 @@ def main() -> int:
     if made != (K6_PER_FORWARD,) * 3 + (0,) * 3:
         raise AssertionError(f"the wide check batch made {made} launches, expected 16 of each K6 kernel")
     card_grads = {k: t.grad.cpu() for k, t in wide.module.named_parameters()}
-    repeat = card_repeat(wide.module, wide_card_loss, card_value.item(), card_grads)
-    cpu_wide = port.WeatherMesh(**WM_WIDE, device="cpu")
-    cpu_wide.module.load_state_dict({k: v.cpu() for k, v in wide.module.state_dict().items()})
+    repeat = card_repeat(wide.module, wide_card_loss, card_value.item(), card_grads, required=True)
+    # Card against CPU at WM_WIDE_CHECK_LAYERS processor layers (the trained weights).
+    short = shallow_weathermesh(port, WM_WIDE, wide.module, "cuda")
+    short.module.zero_grad(set_to_none=True)
+    card_value = wm_objective(short.forward_fn()(*(t.cuda() for t in check)),
+                              tuple(t.cuda() for t in check_targets))
+    card_value.backward()
+    card_grads = {k: t.grad.cpu() for k, t in short.module.named_parameters()}
+    cpu_wide = shallow_weathermesh(port, WM_WIDE, short.module, "cpu")
+    del short
     t1 = time.perf_counter()
     cpu_value = wm_objective(cpu_wide.forward_fn()(*check), check_targets)
     cpu_value.backward()
@@ -3591,7 +4220,8 @@ def main() -> int:
     loss_rel = abs(card_value.item() - cpu_value.item()) / abs(cpu_value.item())
     worst, worst_name = grads_close(card_grads, cpu_grads)
     print(f"[cpu] wide WeatherMesh at {check_h} x {check_w} (latent [14, {check_h // 4}, "
-          f"{check_w // 4}]): train loss card {card_value.item():.6f} cpu {cpu_value.item():.6f} rel "
+          f"{check_w // 4}]), {WM_WIDE_CHECK_LAYERS} processor layers: train loss card "
+          f"{card_value.item():.6f} cpu {cpu_value.item():.6f} rel "
           f"{loss_rel:.3e} (limit {LOSS_RTOL}) | gradients: worst error / limit {worst:.3e} "
           f"({worst_name}) over {len(cpu_grads)} tensors | cpu forward+backward {cpu_s:.2f} s | "
           f"{repeat} | phase {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3623,6 +4253,14 @@ def main() -> int:
         wide_train_ms=statistics.median(wide_train_ms[1:]),
     ))
     k5_16, k6_16 = wm16["k5"], wm16["k6"]
+
+    # 56-61: FGN at bench.py's scale, f32 and bf16
+    fgn = fgn_phases(port, clustered_flash, segment_sums, _build, gen)
+    fgn_k3, fgn_s32 = fgn["k3"], fgn["s32"]
+    f32, bf16_ = torch.float32, torch.bfloat16
+
+    def fgn_wide(dtype, field, key):  # per c = 768 launch: one a member forward or step
+        return fgn_k3[(768, dtype)][field][key]
 
     kernels = [
         {
@@ -3803,7 +4441,7 @@ def main() -> int:
         {
             "name": "segment_sum_bf16",
             "route": "cuda",
-            "source": "graph_weather_tpu_torch/csrc/segment_sum_bf16.cu",
+            "source": "graph_weather_tpu_torch/csrc/segment_sum.cu",
             # No Pallas kernel: XLA's bf16 segment_sum, and the gradient of
             # jnp.take in the EdgeBlock (a scatter-add in edge order).
             "replaces": "graph_weather_tpu/ops/scatter.py:35",
@@ -4037,6 +4675,111 @@ def main() -> int:
             "bound_ms": K6_PER_FORWARD * wm16["k6b_bound"][0],
             "bound_by": wm16["k6b_bound"][1],
             "library_ms": K6_PER_FORWARD * k6_16["ms"]["sdpa_bwd"],  # SDPA's backward in bf16, windows
+        },
+        {
+            "name": "clustered_flash_attention_c768",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/clustered_flash.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/clustered_flash.py:427",
+            # The W768 tile's own counter over phase 58's 3 f32 FGN member
+            # requests (one a request: the last block), and K3a's at all widths
+            "launches": fgn["serve"]["f32"]["launches"]["WIDE_LAUNCHES"],
+            "launches_all_widths": fgn["serve"]["f32"]["launches"]["LAUNCHES"],
+            "max_abs_err": fgn_k3[(768, f32)]["errs"]["k3a"][0],
+            "ms": fgn_wide(f32, "ms", "k3a"),  # one launch at c = 768, splits-6 layout
+            "with_lse_ms": fgn_wide(f32, "ms", "k3a_lse"),
+            # K3a's device time in the profiled member request: all 24, and the c = 768 one
+            "member_device_ms": fgn["serve"]["f32"]["k3a_device"][0],
+            "member_device_ms_c768": fgn["serve"]["f32"]["k3a_device"][2],
+            "plain_ms": fgn_wide(f32, "plain_ms", "k3a"),
+            "bound_ms": fgn_k3[(768, f32)]["fwd_bound"][0],
+            "bound_by": fgn_k3[(768, f32)]["fwd_bound"][1],
+            "library_ms": fgn_k3[(768, f32)]["sdpa_ms"],
+            "library_backend": fgn_k3[(768, f32)]["backend"],
+            # phase 60's 3 f32 remat steps (2 a step at c = 768)
+            "train_launches": fgn["train"]["f32"]["launches"]["WIDE_LAUNCHES"],
+        },
+        {
+            "name": "clustered_flash_backward_symmetric_c768",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/clustered_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/clustered_flash.py:749",
+            # the W768 dq kernel's counter over phase 60's 3 f32 steps (one a step)
+            "launches": fgn["train"]["f32"]["launches"]["WIDE_SYMMETRIC_DQ_LAUNCHES"],
+            "launches_dkv": fgn["train"]["f32"]["launches"]["WIDE_SYMMETRIC_DKV_LAUNCHES"],
+            "launches_all_widths": fgn["train"]["f32"]["launches"]["SYMMETRIC_DQ_LAUNCHES"],
+            "max_abs_err": fgn_k3[(768, f32)]["errs"]["k3c"][0],
+            "ms": fgn_wide(f32, "ms", "k3c"),  # both kernels and delta, one layer at c = 768
+            # K3c's device time in the profiled train step: all 48 launches, and the 2 at c = 768
+            "step_device_ms": fgn["train"]["f32"]["k3c_device"][0],
+            "step_device_ms_c768": fgn["train"]["f32"]["k3c_device"][2],
+            "plain_ms": fgn_wide(f32, "plain_ms", "k3c"),
+            "bound_ms": fgn_k3[(768, f32)]["bwd_bound"][0],
+            "bound_by": fgn_k3[(768, f32)]["bwd_bound"][1],
+            "library_ms": fgn_k3[(768, f32)]["sdpa_bwd_ms"],
+        },
+        {
+            "name": "clustered_flash_attention_c768_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/clustered_flash.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/clustered_flash.py:427",
+            # The W768 tile's own counter over phase 59's 3 bf16 FGN member
+            # requests (one a request: the last block), and K3a's at all widths
+            "launches": fgn["serve"]["bf16"]["launches"]["BF16_WIDE_LAUNCHES"],
+            "launches_all_widths": fgn["serve"]["bf16"]["launches"]["BF16_LAUNCHES"],
+            "max_abs_err": fgn_k3[(768, bf16_)]["errs"]["k3a"][0],
+            "err_over_limit": fgn_k3[(768, bf16_)]["errs"]["k3a"][1],  # of 2^-6 max|plain|
+            "ms": fgn_wide(bf16_, "ms", "k3a"),  # one launch at c = 768, splits-6 layout
+            "with_lse_ms": fgn_wide(bf16_, "ms", "k3a_lse"),
+            # K3a's device time in the profiled member request: all 24, and the c = 768 one
+            "member_device_ms": fgn["serve"]["bf16"]["k3a_device"][0],
+            "member_device_ms_c768": fgn["serve"]["bf16"]["k3a_device"][2],
+            "plain_ms": fgn_wide(bf16_, "plain_ms", "k3a"),
+            "bound_ms": fgn_k3[(768, bf16_)]["fwd_bound"][0],
+            "bound_by": fgn_k3[(768, bf16_)]["fwd_bound"][1],
+            "library_ms": fgn_k3[(768, bf16_)]["sdpa_ms"],
+            "library_backend": fgn_k3[(768, bf16_)]["backend"],
+            # phase 60's 3 bf16 remat steps (2 a step at c = 768)
+            "train_launches": fgn["train"]["bf16"]["launches"]["BF16_WIDE_LAUNCHES"],
+        },
+        {
+            "name": "clustered_flash_backward_symmetric_c768_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/clustered_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/clustered_flash.py:749",
+            # the W768 dq kernel's counter over phase 60's 3 bf16 steps (one a step)
+            "launches": fgn["train"]["bf16"]["launches"]["BF16_WIDE_SYMMETRIC_DQ_LAUNCHES"],
+            "launches_dkv": fgn["train"]["bf16"]["launches"]["BF16_WIDE_SYMMETRIC_DKV_LAUNCHES"],
+            "launches_all_widths": fgn["train"]["bf16"]["launches"]["BF16_SYMMETRIC_DQ_LAUNCHES"],
+            "max_abs_err": fgn_k3[(768, bf16_)]["errs"]["k3c"][0],
+            "err_over_limit": fgn_k3[(768, bf16_)]["errs"]["k3c"][1],
+            "ms": fgn_wide(bf16_, "ms", "k3c"),  # both kernels and delta, one layer at c = 768
+            # K3c's device time in the profiled train step: all 48 launches, and the 2 at c = 768
+            "step_device_ms": fgn["train"]["bf16"]["k3c_device"][0],
+            "step_device_ms_c768": fgn["train"]["bf16"]["k3c_device"][2],
+            "plain_ms": fgn_wide(bf16_, "plain_ms", "k3c"),
+            "bound_ms": fgn_k3[(768, bf16_)]["bwd_bound"][0],
+            "bound_by": fgn_k3[(768, bf16_)]["bwd_bound"][1],
+            "library_ms": fgn_k3[(768, bf16_)]["sdpa_bwd_ms"],
+        },
+        {
+            "name": "segment_sum_f32",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/segment_sum.cu",
+            # No Pallas kernel: XLA's f32 segment_sum and the gradient of
+            # jnp.take on the GenCast family's graphs, in edge order.
+            "replaces": "graph_weather_tpu/ops/scatter.py:35",
+            "also_replaces": "graph_weather_tpu/nn/graph_blocks.py:248",
+            "launches": fgn["serve"]["f32"]["launches"]["S_F32"],  # phase 58's 3 f32 member requests
+            "train_launches": fgn["train"]["f32"]["launches"]["S_F32"],  # phase 60's 3 f32 steps
+            "gencast_launches": gencast_s32_launches,  # phase 9's 3 requests
+            "max_abs_err": max(v["err"] for v in fgn_s32.values()),  # against index_add_; plain: bit-equal
+            "ms": fgn_s32["g2m receivers"]["ms"],  # FGN's g2m aggregation at 768 columns
+            "gather_grad_ms": fgn_s32["m2g senders"]["ms"],
+            "plain_ms": fgn_s32["g2m receivers"]["plain_ms"],
+            "bound_ms": fgn_s32["g2m receivers"]["bound"][0],
+            "bound_by": fgn_s32["g2m receivers"]["bound"][1],
+            "library_ms": fgn_s32["g2m receivers"]["library_ms"],  # index_add_ (atomics)
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -8,6 +8,10 @@ tensors. Imports torch, never jax. Entry points run on the card (device
 """
 
 from graph_weather_tpu_torch.convert import from_jax_params, weathermesh_from_jax
+from graph_weather_tpu_torch.models.fgn import (
+    FunctionalGenerativeNetwork,
+    FunctionalGenerativeNetworkConfig,
+)
 from graph_weather_tpu_torch.models.forecast import GraphWeatherForecaster
 from graph_weather_tpu_torch.models.gencast import (
     Denoiser,
@@ -24,6 +28,8 @@ __version__ = "0.1.0"
 
 __all__ = [
     "Denoiser",
+    "FunctionalGenerativeNetwork",
+    "FunctionalGenerativeNetworkConfig",
     "GraphWeatherForecaster",
     "NormalizedMSELoss",
     "Sampler",

@@ -56,8 +56,9 @@
 //
 // Tiles follow c: CP = 32 and 128 take 8 row groups (TQ = 128) of one warp
 // each; CP = 256 takes 4 row groups of 2 warps, CP = 512 2 row groups of 4
-// warps; 256 threads, one CTA per SM at CP >= 128. A narrower c runs its
-// tile's full CP (zeros past c).
+// warps, CP = 768 one row group of 8 (in f32 with one copy stage: two do
+// not fit); 256 threads, one CTA per SM at CP >= 128. A narrower c runs its
+// tile's full CP (zeros past c: FGN's c = 192 runs CP = 256).
 //
 // bf16 (GenCast's compute policy; the TPU kernel's bf16 mode). The tiles
 // hold bf16 rows (c = 512: 108 KB of shared memory where f32 takes 215 KB),
@@ -95,11 +96,13 @@ struct Params {
 };
 
 // T: element of q, k, v and out; CP: widest c of the tiles (a multiple of
-// 8); RG row groups of CS warps; TK keys per copied tile.
-template <class T_, int CP_, int RG_, int CS_, int TK_>
+// 8); RG row groups of CS warps; TK keys per copied tile; ST shared-memory
+// stages of the copied tiles (2: the next tile's copies overlap the current
+// tile's products; 1 where two do not fit).
+template <class T_, int CP_, int RG_, int CS_, int TK_, int ST_ = STAGES>
 struct Cfg {
   using T = T_;
-  static constexpr int CP = CP_, RG = RG_, CS = CS_, TK = TK_;
+  static constexpr int CP = CP_, RG = RG_, CS = CS_, TK = TK_, ST = ST_;
   static constexpr int THREADS = 32 * RG * CS;
   static constexpr int TQ = 16 * RG;  // rows per CTA
   static constexpr int CSW = CP / CS;  // channels per warp of a row group
@@ -107,10 +110,10 @@ struct Cfg {
   static constexpr int NN = CSW / 8;   // 8-channel tiles of a warp's output
   static constexpr int LD = CP + row_pad<T>();  // Q, K and V rows in shared memory
   static constexpr int STAGE = 2 * TK * LD;  // elements per stage
-  static constexpr size_t tile_bytes = sizeof(T) * (TQ * LD + STAGES * STAGE) +
+  static constexpr size_t tile_bytes = sizeof(T) * (TQ * LD + ST * STAGE) +
                                        (CS > 1 ? sizeof(float4) * RG * CS * NS * 2 * 32 : 0);
   static_assert(THREADS == 256 && CSW % (sizeof(T) == 4 ? 8 : 16) == 0 && TK % SUB == 0 &&
-                    NS <= 32,
+                    NS <= 32 && (ST == 1 || ST == 2),
                 "tile layout");
 };
 
@@ -120,11 +123,11 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   using T = typename C::T;
   constexpr int RG = C::RG, CS = C::CS, TK = C::TK, TQ = C::TQ, CSW = C::CSW;
   constexpr int CP = C::CP, NS = C::NS, NN = C::NN, LD = C::LD, THREADS = C::THREADS;
-  constexpr int STAGE = C::STAGE;
+  constexpr int STAGE = C::STAGE, ST = C::ST;
   extern __shared__ float4 smem4[];
   T* Qs = reinterpret_cast<T*>(smem4);  // [TQ][LD]
-  T* KV = Qs + TQ * LD;  // [STAGES][K, V][TK][LD]
-  float4* part = reinterpret_cast<float4*>(KV + STAGES * STAGE);  // CS > 1
+  T* KV = Qs + TQ * LD;  // [ST][K, V][TK][LD]
+  float4* part = reinterpret_cast<float4*>(KV + ST * STAGE);  // CS > 1
   int* s_ids = reinterpret_cast<int*>(reinterpret_cast<char*>(smem4) + C::tile_bytes);  // [u_pad]
   const int n_tiles = (p.u_pad + TK - 1) / TK;
   int* s_tiles = s_ids + p.u_pad;       // [n_tiles]
@@ -168,11 +171,11 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     copy_rows<THREADS, CP>(Ks + TK * LD, LD, TK, p.c, p.vec, p.q,
                            [&](int r) { return slot(p.v, r); });
   };
-  // The first STAGES - 1 tiles' copies (with Q in the first group); one
-  // group is committed per tile slot, empty or not, so that waiting for all
-  // but the newest STAGES - 1 groups waits for the tile about to be used.
+  // The first ST - 1 tiles' copies (with Q in the first group); one group
+  // is committed per tile slot, empty or not, so that waiting for all but
+  // the newest ST - 1 groups waits for the tile about to be used.
 #pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
+  for (int t = 0; t < ST - 1; ++t) {
     if (t < n_list) copy_tile(t, s_tiles[t]);
     cp_async_commit();
   }
@@ -188,11 +191,11 @@ __global__ void __launch_bounds__(C::THREADS, 1)
 
   for (int i = 0; i < n_list; ++i) {
     const int tile = s_tiles[i];
-    if (i + STAGES - 1 < n_list) copy_tile((i + STAGES - 1) % STAGES, s_tiles[i + STAGES - 1]);
+    if (i + ST - 1 < n_list) copy_tile((i + ST - 1) % ST, s_tiles[i + ST - 1]);
     cp_async_commit();
-    cp_async_wait<STAGES - 1>();
+    cp_async_wait<ST - 1>();
     __syncthreads();
-    const T* Ks = KV + (i % STAGES) * STAGE;
+    const T* Ks = KV + (i % ST) * STAGE;
     const T* Vs = Ks + TK * LD;
     const unsigned act = active_bits<NS>(flags, rg, tile, p.u_pad);
     const uint16_t* tile_bits = bits + (rg * n_sub + tile * NS) * 16;
@@ -256,8 +259,9 @@ __global__ void __launch_bounds__(C::THREADS, 1)
         if ((act >> j) & 1u)
           col_products16<NN>(o, s[j], Vs + SUB * j * LD, LD, c_begin, lane);
     }
-    __syncthreads();  // the stage is free for the copy two tiles on
+    __syncthreads();  // the stage is free for the copy ST tiles on
   }
+  cp_async_commit();
   cp_async_wait<0>();  // Q, when the list was empty
 
   float l[2];
@@ -330,6 +334,12 @@ template <class T> using W32 = Cfg<T, 32, 8, 1, 64>;
 template <class T> using W128 = Cfg<T, 128, 8, 1, 32>;
 template <class T> using W256 = Cfg<T, 256, 4, 2, 16>;
 template <class T> using W512 = Cfg<T, 512, 2, 4, 16>;
+// c up to 768: one row group of 8 warps, 96 channels each. In f32 two
+// stages of K and V (2 x 2 x 16 x 772 floats) and Q take ~250 KB, past the
+// 227 KB a CTA may use, so the f32 tile copies into one stage (Q 49 KB +
+// K, V 99 KB + the partial logits 8 KB: ~163 KB at U_pad 1,024) and waits
+// for each tile's copies; bf16 keeps two (~139 KB).
+template <class T> using W768 = Cfg<T, 768, 1, 8, 16, sizeof(T) == 4 ? 1 : 2>;
 
 template <class T>
 int forward(const void* q, const void* k, const void* v, const int* gather_ids,
@@ -343,6 +353,7 @@ int forward(const void* q, const void* k, const void* v, const int* gather_ids,
   if (c <= 128) return launch<W128<T>>(p, n_blocks, batch, s);
   if (c <= 256) return launch<W256<T>>(p, n_blocks, batch, s);
   if (c <= 512) return launch<W512<T>>(p, n_blocks, batch, s);
+  if (c <= 768) return launch<W768<T>>(p, n_blocks, batch, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -352,6 +363,7 @@ int occupancy(int c, int u_pad) {
   if (c <= 128) return ctas_per_sm<W128<T>>(u_pad);
   if (c <= 256) return ctas_per_sm<W256<T>>(u_pad);
   if (c <= 512) return ctas_per_sm<W512<T>>(u_pad);
+  if (c <= 768) return ctas_per_sm<W768<T>>(u_pad);
   return -1;
 }
 
@@ -360,7 +372,7 @@ int occupancy(int c, int u_pad) {
 // Plain C entry point (bound with ctypes). q, k, v and out are f32
 // (is_bf16 == 0) or bf16 (is_bf16 == 1); lse is f32. Launches on `stream`, does
 // not synchronise, allocates nothing; returns a cudaError_t (0 on success),
-// or cudaErrorInvalidValue for c > 512. `lse` may be null (serving).
+// or cudaErrorInvalidValue for c > 768. `lse` may be null (serving).
 // gather_ids are trusted: they are checked on the host when the graph's
 // layout is built.
 extern "C" int gwt_clustered_flash_forward(

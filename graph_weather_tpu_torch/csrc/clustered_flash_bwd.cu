@@ -57,7 +57,8 @@
 // tile's products, and channels past c are zeros up to the tile's CP.
 // Tiles follow c: CP = 32: 8 row groups of one warp, 32 streamed rows;
 // CP = 128: 4 row groups of 2 warps, 32 rows; CP = 256: 2 groups of 4 warps,
-// 16 rows; CP = 512: one group of 8 warps, 16 rows. 256 threads.
+// 16 rows; CP = 512: one group of 8 warps, 16 rows; CP = 768 (K3c only):
+// one group of 8 warps, 16 rows, one copy stage in f32. 256 threads.
 //
 // bf16 (the TPU kernels' bf16 mode): q, k, v and dO are staged as bf16 rows,
 // each product is one bf16 mma.sync m16n8k16 with f32 accumulators, p and
@@ -102,11 +103,13 @@ struct Params {
 };
 
 // T: element of q, k, v, dO and the gradients; CP: widest c of the tiles (a
-// multiple of 8); RG row groups of CS warps; TB streamed rows per copied tile.
-template <class T_, int CP_, int RG_, int CS_, int TB_>
+// multiple of 8); RG row groups of CS warps; TB streamed rows per copied
+// tile; ST shared-memory stages of the streamed tiles (1 where two do not
+// fit).
+template <class T_, int CP_, int RG_, int CS_, int TB_, int ST_ = STAGES>
 struct Cfg {
   using T = T_;
-  static constexpr int CP = CP_, RG = RG_, CS = CS_, TB = TB_;
+  static constexpr int CP = CP_, RG = RG_, CS = CS_, TB = TB_, ST = ST_;
   static constexpr int THREADS = 32 * RG * CS;
   static constexpr int TA = 16 * RG;   // own rows per CTA
   static constexpr int CSW = CP / CS;  // channels per warp of a row group
@@ -114,11 +117,11 @@ struct Cfg {
   static constexpr int NN = CSW / 8;   // 8-channel tiles of a warp's outputs
   static constexpr int LD = CP + row_pad<T>();  // rows in shared memory
   static constexpr int STAGE = 2 * TB * LD;  // elements per stage
-  static constexpr size_t tile_bytes = sizeof(T) * (2 * TA * LD + STAGES * STAGE) +
-                                       sizeof(float) * STAGES * 2 * TB +
+  static constexpr size_t tile_bytes = sizeof(T) * (2 * TA * LD + ST * STAGE) +
+                                       sizeof(float) * ST * 2 * TB +
                                        (CS > 1 ? sizeof(float4) * 2 * RG * CS * NS * 2 * 32 : 0);
   static_assert(THREADS == 256 && CSW % (sizeof(T) == 4 ? 8 : 16) == 0 && TB % SUB == 0 &&
-                    NS <= 32,
+                    NS <= 32 && (ST == 1 || ST == 2),
                 "tile layout");
 };
 
@@ -128,7 +131,7 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   using T = typename C::T;
   constexpr int RG = C::RG, CS = C::CS, TB = C::TB, TA = C::TA, CSW = C::CSW;
   constexpr int CP = C::CP, NS = C::NS, NN = C::NN, LD = C::LD, THREADS = C::THREADS;
-  constexpr int STAGE = C::STAGE;
+  constexpr int STAGE = C::STAGE, ST = C::ST;
   constexpr bool DKV = ROLE != DQ;                  // two accumulators
   constexpr bool OWN_SLOTS = ROLE == DKV_GATHERED;  // own rows are union slots
   constexpr int NN2 = DKV ? NN : 1;
@@ -136,10 +139,10 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   extern __shared__ float4 smem4[];
   T* A1 = reinterpret_cast<T*>(smem4);  // [TA][LD] own q or k
   T* A2 = A1 + TA * LD;                 // [TA][LD] own dO or v
-  T* Bst = A2 + TA * LD;                // [STAGES][b1, b2][TB][LD]
-  float* s_lse = reinterpret_cast<float*>(Bst + STAGES * STAGE);  // [STAGES][TB] streamed lse
-  float* s_delta = s_lse + STAGES * TB;  // [STAGES][TB] streamed delta
-  float4* xpart = reinterpret_cast<float4*>(s_delta + STAGES * TB);  // CS > 1
+  T* Bst = A2 + TA * LD;                // [ST][b1, b2][TB][LD]
+  float* s_lse = reinterpret_cast<float*>(Bst + ST * STAGE);  // [ST][TB] streamed lse
+  float* s_delta = s_lse + ST * TB;  // [ST][TB] streamed delta
+  float4* xpart = reinterpret_cast<float4*>(s_delta + ST * TB);  // CS > 1
   float4* ypart = xpart + RG * CS * NS * 2 * 32;
   int* s_ids = reinterpret_cast<int*>(reinterpret_cast<char*>(smem4) + C::tile_bytes);  // [u_pad]
   const int n_own = OWN_SLOTS ? p.u_pad : p.block;
@@ -222,12 +225,11 @@ __global__ void __launch_bounds__(C::THREADS, 1)
       s_delta[stage * TB + tid] = row >= 0 ? p.delta[i] : 0.f;
     }
   };
-  // The first STAGES - 1 tiles' copies (with the own rows in the first
-  // group); one group is committed per tile slot, empty or not, so that
-  // waiting for all but the newest STAGES - 1 groups waits for the tile
-  // about to be used.
+  // The first ST - 1 tiles' copies (with the own rows in the first group);
+  // one group is committed per tile slot, empty or not, so that waiting for
+  // all but the newest ST - 1 groups waits for the tile about to be used.
 #pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
+  for (int t = 0; t < ST - 1; ++t) {
     if (t < n_list) copy_tile(t, s_tiles[t]);
     cp_async_commit();
   }
@@ -260,10 +262,10 @@ __global__ void __launch_bounds__(C::THREADS, 1)
 
   for (int i = 0; i < n_list; ++i) {
     const int tile = s_tiles[i];
-    const int stage = i % STAGES;
-    if (i + STAGES - 1 < n_list) copy_tile((i + STAGES - 1) % STAGES, s_tiles[i + STAGES - 1]);
+    const int stage = i % ST;
+    if (i + ST - 1 < n_list) copy_tile((i + ST - 1) % ST, s_tiles[i + ST - 1]);
     cp_async_commit();
-    cp_async_wait<STAGES - 1>();
+    cp_async_wait<ST - 1>();
     __syncthreads();
     const T* B1 = Bst + stage * STAGE;
     const T* B2 = B1 + TB * LD;
@@ -304,8 +306,9 @@ __global__ void __launch_bounds__(C::THREADS, 1)
       if constexpr (DKV)
         col_products16<NN>(acc2, y[j], B2 + SUB * j * LD, LD, c_begin, lane);
     }
-    __syncthreads();  // the stage is free for the copy two tiles on
+    __syncthreads();  // the stage is free for the copy ST tiles on
   }
+  cp_async_commit();
   cp_async_wait<0>();  // the own rows, when the list was empty
 
   // Outputs: dq and dk scaled, dv as summed.
@@ -400,6 +403,12 @@ template <class T> using W32 = Cfg<T, 32, 8, 1, 32>;
 template <class T> using W128 = Cfg<T, 128, 4, 2, 32>;
 template <class T> using W256 = Cfg<T, 256, 2, 4, 16>;
 template <class T> using W512 = Cfg<T, 512, 1, 8, 16>;
+// c up to 768, for K3c (the dq and symmetric dk/dv kernels): one row group
+// of 8 warps, 96 channels each. In f32 the own rows (2 x 16 x 772 floats)
+// and one stage of streamed rows take ~221 KB at U_pad 1,024 with the
+// partial sums, so the f32 tile copies into one stage; bf16 keeps two
+// (~171 KB). K3b's general dk/dv kernel stops at 512.
+template <class T> using W768 = Cfg<T, 768, 1, 8, 16, sizeof(T) == 4 ? 1 : 2>;
 
 template <class T>
 int backward(const Params<T>& p, int mode, int batch, cudaStream_t s, bool ctas) {
@@ -407,6 +416,7 @@ int backward(const Params<T>& p, int mode, int batch, cudaStream_t s, bool ctas)
   if (p.c <= 128) return run<W128<T>>(p, mode, batch, s, ctas);
   if (p.c <= 256) return run<W256<T>>(p, mode, batch, s, ctas);
   if (p.c <= 512) return run<W512<T>>(p, mode, batch, s, ctas);
+  if (p.c <= 768 && mode != 0) return run<W768<T>>(p, mode, batch, s, ctas);
   return ctas ? -1 : (int)cudaErrorInvalidValue;
 }
 
@@ -426,8 +436,8 @@ Params<T> params(const void* q, const void* k, const void* v, const void* dout, 
 // Plain C entry point (bound with ctypes). q, k, v, dout, dq, dk and dv are
 // f32 (is_bf16 == 0) or bf16 (is_bf16 == 1); lse and delta are f32.
 // Launches on `stream`, does not synchronise, allocates nothing; returns a
-// cudaError_t (0 on success), or cudaErrorInvalidValue for c > 512 or an
-// unknown mode. Pointers a mode does not write may be null. gather_ids are
+// cudaError_t (0 on success), or cudaErrorInvalidValue for c > 768 (mode 0:
+// c > 512) or an unknown mode. Pointers a mode does not write may be null. gather_ids are
 // trusted: they are checked on the host when the graph's layout is built.
 extern "C" int gwt_clustered_flash_backward(
     const void* q, const void* k, const void* v, const void* dout,

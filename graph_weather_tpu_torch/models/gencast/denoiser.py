@@ -329,7 +329,7 @@ class Denoiser:
         """[B, lon, lat, F_out], [B, lon, lat, 2 F_in], [B, 1] -> denoised
         [B, lon, lat, F_out], on self.device (inputs are moved there)."""
         if conditioning is not None:
-            raise _not_ported("conditioning (GenDA)", "ROADMAP.md §1 item 4, 'FGN and GenDA'")
+            raise _not_ported("conditioning (GenDA)", "ROADMAP.md §1 item 4, 'GenDA'")
         return self._forward(corrupted_targets, prev_inputs, noise_levels)
 
     def _forward(self, corrupted_targets, prev_inputs, noise_levels):

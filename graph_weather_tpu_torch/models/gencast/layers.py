@@ -74,6 +74,10 @@ class GenCastProcessor(nn.Module):
     (torch.utils.checkpoint, the JAX package's nn.remat per block), with
     the parameters the forward used (the bf16 copies under
     Denoiser.forward_fn's bf16 policy, not the f32 masters).
+
+    The blocks' conditional norms read the FourierEmbedding of the noise
+    level (GenCast), or, with `cond_dim`, a raw conditioning vector of that
+    width (FGN's noise vector: FGNProcessor).
     """
 
     NOISE_EMB_DIM = 16
@@ -87,13 +91,18 @@ class GenCastProcessor(nn.Module):
         edge_dim: int = 0,
         use_edge_features: bool = True,
         remat: bool = False,
+        cond_dim: Optional[int] = None,
     ):
         super().__init__()
         if latent_dim % num_heads != 0:
             raise ValueError("latent_dim must be divisible by num_heads")
         self.num_blocks = num_blocks
         self.remat = remat
-        self.FourierEmbedding_0 = FourierEmbedding(self.NOISE_EMB_DIM)
+        if cond_dim is None:
+            self.FourierEmbedding_0 = FourierEmbedding(self.NOISE_EMB_DIM)
+            cond_dim = self.NOISE_EMB_DIM
+        else:
+            self.FourierEmbedding_0 = None
         use_edges = use_edge_features and edge_dim > 0
         self.GenCastMLP_0: Optional[GenCastMLP] = (
             GenCastMLP(edge_dim, hidden_dims) if use_edges else None
@@ -107,7 +116,7 @@ class GenCastProcessor(nn.Module):
                     latent_dim,
                     out_channels=latent_dim if last else latent_dim // num_heads,
                     num_heads=num_heads,
-                    cond_dim=self.NOISE_EMB_DIM,
+                    cond_dim=cond_dim,
                     concat=not last,
                     use_edge_features=use_edges,
                     edge_dim=edge_emb_dim,
@@ -118,10 +127,12 @@ class GenCastProcessor(nn.Module):
     def forward(
         self,
         latent_mesh: torch.Tensor,  # [B, N_mesh, latent]
-        noise_levels: torch.Tensor,  # [B, 1] (log-scaled)
+        noise: torch.Tensor,  # [B, 1] log-scaled noise levels, or [B, cond_dim]
         khop: DeviceGraph,
     ) -> torch.Tensor:
-        cond = self.FourierEmbedding_0(noise_levels)[:, None, :]  # broadcast over nodes
+        if self.FourierEmbedding_0 is not None:
+            noise = self.FourierEmbedding_0(noise)
+        cond = noise[:, None, :]  # broadcast over nodes
         edge_attr = None
         if self.GenCastMLP_0 is not None:
             edge_attr = self.GenCastMLP_0(khop.edge_attr)
@@ -141,6 +152,28 @@ class GenCastProcessor(nn.Module):
             else:
                 latent_mesh = block(latent_mesh, khop, edge_attr, cond)
         return cluster_unpad_rows(latent_mesh, n_real)
+
+
+class FGNProcessor(GenCastProcessor):
+    """FGN's processor (graph_weather_tpu/models/fgn/model.py: FGNProcessor):
+    GenCast's block stack with the conditional norms reading the raw noise
+    vector [B, noise_dim] (no Fourier embedding)."""
+
+    def __init__(
+        self,
+        latent_dim: int,
+        hidden_dims: Sequence[int],
+        noise_dim: int,
+        num_blocks: int = 24,
+        num_heads: int = 4,
+        edge_dim: int = 0,
+        use_edge_features: bool = True,
+        remat: bool = False,
+    ):
+        super().__init__(
+            latent_dim, hidden_dims, num_blocks, num_heads, edge_dim, use_edge_features, remat,
+            cond_dim=noise_dim,
+        )
 
 
 class GenCastDecoder(nn.Module):

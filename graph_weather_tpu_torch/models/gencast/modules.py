@@ -138,7 +138,7 @@ class InteractionNetwork(nn.Module):
         graph: DeviceGraph,
     ) -> torch.Tensor:
         msg = self.GenCastMLP_0(
-            [(x_src, graph.senders), (x_dst, graph.receivers), (edge_attr, None)]
+            [(x_src, graph.gather_senders), (x_dst, graph.gather_receivers), (edge_attr, None)]
         )
         agg = graph.aggregate(msg * self.scale_factor)
         return self.GenCastMLP_1(torch.cat([x_dst, agg], dim=-1))
@@ -262,9 +262,9 @@ class GraphTransformerConv(nn.Module):
                     out = banded_graph_attention(*band)
             return self._combine(x, out.reshape(out.shape[:-2] + (h * c,)))
 
-        q_e = q.index_select(-2, graph.receivers)
-        k_e = k.index_select(-2, graph.senders)
-        v_e = v.index_select(-2, graph.senders)
+        q_e = graph.gather_receivers(q)
+        k_e = graph.gather_senders(k)
+        v_e = graph.gather_senders(v)
         if use_edges:
             e = self.TorchLinear_3(edge_attr)
             k_e = k_e + e

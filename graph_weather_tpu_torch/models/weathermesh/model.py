@@ -40,7 +40,12 @@ On CPU tensors every conv runs in PyTorch's own CPU kernels, forward and
 backward, never oneDNN's: on the H100 hosts (torch 2.11+cu128) oneDNN's CPU
 conv backward gave a weight gradient off by its own size now and then, and
 glibc heap aborts. The flag that picks the kernels is global and read when
-each kernel runs, so `_CpuConv` turns oneDNN off around the backward too.
+each kernel runs, so `_Conv` turns oneDNN off around the backward too. On
+the card the convs' backward takes cuDNN's deterministic algorithms (its
+default picks may sum with atomics), and the f32 resize's backward is a
+product with the interpolation weights (F.interpolate's adds with atomics):
+a train step's gradients repeat their bits. Both settings are scoped to
+these backwards and restored after them.
 """
 
 from __future__ import annotations
@@ -96,14 +101,35 @@ def _without_onednn():
         torch.backends.mkldnn.enabled = before
 
 
-class _CpuConv(torch.autograd.Function):
-    """A zero-padded convolution of CPU tensors with oneDNN off in its forward
-    and in its backward (see the module docstring)."""
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms for the convolutions inside, on
+    the card (their backward would otherwise sum with atomics, in an order
+    that changes from run to run); the setting restored after."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def _conv_backend(device: torch.device):
+    """Around a conv's backward: oneDNN off on the CPU, cuDNN's
+    deterministic algorithms on the card (see the module docstring)."""
+    return _without_onednn() if device.type == "cpu" else _deterministic_cudnn()
+
+
+class _Conv(torch.autograd.Function):
+    """A zero-padded f32 convolution: on CPU tensors with oneDNN off in its
+    forward and its backward; on the card cuDNN's forward and, under
+    `_deterministic_cudnn`, its backward (see the module docstring)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, stride, padding, dilation, groups):
         zeros = [0] * len(stride)
-        with _without_onednn():
+        cpu = x.device.type == "cpu"
+        with _without_onednn() if cpu else contextlib.nullcontext():
             out = torch.ops.aten.convolution(
                 x, weight, bias, stride, padding, dilation, False, zeros, groups
             )
@@ -117,7 +143,7 @@ class _CpuConv(torch.autograd.Function):
         x, weight = ctx.saved_tensors
         stride, padding, dilation, groups, has_bias = ctx.conf
         wanted = [ctx.needs_input_grad[0], ctx.needs_input_grad[1], has_bias and ctx.needs_input_grad[2]]
-        with _without_onednn():
+        with _conv_backend(x.device):
             dx, dw, db = torch.ops.aten.convolution_backward(
                 grad, x, weight, [weight.shape[0]] if has_bias else None, stride, padding,
                 dilation, False, [0] * len(stride), groups, wanted,
@@ -125,31 +151,29 @@ class _CpuConv(torch.autograd.Function):
         return dx, dw, db, None, None, None, None
 
 
-class _NativeCpuConv:
-    """Mixin for nn.Conv2d/nn.Conv3d: CPU tensors take _CpuConv; CUDA
-    tensors cuDNN, as the plain module. On bf16 x the convolution is
-    `_Bf16Conv`'s, rounded, and the bias added after it, rounded again
-    (flax's Conv under the bf16 policy, nn.bf16.bias_add)."""
+class _PortConv:
+    """Mixin for nn.Conv2d/nn.Conv3d: f32 tensors take _Conv (oneDNN off
+    on the CPU, a deterministic backward on the card). On bf16 x the
+    convolution is `_Bf16Conv`'s, rounded, and the bias added after it,
+    rounded again (flax's Conv under the bf16 policy, nn.bf16.bias_add)."""
 
     def _conv_forward(self, input, weight, bias):
         if input.dtype == torch.bfloat16:
             out = _Bf16Conv.apply(input, weight, self.stride, self.padding, True)
             return out if bias is None else bias_add(out, bias, 1)
-        if input.device.type != "cpu":
-            return super()._conv_forward(input, weight, bias)
         if self.padding_mode != "zeros" or isinstance(self.padding, str):
-            raise NotImplementedError("the CPU conv takes integer zero padding only")
-        return _CpuConv.apply(
+            raise NotImplementedError("the port's conv takes integer zero padding only")
+        return _Conv.apply(
             input, weight, bias, list(self.stride), list(self.padding), list(self.dilation),
             self.groups,
         )
 
 
-class _Conv2d(_NativeCpuConv, nn.Conv2d):
+class _Conv2d(_PortConv, nn.Conv2d):
     pass
 
 
-class _Conv3d(_NativeCpuConv, nn.Conv3d):
+class _Conv3d(_PortConv, nn.Conv3d):
     pass
 
 
@@ -201,7 +225,8 @@ class _Bf16Conv(torch.autograd.Function):
     def backward(ctx, grad):
         x, weight = ctx.saved_tensors
         stride, padding, dilation, zeros = ctx.conf
-        with _exact_convs(x.device):
+        deterministic = _deterministic_cudnn() if x.is_cuda else contextlib.nullcontext()
+        with _exact_convs(x.device), deterministic:
             dx, dw, _ = torch.ops.aten.convolution_backward(
                 grad.to(torch.bfloat16).float(), x.float(), weight.to(torch.bfloat16).float(), None,
                 stride, padding, dilation, False, zeros, 1, [ctx.needs_input_grad[0], True, False],
@@ -239,6 +264,27 @@ def _upsample_weights(n: int, scale: int, device) -> torch.Tensor:
     along one axis (F.interpolate's weights, align_corners=False)."""
     eye = torch.eye(n, device=device)[None]  # [1, n (channels), n]
     return F.interpolate(eye, scale_factor=scale, mode="linear", align_corners=False)[0].T
+
+
+class _Resize(torch.autograd.Function):
+    """F.interpolate's half-pixel-centred (bi/tri)linear x2 resize of H and
+    W on the card, whose backward is the product of the cotangent with the
+    interpolation weights, W then H: F.interpolate's own backward adds with
+    atomics there, in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, x, scale, mode):
+        ctx.conf = (tuple(x.shape), scale)
+        return F.interpolate(x, scale_factor=scale, mode=mode, align_corners=False)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        shape, scale = ctx.conf
+        for axis in (grad.dim() - 1, grad.dim() - 2):  # W, then H
+            w = _upsample_weights(shape[axis], scale[axis - 2], grad.device)
+            grad = torch.movedim(torch.movedim(grad, axis, -1) @ w, -1, axis)
+        return grad, None, None
 
 
 def _resize_bf16(x: torch.Tensor, scales) -> torch.Tensor:
@@ -346,6 +392,8 @@ class ConvUpBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.bfloat16:
             x = _resize_bf16(x, self.scale)
+        elif x.is_cuda:
+            x = _Resize.apply(x, self.scale, self.mode)
         else:
             x = F.interpolate(x, scale_factor=self.scale, mode=self.mode, align_corners=False)
         identity = _conv_normed(self.upsample, x)

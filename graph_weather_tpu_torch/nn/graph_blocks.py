@@ -15,6 +15,12 @@ nodes follow XLA's: a padded-CSR table sums in f32 and rounds once; a node
 without one (grid->mesh receivers) sums its edges in edge order, rounding
 each partial sum (the kernel S, over the graph's flat CSR).
 
+Every sum over a graph runs in a fixed order, so the card repeats its bits:
+`DeviceGraph.aggregate` sums through the graph's tables or, where it has
+none, in edge order (S, f32 or bf16; `sum_route` names the way), and the
+gathers onto edges (`gather_senders`, `gather_receivers`) have S as their
+gradient, where index_select's own is index_add_ (atomics on the card).
+
 Bipartite graphs update destination nodes only. Submodules carry the flax
 auto-names (EdgeBlock_0/MLP_0/TorchLinear_0, ...) so converted parameters
 load with a mechanical mapping (convert.py).
@@ -44,9 +50,9 @@ from graph_weather_tpu_torch.ops.scatter import (
     build_flat_csr,
     build_padded_csr,
     chunked_csr_agg,
+    edge_order_sum,
+    gather_rows,
     padded_csr_agg,
-    segment_sum_agg,
-    segment_sum_bf16,
     table_owner,
 )
 
@@ -106,8 +112,11 @@ class DeviceGraph:
 
     receiver_csr and sender_csr are the flat CSRs of the same sums
     (ops.scatter.build_flat_csr: offsets int32 [N + 1], edge ids int32 [E]
-    in edge order), built for every graph: the bf16 sums to the nodes run
-    through them in edge order (ops.scatter.segment_sum_bf16).
+    in edge order), built for every graph: the sums to the nodes of a
+    graph without tables, the bf16 sums, and the gradients of the gathers
+    onto edges run through them in edge order (ops.scatter.edge_order_sum).
+    csr_owner is the padded table's row of each edge (its gradient, a
+    gather).
     """
 
     senders: torch.Tensor  # [E] int32
@@ -131,6 +140,7 @@ class DeviceGraph:
     band_w: int = 0
     band_flash: bool = False
     band_symmetric: bool = False
+    csr_owner: Optional[torch.Tensor] = None  # [E] int64, each edge's row of the csr_* table
 
     @classmethod
     def from_bundle(
@@ -153,15 +163,15 @@ class DeviceGraph:
                 raise ValueError(f"graph {name} out of range [0, {bound})")
         counts = np.bincount(bundle.receivers, minlength=bundle.n_receivers)
         use_csr = counts.size > 0 and counts.max() <= _CSR_MAX_DEGREE
-        csr_ids = csr_mask = None
+        csr_ids = csr_mask = owner = None
         if use_csr:
             ids, mask = build_padded_csr(bundle.receivers, bundle.n_receivers)
             csr_ids = torch.as_tensor(ids, device=device)
             csr_mask = torch.as_tensor(mask, device=device)
+            owner = torch.as_tensor(table_owner(ids, mask, bundle.n_edges), device=device)
         receiver_sum = sender_sum = None
         if edge_sums:
             if use_csr:  # the receivers' one table is the csr_* table itself
-                owner = torch.as_tensor(table_owner(ids, mask, bundle.n_edges), device=device)
                 receiver_sum = ((csr_ids, csr_mask, owner),)
             else:
                 receiver_sum = _sum_levels(bundle.receivers, bundle.n_receivers, device)
@@ -215,6 +225,7 @@ class DeviceGraph:
             edge_attr=edge_attr,
             csr_edge_ids=csr_ids,
             csr_mask=csr_mask,
+            csr_owner=owner,
             n_senders=bundle.n_senders,
             n_receivers=bundle.n_receivers,
             receiver_sum=receiver_sum,
@@ -233,21 +244,41 @@ class DeviceGraph:
             band_symmetric=band_symmetric,
         )
 
-    def aggregate(self, edge_feats: torch.Tensor) -> torch.Tensor:
-        """Sum [..., E, F] edge features into [..., N_receivers, F]: through
-        the receiver_sum levels where the graph carries them (in a fixed
-        order at any degree, so the card repeats its bits), else the padded
-        CSR table, else index_add_ (atomics on the card; GenCast's graphs,
-        where two levels were slower). bf16 features without the padded
-        table sum in edge order, each partial sum rounded (S), as the JAX
-        package's bf16 segment_sum; its gradient is a gather."""
-        if edge_feats.dtype == torch.bfloat16 and self.csr_edge_ids is None:
-            return segment_sum_bf16(edge_feats, *self.receiver_csr, nodes=self.receivers)
+    def sum_route(self, dtype: torch.dtype) -> str:
+        """How `aggregate` sums edge rows of `dtype` to the receivers:
+        "receiver_sum" (the edge_sums tables), "padded_csr" (the csr_*
+        table; its gradient a gather by csr_owner), "edge_order" (S over
+        receiver_csr: bf16 rows without the padded table, and f32 rows of a
+        graph with neither tables, as GenCast's grid->mesh and k-hop
+        graphs). Every route sums in a fixed order."""
+        if self.csr_edge_ids is None and (dtype == torch.bfloat16 or self.receiver_sum is None):
+            return "edge_order"
         if self.receiver_sum is not None:
+            return "receiver_sum"
+        return "padded_csr"
+
+    def aggregate(self, edge_feats: torch.Tensor) -> torch.Tensor:
+        """Sum [..., E, F] edge features into [..., N_receivers, F] by
+        `sum_route`, in a fixed order, so the card repeats its bits. bf16
+        features without the padded table sum in edge order, each partial
+        sum rounded (S), as the JAX package's bf16 segment_sum; the gradient
+        of every route is a gather."""
+        route = self.sum_route(edge_feats.dtype)
+        if route == "edge_order":
+            return edge_order_sum(edge_feats, *self.receiver_csr, nodes=self.receivers)
+        if route == "receiver_sum":
             return chunked_csr_agg(edge_feats, self.receiver_sum)
-        if self.csr_edge_ids is not None:
-            return padded_csr_agg(edge_feats, self.csr_edge_ids, self.csr_mask)
-        return segment_sum_agg(edge_feats, self.receivers, self.n_receivers)
+        return padded_csr_agg(edge_feats, self.csr_edge_ids, self.csr_mask, self.csr_owner)
+
+    def gather_senders(self, x: torch.Tensor) -> torch.Tensor:
+        """x [..., N_senders, F] -> each edge's sender row [..., E, F]; the
+        gradient sums each sender's edges in edge order (S over sender_csr)."""
+        return gather_rows(x, self.senders, self.sender_csr)
+
+    def gather_receivers(self, x: torch.Tensor) -> torch.Tensor:
+        """x [..., N_receivers, F] -> each edge's receiver row; the gradient
+        is S over receiver_csr."""
+        return gather_rows(x, self.receivers, self.receiver_csr)
 
 
 class _GatherSumLinear(TorchLinear):
@@ -263,7 +294,10 @@ class _GatherSumLinear(TorchLinear):
         self.widths = tuple(widths)
 
     def forward(self, parts, wide: bool = False) -> torch.Tensor:
-        """parts: one (tensor_or_None, gather_index_or_None) per width.
+        """parts: one (tensor_or_None, gather_or_None) per width, the gather
+        an index (index_select) or a function of the partial product (a
+        DeviceGraph's gather_senders / gather_receivers, whose gradient sums
+        in a fixed order).
 
         A None tensor skips its slice of the kernel, which is exact when that
         input is known to be all zeros. wide: as TorchLinear's.
@@ -273,7 +307,9 @@ class _GatherSumLinear(TorchLinear):
         for (tensor, idx), width in zip(parts, self.widths):
             if tensor is not None:
                 t = tensor @ self.kernel[offset : offset + width].to(tensor.dtype)
-                if idx is not None:
+                if callable(idx):
+                    t = idx(t)
+                elif idx is not None:
                     t = t.index_select(-2, idx)
                 y = t if y is None else y + t
             offset += width

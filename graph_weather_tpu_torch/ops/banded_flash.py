@@ -52,6 +52,8 @@ BWD_DQ_LAUNCHES = 0  # K4b, dq kernel
 BWD_DKV_SYMMETRIC_LAUNCHES = 0  # K4b, dk/dv kernel, symmetric role
 BWD_DKV_LAUNCHES = 0  # K4b, dk/dv kernel, general role
 MAX_CHANNELS = 512  # widest head the kernels' tiles hold
+# Where the wider heads are queued.
+WIDE_HEADS_TODO = "ROADMAP.md §2 item 4, 'Heads above c = 512'"
 KEY_TILE = 512  # the JAX contract: block and 2w are multiples of it
 _NEG = -1e30  # additive mask bias off an edge
 _SAFE = -1e28  # running-max start: exp(_NEG - _SAFE) == 0, no inf - inf
@@ -169,7 +171,9 @@ def _check(q, k, v, band_masks, block, w):
 
 def _check_cuda(what, c, tensors, band_masks):
     if c > MAX_CHANNELS:
-        raise ValueError(f"{what}: head width {c} > {MAX_CHANNELS}")
+        raise ValueError(
+            f"{what}: head width {c} > {MAX_CHANNELS} is not ported yet. See {WIDE_HEADS_TODO}."
+        )
     if band_masks.dtype != torch.int8:
         raise TypeError(f"{what}: band_masks must be int8 on the card")
     if not all(t.is_contiguous() for t in tensors):

@@ -50,6 +50,9 @@ launch the kernels, never the twins. Launch counts: `LAUNCHES` (K3a),
 `SYMMETRIC_DQ_LAUNCHES` and `SYMMETRIC_DKV_LAUNCHES` (K3c's two kernels)
 count the f32 kernels; `BF16_LAUNCHES`, `BF16_GENERAL_BWD_LAUNCHES`,
 `BF16_SYMMETRIC_DQ_LAUNCHES` and `BF16_SYMMETRIC_DKV_LAUNCHES` the bf16 ones.
+The launches at heads above WIDE_TILE_ABOVE channels, which run the W768
+tiles, are also counted apart: `WIDE_LAUNCHES`, `WIDE_SYMMETRIC_DQ_LAUNCHES`,
+`WIDE_SYMMETRIC_DKV_LAUNCHES` and their `BF16_WIDE_*` twins.
 """
 
 from __future__ import annotations
@@ -70,7 +73,17 @@ BF16_LAUNCHES = 0  # K3a, bf16
 BF16_GENERAL_BWD_LAUNCHES = 0  # K3b, bf16
 BF16_SYMMETRIC_DQ_LAUNCHES = 0  # K3c's dq kernel, bf16
 BF16_SYMMETRIC_DKV_LAUNCHES = 0  # K3c's dk/dv kernel, bf16
-MAX_CHANNELS = 512  # widest head the kernels' tiles hold
+WIDE_LAUNCHES = 0  # K3a at a head above WIDE_TILE_ABOVE (also in LAUNCHES)
+WIDE_SYMMETRIC_DQ_LAUNCHES = 0
+WIDE_SYMMETRIC_DKV_LAUNCHES = 0
+BF16_WIDE_LAUNCHES = 0
+BF16_WIDE_SYMMETRIC_DQ_LAUNCHES = 0
+BF16_WIDE_SYMMETRIC_DKV_LAUNCHES = 0
+MAX_CHANNELS = 768  # widest head K3a's and K3c's tiles hold
+WIDE_TILE_ABOVE = 512  # wider heads run the W768 tiles
+GENERAL_MAX_CHANNELS = 512  # widest head K3b's general dk/dv kernel holds
+# Where the wider heads of K3b's general backward are queued.
+WIDE_HEADS_TODO = "ROADMAP.md §2 item 4, 'Heads above c = 512'"
 _NEG = -1e30  # additive mask bias off an edge
 _SAFE = -1e28  # running-max start: exp(_NEG - _SAFE) == 0, no inf - inf
 
@@ -271,13 +284,27 @@ def _vec(c: int, tensors) -> int:
     return int(c % per == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
+def check_width(c: int, symmetric: bool = True, backward: bool = False) -> None:
+    """Raise, before any launch, for a head width the card's kernels do not
+    take: K3a and K3c up to MAX_CHANNELS, K3b's general backward up to
+    GENERAL_MAX_CHANNELS (wider ones are queued: WIDE_HEADS_TODO). Pure host
+    code: the wrapper calls it for CUDA tensors before the forward's launch
+    when a general backward will follow."""
+    if c > MAX_CHANNELS:
+        raise ValueError(f"clustered_flash_attention: head width {c} > {MAX_CHANNELS}")
+    if backward and not symmetric and c > GENERAL_MAX_CHANNELS:
+        raise ValueError(
+            f"clustered_flash_attention: the general backward (K3b) at head width {c} > "
+            f"{GENERAL_MAX_CHANNELS} is not ported yet. See {WIDE_HEADS_TODO}."
+        )
+
+
 def _forward_cuda(q, k, v, gather_ids, masks, block, with_lse):
     """K3a on the card: out, and lse [B, nb * block, h] when asked."""
     if not all(t.is_contiguous() for t in (q, k, v, gather_ids, masks)):
         raise ValueError("clustered_flash_attention: tensors must be contiguous")
     batch, n_q, n_kv, heads, c, nb, u_pad = _sizes(q, k, gather_ids)
-    if c > MAX_CHANNELS:
-        raise ValueError(f"clustered_flash_attention: head width {c} > {MAX_CHANNELS}")
+    check_width(c)
     out = torch.empty_like(q)
     lse = None
     if with_lse:
@@ -295,11 +322,14 @@ def _forward_cuda(q, k, v, gather_ids, masks, block, with_lse):
         raise RuntimeError(
             f"clustered_flash_attention: CUDA kernel launch failed (cudaError {err})"
         )
-    global LAUNCHES, BF16_LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES, WIDE_LAUNCHES, BF16_WIDE_LAUNCHES
+    wide = int(c > WIDE_TILE_ABOVE)
     if q.dtype == torch.bfloat16:
         BF16_LAUNCHES += 1
+        BF16_WIDE_LAUNCHES += wide
     else:
         LAUNCHES += 1
+        WIDE_LAUNCHES += wide
     return out, lse
 
 
@@ -327,6 +357,9 @@ def _backward_cuda(q, k, v, gather_ids, masks, out, lse, dout, block, symmetric,
     """K3c (symmetric) or K3b on the card. Returns (dq, dk, dv) in q's dtype."""
     global GENERAL_BWD_LAUNCHES, SYMMETRIC_DQ_LAUNCHES, SYMMETRIC_DKV_LAUNCHES
     global BF16_GENERAL_BWD_LAUNCHES, BF16_SYMMETRIC_DQ_LAUNCHES, BF16_SYMMETRIC_DKV_LAUNCHES
+    global WIDE_SYMMETRIC_DQ_LAUNCHES, WIDE_SYMMETRIC_DKV_LAUNCHES
+    global BF16_WIDE_SYMMETRIC_DQ_LAUNCHES, BF16_WIDE_SYMMETRIC_DKV_LAUNCHES
+    check_width(q.shape[-1], symmetric, backward=True)
     if not symmetric and scatter_index is None:
         raise ValueError(_NO_SCATTER_INDEX)
     if not all(t.is_contiguous() for t in (q, k, v, gather_ids, masks, lse, dout)):
@@ -343,12 +376,17 @@ def _backward_cuda(q, k, v, gather_ids, masks, out, lse, dout, block, symmetric,
         dk, dv = torch.empty_like(k), torch.empty_like(v)
         _launch_backward(_SYMMETRIC_DQ, *args, dq, None, None, block)
         _launch_backward(_SYMMETRIC_DKV, *args, None, dk, dv, block)
+        wide = int(c > WIDE_TILE_ABOVE)
         if q.dtype == torch.bfloat16:
             BF16_SYMMETRIC_DQ_LAUNCHES += 1
             BF16_SYMMETRIC_DKV_LAUNCHES += 1
+            BF16_WIDE_SYMMETRIC_DQ_LAUNCHES += wide
+            BF16_WIDE_SYMMETRIC_DKV_LAUNCHES += wide
         else:
             SYMMETRIC_DQ_LAUNCHES += 1
             SYMMETRIC_DKV_LAUNCHES += 1
+            WIDE_SYMMETRIC_DQ_LAUNCHES += wide
+            WIDE_SYMMETRIC_DKV_LAUNCHES += wide
         return dq, dk, dv
     local = q.shape[:-3] + (nb, u_pad) + q.shape[-2:]  # [B, nb, U_pad, h, c]
     dk_loc, dv_loc = (torch.empty(local, dtype=q.dtype, device=q.device) for _ in range(2))
@@ -436,8 +474,10 @@ def clustered_flash_attention(
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"clustered_flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        if q.device.type == "cuda" and not symmetric and scatter_index is None:
-            raise ValueError(_NO_SCATTER_INDEX)
+        if q.device.type == "cuda":
+            check_width(q.shape[-1], symmetric, backward=True)
+            if not symmetric and scatter_index is None:
+                raise ValueError(_NO_SCATTER_INDEX)
         return _ClusteredFlashAttention.apply(
             q, k, v, gather_ids, masks, block, symmetric, scatter_index
         )

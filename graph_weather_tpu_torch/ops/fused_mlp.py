@@ -71,7 +71,7 @@ from graph_weather_tpu_torch.ops.edge_mlp import _batch_stride, _ptr, _rows_cont
 from graph_weather_tpu_torch.ops.scatter import (
     chunked_csr_agg,
     segment_sum_bf16,
-    segment_sum_bf16_reference,
+    edge_order_sum_reference,
 )
 
 LAUNCHES = 0  # K2 (csrc/edge_mlp.cu, partial-product mode)
@@ -159,7 +159,7 @@ def _param_grads(p_src, p_dst, e, dh0, de, sums, plain=False):
     CSRs of bf16 (S, in edge order; its plain version when `plain`)."""
     sender_sum, receiver_sum, sender_csr, receiver_csr = sums
     bf16 = dh0.dtype == torch.bfloat16
-    edge_order_sum = segment_sum_bf16_reference if plain else segment_sum_bf16
+    edge_order_sum = edge_order_sum_reference if plain else segment_sum_bf16
 
     def node_sum(levels, csr):
         return edge_order_sum(dh0, *csr) if bf16 else chunked_csr_agg(dh0, levels)

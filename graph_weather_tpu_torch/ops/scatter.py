@@ -1,19 +1,20 @@
 """Edge->node aggregation primitives (port of graph_weather_tpu/ops/scatter.py).
 
 Both strategies are XLA in the JAX package, so they are plain PyTorch here,
-but for the bf16 segment sum, which is a CUDA kernel on the card:
+but for the edge-order segment sum, which is a CUDA kernel on the card:
 
-  * `segment_sum_agg`: `index_add_` over the receiver ids. Works for any
-    degree distribution (grid->mesh cells receive up to 720 grid points at
-    the poles of a 1° grid). On CUDA the sum uses atomics, so its order,
-    and the last bits of the result, change from run to run. The JAX
-    package's bf16 `segment_sum` is `segment_sum_bf16`.
-  * `segment_sum_bf16` ("S", csrc/segment_sum_bf16.cu): the bf16 sum of
-    XLA's `segment_sum`, and of the gradient of `jnp.take` (a scatter-add):
-    each node's edges one at a time, in edge order, every partial sum
-    rounded to bf16, over a flat CSR (`build_flat_csr`: offsets [N + 1],
-    edge ids [E]). No atomics: the card repeats its bits and matches the
-    plain version, `segment_sum_bf16_reference`, bit for bit.
+  * `segment_sum_agg`: `index_add_` over the receiver ids, the reference
+    the tests hold the fixed-order sums to. On CUDA it adds with atomics,
+    so its order, and the last bits of the result, change from run to run:
+    no model path of the port takes it.
+  * `edge_order_sum` ("S", csrc/segment_sum.cu): the sum of XLA's
+    `segment_sum`, and of the gradient of `jnp.take` (a scatter-add): each
+    node's edges one at a time, in edge order, over a flat CSR
+    (`build_flat_csr`: offsets [N + 1], edge ids [E]); in bf16 every
+    partial sum rounded to bf16 (`segment_sum_bf16`), in f32 with f32's
+    own adds. No atomics: the card repeats its bits and matches the plain
+    version, `edge_order_sum_reference`, bit for bit. `gather_rows` is a
+    gather onto edges whose gradient is this sum.
   * `padded_csr_agg`: for bounded-degree graphs (latent mesh and
     mesh->grid: <= 7) a dense [N, K] gather and masked sum, scatter-free
     and deterministic. In bf16 the sum runs in f32 and is rounded once, as
@@ -35,7 +36,8 @@ import torch
 
 from graph_weather_tpu_torch.ops._build import c_function
 
-LAUNCHES = 0  # S (csrc/segment_sum_bf16.cu)
+LAUNCHES = 0  # S in bf16 (csrc/segment_sum.cu)
+F32_LAUNCHES = 0  # S in f32
 
 _c_ptr, _c_i64, _c_int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = [
@@ -66,14 +68,14 @@ def build_flat_csr(ids: np.ndarray, n_nodes: int) -> tuple[np.ndarray, np.ndarra
     return offsets, np.argsort(ids, kind="stable").astype(np.int32)
 
 
-def segment_sum_bf16_reference(
+def edge_order_sum_reference(
     edge_feats: torch.Tensor, offsets: torch.Tensor, edge_ids: torch.Tensor
 ) -> torch.Tensor:
     """Plain PyTorch version of S: at step j, the j-th edge of every node
-    with more than j edges is added to its partial sum in bf16 (rounded),
-    over the padded table of the flat CSR. The number of steps, the longest
-    run, is read from the offsets: on the host where the port runs it (CPU
-    tensors), a host sync on the card."""
+    with more than j edges is added to its partial sum in the rows' dtype
+    (so rounded to bf16 in bf16), over the padded table of the flat CSR.
+    The number of steps, the longest run, is read from the offsets: on the
+    host where the port runs it (CPU tensors), a host sync on the card."""
     starts = offsets[:-1].long()
     counts = offsets[1:].long() - starts
     max_degree = int(counts.max()) if counts.numel() else 0
@@ -86,10 +88,14 @@ def segment_sum_bf16_reference(
     return out
 
 
-def _check_bf16_sum(edge_feats, offsets, edge_ids):
-    name = "segment_sum_bf16"
-    if edge_feats.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: edge rows must be bfloat16")
+_S_DTYPES = (torch.float32, torch.bfloat16)  # S's instantiations on the card
+
+
+def _check_sum(name, edge_feats, offsets, edge_ids):
+    if not edge_feats.is_floating_point() or (
+        edge_feats.device.type != "cpu" and edge_feats.dtype not in _S_DTYPES
+    ):
+        raise TypeError(f"{name}: edge rows must be float32 or bfloat16 (any float on the CPU)")
     if offsets.dtype != torch.int32 or edge_ids.dtype != torch.int32:
         raise TypeError(f"{name}: offsets and edge ids must be int32")
     if offsets.dim() != 1 or offsets.shape[0] < 1 or edge_ids.shape != (edge_feats.shape[-2],):
@@ -99,34 +105,39 @@ def _check_bf16_sum(edge_feats, offsets, edge_ids):
 
 
 def _segment_sum_cuda(edge_feats, offsets, edge_ids):
-    """One S launch on [..., E, F] rows."""
+    """One S launch on [..., E, F] rows (bf16 or f32)."""
     lead, (n_edges, width) = edge_feats.shape[:-2], edge_feats.shape[-2:]
     rows = edge_feats.reshape(-1, n_edges, width)
     if rows.stride(-1) != 1 or (n_edges > 1 and rows.stride(-2) != width):
         rows = rows.contiguous()
     n_nodes, batch = offsets.shape[0] - 1, rows.shape[0]
-    out = torch.empty((batch, n_nodes, width), dtype=torch.bfloat16, device=rows.device)
+    out = torch.empty((batch, n_nodes, width), dtype=rows.dtype, device=rows.device)
     if out.numel():
+        bf16 = rows.dtype == torch.bfloat16
+        entry = "gwt_segment_sum_bf16" if bf16 else "gwt_segment_sum_f32"
         with torch.cuda.device(rows.device):
             stream = torch.cuda.current_stream().cuda_stream
-            err = c_function("segment_sum_bf16", "gwt_segment_sum_bf16", _ARGTYPES)(
+            err = c_function("segment_sum", entry, _ARGTYPES)(
                 rows.data_ptr(), rows.stride(0) if batch > 1 else 0,
                 offsets.data_ptr(), edge_ids.data_ptr(), out.data_ptr(),
                 n_nodes, width, batch, stream,
             )
         if err != 0:
-            raise RuntimeError(f"segment_sum_bf16: CUDA kernel launch failed (cudaError {err})")
-        global LAUNCHES
-        LAUNCHES += 1
+            raise RuntimeError(f"edge_order_sum: CUDA kernel launch failed (cudaError {err})")
+        global LAUNCHES, F32_LAUNCHES
+        if bf16:
+            LAUNCHES += 1
+        else:
+            F32_LAUNCHES += 1
     return out.reshape(lead + (n_nodes, width))
 
 
-def _segment_sum_bf16(edge_feats, offsets, edge_ids):
-    _check_bf16_sum(edge_feats, offsets, edge_ids)
+def _edge_order_sum(edge_feats, offsets, edge_ids):
+    _check_sum("edge_order_sum", edge_feats, offsets, edge_ids)
     if edge_feats.device.type == "cpu":
-        return segment_sum_bf16_reference(edge_feats, offsets, edge_ids)
+        return edge_order_sum_reference(edge_feats, offsets, edge_ids)
     if edge_feats.device.type != "cuda":
-        raise ValueError(f"segment_sum_bf16: no kernel for device {edge_feats.device}")
+        raise ValueError(f"edge_order_sum: no kernel for device {edge_feats.device}")
     return _segment_sum_cuda(edge_feats, offsets, edge_ids)
 
 
@@ -137,7 +148,7 @@ class _EdgeOrderSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, edge_feats, offsets, edge_ids, nodes):
         ctx.save_for_backward(nodes)
-        return _segment_sum_bf16(edge_feats, offsets, edge_ids)
+        return _edge_order_sum(edge_feats, offsets, edge_ids)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -146,24 +157,66 @@ class _EdgeOrderSum(torch.autograd.Function):
         return grad.index_select(-2, nodes), None, None, None
 
 
+def edge_order_sum(
+    edge_feats: torch.Tensor,
+    offsets: torch.Tensor,
+    edge_ids: torch.Tensor,
+    nodes: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Sum [..., E, F] edge rows to [..., N, F] nodes through the flat CSR
+    (offsets int32 [N + 1], edge_ids int32 [E]; `build_flat_csr`), each
+    node's edges one at a time in the CSR's order: in bf16 each partial sum
+    rounded to bf16, in f32 (and, on the CPU, f64) in the rows' own adds.
+    CPU tensors take the plain version, CUDA tensors the kernel S (never
+    one for the other). Differentiable when `nodes` ([E], the node of each
+    edge) is given: the gradient of an edge row is its node's; without
+    `nodes`, rows that need a gradient raise on either device."""
+    if torch.is_grad_enabled() and edge_feats.requires_grad:
+        if nodes is None:
+            raise ValueError("edge_order_sum: rows that need a gradient need `nodes`")
+        return _EdgeOrderSum.apply(edge_feats, offsets, edge_ids, nodes)
+    return _edge_order_sum(edge_feats, offsets, edge_ids)
+
+
 def segment_sum_bf16(
     edge_feats: torch.Tensor,
     offsets: torch.Tensor,
     edge_ids: torch.Tensor,
     nodes: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Sum bf16 [..., E, F] edge rows to [..., N, F] nodes through the flat
-    CSR (offsets int32 [N + 1], edge_ids int32 [E]; `build_flat_csr`), each
-    node's edges one at a time in the CSR's order, each partial sum rounded
-    to bf16. CPU tensors take the plain version, CUDA tensors the kernel S
-    (never one for the other). Differentiable when `nodes` ([E], the node
-    of each edge) is given: the gradient of an edge row is its node's;
-    without `nodes`, rows that need a gradient raise on either device."""
-    if torch.is_grad_enabled() and edge_feats.requires_grad:
-        if nodes is None:
-            raise ValueError("segment_sum_bf16: rows that need a gradient need `nodes`")
-        return _EdgeOrderSum.apply(edge_feats, offsets, edge_ids, nodes)
-    return _segment_sum_bf16(edge_feats, offsets, edge_ids)
+    """`edge_order_sum` of bf16 rows (each partial sum rounded to bf16, as
+    the JAX package's bf16 segment_sum); other dtypes raise."""
+    if edge_feats.dtype != torch.bfloat16:
+        raise TypeError("segment_sum_bf16: edge rows must be bfloat16")
+    return edge_order_sum(edge_feats, offsets, edge_ids, nodes)
+
+
+class _GatherRows(torch.autograd.Function):
+    """x[..., index, :], whose gradient sums each row's edges in edge order
+    through `csr` (S), where index_select's own gradient is index_add_
+    (atomics on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, index, offsets, edge_ids):
+        ctx.csr = (offsets, edge_ids)
+        return x.index_select(-2, index)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        return _edge_order_sum(grad.contiguous(), *ctx.csr), None, None, None
+
+
+def gather_rows(x: torch.Tensor, index: torch.Tensor, csr: tuple) -> torch.Tensor:
+    """Rows `index` ([E] int32) of x [..., N, F] -> [..., E, F], a gather
+    onto edges. Its gradient is the edge-order sum S over `csr`, the flat
+    CSR of `index` (`build_flat_csr(index, N)`: a DeviceGraph's sender_csr
+    or receiver_csr): each node's edges added in edge order, in a fixed
+    order on the card, as the gradient of the JAX package's jnp.take adds
+    them on the CPU."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherRows.apply(x, index, *csr)
+    return x.index_select(-2, index)
 
 
 def _table_sum(edge_feats: torch.Tensor, edge_ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

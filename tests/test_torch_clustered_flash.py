@@ -22,6 +22,7 @@ from graph_weather_tpu_torch.ops.clustered_flash import (
     clustered_flash_attention,
     clustered_flash_forward_reference,
 )
+from graph_weather_tpu_torch.ops.scatter import build_flat_csr
 from graph_weather_tpu_torch.ops.segment_softmax import segment_softmax
 
 torch.set_num_threads(1)
@@ -106,7 +107,8 @@ def test_segment_softmax_matches_jax(lead):
     s, r = _graph(rng, 50)
     logits = (3.0 * rng.standard_normal(lead + (r.size, 4))).astype(np.float32)
     want = np.asarray(jax_segment_softmax(jnp.asarray(logits), jnp.asarray(r), 50))
-    got = segment_softmax(torch.from_numpy(logits), torch.from_numpy(r), 50).numpy()
+    csr = [torch.from_numpy(a) for a in build_flat_csr(r, 50)]
+    got = segment_softmax(torch.from_numpy(logits), torch.from_numpy(r), 50, csr).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL)
     sums = torch.zeros(lead + (50, 4)).index_add_(-2, torch.from_numpy(r), torch.from_numpy(got))
     np.testing.assert_allclose(np.delete(sums.numpy(), [3, 17], axis=-2), 1.0, atol=1e-5)

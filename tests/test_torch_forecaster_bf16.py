@@ -207,7 +207,7 @@ def test_segment_softmax_bf16_is_jax():
     args = (torch.from_numpy(logits).bfloat16(), torch.from_numpy(receivers), 50)
     got = segment_softmax(*args, csr)
     np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
-    with pytest.raises(ValueError, match="flat CSR"):
+    with pytest.raises(TypeError, match="receiver_csr"):
         segment_softmax(*args)
 
 

@@ -349,7 +349,7 @@ def test_segment_sum_bf16_matches_plain(gen, width, batch):
     again = scatter.segment_sum_bf16(rows, offsets, edge_ids)
     torch.cuda.synchronize()
     assert scatter.LAUNCHES == before + 2
-    want = scatter.segment_sum_bf16_reference(rows, offsets, edge_ids)
+    want = scatter.edge_order_sum_reference(rows, offsets, edge_ids)
     assert got.dtype == torch.bfloat16 and torch.equal(got, want) and torch.equal(got, again)
 
 
@@ -677,6 +677,74 @@ def test_clustered_flash_bf16_matches_plain(gen, c, batch):
         assert max(_bf16_err(a, b) for a, b in zip(grads, want)) <= 1
         assert all(bool((t[:, 5] == 0).all()) for t in grads)
     assert bool((out[:, 5] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("c", [192, 766, 768])
+def test_clustered_fgn_widths_match_plain(gen, c, dtype):
+    """K3a (with and without lse) and K3c at FGN's head widths: c = 192 (its
+    23 blocks, on the W256 tile) and 768 (its last block, on W768: one copy
+    stage in f32, two in bf16), and 766 (W768 with zeros past c and the
+    scalar copies), B = 2, a symmetric layout with a ragged last block:
+    against the plain versions (f32 within ATOL; bf16 within two ulps of
+    the max, lse ATOL), exact zeros for the node without an edge, bit-equal
+    over two launches, the launch counts of the dtype move; K3b's general
+    backward refuses c > 512 before any launch."""
+    q, k, v, dout, ids, masks, block = _symmetric_case(gen, 2, 701, 2, c, 256, seed=c)
+    if dtype == "bf16":
+        q, k, v, dout = (t.bfloat16() for t in (q, k, v, dout))
+    before = _k3_counts()
+    with torch.no_grad():
+        out = clustered_flash.clustered_flash_attention(q, k, v, ids, masks, block)
+    out_l, lse = clustered_flash._forward_cuda(q, k, v, ids, masks, block, with_lse=True)
+    args = (q, k, v, ids, masks, out_l, lse, dout, block)
+    grads = clustered_flash._backward_cuda(*args, True, None)
+    again = clustered_flash._backward_cuda(*args, True, None)
+    torch.cuda.synchronize()
+    made = tuple(a - b for a, b in zip(_k3_counts(), before))
+    assert made == ((2, 0, 2, 2, 0, 0, 0, 0) if dtype == "f32" else (0, 0, 0, 0, 2, 0, 2, 2))
+    ref, ref_lse = clustered_flash.clustered_flash_forward_reference(q, k, v, ids, masks, block,
+                                                                     with_lse=True)
+    want = clustered_flash.clustered_flash_backward_reference(*args, symmetric=True)
+    for got, wanted in ((out, ref), (out_l, ref), *zip(grads, want)):
+        assert got.dtype == q.dtype and got.shape == wanted.shape
+        if dtype == "f32":
+            assert (got - wanted).abs().max().item() <= ATOL
+        else:
+            assert _bf16_err(got, wanted) <= 1.0
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    assert all(bool((t[:, 5] == 0).all()) for t in (out, *grads))
+    scatter = torch.zeros(701, 1, dtype=torch.int64, device="cuda")
+    if c > 512:
+        with pytest.raises(ValueError, match="§2 item 4"):
+            clustered_flash._backward_cuda(*args, False, scatter)
+    assert _k3_counts()[1] == before[1] and _k3_counts()[5] == before[5]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 7, 768])
+@pytest.mark.parametrize("batch", [1, 3])
+def test_segment_sum_f32_matches_plain(gen, width, batch):
+    """S in f32 against its plain version, bit for bit, over unsorted ids
+    with empty nodes and one node of 600 edges; a second launch repeats its
+    bits; within f32 rounding of index_add_; the f32 count moves."""
+    rng = np.random.default_rng(width + batch)
+    ids = np.concatenate([rng.integers(0, 90, 2000), np.full(600, 17)]).astype(np.int32)
+    ids = rng.permutation(ids[ids % 11 != 3])
+    offsets, edge_ids = (torch.as_tensor(a, device="cuda") for a in build_flat_csr(ids, 90))
+    rows = torch.randn(batch, ids.size, width, generator=gen, device="cuda")
+    before = scatter.F32_LAUNCHES, scatter.LAUNCHES
+    got = scatter.edge_order_sum(rows, offsets, edge_ids)
+    again = scatter.edge_order_sum(rows, offsets, edge_ids)
+    torch.cuda.synchronize()
+    assert (scatter.F32_LAUNCHES, scatter.LAUNCHES) == (before[0] + 2, before[1])
+    want = scatter.edge_order_sum_reference(rows, offsets, edge_ids)
+    assert got.dtype == torch.float32 and torch.equal(got, want) and torch.equal(got, again)
+    index = torch.as_tensor(ids, device="cuda").long()
+    atomics = torch.zeros_like(got).index_add_(1, index, rows)
+    assert (got - atomics).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
