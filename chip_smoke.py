@@ -23,12 +23,22 @@ them (phases 51-55); and FGN at bench.py's reference scale (128 x 64 grid,
 89 -> 83 features, a noise vector of 32, 768-d, 24 blocks of 4 heads: c =
 192, the last c = 768; splits-6 icosphere, 6 hops, clustered attention):
 member requests, the 8-member ensemble, an ensemble rollout and remat
-training, in f32 and bf16 (phases 56-61).
-Phases, one line each, in order; any failure raises and ends the run with a
-non-zero exit:
+training, in f32 and bf16 (phases 56-61); and the banded GenCast denoiser
+in bf16: serving, the 20-step sampler, the AR rollout and training (phases
+62-64).
+Phases, in order, each ending with a `[time] phase N wall W s cpu C s` line
+(C: the seconds it waited on CPU checks); any failure raises and ends the
+run with a non-zero exit. The CPU checks that need nothing from the card
+(phases 5, 10, 20, 29, 35's second part, 40, 45, 49, 61 and 63: CPU_JOBS,
+on the initial weights and the seeded inputs) run in worker processes
+started before phase 2's nvcc build and stopped whenever the script times
+anything, so no time the script reports is taken while they run; each
+phase waits for its job where it is not done (CPU-check time) and checks
+that it used the card's weights and inputs:
 
   1. card: nvidia-smi's name and power limit, torch and CUDA versions
-  2. build: every CUDA kernel from csrc/, one nvcc each, all at once, timed
+  2. build: every CUDA kernel from csrc/, one nvcc each, all at once, timed,
+     the CPU_JOBS pool (CPU_REF_PROCESSES x CPU_REF_THREADS) started before it
   3. the fused edge update in both modes of csrc/edge_mlp.cu, K1 (raw node
      rows) and K2 (per-node partial products), split-TF32 mma.sync, against
      their plain PyTorch versions at the three main-path shapes (g2m, latent,
@@ -204,8 +214,8 @@ non-zero exit:
      exactly 16 K6 (with lse), 16 K6b dq and 16 K6b dk/dv launches and no
      K5a or K5b launch; finite loss, every parameter changed; ms per step,
      peak GiB, a profile of one more step
- 43. the same weights and one batch at 28 x 60 (latent [14, 7, 15]; at 3
-     deg the CPU would take ~4 min), forward and backward on the card
+ 43. the same weights and one batch at 28 x 36 (WM_WIDE_GRAD_GRID: latent
+     [14, 7, 9]; at 3 deg the CPU would take ~4 min), forward and backward on the card
      twice, where the loss and gradients must repeat bit for bit; then at
      2 processor layers (WM_WIDE_CHECK_LAYERS) on the card and on the CPU:
      loss within 1e-5 relative, every gradient within 1e-3 of its tensor's
@@ -236,9 +246,10 @@ non-zero exit:
      forward_fn, each with exactly 16 bf16 K3a, 16 K3c dq and 16 K3c dk/dv
      launches and no K3b or f32 K3 launch; the parameters stay f32 and all
      change; ms per step, peak GiB, a profile of one more step; then the
-     bf16 gradients of phase 16's objective at phase 16's weights and batch,
-     on the card and on the CPU: global norm of card - CPU <= 0.9 global
-     norm of card bf16 - card f32 (phase 16's gradients; BF16_CARD_GRAD_RULE),
+     bf16 gradients of phase 16's objective at phase 16's weights and batch
+     at GENCAST_CHECK_BLOCKS blocks, on the card and on the CPU: global norm
+     of card - CPU <= 0.9 global norm of card bf16 - card f32 (phase 16's
+     gradients at those blocks; BF16_CARD_GRAD_RULE),
      with the CPU's own reading (its gradients with 1 in 2,000 inputs one
      ulp off) taken and printed beside a miss (it read 0.668 against the
      card's 0.665-0.672 in PRs 16-18); the step time beside the earlier one
@@ -301,7 +312,7 @@ non-zero exit:
      requests, 16 bf16 K6 launches a request)
  55. wm_wide_train_bf16: phase 53 for the 768-d model, each step with exactly
      16 bf16 K6 (with lse and out32), 16 bf16 K6b dq, 16 dk/dv and 16 of each
-     drpb kernel; the CPU check at 28 x 60 (WM_WIDE_GRAD_GRID) and 2
+     drpb kernel; the CPU check at 28 x 36 (WM_WIDE_GRAD_GRID) and 2
      processor layers (WM_WIDE_CHECK_LAYERS), the repeat at full depth
  56. FGN's build: registers and spills of K3a's and K3c's c = 768
      instantiations (W768: one row group of 8 warps of 96 channels; one copy
@@ -341,28 +352,61 @@ non-zero exit:
      card's bf16-to-f32 distance, GenCast's rule (phases 45, 47), the
      card's own one-ulp reading printed beside it; beside a miss the CPU's
      own reading, and the limit the larger of that, 0.5 and GenCast's
+ 62. GenCast's bf16 policy on the banded attention: the bf16 instantiations
+     of banded_flash.cu and banded_flash_bwd.cu (phase 2's build; their bf16
+     tensor-core instructions in SASS, which must not be 0; the f32
+     instantiations' registers and spills as K4_F32_PTXAS), then K4a in
+     bf16 (with and without lse) and K4b in bf16 (dq; dk/dv in the symmetric
+     and the general role) against their plain versions on bf16 inputs on
+     the real splits-5 band (the banded Denoiser's graph) at c = 128 and
+     512: out, dq, dk, dv within 2^-6 of their max, lse within 1e-4, padded
+     rows exactly 0, bit-equal repeats; CUDA-event medians of each, of the
+     f32 kernel on the same values, of the plain version and of SDPA in bf16
+     on the stacked windows (timed only); per evaluation and train step and
+     the bounds (2 bytes an element, 989 TFLOP/s)
+ 63. band_serve_bf16: phase 28's weights and requests through
+     forward_fn(compute_dtype=torch.bfloat16), each with exactly 16 bf16 K4a
+     launches and no f32 K4 or any K3 launch, f32 out; ms per request beside
+     phases 28 and 45's, a profile of one more; a 20-step sample (592 bf16
+     K4a) and a 2-step AR rollout, timed; the last request at
+     GENCAST_CHECK_BLOCKS blocks on the card (bf16 and f32) and on the CPU
+     (bf16): RMSE(card bf16 - CPU bf16) <= 0.75 RMSE(card bf16 - card f32)
+     (BF16_CARD_RULE; the CPU's own one-ulp reading printed beside a miss)
+ 64. band_train_bf16: 3 steps of phase 47's objective through the banded
+     bf16 forward_fn, each with exactly 16 bf16 K4a (with lse), 16 dq and 16
+     symmetric dk/dv launches and no general one, no f32 K4 or K3 launch;
+     f32 parameters, all changed; ms per step beside phases 30 and 47's,
+     peak GiB, a profile; the loss and gradients twice, bit for bit; then at
+     GENCAST_CHECK_BLOCKS blocks the bf16 gradients on the card and on the
+     CPU within 0.9 (BF16_CARD_GRAD_RULE) of the card's bf16-to-f32 distance
+     in global norm, the CPU's own one-ulp reading beside a miss
 
-then one JSON line on the kernels, the card's name and power limit, and
-last {"ok": true, "device": ...}.
+then the run's wall seconds and CPU-check seconds, one JSON line on the
+kernels, the card's name and power limit, and last {"ok": true, "device": ...}.
 Exits non-zero without a CUDA device, or when the port's package is not
-beside this file. f32 but for phases 44-55 and FGN's bf16 (bf16); TF32 is
+beside this file. f32 but for phases 44-55, 62-64 and FGN's bf16 (bf16); TF32 is
 off, but for the bf16 WeatherMesh's convolutions of bf16 values (exact in
 TF32).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import faulthandler
 import functools
+import hashlib
 import json
 import math
+import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import time
+from concurrent import futures
 from pathlib import Path
 
 import numpy as np
@@ -447,6 +491,27 @@ WM_LATENT = (14, 45, 90)  # 13 levels + the surface slice, on 180/4 x 360/4
 K5_PER_FORWARD = 8  # 2 encoder + 4 processor + 2 decoder attention layers
 K5_TOL = 1e-4  # softmax-weighted sums over <= 245 keys in another order
 K4_TOL = 1e-4  # softmax-weighted sums over <= 2,560 window slots in another order
+# ptxas's registers and spills of K4a's and K4b's f32 instantiations as they
+# were before the kernels took bf16 (scripts/k4_f32_sass_ab.py, which also
+# compares their SASS): phase 62 fails where the templated build differs.
+K4_F32_PTXAS = {  # kernel <template integers>: (registers, spill store bytes, spill load bytes)
+    "banded_flash_kernel <128, 8, 1, 32>": (206, 0, 0),
+    "banded_flash_kernel <256, 4, 2, 16>": (209, 0, 0),
+    "banded_flash_kernel <32, 8, 1, 64>": (126, 0, 0),
+    "banded_flash_kernel <512, 2, 4, 16>": (209, 0, 0),
+    "banded_flash_bwd_kernel <128, 4, 2, 32, 0>": (174, 0, 0),
+    "banded_flash_bwd_kernel <128, 4, 2, 32, 1>": (232, 0, 0),
+    "banded_flash_bwd_kernel <128, 4, 2, 32, 2>": (232, 0, 0),
+    "banded_flash_bwd_kernel <256, 2, 4, 16, 0>": (158, 0, 0),
+    "banded_flash_bwd_kernel <256, 2, 4, 16, 1>": (216, 0, 0),
+    "banded_flash_bwd_kernel <256, 2, 4, 16, 2>": (216, 0, 0),
+    "banded_flash_bwd_kernel <32, 8, 1, 32, 0>": (149, 0, 0),
+    "banded_flash_bwd_kernel <32, 8, 1, 32, 1>": (182, 0, 0),
+    "banded_flash_bwd_kernel <32, 8, 1, 32, 2>": (182, 0, 0),
+    "banded_flash_bwd_kernel <512, 1, 8, 16, 0>": (158, 0, 0),
+    "banded_flash_bwd_kernel <512, 1, 8, 16, 1>": (216, 0, 0),
+    "banded_flash_bwd_kernel <512, 1, 8, 16, 2>": (216, 0, 0),
+}
 # The 768-d WeatherMesh: WEATHERMESH's conv stack with the JAX package's
 # default attention (models/weathermesh/model.py): 8 heads of 96 at kernel
 # (5, 7, 7), 3 + 10 + 3 layers. K5a cannot tile these heads; K6 takes them.
@@ -456,14 +521,17 @@ WM_WIDE = {
     "decoder_num_transformer_layers": 3,
 }
 WM_WIDE_CHECK_GRID = (28, 60)  # phase 40's card-against-CPU forward
-WM_WIDE_GRAD_GRID = (28, 60)  # phase 43's card-against-CPU gradients: latent [14, 7, 15]
+# Phases 43 and 55's card-against-CPU gradients: latent [14, 7, 9] (at 28 x
+# 60, 53 and 60 s of CPU on an H100 host: PERF.md §7 item 5).
+WM_WIDE_GRAD_GRID = (28, 36)
 # Phases 40, 43 and 55 hold the 768-d model against the CPU at this processor
 # depth (3 + 2 + 3 attention layers, the trained model's first two processor
-# layers), and phases 16 and 31 GenCast's gradients at GENCAST_CHECK_BLOCKS
+# layers), and phases 16, 31, 47, 63 and 64 GenCast's at GENCAST_CHECK_BLOCKS
 # blocks (its first and its last, heads-averaged, one): at full depth, with
 # FGN's phases, the script took 1,296 s of its 1,200 on an H100 whose host
 # ran the CPU checks ~1.5x slower than others (phase 43 97 s, 40 48 s, 31
-# 44 s, 16 41 s, 55 86 s at full depth there or before; PERF.md §6, PR 18).
+# 44 s, 16 41 s, 55 86 s at full depth there or before; 47 50 s at full
+# depth; PERF.md §6 and §7 item 5).
 WM_WIDE_CHECK_LAYERS = 2
 GENCAST_CHECK_BLOCKS = 2
 K6_PER_FORWARD = 16  # 3 encoder + 10 processor + 3 decoder attention layers
@@ -488,15 +556,16 @@ def cuda_ms(fn, runs: int = TIMING_RUNS, batch: int = 5) -> float:
     work), `runs` times, after one warm-up."""
     fn()
     times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(batch):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / batch)
+    with quiet():
+        for _ in range(runs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(batch):
+                fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -939,6 +1008,7 @@ def gencast_bf16_phases(port, clustered_flash, build, gen, ref: dict) -> dict:
           f"backward {bwd16_sdpa:.4f}, bound {bwd16_bound:.4f} {bwd16_by} | phase "
           f"{time.perf_counter() - t44:.1f} s", flush=True)
 
+    CLOCK.mark(44)
     # 45. bf16 serving: phase 9's weights and requests through forward_fn(bfloat16)
     t45 = time.perf_counter()
 
@@ -985,28 +1055,25 @@ def gencast_bf16_phases(port, clustered_flash, build, gen, ref: dict) -> dict:
           f"(phase 9) {[round(t, 3) for t in ref['denoise_ms']]} | earlier bf16 request_ms "
           f"{GENCAST_BF16_EARLIER_MS['request']}", flush=True)
     profile_request(lambda: serve16(x, cond, sigma), "bf16 request")
-    cpu16 = port.Denoiser(**GENCAST, device="cpu")
-    cpu16.module.load_state_dict(ref["weights9"])
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        cpu_out16 = cpu16.forward_fn(compute_dtype=torch.bfloat16)(x.cpu(), cond.cpu(), sigma.cpu())
-    cpu_s = time.perf_counter() - t0
+    # The CPU's bf16 run (from the CPU pool), and its own reading: the same
+    # request with one bf16 ulp added to a random 1 in 2,000 of the
+    # corrupted targets' elements.
+    cpu_ref = cpu_reference("gencast", ref["weights9"], x, cond)
+    cpu_out16, cpu_flipped = (torch.from_numpy(cpu_ref[k]) for k in ("out16", "flip16"))
+    cpu_s, n_flips = cpu_ref["seconds"], cpu_ref["n_flips"]
     to_cpu = rmse(out16.cpu(), cpu_out16)
     to_f32 = rmse(out16.cpu(), ref["out9"])  # the card's f32 output of the same request
-    # The CPU's own reading: the same request with one bf16 ulp added to a
-    # random 1 in 2,000 of the corrupted targets' elements.
-    flipped, n_flips = one_ulp_off(x, 8)
-    with torch.no_grad():
-        cpu_flipped = cpu16.forward_fn(compute_dtype=torch.bfloat16)(flipped, cond.cpu(), sigma.cpu())
     print(f"[cpu] bf16 denoiser: RMSE card bf16 - CPU bf16 {to_cpu:.4e} | RMSE card bf16 - card f32 "
           f"{to_f32:.4e} | ratio {to_cpu / to_f32:.3f} (limit {BF16_CARD_RULE}) | CPU bf16 against "
           f"itself with {n_flips} inputs one ulp off {rmse(cpu_out16, cpu_flipped) / to_f32:.3f} "
-          f"| max |card - CPU| {(out16.cpu() - cpu_out16).abs().max().item():.3e} | cpu bf16 forward "
-          f"{cpu_s:.2f} s | phase {time.perf_counter() - t45:.1f} s", flush=True)
+          f"| max |card - CPU| {(out16.cpu() - cpu_out16).abs().max().item():.3e} | cpu job (f32, bf16 "
+          f"and one-ulp forwards, in the CPU pool) {cpu_s:.2f} s | phase "
+          f"{time.perf_counter() - t45:.1f} s", flush=True)
     if not (to_cpu <= BF16_CARD_RULE * to_f32):
         raise AssertionError(f"bf16 denoiser card vs CPU: RMSE {to_cpu} > {BF16_CARD_RULE} x {to_f32}")
-    del cpu16, cpu_out16, cpu_flipped, x4, cond4
+    del cpu_out16, cpu_flipped, x4, cond4
 
+    CLOCK.mark(45)
     # 46. a bf16 20-step sample and a 2-step AR rollout
     sampler16 = port.Sampler(num_steps=20, device="cuda")
     noise16 = torch.Generator(device="cuda").manual_seed(7)
@@ -1029,6 +1096,7 @@ def gencast_bf16_phases(port, clustered_flash, build, gen, ref: dict) -> dict:
           flush=True)
     del sampler16, ar16, traj16
 
+    CLOCK.mark(46)
     # 47. bf16 training: 3 steps of bench.py's gencast_train objective
     t47 = time.perf_counter()
     corrupted_t, prev_t, _, target_t = ref["batch16"]  # phase 15's batch
@@ -1071,30 +1139,32 @@ def gencast_bf16_phases(port, clustered_flash, build, gen, ref: dict) -> dict:
           f"tensors changed | peak GiB {train16_peak:.2f}", flush=True)
     profile_request(lambda: step16(corrupted_t, prev_t, noise1, target_t), "bf16 train step")
     del step16, before_params
-    # The bf16 gradients at phase 16's weights and batch, card and CPU, held
-    # against phase 16's f32 gradients on the card.
+    # The bf16 gradients at phase 16's weights and batch at
+    # GENCAST_CHECK_BLOCKS blocks (the trained first and last blocks), card
+    # and CPU, held against phase 16's f32 gradients on the card there.
     den16.module.load_state_dict(ref["weights16"])
-    den16.module.zero_grad(set_to_none=True)
+    short16 = shallow_denoiser(port, GENCAST, den16.module, "cuda")
     batch16, grads16 = ref["batch16"], ref["grads16"]
     card16_value = ref["objective16"](
-        den16.forward_fn(compute_dtype=torch.bfloat16)(*batch16[:3]), batch16[3])
+        short16.forward_fn(compute_dtype=torch.bfloat16)(*batch16[:3]), batch16[3])
     card16_value.backward()
-    card16_grads = {k: t.grad.cpu() for k, t in den16.module.named_parameters()}
-    cpu16 = port.Denoiser(**GENCAST, device="cpu")
-    cpu16.module.load_state_dict(ref["weights16"])
-    cpu_objective = port.WeightedMSELoss(grid_lat=GENCAST["grid_lat"], device="cpu")
+    card16_grads = {k: t.grad.cpu() for k, t in short16.module.named_parameters()}
+    del short16
+    with CLOCK.cpu():
+        cpu16 = shallow_denoiser(port, GENCAST, den16.module, "cpu")
+        cpu_objective = port.WeightedMSELoss(grid_lat=GENCAST["grid_lat"], device="cpu")
 
-    def cpu_grads(corrupted):
-        cpu16.module.zero_grad(set_to_none=True)
-        value = cpu_objective(
-            cpu16.forward_fn(compute_dtype=torch.bfloat16)(corrupted, *(t.cpu() for t in batch16[1:3])),
-            batch16[2].cpu(), batch16[3].cpu())
-        value.backward()
-        return value, {k: t.grad for k, t in cpu16.module.named_parameters()}
+        def cpu_grads(corrupted):
+            cpu16.module.zero_grad(set_to_none=True)
+            value = cpu_objective(
+                cpu16.forward_fn(compute_dtype=torch.bfloat16)(corrupted, *(t.cpu() for t in batch16[1:3])),
+                batch16[2].cpu(), batch16[3].cpu())
+            value.backward()
+            return value, {k: t.grad for k, t in cpu16.module.named_parameters()}
 
-    t0 = time.perf_counter()
-    cpu16_value, cpu16_grads = cpu_grads(batch16[0].cpu())
-    cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu16_value, cpu16_grads = cpu_grads(batch16[0].cpu())
+        cpu_s = time.perf_counter() - t0
     to_cpu = global_norm({k: card16_grads[k] - cpu16_grads[k] for k in cpu16_grads})
     to_f32 = global_norm({k: card16_grads[k] - grads16[k] for k in grads16})
     # The CPU's own reading, beside a miss only (a second CPU run): its
@@ -1103,10 +1173,12 @@ def gencast_bf16_phases(port, clustered_flash, build, gen, ref: dict) -> dict:
     own_text = "not taken (within the limit)"
     if not (to_cpu <= BF16_CARD_GRAD_RULE * to_f32):
         flipped, n_flips = one_ulp_off(batch16[0], 9)
-        cpu_flipped = cpu_grads(flipped)[1]
+        with CLOCK.cpu():
+            cpu_flipped = cpu_grads(flipped)[1]
         own = global_norm({k: cpu16_grads[k] - cpu_flipped[k] for k in cpu16_grads}) / to_f32
         own_text = f"with {n_flips} inputs one ulp off {own:.3f}"
-    print(f"[cpu] bf16 gradients at phase 16's weights and batch: global norm card bf16 - CPU bf16 "
+    print(f"[cpu] bf16 gradients at phase 16's weights and batch, {GENCAST_CHECK_BLOCKS} blocks: global "
+          f"norm card bf16 - CPU bf16 "
           f"{to_cpu:.4e} | card bf16 - card f32 {to_f32:.4e} | ratio {to_cpu / to_f32:.3f} (limit "
           f"{BF16_CARD_GRAD_RULE}) | CPU bf16 against itself {own_text} "
           f"| |g| {global_norm(card16_grads):.4e} | loss card {card16_value.item():.6f} "
@@ -1119,7 +1191,8 @@ def gencast_bf16_phases(port, clustered_flash, build, gen, ref: dict) -> dict:
     return dict(k3_16=k3_16, k3b16_phase44=k3b16_phase44, serve16_launches=serve16_launches,
                 train16_launches=train16_launches, per_eval16=per_eval16, k3a16_bound=k3a16_bound,
                 k3a16_by=k3a16_by, bwd16_bound=bwd16_bound, bwd16_by=bwd16_by, k3a16_sdpa=k3a16_sdpa,
-                bwd16_sdpa=bwd16_sdpa)
+                bwd16_sdpa=bwd16_sdpa, serve16_ms=serve16_ms, sample16_ms=sample16_ms,
+                train16_ms=statistics.median(train16_ms[1:]))
 
 
 def k2_bf16_case(fused_mlp, name, graph, with_dst, gen, width=256):
@@ -1324,6 +1397,7 @@ def forecaster_bf16_phases(port, fused_mlp, edge_mlp, segment_sums, build, gen, 
         fused_mlp.LAUNCHES = fused_mlp.BF16_LAUNCHES = fused_mlp.BACKWARD_LAUNCHES = 0
         fused_mlp.BF16_BACKWARD_LAUNCHES = edge_mlp.LAUNCHES = segment_sums.LAUNCHES = 0
 
+    CLOCK.mark(48)
     # 49. fc_serve_bf16: phase 4's weights and requests through forward_fn(bfloat16)
     t49 = time.perf_counter()
     model = port.GraphWeatherForecaster(lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM,
@@ -1366,26 +1440,25 @@ def forecaster_bf16_phases(port, fused_mlp, edge_mlp, segment_sums, build, gen, 
     del traj, rollout
     with torch.no_grad():
         pred32 = model.forward_fn()(features)  # the card's f32 output of the same request
-    cpu = port.GraphWeatherForecaster(lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cpu")
-    cpu.module.load_state_dict({k: v.cpu() for k, v in model.module.state_dict().items()})
-    cpu16 = torch.no_grad()(cpu.forward_fn(compute_dtype=torch.bfloat16))
-    t0 = time.perf_counter()
-    cpu_pred16 = cpu16(features.cpu())
-    cpu_s = time.perf_counter() - t0
-    flipped, n_flips = one_ulp_off(features, 10)
+    # The CPU's bf16 run and its one-ulp twin (from the CPU pool).
+    cpu_ref = cpu_reference("fc_serve", model.module.state_dict(), features)
+    cpu_pred16, cpu_flipped = (torch.from_numpy(cpu_ref[k]) for k in ("out16", "flip16"))
+    cpu_s, n_flips = cpu_ref["seconds"], cpu_ref["n_flips"]
     to_cpu = rmse(pred16.cpu(), cpu_pred16)
     to_f32 = rmse(pred16.cpu(), pred32.cpu())
-    own = rmse(cpu_pred16, cpu16(flipped)) / to_f32
+    own = rmse(cpu_pred16, cpu_flipped) / to_f32
     limit = max(FC_BF16_RULE, own)
     print(f"[cpu] bf16 forecaster at 1°: RMSE card bf16 - CPU bf16 {to_cpu:.4e} | card bf16 - card "
           f"f32 {to_f32:.4e} | ratio {to_cpu / to_f32:.3f} (limit {limit:.3f}: the larger of "
           f"{FC_BF16_RULE} and the CPU's own reading) | CPU bf16 against itself with {n_flips} inputs "
           f"one ulp off {own:.3f} | max |card - CPU| {(pred16.cpu() - cpu_pred16).abs().max().item():.3e} "
-          f"| cpu bf16 forward {cpu_s:.2f} s | phase {time.perf_counter() - t49:.1f} s", flush=True)
+          f"| cpu job (f32, bf16 and one-ulp forwards, in the CPU pool) {cpu_s:.2f} s | phase "
+          f"{time.perf_counter() - t49:.1f} s", flush=True)
     if not (to_cpu <= limit * to_f32):
         raise AssertionError(f"bf16 forecaster card vs CPU: RMSE {to_cpu} > {limit} x {to_f32}")
-    del cpu, cpu16, cpu_pred16, pred32, serve16
+    del cpu_pred16, cpu_flipped, pred32, serve16
 
+    CLOCK.mark(49)
     # 50. fc_train_bf16: 3 steps of bench.py's bf16 train_step objective
     t50 = time.perf_counter()
     x, y = ref["batch"]
@@ -1446,18 +1519,20 @@ def forecaster_bf16_phases(port, fused_mlp, edge_mlp, segment_sums, build, gen, 
                              f"{again_value!r}) or gradients differ: {len(differ)} tensors, {differ[:8]}")
     del again
     f32_value, card32 = grads(model, loss_fn, torch.float32, x, y)
-    cpu = port.GraphWeatherForecaster(lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cpu")
-    cpu.module.load_state_dict({k: v.cpu() for k, v in model.module.state_dict().items()})
-    cpu_loss = port.NormalizedMSELoss(np.ones(FEATURE_DIM), lat_lons, normalize=True, device="cpu")
-    t0 = time.perf_counter()
-    cpu_value, cpu16_grads = grads(cpu, cpu_loss, torch.bfloat16, x.cpu(), y.cpu())
-    cpu_s = time.perf_counter() - t0
+    with CLOCK.cpu():
+        cpu = port.GraphWeatherForecaster(lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cpu")
+        cpu.module.load_state_dict({k: v.cpu() for k, v in model.module.state_dict().items()})
+        cpu_loss = port.NormalizedMSELoss(np.ones(FEATURE_DIM), lat_lons, normalize=True, device="cpu")
+        t0 = time.perf_counter()
+        cpu_value, cpu16_grads = grads(cpu, cpu_loss, torch.bfloat16, x.cpu(), y.cpu())
+        cpu_s = time.perf_counter() - t0
     to_cpu = global_norm({k: card16[k] - cpu16_grads[k] for k in card16})
     to_f32 = global_norm({k: card16[k] - card32[k] for k in card16})
     own, own_text = 0.0, "not needed (within 0.5)"  # a second CPU run, where the card misses 0.5
     if not (to_cpu <= FC_BF16_RULE * to_f32):
         flipped, n_flips = one_ulp_off(x, 11)
-        cpu_flipped = grads(cpu, cpu_loss, torch.bfloat16, flipped, y.cpu())[1]
+        with CLOCK.cpu():
+            cpu_flipped = grads(cpu, cpu_loss, torch.bfloat16, flipped, y.cpu())[1]
         own = global_norm({k: cpu16_grads[k] - cpu_flipped[k] for k in card16}) / to_f32
         own_text = f"with {n_flips} inputs one ulp off {own:.3f}"
     limit = max(FC_BF16_RULE, own)
@@ -2155,13 +2230,381 @@ def ptxas_by_kernel(build, name: str) -> list[str]:
     return [f"{kernel}: " + ", ".join(lines) for kernel, lines in report.items()]
 
 
+class PhaseClock:
+    """Wall seconds of each phase, and of those the seconds spent waiting on
+    CPU checks (the plain versions on the host: `with CLOCK.cpu():`). Each
+    `mark(n)` prints phase n's line, `[time] phase n wall W s cpu C s`, and
+    `total()` the run's: wall, CPU waits and wall + CPU / 2, the time a host
+    whose CPU checks ran 1.5x slower would take."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+        self.cpu_phase = self.cpu_total = 0.0
+
+    @contextlib.contextmanager
+    def cpu(self, pause: bool = True):
+        """A CPU check (with the CPU reference pool stopped) or, pause=False,
+        a wait for the pool's result."""
+        t0 = time.perf_counter()
+        try:
+            with quiet() if pause else contextlib.nullcontext():
+                yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.cpu_phase += dt
+            self.cpu_total += dt
+
+    def mark(self, phase) -> None:
+        now = time.perf_counter()
+        print(f"[time] phase {phase} wall {now - self.last:.1f} s cpu {self.cpu_phase:.1f} s",
+              flush=True)
+        self.last, self.cpu_phase = now, 0.0
+
+    def total(self) -> dict:
+        wall = time.perf_counter() - self.start
+        return dict(wall_s=wall, cpu_wait_s=self.cpu_total, wall_plus_half_cpu_s=wall + self.cpu_total / 2)
+
+
+CLOCK = PhaseClock()
+
+
+# --- CPU references computed beside the card's work ---------------------------
+#
+# The CPU checks that need nothing from the card (the initial weights come
+# from CPU generators, the inputs from seeded CPU generators) run in worker
+# processes started before phase 2's nvcc build. The pool is stopped while
+# the script times anything (kernels, requests, steps, set-up, the other CPU
+# checks: `quiet()`), so no time the script reports is taken while they
+# run; a phase that reads a job not yet done waits for it (CPU-check time).
+# Each job returns its results as numpy arrays with a digest of the weights
+# and inputs it used, which the phase that reads it checks against the
+# card's before comparing.
+
+CPU_REF_PROCESSES = 4  # worker processes of the CPU reference pool
+CPU_REF_THREADS = 2  # torch threads in each
+
+
+def digest(*items) -> str:
+    """sha256 over tensors (a state dict: by sorted key) and arrays, byte for byte."""
+    h = hashlib.sha256()
+    for item in items:
+        if isinstance(item, dict):
+            for key in sorted(item):
+                h.update(key.encode())
+                h.update(digest(item[key]).encode())
+        else:
+            t = torch.as_tensor(item).detach().cpu().contiguous()
+            h.update(str(t.dtype).encode())
+            h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().float().cpu().numpy()
+
+
+def _np_grads(module) -> dict:
+    return {k: t.grad.detach().cpu().numpy() for k, t in module.named_parameters()}
+
+
+def _port():
+    sys.path.insert(0, str(ROOT))
+    import graph_weather_tpu_torch as port
+
+    return port
+
+
+def _fc_inputs():
+    """Phase 4's requests (the last is phases 5 and 49's)."""
+    n = len(grid(1.0))
+    return torch.randn(3, 1, n, FEATURE_DIM + AUX_DIM, generator=torch.Generator().manual_seed(1))
+
+
+def _gencast_requests():
+    """Phase 9's requests: corrupted targets, conditioning, sigma."""
+    data_gen = torch.Generator().manual_seed(1)
+    n_lon, n_lat = len(GENCAST["grid_lon"]), len(GENCAST["grid_lat"])
+    f_in, f_out = GENCAST["input_features_dim"], GENCAST["output_features_dim"]
+    corrupted = torch.randn(3, 1, n_lon, n_lat, f_out, generator=data_gen)
+    prev = torch.randn(3, 1, n_lon, n_lat, 2 * f_in, generator=data_gen)
+    return corrupted, prev, torch.ones(1, 1)
+
+
+def _weathermesh(port, cfg):
+    """Phase 19's (cfg WEATHERMESH) or 38's (WM_WIDE) model on the CPU at
+    its initial weights, the attention projections' biases at 0."""
+    wm = port.WeatherMesh(**cfg, device="cpu")
+    wm.init(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, t in wm.module.named_parameters():
+            if name.endswith(("qkv.bias", "proj.bias")):
+                t.zero_()
+    return wm
+
+
+def cpu_job_fc_serve() -> dict:
+    """Phases 5 and 49: the forecaster's last request at its initial
+    weights in f32 and bf16, and bf16 with one ulp on 1 in 2,000 inputs."""
+    port = _port()
+    model = port.GraphWeatherForecaster(grid(1.0), feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cpu")
+    model.init(torch.Generator().manual_seed(0))
+    features = _fc_inputs()[-1]
+    with torch.no_grad():
+        out = model(features)
+        serve16 = model.forward_fn(compute_dtype=torch.bfloat16)
+        out16 = serve16(features)
+        flipped, n_flips = one_ulp_off(features, 10)
+        flip16 = serve16(flipped)
+    return dict(digest=digest(model.module.state_dict(), features), out=_np(out), out16=_np(out16),
+                flip16=_np(flip16), n_flips=n_flips)
+
+
+def cpu_job_fc_initial() -> dict:
+    """Phase 35's second part: the forecaster's loss and gradients at its
+    initial weights on phase 34's batch, in f32 and in float64."""
+    port = _port()
+    lat_lons = grid(1.0)
+    model = port.GraphWeatherForecaster(lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cpu")
+    model.init(torch.Generator().manual_seed(0))
+    fc_gen = torch.Generator().manual_seed(5)
+    x = torch.randn(1, len(lat_lons), FEATURE_DIM + AUX_DIM, generator=fc_gen)
+    y = torch.randn(1, len(lat_lons), FEATURE_DIM, generator=fc_gen)
+    used = digest(model.module.state_dict(), x, y)
+    loss = port.NormalizedMSELoss(np.ones(FEATURE_DIM), lat_lons, normalize=True, device="cpu")
+
+    def grads(xx, yy):
+        model.module.zero_grad(set_to_none=True)
+        value = loss(model.forward_fn()(xx), yy)
+        value.backward()
+        return value.item(), _np_grads(model.module)
+
+    value, f32 = grads(x, y)
+    forecaster_to_float64(model)
+    exact_value, exact = grads(x.double(), y.double())
+    return dict(digest=used, value=value, grads=f32, exact_value=exact_value, exact=exact)
+
+
+def cpu_job_gencast(impl: str) -> dict:
+    """Phases 10 and 29: phase 9's last request at the initial weights
+    through the clustered or the banded Denoiser in f32; for the clustered
+    one also phase 45's bf16 run and its one-ulp twin."""
+    port = _port()
+    cfg = GENCAST if impl == "clustered" else GENCAST_BANDED
+    den = port.Denoiser(**cfg, device="cpu")
+    den.init(torch.Generator().manual_seed(0))
+    corrupted, prev, sigma = _gencast_requests()
+    x, cond = corrupted[-1], prev[-1]
+    out = dict(digest=digest(den.module.state_dict(), x, cond))
+    with torch.no_grad():
+        out["out"] = _np(den(x, cond, sigma))
+        if impl == "clustered":
+            serve16 = den.forward_fn(compute_dtype=torch.bfloat16)
+            out["out16"] = _np(serve16(x, cond, sigma))
+            flipped, out["n_flips"] = one_ulp_off(x, 8)
+            out["flip16"] = _np(serve16(flipped, cond, sigma))
+    return out
+
+
+def cpu_job_band_shallow() -> dict:
+    """Phase 63: phase 9's last request at the initial weights through the
+    banded Denoiser at GENCAST_CHECK_BLOCKS blocks, in bf16."""
+    port = _port()
+    den = port.Denoiser(**GENCAST_BANDED, device="cpu")
+    den.init(torch.Generator().manual_seed(0))
+    short = shallow_denoiser(port, GENCAST_BANDED, den.module, "cpu")
+    corrupted, prev, sigma = _gencast_requests()
+    with torch.no_grad():
+        out16 = short.forward_fn(compute_dtype=torch.bfloat16)(corrupted[-1], prev[-1], sigma)
+    return dict(digest=digest(short.module.state_dict(), corrupted[-1], prev[-1]), out16=_np(out16))
+
+
+def cpu_job_wm_serve() -> dict:
+    """Phase 20: phase 19's last request at 1 deg at the initial weights."""
+    port = _port()
+    wm = _weathermesh(port, WEATHERMESH)
+    h, w = WM_GRID
+    wm_gen = torch.Generator().manual_seed(1)
+    surfaces = torch.randn(3, 1, h, w, 8, generator=wm_gen)
+    pressures = torch.randn(3, 1, WEATHERMESH["pressure_levels"], h, w, 4, generator=wm_gen)
+    with torch.no_grad():
+        pred = wm(surfaces[-1], pressures[-1])
+    return dict(digest=digest(wm.module.state_dict(), surfaces[-1], pressures[-1]),
+                surface=_np(pred.surface), pressure=_np(pred.pressure))
+
+
+def cpu_job_wide_serve() -> dict:
+    """Phase 40: the 768-d WeatherMesh at its initial weights and
+    WM_WIDE_CHECK_LAYERS processor layers on phase 40's request at 28 x 60."""
+    port = _port()
+    wide = _weathermesh(port, WM_WIDE)
+    h, w = WM_GRID
+    levels = WM_WIDE["pressure_levels"]
+    wm_gen = torch.Generator().manual_seed(1)
+    torch.randn(3, 1, h, w, 8, generator=wm_gen)  # phase 38's requests
+    torch.randn(3, 1, levels, h, w, 4, generator=wm_gen)
+    check_h, check_w = WM_WIDE_CHECK_GRID
+    check = [torch.randn(1, check_h, check_w, 8, generator=wm_gen),
+             torch.randn(1, levels, check_h, check_w, 4, generator=wm_gen)]
+    short = shallow_weathermesh(port, WM_WIDE, wide.module, "cpu")
+    with torch.no_grad():
+        pred = short(*check)
+    return dict(digest=digest(short.module.state_dict(), *check), surface=_np(pred.surface),
+                pressure=_np(pred.pressure))
+
+
+def cpu_job_fgn(dtype_name: str) -> dict:
+    """Phase 61: FGN at FGN_CHECK_BLOCKS blocks (seed 5) on phase 61's state,
+    noise and target, in f32 or bf16: output, loss and gradients."""
+    port = _port()
+    short = {**FGN, "num_blocks": FGN_CHECK_BLOCKS}
+    model = port.FunctionalGenerativeNetwork(**short, device="cpu")
+    model.init(torch.Generator().manual_seed(5))
+    n_lon, n_lat = len(FGN["grid_lon"]), len(FGN["grid_lat"])
+    data = torch.Generator().manual_seed(1)
+    prev = torch.randn(4, 1, n_lon, n_lat, FGN["input_features_dim"], generator=data)
+    z = torch.randn(4, 1, FGN["noise_dimension"], generator=data)
+    target = torch.randn(1, n_lon, n_lat, FGN["output_features_dim"], generator=data)
+    dtype = torch.float32 if dtype_name == "f32" else torch.bfloat16
+    out = model.member_fn(compute_dtype=dtype)(prev[3], z[3])
+    value = torch.mean((out - target) ** 2)
+    value.backward()
+    return dict(digest=digest(model.module.state_dict(), prev[3], z[3], target), out=_np(out),
+                value=value.item(), grads=_np_grads(model.module))
+
+
+# name: (function, arguments). The pool takes them in this order: the first
+# three by when the phases read them (5, 10, 20), FGN's longest one early on
+# the fourth worker (read in phase 61), then the rest by when they are read.
+CPU_JOBS = {
+    "fc_serve": (cpu_job_fc_serve, ()),
+    "gencast": (cpu_job_gencast, ("clustered",)),
+    "wm_serve": (cpu_job_wm_serve, ()),
+    "fgn_bf16": (cpu_job_fgn, ("bf16",)),
+    "gencast_banded": (cpu_job_gencast, ("banded",)),
+    "fc_initial": (cpu_job_fc_initial, ()),
+    "wide_serve": (cpu_job_wide_serve, ()),
+    "fgn_f32": (cpu_job_fgn, ("f32",)),
+    "band_shallow": (cpu_job_band_shallow, ()),
+}
+
+
+def _cpu_ref_init(threads: int) -> None:
+    torch.set_num_threads(threads)
+
+
+def _cpu_ref_run(job):
+    name, fn, args = job
+    t0 = time.perf_counter()
+    out = fn(*args)
+    out["seconds"] = time.perf_counter() - t0
+    return name, out
+
+
+class CpuReferences:
+    """CPU_JOBS in a pool of `processes` worker processes (spawned:
+    they never touch the card) of `threads` torch threads each, started
+    here, in the order given (the order the phases read them). The pool is
+    stopped (SIGSTOP) while the script times anything (`paused`, which
+    `quiet()` enters) and runs beside the rest; `get(name)` waits for a job
+    (as CPU-check time). A job that raises, or a worker that dies, raises
+    there; `stop()` ends the pool and its running jobs."""
+
+    def __init__(self, processes: int = CPU_REF_PROCESSES, threads: int = CPU_REF_THREADS):
+        import multiprocessing
+
+        self.processes, self.threads = processes, threads
+        self.t0 = time.perf_counter()
+        self.depth = 0
+        self.pool = futures.ProcessPoolExecutor(processes, mp_context=multiprocessing.get_context("spawn"),
+                                                initializer=_cpu_ref_init, initargs=(threads,))
+        self.jobs = {name: self.pool.submit(_cpu_ref_run, (name, fn, args))
+                     for name, (fn, args) in CPU_JOBS.items()}
+        self.waited: dict[str, float] = {}
+
+    def _signal(self, sig) -> None:
+        for process in list((getattr(self.pool, "_processes", None) or {}).values()):
+            try:
+                os.kill(process.pid, sig)
+            except ProcessLookupError:
+                pass
+
+    @contextlib.contextmanager
+    def paused(self):
+        if self.depth == 0:
+            self._signal(signal.SIGSTOP)
+        self.depth += 1
+        try:
+            yield
+        finally:
+            self.depth -= 1
+            if self.depth == 0:
+                self._signal(signal.SIGCONT)
+
+    def get(self, name: str) -> dict:
+        """A job's results, waiting for it (CPU-check time, the pool running)."""
+        if self.depth:
+            raise RuntimeError("a CPU reference is read while the pool is stopped")
+        t0 = time.perf_counter()
+        with CLOCK.cpu(pause=False):
+            try:
+                result = self.jobs[name].result()[1]
+            except BaseException:
+                self.stop()
+                raise
+        self.waited[name] = self.waited.get(name, 0.0) + time.perf_counter() - t0
+        return result
+
+    def stop(self) -> None:
+        """End the pool now, its running jobs too."""
+        self._signal(signal.SIGCONT)
+        for process in list((getattr(self.pool, "_processes", None) or {}).values()):
+            process.terminate()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+    def close(self) -> None:
+        """Every job read: end the pool, and print how long each took and
+        how long the phases waited for it."""
+        seconds = {name: job.result()[1]["seconds"] for name, job in self.jobs.items()}
+        self.pool.shutdown(wait=True)
+        print(f"[cpu_refs] {len(self.jobs)} CPU checks in {self.processes} processes x {self.threads} "
+              f"threads, started before phase 2's build: seconds each (waited for by its phases) "
+              + " ".join(f"{n} {t:.1f} ({self.waited.get(n, 0.0):.1f})" for n, t in seconds.items()),
+              flush=True)
+
+
+REFS: CpuReferences | None = None  # main's pool, started before phase 2's build
+
+
+def quiet():
+    """Stop main's CPU reference pool for a block whose time is reported."""
+    return REFS.paused() if REFS is not None else contextlib.nullcontext()
+
+
+def cpu_reference(name: str, *items) -> dict:
+    """CPU_JOBS[name]'s results: from main's pool (REFS), or computed here
+    where the phases run without it (as CPU-check time); after checking that
+    the job used the card's weights and inputs (`items`, digested as the job
+    digested its own)."""
+    if REFS is not None and name in REFS.jobs:
+        result = REFS.get(name)
+    else:
+        fn, args = CPU_JOBS[name]
+        with CLOCK.cpu():
+            result = _cpu_ref_run((name, fn, args))[1]
+    if result["digest"] != digest(*items):
+        raise AssertionError(f"the CPU reference {name!r} was computed on other weights or inputs "
+                             "than the card's")
+    return result
+
+
 def timed(fn):
     """(fn(), host ms) around work that ends in a synchronize."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
+    with quiet():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
 
 
 def profile_request(fn, what: str = "request", table: dict | None = None):
@@ -2172,7 +2615,7 @@ def profile_request(fn, what: str = "request", table: dict | None = None):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with quiet(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall_ms = timed(fn)
     by_name: dict[str, list] = {}
     for e in prof.events():
@@ -2303,10 +2746,11 @@ def k6_bf16_case(natten3d, window_indices, name, gen, kernel, heads, ch, circula
     repeats = (torch.equal(out, again[0]) and torch.equal(lse, again[1])
                and all(torch.equal(a, b) for a, b in zip(got, got2)))
     ref, ref_lse, ref32 = natten3d.slot_forward(*args)
-    t0 = time.perf_counter()
-    want = natten3d.slot_backward_reference(*bargs)
-    torch.cuda.synchronize()
-    plain_bwd_ms = (time.perf_counter() - t0) * 1e3  # once: ~250 slots of ordered scatters
+    with quiet():
+        t0 = time.perf_counter()
+        want = natten3d.slot_backward_reference(*bargs)
+        torch.cuda.synchronize()
+        plain_bwd_ms = (time.perf_counter() - t0) * 1e3  # once: ~250 slots of ordered scatters
     errs = {"out": bf16_err(out, ref), **{n: bf16_err(a, b) for n, a, b in
                                            zip(("dq", "dk", "dv", "drpb"), got, want)}}
     f32_errs = max((lse - ref_lse).abs().max().item(), (out32 - ref32).abs().max().item())
@@ -2442,6 +2886,7 @@ def wm_bf16_model_phases(port, natten_flash, natten3d, cfg, name, per_forward, c
           f"launches {made} | kernels per request {kernels16} | phase {time.perf_counter() - t0:.1f} s",
           flush=True)
     del roll, pred
+    CLOCK.mark(52 if cfg is WEATHERMESH else 54)
 
     t0 = time.perf_counter()
     targets = tuple(torch.randn(t.shape, generator=wm_gen).to("cuda") for t in (surface, pressure))
@@ -2511,16 +2956,18 @@ def wm_bf16_model_phases(port, natten_flash, natten3d, cfg, name, per_forward, c
         card_value, card16 = grads(wm, bf16, check, check_targets, "cuda")
         depth = f", {layers} processor layers"
     _, card32 = grads(wm, torch.float32, check, check_targets, "cuda")
-    cpu = shallow_weathermesh(port, cfg, wm.module, "cpu", layers)
-    t1 = time.perf_counter()
-    cpu_value, cpu16 = grads(cpu, bf16, check, check_targets, "cpu")
-    cpu_s = time.perf_counter() - t1
+    with CLOCK.cpu():
+        cpu = shallow_weathermesh(port, cfg, wm.module, "cpu", layers)
+        t1 = time.perf_counter()
+        cpu_value, cpu16 = grads(cpu, bf16, check, check_targets, "cpu")
+        cpu_s = time.perf_counter() - t1
     to_cpu = global_norm({k: card16[k] - cpu16[k] for k in card16})
     to_f32 = global_norm({k: card16[k] - card32[k] for k in card16})
     own = None  # the CPU's own reading, a second CPU run, only where the rule alone is missed
     if not (to_cpu <= BF16_WM_RULE * to_f32):
         flipped = [one_ulp_off(t, 12 + i)[0] for i, t in enumerate(check)]
-        cpu_flipped = grads(cpu, bf16, flipped, check_targets, "cpu")[1]
+        with CLOCK.cpu():
+            cpu_flipped = grads(cpu, bf16, flipped, check_targets, "cpu")[1]
         own = global_norm({k: cpu16[k] - cpu_flipped[k] for k in card16}) / to_f32
         del cpu_flipped
     limit = max(BF16_WM_RULE, own or 0.0)
@@ -2536,6 +2983,7 @@ def wm_bf16_model_phases(port, natten_flash, natten3d, cfg, name, per_forward, c
         raise AssertionError(f"bf16 {name} gradients card vs CPU: {to_cpu} > {limit} x {to_f32}")
     del cpu, wm, card16, card32, cpu16
     torch.cuda.empty_cache()
+    CLOCK.mark(53 if cfg is WEATHERMESH else 55)
     return dict(serve_launches=serve_launches, train_launches=train_launches,
                 serve_ms=serve_ms, step_ms=statistics.median(step_ms[1:]), per_step=per_step)
 
@@ -2567,6 +3015,7 @@ def weathermesh_bf16_phases(port, natten_flash, natten3d, window_indices, build,
           f"{K6_PER_FORWARD * out['k6_bound'][0]:.4f}, {out['k6_bound'][1]}), K6b bf16 "
           f"{K6_PER_FORWARD * k6['a']['ms']['k6b']:.4f} (bound {K6_PER_FORWARD * out['k6b_bound'][0]:.4f}) "
           f"| phase {time.perf_counter() - t0:.1f} s", flush=True)
+    CLOCK.mark(51)
     # 52-53. the 128-d WeatherMesh in bf16; 54-55. the 768-d one
     out["wm"] = wm_bf16_model_phases(
         port, natten_flash, natten3d, WEATHERMESH, "wm", K5_PER_FORWARD, lambda m: (m[3],),
@@ -2811,9 +3260,12 @@ def fgn_phases(port, clustered_flash, segment_sums, build, gen) -> dict:
                 raise AssertionError(f"{name}.cu: no {kind} tensor-core instruction in its c = 768 "
                                      "instantiations")
 
+    CLOCK.mark(56)
     # 57. K3a and K3c at FGN's head widths on its splits-6, 6-hop layout; S in f32
-    fgn = port.FunctionalGenerativeNetwork(**FGN, device="cuda")
-    graph_s = time.perf_counter() - t56
+    with quiet():
+        t57 = time.perf_counter()
+        fgn = port.FunctionalGenerativeNetwork(**FGN, device="cuda")
+        graph_s = time.perf_counter() - t57
     khop = fgn.khop
     nb, u_pad = khop.cluster_ids.shape
     print(f"[fgn] graphs (SciPy k-hop) + layout {graph_s:.2f} s | mesh nodes {khop.n_receivers} | "
@@ -2846,6 +3298,7 @@ def fgn_phases(port, clustered_flash, segment_sums, build, gen) -> dict:
           f"dk/dv stops at c = {GENERAL_MAX_CHANNELS} | phase {time.perf_counter() - t56:.1f} s",
           flush=True)
 
+    CLOCK.mark(57)
     # 58-59. serving: member requests at B = 1, the 8-member ensemble, an ensemble rollout
     fgn.init(torch.Generator().manual_seed(0))
     data = torch.Generator().manual_seed(1)
@@ -2908,6 +3361,7 @@ def fgn_phases(port, clustered_flash, segment_sums, build, gen) -> dict:
               f"({roll_ms / 4:.3f} per member-step) | phase {phase} {time.perf_counter() - t0:.1f} s",
               flush=True)
         del ens, traj, member, ensemble, rollout
+        CLOCK.mark(phase)
     del roll
     torch.cuda.empty_cache()
 
@@ -2973,13 +3427,12 @@ def fgn_phases(port, clustered_flash, segment_sums, build, gen) -> dict:
         del remat, step, member, before_params, grads
         torch.cuda.empty_cache()
 
+    CLOCK.mark(60)
     # 61. card against CPU at full width, 2 blocks (one at c = 192, the last at c = 768)
     t61 = time.perf_counter()
     short = {**FGN, "num_blocks": FGN_CHECK_BLOCKS}
     card2 = port.FunctionalGenerativeNetwork(**short, device="cuda")
     card2.init(torch.Generator().manual_seed(5))
-    cpu2 = port.FunctionalGenerativeNetwork(**short, device="cpu")
-    cpu2.module.load_state_dict({k: v.cpu() for k, v in card2.module.state_dict().items()})
     x, zz, tgt = prev[3], z[3], target
 
     def value_and_grads(model, dtype, state=None):
@@ -2993,22 +3446,23 @@ def fgn_phases(port, clustered_flash, segment_sums, build, gen) -> dict:
         return out.detach().cpu(), value.item(), grads
 
     card32, card16 = value_and_grads(card2, f32), value_and_grads(card2, bf16)
-    t0 = time.perf_counter()
-    cpu32 = value_and_grads(cpu2, f32)
-    cpu32_s = time.perf_counter() - t0
+    # The CPU's f32 and bf16 runs (from the CPU pool).
+    refs = [cpu_reference(f"fgn_{name}", card2.module.state_dict(), x, zz, tgt)
+            for name in ("f32", "bf16")]
+    (cpu32, cpu32_s), (cpu16, cpu16_s) = (
+        ((torch.from_numpy(r["out"]), r["value"], {k: torch.from_numpy(g) for k, g in r["grads"].items()}),
+         r["seconds"]) for r in refs)
     out_err = (card32[0] - cpu32[0]).abs().max().item()
     loss_rel = abs(card32[1] - cpu32[1]) / abs(cpu32[1])
     worst, worst_name = grads_close(card32[2], cpu32[2])
     print(f"[cpu] FGN f32 at {FGN_CHECK_BLOCKS} blocks: max |out card - CPU| {out_err:.3e} (limit "
           f"{CPU_TOL}) | loss card {card32[1]:.6f} cpu {cpu32[1]:.6f} rel {loss_rel:.3e} (limit "
           f"{LOSS_RTOL}) | gradients: worst error / limit {worst:.3e} ({worst_name}) over "
-          f"{len(cpu32[2])} tensors | cpu forward+backward {cpu32_s:.2f} s", flush=True)
+          f"{len(cpu32[2])} tensors | cpu forward+backward {cpu32_s:.2f} s (in the CPU pool)",
+          flush=True)
     if not (out_err <= CPU_TOL and loss_rel <= LOSS_RTOL and worst <= 1.0):
         raise AssertionError(f"FGN f32 card vs CPU: out {out_err}, loss {loss_rel}, gradient of "
                              f"{worst_name} {worst} x its limit")
-    t0 = time.perf_counter()
-    cpu16 = value_and_grads(cpu2, bf16)
-    cpu16_s = time.perf_counter() - t0
     # The same input with one bf16 ulp on 1 in 2,000 elements (one_ulp_off):
     # how far it moves the card's own bf16 run, and beside a miss the CPU's.
     flipped, n_flips = one_ulp_off(x, 10)
@@ -3026,7 +3480,11 @@ def fgn_phases(port, clustered_flash, segment_sums, build, gen) -> dict:
     if any(ratios[k] > limits[k] for k in ratios):
         # Never below the rule of phases 49-50: the larger of 0.5 and the
         # CPU's own reading.
-        cpu_flip = value_and_grads(cpu2, bf16, state=flipped)
+        with CLOCK.cpu():
+            cpu2 = port.FunctionalGenerativeNetwork(**short, device="cpu")
+            cpu2.module.load_state_dict({k: v.cpu() for k, v in card2.module.state_dict().items()})
+            cpu_flip = value_and_grads(cpu2, bf16, state=flipped)
+            del cpu2
         own = {k: v / scale[k] for k, v in distances(cpu16, cpu_flip).items()}
         limits = {k: max(limit, 0.5, own[k]) for k, limit in limits.items()}
     print(f"[cpu] FGN bf16 at {FGN_CHECK_BLOCKS} blocks: RMSE card bf16 - CPU bf16 over card bf16 - "
@@ -3041,9 +3499,344 @@ def fgn_phases(port, clustered_flash, segment_sums, build, gen) -> dict:
     for key, ratio in ratios.items():
         if not (ratio <= limits[key]):
             raise AssertionError(f"FGN bf16 card vs CPU ({key}): {ratio} > {limits[key]}")
-    del card2, cpu2, fgn
+    del card2, fgn
     torch.cuda.empty_cache()
     return dict(k3=k3, s32=s32, serve=serve, train=train)
+
+
+def k4_bf16_case(banded_flash, band_windows, khop, gen, c, heads=4):
+    """K4a (with and without lse) and K4b (its dq kernel, its dk/dv kernel in
+    the symmetric and the general role) in bf16 against their plain versions
+    on bf16 inputs at the processor's shapes ([1, N, heads, c]) on the real
+    band layout: out, dq, dk and dv within BF16_TOL of their max, lse within
+    K4_TOL; a run over the padded rows (nb * block), whose rows past N must
+    come out exactly 0; every output bit-equal over two launches. Times them
+    beside the f32 kernels on the same values (upcast), the plain versions
+    and SDPA in bf16 on the stacked windows with the band mask (timed only).
+    Returns a dict."""
+    masks, block, w, n = khop.band_masks, khop.band_block, khop.band_w, khop.n_receivers
+    padded, rows = band_inputs(gen, khop, c, heads, 4)
+    (qp, kp, vp, dop), (q, k, v, dout) = ([t.bfloat16() for t in ts] for ts in (padded, rows))
+    args = (q, k, v, masks, block, w)
+
+    def run():
+        out = banded_flash._forward_cuda(*args, with_lse=False)[0]
+        out_l, lse = banded_flash._forward_cuda(*args, with_lse=True)
+        bargs = (q, k, v, masks, out_l, lse, dout, block, w)
+        return (out, out_l, lse, *banded_flash._backward_cuda(*bargs, symmetric=True),
+                *banded_flash._backward_cuda(*bargs, symmetric=False))
+
+    first, again = run(), run()
+    repeat = all(torch.equal(a, b) for a, b in zip(first, again))
+    out, out_l, lse, dq, dk, dv, *general = first
+    bargs = (q, k, v, masks, out_l, lse, dout, block, w)
+    out_p, lse_p = banded_flash._forward_cuda(qp, kp, vp, masks, block, w, with_lse=True)
+    grads_p = banded_flash._backward_cuda(qp, kp, vp, masks, out_p, lse_p, dop, block, w, symmetric=True)
+    torch.cuda.synchronize()
+    zeros = (all(bool((t[:, n:] == 0).all()) for t in (out_p, *grads_p))
+             and bool((lse_p[:, n:] < -1e27).all()))
+    dtypes = ({t.dtype for t in (out, out_l, dq, dk, dv, *general)} == {torch.bfloat16}
+              and lse.dtype == torch.float32)
+    ref, ref_lse = banded_flash.banded_flash_forward_reference(*args, with_lse=True)
+    want = banded_flash.banded_flash_backward_reference(*bargs)
+
+    def worst(pairs):
+        return max((bf16_err(a, b) for a, b in pairs), key=lambda e: e[1])
+
+    errs = {"k4a": worst([(out, ref), (out_l, ref)]), "dq": worst([(dq, want[0])]),
+            "dkv": worst(zip((dk, dv), want[1:])), "dkv_general": worst(zip(general[1:], want[1:]))}
+    lse_err = (lse - ref_lse).abs().max().item()
+    n_pad = masks.shape[0] * block
+    delta = torch.nn.functional.pad((dout.float() * out_l.float()).sum(-1),
+                                    (0, 0, 0, n_pad - n)).contiguous()
+    grads = tuple(torch.empty_like(t) for t in (q, k, v))
+
+    def kernel(mode, symmetric=True):
+        return lambda: banded_flash.launch_backward(
+            mode, q, k, v, masks, lse, dout, delta, grads, block, w, symmetric)
+
+    ms = {"k4a": cuda_ms(lambda: banded_flash._forward_cuda(*args, with_lse=False)),
+          "k4a_lse": cuda_ms(lambda: banded_flash._forward_cuda(*args, with_lse=True)),
+          "dq": cuda_ms(kernel(banded_flash.DQ)), "dkv": cuda_ms(kernel(banded_flash.DKV)),
+          "dkv_general": cuda_ms(kernel(banded_flash.DKV, symmetric=False)),
+          "k4b": cuda_ms(lambda: banded_flash._backward_cuda(*bargs, symmetric=True))}
+    wide = [t.float() for t in (q, k, v, dout)]
+    out32, lse32 = banded_flash._forward_cuda(*wide[:3], masks, block, w, with_lse=True)
+    bargs32 = (*wide[:3], masks, out32, lse32, wide[3], block, w)
+    f32_ms = {"k4a": cuda_ms(lambda: banded_flash._forward_cuda(*wide[:3], masks, block, w, False)),
+              "k4b": cuda_ms(lambda: banded_flash._backward_cuda(*bargs32, symmetric=True))}
+    plain_ms = {"k4a": cuda_ms(lambda: banded_flash.banded_flash_forward_reference(*args), runs=3, batch=2),
+                "k4b": cuda_ms(lambda: banded_flash.banded_flash_backward_reference(*bargs), runs=3,
+                               batch=1)}
+    q_b, k_w, v_w, attend, do_b = band_sdpa_inputs(band_windows, q, k, v, masks, block, w, dout)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        sdpa_ms = cuda_ms(lambda: sdpa(q_b, k_w, v_w, attn_mask=attend))
+    q_b, k_w, v_w = (t.requires_grad_(True) for t in (q_b, k_w, v_w))
+    o_b = sdpa(q_b, k_w, v_w, attn_mask=attend)
+    sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(o_b, (q_b, k_w, v_w), do_b, retain_graph=True))
+    print(f"[k4_bf16] c={c}: max_abs_err / 2^-6 max " + " ".join(f"{nm} {e[1]:.3f}" for nm, e in errs.items())
+          + " (abs " + " ".join(f"{e[0]:.3e}" for e in errs.values()) + f") | lse {lse_err:.3e} | "
+          f"padded rows zero={zeros} bf16 outputs={dtypes} bit-equal repeat={repeat} | bf16 ms K4a "
+          f"{ms['k4a']:.4f} (with lse {ms['k4a_lse']:.4f}) dq {ms['dq']:.4f} dk/dv {ms['dkv']:.4f} "
+          f"(general {ms['dkv_general']:.4f}) backward {ms['k4b']:.4f} | f32 kernels on the same values "
+          f"K4a {f32_ms['k4a']:.4f} backward {f32_ms['k4b']:.4f} | plain K4a {plain_ms['k4a']:.4f} "
+          f"backward {plain_ms['k4b']:.4f} | SDPA bf16 {sdpa_ms:.4f} backward {sdpa_bwd_ms:.4f}",
+          flush=True)
+    for name, (_, ratio) in errs.items():
+        if not (ratio <= 1.0):
+            raise AssertionError(f"{name} bf16 c={c}: max abs error {ratio} x 2^-6 max|plain|")
+    if not (lse_err <= K4_TOL):
+        raise AssertionError(f"K4a bf16 c={c}: lse error {lse_err} > {K4_TOL}")
+    if not (zeros and dtypes and repeat):
+        raise AssertionError(f"K4 bf16 c={c}: padded rows not 0 ({zeros}), outputs not bf16 "
+                             f"({dtypes}) or a repeat not bit-equal ({repeat})")
+    del q_b, k_w, v_w, attend, do_b, o_b
+    # The work these inputs need over the real edges, as phases 26-27 count
+    # it, with bf16 rows at 2 bytes (lse and delta f32).
+    edges, row_bytes = khop.senders.shape[0], 2 * q.numel()
+    stats = 4 * 2 * lse.numel() + masks.numel()
+    return dict(errs=errs, lse_err=lse_err, ms=ms, f32_ms=f32_ms, plain_ms=plain_ms, sdpa_ms=sdpa_ms,
+                sdpa_bwd_ms=sdpa_bwd_ms, fwd=(4 * edges * heads * c, 4 * row_bytes + masks.numel()),
+                dq=(6 * edges * heads * c, 5 * row_bytes + stats),
+                dkv=(8 * edges * heads * c, 6 * row_bytes + stats))
+
+
+def banded_bf16_phases(port, banded_flash, clustered_flash, band_windows, build, gen, ref: dict) -> dict:
+    """Phases 62-64: GenCast's bf16 policy on the banded attention (see the
+    module docstring). `ref` holds phase 9's weights and requests, phase
+    15's batch, the banded f32 request, sample and step times (phases 28,
+    30; the f32 sample is phase 11's) and the clustered bf16 ones (phases
+    45-47). Returns what the kernels' JSON line reads."""
+    bf16 = torch.bfloat16
+    blocks = GENCAST["num_blocks"]
+    n_lon, n_lat = len(GENCAST["grid_lon"]), len(GENCAST["grid_lat"])
+    f_out = GENCAST["output_features_dim"]
+    per_eval = {128: blocks - 1, 512: 1}  # launches per denoiser evaluation, by head width
+
+    def per_eval_sum(values):
+        return sum(values[c] * n for c, n in per_eval.items())
+
+    # 62. K4a and K4b in bf16 on the real splits-5 band (the banded Denoiser's graph)
+    print(f"[build] bf16 instantiations of banded_flash.cu and banded_flash_bwd.cu (phase 2's build) | "
+          f"{tf32_mma_report(build, 'banded_flash', kind='BF16')} | "
+          f"{tf32_mma_report(build, 'banded_flash_bwd', kind='BF16')}", flush=True)
+    f32_regs = {}  # kernel: (registers, spill store bytes, spill load bytes)
+    for lib in ("banded_flash", "banded_flash_bwd"):
+        for line in ptxas_by_kernel(build, lib):
+            kernel, _, text = line.partition(": ")
+            found = [re.search(pattern, text) for pattern in (
+                r"Used (\d+) registers", r"(\d+) bytes spill stores", r"(\d+) bytes spill loads")]
+            if " bf16" not in kernel and all(found):
+                f32_regs[kernel] = tuple(int(m.group(1)) for m in found)
+    changed = {kernel: (f32_regs.get(kernel), want) for kernel, want in K4_F32_PTXAS.items()
+               if f32_regs.get(kernel) != want}
+    print(f"[build] f32 K4 instantiations' registers and spills against the f32-only build's "
+          f"(K4_F32_PTXAS: registers, spill bytes) {'unchanged' if not changed else changed} | "
+          + " | ".join(f"{k}: {v}" for k, v in f32_regs.items()), flush=True)
+    if changed and build.build_log_path("banded_flash").exists():
+        raise AssertionError(f"the f32 K4 instantiations' registers or spills changed: {changed}")
+    bden16 = port.Denoiser(**GENCAST_BANDED, device="cuda")
+    bden16.module.load_state_dict(ref["weights9"])
+    khop = bden16.khop
+    k4_16 = {c: k4_bf16_case(banded_flash, band_windows, khop, gen, c) for c in (128, 512)}
+
+    def per_eval16(field, key):
+        return per_eval_sum({c: v[field][key] for c, v in k4_16.items()})
+
+    bounds = {key: (per_eval_sum({c: bf16_bound(*v[key])[0] for c, v in k4_16.items()}),
+                    bf16_bound(*k4_16[128][key])[1]) for key in ("fwd", "dq", "dkv")}
+    sdpa16 = per_eval_sum({c: v["sdpa_ms"] for c, v in k4_16.items()})
+    sdpa16_bwd = per_eval_sum({c: v["sdpa_bwd_ms"] for c, v in k4_16.items()})
+    print(f"[k4_bf16] per denoiser eval / train step (15 x c=128 + c=512): K4a bf16 "
+          f"{per_eval16('ms', 'k4a'):.4f} ms (with lse {per_eval16('ms', 'k4a_lse'):.4f}; f32 on the same "
+          f"values {per_eval16('f32_ms', 'k4a'):.4f}, plain {per_eval16('plain_ms', 'k4a'):.4f}, SDPA bf16 "
+          f"{sdpa16:.4f}, bound {bounds['fwd'][0]:.4f} {bounds['fwd'][1]}) | K4b bf16 dq "
+          f"{per_eval16('ms', 'dq'):.4f} (bound {bounds['dq'][0]:.4f} {bounds['dq'][1]}) dk/dv "
+          f"{per_eval16('ms', 'dkv'):.4f} (general {per_eval16('ms', 'dkv_general'):.4f}; bound "
+          f"{bounds['dkv'][0]:.4f} {bounds['dkv'][1]}) backward {per_eval16('ms', 'k4b'):.4f} (f32 on the "
+          f"same values {per_eval16('f32_ms', 'k4b'):.4f}, plain {per_eval16('plain_ms', 'k4b'):.4f}, SDPA "
+          f"bf16 backward {sdpa16_bwd:.4f})", flush=True)
+    CLOCK.mark(62)
+
+    # 63. band_serve_bf16: phase 28's weights and requests through forward_fn(bfloat16)
+    names = ("LAUNCHES", "BWD_DQ_LAUNCHES", "BWD_DKV_SYMMETRIC_LAUNCHES", "BWD_DKV_LAUNCHES")
+    k3_names = ("LAUNCHES", "SYMMETRIC_DQ_LAUNCHES", "SYMMETRIC_DKV_LAUNCHES", "GENERAL_BWD_LAUNCHES")
+
+    def counts():  # f32 K4, bf16 K4 (K4a, dq, dk/dv symmetric, general), then all K3
+        return (tuple(getattr(banded_flash, p + n) for p in ("", "BF16_") for n in names)
+                + (sum(getattr(clustered_flash, p + n) for p in ("", "BF16_") for n in k3_names),))
+
+    def zero_counts():
+        for p in ("", "BF16_"):
+            for name in names:
+                setattr(banded_flash, p + name, 0)
+            for name in k3_names:
+                setattr(clustered_flash, p + name, 0)
+
+    def made_since(before):
+        return tuple(a - b for a, b in zip(counts(), before))
+
+    serve16 = torch.no_grad()(bden16.forward_fn(compute_dtype=bf16))
+    corrupted, prev, sigma = ref["requests9"]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    serve16_ms = []
+    for x, cond in zip(corrupted, prev):
+        before = counts()
+        out16, ms = timed(lambda: serve16(x, cond, sigma))
+        serve16_ms.append(ms)
+        if made_since(before) != (0,) * 4 + (blocks, 0, 0, 0, 0):
+            raise AssertionError(f"a banded bf16 request made {made_since(before)} launches (f32 K4, "
+                                 f"bf16 K4, K3), expected {blocks} bf16 K4a and nothing else")
+        if out16.dtype != torch.float32 or out16.shape != (1, n_lon, n_lat, f_out) \
+                or not torch.isfinite(out16).all():
+            raise AssertionError(f"bad banded bf16 output: {out16.dtype} {tuple(out16.shape)}")
+    serve16_launches = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kernels16 = profile_request(lambda: serve16(x, cond, sigma), "banded bf16 request")
+    sampler16 = port.Sampler(num_steps=20, device="cuda")
+    noise16 = torch.Generator(device="cuda").manual_seed(7)
+    before = counts()
+    sample16, sample16_ms = timed(lambda: sampler16.sample(bden16, prev[0], noise16, compute_dtype=bf16))
+    if made_since(before) != (0,) * 4 + (EVALS_PER_SAMPLE * blocks, 0, 0, 0, 0):
+        raise AssertionError(f"a banded bf16 sample made {made_since(before)} launches, expected 592 "
+                             "bf16 K4a")
+    ar16 = port.make_ar_rollout_fn(sampler16, bden16, 2, compute_dtype=bf16, device="cuda")
+    traj16, ar16_ms = timed(lambda: ar16(prev[0], noise16))
+    for name, t, shape in (("sample", sample16, (1, n_lon, n_lat, f_out)),
+                           ("rollout", traj16, (2, 1, n_lon, n_lat, f_out))):
+        if t.shape != shape or t.dtype != torch.float32 or not torch.isfinite(t).all():
+            raise AssertionError(f"bad banded bf16 {name}: {t.dtype} {tuple(t.shape)}")
+    print(f"[band_serve_bf16] request_ms {[round(t, 3) for t in serve16_ms]} (f32 banded, phase 28: "
+          f"{[round(t, 3) for t in ref['band_ms']]}; clustered bf16, phase 45: "
+          f"{[round(t, 3) for t in ref['serve16_ms']]}) | bf16 K4a launches {serve16_launches[4]}, f32 "
+          f"K4 0, K3 0 | peak GiB {peak:.2f} | kernels per request {kernels16} | 20-step sample "
+          f"{sample16_ms:.3f} ms, {EVALS_PER_SAMPLE * blocks} bf16 K4a (clustered bf16, phase 46: "
+          f"{ref['sample16_ms']:.3f}; f32 clustered, phase 11: {ref['sample_ms']:.3f}) | 2-step AR "
+          f"rollout ms per AR step {ar16_ms / 2:.3f}", flush=True)
+    del sampler16, ar16, traj16, sample16
+    # Card against CPU at GENCAST_CHECK_BLOCKS blocks (phase 9's weights,
+    # the last request): the card's bf16 and f32 outputs, the CPU's bf16.
+    short = shallow_denoiser(port, GENCAST_BANDED, bden16.module, "cuda")
+    with torch.no_grad():
+        short16 = short.forward_fn(compute_dtype=bf16)(x, cond, sigma).cpu()
+        short32 = short.forward_fn()(x, cond, sigma).cpu()
+    cpu_ref = cpu_reference("band_shallow", short.module.state_dict(), x, cond)  # from the CPU pool
+    del short
+    cpu16, cpu_s = torch.from_numpy(cpu_ref["out16"]), cpu_ref["seconds"]
+    to_cpu, to_f32 = rmse(short16, cpu16), rmse(short16, short32)
+    own_text = "not taken (within the limit)"
+    if not (to_cpu <= BF16_CARD_RULE * to_f32):  # the CPU's own reading, beside a miss only
+        flipped, n_flips = one_ulp_off(x, 8)
+        with CLOCK.cpu(), torch.no_grad():
+            cpu_short = shallow_denoiser(port, GENCAST_BANDED, bden16.module, "cpu")
+            cpu_flipped = cpu_short.forward_fn(compute_dtype=bf16)(flipped, cond.cpu(), sigma.cpu())
+        own_text = f"with {n_flips} inputs one ulp off {rmse(cpu16, cpu_flipped) / to_f32:.3f}"
+    print(f"[cpu] banded bf16 denoiser at {GENCAST_CHECK_BLOCKS} blocks: RMSE card bf16 - CPU bf16 "
+          f"{to_cpu:.4e} | card bf16 - card f32 {to_f32:.4e} | ratio {to_cpu / to_f32:.3f} (limit "
+          f"{BF16_CARD_RULE}) | CPU bf16 against itself {own_text} | cpu bf16 forward {cpu_s:.2f} s "
+          f"(in the CPU pool)", flush=True)
+    if not (to_cpu <= BF16_CARD_RULE * to_f32):
+        raise AssertionError(f"banded bf16 denoiser card vs CPU: RMSE {to_cpu} > {BF16_CARD_RULE} x {to_f32}")
+    del serve16
+    CLOCK.mark(63)
+
+    # 64. band_train_bf16: 3 steps of phase 47's objective through the banded bf16 forward_fn
+    corrupted_t, prev_t, _, target_t = ref["batch16"]  # phase 15's batch
+    noise1 = torch.ones(1, 1, device="cuda")  # bench.py's noise level
+
+    def mse(pred, target):
+        return torch.mean((pred - target) ** 2)
+
+    step16 = port.make_train_step(bden16.module.parameters(), bden16.forward_fn(compute_dtype=bf16),
+                                  mse, port.make_optimizer(1e-4))
+    before_params = [t.detach().clone() for t in bden16.module.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    train16_ms, losses = [], []
+    for _ in range(3):
+        before = counts()
+        loss, ms = timed(lambda: step16(corrupted_t, prev_t, noise1, target_t))
+        if made_since(before) != (0,) * 4 + (blocks, blocks, blocks, 0, 0):
+            raise AssertionError(f"a banded bf16 train step made {made_since(before)} launches (f32 K4, "
+                                 "bf16 K4a, dq, dk/dv symmetric, general, K3), expected 16 of each bf16 "
+                                 "K4a/dq/symmetric dk/dv kernel and nothing else")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"banded bf16 train loss {loss.item()}")
+        train16_ms.append(ms)
+        losses.append(loss.item())
+    train16_launches = counts()
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    params = list(bden16.module.parameters())
+    if any(t.dtype != torch.float32 for t in params):
+        raise AssertionError("a banded parameter left f32 under the bf16 policy")
+    unchanged = sum(torch.equal(a, b) for a, b in zip(before_params, params))
+    if unchanged:
+        raise AssertionError(f"{unchanged} parameter tensors did not change in 3 banded bf16 steps")
+    step_kernels = profile_request(lambda: step16(corrupted_t, prev_t, noise1, target_t),
+                                   "banded bf16 train step")
+    del step16, before_params
+
+    def objective():
+        return mse(bden16.forward_fn(compute_dtype=bf16)(corrupted_t, prev_t, noise1), target_t)
+
+    bden16.module.zero_grad(set_to_none=True)
+    value = objective()
+    value.backward()
+    grads = {k: t.grad.cpu() for k, t in bden16.module.named_parameters()}
+    repeat = card_repeat(bden16.module, objective, value.item(), grads, required=True)
+    print(f"[band_train_bf16] 3 steps | step_ms {[round(t, 3) for t in train16_ms]} | steady median "
+          f"{statistics.median(train16_ms[1:]):.3f} (f32 banded, phase 30: {ref['band_train_ms']:.3f}; "
+          f"clustered bf16, phase 47: {ref['train16_ms']:.3f}) | loss {[round(v, 6) for v in losses]} | "
+          f"launches per step bf16 K4a (with lse) {blocks}, dq {blocks}, dk/dv {blocks} (symmetric "
+          f"role), general 0, f32 K4 0, K3 0 | all {len(params)} f32 parameter tensors changed | peak "
+          f"GiB {train_peak:.2f} | kernels per step {step_kernels} | {repeat}", flush=True)
+    del grads
+    # The bf16 gradients at GENCAST_CHECK_BLOCKS blocks (the trained first
+    # and last blocks) on the card and on the CPU, held against the card's
+    # f32 gradients there.
+    short = shallow_denoiser(port, GENCAST_BANDED, bden16.module, "cuda")
+
+    def short_grads(handle, dtype, corrupted, device):
+        handle.module.zero_grad(set_to_none=True)
+        out = handle.forward_fn(compute_dtype=dtype)(
+            corrupted.to(device), prev_t.to(device), noise1.to(device))
+        value = mse(out, target_t.to(device))
+        value.backward()
+        return value.item(), {k: t.grad.cpu() for k, t in handle.module.named_parameters()}
+
+    card_value, card16 = short_grads(short, bf16, corrupted_t, "cuda")
+    _, card32 = short_grads(short, torch.float32, corrupted_t, "cuda")
+    del short
+    with CLOCK.cpu():
+        cpu_short = shallow_denoiser(port, GENCAST_BANDED, bden16.module, "cpu")
+        t0 = time.perf_counter()
+        cpu_value, cpu16 = short_grads(cpu_short, bf16, corrupted_t, "cpu")
+        cpu_s = time.perf_counter() - t0
+    to_cpu = global_norm({k: card16[k] - cpu16[k] for k in card16})
+    to_f32 = global_norm({k: card16[k] - card32[k] for k in card16})
+    own_text = "not taken (within the limit)"
+    if not (to_cpu <= BF16_CARD_GRAD_RULE * to_f32):  # the CPU's own reading, beside a miss only
+        flipped, n_flips = one_ulp_off(corrupted_t, 9)
+        with CLOCK.cpu():
+            cpu_flipped = short_grads(cpu_short, bf16, flipped, "cpu")[1]
+        own = global_norm({k: cpu16[k] - cpu_flipped[k] for k in cpu16}) / to_f32
+        own_text = f"with {n_flips} inputs one ulp off {own:.3f}"
+    print(f"[cpu] banded bf16 gradients at {GENCAST_CHECK_BLOCKS} blocks after the steps: global norm "
+          f"card bf16 - CPU bf16 {to_cpu:.4e} | card bf16 - card f32 {to_f32:.4e} | ratio "
+          f"{to_cpu / to_f32:.3f} (limit {BF16_CARD_GRAD_RULE}) | CPU bf16 against itself {own_text} | "
+          f"loss card {card_value:.6f} cpu {cpu_value:.6f} | cpu bf16 forward+backward {cpu_s:.2f} s",
+          flush=True)
+    if not (to_cpu <= BF16_CARD_GRAD_RULE * to_f32):
+        raise AssertionError(f"banded bf16 gradients card vs CPU: {to_cpu} > {BF16_CARD_GRAD_RULE} x "
+                             f"{to_f32}")
+    del cpu_short, bden16, card16, card32, cpu16
+    torch.cuda.empty_cache()
+    CLOCK.mark(64)
+    return dict(k4_16=k4_16, per_eval16=per_eval16, bounds=bounds, sdpa16=sdpa16,
+                sdpa16_bwd=sdpa16_bwd, serve16_launches=serve16_launches,
+                train16_launches=train16_launches)
 
 
 def main() -> int:
@@ -3057,6 +3850,31 @@ def main() -> int:
 
     if not Path(port.__file__).resolve().is_relative_to(ROOT):
         raise ImportError(f"graph_weather_tpu_torch imported from {port.__file__}, not {ROOT}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    card = smi
+    print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
+          f"| devices {torch.cuda.device_count()}", flush=True)
+
+    CLOCK.mark(1)
+    # 2. build (all kernels at once; phase 7 reports the second), the CPU
+    # reference pool (CPU_JOBS) started before it
+    global REFS
+    REFS = CpuReferences()
+    try:
+        return phases(port, card)
+    finally:
+        REFS.stop()
+
+
+def phases(port, card: str) -> int:
+    """Phases 2-64 and the closing lines (main's body, beside REFS)."""
     from graph_weather_tpu_torch.meshes.graphs import (
         build_grid_to_mesh_graph,
         build_latent_graph,
@@ -3084,20 +3902,7 @@ def main() -> int:
     )
     from graph_weather_tpu_torch.train.rollout import make_rollout_fn
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    # 1. card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    card = smi
-    print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
-          f"| devices {torch.cuda.device_count()}", flush=True)
-
-    # 2. build (all kernels at once; phase 7 reports the second)
-    t0 = time.perf_counter()
+    t0 = time.perf_counter()  # the CPU reference pool runs beside the build
     _build.load_libraries(_build.all_sources())
     build_s = time.perf_counter() - t0
 
@@ -3111,6 +3916,7 @@ def main() -> int:
     print(f"[build] edge_mlp.cu {build_s:.2f} s | "
           + " | ".join(ptxas("edge_mlp") + [tf32_mma_report(_build, "edge_mlp")]), flush=True)
 
+    CLOCK.mark(2)
     # 3. K1 and K2 at the main-path shapes, on the real 1° graphs
     lat_lons = grid(1.0)
     ll = np.asarray(lat_lons)
@@ -3162,13 +3968,15 @@ def main() -> int:
           f"{per_forward({n: tf32x3_ms(v[3]) for n, v in k2.items()}):.4f} | K1 (raw mode) "
           f"kernel_ms={k1_ms:.4f}", flush=True)
 
+    CLOCK.mark(3)
     # 4. serve
-    t0 = time.perf_counter()
-    model = port.GraphWeatherForecaster(
-        lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cuda"
-    )
-    model.init(torch.Generator().manual_seed(0))
-    setup_s = time.perf_counter() - t0
+    with quiet():
+        t0 = time.perf_counter()
+        model = port.GraphWeatherForecaster(
+            lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cuda"
+        )
+        model.init(torch.Generator().manual_seed(0))
+        setup_s = time.perf_counter() - t0
     inputs = torch.randn(
         3, 1, len(lat_lons), FEATURE_DIM + AUX_DIM, generator=torch.Generator().manual_seed(1)
     ).to("cuda")
@@ -3190,20 +3998,16 @@ def main() -> int:
           f"| K2 launches {serve_launches}, K1 {serve_k1_launches} | loss {[round(v, 6) for v in losses]}", flush=True)
     request_kernels = profile_request(lambda: model(features), "forecaster request")  # for phase 49
 
-    # 5. the same weights and the last request on the CPU
-    cpu_model = port.GraphWeatherForecaster(
-        lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cpu"
-    )
-    cpu_model.module.load_state_dict({k: v.cpu() for k, v in model.module.state_dict().items()})
-    t0 = time.perf_counter()
-    cpu_pred = cpu_model(features.cpu())
-    cpu_s = time.perf_counter() - t0
-    cpu_err = (pred.cpu() - cpu_pred).abs().max().item()
-    print(f"[cpu] max_abs_diff {cpu_err:.3e} (limit {CPU_TOL}) | cpu forward {cpu_s:.2f} s",
-          flush=True)
+    CLOCK.mark(4)
+    # 5. the same weights and the last request on the CPU (from the CPU pool)
+    cpu_ref = cpu_reference("fc_serve", model.module.state_dict(), features)
+    cpu_err = (pred.cpu() - torch.from_numpy(cpu_ref["out"])).abs().max().item()
+    print(f"[cpu] max_abs_diff {cpu_err:.3e} (limit {CPU_TOL}) | cpu job (f32, bf16 and one-ulp "
+          f"forwards, in the CPU pool) {cpu_ref['seconds']:.2f} s", flush=True)
     if not (cpu_err <= CPU_TOL):
         raise AssertionError(f"card vs CPU: {cpu_err} > {CPU_TOL}")
 
+    CLOCK.mark(5)
     # 6. rollout
     rollout = make_rollout_fn(model, 4)
     before = fused_mlp.LAUNCHES
@@ -3214,21 +4018,24 @@ def main() -> int:
     if fused_mlp.LAUNCHES - before != 44 or edge_mlp.LAUNCHES:
         raise AssertionError(f"rollout made {fused_mlp.LAUNCHES - before} K2 launches, expected 44")
     print(f"[rollout] 4 steps finite | step_ms {step_ms:.3f} | K2 launches 44", flush=True)
-    del model, cpu_model, traj
+    del model, traj
 
+    CLOCK.mark(6)
     # 7. build of the GenCast kernel (started with the others in phase 2)
     print(f"[build] clustered_flash.cu {build_s:.2f} s (parallel with edge_mlp.cu) | "
           + " | ".join(ptxas("clustered_flash") + [tf32_mma_report(_build, "clustered_flash")]),
           flush=True)
 
+    CLOCK.mark(7)
     # 8. K3a on the real splits-5 layout, at the processor's two head widths
-    t0 = time.perf_counter()
-    graphs = build_graphcast_graphs(
-        GENCAST["grid_lon"], GENCAST["grid_lat"], splits=5, num_hops=4,
-        add_edge_features_to_khop=False, spatial_sort="rcb",
-    )
-    khop = DeviceGraph.from_bundle(graphs.khop, "cuda", clustered=True)
-    graph_s = time.perf_counter() - t0
+    with quiet():
+        t0 = time.perf_counter()
+        graphs = build_graphcast_graphs(
+            GENCAST["grid_lon"], GENCAST["grid_lat"], splits=5, num_hops=4,
+            add_edge_features_to_khop=False, spatial_sort="rcb",
+        )
+        khop = DeviceGraph.from_bundle(graphs.khop, "cuda", clustered=True)
+        graph_s = time.perf_counter() - t0
     nb, u_pad = khop.cluster_ids.shape
     block = khop.cluster_block
 
@@ -3259,12 +4066,14 @@ def main() -> int:
           f"({k3a_bound_by}, edges only) | dense (row, slot) work {dense_flops / 1e9:.1f} GFLOP "
           f"= {dense_flops / FP32_PEAK * 1e3:.3f} ms at the FP32 peak", flush=True)
 
+    CLOCK.mark(8)
     # 9. denoise: the full-width Denoiser answers 3 requests
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    den = port.Denoiser(**GENCAST, device="cuda")
-    den.init(torch.Generator().manual_seed(0))
-    setup_s = time.perf_counter() - t0
+    with quiet():
+        t0 = time.perf_counter()
+        den = port.Denoiser(**GENCAST, device="cuda")
+        den.init(torch.Generator().manual_seed(0))
+        setup_s = time.perf_counter() - t0
     data_gen = torch.Generator().manual_seed(1)
     n_lon, n_lat, f_in, f_out = 128, 64, GENCAST["input_features_dim"], GENCAST["output_features_dim"]
     corrupted = torch.randn(3, 1, n_lon, n_lat, f_out, generator=data_gen).to("cuda")
@@ -3297,19 +4106,16 @@ def main() -> int:
     clustered_out = out.detach().cpu()
     requests9 = (corrupted, prev, sigma)  # phase 45 serves them again, in bf16
 
-    # 10. the same weights and the last request on the CPU
-    cpu_den = port.Denoiser(**GENCAST, device="cpu")
-    cpu_den.module.load_state_dict({k: v.cpu() for k, v in den.module.state_dict().items()})
-    t0 = time.perf_counter()
-    cpu_out = cpu_den(x.cpu(), cond.cpu(), sigma.cpu())
-    cpu_s = time.perf_counter() - t0
-    cpu_err = (out.cpu() - cpu_out).abs().max().item()
-    print(f"[cpu] denoiser max_abs_diff {cpu_err:.3e} (limit {CPU_TOL}) | cpu forward "
-          f"{cpu_s:.2f} s", flush=True)
+    CLOCK.mark(9)
+    # 10. the same weights and the last request on the CPU (from the CPU pool)
+    cpu_ref = cpu_reference("gencast", den.module.state_dict(), x, cond)
+    cpu_err = (out.cpu() - torch.from_numpy(cpu_ref["out"])).abs().max().item()
+    print(f"[cpu] denoiser max_abs_diff {cpu_err:.3e} (limit {CPU_TOL}) | cpu job (f32, bf16 and "
+          f"one-ulp forwards, in the CPU pool) {cpu_ref['seconds']:.2f} s", flush=True)
     if not (cpu_err <= CPU_TOL):
         raise AssertionError(f"denoiser card vs CPU: {cpu_err} > {CPU_TOL}")
-    del cpu_den
 
+    CLOCK.mark(10)
     # 11. sample: 2 samples of the 20-step sampler
     sampler = port.Sampler(num_steps=20, device="cuda")
     noise_gen = torch.Generator(device="cuda").manual_seed(2)
@@ -3327,6 +4133,7 @@ def main() -> int:
           f"{[round(t, 3) for t in sample_ms]} | ms per eval {sample_ms[-1] / EVALS_PER_SAMPLE:.3f} "
           f"| K3a launches {launches} per sample", flush=True)
 
+    CLOCK.mark(11)
     # 12. a 2-step AR sample rollout
     ar = port.make_ar_rollout_fn(sampler, den, 2, device="cuda")
     traj, ms = timed(lambda: ar(prev[0], noise_gen))
@@ -3334,11 +4141,13 @@ def main() -> int:
         raise AssertionError(f"bad AR rollout: shape {tuple(traj.shape)}")
     print(f"[ar_rollout] 2 steps finite | ms per AR step {ms / 2:.3f}", flush=True)
 
+    CLOCK.mark(12)
     # 13. build of the backward kernels (started with the others in phase 2)
     print(f"[build] clustered_flash_bwd.cu {build_s:.2f} s (parallel with the others) | "
           + " | ".join(ptxas("clustered_flash_bwd") + [tf32_mma_report(_build, "clustered_flash_bwd")]),
           flush=True)
 
+    CLOCK.mark(13)
     # 14. K3c and K3b on the real splits-5 layout, at both head widths
     # The k-hop graph is symmetric, so its DeviceGraph carries no inverse
     # index; K3b's comes from the layout here, outside the timings.
@@ -3361,6 +4170,7 @@ def main() -> int:
           f"K3c's 7 products {dense_bwd / 1e9:.1f} GFLOP = {dense_bwd / FP32_PEAK * 1e3:.3f} ms at "
           f"the FP32 peak", flush=True)
 
+    CLOCK.mark(14)
     # 15. train: 3 steps of the full-width denoiser (the weights of phase 9)
     train_gen = torch.Generator().manual_seed(3)
     corrupted_t, prev_t, target_t = (
@@ -3424,6 +4234,7 @@ def main() -> int:
           f"optimizer state resident)", flush=True)
     del remat
 
+    CLOCK.mark(15)
     # 16. the same weights and batch: gradients on the card and on the CPU
     den.module.zero_grad(set_to_none=True)
     card_value = objective(den.forward_fn()(corrupted_t, prev_t, noise_t), target_t)
@@ -3437,14 +4248,15 @@ def main() -> int:
     short_value = objective(short.forward_fn()(corrupted_t, prev_t, noise_t), target_t)
     short_value.backward()
     short_grads = {k: t.grad.cpu() for k, t in short.module.named_parameters()}
-    cpu_den = shallow_denoiser(port, GENCAST, den.module, "cpu")
-    del short
-    cpu_loss = port.WeightedMSELoss(grid_lat=GENCAST["grid_lat"], device="cpu")
-    t0 = time.perf_counter()
-    cpu_value = cpu_loss(cpu_den.forward_fn()(corrupted_t.cpu(), prev_t.cpu(), noise_t.cpu()),
-                         noise_t.cpu(), target_t.cpu())
-    cpu_value.backward()
-    cpu_s = time.perf_counter() - t0
+    with CLOCK.cpu():
+        cpu_den = shallow_denoiser(port, GENCAST, den.module, "cpu")
+        del short
+        cpu_loss = port.WeightedMSELoss(grid_lat=GENCAST["grid_lat"], device="cpu")
+        t0 = time.perf_counter()
+        cpu_value = cpu_loss(cpu_den.forward_fn()(corrupted_t.cpu(), prev_t.cpu(), noise_t.cpu()),
+                             noise_t.cpu(), target_t.cpu())
+        cpu_value.backward()
+        cpu_s = time.perf_counter() - t0
     cpu_grads = {k: t.grad for k, t in cpu_den.module.named_parameters()}
     loss_rel = abs(short_value.item() - cpu_value.item()) / abs(cpu_value.item())
     worst, worst_name = grads_close(short_grads, cpu_grads)
@@ -3458,19 +4270,21 @@ def main() -> int:
     if not (worst <= 1.0):
         raise AssertionError(f"gradient of {worst_name} card vs CPU: {worst} x its limit")
     graphs_khop_edges = graphs.khop.n_edges
-    # Phase 47 takes the bf16 gradients at these weights and this batch, and
-    # holds them against these f32 ones.
+    # Phase 47 takes the bf16 gradients at these weights and this batch at
+    # GENCAST_CHECK_BLOCKS blocks, and holds them against these f32 ones.
     weights16 = {k: v.detach().cpu() for k, v in den.module.state_dict().items()}
-    grads16, batch16, objective16 = card_grads, (corrupted_t, prev_t, noise_t, target_t), objective
-    card_value16 = card_value.item()
+    grads16, batch16, objective16 = short_grads, (corrupted_t, prev_t, noise_t, target_t), objective
+    card_value16 = short_value.item()
     del cpu_den, den, sampler, ar, khop, graphs, scatter
     torch.cuda.empty_cache()
 
+    CLOCK.mark(16)
     # 17. build of the NATTEN kernels (started with the others in phase 2)
     print(f"[build] natten_flash.cu + natten_flash_bwd.cu {build_s:.2f} s (parallel with the "
           "others) | K5a: " + " | ".join(ptxas_by_kernel(_build, "natten_flash")) + " | K5b: "
           + " | ".join(ptxas("natten_flash_bwd")), flush=True)
 
+    CLOCK.mark(17)
     # 18. K5a on WeatherMesh's 1-degree latent: (a) the model's layers, (b) a
     # circular W axis, (c) the JAX module's default kernel and heads, (d) the
     # widest head K5a takes; K5b (phase 22) takes (a)-(c)
@@ -3486,21 +4300,23 @@ def main() -> int:
           f"{K5_PER_FORWARD * k5a_bound:.4f} ({k5a_bound_by}: {k5a['a']['flops'] / 1e9:.2f} GFLOP, "
           f"{k5a['a']['nbytes'] / 1e6:.1f} MB per launch)", flush=True)
 
+    CLOCK.mark(18)
     # 19. wm_serve: the full-size WeatherMesh answers 3 requests
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    wm = port.WeatherMesh(**WEATHERMESH, device="cuda")
-    wm.init(torch.Generator().manual_seed(0))
-    # The attention projections' biases at 0: with TorchLinear's uniform
-    # biases, eight layers of window averaging leave some decoder channels
-    # nearly constant over the grid, and their GroupNorm amplifies f32
-    # rounding by orders of magnitude: card and CPU then differ by ~6e-2 at
-    # 1 deg, by ~5e-4 with these biases at 0 (NVIDIA H100 80GB HBM3 host).
-    with torch.no_grad():
-        for name, t in wm.module.named_parameters():
-            if name.endswith(("qkv.bias", "proj.bias")):
-                t.zero_()
-    setup_s = time.perf_counter() - t0
+    with quiet():
+        t0 = time.perf_counter()
+        wm = port.WeatherMesh(**WEATHERMESH, device="cuda")
+        wm.init(torch.Generator().manual_seed(0))
+        # The attention projections' biases at 0: with TorchLinear's uniform
+        # biases, eight layers of window averaging leave some decoder channels
+        # nearly constant over the grid, and their GroupNorm amplifies f32
+        # rounding by orders of magnitude: card and CPU then differ by ~6e-2 at
+        # 1 deg, by ~5e-4 with these biases at 0 (NVIDIA H100 80GB HBM3 host).
+        with torch.no_grad():
+            for name, t in wm.module.named_parameters():
+                if name.endswith(("qkv.bias", "proj.bias")):
+                    t.zero_()
+        setup_s = time.perf_counter() - t0
     h, w = WM_GRID
     levels = WEATHERMESH["pressure_levels"]
     wm_gen = torch.Generator().manual_seed(1)
@@ -3529,20 +4345,18 @@ def main() -> int:
           flush=True)
     profile_request(lambda: wm(surface, pressure), "WeatherMesh request")
 
-    # 20. the same weights and the last request on the CPU
-    cpu_wm = port.WeatherMesh(**WEATHERMESH, device="cpu")
-    cpu_wm.module.load_state_dict({k: v.cpu() for k, v in wm.module.state_dict().items()})
-    t0 = time.perf_counter()
-    cpu_pred = cpu_wm(surface.cpu(), pressure.cpu())
-    cpu_s = time.perf_counter() - t0
-    cpu_err = max((pred.surface.cpu() - cpu_pred.surface).abs().max().item(),
-                  (pred.pressure.cpu() - cpu_pred.pressure).abs().max().item())
+    CLOCK.mark(19)
+    # 20. the same weights and the last request on the CPU (from the CPU pool)
+    cpu_ref = cpu_reference("wm_serve", wm.module.state_dict(), surface, pressure)
+    cpu_err = max((pred.surface.cpu() - torch.from_numpy(cpu_ref["surface"])).abs().max().item(),
+                  (pred.pressure.cpu() - torch.from_numpy(cpu_ref["pressure"])).abs().max().item())
     print(f"[cpu] WeatherMesh max_abs_diff {cpu_err:.3e} (limit {CPU_TOL}) | cpu forward "
-          f"{cpu_s:.2f} s", flush=True)
+          f"{cpu_ref['seconds']:.2f} s (in the CPU pool)", flush=True)
     if not (cpu_err <= CPU_TOL):
         raise AssertionError(f"WeatherMesh card vs CPU: {cpu_err} > {CPU_TOL}")
-    del cpu_pred
+    del cpu_ref
 
+    CLOCK.mark(20)
     # 21. an 8-step rollout (bench.py's weathermesh_rollout_ms_per_step)
     before = natten_flash.LAUNCHES
     roll, ms = timed(lambda: wm(surface, pressure, forecast_steps=8))
@@ -3555,6 +4369,7 @@ def main() -> int:
           f"launches {roll_launches}", flush=True)
     del roll
 
+    CLOCK.mark(21)
     # 22. K5b against the plain backward in the cases of phase 18
     k5b = {n: k5b_case(natten_flash, n, gen, *c) for n, c in cases.items()}
     k5b_bound, k5b_bound_by = bound(k5b["a"]["flops"], k5b["a"]["nbytes"])
@@ -3573,6 +4388,7 @@ def main() -> int:
           f"{k5b['a']['nbytes'] / 1e6:.1f} MB per layer) | K5a with lse "
           f"{K5_PER_FORWARD * k5a['a']['lse_ms']:.4f}", flush=True)
 
+    CLOCK.mark(22)
     # 23. wm_train: 3 steps of make_train_step with bench.py's objective
     targets = tuple(torch.randn(t.shape, generator=wm_gen).to("cuda") for t in (surface, pressure))
 
@@ -3612,6 +4428,7 @@ def main() -> int:
     profile_request(lambda: wm_step(surface, pressure, targets), "WeatherMesh train step")
     del wm_step, before_params
 
+    CLOCK.mark(23)
     # 24. the same weights and one batch at 3 deg (the weights do not depend
     # on the grid; at 1 deg the CPU's forward alone takes ~1-2 min): gradients
     # on the card and on the CPU
@@ -3630,11 +4447,13 @@ def main() -> int:
                              tuple(t.cuda() for t in check_targets)),
         card_value.item(), card_grads, required=True,
     )
-    cpu_wm.module.load_state_dict({k: v.cpu() for k, v in wm.module.state_dict().items()})
-    t0 = time.perf_counter()
-    cpu_value = wm_objective(cpu_wm.forward_fn()(*check), check_targets)
-    cpu_value.backward()
-    cpu_s = time.perf_counter() - t0
+    with CLOCK.cpu():
+        cpu_wm = port.WeatherMesh(**WEATHERMESH, device="cpu")
+        cpu_wm.module.load_state_dict({k: v.cpu() for k, v in wm.module.state_dict().items()})
+        t0 = time.perf_counter()
+        cpu_value = wm_objective(cpu_wm.forward_fn()(*check), check_targets)
+        cpu_value.backward()
+        cpu_s = time.perf_counter() - t0
     cpu_grads = {k: t.grad for k, t in cpu_wm.module.named_parameters()}
     loss_rel = abs(card_value.item() - cpu_value.item()) / abs(cpu_value.item())
     worst, worst_name = grads_close(card_grads, cpu_grads)
@@ -3650,6 +4469,7 @@ def main() -> int:
     del cpu_wm, wm
     torch.cuda.empty_cache()
 
+    CLOCK.mark(24)
     # 25. build of the banded kernels (started with the others in phase 2)
     print(f"[build] banded_flash.cu + banded_flash_bwd.cu {build_s:.2f} s (parallel with the "
           "others) | " + " | ".join(ptxas("banded_flash") + ptxas("banded_flash_bwd")
@@ -3657,15 +4477,17 @@ def main() -> int:
                                        "banded_flash_bwd: " + tf32_mma_report(_build, "banded_flash_bwd")]),
           flush=True)
 
+    CLOCK.mark(25)
     # 26. K4a on the real splits-5 band layout (the lat-lon sorted k-hop
     # graph), at the processor's two head widths
-    t0 = time.perf_counter()
-    band_graphs = build_graphcast_graphs(
-        GENCAST["grid_lon"], GENCAST["grid_lat"], splits=5, num_hops=4,
-        add_edge_features_to_khop=False, spatial_sort=True,
-    )
-    band = DeviceGraph.from_bundle(band_graphs.khop, "cuda", banded=True, band_flash=True)
-    graph_s = time.perf_counter() - t0
+    with quiet():
+        t0 = time.perf_counter()
+        band_graphs = build_graphcast_graphs(
+            GENCAST["grid_lon"], GENCAST["grid_lat"], splits=5, num_hops=4,
+            add_edge_features_to_khop=False, spatial_sort=True,
+        )
+        band = DeviceGraph.from_bundle(band_graphs.khop, "cuda", banded=True, band_flash=True)
+        graph_s = time.perf_counter() - t0
     band_nb, band_block, band_w = band.band_masks.shape[0], band.band_block, band.band_w
     width = band_block + 2 * band_w
 
@@ -3699,6 +4521,7 @@ def main() -> int:
           f"{per_eval_sum({c: v['lse_ms'] for c, v in k4a.items()}):.4f} | K3a (phase 8) "
           f"{k3a_ms:.4f}", flush=True)
 
+    CLOCK.mark(26)
     # 27. K4b in the same cases, both roles of its dk/dv kernel; then the
     # general role on a directed band
     general_before = banded_flash.BWD_DKV_LAUNCHES
@@ -3726,6 +4549,7 @@ def main() -> int:
     del band, band_graphs
     torch.cuda.empty_cache()
 
+    CLOCK.mark(27)
     # 28. band_serve: phase 9's weights and requests through the banded Denoiser
     def band_counts():
         return (banded_flash.LAUNCHES, banded_flash.BWD_DQ_LAUNCHES,
@@ -3740,10 +4564,11 @@ def main() -> int:
         clustered_flash.SYMMETRIC_DKV_LAUNCHES = clustered_flash.GENERAL_BWD_LAUNCHES = 0
 
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    bden = port.Denoiser(**GENCAST_BANDED, device="cuda")
-    bden.module.load_state_dict(weights9)
-    setup_s = time.perf_counter() - t0
+    with quiet():
+        t0 = time.perf_counter()
+        bden = port.Denoiser(**GENCAST_BANDED, device="cuda")
+        bden.module.load_state_dict(weights9)
+        setup_s = time.perf_counter() - t0
     zero_band_counts()
     band_ms = []
     for x, cond in zip(corrupted, prev):
@@ -3778,18 +4603,16 @@ def main() -> int:
     del plain_den
     torch.cuda.empty_cache()
 
-    # 29. the same weights and the last request on the CPU
-    cpu_bden = port.Denoiser(**GENCAST_BANDED, device="cpu")
-    cpu_bden.module.load_state_dict(weights9)
-    t0 = time.perf_counter()
-    cpu_bout = cpu_bden(x.cpu(), cond.cpu(), sigma.cpu())
-    cpu_s = time.perf_counter() - t0
-    cpu_err = (bout.cpu() - cpu_bout).abs().max().item()
+    CLOCK.mark(28)
+    # 29. the same weights and the last request on the CPU (from the CPU pool)
+    cpu_ref = cpu_reference("gencast_banded", weights9, x, cond)
+    cpu_err = (bout.cpu() - torch.from_numpy(cpu_ref["out"])).abs().max().item()
     print(f"[cpu] banded denoiser max_abs_diff {cpu_err:.3e} (limit {CPU_TOL}) | cpu forward "
-          f"{cpu_s:.2f} s", flush=True)
+          f"{cpu_ref['seconds']:.2f} s (in the CPU pool)", flush=True)
     if not (cpu_err <= CPU_TOL):
         raise AssertionError(f"banded denoiser card vs CPU: {cpu_err} > {CPU_TOL}")
 
+    CLOCK.mark(29)
     # 30. band_train: 3 steps on the banded Denoiser, then 2 with remat
     names = "K4a, K4b dq, K4b dk/dv symmetric, K4b dk/dv general, K3"
     before_params = [t.detach().clone() for t in bden.module.parameters()]
@@ -3820,6 +4643,7 @@ def main() -> int:
           f"optimizer state resident)", flush=True)
     del remat
 
+    CLOCK.mark(30)
     # 31. the same weights and batch: gradients on the card and on the CPU
     bden.module.zero_grad(set_to_none=True)
     card_value = objective(bden.forward_fn()(corrupted_t, prev_t, noise_t), target_t)
@@ -3830,13 +4654,14 @@ def main() -> int:
     card_value = objective(short.forward_fn()(corrupted_t, prev_t, noise_t), target_t)
     card_value.backward()
     card_grads = {k: t.grad.cpu() for k, t in short.module.named_parameters()}
-    cpu_bden = shallow_denoiser(port, GENCAST_BANDED, bden.module, "cpu")
-    del short
-    t0 = time.perf_counter()
-    cpu_value = cpu_loss(cpu_bden.forward_fn()(corrupted_t.cpu(), prev_t.cpu(), noise_t.cpu()),
-                         noise_t.cpu(), target_t.cpu())
-    cpu_value.backward()
-    cpu_s = time.perf_counter() - t0
+    with CLOCK.cpu():
+        cpu_bden = shallow_denoiser(port, GENCAST_BANDED, bden.module, "cpu")
+        del short
+        t0 = time.perf_counter()
+        cpu_value = cpu_loss(cpu_bden.forward_fn()(corrupted_t.cpu(), prev_t.cpu(), noise_t.cpu()),
+                             noise_t.cpu(), target_t.cpu())
+        cpu_value.backward()
+        cpu_s = time.perf_counter() - t0
     cpu_grads = {k: t.grad for k, t in cpu_bden.module.named_parameters()}
     loss_rel = abs(card_value.item() - cpu_value.item()) / abs(cpu_value.item())
     worst, worst_name = grads_close(card_grads, cpu_grads)
@@ -3851,11 +4676,13 @@ def main() -> int:
     del cpu_bden, bden  # weights9 stays on the host for phase 45
     torch.cuda.empty_cache()
 
+    CLOCK.mark(31)
     # 32. build of K2b (started with the others in phase 2)
     print(f"[build] fused_mlp_bwd.cu {build_s:.2f} s (parallel with the others) | "
           + " | ".join(ptxas("fused_mlp_bwd") + [tf32_mma_report(_build, "fused_mlp_bwd")]),
           flush=True)
 
+    CLOCK.mark(32)
     # 33. K2b with the sums after it, at the main-path shapes
     device_graphs = main_path_graphs()
     k2b = {name: k2b_case(fused_mlp, name, device_graphs[name], name != "m2g", gen)
@@ -3872,6 +4699,7 @@ def main() -> int:
     del device_graphs
     torch.cuda.empty_cache()
 
+    CLOCK.mark(33)
     # 34. fc_train: bench.py's metric_train_step on the 1° forecaster
     def fc_counts():
         return fused_mlp.LAUNCHES, fused_mlp.BACKWARD_LAUNCHES, edge_mlp.LAUNCHES
@@ -3933,6 +4761,7 @@ def main() -> int:
     del fc_remat
     torch.cuda.empty_cache()
 
+    CLOCK.mark(34)
     # 35. the same weights and batch: gradients on the card and on the CPU,
     # after the train steps and at the initial weights
     def fc_grads(model, loss_fn, x, y):
@@ -3950,13 +4779,14 @@ def main() -> int:
     bit_equal = card_value == repeat_value and not differ
     repeat_worst, repeat_worst_name = grads_close(repeat_grads, card_grads)
     del repeat_grads
-    cpu_fc = port.GraphWeatherForecaster(lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cpu")
-    cpu_fc.module.load_state_dict({k: v.cpu() for k, v in fc.module.state_dict().items()})
-    cpu_fc_loss = port.NormalizedMSELoss(np.ones(FEATURE_DIM), lat_lons, normalize=True, device="cpu")
-    cpu_x, cpu_y = fc_x.cpu(), fc_y.cpu()
-    t0 = time.perf_counter()
-    cpu_value, cpu_grads = fc_grads(cpu_fc, cpu_fc_loss, cpu_x, cpu_y)
-    cpu_s = time.perf_counter() - t0
+    with CLOCK.cpu():
+        cpu_fc = port.GraphWeatherForecaster(lat_lons, feature_dim=FEATURE_DIM, aux_dim=AUX_DIM, device="cpu")
+        cpu_fc.module.load_state_dict({k: v.cpu() for k, v in fc.module.state_dict().items()})
+        cpu_fc_loss = port.NormalizedMSELoss(np.ones(FEATURE_DIM), lat_lons, normalize=True, device="cpu")
+        cpu_x, cpu_y = fc_x.cpu(), fc_y.cpu()
+        t0 = time.perf_counter()
+        cpu_value, cpu_grads = fc_grads(cpu_fc, cpu_fc_loss, cpu_x, cpu_y)
+        cpu_s = time.perf_counter() - t0
     loss_rel = abs(card_value - cpu_value) / abs(cpu_value)
     worst, worst_name = grads_close(card_grads, cpu_grads)
     print(f"[cpu] forecaster train loss card {card_value:.6f} cpu {cpu_value:.6f} rel "
@@ -3977,14 +4807,13 @@ def main() -> int:
     # The initial weights (the mesh seeds at 0), where the encoder's
     # gradients are ill-conditioned in f32: the CPU's float64 gradient says
     # how far f32 rounding alone puts them.
+    # The CPU's (f32 and float64) come from the CPU pool.
     fc.module.load_state_dict(fc_initial)
-    cpu_fc.module.load_state_dict(fc_initial)
     card_value, card_grads = fc_grads(fc, fc_loss, fc_x, fc_y)
-    cpu_value, cpu_grads = fc_grads(cpu_fc, cpu_fc_loss, cpu_x, cpu_y)
-    forecaster_to_float64(cpu_fc)
-    t0 = time.perf_counter()
-    exact_value, exact_grads = fc_grads(cpu_fc, cpu_fc_loss, cpu_x.double(), cpu_y.double())
-    exact_s = time.perf_counter() - t0
+    cpu_ref = cpu_reference("fc_initial", fc_initial, fc_x, fc_y)
+    cpu_value, exact_value, exact_s = cpu_ref["value"], cpu_ref["exact_value"], cpu_ref["seconds"]
+    cpu_grads, exact_grads = ({k: torch.from_numpy(g) for k, g in cpu_ref[key].items()}
+                              for key in ("grads", "exact"))
     loss_rel = abs(card_value - cpu_value) / abs(cpu_value)
     floor = 1e-6 * max(g.abs().max().item() for g in exact_grads.values())
     f32_worst, f32_worst_name = grads_close(
@@ -3999,7 +4828,7 @@ def main() -> int:
           f"CPU: {len(outside)} of {len(cpu_grads)} tensors outside the limit, each as (error / "
           f"limit, card's error / CPU float32's error against float64, in norm): "
           + ", ".join(f"{k} ({r:.3f}, {q:.3f})" for k, r, q in outside)
-          + f" | float64 forward+backward {exact_s:.2f} s", flush=True)
+          + f" | f32 and float64 forward+backward {exact_s:.2f} s (in the CPU pool)", flush=True)
     if not (loss_rel <= LOSS_RTOL):
         raise AssertionError(f"initial forecaster loss card vs CPU: {loss_rel} > {LOSS_RTOL}")
     if not (worst <= 1.0):
@@ -4010,11 +4839,13 @@ def main() -> int:
     del cpu_fc, fc, fc_initial
     torch.cuda.empty_cache()
 
+    CLOCK.mark(35)
     # 36. build of K6 (started with the others in phase 2)
     print(f"[build] natten3d.cu {build_s:.2f} s (parallel with the others) | "
           + " | ".join(ptxas("natten3d") + [tf32_mma_report(_build, "natten3d", required=False)]),
           flush=True)
 
+    CLOCK.mark(36)
     # 37. K6 on the 1-degree latent: (a) the 768-d model's layers, (b) a
     # circular W axis, (c) the 128-d model's layers through impl="pallas",
     # also against K5a, (d) heads of 256; (e), (f) the other instantiations
@@ -4039,16 +4870,18 @@ def main() -> int:
           f"{k6['a']['flops'] / 1e9:.2f} GFLOP, {k6['a']['nbytes'] / 1e6:.1f} MB per layer; "
           f"{k6_bound:.4f} ms per layer) | phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    CLOCK.mark(37)
     # 38. wm_wide_serve: the 768-d WeatherMesh answers 3 requests
-    t0 = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    wide = port.WeatherMesh(**WM_WIDE, device="cuda")
-    wide.init(torch.Generator().manual_seed(0))
-    with torch.no_grad():  # as in phase 19
-        for name, t in wide.module.named_parameters():
-            if name.endswith(("qkv.bias", "proj.bias")):
-                t.zero_()
-    setup_s = time.perf_counter() - t0
+    with quiet():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        wide = port.WeatherMesh(**WM_WIDE, device="cuda")
+        wide.init(torch.Generator().manual_seed(0))
+        with torch.no_grad():  # as in phase 19
+            for name, t in wide.module.named_parameters():
+                if name.endswith(("qkv.bias", "proj.bias")):
+                    t.zero_()
+        setup_s = time.perf_counter() - t0
     wm_gen = torch.Generator().manual_seed(1)
     surfaces = torch.randn(3, 1, h, w, 8, generator=wm_gen).to("cuda")
     pressures = torch.randn(3, 1, levels, h, w, 4, generator=wm_gen).to("cuda")
@@ -4072,6 +4905,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     profile_request(lambda: wide(surface, pressure), "wide WeatherMesh request")
 
+    CLOCK.mark(38)
     # 39. a 2-step rollout
     t0 = time.perf_counter()
     before = natten3d.LAUNCHES
@@ -4087,6 +4921,7 @@ def main() -> int:
           f"launches {roll_launches} | phase {time.perf_counter() - t0:.1f} s", flush=True)
     del roll, pred
 
+    CLOCK.mark(39)
     # 40. the same weights and one request at 28 x 60 on the card and on the CPU
     t0 = time.perf_counter()
     check_h, check_w = WM_WIDE_CHECK_GRID
@@ -4099,22 +4934,22 @@ def main() -> int:
     torch.cuda.synchronize()
     if natten3d.LAUNCHES - before != short_k6:
         raise AssertionError(f"the check request made {natten3d.LAUNCHES - before} K6 launches")
-    cpu_wide = shallow_weathermesh(port, WM_WIDE, short.module, "cpu")
+    cpu_ref = cpu_reference("wide_serve", short.module.state_dict(), *check)  # from the CPU pool
     del short
-    t1 = time.perf_counter()
-    cpu_pred = cpu_wide(*check)
-    cpu_s = time.perf_counter() - t1
-    cpu_err = max((card_pred.surface.cpu() - cpu_pred.surface).abs().max().item(),
-                  (card_pred.pressure.cpu() - cpu_pred.pressure).abs().max().item())
+    cpu_s = cpu_ref["seconds"]
+    cpu_err = max((card_pred.surface.cpu() - torch.from_numpy(cpu_ref["surface"])).abs().max().item(),
+                  (card_pred.pressure.cpu() - torch.from_numpy(cpu_ref["pressure"])).abs().max().item())
     print(f"[cpu] wide WeatherMesh at {check_h} x {check_w} (latent [14, {check_h // 4}, "
           f"{check_w // 4}]), {WM_WIDE_CHECK_LAYERS} processor layers: max_abs_diff {cpu_err:.3e} "
-          f"(limit {CPU_TOL}) | card K6 launches {short_k6} | cpu forward {cpu_s:.2f} s | phase "
+          f"(limit {CPU_TOL}) | card K6 launches {short_k6} | cpu forward {cpu_s:.2f} s (in the CPU "
+          f"pool) | phase "
           f"{time.perf_counter() - t0:.1f} s",
           flush=True)
     if not (cpu_err <= CPU_TOL):
         raise AssertionError(f"wide WeatherMesh card vs CPU: {cpu_err} > {CPU_TOL}")
-    del cpu_wide, cpu_pred, card_pred
+    del cpu_ref, card_pred
 
+    CLOCK.mark(40)
     # 41. K6 with lse and K6b against their plain versions: phase 37's cases
     # a, b, d, e and f, and (g) case a without rpb
     t0 = time.perf_counter()
@@ -4138,6 +4973,7 @@ def main() -> int:
           f"{K6_PER_FORWARD * k6b['a']['fwd_ms']:.4f}, with lse {K6_PER_FORWARD * k6b['a']['lse_ms']:.4f} "
           f"| phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    CLOCK.mark(41)
     # 42. wm_wide_train: 3 steps of make_train_step on the 768-d WeatherMesh
     # (phase 38's weights) with phase 23's objective and optimiser
     t0 = time.perf_counter()
@@ -4181,7 +5017,8 @@ def main() -> int:
     profile_request(lambda: wide_step(surface, pressure, wide_targets), "wide WeatherMesh train step")
     del wide_step, before_params, wide_targets
 
-    # 43. the same weights and one batch at 28 x 60 (latent [14, 7, 15]; at 3
+    CLOCK.mark(42)
+    # 43. the same weights and one batch at WM_WIDE_GRAD_GRID (latent [14, 7, 9]; at 3
     # deg the CPU's forward and backward would take ~4 min), forward and
     # backward on the card and on the CPU
     t0 = time.perf_counter()
@@ -4210,12 +5047,13 @@ def main() -> int:
                               tuple(t.cuda() for t in check_targets))
     card_value.backward()
     card_grads = {k: t.grad.cpu() for k, t in short.module.named_parameters()}
-    cpu_wide = shallow_weathermesh(port, WM_WIDE, short.module, "cpu")
-    del short
-    t1 = time.perf_counter()
-    cpu_value = wm_objective(cpu_wide.forward_fn()(*check), check_targets)
-    cpu_value.backward()
-    cpu_s = time.perf_counter() - t1
+    with CLOCK.cpu():
+        cpu_wide = shallow_weathermesh(port, WM_WIDE, short.module, "cpu")
+        del short
+        t1 = time.perf_counter()
+        cpu_value = wm_objective(cpu_wide.forward_fn()(*check), check_targets)
+        cpu_value.backward()
+        cpu_s = time.perf_counter() - t1
     cpu_grads = {k: t.grad for k, t in cpu_wide.module.named_parameters()}
     loss_rel = abs(card_value.item() - cpu_value.item()) / abs(cpu_value.item())
     worst, worst_name = grads_close(card_grads, cpu_grads)
@@ -4232,14 +5070,16 @@ def main() -> int:
     del cpu_wide, wide, surfaces, pressures, card_grads, cpu_grads
     torch.cuda.empty_cache()
 
+    CLOCK.mark(43)
     # 44-47: GenCast's bf16 policy
     bf16 = gencast_bf16_phases(port, clustered_flash, _build, gen, dict(
         weights9=weights9, requests9=requests9, out9=clustered_out, denoise_ms=denoise_ms,
         sample_ms=sample_ms[-1], train_ms=statistics.median(train_ms[1:]), weights16=weights16,
         grads16=grads16, batch16=batch16, objective16=objective16, loss16=card_value16,
     ))
-    del weights9, weights16, grads16, batch16
+    del weights16, grads16  # weights9 and batch16 stay for phases 63-64
 
+    CLOCK.mark(47)
     # 48-50: the forecaster's bf16 policy
     fc16 = forecaster_bf16_phases(port, fused_mlp, edge_mlp, segment_sums, _build, gen, dict(
         lat_lons=lat_lons, bundles=dict(g2m=g2m, latent=latent, m2g=m2g), inputs=inputs,
@@ -4247,6 +5087,7 @@ def main() -> int:
         train_ms=statistics.median(fc_ms[1:]), step_kernels=step_kernels,
     ))
 
+    CLOCK.mark(50)
     # 51-55: WeatherMesh's bf16 policy
     wm16 = weathermesh_bf16_phases(port, natten_flash, natten3d, _window_indices, _build, gen, dict(
         wm_ms=wm_ms, wm_train_ms=statistics.median(wm_train_ms[1:]), wide_ms=wide_ms,
@@ -4257,6 +5098,17 @@ def main() -> int:
     # 56-61: FGN at bench.py's scale, f32 and bf16
     fgn = fgn_phases(port, clustered_flash, segment_sums, _build, gen)
     fgn_k3, fgn_s32 = fgn["k3"], fgn["s32"]
+    CLOCK.mark(61)
+
+    # 62-64: GenCast's bf16 policy on the banded attention
+    band16 = banded_bf16_phases(port, banded_flash, clustered_flash, band_windows, _build, gen, dict(
+        weights9=weights9, requests9=requests9, batch16=batch16, band_ms=band_ms,
+        band_train_ms=statistics.median(band_train_ms[1:]), sample_ms=sample_ms[-1],
+        serve16_ms=bf16["serve16_ms"], sample16_ms=bf16["sample16_ms"], train16_ms=bf16["train16_ms"],
+    ))
+    del weights9, batch16
+    k4_16 = band16["k4_16"]
+    REFS.close()
     f32, bf16_ = torch.float32, torch.bfloat16
 
     def fgn_wide(dtype, field, key):  # per c = 768 launch: one a member forward or step
@@ -4599,6 +5451,48 @@ def main() -> int:
             "library_ms": k4b_sdpa_ms,
         },
         {
+            "name": "banded_flash_forward_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/banded_flash.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/banded_flash.py:213",
+            "launches": band16["serve16_launches"][4],  # phase 63's 3 bf16 requests
+            "max_abs_err": max(v["errs"]["k4a"][0] for v in k4_16.values()),
+            "err_over_limit": max(v["errs"]["k4a"][1] for v in k4_16.values()),  # of 2^-6 max|plain|
+            "lse_err": max(v["lse_err"] for v in k4_16.values()),
+            "ms": band16["per_eval16"]("ms", "k4a"),  # per denoiser eval: 15 x c = 128 + c = 512
+            "with_lse_ms": band16["per_eval16"]("ms", "k4a_lse"),
+            "f32_ms": band16["per_eval16"]("f32_ms", "k4a"),  # the f32 kernel on the same values
+            "plain_ms": band16["per_eval16"]("plain_ms", "k4a"),
+            "bound_ms": band16["bounds"]["fwd"][0],
+            "bound_by": band16["bounds"]["fwd"][1],
+            "library_ms": band16["sdpa16"],  # SDPA in bf16 on the stacked windows
+            "train_launches": band16["train16_launches"][4],  # phase 64's 3 bf16 steps, with lse
+        },
+        {
+            "name": "banded_flash_backward_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/banded_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/banded_flash.py:379",
+            "launches": band16["train16_launches"][5],  # dq kernel, phase 64's 3 bf16 steps
+            "launches_dkv": band16["train16_launches"][6],  # dk/dv kernel, symmetric role
+            "launches_dkv_general": band16["train16_launches"][7],  # the k-hop graph is symmetric: 0
+            "max_abs_err": max(max(v["errs"][n][0] for n in ("dq", "dkv", "dkv_general"))
+                               for v in k4_16.values()),
+            "err_over_limit": max(max(v["errs"][n][1] for n in ("dq", "dkv", "dkv_general"))
+                                  for v in k4_16.values()),
+            "ms": band16["per_eval16"]("ms", "k4b"),  # per train step: delta and both kernels
+            "dq_ms": band16["per_eval16"]("ms", "dq"),
+            "dkv_ms": band16["per_eval16"]("ms", "dkv"),
+            "dkv_general_ms": band16["per_eval16"]("ms", "dkv_general"),
+            "dq_bound_ms": band16["bounds"]["dq"][0],
+            "dkv_bound_ms": band16["bounds"]["dkv"][0],
+            "f32_ms": band16["per_eval16"]("f32_ms", "k4b"),
+            "plain_ms": band16["per_eval16"]("plain_ms", "k4b"),
+            "bound_ms": band16["bounds"]["dq"][0] + band16["bounds"]["dkv"][0],
+            "bound_by": band16["bounds"]["dkv"][1],
+            "library_ms": band16["sdpa16_bwd"],  # SDPA's backward in bf16 on the stacked windows
+        },
+        {
             "name": "natten_flash_forward_bf16",
             "route": "cuda",
             "source": "graph_weather_tpu_torch/csrc/natten_flash.cu",
@@ -4782,6 +5676,10 @@ def main() -> int:
             "library_ms": fgn_s32["g2m receivers"]["library_ms"],  # index_add_ (atomics)
         },
     ]
+    totals = CLOCK.total()
+    print(f"[time] total wall {totals['wall_s']:.1f} s | waiting on CPU checks "
+          f"{totals['cpu_wait_s']:.1f} s | wall + CPU waits / 2 {totals['wall_plus_half_cpu_s']:.1f} s "
+          f"(a host whose CPU checks run 1.5x slower) | {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)  # nvidia-smi's "name, power.limit", as it printed them
     print(json.dumps({

@@ -1,5 +1,5 @@
-// Banded flash attention forward for Hopper (sm_90a), on the tensor cores
-// with split-TF32 products.
+// Banded flash attention forward for Hopper (sm_90a), on the tensor cores:
+// split-TF32 products for f32 inputs, bf16 products for bf16 inputs.
 //
 // Replaces the Pallas TPU kernel K4a, graph_weather_tpu/ops/pallas/
 // banded_flash.py: _flash_impl (the pallas_call of _kernel). The mesh nodes
@@ -14,7 +14,8 @@
 // with bias = 0 on an edge and -1e30 off it, the running max starting at
 // -1e28 and the output divided by max(l, 1e-30), as in the TPU kernel: a
 // row with no neighbour (and a padded row past n) comes out exactly 0, its
-// lse exactly -1e28 + log(1e-30). q, k, v and out are [B, n, h, c]. When
+// lse exactly -1e28 + log(1e-30). q, k, v and out are [B, n, h, c], f32 or
+// bf16 (one kernel body, instantiated per element type). When
 // the caller asks for it (training), the kernel also writes the
 // log-sum-exp m + log(max(l, 1e-30)) of every row of every block, f32
 // [B, nb * block, h], which the backward (banded_flash_bwd.cu) reads.
@@ -59,8 +60,18 @@
 // 16 x 8 halves too (a branch per half) took 1.30, and K4b's c = 128 tile
 // (4 row groups of 2 warps) 0.85 (PERF.md §6, scripts/k4a_k5b_variants.py).
 //
-// Not yet here: warps that do not wait for each other at every tile, wgmma,
-// bf16.
+// bf16 (GenCast's compute policy; the TPU kernel's bf16 mode), as K3a's
+// (clustered_flash.cu): the tiles hold bf16 rows (c = 512: ~107 KB of
+// shared memory where f32 takes ~206 KB), each product is one bf16 mma.sync
+// m16n8k16 with f32 accumulators where f32 takes three TF32 ones, p is
+// rounded to bf16 in registers before the P.V product (the TPU kernel rounds
+// it to the value dtype; here against the running max of this walk's
+// 16-key warp tiles, there of its 512-key tiles), V's B fragments come from
+// ldmatrix.trans, each warp tile's P.V still goes to a fresh accumulator,
+// and out is rounded to bf16 once; the scan, the copy plan, the softmax, m,
+// l and lse are f32's.
+//
+// Not yet here: warps that do not wait for each other at every tile, wgmma.
 
 #include "clustered_tile.cuh"
 
@@ -68,12 +79,13 @@ namespace {
 
 using namespace ctile;
 
+template <class T>
 struct Params {
-  const float* q;
-  const float* k;
-  const float* v;
+  const T* q;
+  const T* k;
+  const T* v;
   const signed char* masks;  // [n_blocks, block, width]
-  float* out;
+  T* out;
   float* lse;  // [B, n_blocks * block, h], or null: not written
   int n;
   int heads;
@@ -82,30 +94,34 @@ struct Params {
   int block;
   int w;
   int width;  // block + 2 w
-  int vec4;   // c % 4 == 0 and every row 16-byte aligned
+  int vec;    // c a multiple of 16 bytes' elements, every row 16-byte aligned
   float scale;
 };
 
-// CP: widest c of the tiles (a multiple of 8); RG row groups of CS warps;
-// TK keys per copied tile.
-template <int CP_, int RG_, int CS_, int TK_>
+// T: element of q, k, v and out; CP: widest c of the tiles (a multiple of
+// 8); RG row groups of CS warps; TK keys per copied tile.
+template <class T_, int CP_, int RG_, int CS_, int TK_>
 struct Cfg {
+  using T = T_;
   static constexpr int CP = CP_, RG = RG_, CS = CS_, TK = TK_;
   static constexpr int THREADS = 32 * RG * CS;
   static constexpr int TQ = 16 * RG;   // rows per CTA
   static constexpr int CSW = CP / CS;  // channels per warp of a row group
   static constexpr int NS = TK / SUB;  // 16-key warp tiles per copied tile
   static constexpr int NN = CSW / 8;   // 8-channel tiles of a warp's output
-  static constexpr int LD = CP + 4;    // Q, K and V rows in shared memory
-  static constexpr int STAGE = 2 * TK * LD;  // floats per stage
-  static constexpr size_t float_bytes =
-      sizeof(float) * (TQ * LD + STAGES * STAGE + (CS > 1 ? RG * CS * NS * 2 * 32 * 4 : 0));
-  static_assert(THREADS == 256 && CSW % 8 == 0 && TK % SUB == 0 && NS <= 32, "tile layout");
+  static constexpr int LD = CP + row_pad<T>();  // Q, K and V rows in shared memory
+  static constexpr int STAGE = 2 * TK * LD;  // elements per stage
+  static constexpr size_t tile_bytes = sizeof(T) * (TQ * LD + STAGES * STAGE) +
+                                       (CS > 1 ? sizeof(float4) * RG * CS * NS * 2 * 32 : 0);
+  static_assert(THREADS == 256 && CSW % (sizeof(T) == 4 ? 8 : 16) == 0 && TK % SUB == 0 &&
+                    NS <= 32,
+                "tile layout");
 };
 
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, 1)
-    banded_flash_kernel(const Params p) {
+    banded_flash_kernel(const Params<typename C::T> p) {
+  using T = typename C::T;
   constexpr int RG = C::RG, CS = C::CS, TK = C::TK, TQ = C::TQ, CSW = C::CSW;
   constexpr int CP = C::CP, NS = C::NS, NN = C::NN, LD = C::LD, THREADS = C::THREADS;
   constexpr int STAGE = C::STAGE;
@@ -113,11 +129,10 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   const int n_sub = (p.width + SUB - 1) / SUB;
 
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // [TQ][LD]
-  float* KV = Qs + TQ * LD;                     // [STAGES][K, V][TK][LD]
+  T* Qs = reinterpret_cast<T*>(smem4);  // [TQ][LD]
+  T* KV = Qs + TQ * LD;                 // [STAGES][K, V][TK][LD]
   float4* part = reinterpret_cast<float4*>(KV + STAGES * STAGE);  // CS > 1
-  int* s_tiles = reinterpret_cast<int*>(reinterpret_cast<float*>(smem4) +
-                                        C::float_bytes / sizeof(float));  // [n_tiles]
+  int* s_tiles = reinterpret_cast<int*>(reinterpret_cast<char*>(smem4) + C::tile_bytes);  // [n_tiles]
   int* s_count = s_tiles + n_tiles;                                       // [1]
   uint16_t* bits = reinterpret_cast<uint16_t*>(s_count + 1);              // [RG][n_sub][16]
   unsigned char* flags = reinterpret_cast<unsigned char*>(bits + RG * n_sub * 16);  // [RG][n_sub]
@@ -142,17 +157,17 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   const int n_list = *s_count;
 
   // Global row `row` of a [B, n, h, c] tensor, or null outside [0, n).
-  auto row_ptr = [&](const float* t, int row) -> const float* {
+  auto row_ptr = [&](const T* t, int row) -> const T* {
     return row >= 0 && row < p.n ? t + ((base + row) * p.heads + g) * p.c : nullptr;
   };
-  copy_rows<THREADS, CP>(Qs, LD, TQ, p.c, p.vec4, p.q,
+  copy_rows<THREADS, CP>(Qs, LD, TQ, p.c, p.vec, p.q,
                          [&](int r) { return row_ptr(p.q, b * p.block + q0 + r); });
   auto copy_tile = [&](int stage, int tile) {
-    float* Ks = KV + stage * STAGE;
+    T* Ks = KV + stage * STAGE;
     const int r0 = key0 + tile * TK;
-    copy_rows<THREADS, CP>(Ks, LD, TK, p.c, p.vec4, p.q,
+    copy_rows<THREADS, CP>(Ks, LD, TK, p.c, p.vec, p.q,
                            [&](int r) { return tile * TK + r < p.width ? row_ptr(p.k, r0 + r) : nullptr; });
-    copy_rows<THREADS, CP>(Ks + TK * LD, LD, TK, p.c, p.vec4, p.q,
+    copy_rows<THREADS, CP>(Ks + TK * LD, LD, TK, p.c, p.vec, p.q,
                            [&](int r) { return tile * TK + r < p.width ? row_ptr(p.v, r0 + r) : nullptr; });
   };
   // The first STAGES - 1 tiles' copies (with Q in the first group); one
@@ -166,7 +181,7 @@ __global__ void __launch_bounds__(C::THREADS, 1)
 
   const int lr0 = q0 + 16 * rg + (lane >> 2);  // this thread's rows: lr0, lr0 + 8
   const int c_begin = cs * CSW;
-  const float* q_rows = Qs + 16 * rg * LD;
+  const T* q_rows = Qs + 16 * rg * LD;
 
   float m_i[2] = {SAFE, SAFE}, l_i[2] = {0.f, 0.f};  // l: this thread's share
   float o[NN][4];
@@ -179,8 +194,8 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     cp_async_commit();
     cp_async_wait<STAGES - 1>();
     __syncthreads();
-    const float* Ks = KV + (i % STAGES) * STAGE;
-    const float* Vs = Ks + TK * LD;
+    const T* Ks = KV + (i % STAGES) * STAGE;
+    const T* Vs = Ks + TK * LD;
     const unsigned act = active_bits<NS>(flags, rg, tile, p.width);
     const uint16_t* tile_bits = bits + (rg * n_sub + tile * NS) * 16;
 
@@ -265,27 +280,21 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     const int row = b * p.block + lr;
     if (row >= p.n) continue;
     const float l_safe = fmaxf(l[h], 1e-30f);
-    float* dst = p.out + ((base + row) * p.heads + g) * p.c;
+    T* dst = p.out + ((base + row) * p.heads + g) * p.c;
 #pragma unroll
     for (int n = 0; n < NN; ++n) {
       const int d = c_begin + 8 * n + 2 * t;
       if (d >= p.c) break;
-      const float x0 = o[n][2 * h] / l_safe, x1 = o[n][2 * h + 1] / l_safe;
-      if (p.vec4) {
-        *reinterpret_cast<float2*>(dst + d) = make_float2(x0, x1);
-      } else {
-        dst[d] = x0;
-        if (d + 1 < p.c) dst[d + 1] = x1;
-      }
+      store2(dst, d, p.c, p.vec, o[n][2 * h] / l_safe, o[n][2 * h + 1] / l_safe);
     }
   }
 }
 
 template <class C>
-int launch(const Params& p, int batch, cudaStream_t stream) {
+int launch(const Params<typename C::T>& p, int batch, cudaStream_t stream) {
   const int n_tiles = (p.width + C::TK - 1) / C::TK;
   const size_t n_sub = (p.width + SUB - 1) / SUB;  // bits and flags per row group
-  const size_t smem = C::float_bytes + sizeof(int) * ((size_t)n_tiles + 1) +
+  const size_t smem = C::tile_bytes + sizeof(int) * ((size_t)n_tiles + 1) +
                       C::RG * n_sub * (16 * sizeof(uint16_t) + 1);
   cudaError_t err = cudaFuncSetAttribute(banded_flash_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -296,32 +305,45 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-//                 CP  RG  CS  TK
-using W32 = Cfg<32, 8, 1, 64>;
-using W128 = Cfg<128, 8, 1, 32>;
-using W256 = Cfg<256, 4, 2, 16>;
-using W512 = Cfg<512, 2, 4, 16>;
+// The tiles of each width, for element T:
+//                      CP  RG  CS  TK
+template <class T> using W32 = Cfg<T, 32, 8, 1, 64>;
+template <class T> using W128 = Cfg<T, 128, 8, 1, 32>;
+template <class T> using W256 = Cfg<T, 256, 4, 2, 16>;
+template <class T> using W512 = Cfg<T, 512, 2, 4, 16>;
+
+template <class T>
+int forward(const void* q, const void* k, const void* v, const signed char* masks, void* out,
+            float* lse, int batch, int n, int heads, int c, int n_blocks, int block, int w, int vec,
+            float scale, cudaStream_t s) {
+  const Params<T> p{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                    masks, static_cast<T*>(out), lse, n, heads, c, n_blocks, block, w,
+                    block + 2 * w, vec, scale};
+  if (c <= 32) return launch<W32<T>>(p, batch, s);
+  if (c <= 128) return launch<W128<T>>(p, batch, s);
+  if (c <= 256) return launch<W256<T>>(p, batch, s);
+  if (c <= 512) return launch<W512<T>>(p, batch, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Launches on `stream`, does not
-// synchronise, allocates nothing; returns a cudaError_t (0 on success), or
-// cudaErrorInvalidValue for c > 512 or a block that is not a multiple of
-// 128. `lse` may be null (serving). The masks are [n_blocks, block,
-// block + 2w] int8 (block a multiple of 512 and w of 256, as the host
-// checks); the batch entries share them.
-extern "C" int gwt_banded_flash_forward(const float* q, const float* k,
-                                        const float* v, const signed char* masks,
-                                        float* out, float* lse, int batch, int n,
-                                        int heads, int c, int n_blocks, int block,
-                                        int w, int vec4, float scale, void* stream) {
-  const Params p{q, k, v, masks, out, lse, n, heads, c, n_blocks, block, w,
-                 block + 2 * w, vec4, scale};
+// Plain C entry point (bound with ctypes). q, k, v and out are f32
+// (is_bf16 == 0) or bf16 (is_bf16 == 1); lse is f32. Launches on `stream`,
+// does not synchronise, allocates nothing; returns a cudaError_t (0 on
+// success), or cudaErrorInvalidValue for c > 512 or a block that is not a
+// multiple of 128. `lse` may be null (serving). The masks are [n_blocks,
+// block, block + 2w] int8 (block a multiple of 512 and w of 256, as the
+// host checks); the batch entries share them.
+extern "C" int gwt_banded_flash_forward(const void* q, const void* k, const void* v,
+                                        const signed char* masks, void* out, float* lse,
+                                        int batch, int n, int heads, int c, int n_blocks,
+                                        int block, int w, int vec, float scale, int is_bf16,
+                                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (block % 128 != 0) return (int)cudaErrorInvalidValue;
-  if (c <= 32) return launch<W32>(p, batch, s);
-  if (c <= 128) return launch<W128>(p, batch, s);
-  if (c <= 256) return launch<W256>(p, batch, s);
-  if (c <= 512) return launch<W512>(p, batch, s);
-  return (int)cudaErrorInvalidValue;
+  return is_bf16 ? forward<ctile::bf16>(q, k, v, masks, out, lse, batch, n, heads, c, n_blocks,
+                                        block, w, vec, scale, s)
+                 : forward<float>(q, k, v, masks, out, lse, batch, n, heads, c, n_blocks, block, w,
+                                  vec, scale, s);
 }

@@ -1,5 +1,5 @@
-// Banded flash attention backward for Hopper (sm_90a), on the tensor cores
-// with split-TF32 products.
+// Banded flash attention backward for Hopper (sm_90a), on the tensor cores:
+// split-TF32 products for f32 inputs, bf16 products for bf16 inputs.
 //
 // Replaces the Pallas TPU kernel K4b, graph_weather_tpu/ops/pallas/
 // banded_flash.py: _flash_bwd_impl (the pallas_calls of _dq_kernel and
@@ -61,8 +61,16 @@
 // CP = 512: one group of 8 warps, 16 rows (~218 KB of shared memory at
 // splits 5). 256 threads, one CTA per SM.
 //
-// Not yet here: one pass for dq and dk/dv (it would need sums across CTAs),
-// bf16.
+// bf16 (the TPU kernels' bf16 mode), as K3b/K3c's (clustered_flash_bwd.cu):
+// q, k, v and dO are staged as bf16 rows (c = 512: ~116 KB of shared
+// memory), each product is one bf16 mma.sync m16n8k16 with f32
+// accumulators, p and ds are computed in f32 and rounded to bf16 in
+// registers before the column products (as the TPU kernels round them to
+// the input dtype), each warp tile's column products still go to a fresh
+// accumulator, lse and delta are read in f32, and dq, dk and dv are rounded
+// to bf16 once, when written (dq and dk after the scale).
+//
+// Not yet here: one pass for dq and dk/dv (it would need sums across CTAs).
 
 #include "clustered_tile.cuh"
 
@@ -72,17 +80,18 @@ using namespace ctile;
 
 enum Role { DQ = 0, DKV_SYM = 1, DKV_GEN = 2 };
 
+template <class T>
 struct Params {
-  const float* q;      // [B, n, h, c]
-  const float* k;
-  const float* v;
-  const float* dout;
+  const T* q;          // [B, n, h, c]
+  const T* k;
+  const T* v;
+  const T* dout;
   const float* lse;    // [B, n_pad, h]
   const float* delta;  // [B, n_pad, h], zero past n
   const signed char* masks;  // [n_blocks, block, width]
-  float* dq;  // [B, n, h, c]
-  float* dk;
-  float* dv;
+  T* dq;  // [B, n, h, c]
+  T* dk;
+  T* dv;
   int n;
   int heads;
   int c;
@@ -90,32 +99,37 @@ struct Params {
   int block;
   int w;
   int width;  // block + 2 w
-  int vec4;   // c % 4 == 0 and every row 16-byte aligned
+  int vec;    // c a multiple of 16 bytes' elements, every row 16-byte aligned
   float scale;
 };
 
-// CP: widest c of the tiles (a multiple of 8); RG row groups of CS warps;
-// TB streamed rows per copied tile.
-template <int CP_, int RG_, int CS_, int TB_>
+// T: element of q, k, v, dO and the gradients; CP: widest c of the tiles (a
+// multiple of 8); RG row groups of CS warps; TB streamed rows per copied
+// tile.
+template <class T_, int CP_, int RG_, int CS_, int TB_>
 struct Cfg {
+  using T = T_;
   static constexpr int CP = CP_, RG = RG_, CS = CS_, TB = TB_;
   static constexpr int THREADS = 32 * RG * CS;
   static constexpr int TA = 16 * RG;   // own rows per CTA
   static constexpr int CSW = CP / CS;  // channels per warp of a row group
   static constexpr int NS = TB / SUB;  // 16-row warp tiles per streamed tile
   static constexpr int NN = CSW / 8;   // 8-channel tiles of a warp's outputs
-  static constexpr int LD = CP + 4;    // rows in shared memory
-  static constexpr int STAGE = 2 * TB * LD;  // floats per stage
-  static constexpr size_t float_bytes =
-      sizeof(float) * (2 * TA * LD + STAGES * STAGE + STAGES * 2 * TB +
-                       (CS > 1 ? 2 * RG * CS * NS * 2 * 32 * 4 : 0));
-  static_assert(THREADS == 256 && CSW % 8 == 0 && TB % SUB == 0 && NS <= 32, "tile layout");
+  static constexpr int LD = CP + row_pad<T>();  // rows in shared memory
+  static constexpr int STAGE = 2 * TB * LD;  // elements per stage
+  static constexpr size_t tile_bytes = sizeof(T) * (2 * TA * LD + STAGES * STAGE) +
+                                       sizeof(float) * STAGES * 2 * TB +
+                                       (CS > 1 ? sizeof(float4) * 2 * RG * CS * NS * 2 * 32 : 0);
+  static_assert(THREADS == 256 && CSW % (sizeof(T) == 4 ? 8 : 16) == 0 && TB % SUB == 0 &&
+                    NS <= 32,
+                "tile layout");
 };
 
 // The general role's streamed receivers for key block b: the rows of blocks
 // rb_lo .. rb_hi, those whose window [rb block - w, rb block + block + w)
 // meets [b block, b block + block).
-__host__ __device__ inline void general_range(const Params& p, int b, int& str0, int& n_str) {
+template <class T>
+__host__ __device__ inline void general_range(const Params<T>& p, int b, int& str0, int& n_str) {
   const int lo = b * p.block - p.block - p.w;  // first block: rb * block > lo
   const int rb_lo = lo < 0 ? 0 : lo / p.block + 1;
   const int hi = (b + 1) * p.block + p.w - 1;  // last block: rb * block <= hi
@@ -130,8 +144,8 @@ __host__ __device__ inline void general_range(const Params& p, int b, int& str0,
 // b block - rb block + w + o are 16 consecutive bytes of each receiver's
 // mask row, all inside the window or all outside (block and w are
 // multiples of 256).
-template <int RG, int THREADS>
-__device__ __forceinline__ void scan_general(unsigned char* flags, uint16_t* bits, const Params& p,
+template <int RG, int THREADS, class T>
+__device__ __forceinline__ void scan_general(unsigned char* flags, uint16_t* bits, const Params<T>& p,
                                              int b, int a0, int str0, int n_str) {
   const int n_sub = (n_str + SUB - 1) / SUB;
   for (int i = threadIdx.x; i < RG * n_sub; i += THREADS) {
@@ -171,7 +185,8 @@ __device__ __forceinline__ void scan_general(unsigned char* flags, uint16_t* bit
 
 template <class C, int ROLE>
 __global__ void __launch_bounds__(C::THREADS, 1)
-    banded_flash_bwd_kernel(const Params p) {
+    banded_flash_bwd_kernel(const Params<typename C::T> p) {
+  using T = typename C::T;
   constexpr int RG = C::RG, CS = C::CS, TB = C::TB, TA = C::TA, CSW = C::CSW;
   constexpr int CP = C::CP, NS = C::NS, NN = C::NN, LD = C::LD, THREADS = C::THREADS;
   constexpr int STAGE = C::STAGE;
@@ -190,15 +205,14 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   const int n_sub = (n_str + SUB - 1) / SUB;
 
   extern __shared__ float4 smem4[];
-  float* A1 = reinterpret_cast<float*>(smem4);  // [TA][LD] own q or k
-  float* A2 = A1 + TA * LD;                     // [TA][LD] own dO or v
-  float* Bst = A2 + TA * LD;                    // [STAGES][b1, b2][TB][LD]
-  float* s_lse = Bst + STAGES * STAGE;          // [STAGES][TB] streamed lse
-  float* s_delta = s_lse + STAGES * TB;         // [STAGES][TB] streamed delta
+  T* A1 = reinterpret_cast<T*>(smem4);  // [TA][LD] own q or k
+  T* A2 = A1 + TA * LD;                 // [TA][LD] own dO or v
+  T* Bst = A2 + TA * LD;                // [STAGES][b1, b2][TB][LD]
+  float* s_lse = reinterpret_cast<float*>(Bst + STAGES * STAGE);  // [STAGES][TB] streamed lse
+  float* s_delta = s_lse + STAGES * TB;  // [STAGES][TB] streamed delta
   float4* xpart = reinterpret_cast<float4*>(s_delta + STAGES * TB);  // CS > 1
   float4* ypart = xpart + RG * CS * NS * 2 * 32;
-  int* s_tiles = reinterpret_cast<int*>(reinterpret_cast<float*>(smem4) +
-                                        C::float_bytes / sizeof(float));  // [n_tiles]
+  int* s_tiles = reinterpret_cast<int*>(reinterpret_cast<char*>(smem4) + C::tile_bytes);  // [n_tiles]
   int* s_count = s_tiles + n_tiles;                                   // [1]
   uint16_t* bits = reinterpret_cast<uint16_t*>(s_count + 1);          // [RG][n_sub][16]
   unsigned char* flags = reinterpret_cast<unsigned char*>(bits + RG * n_sub * 16);  // [RG][n_sub]
@@ -223,25 +237,25 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   const int n_list = *s_count;
 
   // Global row `row` of a [B, n, h, c] tensor, or null outside [0, n).
-  auto row_ptr = [&](const float* t, int row) -> const float* {
+  auto row_ptr = [&](const T* t, int row) -> const T* {
     return row >= 0 && row < p.n ? t + ((base + row) * p.heads + g) * p.c : nullptr;
   };
-  const float* own1 = DKV ? p.k : p.q;
-  const float* own2 = DKV ? p.v : p.dout;
-  const float* str1 = DKV ? p.q : p.k;
-  const float* str2 = DKV ? p.dout : p.v;
+  const T* own1 = DKV ? p.k : p.q;
+  const T* own2 = DKV ? p.v : p.dout;
+  const T* str1 = DKV ? p.q : p.k;
+  const T* str2 = DKV ? p.dout : p.v;
   const int own_row0 = b * p.block + a0;
-  copy_rows<THREADS, CP>(A1, LD, TA, p.c, p.vec4, p.q,
+  copy_rows<THREADS, CP>(A1, LD, TA, p.c, p.vec, p.q,
                          [&](int r) { return row_ptr(own1, own_row0 + r); });
-  copy_rows<THREADS, CP>(A2, LD, TA, p.c, p.vec4, p.q,
+  copy_rows<THREADS, CP>(A2, LD, TA, p.c, p.vec, p.q,
                          [&](int r) { return row_ptr(own2, own_row0 + r); });
 
   auto copy_tile = [&](int stage, int tile) {
-    float* B1 = Bst + stage * STAGE;
+    T* B1 = Bst + stage * STAGE;
     const int r0 = str0 + tile * TB;
-    copy_rows<THREADS, CP>(B1, LD, TB, p.c, p.vec4, p.q,
+    copy_rows<THREADS, CP>(B1, LD, TB, p.c, p.vec, p.q,
                            [&](int r) { return row_ptr(str1, r0 + r); });
-    copy_rows<THREADS, CP>(B1 + TB * LD, LD, TB, p.c, p.vec4, p.q,
+    copy_rows<THREADS, CP>(B1 + TB * LD, LD, TB, p.c, p.vec, p.q,
                            [&](int r) { return row_ptr(str2, r0 + r); });
     if (DKV && tid < TB) {
       // Streamed receivers' lse and delta; 0 for rows that are not there
@@ -278,8 +292,8 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     }
   }
   const int c_begin = cs * CSW;
-  const float* a1_rows = A1 + 16 * rg * LD;
-  const float* a2_rows = A2 + 16 * rg * LD;
+  const T* a1_rows = A1 + 16 * rg * LD;
+  const T* a2_rows = A2 + 16 * rg * LD;
 
   float acc1[NN][4], acc2[NN2][4];
 #pragma unroll
@@ -294,8 +308,8 @@ __global__ void __launch_bounds__(C::THREADS, 1)
     cp_async_commit();
     cp_async_wait<STAGES - 1>();
     __syncthreads();
-    float* B1 = Bst + stage * STAGE;
-    const float* B2 = B1 + TB * LD;
+    const T* B1 = Bst + stage * STAGE;
+    const T* B2 = B1 + TB * LD;
     const unsigned act = active_bits<NS>(flags, rg, tile, n_str);
     const uint16_t* tile_bits = bits + (rg * n_sub + tile * NS) * 16;
 
@@ -342,34 +356,20 @@ __global__ void __launch_bounds__(C::THREADS, 1)
   for (int h = 0; h < 2; ++h) {
     const int row = b * p.block + o0 + 8 * h;
     if (row >= p.n) continue;
-    float* dst1 = (DKV ? p.dk : p.dq) + ((base + row) * p.heads + g) * p.c;
-    float* dst2 = DKV ? p.dv + ((base + row) * p.heads + g) * p.c : nullptr;
+    T* dst1 = (DKV ? p.dk : p.dq) + ((base + row) * p.heads + g) * p.c;
+    T* dst2 = DKV ? p.dv + ((base + row) * p.heads + g) * p.c : nullptr;
 #pragma unroll
     for (int n = 0; n < NN; ++n) {
       const int d = c_begin + 8 * n + 2 * t4;
       if (d >= p.c) break;
-      const float x0 = acc1[n][2 * h] * p.scale, x1 = acc1[n][2 * h + 1] * p.scale;
-      if (p.vec4) {
-        *reinterpret_cast<float2*>(dst1 + d) = make_float2(x0, x1);
-      } else {
-        dst1[d] = x0;
-        if (d + 1 < p.c) dst1[d + 1] = x1;
-      }
-      if constexpr (DKV) {
-        const float y0 = acc2[n][2 * h], y1 = acc2[n][2 * h + 1];
-        if (p.vec4) {
-          *reinterpret_cast<float2*>(dst2 + d) = make_float2(y0, y1);
-        } else {
-          dst2[d] = y0;
-          if (d + 1 < p.c) dst2[d + 1] = y1;
-        }
-      }
+      store2(dst1, d, p.c, p.vec, acc1[n][2 * h] * p.scale, acc1[n][2 * h + 1] * p.scale);
+      if constexpr (DKV) store2(dst2, d, p.c, p.vec, acc2[n][2 * h], acc2[n][2 * h + 1]);
     }
   }
 }
 
 template <class C, int ROLE>
-int launch(const Params& p, int batch, cudaStream_t stream) {
+int launch(const Params<typename C::T>& p, int batch, cudaStream_t stream) {
   int n_str = p.width;  // the most streamed rows of any CTA
   if (ROLE == DKV_GEN) {
     n_str = 0;
@@ -381,7 +381,7 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
   }
   const int n_tiles = (n_str + C::TB - 1) / C::TB;
   const size_t n_sub = (n_str + SUB - 1) / SUB;  // bits and flags per row group
-  const size_t smem = C::float_bytes + sizeof(int) * ((size_t)n_tiles + 1) +
+  const size_t smem = C::tile_bytes + sizeof(int) * ((size_t)n_tiles + 1) +
                       C::RG * n_sub * (16 * sizeof(uint16_t) + 1);
   cudaError_t err = cudaFuncSetAttribute(banded_flash_bwd_kernel<C, ROLE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -395,41 +395,58 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 // mode 0: the dq kernel; 1: the dk/dv kernel, in the symmetric role when
 // `symmetric`, else the general one.
 template <class C>
-int run(const Params& p, int mode, int symmetric, int batch, cudaStream_t stream) {
+int run(const Params<typename C::T>& p, int mode, int symmetric, int batch, cudaStream_t stream) {
   if (mode == 0) return launch<C, DQ>(p, batch, stream);
   if (mode == 1) return symmetric ? launch<C, DKV_SYM>(p, batch, stream)
                                   : launch<C, DKV_GEN>(p, batch, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-//                 CP  RG  CS  TB
-using W32 = Cfg<32, 8, 1, 32>;
-using W128 = Cfg<128, 4, 2, 32>;
-using W256 = Cfg<256, 2, 4, 16>;
-using W512 = Cfg<512, 1, 8, 16>;
+// The tiles of each width, for element T:
+//                      CP  RG  CS  TB
+template <class T> using W32 = Cfg<T, 32, 8, 1, 32>;
+template <class T> using W128 = Cfg<T, 128, 4, 2, 32>;
+template <class T> using W256 = Cfg<T, 256, 2, 4, 16>;
+template <class T> using W512 = Cfg<T, 512, 1, 8, 16>;
+
+template <class T>
+int backward(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+             const float* delta, const signed char* masks, void* dq, void* dk, void* dv, int batch,
+             int n, int heads, int c, int n_blocks, int block, int w, int vec, float scale, int mode,
+             int symmetric, cudaStream_t s) {
+  const Params<T> p{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                    static_cast<const T*>(dout), lse, delta, masks, static_cast<T*>(dq),
+                    static_cast<T*>(dk), static_cast<T*>(dv), n, heads, c, n_blocks, block, w,
+                    block + 2 * w, vec, scale};
+  if (c <= 32) return run<W32<T>>(p, mode, symmetric, batch, s);
+  if (c <= 128) return run<W128<T>>(p, mode, symmetric, batch, s);
+  if (c <= 256) return run<W256<T>>(p, mode, symmetric, batch, s);
+  if (c <= 512) return run<W512<T>>(p, mode, symmetric, batch, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). Launches on `stream`, does not
-// synchronise, allocates nothing; returns a cudaError_t (0 on success), or
-// cudaErrorInvalidValue for c > 512, an unknown mode or a block that is not
-// a multiple of 128. Pointers a mode does not write may be null. The masks
-// are [n_blocks, block, block + 2w] int8 (block a multiple of 512 and w of
-// 256, as the host checks); the batch entries share them. `symmetric`: the
-// edge set is symmetric (the dk/dv kernel then reads the masks as dq does).
+// Plain C entry point (bound with ctypes). q, k, v, dout, dq, dk and dv are
+// f32 (is_bf16 == 0) or bf16 (is_bf16 == 1); lse and delta are f32.
+// Launches on `stream`, does not synchronise, allocates nothing; returns a
+// cudaError_t (0 on success), or cudaErrorInvalidValue for c > 512, an
+// unknown mode or a block that is not a multiple of 128. Pointers a mode
+// does not write may be null. The masks are [n_blocks, block, block + 2w]
+// int8 (block a multiple of 512 and w of 256, as the host checks); the
+// batch entries share them. `symmetric`: the edge set is symmetric (the
+// dk/dv kernel then reads the masks as dq does).
 extern "C" int gwt_banded_flash_backward(
-    const float* q, const float* k, const float* v, const float* dout,
-    const float* lse, const float* delta, const signed char* masks, float* dq,
-    float* dk, float* dv, int batch, int n, int heads, int c, int n_blocks,
-    int block, int w, int vec4, float scale, int mode, int symmetric, void* stream) {
-  const Params p{q,  k,  v, dout,  lse,      delta, masks, dq, dk,
-                 dv, n, heads, c, n_blocks, block, w,     block + 2 * w,
-                 vec4, scale};
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, const signed char* masks, void* dq,
+    void* dk, void* dv, int batch, int n, int heads, int c, int n_blocks,
+    int block, int w, int vec, float scale, int mode, int symmetric, int is_bf16,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (block % 128 != 0) return (int)cudaErrorInvalidValue;
-  if (c <= 32) return run<W32>(p, mode, symmetric, batch, s);
-  if (c <= 128) return run<W128>(p, mode, symmetric, batch, s);
-  if (c <= 256) return run<W256>(p, mode, symmetric, batch, s);
-  if (c <= 512) return run<W512>(p, mode, symmetric, batch, s);
-  return (int)cudaErrorInvalidValue;
+  return is_bf16 ? backward<ctile::bf16>(q, k, v, dout, lse, delta, masks, dq, dk, dv, batch, n,
+                                         heads, c, n_blocks, block, w, vec, scale, mode, symmetric,
+                                         s)
+                 : backward<float>(q, k, v, dout, lse, delta, masks, dq, dk, dv, batch, n, heads,
+                                   c, n_blocks, block, w, vec, scale, mode, symmetric, s);
 }

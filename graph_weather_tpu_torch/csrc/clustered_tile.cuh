@@ -32,7 +32,7 @@
 // Accumulator c of a thread holds (row g, col 2t), (g, 2t+1), (g+8, 2t),
 // (g+8, 2t+1).
 //
-// bf16 (K3a, K3b and K3c on bf16 inputs). Tiles hold bf16 rows with a
+// bf16 (K3a, K3b, K3c, K4a and K4b on bf16 inputs). Tiles hold bf16 rows with a
 // stride LD = CP + 8 elements (CP a multiple of 16), so a row is 16-byte
 // aligned and the 32-bit fragment loads of 8 rows x 4 words read 32
 // distinct banks. Every product is one mma.sync m16n8k16 with bf16 inputs
@@ -278,23 +278,6 @@ __device__ __forceinline__ void col_products16(float (&acc)[NN][4], const float 
   }
 }
 
-// acc += col_products16 of one warp tile, computed in a fresh accumulator
-// and added in f32: the tensor cores' accumulation truncates, and the
-// rows at a band's clamped ends (attended by hundreds of receivers) sum
-// hundreds of warp tiles, over which that bias would pass 1e-4 (K4a, K4b).
-template <int NN>
-__device__ __forceinline__ void add_col_products(float (&acc)[NN][4], const float (&p)[2][4],
-                                                 const float* str, int ld, int n_begin, int lane) {
-  float part[NN][4];
-#pragma unroll
-  for (int n = 0; n < NN; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
-  col_products16<NN>(part, p, str, ld, n_begin, lane);
-#pragma unroll
-  for (int n = 0; n < NN; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
-}
-
 // Where the CS warps of a row group each computed a row product over their
 // own slice of c: every warp of the group gets the sum of the CS partials,
 // added in one fixed order, so all of them hold the same bits. acc holds
@@ -421,6 +404,24 @@ __device__ __forceinline__ void col_products16(float (&acc)[NN][4], const float 
     mma_bf16(acc[n], a, b0);
     mma_bf16(acc[n + 1], a, b1);
   }
+}
+
+// acc += col_products16 of one warp tile, computed in a fresh accumulator
+// and added in f32: the tensor cores' accumulation truncates, and the
+// rows at a band's clamped ends (attended by hundreds of receivers) sum
+// hundreds of warp tiles, over which that bias would pass 1e-4 (K4a, K4b).
+// T: the streamed tile's element, f32 (split-TF32 products) or bf16.
+template <int NN, class T>
+__device__ __forceinline__ void add_col_products(float (&acc)[NN][4], const float (&p)[2][4],
+                                                 const T* str, int ld, int n_begin, int lane) {
+  float part[NN][4];
+#pragma unroll
+  for (int n = 0; n < NN; ++n) part[n][0] = part[n][1] = part[n][2] = part[n][3] = 0.f;
+  col_products16<NN>(part, p, str, ld, n_begin, lane);
+#pragma unroll
+  for (int n = 0; n < NN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
 }
 
 // --- which warp tiles hold an edge ---------------------------------------------

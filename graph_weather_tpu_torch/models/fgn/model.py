@@ -44,7 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from graph_weather_tpu_torch.models.gencast.denoiser import BANDED_BF16_TODO, _not_ported
+from graph_weather_tpu_torch.models.gencast.denoiser import _not_ported
 from graph_weather_tpu_torch.models.gencast.graphs import build_graphcast_graphs
 from graph_weather_tpu_torch.models.gencast.layers import (
     FGNProcessor,
@@ -288,11 +288,6 @@ class FunctionalGenerativeNetwork:
             return self._member
         if compute_dtype != torch.bfloat16:
             raise _not_ported(f"compute_dtype={compute_dtype}")
-        if self.attention_impl.startswith("banded"):
-            raise _not_ported(
-                f"compute_dtype=bfloat16 with attention_impl={self.attention_impl!r}",
-                BANDED_BF16_TODO,
-            )
         if self._bf16 is None:
             bf16 = torch.bfloat16
             graphs = tuple(

@@ -26,11 +26,12 @@ whose attention backward runs K3c (or K3b), or K4b, on the card;
 `remat=True` recomputes each transformer block in the backward.
 
 `forward_fn(compute_dtype=torch.bfloat16)` is the JAX package's bf16
-policy, for the clustered and segment attention: the network runs on bf16
-copies of the f32 parameters (the gradients reach the f32 masters through
-the cast), with bf16 inputs, static node features and edge features; the
-noise levels, the preconditioning and the output stay f32. The clustered
-attention then runs K3a, K3c and K3b in their bf16 mode on the card.
+policy, for every attention option: the network runs on bf16 copies of the
+f32 parameters (the gradients reach the f32 masters through the cast), with
+bf16 inputs, static node features and edge features; the noise levels, the
+preconditioning and the output stay f32. The clustered attention then runs
+K3a, K3c and K3b in their bf16 mode on the card, "banded_flash" K4a and K4b
+in theirs, and "banded" its plain version with XLA's bf16 roundings.
 """
 
 from __future__ import annotations
@@ -137,10 +138,6 @@ class DenoiserModule(nn.Module):
         latent_mesh = self.GenCastProcessor_0(latent_mesh, precs.c_noise(noise_levels), khop)
         preds = self.GenCastDecoder_0(latent_mesh, latent_grid, m2g)
         return precs.c_skip(sigma) * corrupted_targets + precs.c_out(sigma) * preds
-
-
-# Where GenCast's bf16 policy on the banded attention is queued.
-BANDED_BF16_TODO = "ROADMAP.md, 'GenCast bf16 on the banded attention: K4a and K4b in bf16'"
 
 
 def _not_ported(option: str, item: str = GENCAST_TODO) -> NotImplementedError:
@@ -293,11 +290,6 @@ class Denoiser:
             return self._forward
         if compute_dtype != torch.bfloat16:
             raise _not_ported(f"compute_dtype={compute_dtype}")
-        if self.attention_impl.startswith("banded"):
-            raise _not_ported(
-                f"compute_dtype=bfloat16 with attention_impl={self.attention_impl!r}",
-                BANDED_BF16_TODO,
-            )
         bf16 = torch.bfloat16
         graphs = (
             dataclasses.replace(g, edge_attr=g.edge_attr.to(bf16))

@@ -13,6 +13,14 @@ key rows outside [0, N) are zero rows.
 `attention_impl="banded"` (XLA there); `attention_impl="banded_flash"` runs
 the kernels of ops/banded_flash.py over the same masks. Edge features are
 not supported, as in the reference's sparse attention mode.
+
+bf16 (GenCast's compute policy): on bf16 q, k and v it rounds where XLA
+rounds the JAX function's bf16 ops: the logits einsum (f32 sums, one
+rounding), the division by sqrt of c taken in bf16, the bf16 minimum off
+the band, the subtraction of the row max and the exp, the division by the
+row sum floored at 1e-16 in bf16, and the output einsum. Not mirrored: the
+order of XLA:CPU's bf16 row sum (PyTorch sums in f32 and rounds once),
+and the rounding points of the softmax's backward (autograd's bf16 ops).
 """
 
 from __future__ import annotations
@@ -83,10 +91,28 @@ def banded_graph_attention(
     q_b = F.pad(q, (0, 0, 0, 0, 0, nb * block - n))
     q_b = q_b.reshape(q.shape[:-3] + (nb, block, h, c))
     k_win, v_win = band_windows(k, nb, block, w), band_windows(v, nb, block, w)
-    logits = torch.einsum("...brhc,...bjhc->...bhrj", q_b, k_win) / c**0.5
-    logits = torch.where(edge, logits, torch.finfo(logits.dtype).min)
+    if q.dtype == torch.bfloat16:
+        out = _banded_bf16(q_b, k_win, v_win, edge, c)
+    else:
+        logits = torch.einsum("...brhc,...bjhc->...bhrj", q_b, k_win) / c**0.5
+        logits = torch.where(edge, logits, torch.finfo(logits.dtype).min)
+        m = logits.amax(-1, keepdim=True).detach()
+        e = torch.where(edge, torch.exp(logits - m), 0.0)
+        attn = e / torch.clamp(e.sum(-1, keepdim=True), min=1e-16)
+        out = torch.einsum("...bhrj,...bjhc->...brhc", attn, v_win)
+    return out.reshape(q.shape[:-3] + (nb * block, h, c))[..., :n, :, :]
+
+
+def _banded_bf16(q_b, k_win, v_win, edge, c):
+    """banded_graph_attention's body on bf16 blocks, rounded as XLA rounds
+    the JAX function's bf16 ops (see the module docstring). Returns
+    [..., nb, block, h, c] in bf16."""
+    bf16 = torch.bfloat16
+    logits = torch.einsum("...brhc,...bjhc->...bhrj", q_b.float(), k_win.float()).to(bf16)
+    logits = logits / torch.sqrt(torch.tensor(float(c), dtype=bf16, device=q_b.device))
+    logits = torch.where(edge, logits, torch.finfo(bf16).min)
     m = logits.amax(-1, keepdim=True).detach()
     e = torch.where(edge, torch.exp(logits - m), 0.0)
-    attn = e / torch.clamp(e.sum(-1, keepdim=True), min=1e-16)
-    out = torch.einsum("...bhrj,...bjhc->...brhc", attn, v_win)
-    return out.reshape(q.shape[:-3] + (nb * block, h, c))[..., :n, :, :]
+    floor = torch.tensor(1e-16, dtype=bf16, device=q_b.device)
+    attn = e / torch.maximum(e.sum(-1, keepdim=True), floor)
+    return torch.einsum("...bhrj,...bjhc->...brhc", attn.float(), v_win.float()).to(bf16)

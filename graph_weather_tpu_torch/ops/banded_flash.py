@@ -29,12 +29,26 @@ keys. The JAX package's backward takes its Pallas kernels only for
 block == 512 and w % 512 == 0 (an XLA VJP otherwise); K4b takes every
 layout the forward takes.
 
+bf16 (GenCast's compute policy, the TPU kernels' bf16 mode): q, k and v
+may all be bf16. The TPU forward walks each window in KEY_TILE-key tiles
+with an online softmax, and rounds p = exp(s + bias - m) to bf16 against
+the running max m after each tile before P.V; its rescaling, l, the
+division and lse stay f32, and out is rounded to bf16 once. Its backward
+forms delta = rowsum(dO * out) in f32, recomputes p from lse, rounds ds
+before the dq and dk products and p before the dv product, and rounds its
+f32 sums (times scale for dq and dk) to bf16 once. The plain versions
+compute just that, on f32 upcasts (a product of bf16 values is exact in
+f32); the kernels' bf16 instantiations take one bf16 mma.sync per product
+(their own key tiles: p is rounded against the max of a shorter walk).
+
 Every kernel has a plain PyTorch twin here (`banded_flash_forward_reference`,
 `banded_flash_backward_reference`), written block by block so that the CPU
 never holds every block's logits at once; the twins run for CPU tensors,
 CUDA tensors launch the kernels. Launch counts: `LAUNCHES` (K4a),
 `BWD_DQ_LAUNCHES` (K4b's dq kernel), `BWD_DKV_SYMMETRIC_LAUNCHES` and
-`BWD_DKV_LAUNCHES` (its dk/dv kernel in the symmetric and the general role).
+`BWD_DKV_LAUNCHES` (its dk/dv kernel in the symmetric and the general role)
+count the f32 kernels; `BF16_LAUNCHES`, `BF16_BWD_DQ_LAUNCHES`,
+`BF16_BWD_DKV_SYMMETRIC_LAUNCHES` and `BF16_BWD_DKV_LAUNCHES` the bf16 ones.
 """
 
 from __future__ import annotations
@@ -46,11 +60,16 @@ import torch
 import torch.nn.functional as F
 
 from graph_weather_tpu_torch.ops._build import c_function
+from graph_weather_tpu_torch.ops.clustered_flash import DTYPES, _rounded, _vec, _wide
 
 LAUNCHES = 0  # K4a
 BWD_DQ_LAUNCHES = 0  # K4b, dq kernel
 BWD_DKV_SYMMETRIC_LAUNCHES = 0  # K4b, dk/dv kernel, symmetric role
 BWD_DKV_LAUNCHES = 0  # K4b, dk/dv kernel, general role
+BF16_LAUNCHES = 0  # K4a, bf16
+BF16_BWD_DQ_LAUNCHES = 0  # K4b's dq kernel, bf16
+BF16_BWD_DKV_SYMMETRIC_LAUNCHES = 0  # K4b's dk/dv kernel, symmetric role, bf16
+BF16_BWD_DKV_LAUNCHES = 0  # K4b's dk/dv kernel, general role, bf16
 MAX_CHANNELS = 512  # widest head the kernels' tiles hold
 # Where the wider heads are queued.
 WIDE_HEADS_TODO = "ROADMAP.md §2 item 4, 'Heads above c = 512'"
@@ -62,16 +81,16 @@ _c_ptr, _c_int = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGTYPES = [
     _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # q k v masks out lse
     _c_int, _c_int, _c_int, _c_int,  # batch, n, heads, c
-    _c_int, _c_int, _c_int, _c_int,  # n_blocks, block, w, vec4
-    ctypes.c_float,  # scale
+    _c_int, _c_int, _c_int, _c_int,  # n_blocks, block, w, vec
+    ctypes.c_float, _c_int,  # scale, is_bf16
     _c_ptr,  # cudaStream_t
 ]
 _BWD_ARGTYPES = [
     _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr, _c_ptr,  # q k v dout lse delta masks
     _c_ptr, _c_ptr, _c_ptr,  # dq dk dv
     _c_int, _c_int, _c_int, _c_int,  # batch, n, heads, c
-    _c_int, _c_int, _c_int, _c_int,  # n_blocks, block, w, vec4
-    ctypes.c_float, _c_int, _c_int,  # scale, mode, symmetric
+    _c_int, _c_int, _c_int, _c_int,  # n_blocks, block, w, vec
+    ctypes.c_float, _c_int, _c_int, _c_int,  # scale, mode, symmetric, is_bf16
     _c_ptr,  # cudaStream_t
 ]
 DQ, DKV = 0, 1  # backward modes of the C entry (K4b's two kernels)
@@ -94,7 +113,10 @@ def banded_flash_forward_reference(
 ):
     """Plain PyTorch version, one receiver block at a time, with the kernel's
     _NEG/_SAFE arithmetic. Returns out, or (out, lse) with lse
-    [B, nb * block, h] ([nb * block, h] for unbatched inputs)."""
+    [B, nb * block, h] ([nb * block, h] for unbatched inputs). bf16 inputs:
+    the TPU kernel's walk over KEY_TILE-key tiles (`_forward_tiles`)."""
+    if q.dtype == torch.bfloat16:
+        return _forward_tiles(q, k, v, band_masks, block, w, with_lse)
     (q, k, v), squeeze = _batched(q, k, v)
     bsz, n, h, c = q.shape
     nb = band_masks.shape[0]
@@ -118,13 +140,55 @@ def banded_flash_forward_reference(
     return (out, lse) if with_lse else out
 
 
+def _forward_tiles(q, k, v, band_masks, block, w, with_lse):
+    """The TPU forward's bf16 mode: each block's window in KEY_TILE-key
+    tiles, an online softmax over them in f32, p = exp(s + bias - m_new)
+    rounded to bf16 against the running max after each tile before P.V, f32
+    rescaling and division by max(l, 1e-30), out rounded to bf16 once."""
+    dtype = q.dtype
+    (q, k, v), squeeze = _batched(_wide(q), _wide(k), _wide(v))
+    bsz, n, h, c = q.shape
+    nb = band_masks.shape[0]
+    n_pad, width = nb * block, block + 2 * w
+    q_p = F.pad(q, (0, 0, 0, 0, 0, n_pad - n))
+    k_p, v_p = (F.pad(t, (0, 0, 0, 0, w, n_pad - n + w)) for t in (k, v))
+    out = q.new_empty((bsz, n_pad, h, c))
+    lse = q.new_empty((bsz, n_pad, h))
+    for b in range(nb):
+        rows = slice(b * block, (b + 1) * block)
+        q_b = q_p[:, rows]
+        acc = q.new_zeros((bsz, h, block, c))
+        m = q.new_full((bsz, h, block, 1), _SAFE)
+        l = q.new_zeros((bsz, h, block, 1))
+        for t in range(0, width, KEY_TILE):
+            keys = slice(b * block + t, b * block + t + KEY_TILE)
+            s = torch.einsum("bqhc,bjhc->bhqj", q_b, k_p[:, keys]) * (1.0 / c**0.5)
+            s = torch.where(band_masks[b, :, t : t + KEY_TILE] != 0, s, _NEG)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhqj,bjhc->bhqc", _rounded(p, dtype), v_p[:, keys])
+            m = m_new
+        l = torch.clamp(l, min=1e-30)
+        out[:, rows] = (acc / l).transpose(1, 2)
+        lse[:, rows] = (m + torch.log(l))[..., 0].transpose(1, 2)
+    out = out[:, :n].to(dtype)
+    out, lse = (out[0], lse[0]) if squeeze else (out, lse)
+    return (out, lse) if with_lse else out
+
+
 def banded_flash_backward_reference(q, k, v, band_masks, out, lse, dout, block: int, w: int):
     """Plain PyTorch version of the backward, one receiver block at a time,
     as the kernels compute it: p recomputed from lse, ds = p (dO.v - delta)
     with delta = rowsum(dO * out), dq = ds k / sqrt(c), and each block's
     dk = ds^T q / sqrt(c), dv = p^T dO added onto its window's key rows.
-    Returns (dq, dk, dv) in q's shape."""
-    (q, k, v, out, dout, lse), squeeze = _batched(q, k, v, out, dout, lse)
+    Returns (dq, dk, dv) in q's shape and dtype. bf16 inputs: products on
+    f32 upcasts, delta in f32, ds (and p before dv) rounded to bf16 before
+    the products, f32 sums, every gradient rounded to bf16 once."""
+    dtype = q.dtype
+    (q, k, v, out, dout, lse), squeeze = _batched(
+        _wide(q), _wide(k), _wide(v), _wide(out), _wide(dout), lse)
     bsz, n, h, c = q.shape
     nb = band_masks.shape[0]
     n_pad, width = nb * block, block + 2 * w
@@ -140,11 +204,11 @@ def banded_flash_backward_reference(q, k, v, band_masks, out, lse, dout, block: 
         lse_b, delta_b = (t[:, rows].transpose(1, 2)[..., None] for t in (lse, delta))
         s = torch.einsum("bqhc,bjhc->bhqj", q_b, k_w) * scale
         p = torch.exp(torch.where(band_masks[b] != 0, s, _NEG) - lse_b)
-        ds = p * (torch.einsum("bqhc,bjhc->bhqj", do_b, v_w) - delta_b)
+        ds = _rounded(p * (torch.einsum("bqhc,bjhc->bhqj", do_b, v_w) - delta_b), dtype)
         dq[:, rows] = torch.einsum("bhqj,bjhc->bqhc", ds, k_w) * scale
         dk_p[:, win] += torch.einsum("bhqj,bqhc->bjhc", ds, q_b) * scale
-        dv_p[:, win] += torch.einsum("bhqj,bqhc->bjhc", p, do_b)
-    dq, dk, dv = dq[:, :n], dk_p[:, w : w + n], dv_p[:, w : w + n]
+        dv_p[:, win] += torch.einsum("bhqj,bqhc->bjhc", _rounded(p, dtype), do_b)
+    dq, dk, dv = (t.to(dtype) for t in (dq[:, :n], dk_p[:, w : w + n], dv_p[:, w : w + n]))
     return (dq[0], dk[0], dv[0]) if squeeze else (dq, dk, dv)
 
 
@@ -161,8 +225,8 @@ def _check(q, k, v, band_masks, block, w):
         raise ValueError("banded_flash_attention: more rows than nb * block")
     if band_masks.dtype not in (torch.int8, torch.bool):
         raise TypeError("banded_flash_attention: band_masks int8 (or bool on the CPU)")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise TypeError("banded_flash_attention: q, k, v must be float32")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("banded_flash_attention: q, k, v must all be float32 or all bfloat16")
     if any(t.device != q.device for t in (k, v, band_masks)):
         raise ValueError("banded_flash_attention: all tensors must be on one device")
     if q.device.type not in ("cpu", "cuda"):
@@ -186,10 +250,6 @@ def _sizes(q, band_masks):
     return (batch,) + tuple(q.shape[-3:]) + (band_masks.shape[0],)
 
 
-def _vec4(c: int, tensors) -> int:
-    return int(c % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
-
-
 def _forward_cuda(q, k, v, band_masks, block, w, with_lse):
     """K4a on the card: out, and lse [B, nb * block, h] when asked."""
     _check_cuda("banded_flash_attention", q.shape[-1], (q, k, v, band_masks), band_masks)
@@ -204,13 +264,16 @@ def _forward_cuda(q, k, v, band_masks, block, w, with_lse):
         err = c_function("banded_flash", "gwt_banded_flash_forward", _FWD_ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), band_masks.data_ptr(), out.data_ptr(),
             0 if lse is None else lse.data_ptr(), batch, n, heads, c, nb, block, w,
-            _vec4(c, (q, k, v, out)), 1.0 / c**0.5,
+            _vec(c, (q, k, v, out)), 1.0 / c**0.5, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"banded_flash_attention: CUDA kernel launch failed (cudaError {err})")
-    global LAUNCHES
-    LAUNCHES += 1
+    global LAUNCHES, BF16_LAUNCHES
+    if q.dtype == torch.bfloat16:
+        BF16_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out, lse
 
 
@@ -218,17 +281,20 @@ def launch_backward(mode, q, k, v, band_masks, lse, dout, delta, grads, block, w
     """One K4b kernel on the card: mode 0 (`DQ`) writes grads[0] (dq), mode
     1 (`DKV`) grads[1] and grads[2] (dk, dv), in the symmetric role when
     `symmetric` (the edge set must be symmetric); delta = rowsum(dO * out),
-    zero past n, [B, nb * block, h]."""
+    zero past n, [B, nb * block, h], f32. q, k, v, dout and the gradients
+    are all f32 or all bf16."""
     global BWD_DQ_LAUNCHES, BWD_DKV_SYMMETRIC_LAUNCHES, BWD_DKV_LAUNCHES
+    global BF16_BWD_DQ_LAUNCHES, BF16_BWD_DKV_SYMMETRIC_LAUNCHES, BF16_BWD_DKV_LAUNCHES
     batch, n, heads, c, nb = _sizes(q, band_masks)
+    bf16 = q.dtype == torch.bfloat16
     outs = (grads[0], None, None) if mode == DQ else (None, grads[1], grads[2])
     with torch.cuda.device(q.device):
         err = c_function("banded_flash_bwd", "gwt_banded_flash_backward", _BWD_ARGTYPES)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), band_masks.data_ptr(),
             *(0 if t is None else t.data_ptr() for t in outs),
-            batch, n, heads, c, nb, block, w, _vec4(c, (q, k, v, dout, *grads)),
-            1.0 / c**0.5, mode, int(symmetric), torch.cuda.current_stream().cuda_stream,
+            batch, n, heads, c, nb, block, w, _vec(c, (q, k, v, dout, *grads)),
+            1.0 / c**0.5, mode, int(symmetric), int(bf16), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -236,9 +302,17 @@ def launch_backward(mode, q, k, v, band_masks, lse, dout, delta, grads, block, w
             f"CUDA kernel launch failed (cudaError {err})"
         )
     if mode == DQ:
-        BWD_DQ_LAUNCHES += 1
+        if bf16:
+            BF16_BWD_DQ_LAUNCHES += 1
+        else:
+            BWD_DQ_LAUNCHES += 1
     elif symmetric:
-        BWD_DKV_SYMMETRIC_LAUNCHES += 1
+        if bf16:
+            BF16_BWD_DKV_SYMMETRIC_LAUNCHES += 1
+        else:
+            BWD_DKV_SYMMETRIC_LAUNCHES += 1
+    elif bf16:
+        BF16_BWD_DKV_LAUNCHES += 1
     else:
         BWD_DKV_LAUNCHES += 1
 
@@ -253,7 +327,7 @@ def _backward_cuda(q, k, v, band_masks, out, lse, dout, block, w, symmetric=Fals
     if q.numel() == 0:
         return grads
     n_pad = band_masks.shape[0] * block
-    delta = F.pad((dout * out).sum(-1), (0, 0, 0, n_pad - q.shape[-3])).contiguous()
+    delta = F.pad((_wide(dout) * _wide(out)).sum(-1), (0, 0, 0, n_pad - q.shape[-3])).contiguous()
     for mode in (DQ, DKV):
         launch_backward(mode, q, k, v, band_masks, lse, dout, delta, grads, block, w, symmetric)
     return grads

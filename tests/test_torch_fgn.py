@@ -36,7 +36,6 @@ from graph_weather_tpu_torch import (
     make_optimizer,
     make_train_step,
 )
-from graph_weather_tpu_torch.models.gencast.denoiser import BANDED_BF16_TODO
 from graph_weather_tpu_torch.ops import clustered_flash
 
 torch.set_num_threads(1)
@@ -260,16 +259,12 @@ def test_member_matches_torch_reference_golden():
 def test_options_and_errors():
     """Banded attention at a head above the card's 512 raises before any
     launch (the last block's heads are the latent width), naming ROADMAP §2
-    item 4; bf16 with the banded attention names its queue item; member
-    chunks must divide the ensemble; a rollout needs F_out == F_in; the
-    noise must be given or drawn; the entry points default to the card."""
+    item 4; member chunks must divide the ensemble; a rollout needs F_out ==
+    F_in; the noise must be given or drawn; the entry points default to the
+    card. (The banded attention in bf16 runs: tests/test_torch_fgn_bf16.py.)"""
     wide = dict(CONFIGS["clustered"], hidden_dims=(1024, 1024), attention_impl="banded_flash")
     with pytest.raises(NotImplementedError, match="§2 item 4"):
         FunctionalGenerativeNetwork(**wide, device="cuda")
-    banded = FunctionalGenerativeNetwork(**dict(CONFIGS["clustered"], attention_impl="banded"),
-                                         device="cpu")
-    with pytest.raises(NotImplementedError, match=BANDED_BF16_TODO):
-        banded.member_fn(compute_dtype=torch.bfloat16)
     _, port, _ = _models("clustered")
     with pytest.raises(ValueError, match="must divide"):
         port.forward_fn(4, member_chunk=3)

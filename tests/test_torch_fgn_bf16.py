@@ -14,7 +14,8 @@ closer to the JAX package's bf16 than that is to the JAX package's f32,
     RMSE(port bf16 - JAX bf16) <= 0.5 RMSE(JAX bf16 - JAX f32),
 on the output and in global norm over all gradients; the loss within 0.5
 |JAX loss bf16 - JAX loss f32|, or 1e-4 of the loss where that is larger.
-The port in f32 fails it.
+The port in f32 fails it. For banded_flash the f32 side of that distance
+is the port's own f32 member, as tests/test_torch_gencast_bf16.py takes it.
 """
 
 from functools import cache
@@ -27,6 +28,7 @@ import torch
 
 from graph_weather_tpu.models.fgn import FunctionalGenerativeNetwork as JaxFGN
 from graph_weather_tpu_torch import FunctionalGenerativeNetwork, from_jax_params
+from test_torch_gencast_banded import _numpy_params
 
 torch.set_num_threads(1)
 BF16 = torch.bfloat16
@@ -39,6 +41,7 @@ BASE = dict(
 CONFIGS = {
     "clustered": dict(BASE, use_edges_features=False, attention_impl="clustered_flash"),
     "segment": dict(BASE, use_edges_features=True, attention_impl="segment"),
+    "banded_flash": dict(BASE, use_edges_features=False, attention_impl="banded_flash"),
 }
 
 
@@ -53,7 +56,10 @@ def _global_norm(grads):
 @cache
 def _models(name):
     ref = JaxFGN(**CONFIGS[name])
-    params = jax.tree_util.tree_map(np.asarray, ref.init(jax.random.PRNGKey(0)))
+    if name == "banded_flash":  # flax's init would compile the model through the Pallas interpreter
+        params = _numpy_params(ref)
+    else:
+        params = jax.tree_util.tree_map(np.asarray, ref.init(jax.random.PRNGKey(0)))
     port = FunctionalGenerativeNetwork(**CONFIGS[name], device="cpu")
     port.module.load_state_dict(from_jax_params(params))
     return ref, port, params
@@ -68,13 +74,17 @@ def _batch(seed):
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_bf16_member_matches_jax(name):
     """member_fn in bf16 (the clustered branch's plain K3a in bf16; the
-    segment branch's sums on S) against the JAX package's bf16 member."""
+    segment branch's sums on S; the banded_flash branch's plain K4a in bf16,
+    the TPU kernel's 512-key tiles) against the JAX package's bf16 member."""
     ref, port, params = _models(name)
     prev, z, _ = _batch(1)
     want = np.asarray(jax.jit(ref.member_fn(compute_dtype=jnp.bfloat16))(params, prev, z))
-    base = np.asarray(jax.jit(ref.member_fn())(params, prev, z))
     with torch.no_grad():
         got = port.member_fn(compute_dtype=BF16)(prev, z)
+        if name == "banded_flash":  # the port's f32 as the base (tests/test_torch_gencast_bf16.py)
+            base = port.member_fn()(prev, z).numpy()
+        else:
+            base = np.asarray(jax.jit(ref.member_fn())(params, prev, z))
     assert got.dtype == torch.float32 and got.shape == prev.shape
     assert _rmse(got.numpy(), want) <= RULE * _rmse(want, base)
 

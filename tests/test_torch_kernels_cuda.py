@@ -1379,6 +1379,99 @@ def test_banded_flash_gradients_flow(gen):
         banded_flash.banded_flash_attention(q, k, v, masks.bool(), 512, 512)
 
 
+# -- K4a and K4b in bf16 -----------------------------------------------------------
+
+
+def _k4_counts():
+    return tuple(getattr(banded_flash, prefix + name) for prefix in ("", "BF16_") for name in (
+        "LAUNCHES", "BWD_DQ_LAUNCHES", "BWD_DKV_SYMMETRIC_LAUNCHES", "BWD_DKV_LAUNCHES"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("c", [16, 32, 128, 192, 512])
+def test_banded_flash_bf16_matches_plain(gen, c, batch):
+    """K4a in bf16 (with and without lse, and through the autograd
+    Function) and K4b in bf16 (dq; dk/dv in the symmetric and the general
+    role) against their plain versions on bf16 inputs, on a symmetric band
+    at w = 512 over the padded rows, at each tile width (c = 16: zeros to
+    32; 192 and 512: warps that share a row group), B in {1, 2}: out, dq,
+    dk and dv within 2 ulps of their max, lse within ATOL, exact zeros on
+    nodes without an edge and on the padded rows, the backward bit-equal
+    over two launches; the bf16 launch counts move, the f32 ones do not."""
+    n, w = 1300, 512
+    q, k, v, dout, masks = _symmetric_band_case(gen, batch, n, 4, c, w, seed=c)
+    q, k, v, dout = (t.bfloat16() for t in (q, k, v, dout))
+    before = _k4_counts()
+    with torch.no_grad():
+        out = banded_flash.banded_flash_attention(q, k, v, masks, 512, w)
+    out_l, lse = banded_flash._forward_cuda(q, k, v, masks, 512, w, with_lse=True)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    sym = torch.autograd.grad(
+        banded_flash.banded_flash_attention(*leaves, masks, 512, w, symmetric=True), leaves, dout)
+    general = banded_flash._backward_cuda(q, k, v, masks, out_l, lse, dout, 512, w, symmetric=False)
+    again = banded_flash._backward_cuda(q, k, v, masks, out_l, lse, dout, 512, w, symmetric=True)
+    torch.cuda.synchronize()
+    made = tuple(a - b for a, b in zip(_k4_counts(), before))
+    assert made == (0, 0, 0, 0, 3, 3, 2, 1)
+    ref, ref_lse = banded_flash.banded_flash_forward_reference(q, k, v, masks, 512, w, with_lse=True)
+    want = banded_flash.banded_flash_backward_reference(q, k, v, masks, ref, ref_lse, dout, 512, w)
+    assert out.dtype == out_l.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert _bf16_err(out, ref) <= 1 and _bf16_err(out_l, ref) <= 1
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    assert all(torch.equal(a, b) for a, b in zip(sym, again))
+    empty = torch.arange(q.shape[1], device="cuda")
+    empty = (empty % 7 == 0) | (empty >= n)
+    for grads in (sym, general):
+        assert all(g.dtype == torch.bfloat16 for g in grads)
+        assert max(_bf16_err(a, b) for a, b in zip(grads, want)) <= 1
+        assert all(bool((t[:, empty] == 0).all()) for t in grads)
+    assert bool((out[:, empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_banded_flash_bf16_unbatched_odd_width(gen):
+    """[N, h, c] bf16 inputs with c = 6 (the 2-byte copies), on a directed
+    band at w = 256: forward and backward (the general role) against the
+    plain versions within 2 ulps of their max; heads above 512 refused
+    before any launch."""
+    q, k, v, dout, masks, empty = _band_case(gen, 1, 700, 2, 6, 256, seed=4)
+    q, k, v, dout = (t[0].bfloat16() for t in (q, k, v, dout))
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = banded_flash.banded_flash_attention(*leaves, masks, 512, 256)
+    got = torch.autograd.grad(out, leaves, dout)
+    ref, lse = banded_flash.banded_flash_forward_reference(q, k, v, masks, 512, 256, with_lse=True)
+    want = banded_flash.banded_flash_backward_reference(q, k, v, masks, ref, lse, dout, 512, 256)
+    torch.cuda.synchronize()
+    assert _bf16_err(out, ref) <= 1
+    assert max(_bf16_err(a, b) for a, b in zip(got, want)) <= 1
+    assert bool((out[empty] == 0).all())
+    before = _k4_counts()
+    wide = torch.zeros(1, 700, 1, 513, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head width"):
+        banded_flash.banded_flash_attention(wide, wide, wide, masks, 512, 256)
+    assert _k4_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["banded_flash", "banded_flash_bwd"])
+def test_banded_flash_bf16_sass(gen, name):
+    """K4a's and K4b's libraries hold bf16 mma instructions (HMMA ... BF16)
+    beside their TF32 ones (cuobjdump beside nvcc)."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from graph_weather_tpu_torch.ops import _build
+
+    _build.load_libraries([name])
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(_build._so_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+    assert len(re.findall(r"HMMA\.\S*BF16", sass)) > 0
+    assert len(re.findall(r"HMMA\.\S*TF32", sass)) > 0
+
+
 # -- K6 and K6b in bf16 ------------------------------------------------------------
 
 K6_BF16_CASES = [K6_CASES[i] for i in (0, 1, 4, 7, 9)]
