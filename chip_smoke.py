@@ -2689,13 +2689,19 @@ def k5_bf16_case(natten_flash, name, gen, kernel, heads, circular, ch=32):
         "k5b_plain": cuda_ms(lambda: natten_flash.natten_flash_backward_reference(*bargs), runs=2,
                              batch=1),
     }
-    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    delta = torch.empty(lse.shape, device="cuda")  # the dq kernel forms it from out, as on the path
     grads = tuple(torch.empty_like(q) for _ in range(3))
+    grads32 = tuple(torch.empty_like(t) for t in f32[:3])
+    delta32 = (dout.float() * out32).sum(-1).contiguous()
     tile = natten_flash._pick_tile("dq", WM_LATENT, kernel, circular, ch, True)
     partial = torch.empty(tile.n_tiles, heads, rpb[0].numel(), device="cuda")
     for mode, key in ((natten_flash.DQ, "dq"), (natten_flash.DKV, "dkv")):
         ms[key] = cuda_ms(lambda mode=mode: natten_flash.launch_backward(
-            mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular))
+            mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular, out=out))
+        # the f32 kernel on the same values
+        ms[key + "_f32"] = cuda_ms(lambda mode=mode: natten_flash.launch_backward(
+            mode, *f32[:3], f32[3], dout.float(), lse32, delta32, grads32, partial, kernel, circular))
+    del grads32, delta32
     qt, kt, vt, bias, dot = (t.bfloat16() for t in natten_sdpa_inputs(
         natten_flash, *(t.float() for t in (q, k, v)), kernel, rpb.float(), circular, dout.float()))
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -2712,8 +2718,9 @@ def k5_bf16_case(natten_flash, name, gen, kernel, heads, circular, ch=32):
           + f" | lse max_abs_err {lse_err:.3e} | repeat bit-equal {repeats} | TPU backward tile {tpu} "
           f"| K5a bf16 {ms['k5a']:.4f} ms (f32 kernel on the same values {ms['k5a_f32']:.4f}, plain "
           f"{ms['k5a_plain']:.4f}, SDPA bf16 {ms['sdpa']:.4f}) | K5b bf16 {ms['k5b']:.4f} ms (dq "
-          f"{ms['dq']:.4f} + dk/dv {ms['dkv']:.4f}; f32 kernels {ms['k5b_f32']:.4f}, plain "
-          f"{ms['k5b_plain']:.4f}, SDPA bf16 backward {ms['sdpa_bwd']:.4f})", flush=True)
+          f"{ms['dq']:.4f} + dk/dv {ms['dkv']:.4f}; f32 kernels {ms['k5b_f32']:.4f}: dq "
+          f"{ms['dq_f32']:.4f} + dk/dv {ms['dkv_f32']:.4f}; plain {ms['k5b_plain']:.4f}, SDPA bf16 "
+          f"backward {ms['sdpa_bwd']:.4f})", flush=True)
     if not all(e[1] <= 1.0 for e in errs.values()) or not (lse_err <= K5_TOL):
         raise AssertionError(f"K5a/K5b bf16 {name}: {errs}, lse {lse_err}")
     if not repeats:
@@ -2721,7 +2728,7 @@ def k5_bf16_case(natten_flash, name, gen, kernel, heads, circular, ch=32):
     return dict(errs=errs, ms=ms, pairs=n_pairs,
                 fwd=(4 * n_pairs * ch, natten_bf16_bytes(n, lse.numel(), rpb.numel(), False)),
                 bwd=(10 * n_pairs * ch, natten_bf16_bytes(n, lse.numel(), rpb.numel(), True)),
-                dq=(6 * n_pairs * ch, 2 * 5 * n + 8 * lse.numel() + 4 * rpb.numel()),
+                dq=(6 * n_pairs * ch + 2 * n, 2 * 6 * n + 8 * lse.numel() + 4 * rpb.numel()),
                 dkv=(8 * n_pairs * ch, 2 * 6 * n + 8 * lse.numel() + 2 * rpb.numel()))
 
 
@@ -3202,11 +3209,13 @@ def fgn_phases(port, clustered_flash, segment_sums, build, gen) -> dict:
     n_lon, n_lat = len(FGN["grid_lon"]), len(FGN["grid_lat"])
     f_in, f_out, zdim = FGN["input_features_dim"], FGN["output_features_dim"], FGN["noise_dimension"]
     # K3's counters (f32; bf16 with the prefix BF16_): every K3a, dq, dk/dv
-    # and K3b launch, and the K3a, dq and dk/dv launches at c = 768 apart.
+    # and K3b launch, and the K3a, dq and dk/dv launches at c = 768 apart;
+    # K3c's bf16 dq and dk/dv launches on its M192 tile (c = 192).
     k3_counters = ("LAUNCHES", "SYMMETRIC_DQ_LAUNCHES", "SYMMETRIC_DKV_LAUNCHES",
                    "GENERAL_BWD_LAUNCHES", "WIDE_LAUNCHES", "WIDE_SYMMETRIC_DQ_LAUNCHES",
                    "WIDE_SYMMETRIC_DKV_LAUNCHES")
-    counters = k3_counters + tuple("BF16_" + n for n in k3_counters)
+    mid_counters = ("BF16_MID_SYMMETRIC_DQ_LAUNCHES", "BF16_MID_SYMMETRIC_DKV_LAUNCHES")
+    counters = k3_counters + tuple("BF16_" + n for n in k3_counters) + mid_counters
 
     def counts():  # K3's counters, then S's (f32, bf16)
         return {**{n: getattr(clustered_flash, n) for n in counters},
@@ -3222,10 +3231,13 @@ def fgn_phases(port, clustered_flash, segment_sums, build, gen) -> dict:
 
     def expect(dtype, k3a=0, dq=0, dkv=0, s=0, wide=(0, 0, 0)):
         """The counts() increments of FGN work in `dtype` (never K3b); `wide`:
-        the K3a, dq and dk/dv launches at c = 768 among them."""
+        the K3a, dq and dk/dv launches at c = 768 among them; in bf16 the dq
+        and dk/dv launches at c = 192 on the M192 tile."""
         prefix = "" if dtype == f32 else "BF16_"
         want = dict.fromkeys(counts(), 0)
         want.update({prefix + n: v for n, v in zip(k3_counters, (k3a, dq, dkv, 0, *wide))})
+        if dtype == bf16:
+            want.update(dict.fromkeys(mid_counters, dq - wide[1]))
         want["S_F32" if dtype == f32 else "S_BF16"] = s
         return want
 
@@ -3419,7 +3431,9 @@ def fgn_phases(port, clustered_flash, segment_sums, build, gen) -> dict:
         print(f"[fgn_train_{name}] 3 remat steps | step_ms {[round(t, 3) for t in step_ms]} | steady "
               f"median {statistics.median(step_ms[1:]):.3f} | loss {[round(v, 6) for v in losses]} | "
               f"launches per step K3a {2 * blocks} (with lse; remat recomputes each block), K3c dq "
-              f"{blocks}, K3c dk/dv {blocks}, K3b 0, S {FGN_S_PER_STEP}; at c = 768 2, 1 and 1 | "
+              f"{blocks}, K3c dk/dv {blocks}, K3b 0, S {FGN_S_PER_STEP}; at c = 768 2, 1 and 1"
+              + (f"; on the M192 tile (bf16, c = 192) {blocks - 1} dq and {blocks - 1} dk/dv"
+                 if dtype == bf16 else "") + " | "
               f"profiled step: K3c device ms {k3c_device[0]:.3f} over {k3c_device[1]} launches, at "
               f"c = 768 {k3c_device[2]:.3f} over {k3c_device[3]} | all parameter tensors "
               f"changed | peak GiB {peak:.2f} | {repeat} | phase 60 {time.perf_counter() - t0:.1f} s",
@@ -5523,6 +5537,8 @@ def phases(port, card: str) -> int:
             "dq_bound_ms": K5_PER_FORWARD * wm16["k5b_dq_bound"][0],
             "dkv_bound_ms": K5_PER_FORWARD * wm16["k5b_dkv_bound"][0],
             "f32_ms": K5_PER_FORWARD * k5_16["ms"]["k5b_f32"],
+            "f32_dq_ms": K5_PER_FORWARD * k5_16["ms"]["dq_f32"],  # the f32 kernels on the same values
+            "f32_dkv_ms": K5_PER_FORWARD * k5_16["ms"]["dkv_f32"],
             "plain_ms": K5_PER_FORWARD * k5_16["ms"]["k5b_plain"],
             "bound_ms": K5_PER_FORWARD * wm16["k5b_bound"][0],
             "bound_by": wm16["k5b_bound"][1],
@@ -5655,6 +5671,23 @@ def phases(port, card: str) -> int:
             "bound_ms": fgn_k3[(768, bf16_)]["bwd_bound"][0],
             "bound_by": fgn_k3[(768, bf16_)]["bwd_bound"][1],
             "library_ms": fgn_k3[(768, bf16_)]["sdpa_bwd_ms"],
+        },
+        {
+            "name": "clustered_flash_backward_symmetric_c192_bf16",
+            "route": "cuda",
+            "source": "graph_weather_tpu_torch/csrc/clustered_flash_bwd.cu",
+            "replaces": "graph_weather_tpu/ops/pallas/clustered_flash.py:749",
+            # the M192 tile's dq counter over phase 60's 3 bf16 steps (23 a step)
+            "launches": fgn["train"]["bf16"]["launches"]["BF16_MID_SYMMETRIC_DQ_LAUNCHES"],
+            "launches_dkv": fgn["train"]["bf16"]["launches"]["BF16_MID_SYMMETRIC_DKV_LAUNCHES"],
+            "max_abs_err": fgn_k3[(192, bf16_)]["errs"]["k3c"][0],
+            "err_over_limit": fgn_k3[(192, bf16_)]["errs"]["k3c"][1],
+            "ms": fgn_k3[(192, bf16_)]["ms"]["k3c"],  # both kernels and delta, one layer at c = 192
+            "ctas_per_sm": fgn_k3[(192, bf16_)]["ctas"],
+            "plain_ms": fgn_k3[(192, bf16_)]["plain_ms"]["k3c"],
+            "bound_ms": fgn_k3[(192, bf16_)]["bwd_bound"][0],
+            "bound_by": fgn_k3[(192, bf16_)]["bwd_bound"][1],
+            "library_ms": fgn_k3[(192, bf16_)]["sdpa_bwd_ms"],
         },
         {
             "name": "segment_sum_f32",

@@ -57,8 +57,10 @@
 // tile's products, and channels past c are zeros up to the tile's CP.
 // Tiles follow c: CP = 32: 8 row groups of one warp, 32 streamed rows;
 // CP = 128: 4 row groups of 2 warps, 32 rows; CP = 256: 2 groups of 4 warps,
-// 16 rows; CP = 512: one group of 8 warps, 16 rows; CP = 768 (K3c only):
-// one group of 8 warps, 16 rows, one copy stage in f32. 256 threads.
+// 16 rows (K3c in bf16 at 128 < c <= 192: CP = 192, 4 groups of 2 warps, 48
+// rows);
+// CP = 512: one group of 8 warps, 16 rows; CP = 768 (K3c only): one group
+// of 8 warps, 16 rows, one copy stage in f32. 256 threads.
 //
 // bf16 (the TPU kernels' bf16 mode): q, k, v and dO are staged as bf16 rows,
 // each product is one bf16 mma.sync m16n8k16 with f32 accumulators, p and
@@ -68,7 +70,7 @@
 // (K3b's block-local dk/dv too; the caller sums those in f32).
 //
 // Not yet here: one pass for dq and dk/dv (it would need sums across CTAs,
-// or recomputing p twice as now).
+// or recomputing p twice as now); wgmma warpgroups.
 
 #include "clustered_tile.cuh"
 
@@ -409,12 +411,25 @@ template <class T> using W512 = Cfg<T, 512, 1, 8, 16>;
 // partial sums, so the f32 tile copies into one stage; bf16 keeps two
 // (~171 KB). K3b's general dk/dv kernel stops at 512.
 template <class T> using W768 = Cfg<T, 768, 1, 8, 16, sizeof(T) == 4 ? 1 : 2>;
+// c in (128, 192] in bf16, for K3c (its dq and symmetric dk/dv kernels; K3b
+// and wider heads keep W256): 4 row groups of 2 warps of 96 channels, 48
+// streamed rows a tile. At FGN's c = 192 no warp works on padding channels
+// (W256's fourth warp holds only zeros there), a CTA owns 64 rows (its union
+// rows gathered half as often) and each exchange of x and y and each pair of
+// __syncthreads serves 4.5x the products of W256's
+// (scripts/k3c_bf16_variants.py).
+template <class T> using M192 = Cfg<T, 192, 4, 2, 48>;
 
 template <class T>
 int backward(const Params<T>& p, int mode, int batch, cudaStream_t s, bool ctas) {
   if (p.c <= 32) return run<W32<T>>(p, mode, batch, s, ctas);
   if (p.c <= 128) return run<W128<T>>(p, mode, batch, s, ctas);
-  if (p.c <= 256) return run<W256<T>>(p, mode, batch, s, ctas);
+  if (p.c <= 256) {
+    if constexpr (sizeof(T) == 2) {
+      if (mode != 0 && p.c <= 192) return run<M192<T>>(p, mode, batch, s, ctas);  // K3c's roles
+    }
+    return run<W256<T>>(p, mode, batch, s, ctas);
+  }
   if (p.c <= 512) return run<W512<T>>(p, mode, batch, s, ctas);
   if (p.c <= 768 && mode != 0) return run<W768<T>>(p, mode, batch, s, ctas);
   return ctas ? -1 : (int)cudaErrorInvalidValue;

@@ -74,24 +74,53 @@
 // bf16 (gwt_natten_flash_backward_bf16): the TPU kernel's bf16 roundings,
 // with q-hat = bf16(q x the bf16 scale) and delta = dO . out of the bf16 out
 // (ops/natten_flash.py, `natten_flash_backward_reference`).
-//   * dq (mode 0): the dq kernel above on bf16 loads (its halo staged as f32,
-//     converted on the copy), ds rounded to bf16 before its products with k,
-//     dq = bf16(sum x ch^-0.5); the drpb partials sum ds unrounded, as the
-//     TPU kernel's f32 dbias.
-//   * dk/dv (mode 1): the TPU kernel rounds each query tile's part of a key's
-//     dk (sum bf16(ds) q-hat) and dv (sum bf16(p) dO) to bf16 and adds the
-//     parts in f32, so a key's sums depend on the tiles that tiling (all of
-//     D by th x tw of H and W, `tpu_backward_tile`) cuts its inverse window
-//     into. A group of CP / 4 lanes per key (four channels a lane, k and v
-//     in registers) walks its inverse window once per tile part, recomputing
-//     s, p, dp and ds per pair (the dots summed over the group by shuffles)
-//     and reading each query's q, dO, lse and delta through L1; it rounds
-//     each part and writes bf16 of their f32 sum.
+//   * dq (mode 0): the dq kernel above, its halo staged as bf16 rows by
+//     16-byte cp.async (so the copies overlap the products, as in f32) and
+//     converted as read; ds rounded to bf16 before its products with k, dq
+//     = bf16(sum x ch^-0.5); the drpb partials sum ds unrounded, as the TPU
+//     kernel's f32 dbias. It forms delta itself from the forward's out (f32
+//     sums over the group's lanes) and writes it for the dk/dv kernel.
+//   * dk/dv (mode 1), on the tensor cores (`natten_dkv_bf16_kernel`): the
+//     TPU kernel rounds each query tile's part of a key's dk (sum bf16(ds)
+//     q-hat) and dv (sum bf16(p) dO) to bf16 and adds the parts in f32, so a
+//     key's sums depend on the tiles (all of D by jth x jtw of H and W,
+//     `tpu_backward_tile`) that cut its inverse window. A warp owns a patch
+//     of 4 x 4 keys of one plane, the 16 rows of bf16 mma.sync m16n8k16
+//     tiles; k and v are its A fragments, in registers. The CTA (a key tile
+//     of up to 8 patches, ops/natten_flash.py `dkv_bf16_plan`) stages items
+//     of its inverse window, all planes and columns by the rows of one TPU
+//     tile of H, q-hat and dO as bf16 rows by 16-byte cp.async into two
+//     stages (q-hat formed once per staged row, in place), the next item's
+//     copies issued before the current one's products. In an item a warp
+//     walks its columns one TPU tile of W at a time: each is one part's box
+//     (its planes x the item's rows of its window x the tile's columns),
+//     tabled in shared memory (where each query is staged, its window, its
+//     lse and delta) and taken 16 queries at a time, their rows gathered
+//     lane by lane by ldmatrix: s^T = K q-hat^T and dp^T = V dO^T, p and ds
+//     per pair in f32 (off-window pairs 0), bf16(p) and bf16(ds) as the A
+//     fragments of dv += P^T dO and dk += dS^T q-hat (the queries the
+//     reduction index, the same rows by ldmatrix.trans). At the box's end
+//     the part is rounded to bf16 and added to the f32 totals, in
+//     `_TileParts.sums`'s order; the totals are written as bf16 once. No TPU
+//     tile (jth x jtw = H x W) is one part. Where a tile of H's rows do not
+//     fit in two stages, items of ry rows walk one TPU tile of W each, its
+//     part open over the tile of H's items.
+//     What bounds it: at the 128-d WeatherMesh's layer (TPU tile 4 x 3) a
+//     patch's boxes hold 3-36 queries, so about a quarter of the (key,
+//     query) products the mma compute are pairs of a window, and each
+//     product's p and ds cost a dozen CUDA-core instructions; the walk is
+//     ~70% of the time, the copies, q-hat and the barriers the rest
+//     (scripts/k5b_bf16_variants.py; times beside the f32 kernel's on the
+//     same values and the design before this one, a group of lanes a key
+//     walking its window once per part through L1: PERF.md §6).
 //
-// Not yet here: tensor cores; a bf16 dk/dv kernel that stages its queries.
+// Not yet here: tensor cores in the dq kernel and the f32 kernels.
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "clustered_tile.cuh"
 #include "natten_elem.cuh"
 
 namespace {
@@ -135,6 +164,8 @@ struct Params {
   float* partial;      // [B * n_tiles, heads, n_rel] (mode 0, with rpb)
   Geometry g;
   int jth, jtw;        // bf16 dk/dv: the TPU kernel's query tile (H, W)
+  const T* out;        // bf16 dq: the forward's out, dense, to form delta from
+  float* delta_out;    // where the bf16 dq kernel writes the delta it forms
 };
 
 __device__ __forceinline__ int window_start(int i, int size, int k) {
@@ -230,15 +261,24 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
   }
 }
 
-// dst[0:CP) = src[0:ch), zeros past ch (or everywhere when !ok); thread
-// part `c4` of CP / 4 copies channels 4 c4 .. 4 c4 + 3 (bf16: a plain load,
-// converted to f32).
+// dst[0:CP) = src[0:ch), zeros past ch (or everywhere when !ok). f32:
+// thread part `c4` of CP / 4 copies channels 4 c4 .. 4 c4 + 3; bf16 (staged
+// as bf16): part `c8` of CP / 8 copies channels 8 c8 .. 8 c8 + 7, one 16-byte
+// cp.async where `vec` (ch a multiple of 8), else element by element (plain
+// loads and stores, visible after the caller's __syncthreads).
 template <int CP>
-__device__ __forceinline__ void copy_part(float* dst, const bf16* src, const bf16* any, int c4,
+__device__ __forceinline__ void copy_part(bf16* dst, const bf16* src, const bf16* any, int c8,
                                           bool ok, const Geometry& g) {
-  const int c = 4 * c4;
-  *reinterpret_cast<float4*>(dst + c) =
-      ok ? nelem::load4(src, c, g.ch, g.vec4) : make_float4(0.f, 0.f, 0.f, 0.f);
+  const int c = 8 * c8;
+  if (g.vec4) {
+    const bool in = ok && c < g.ch;
+    cp_async16(reinterpret_cast<float*>(dst + c), reinterpret_cast<const float*>(in ? src + c : any),
+               in);
+  } else {
+#pragma unroll
+    for (int x = 0; x < 8; ++x)
+      dst[c + x] = ok && c + x < g.ch ? src[c + x] : __float2bfloat16_rn(0.f);
+  }
 }
 
 template <int CP>
@@ -298,6 +338,29 @@ __device__ __forceinline__ Row<NV> smem_row(const float* row, int l) {
   for (int i = 0; i < NV; ++i) r.x[i] = *reinterpret_cast<const float4*>(row + 4 * l + 4 * LANES * i);
   return r;
 }
+
+// Four bf16 channels (one 8-byte word of a staged row) as floats.
+__device__ __forceinline__ float4 bf16x4(const bf16* at) {
+  const uint2 u = *reinterpret_cast<const uint2*>(at);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+template <int NV, int LANES>
+__device__ __forceinline__ Row<NV> smem_row(const bf16* row, int l) {
+  Row<NV> r;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) r.x[i] = bf16x4(row + 4 * l + 4 * LANES * i);
+  return r;
+}
+
+// Rows of the dq kernel's halo in shared memory: f32 rows stay f32 (stride CP
+// + 4 floats); bf16 rows are staged as bf16 by 16-byte cp.async (stride CP +
+// 8, 16-byte aligned) and converted as they are read.
+template <class T>
+using staged_t = std::conditional_t<nelem::is_bf16<T>, bf16, float>;
+template <class T>
+constexpr int row_pad = nelem::is_bf16<T> ? 8 : 4;
 
 // A global row, times `mul`, zero past ch.
 template <int NV, int LANES>
@@ -459,18 +522,19 @@ struct Group {
 
 template <int CP, class T>
 __global__ void __launch_bounds__(256, 1) natten_dq_kernel(const Params<T> p) {
+  using S = staged_t<T>;
   constexpr int NQ = NQ_DQ, LANES = CP / CH_DQ, NV = CH_DQ / 4;
-  constexpr int LD = CP + 4;
+  constexpr int LD = CP + row_pad<T>;
   const Geometry& g = p.g;
   extern __shared__ float4 smem4[];
   const int U = g.ud * g.uh * g.uw;
   const int n_slots = g.kd * g.kh * g.kw;
   const int nrh = 2 * g.kh - 1, nrw = 2 * g.kw - 1;
   const int n_rel = (2 * g.kd - 1) * nrh * nrw;
-  float* Ks = reinterpret_cast<float*>(smem4);  // [U][LD]
-  float* Vs = Ks + U * LD;                      // [U][LD]
-  float* Rs = Vs + U * LD;                      // [n_rel] rpb of this head
-  float* DSs = Rs + n_rel;                      // [tile queries][n_slots] ds (with rpb)
+  S* Ks = reinterpret_cast<S*>(smem4);                 // [U][LD]
+  S* Vs = Ks + U * LD;                                 // [U][LD]
+  float* Rs = reinterpret_cast<float*>(Vs + U * LD);  // [n_rel] rpb of this head
+  float* DSs = Rs + n_rel;                             // [tile queries][n_slots] ds (with rpb)
 
   int d0, h0, w0;
   tile_origin(g, d0, h0, w0);
@@ -485,7 +549,7 @@ __global__ void __launch_bounds__(256, 1) natten_dq_kernel(const Params<T> p) {
   // of a warp's first key planes start before the last planes arrive.
   if (p.rpb != nullptr)
     for (int i = threadIdx.x; i < n_rel; i += blockDim.x) Rs[i] = nelem::to_f(p.rpb[head * n_rel + i]);
-  constexpr int V4 = CP / 4;
+  constexpr int V4 = nelem::is_bf16<T> ? CP / 8 : CP / 4;  // copies a row
   for (int dd = 0; dd < sp_d; ++dd) {
     for (int i = threadIdx.x; i < sp_h * sp_w * V4; i += blockDim.x) {
       const int r = i / V4, c4 = i - r * V4;
@@ -520,7 +584,23 @@ __global__ void __launch_bounds__(256, 1) natten_dq_kernel(const Params<T> p) {
   const int my_w = qw[mine];
   const long long my_pos = b_pos + ((long long)id * g.h + ih) * g.w + my_w;
   const float my_lse = p.lse[my_pos * g.heads + head];
-  const float my_delta = p.delta[my_pos * g.heads + head];
+  float my_delta;
+  if constexpr (nelem::is_bf16<T>) {
+    // delta = dO . out of the bf16 out, formed here for both kernels: this
+    // lane's position's sum over the group, written once a query.
+    float a[NQ];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) {
+      const long long pos = b_pos + ((long long)id * g.h + ih) * g.w + qw[j];
+      a[j] = dot(dor[j], load_row<NV, LANES>(p.out + pos * hc + head * g.ch, l, g.ch, g.vec4));
+    }
+    float unused;
+    reduce_scatter<LANES, NQ>(a, a, l, my_delta, unused);
+    if (row_live && w0 + grp.pw0 + mine < g.w && (l & (LANES / NQ - 1)) == 0)
+      p.delta_out[my_pos * g.heads + head] = my_delta;
+  } else {
+    my_delta = p.delta[my_pos * g.heads + head];
+  }
   const int my_sw = start_w(g, my_w);
   const bool writes_ds = p.rpb != nullptr && p.partial != nullptr && row_live &&
                          w0 + grp.pw0 + mine < g.w && (l & (LANES / NQ - 1)) == 0;
@@ -797,95 +877,354 @@ __global__ void __launch_bounds__(256, 2) natten_dkv_kernel(const Params<float> 
   }
 }
 
-// The bf16 dk/dv kernel (mode 1): see the file's head. One group of CP / 4
-// lanes per key (grid x over the keys of every batch entry, y the head);
-// lane l holds channels 4 l .. 4 l + 3.
-template <int CP>
-__global__ void __launch_bounds__(256, 1) natten_dkv_bf16_kernel(const Params<bf16> p) {
-  constexpr int LANES = CP / 4;
+// The bf16 dk/dv kernel (mode 1): see the file's head. A warp owns a patch
+// of 16 keys, PATCH_H rows by PATCH_W columns of one plane, the rows of its
+// mma tiles (m16n8k16: key m at row jh0 + m / PATCH_W, column jw0 + m %
+// PATCH_W); a CTA owns td x th x tw keys, warps over (td, th / PATCH_H, tw /
+// PATCH_W). k and v are the A fragments of s^T = K q-hat^T and dp^T = V
+// dO^T, held in registers; the queries come from the staged items by
+// ldmatrix, their rows gathered lane by lane.
+constexpr int PATCH_H = 4, PATCH_W = 4;
+
+// Four 8 x 8 b16 matrices: lanes 8i .. 8i + 7 give the row addresses of
+// matrix i, and a thread gets, of matrix i, row g at columns 2t, 2t + 1 in
+// r[i] (g = lane / 4, t = lane % 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// Elements c, c + 1 of a global bf16 row as an mma word, zeros at or past n.
+__device__ __forceinline__ uint32_t pair_word(const bf16* row, int c, int n) {
+  return ctile::pack_bf16(c < n ? __bfloat162float(row[c]) : 0.f,
+                          c + 1 < n ? __bfloat162float(row[c + 1]) : 0.f);
+}
+
+// A warp's table of the queries of a part's box (planes x rows x columns,
+// columns fastest), DKV16_SLICE at a time, in shared memory: where each is
+// staged, its window's first row and column (past the box: a row and column
+// that no key's window starts at), the rpb index of its pair with key (jh,
+// jw) less jh nrw + jw; and its lse x log2(e) and delta.
+constexpr int DKV16_SLICE = 64;
+constexpr int OFF_WINDOW = 1 << 29;
+
+// 2^x by the MUFU alone, subnormal results flushed to zero (exp2f adds the
+// steps that keep them: 7% of the dk/dv kernel at case a,
+// scripts/k5b_bf16_variants.py); a p below 2^-126 is far under bf16's
+// resolution of the sums it enters.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int CP, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB) natten_dkv_bf16_kernel(const Params<bf16> p) {
+  constexpr int LD = CP + 8;   // staged row (bf16): 16-byte aligned, ldmatrix rows on distinct banks
+  constexpr int NKS = CP / 16;  // k steps of s and dp
+  constexpr int NNT = CP / 8;   // 8-channel tiles of dk and dv
+  constexpr int CB = CP / 8;    // 8-channel blocks of a staged row
+  constexpr int V8 = CP / 8;    // 16-byte copies a row
   const Geometry& g = p.g;
-  const int l = threadIdx.x % LANES;
-  const long long n_pos = (long long)g.batch * g.d * g.h * g.w;
-  const long long key = (long long)blockIdx.x * (blockDim.x / LANES) + threadIdx.x / LANES;
-  if (key >= n_pos) return;  // a whole group
-  const unsigned mask =
-      LANES == 32 ? 0xffffffffu : ((1u << LANES) - 1) << ((threadIdx.x & 31) / LANES * LANES);
-  const int head = blockIdx.y;
-  const int jw = key % g.w, jh = key / g.w % g.h, jd = key / ((long long)g.w * g.h) % g.d;
-  const long long b_pos = key / ((long long)g.w * g.h * g.d) * g.d * g.h * g.w;
-  const int hc = g.heads * g.ch, col = head * g.ch;
-  const int c = 4 * l;
-  const long long j_pos = b_pos + ((long long)jd * g.h + jh) * g.w + jw;
-  const float4 kv = nelem::load4(p.k + j_pos * g.k_ps + col, c, g.ch, g.vec4);
-  const float4 vv = nelem::load4(p.v + j_pos * g.v_ps + col, c, g.ch, g.vec4);
+  extern __shared__ float4 smem4[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gq = lane >> 2, tq = lane & 3;  // fragment row and column pair
   const int nrh = 2 * g.kh - 1, nrw = 2 * g.kw - 1;
-  const bf16* rpb = p.rpb != nullptr ? p.rpb + (long long)head * (2 * g.kd - 1) * nrh * nrw : nullptr;
+  const int n_rel = (2 * g.kd - 1) * nrh * nrw;
+  const int head = blockIdx.y;
+  const long long b_pos = (long long)blockIdx.z * g.d * g.h * g.w;
+  const int hc = g.heads * g.ch;
   const float qscale = round_bf16(g.scale);
-  // The queries whose window holds the key: per axis a range (W unreduced).
-  const int d_lo = inverse_lo(jd, g.d, g.kd, false), d_hi = inverse_hi(jd, g.d, g.kd, false);
-  const int h_lo = inverse_lo(jh, g.h, g.kh, false), h_hi = inverse_hi(jh, g.h, g.kh, false);
-  const int w_lo = inverse_lo(jw, g.w, g.kw, g.circular_w);
-  const int w_hi = inverse_hi(jw, g.w, g.kw, g.circular_w);
-  auto tile_h = [&](int qh) { return qh / p.jth; };
-  auto tile_w = [&](int qc) { return wrap(qc, g.w) / p.jtw; };
-  float4 tk = make_float4(0.f, 0.f, 0.f, 0.f), tv = tk;  // f32 sums of the rounded parts
-  for (int h0 = h_lo; h0 <= h_hi; ++h0) {
-    if (h0 > h_lo && tile_h(h0) == tile_h(h0 - 1)) continue;  // a part per H tile (runs)
-    for (int c0 = w_lo; c0 <= w_hi; ++c0) {
-      bool seen = false;  // a part per W tile, at its first column
-      for (int cc = w_lo; cc < c0; ++cc) seen |= tile_w(cc) == tile_w(c0);
-      if (seen) continue;
-      float4 pk = make_float4(0.f, 0.f, 0.f, 0.f), pv = pk;
-      for (int qd = d_lo; qd <= d_hi; ++qd) {
-        const int zd = jd - window_start(qd, g.d, g.kd);
-        if (zd < 0 || zd >= g.kd) continue;
-        for (int qh = h0; qh <= h_hi && tile_h(qh) == tile_h(h0); ++qh) {
-          const int zh = jh - window_start(qh, g.h, g.kh);
-          if (zh < 0 || zh >= g.kh) continue;
-          for (int qc = c0; qc <= w_hi; ++qc) {
-            if (tile_w(qc) != tile_w(c0)) continue;
-            const int qw = wrap(qc, g.w);
-            const int zw = g.circular_w ? wrap(jw - qw + g.kw / 2, g.w) : jw - window_start(qw, g.w, g.kw);
-            if (zw < 0 || zw >= g.kw) continue;
-            const long long q_pos = b_pos + ((long long)qd * g.h + qh) * g.w + qw;
-            float4 qv = nelem::load4(p.q + q_pos * g.q_ps + col, c, g.ch, g.vec4);
-            qv = make_float4(round_bf16(qv.x * qscale), round_bf16(qv.y * qscale),
-                             round_bf16(qv.z * qscale), round_bf16(qv.w * qscale));
-            const float4 ov = nelem::load4(p.dout + q_pos * hc + col, c, g.ch, g.vec4);
-            float s = qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
-            float dp = ov.x * vv.x + ov.y * vv.y + ov.z * vv.z + ov.w * vv.w;
+  int d0, h0, w0;
+  tile_origin(g, d0, h0, w0);
+  // The tile's inverse window: query planes, rows and (unreduced) columns.
+  int lo_d, sp_d, lo_h, sp_h, lo_w, sp_w;
+  inverse_span(d0, min(g.td, g.d - d0), g.d, g.kd, false, lo_d, sp_d);
+  inverse_span(h0, min(g.th, g.h - h0), g.h, g.kh, false, lo_h, sp_h);
+  inverse_span(w0, min(g.tw, g.w - w0), g.w, g.kw, g.circular_w, lo_w, sp_w);
+  const int hi_h = lo_h + sp_h;
+  const int qc_lo = inverse_lo(w0, g.w, g.kw, g.circular_w);
+  const int qc_end = inverse_hi(min(w0 + g.tw, g.w) - 1, g.w, g.kw, g.circular_w) + 1;
+
+  float* Rs = reinterpret_cast<float*>(smem4);  // [n_rel] rpb of this head
+  int4* Qi = reinterpret_cast<int4*>(Rs + ((n_rel + 3) & ~3)) + warp * DKV16_SLICE;  // this warp's table
+  float2* Qf = reinterpret_cast<float2*>(Qi - warp * DKV16_SLICE + (blockDim.x >> 5) * DKV16_SLICE) +
+               warp * DKV16_SLICE;
+  char* stages = reinterpret_cast<char*>(Rs + ((n_rel + 3) & ~3)) +
+                 (size_t)(blockDim.x >> 5) * DKV16_SLICE * (sizeof(int4) + sizeof(float2));
+  const int stage_pos = g.ud * g.ry * g.uw;  // positions of a stage: all planes x ry rows x all columns
+  const size_t stage_bytes = ((size_t)stage_pos * (4 * LD + 8) + 15) & ~(size_t)15;
+  if (p.rpb != nullptr)
+    for (int i = threadIdx.x; i < n_rel; i += blockDim.x) Rs[i] = nelem::to_f(p.rpb[head * n_rel + i]);
+  auto stage_of = [&](int s, bf16*& qs, bf16*& dos, float*& ls, float*& des) {
+    qs = reinterpret_cast<bf16*>(stages + s * stage_bytes);
+    dos = qs + stage_pos * LD;
+    ls = reinterpret_cast<float*>(dos + stage_pos * LD);
+    des = ls + stage_pos;
+  };
+
+  // Items: rows [y0, y1) of the inverse window with all of its planes and
+  // columns, whose parts [c0, c1) (unreduced columns, whole TPU tiles of W)
+  // the warps walk. `whole` (the host's ry holds a TPU tile of H): an item
+  // is the window's rows in one TPU tile of H, every part of W walked in it
+  // and closed at its end. Otherwise items of ry rows, one TPU tile of W at
+  // a time, its part closed after the tile of H's last strip.
+  const bool whole = g.ry >= min(p.jth, sp_h);
+  auto tile_end = [&](int y) { return min(hi_h, (y / p.jth + 1) * p.jth); };
+  auto seg_end = [&](int c) {  // the end of the TPU tile of W from unreduced column c
+    if (p.jtw >= g.w) return qc_end;
+    const int x = wrap(c, g.w);
+    return min(qc_end, c + min((x / p.jtw + 1) * p.jtw, g.w) - x);
+  };
+  struct Item {
+    int y0, y1, c0, c1;
+  };
+  auto first = [&](int y) -> Item {  // the first item of the TPU tile of H at row y
+    if (whole) return Item{y, tile_end(y), qc_lo, qc_end};
+    return Item{y, min(y + g.ry, tile_end(y)), qc_lo, seg_end(qc_lo)};
+  };
+  auto next = [&](const Item& it) -> Item {
+    const int te = tile_end(it.y0);
+    if (whole || (it.y1 == te && it.c1 == qc_end)) return te < hi_h ? first(te) : Item{hi_h, hi_h, 0, 0};
+    if (it.y1 < te) return Item{it.y1, min(it.y1 + g.ry, te), it.c0, it.c1};
+    const int ts = max(lo_h, it.y0 / p.jth * p.jth);
+    return Item{ts, min(ts + g.ry, te), it.c1, seg_end(it.c1)};
+  };
+  auto copy_item = [&](const Item& it, int s) {
+    bf16 *qs, *dos;
+    float *ls, *des;
+    stage_of(s, qs, dos, ls, des);
+    const int plane = (it.y1 - it.y0) * sp_w, n_pos = sp_d * plane;
+    // position r -> plane, row, column by float reciprocals (exact for r
+    // below 2^21); the column wraps at most once.
+    const float inv_plane = 1.f / plane, inv_w = 1.f / sp_w;
+    for (int i = threadIdx.x; i < n_pos * (V8 + 1); i += blockDim.x) {
+      const int r = i / (V8 + 1), c8 = i - r * (V8 + 1);
+      const int dd = (int)(((float)r + 0.5f) * inv_plane), rem = r - dd * plane;
+      const int yy = (int)(((float)rem + 0.5f) * inv_w), x = lo_w + rem - yy * sp_w;
+      const long long pos = b_pos + ((long long)(lo_d + dd) * g.h + it.y0 + yy) * g.w +
+                            (x < 0 ? x + g.w : x >= g.w ? x - g.w : x);
+      if (c8 < V8) {
+        copy_part<CP>(qs + r * LD, p.q + pos * g.q_ps + head * g.ch, p.q, c8, true, g);
+        copy_part<CP>(dos + r * LD, p.dout + pos * hc + head * g.ch, p.q, c8, true, g);
+      } else {
+        cp_async4(ls + r, p.lse + pos * g.heads + head, true);
+        cp_async4(des + r, p.delta + pos * g.heads + head, true);
+      }
+    }
+  };
+  // q-hat = bf16(q x bf16(scale)), once per staged q row, in place.
+  auto scale_item = [&](const Item& it, int s) {
+    bf16 *qs, *dos;
+    float *ls, *des;
+    stage_of(s, qs, dos, ls, des);
+    const int n_pos = sp_d * (it.y1 - it.y0) * sp_w;
+    for (int i = threadIdx.x; i < n_pos * V8; i += blockDim.x) {
+      const int r = i / V8, c8 = i - r * V8;
+      uint4* at = reinterpret_cast<uint4*>(qs + r * LD + 8 * c8);
+      uint4 u = *at;
+      unsigned* w = reinterpret_cast<unsigned*>(&u);
 #pragma unroll
-            for (int bit = LANES / 2; bit > 0; bit >>= 1) {
-              s += __shfl_xor_sync(mask, s, bit);
-              dp += __shfl_xor_sync(mask, dp, bit);
+      for (int e = 0; e < 4; ++e) {
+        const unsigned lo = __float_as_uint(round_bf16(__uint_as_float(w[e] << 16) * qscale)) >> 16;
+        const unsigned hi = __float_as_uint(round_bf16(__uint_as_float(w[e] & 0xffff0000u) * qscale));
+        w[e] = (hi & 0xffff0000u) | lo;
+      }
+      *at = u;
+    }
+  };
+
+  // This warp's patch (past the volume: the last key again, computed and
+  // not stored) and its queries' planes, rows and unreduced columns.
+  const int pw_n = g.tw / PATCH_W, ph_n = g.th / PATCH_H;
+  const int pd = warp / (ph_n * pw_n), ph = warp / pw_n % ph_n, pw = warp % pw_n;
+  const int jd = min(d0 + pd, g.d - 1);
+  const int jh0 = h0 + ph * PATCH_H, jw0 = w0 + pw * PATCH_W;
+  const bool live = pd < g.td && d0 + pd < g.d && jh0 < g.h && jw0 < g.w;
+  const int qd_lo = inverse_lo(jd, g.d, g.kd, false), qd_hi = inverse_hi(jd, g.d, g.kd, false);
+  const int qh_lo = inverse_lo(min(jh0, g.h - 1), g.h, g.kh, false);
+  const int qh_hi = inverse_hi(min(jh0 + PATCH_H, g.h) - 1, g.h, g.kh, false);
+  const int wc_lo = inverse_lo(min(jw0, g.w - 1), g.w, g.kw, g.circular_w);
+  const int wc_end = inverse_hi(min(jw0 + PATCH_W, g.w) - 1, g.w, g.kw, g.circular_w) + 1;
+  // This thread's two keys: fragment rows gq and gq + 8.
+  int kh_[2], kw_[2], koff[2];
+  bool kst[2];
+  uint32_t ka[NKS][4], va[NKS][4];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int m = gq + 8 * e;
+    const int y = jh0 + m / PATCH_W, x = jw0 + m % PATCH_W;
+    kst[e] = live && y < g.h && x < g.w;
+    kh_[e] = min(y, g.h - 1);
+    kw_[e] = min(x, g.w - 1);
+    koff[e] = kh_[e] * nrw + kw_[e];
+    const long long pos = b_pos + ((long long)jd * g.h + kh_[e]) * g.w + kw_[e];
+    const bf16* kr = p.k + pos * g.k_ps + head * g.ch;
+    const bf16* vr = p.v + pos * g.v_ps + head * g.ch;
+#pragma unroll
+    for (int ks = 0; ks < NKS; ++ks) {
+      ka[ks][e] = pair_word(kr, 16 * ks + 2 * tq, g.ch);
+      ka[ks][2 + e] = pair_word(kr, 16 * ks + 2 * tq + 8, g.ch);
+      va[ks][e] = pair_word(vr, 16 * ks + 2 * tq, g.ch);
+      va[ks][2 + e] = pair_word(vr, 16 * ks + 2 * tq + 8, g.ch);
+    }
+  }
+  // The open part (pk, pv) and the f32 totals of the closed ones, in the
+  // mma's accumulator layout: [n][e] is key row gq + 8 (e / 2), channel 8 n
+  // + 2 tq + e % 2.
+  float pk[NNT][4], pv[NNT][4], tk[NNT][4], tv[NNT][4];
+#pragma unroll
+  for (int n = 0; n < NNT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pk[n][e] = pv[n][e] = tk[n][e] = tv[n][e] = 0.f;
+  auto close_part = [&]() {  // round the part to bf16, add it to the totals
+#pragma unroll
+    for (int n = 0; n < NNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        tk[n][e] += round_bf16(pk[n][e]);
+        tv[n][e] += round_bf16(pv[n][e]);
+        pk[n][e] = pv[n][e] = 0.f;
+      }
+  };
+
+  // The warp's walk of one item: each TPU tile of W of its columns is one
+  // part's box (its planes x the item's rows of its window x the tile's
+  // columns), tabled DKV16_SLICE queries at a time and taken 16 at a time.
+  auto walk = [&](const Item& it, int s) {
+    bf16 *qs, *dos;
+    float *ls, *des;
+    stage_of(s, qs, dos, ls, des);
+    const int ra = max(it.y0, qh_lo), rb = min(it.y1, qh_hi + 1);
+    const bool closes = it.y1 == tile_end(it.y0);
+    const int nrows = it.y1 - it.y0, P = qd_hi - qd_lo + 1, R = rb - ra;
+    const int c_end = min(it.c1, wc_end);
+    for (int c0 = max(it.c0, wc_lo); c0 < c_end;) {
+      const int c1 = min(seg_end(c0), c_end);
+      const int C = c1 - c0, n = R > 0 ? P * R * C : 0;
+      const float inv_c = 1.f / C, inv_r = 1.f / max(R, 1);
+      for (int s0 = 0; s0 < n; s0 += DKV16_SLICE) {
+        const int ns = min(DKV16_SLICE, n - s0);
+        __syncwarp();  // the last slice's reads are done
+        for (int t = lane; t < ((ns + 15) & ~15); t += 32) {
+          const int ii = t < ns ? s0 + t : s0;
+          const int line = (int)(((float)ii + 0.5f) * inv_c), cc = ii - line * C;
+          const int pl = (int)(((float)line + 0.5f) * inv_r), rr = line - pl * R;
+          const int qd = qd_lo + pl, qh = ra + rr, col = c0 + cc;
+          const int row = ((qd - lo_d) * nrows + qh - it.y0) * sp_w + union_index(col, lo_w, sp_w, g);
+          Qi[t] = make_int4(row, t < ns ? window_start(qh, g.h, g.kh) : OFF_WINDOW,
+                            t < ns ? start_w(g, col) : OFF_WINDOW,
+                            ((jd - qd + g.kd - 1) * nrh - qh + g.kh - 1) * nrw - col + g.kw - 1);
+          Qf[t] = make_float2(ls[row] * LOG2E, des[row]);
+        }
+        __syncwarp();
+        for (int i0 = 0; i0 < ns; i0 += 16) {
+          // s^T and dp^T over 16 queries: two n tiles of 8.
+          const int ra_row = Qi[i0 + (lane & 7)].x, rb_row = Qi[i0 + 8 + (lane & 7)].x;
+          uint32_t bq[2][NKS][2], bo[2][NKS][2];
+#pragma unroll
+          for (int x = 0; x < CP / 16; ++x) {  // matrices 4x .. 4x + 3 of (n tile, channel block)
+            const int mi = 4 * x + (lane >> 3);
+            const int at = (mi / CB == 0 ? ra_row : rb_row) * LD + 8 * (mi % CB);
+            uint32_t rq[4], ro[4];
+            ldmatrix_x4(rq, qs + at);
+            ldmatrix_x4(ro, dos + at);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int m = 4 * x + j, nt = m / CB, cb = m % CB;
+              bq[nt][cb / 2][cb % 2] = rq[j];
+              bo[nt][cb / 2][cb % 2] = ro[j];
             }
-            if (rpb != nullptr) {
-              const int rw = g.circular_w ? zw - g.kw / 2 + g.kw - 1 : jw - qw + g.kw - 1;
-              s += nelem::to_f(__ldg(rpb + ((jd - qd + g.kd - 1) * nrh + jh - qh + g.kh - 1) * nrw + rw));
+          }
+          float sc[2][4], dpc[2][4];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) sc[nt][e] = dpc[nt][e] = 0.f;
+#pragma unroll
+            for (int ks = 0; ks < NKS; ++ks) {
+              ctile::mma_bf16(sc[nt], ka[ks], bq[nt][ks]);
+              ctile::mma_bf16(dpc[nt], va[ks], bo[nt][ks]);
             }
-            const float pr = exp2f((s - __ldg(p.lse + q_pos * g.heads + head)) * LOG2E);
-            const float ds = pr * (dp - __ldg(p.delta + q_pos * g.heads + head));
-            const float ds16 = round_bf16(ds), p16 = round_bf16(pr);
-            pk = make_float4(fmaf(ds16, qv.x, pk.x), fmaf(ds16, qv.y, pk.y), fmaf(ds16, qv.z, pk.z),
-                             fmaf(ds16, qv.w, pk.w));
-            pv = make_float4(fmaf(p16, ov.x, pv.x), fmaf(p16, ov.y, pv.y), fmaf(p16, ov.z, pv.z),
-                             fmaf(p16, ov.w, pv.w));
+          }
+          // p and ds of this thread's 8 pairs (keys gq, gq + 8 by queries
+          // 8 nt + 2 tq + j), rounded to bf16 as the A fragments of dv and dk.
+          float pr[2][4], ds[2][4];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int4 q = Qi[i0 + 8 * nt + 2 * tq + j];
+              const float2 f = Qf[i0 + 8 * nt + 2 * tq + j];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const bool in = (unsigned)(kh_[e] - q.y) < (unsigned)g.kh &&
+                                (unsigned)(kw_[e] - q.z) < (unsigned)g.kw;
+                float sv = sc[nt][2 * e + j];
+                if (p.rpb != nullptr && in) sv += Rs[q.w + koff[e]];
+                const float e_ = in ? ex2_ftz(fmaf(sv, LOG2E, -f.x)) : 0.f;
+                pr[nt][2 * e + j] = e_;
+                ds[nt][2 * e + j] = e_ * (dpc[nt][2 * e + j] - f.y);
+              }
+            }
+          const uint32_t ap[4] = {ctile::pack_bf16(pr[0][0], pr[0][1]), ctile::pack_bf16(pr[0][2], pr[0][3]),
+                                  ctile::pack_bf16(pr[1][0], pr[1][1]), ctile::pack_bf16(pr[1][2], pr[1][3])};
+          const uint32_t as[4] = {ctile::pack_bf16(ds[0][0], ds[0][1]), ctile::pack_bf16(ds[0][2], ds[0][3]),
+                                  ctile::pack_bf16(ds[1][0], ds[1][1]), ctile::pack_bf16(ds[1][2], ds[1][3])};
+          // dv += bf16(p)^T dO and dk += bf16(ds)^T q-hat: the queries as the
+          // reduction index, from the same rows transposed.
+          const int t_row = (lane >> 3) & 1 ? rb_row : ra_row;
+#pragma unroll
+          for (int x = 0; x < CP / 16; ++x) {
+            const int at = t_row * LD + 16 * x + 8 * (lane >> 4);
+            uint32_t b[4];
+            ctile::ldmatrix_x4_trans(b, dos + at);
+            const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+            ctile::mma_bf16(pv[2 * x], ap, b0);
+            ctile::mma_bf16(pv[2 * x + 1], ap, b1);
+            ctile::ldmatrix_x4_trans(b, qs + at);
+            const uint32_t c0_[2] = {b[0], b[1]}, c1_[2] = {b[2], b[3]};
+            ctile::mma_bf16(pk[2 * x], as, c0_);
+            ctile::mma_bf16(pk[2 * x + 1], as, c1_);
           }
         }
       }
-      tk = make_float4(tk.x + round_bf16(pk.x), tk.y + round_bf16(pk.y), tk.z + round_bf16(pk.z),
-                       tk.w + round_bf16(pk.w));
-      tv = make_float4(tv.x + round_bf16(pv.x), tv.y + round_bf16(pv.y), tv.z + round_bf16(pv.z),
-                       tv.w + round_bf16(pv.w));
+      if (closes) close_part();
+      c0 = c1;
     }
+  };
+
+  Item it = first(lo_h);
+  copy_item(it, 0);
+  cp_async_commit();
+  for (int s = 0; it.y0 < hi_h; ++s) {
+    const Item nx = next(it);
+    cp_async_wait<0>();
+    __syncthreads();  // this item's copies landed; the other stage is free
+    if (nx.y0 < hi_h) copy_item(nx, (s + 1) & 1);
+    cp_async_commit();
+    scale_item(it, s & 1);
+    __syncthreads();
+    if (live) walk(it, s & 1);
+    it = nx;
   }
-  bf16* dk = p.dk + j_pos * hc + col;
-  bf16* dv = p.dv + j_pos * hc + col;
-  const float ka[4] = {tk.x, tk.y, tk.z, tk.w}, va[4] = {tv.x, tv.y, tv.z, tv.w};
+  cp_async_wait<0>();
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    nelem::store1(dk, c + e, g.ch, ka[e]);
-    nelem::store1(dv, c + e, g.ch, va[e]);
+  for (int e = 0; e < 2; ++e) {
+    if (!kst[e]) continue;
+    const long long pos = b_pos + ((long long)jd * g.h + kh_[e]) * g.w + kw_[e];
+    bf16* dk = p.dk + pos * hc + head * g.ch;
+    bf16* dv = p.dv + pos * hc + head * g.ch;
+#pragma unroll
+    for (int n = 0; n < NNT; ++n) {
+      const int c = 8 * n + 2 * tq;
+      nelem::store1(dk, c, g.ch, tk[n][2 * e]);
+      nelem::store1(dk, c + 1, g.ch, tk[n][2 * e + 1]);
+      nelem::store1(dv, c, g.ch, tv[n][2 * e]);
+      nelem::store1(dv, c + 1, g.ch, tv[n][2 * e + 1]);
+    }
   }
 }
 
@@ -898,7 +1237,7 @@ int launch_dq(const Params<T>& p, cudaStream_t stream) {
   const int n_rel = (2 * g.kd - 1) * (2 * g.kh - 1) * (2 * g.kw - 1);
   const int n_tiles = (g.d + g.td - 1) / g.td * ((g.h + g.th - 1) / g.th) * ((g.w + g.tw - 1) / g.tw);
   const dim3 grid(n_tiles, g.heads, g.batch);
-  size_t smem = sizeof(float) * ((size_t)2 * g.ud * g.uh * g.uw * (CP + 4));
+  size_t smem = sizeof(staged_t<T>) * ((size_t)2 * g.ud * g.uh * g.uw * (CP + row_pad<T>));
   if (p.rpb != nullptr) smem += sizeof(float) * ((size_t)n_rel + (size_t)tq * g.kd * g.kh * g.kw);
   cudaError_t err = cudaFuncSetAttribute(natten_dq_kernel<CP, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -935,14 +1274,26 @@ int launch(int mode, const Params<float>& p, cudaStream_t stream) {
 }
 
 template <int CP>
-int launch_bf16(int mode, const Params<bf16>& p, cudaStream_t stream) {
+int launch_bf16(int mode, const Params<bf16>& p, int ctas, cudaStream_t stream) {
   const Geometry& g = p.g;
   if (mode == DQ) return launch_dq<CP>(p, stream);
-  if (p.jth < 1 || p.jtw < 1) return (int)cudaErrorInvalidValue;
-  constexpr int per_cta = 256 / (CP / 4);
-  const long long n_pos = (long long)g.batch * g.d * g.h * g.w;
-  const dim3 grid((unsigned)((n_pos + per_cta - 1) / per_cta), g.heads);
-  natten_dkv_bf16_kernel<CP><<<grid, 256, 0, stream>>>(p);
+  const int warps = g.td * (g.th / PATCH_H) * (g.tw / PATCH_W);
+  if (p.jth < 1 || p.jtw < 1 || g.ry < 1 || g.th % PATCH_H != 0 || g.tw % PATCH_W != 0 || warps < 1 ||
+      warps > 8)
+    return (int)cudaErrorInvalidValue;
+  const int n_rel = (2 * g.kd - 1) * (2 * g.kh - 1) * (2 * g.kw - 1);
+  const int n_tiles = (g.d + g.td - 1) / g.td * ((g.h + g.th - 1) / g.th) * ((g.w + g.tw - 1) / g.tw);
+  const dim3 grid(n_tiles, g.heads, g.batch);
+  const size_t stage = ((size_t)g.ud * g.ry * g.uw * (4 * (CP + 8) + 8) + 15) / 16 * 16;
+  const size_t smem = sizeof(float) * (((size_t)n_rel + 3) / 4 * 4) +
+                      (size_t)warps * DKV16_SLICE * (sizeof(int4) + sizeof(float2)) + 2 * stage;
+  // compiled for one CTA of up to 8 warps an SM, or three of up to 4 (170
+  // registers a thread)
+  if (ctas != 1 && (ctas != 3 || warps > 4)) return (int)cudaErrorInvalidValue;
+  auto kernel = ctas == 3 ? natten_dkv_bf16_kernel<CP, 128, 3> : natten_dkv_bf16_kernel<CP, 256, 1>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, 32 * warps, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -982,9 +1333,14 @@ extern "C" int gwt_natten_flash_backward(int mode, const float* q, const float* 
 // elements), lse and delta (= dO . out of the bf16 out) f32, partial f32 (the
 // sums of ds unrounded); scale is ch^-0.5 (q-hat takes its bf16 value). vec:
 // ch, the strides and the pointers allow 16-byte copies of eight channels.
-// mode 0 takes the f32 dq kernel's tile; mode 1 reads jth x jtw, the TPU
-// kernel's query tile (H and W extents; the whole H and W where it has
-// none), and none of the tile geometry.
+// mode 0 takes the f32 dq kernel's tile; mode 1 its own key tile (whole
+// 4 x 4 patches, at most 8 of them), item rows ry (ops/natten_flash.py
+// `dkv_bf16_plan`), jth x jtw, the TPU kernel's query tile (H and W extents;
+// the whole H and W where it has none), whose parts of dk and dv it rounds,
+// and ctas, the CTAs an SM it is compiled for (1, or 3 for CTAs of at most 4
+// warps: 170 registers). out (mode 0): the forward's bf16 out, dense; the dq
+// kernel forms delta = dO . out itself (f32 sums) and writes it to
+// delta_out for the dk/dv kernel (it reads no delta).
 extern "C" int gwt_natten_flash_backward_bf16(int mode, const void* q, const void* k,
                                               const void* v, const void* rpb, const void* dout,
                                               const float* lse, const float* delta, void* dq,
@@ -994,19 +1350,21 @@ extern "C" int gwt_natten_flash_backward_bf16(int mode, const void* q, const voi
                                               int kd, int kh, int kw, int circular_w, int td,
                                               int th, int tw, int ud, int uh, int uw, int vec,
                                               float scale, int ry, int jth, int jtw,
+                                              int ctas, const void* out, float* delta_out,
                                               void* stream) {
-  if (mode != DQ && mode != DKV) return (int)cudaErrorInvalidValue;
+  if ((mode != DQ && mode != DKV) || (mode == DQ && (out == nullptr || delta_out == nullptr)))
+    return (int)cudaErrorInvalidValue;
   const Params<bf16> p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                        static_cast<const bf16*>(v), static_cast<const bf16*>(rpb),
                        static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq),
                        static_cast<bf16*>(dk), static_cast<bf16*>(dv), partial,
                        Geometry{batch, d, h, w, heads, ch, q_ps, k_ps, v_ps, kd, kh, kw,
                                 circular_w, td, th, tw, ud, uh, uw, vec, scale, ry},
-                       jth, jtw};
+                       jth, jtw, static_cast<const bf16*>(out), delta_out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ch <= 16) return launch_bf16<16>(mode, p, s);
-  if (ch <= 32) return launch_bf16<32>(mode, p, s);
-  if (ch <= 64) return launch_bf16<64>(mode, p, s);
-  if (ch <= 128) return launch_bf16<128>(mode, p, s);
+  if (ch <= 16) return launch_bf16<16>(mode, p, ctas, s);
+  if (ch <= 32) return launch_bf16<32>(mode, p, ctas, s);
+  if (ch <= 64) return launch_bf16<64>(mode, p, ctas, s);
+  if (ch <= 128) return launch_bf16<128>(mode, p, ctas, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -52,7 +52,10 @@ count the f32 kernels; `BF16_LAUNCHES`, `BF16_GENERAL_BWD_LAUNCHES`,
 `BF16_SYMMETRIC_DQ_LAUNCHES` and `BF16_SYMMETRIC_DKV_LAUNCHES` the bf16 ones.
 The launches at heads above WIDE_TILE_ABOVE channels, which run the W768
 tiles, are also counted apart: `WIDE_LAUNCHES`, `WIDE_SYMMETRIC_DQ_LAUNCHES`,
-`WIDE_SYMMETRIC_DKV_LAUNCHES` and their `BF16_WIDE_*` twins.
+`WIDE_SYMMETRIC_DKV_LAUNCHES` and their `BF16_WIDE_*` twins; so are K3c's
+bf16 launches on its M192 tile (heads of 129 to 192 channels, FGN's c =
+192: `backward_tile`), `BF16_MID_SYMMETRIC_DQ_LAUNCHES` and
+`BF16_MID_SYMMETRIC_DKV_LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -79,6 +82,8 @@ WIDE_SYMMETRIC_DKV_LAUNCHES = 0
 BF16_WIDE_LAUNCHES = 0
 BF16_WIDE_SYMMETRIC_DQ_LAUNCHES = 0
 BF16_WIDE_SYMMETRIC_DKV_LAUNCHES = 0
+BF16_MID_SYMMETRIC_DQ_LAUNCHES = 0  # K3c's dq kernel in bf16 on the M192 tile
+BF16_MID_SYMMETRIC_DKV_LAUNCHES = 0  # K3c's dk/dv kernel in bf16 on them
 MAX_CHANNELS = 768  # widest head K3a's and K3c's tiles hold
 WIDE_TILE_ABOVE = 512  # wider heads run the W768 tiles
 GENERAL_MAX_CHANNELS = 512  # widest head K3b's general dk/dv kernel holds
@@ -284,6 +289,20 @@ def _vec(c: int, tensors) -> int:
     return int(c % per == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
+def backward_tile(c: int, dtype: torch.dtype, symmetric: bool) -> str:
+    """The tile of csrc/clustered_flash_bwd.cu that the backward takes at
+    head width c (its `backward`): W32, W128, W256, W512 or W768 by c; K3c
+    in bf16 at 128 < c <= 192 the M192 tile. A pure host function;
+    `check_width` refuses what none takes."""
+    if c <= 32:
+        return "W32"
+    if c <= 128:
+        return "W128"
+    if c <= 256:
+        return "M192" if dtype == torch.bfloat16 and symmetric and c <= 192 else "W256"
+    return "W512" if c <= 512 else "W768"
+
+
 def check_width(c: int, symmetric: bool = True, backward: bool = False) -> None:
     """Raise, before any launch, for a head width the card's kernels do not
     take: K3a and K3c up to MAX_CHANNELS, K3b's general backward up to
@@ -359,6 +378,7 @@ def _backward_cuda(q, k, v, gather_ids, masks, out, lse, dout, block, symmetric,
     global BF16_GENERAL_BWD_LAUNCHES, BF16_SYMMETRIC_DQ_LAUNCHES, BF16_SYMMETRIC_DKV_LAUNCHES
     global WIDE_SYMMETRIC_DQ_LAUNCHES, WIDE_SYMMETRIC_DKV_LAUNCHES
     global BF16_WIDE_SYMMETRIC_DQ_LAUNCHES, BF16_WIDE_SYMMETRIC_DKV_LAUNCHES
+    global BF16_MID_SYMMETRIC_DQ_LAUNCHES, BF16_MID_SYMMETRIC_DKV_LAUNCHES
     check_width(q.shape[-1], symmetric, backward=True)
     if not symmetric and scatter_index is None:
         raise ValueError(_NO_SCATTER_INDEX)
@@ -378,10 +398,13 @@ def _backward_cuda(q, k, v, gather_ids, masks, out, lse, dout, block, symmetric,
         _launch_backward(_SYMMETRIC_DKV, *args, None, dk, dv, block)
         wide = int(c > WIDE_TILE_ABOVE)
         if q.dtype == torch.bfloat16:
+            mid = int(backward_tile(c, q.dtype, True) == "M192")
             BF16_SYMMETRIC_DQ_LAUNCHES += 1
             BF16_SYMMETRIC_DKV_LAUNCHES += 1
             BF16_WIDE_SYMMETRIC_DQ_LAUNCHES += wide
             BF16_WIDE_SYMMETRIC_DKV_LAUNCHES += wide
+            BF16_MID_SYMMETRIC_DQ_LAUNCHES += mid
+            BF16_MID_SYMMETRIC_DKV_LAUNCHES += mid
         else:
             SYMMETRIC_DQ_LAUNCHES += 1
             SYMMETRIC_DKV_LAUNCHES += 1

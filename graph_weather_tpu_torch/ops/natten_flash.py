@@ -116,8 +116,9 @@ _FWD_ARGTYPES = ([_c_ptr] * 6 + _GEOMETRY[:13] + [_c_int, ctypes.c_float] + [_c_
 # dk/dv strip), the stream
 _BWD_ARGTYPES = [_c_int] + [_c_ptr] * 11 + _GEOMETRY[:-1] + [_c_int, _c_ptr]
 # the bf16 entries: as the f32 ones (the forward's the same); the backward's
-# also takes the TPU kernel's query tile (th, tw) before the stream
-_BWD16_ARGTYPES = _BWD_ARGTYPES[:-1] + [_c_int, _c_int, _c_ptr]
+# also takes, before the stream, the TPU kernel's query tile (th, tw), the
+# dk/dv kernel's CTAs an SM, and out and the delta the dq kernel forms
+_BWD16_ARGTYPES = _BWD_ARGTYPES[:-1] + [_c_int, _c_int, _c_int, _c_ptr, _c_ptr, _c_ptr]
 DQ, DKV = 0, 1  # backward modes of the C entry (K5b's two kernels)
 
 
@@ -456,6 +457,132 @@ def _dkv_rows(tile: Tile, kernel, ch: int) -> int:
                default=0)
 
 
+# K5b·bf16's dk/dv kernel (csrc/natten_flash_bwd.cu, `natten_dkv_bf16_kernel`):
+# a warp owns DKV16_PATCH (rows, columns) = 16 keys of one plane, the rows of
+# its bf16 mma tiles, and a table of DKV16_SLICE queries (DKV16_TABLE bytes);
+# a CTA of at most DKV16_MAX_WARPS warps owns a key tile (td, th, tw) of whole
+# patches and stages items of its inverse window (all planes and columns, ry
+# rows), q-hat and dO as bf16 rows of CP + 8 elements, lse and delta, in two
+# stages. It is compiled for one CTA an SM and, for CTAs of at most 4 warps,
+# for DKV16_SMALL_CTAS (170 registers; two CTAs of 8 warps spill at 128).
+DKV16_PATCH = (4, 4)
+DKV16_MAX_WARPS = 8
+DKV16_SLICE, DKV16_TABLE = 64, 64 * 24
+DKV16_SMALL_CTAS = 3
+DKV16_TILES = [(td, th, tw) for td in (1, 2, 4) for th in (4, 8, 16) for tw in (4, 8, 16)
+               if td * (th // 4) * (tw // 4) <= DKV16_MAX_WARPS]
+
+
+@dataclass(frozen=True)
+class Dkv16Plan:
+    """A launch of K5b·bf16's dk/dv kernel: its key tile (`tile`, with the
+    inverse window's largest spans and the shared memory of a CTA), `ry`
+    rows an item stages, the TPU query tile (jth, jtw) whose parts it
+    rounds, `whole` (an item holds a TPU tile of H's rows of the window),
+    warps a CTA and CTAs an SM."""
+
+    tile: Tile
+    ry: int
+    jth: int
+    jtw: int
+    whole: bool
+    warps: int
+    ctas: int
+
+
+def _dkv16_stage(ud: int, ry: int, uw: int, cp: int) -> int:
+    """Bytes of one stage: ud x ry x uw positions of q-hat and dO rows (bf16,
+    cp + 8 a row), lse and delta, rounded up to 16."""
+    return -(-ud * ry * uw * (4 * (cp + 8) + 8) // 16) * 16
+
+
+def dkv16_tile_plan(tile, dims, kernel, circular_w, jt, ch) -> Dkv16Plan | None:
+    """K5b·bf16's dk/dv kernel on key tile `tile` (whole patches, at most
+    DKV16_MAX_WARPS of them), TPU query tile jt: ry the most rows up to a
+    TPU tile of H's (the window's rows in one, `whole`) whose two stages fit;
+    None where not even one row does."""
+    cp = _padded_width(ch)
+    (td, th, tw), (ph, pw) = tile, DKV16_PATCH
+    warps = td * (th // ph) * (tw // pw)
+    if th % ph or tw % pw or not 1 <= warps <= DKV16_MAX_WARPS:
+        return None
+    n_rel = math.prod(2 * kk - 1 for kk in kernel)
+    fixed = 4 * (-(-n_rel // 4) * 4) + warps * DKV16_TABLE  # rpb, the query tables
+    ud, uh, uw = (_max_span(size, kk, t, circ, True)
+                  for size, kk, t, circ in zip(dims, kernel, tile, (False, False, circular_w)))
+    rows = min(jt[0], uh)
+    fits = [r for r in range(rows, 0, -1) if fixed + 2 * _dkv16_stage(ud, r, uw, cp) <= SMEM_LIMIT]
+    if not fits:
+        return None
+    ry = fits[0]
+    smem = fixed + 2 * _dkv16_stage(ud, ry, uw, cp)
+    small = warps <= 4 and DKV16_SMALL_CTAS * (smem + 1024) <= SM_SMEM
+    ctas = DKV16_SMALL_CTAS if small else 1
+    n_tiles = math.prod(-(-size // t) for size, t in zip(dims, tile))
+    return Dkv16Plan(Tile(td, th, tw, ud, uh, uw, smem, n_tiles), ry, jt[0], jt[1], ry == rows, warps, ctas)
+
+
+@functools.lru_cache(maxsize=64)
+def dkv_bf16_plan(dims, kernel, circular_w, heads, ch, has_bias) -> Dkv16Plan:
+    """How K5b·bf16's dk/dv kernel tiles the keys (a pure host function,
+    called before any launch). A key's dk and dv are summed per TPU query
+    tile (`tpu_backward_tile`; the whole H and W where it has none), so the
+    kernel walks its items (`dkv_bf16_items`) one TPU tile at a time. Among
+    the key tiles of `DKV16_TILES`: whole items first, then the most warps
+    resident an SM (the CTAs an SM it is compiled for times its warps), then
+    the fewest positions staged over the volume."""
+    tpu = tpu_backward_tile(dims, kernel, circular_w, heads, ch, has_bias)
+    jt = tpu if tpu is not None else dims[1:]
+    plans = [p for t in DKV16_TILES if (p := dkv16_tile_plan(t, dims, kernel, circular_w, jt, ch))]
+    if not plans:
+        raise ValueError(f"K5b bf16 dk/dv: no key tile stages a row of {dims}, kernel {kernel}, "
+                         f"{ch} channels")
+    return min(plans, key=lambda p: (not p.whole, -p.ctas * p.warps,
+                                     p.tile.n_tiles * p.tile.ud * p.tile.uh * p.tile.uw))
+
+
+def dkv_bf16_segments(c_lo: int, c_end: int, w: int, jtw: int) -> list[tuple[int, int]]:
+    """The pieces [c0, c1) of unreduced columns [c_lo, c_end) (circular ones
+    possibly below 0 or past w) cut where a TPU tile of W ends, in wrapped
+    columns (none where one tile spans W): each is one part of a key's dk
+    and dv. The kernel's `seg_end`."""
+    out, c = [], c_lo
+    while c < c_end:
+        if jtw >= w:
+            e = c_end
+        else:
+            x = c % w
+            e = min(c_end, c + min((x // jtw + 1) * jtw, w) - x)
+        out.append((c, e))
+        c = e
+    return out
+
+
+def dkv_bf16_items(lo_h: int, span_h: int, c_lo: int, c_end: int, w: int, jth: int, jtw: int,
+                   ry: int) -> list[tuple[int, int, int, int, bool]]:
+    """The items (y0, y1, c0, c1, closes) of K5b·bf16's dk/dv kernel over a
+    key tile's inverse window (rows [lo_h, lo_h + span_h), unreduced columns
+    [c_lo, c_end)): rows [y0, y1) staged, the parts of columns [c0, c1)
+    walked, closed at the item's end where `closes`. Where ry holds a TPU
+    tile of H's rows of the window, one item a tile of H with all the
+    columns; else items of ry rows, for each TPU tile of W in turn over the
+    tile of H's rows. The kernel's `first` and `next`."""
+    hi = lo_h + span_h
+    whole = ry >= min(jth, span_h)
+    segs = dkv_bf16_segments(c_lo, c_end, w, jtw)
+    out, y = [], lo_h
+    while y < hi:
+        te = min(hi, (y // jth + 1) * jth)
+        if whole:
+            out.append((y, te, c_lo, c_end, True))
+        else:
+            for c0, c1 in segs:
+                out.extend((y0, min(y0 + ry, te), c0, c1, min(y0 + ry, te) == te)
+                           for y0 in range(y, te, ry))
+        y = te
+    return out
+
+
 # K5a's launch (csrc/natten_flash.cu): W-neighbouring queries of a lane
 # group (NQ), the columns of a chunk up to kw = 5 and above (NC_SHORT,
 # NC_LONG), threads of a CTA (THREADS: eight query rows), and per padded
@@ -629,26 +756,32 @@ def _forward_cuda(q, k, v, kernel, rpb, circular_w, with_lse):
     return out, lse
 
 
-def launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular_w):
+def launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular_w,
+                    out=None):
     """One K5b kernel on the card: mode `DQ` writes grads[0] (dq) and, with
     rpb, its drpb partials into `partial` ([B * n_tiles, heads, n_rel] of
     the dq tile); mode `DKV` writes grads[1] and grads[2] (dk, dv). rpb
     contiguous or None, dout dense, delta = rowsum(dO * out)
-    [B, D, H, W, heads]."""
+    [B, D, H, W, heads]. bf16 `DQ` takes `out` (the forward's, dense)
+    instead: the kernel forms delta from it and writes it into `delta`."""
     global BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES, BF16_BWD_DQ_LAUNCHES, BF16_BWD_DKV_LAUNCHES
     dims, ch = tuple(q.shape[1:4]), q.shape[-1]
-    tile = _pick_tile("dq" if mode == DQ else "dkv", dims, kernel, circular_w, ch, rpb is not None)
-    geometry = _geometry(q, k, v, kernel, circular_w, tile, (q, k, v, dout, *grads))
-    ry = 0 if mode == DQ else _dkv_rows(tile, kernel, ch)
-    outs = (grads[0], None, None, partial) if mode == DQ else (None, grads[1], grads[2], None)
     bf16 = q.dtype == torch.bfloat16
-    if bf16:  # the TPU kernel's query tile, whose parts of dk and dv it rounds
-        entry = ("gwt_natten_flash_backward_bf16", _BWD16_ARGTYPES)
-        tpu = tpu_backward_tile(dims, tuple(kernel), bool(circular_w), q.shape[-2], ch,
-                                rpb is not None)
-        extra = tpu if tpu is not None else dims[1:]
+    if bf16 and mode == DQ and out is None:
+        raise ValueError("natten_flash backward: the bf16 dq kernel forms delta from the forward's out")
+    extra, read = (), (q, k, v, dout, *grads)
+    if mode == DKV and bf16:  # its own key tile, and the TPU query tile whose parts it rounds
+        plan = dkv_bf16_plan(dims, tuple(kernel), bool(circular_w), q.shape[-2], ch, rpb is not None)
+        tile, ry, extra = plan.tile, plan.ry, (plan.jth, plan.jtw, plan.ctas, None, None)
     else:
-        entry, extra = ("gwt_natten_flash_backward", _BWD_ARGTYPES), ()
+        tile = _pick_tile("dq" if mode == DQ else "dkv", dims, kernel, circular_w, ch, rpb is not None)
+        ry = 0 if mode == DQ else _dkv_rows(tile, kernel, ch)
+        if bf16:  # the dq kernel reads no TPU tile; it forms delta from out
+            extra, read = (*dims[1:], 1, out.data_ptr(), delta.data_ptr()), (*read, out)
+    geometry = _geometry(q, k, v, kernel, circular_w, tile, read)
+    outs = (grads[0], None, None, partial) if mode == DQ else (None, grads[1], grads[2], None)
+    entry = ("gwt_natten_flash_backward_bf16", _BWD16_ARGTYPES) if bf16 else (
+        "gwt_natten_flash_backward", _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         err = c_function("natten_flash_bwd", *entry)(
             mode, q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rpb), dout.data_ptr(),
@@ -672,8 +805,10 @@ def _backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular_w):
     K5b's bf16 mode, delta from the bf16 out and drpb rounded once)."""
     rpb = None if rpb is None else rpb.contiguous()
     dout = dout.contiguous()
-    if q.dtype == torch.bfloat16:
-        delta = (dout.float() * out.float()).sum(-1).contiguous()
+    bf16_out = None
+    if q.dtype == torch.bfloat16:  # the dq kernel forms delta from the bf16 out
+        bf16_out = out.contiguous()
+        delta = torch.empty(q.shape[:-1], device=q.device)
     else:
         delta = (dout * out).sum(-1).contiguous()  # [B, D, H, W, heads]
     grads = tuple(torch.empty(q.shape, device=q.device, dtype=q.dtype) for _ in range(3))
@@ -682,7 +817,8 @@ def _backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular_w):
         tile = _pick_tile("dq", tuple(q.shape[1:4]), kernel, circular_w, q.shape[-1], True)
         partial = torch.empty(q.shape[0] * tile.n_tiles, q.shape[-2], rpb[0].numel(), device=q.device)
     for mode in (DQ, DKV):
-        launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular_w)
+        launch_backward(mode, q, k, v, rpb, dout, lse, delta, grads, partial, kernel, circular_w,
+                        out=bf16_out)
     drpb = partial.sum(0).reshape(rpb.shape).to(rpb.dtype) if rpb is not None else None
     return (*grads, drpb)
 

@@ -27,11 +27,21 @@ backward (both kernels, with delta apart where the tree's dq kernel does
 not form it, the slot table where the tree has one, the drpb sum).
 Each kernel is held against its plain version as in those phases. Prints
 one JSON line. f32 throughout; TF32 is off.
+
+    python3 scripts/chip_ab.py --root DIR --only bf16_backward
+
+times only the bf16 backward kernels and what they are held to (phases 51
+and 57): K5b·bf16's dq and dk/dv kernels apart on the 128-d WeatherMesh's
+layer (case a), the f32 kernels on the same values, the whole backward,
+SDPA's bf16 backward, the dk/dv kernel on other key tiles; K3c (and K3a)
+on FGN's splits-6 layout at c = 128, 192, 512 and 768 in f32 and bf16,
+with SDPA's backward and CTAs an SM (`--only k5_bf16`: K5b·bf16 alone).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import inspect
 import json
 import statistics
@@ -194,10 +204,86 @@ def k6b_split(cs, natten3d, natten_flash, gen) -> dict:
             "k6b_ms_per_step": cs.K6_PER_FORWARD * (dq_ms + dkv_ms)}
 
 
+def dkv_bf16_tiles(cs, natten_flash, gen, tiles=((2, 8, 4), (1, 8, 8), (4, 4, 4), (1, 16, 4), (2, 8, 8),
+                                                  (2, 4, 8), (1, 8, 16))) -> dict:
+    """K5b·bf16's dk/dv kernel at case a on other key tiles than its plan's
+    (`dkv16_tile_plan`; the plan's function swapped here only), each
+    checked bit for bit against the plan's dk and dv; ms a layer by tile."""
+    kernel, heads, ch = (3, 5, 5), 4, 32
+    q, k, v, rpb = cs.natten_bf16_inputs(gen, kernel, heads, ch)
+    out, lse = natten_flash._forward_cuda(q, k, v, kernel, rpb, False, with_lse=True)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    delta = (dout.float() * out.float()).sum(-1).contiguous()
+
+    def launch(grads):
+        natten_flash.launch_backward(natten_flash.DKV, q, k, v, rpb, dout, lse, delta, grads, None,
+                                     kernel, False)
+
+    want = tuple(torch.empty_like(q) for _ in range(3))
+    launch(want)
+    picker, times = natten_flash.dkv_bf16_plan, {}
+    chosen = picker(cs.WM_LATENT, kernel, False, heads, ch, True)
+    try:
+        for tile in tiles:
+            plan = natten_flash.dkv16_tile_plan(tile, cs.WM_LATENT, kernel, False, (chosen.jth, chosen.jtw),
+                                                ch)
+            if plan is None:
+                continue
+            natten_flash.dkv_bf16_plan = lambda *args, plan=plan: plan
+            grads = tuple(torch.empty_like(q) for _ in range(3))
+            launch(grads)
+            torch.cuda.synchronize()
+            if not (torch.equal(grads[1], want[1]) and torch.equal(grads[2], want[2])):
+                raise AssertionError(f"K5b bf16 dk/dv on tile {tile} differs from the plan's")
+            times[f"{tile} x{plan.ctas}"] = {"ms": cs.cuda_ms(lambda: launch(grads)), "ry": plan.ry,
+                                             "warps": plan.warps, "smem": plan.tile.smem}
+            if plan.ctas > 1:  # the same tile compiled for one CTA an SM
+                one = dataclasses.replace(plan, ctas=1)
+                natten_flash.dkv_bf16_plan = lambda *args, plan=one: plan
+                times[f"{tile} x1"] = {"ms": cs.cuda_ms(lambda: launch(grads)), "ry": one.ry,
+                                       "warps": one.warps, "smem": one.tile.smem}
+    finally:
+        natten_flash.dkv_bf16_plan = picker
+    print(f"[k5_bf16] dk/dv kernel by key tile (case a, ms a layer; the plan's {(chosen.tile.td, chosen.tile.th, chosen.tile.tw)}): "
+          f"{times}", flush=True)
+    return times
+
+
+def bf16_backward(cs, port, natten_flash, clustered_flash, with_k3=True) -> dict:
+    """K5b·bf16 at case a (phase 51's `k5_bf16_case`: per train step of 8
+    layers) and K3 on FGN's layout at c = 128, 192, 512 and 768 in f32 and
+    bf16 (phase 57's `k3_fgn_case`: per layer), each against its plain
+    version."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    k5 = cs.k5_bf16_case(natten_flash, "a", gen, (3, 5, 5), 4, False)
+    result = {"k5_bf16_ms_per_step": {k: cs.K5_PER_FORWARD * v for k, v in k5["ms"].items()},
+              "k5_bf16_err_over_limit": {k: e[1] for k, e in k5["errs"].items()},
+              # the least time on the card (phase 51's bounds: this tree's bytes and operations)
+              "k5_bf16_bound_ms_per_step": {k: cs.K5_PER_FORWARD * cs.bf16_bound(*k5[k])[0]
+                                            for k in ("bwd", "dq", "dkv")}}
+    if hasattr(natten_flash, "dkv16_tile_plan"):
+        result["k5_bf16_dkv_tiles_ms_per_layer"] = dkv_bf16_tiles(cs, natten_flash, gen)
+    if not with_k3:
+        return result
+    fgn = port.FunctionalGenerativeNetwork(**cs.FGN, device="cuda")
+    k3 = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in (128, 192, 512, 768):
+            case = cs.k3_fgn_case(clustered_flash, fgn.khop, gen, c, dtype)
+            k3[f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_c{c}"] = {
+                "k3c_ms": case["ms"]["k3c"], "k3a_ms": case["ms"]["k3a"], "sdpa_bwd_ms": case["sdpa_bwd_ms"],
+                "k3c_err_over_limit": case["errs"]["k3c"][1], "ctas": case["ctas"]}
+    result["k3_fgn_per_layer"] = k3
+    return result
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--root", required=True, type=Path)
     parser.add_argument("--label", default=None)
+    parser.add_argument("--only", choices=["bf16_backward", "k5_bf16"], default=None,
+                        help="time only the bf16 backward kernels, or only K5b·bf16 (see the module "
+                             "docstring)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device; this script times the port on an NVIDIA GPU", file=sys.stderr)
@@ -240,6 +326,10 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     _build.load_libraries(_build.all_sources())
     result = {"label": args.label or str(root), "card": card}
+    if args.only is not None:
+        result.update(bf16_backward(cs, port, natten_flash, clustered_flash, args.only == "bf16_backward"))
+        print(json.dumps(result))
+        return 0
 
     # K3a, K3c and K3b on the real splits-5 layout (phases 8 and 14).
     gc = cs.GENCAST

@@ -192,3 +192,19 @@ def test_wrapper_refuses_other_dtypes(layouts, dtypes):
     q, k, v = (torch.zeros(1, N, HEADS, 8, dtype=d) for d in dtypes)
     with pytest.raises(TypeError, match="float32 or all bfloat16"):
         clustered_flash_attention(q, k, v, ids, masks, BLOCK)
+
+
+@pytest.mark.parametrize(
+    "c, dtype, symmetric, tile",
+    [(32, torch.bfloat16, True, "W32"), (128, torch.bfloat16, True, "W128"),
+     (129, torch.bfloat16, True, "M192"), (192, torch.bfloat16, True, "M192"),
+     (193, torch.bfloat16, True, "W256"), (256, torch.bfloat16, True, "W256"),
+     (192, torch.float32, True, "W256"), (192, torch.bfloat16, False, "W256"),
+     (257, torch.bfloat16, True, "W512"), (768, torch.bfloat16, True, "W768")],
+)
+def test_backward_tile(c, dtype, symmetric, tile):
+    """The tile of csrc/clustered_flash_bwd.cu that the backward takes (its
+    `backward`): K3c in bf16 at 128 < c <= 192 (FGN's c = 192) on the M192
+    tile, counted apart; wider heads, f32 and K3b's general backward keep
+    W256; by width otherwise."""
+    assert clustered_flash.backward_tile(c, dtype, symmetric) == tile

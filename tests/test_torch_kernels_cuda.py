@@ -723,6 +723,52 @@ def test_clustered_fgn_widths_match_plain(gen, c, dtype):
     assert _k3_counts()[1] == before[1] and _k3_counts()[5] == before[5]
 
 
+def _sparse_symmetric_case(gen, c, n=1301, degree=64, span=300, heads=2):
+    """A symmetric random graph about as sparse as FGN's k-hop layout
+    (blocks of 256 rows, U_pad 896, 10.9% of the mask set; FGN: 1,024,
+    12.2%), bf16 rows; node 5 has no edge."""
+    rng = np.random.default_rng(c)
+    receivers = np.repeat(np.arange(n), degree)
+    senders = (receivers + rng.integers(-span, span + 1, receivers.size)) % n
+    keep = (senders != 5) & (receivers != 5)
+    pairs = np.unique(np.stack([np.r_[senders[keep], receivers[keep]],
+                                np.r_[receivers[keep], senders[keep]]], 1), axis=0)
+    layout = build_cluster_layout(pairs[:, 0], pairs[:, 1], n, n, block=256)
+    ids = torch.as_tensor(layout.gather_ids, device="cuda")
+    masks = torch.as_tensor(layout.masks.astype(np.int8), device="cuda")
+    q, k, v, dout = (torch.randn(1, n, heads, c, generator=gen, device="cuda").bfloat16()
+                     for _ in range(4))
+    return q, k, v, dout, ids, masks, 256
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [136, 192, 256])
+def test_clustered_bf16_mid_tiles_match_plain(gen, c):
+    """K3c in bf16 at 128 < c <= 256 (its M192 tile up to 192: FGN's c =
+    192, zeros past c at 136; W256 at 256) on a layout as sparse as FGN's:
+    dq, dk and dv within two bf16 ulps of the plain version's max, exact
+    zeros for the node without an edge, bit-equal over two launches; one
+    launch of each kernel on the M192 tile's counters (none at 256), none on
+    the f32 or K3b ones."""
+    q, k, v, dout, ids, masks, block = _sparse_symmetric_case(gen, c)
+    mid = c <= 192
+    assert clustered_flash.backward_tile(c, torch.bfloat16, True) == ("M192" if mid else "W256")
+    out, lse = clustered_flash._forward_cuda(q, k, v, ids, masks, block, with_lse=True)
+    args = (q, k, v, ids, masks, out, lse, dout, block)
+    names = ("BF16_MID_SYMMETRIC_DQ_LAUNCHES", "BF16_MID_SYMMETRIC_DKV_LAUNCHES",
+             "BF16_SYMMETRIC_DQ_LAUNCHES", "SYMMETRIC_DQ_LAUNCHES", "BF16_GENERAL_BWD_LAUNCHES")
+    before = [getattr(clustered_flash, n) for n in names]
+    got = clustered_flash._backward_cuda(*args, True, None)
+    again = clustered_flash._backward_cuda(*args, True, None)
+    torch.cuda.synchronize()
+    assert [getattr(clustered_flash, n) - b for n, b in zip(names, before)] == [2 * mid, 2 * mid, 2, 0, 0]
+    want = clustered_flash.clustered_flash_backward_reference(*args, symmetric=True)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and _bf16_err(a, b) <= 1.0
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(bool((t[:, 5] == 0).all()) for t in got)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [1, 7, 768])
 @pytest.mark.parametrize("batch", [1, 3])
@@ -976,8 +1022,15 @@ NATTEN_BF16_CASES = [
     ((2, 5, 9, 11), 2, 32, (3, 3, 5), True, True),  # the circular seam, two batch entries
     ((1, 6, 9, 14), 8, 32, (5, 7, 7), True, False),  # clamped windows at every edge
     ((2, 4, 7, 9), 3, 12, (3, 3, 3), False, False),  # ch % 8 != 0: element loads
+    # the dk/dv kernel's key tiles (1 x 8) end inside the TPU tiles (12 x 6)
+    ((1, 4, 15, 26), 4, 32, (3, 5, 5), True, False),
+    # circular: TPU tiles of 16 columns on W = 22, a key's parts across the seam
+    ((2, 3, 8, 22), 4, 32, (3, 3, 7), True, True),
+    # no TPU tile fits (tpu_backward_tile is None): one part, rounded once
+    ((1, 8, 16, 24), 8, 16, (3, 7, 7), True, False),
 ]
-NATTEN_BF16_IDS = ["wm_1deg", "circular_b2", "k577", "ch12_no_rpb"]
+NATTEN_BF16_IDS = ["wm_1deg", "circular_b2", "k577", "ch12_no_rpb", "tiles_inside", "circular_seam",
+                   "no_tpu_tile"]
 
 
 def _bf16_inputs(gen, shape, heads, ch, kernel, with_rpb):
@@ -1029,6 +1082,32 @@ def test_natten_bf16_backward_matches_plain(gen, case):
     for name, a, b in zip(("dq", "dk", "dv", "drpb"), got, want):
         assert a.dtype == torch.bfloat16 and _bf16_err(a, b) <= 1, name
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [NATTEN_BF16_CASES[i] for i in (1, 4, 5, 6)],
+                         ids=[NATTEN_BF16_IDS[i] for i in (1, 4, 5, 6)])
+def test_natten_bf16_dkv_one_row_items(gen, case, monkeypatch):
+    """K5b·bf16's dk/dv kernel on items of one row, its walk where a TPU
+    tile of H's rows of the window do not fit in shared memory (each TPU
+    tile of W's part then stays open over the tile of H's items): dk and dv
+    within two bf16 ulps of the plain version's max, bit-equal over two
+    launches."""
+    shape, heads, ch, kernel, with_rpb, circular = case
+    q, k, v, rpb = _bf16_inputs(gen, shape, heads, ch, kernel, with_rpb)
+    dout = torch.randn(q.shape, generator=gen, device="cuda").bfloat16()
+    plan = natten_flash.dkv_bf16_plan(tuple(shape[1:]), kernel, circular, heads, ch, with_rpb)
+    assert plan.ry > 1
+    monkeypatch.setattr(natten_flash, "dkv_bf16_plan",
+                        lambda *args: dataclasses.replace(plan, ry=1, whole=False))
+    out, lse = natten_flash.flash_forward_reference(q, k, v, kernel, rpb, circular, with_lse=True)
+    got = natten_flash._backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular)
+    again = natten_flash._backward_cuda(q, k, v, rpb, out, lse, dout, kernel, circular)
+    torch.cuda.synchronize()
+    want = natten_flash.natten_flash_backward_reference(q, k, v, rpb, out, lse, dout, kernel, circular)
+    for name, a, b in zip(("dk", "dv"), got[1:3], want[1:3]):
+        assert a.dtype == torch.bfloat16 and _bf16_err(a, b) <= 1, name
+    assert all(torch.equal(a, b) for a, b in zip(got[1:3], again[1:3]))
 
 
 # -- K6: the wide-head 3D neighborhood attention forward -----------------------
